@@ -10,9 +10,11 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    ``build/kernels`` (one ``nvcc`` per source, in parallel), with nvcc's
    ``-Xptxas -v`` report;
 3. each kernel against its plain PyTorch version on the card, over the
-   sweep of ``tests/test_kernels.py`` (fp32 at 3e-5, bf16 at 5e-2) and at
-   the main path's shapes in bf16, then timed there with CUDA events,
-   L2 flushed before every launch;
+   sweep of ``tests/test_kernels.py`` and at the main path's shapes in
+   bf16, then timed there with CUDA events, L2 flushed before every
+   launch.  Kernels and plain versions both compute in fp32 and round
+   once, so fp32 is held at atol = rtol = 3e-5 and bf16 at atol 1e-3,
+   rtol 1e-2 (one bf16 ulp is at most 2**-7 of |x|);
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -49,7 +51,7 @@ FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)
 DECODE_MAIN = (8, 16, 8, 1024, 128)
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PROFILED_STEPS = 4
-TOL = {"float32": 3e-5, "bfloat16": 5e-2}
+TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-3, 1e-2)}   # (atol, rtol)
 
 
 def phase(name: str) -> None:
@@ -60,12 +62,16 @@ def sh(*cmd: str) -> str:
     return subprocess.run(cmd, check=True, capture_output=True, text=True).stdout.strip()
 
 
-def check_close(name: str, out, expect, tol: float) -> float:
+def check_close(name: str, out, expect, tol) -> float:
+    """Max |out - expect|; raises unless every element is finite and within
+    atol + rtol * |expect|, ``tol`` = (atol, rtol)."""
+    atol, rtol = tol
     out, expect = out.float(), expect.float()
     err = (out - expect).abs()
-    bad = err > tol + tol * expect.abs()
+    bad = err > atol + rtol * expect.abs()
     if not bool(out.isfinite().all()) or bool(bad.any()):
-        raise AssertionError(f"{name}: max |diff| {float(err.max()):.3g} over tol {tol}")
+        raise AssertionError(f"{name}: max |diff| {float(err.max()):.3g} over "
+                             f"atol {atol}, rtol {rtol}")
     return float(err.max())
 
 
@@ -88,9 +94,11 @@ def time_ms(torch, fn, iters: int, flush) -> float:
 
 
 def profile_decode(torch, T, eng, cfg, prompts, dev):
-    """Device time of one decode step at the serving shapes, from the
-    profiler's kernel events over ``PROFILED_STEPS`` steps, and the kernels
-    that take most of it.  (None, []) when the profiler sees no kernel."""
+    """Device time and host wall time of one decode step at the serving
+    shapes, both over the same ``PROFILED_STEPS`` profiled steps (the wall
+    time includes the profiler's own cost), and the kernels that take most
+    of the device time.  Device time is None when the profiler sees no
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -99,17 +107,19 @@ def profile_decode(torch, T, eng, cfg, prompts, dev):
         tok = lg.argmax(-1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             for i in range(PROFILED_STEPS):
                 lg, caches = T.decode_step(eng.params, cfg, tok, PROMPT_LEN + i, caches)
                 tok = lg.argmax(-1)
             torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0) / PROFILED_STEPS
     kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(us for _, us in kernels)
     if not total:
-        return None, []
+        return None, wall_us, []
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
-    return total / PROFILED_STEPS, [(k, us / PROFILED_STEPS) for k, us in top]
+    return total / PROFILED_STEPS, wall_us, [(k, us / PROFILED_STEPS) for k, us in top]
 
 
 def main() -> int:
@@ -192,7 +202,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err = check_close(f"{name}{case} {dname}", out, kd["plain"](*args, **kw),
                                   TOL[dname])
-                print(f"  {name} {case} {dname}: max |diff| {err:.3g}")
+                print(f"  {name} {case} {dname}: max |diff| {err:.3g} "
+                      f"(atol, rtol {TOL[dname]})")
 
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -235,7 +246,9 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, valid), 10, flush),
         library_ms=time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q4, kq, vq, attn_mask=mask4), 50, flush),
-        bytes=sum(t.numel() * t.element_size() for t in (q, k, v, valid, out)),
+        # K/V of invalid slots cannot change the output: only valid slots count
+        bytes=sum(t.numel() * t.element_size() for t in (q, valid, out))
+        + 2 * int(valid.sum()) * Hkv * d * k.element_size(),
         flops=4 * d * Hq * int(valid.sum()),
         replaces="src/repro/kernels/decode_attention.py:77",
         source="src/repro_torch/csrc/decode_attention.cu")
@@ -266,7 +279,7 @@ def main() -> int:
             logits[where] = (lg.cpu(), lg2.cpu())
         for i, step in enumerate(("prefill", "decode")):
             e = check_close(f"{cfg.name} kv={cfg.n_kv_heads} {step} logits",
-                            logits["cuda"][i], logits["cpu"][i], 1e-4)
+                            logits["cuda"][i], logits["cpu"][i], (1e-4, 1e-4))
             print(f"  kv_heads {cfg.n_kv_heads}: {step} logits max |diff| {e:.3g}")
         outs = [ServingEngine(cfg, batch_slots=4, max_seq_len=40, device=where,
                               params=p).generate(prompts, max_new_tokens=8)
@@ -310,12 +323,13 @@ def main() -> int:
           f"generated_tok_per_s {SLOTS * NEW_TOKENS / total_s:.1f}  "
           f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
     print(f"  first request's tokens: {outs[0][:8]} ...")
-    device_us, top = profile_decode(torch, T, eng, cfg, prompts, dev)
+    device_us, wall_us, top = profile_decode(torch, T, eng, cfg, prompts, dev)
     if device_us is None:
-        print("decode step device time: not measured (the profiler saw no kernel)")
+        print(f"decode step device time: not measured (the profiler saw no kernel); "
+              f"wall_us {wall_us:.1f}")
     else:
-        print(f"decode step device_us {device_us:.1f} (profiler, {PROFILED_STEPS} steps)  "
-              f"device idle share {1 - device_us / step_us:.3f} of mean_decode_step_us")
+        print(f"decode step over {PROFILED_STEPS} profiled steps: device_us {device_us:.1f}  "
+              f"wall_us {wall_us:.1f}  device idle share {1 - device_us / wall_us:.3f}")
         for name, us in top:
             print(f"  {us:10.1f} us/step  {name[:100]}")
 

@@ -3,11 +3,12 @@ decode step.
 
 ``python -m repro_torch.launch.serve --arch <id> [--device cpu]``
 
-Counterpart of the JAX package's ``launch/serve.py`` with the same
-arguments and defaults: a reduced float32 variant of the architecture,
+Counterpart of the model half of the JAX package's ``launch/serve.py``,
+with its defaults: a reduced float32 variant of the architecture,
 ``--batch-slots`` prompts of 4 tokens.  It runs on the card unless
-``--device cpu`` is given.  Deploying the endpoint behind the FaaS runtime
-(``--backend``, ``--requests``) waits for the port of the simulator.
+``--device cpu`` is given.  Deploying the endpoint behind the FaaS runtime,
+and with it the options ``--backend`` and ``--requests``, waits for the
+port of the simulator.
 """
 from __future__ import annotations
 
@@ -18,9 +19,6 @@ import dataclasses
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-1.7b")
-    ap.add_argument("--backend", default="junctiond",
-                    choices=["junctiond", "containerd"])
-    ap.add_argument("--requests", type=int, default=40)
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--batch-slots", type=int, default=4)
     ap.add_argument("--device", default="cuda")
@@ -38,8 +36,6 @@ def main(argv=None):
     print(f"measured prefill: {1e3 * eng.step_times_s[0]:.3f} ms; "
           f"decode step: {eng.mean_decode_step_us():.0f} us/batch "
           f"({args.batch_slots} slots)")
-    print(f"FaaS half ({args.backend}, {args.requests} invocations): "
-          "not ported yet")
 
 
 if __name__ == "__main__":

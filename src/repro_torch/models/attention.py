@@ -12,13 +12,13 @@ of copying the whole cache, as the JAX version's functional update does.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import dense_init, rms_norm, rope_tables, rotate
 
 NEG_INF = -1e30
 
@@ -39,8 +39,10 @@ def attn_init(generator: torch.Generator, cfg: ArchConfig, dtype,
 
 
 def _project_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                 positions: torch.Tensor
+                 rope: Tuple[torch.Tensor, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v (B,S,H,hd), qk-normed and rotated by the ``rope_tables``
+    of the positions."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
@@ -49,9 +51,7 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig,
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return rotate(q, rope), rotate(k, rope), v
 
 
 def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,6 +71,11 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, Hq, hd).to(q.dtype)
 
 
+def _rope(cfg: ArchConfig, positions: torch.Tensor
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+
+
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            cfg: ArchConfig) -> torch.Tensor:
     """Causal self-attention through the flash op, converting the model's
@@ -87,7 +92,7 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ArchConfig,
     """Full-sequence causal self-attention (training / prefill without a
     cache)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, _rope(cfg, positions))
     out = _flash(q, k, v, cfg)
     return out.reshape(B, S, -1) @ params["wo"]
 
@@ -117,7 +122,7 @@ def prefill_into_cache(params: dict, x: torch.Tensor, cfg: ArchConfig,
                        ) -> Tuple[torch.Tensor, dict]:
     """Self-attention over the prompt, and write the (ring) cache in place."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, cfg, _rope(cfg, positions))
     out = _flash(q, k, v, cfg)
     cap = cache["k"].shape[1]
     if cap >= S:
@@ -132,25 +137,38 @@ def prefill_into_cache(params: dict, x: torch.Tensor, cfg: ArchConfig,
     return y, cache
 
 
-def decode_step_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                          pos: int, cache: dict) -> Tuple[torch.Tensor, dict]:
-    """One-token decode: x (B, 1, d); ``pos`` the absolute position of the
-    new token, shared by the batch.  Writes k/v into slot ``pos % cap`` of
-    the cache in place and attends over every valid slot."""
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    cap = cache["k"].shape[1]
-    slot = pos % cap
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
+class DecodeStep(NamedTuple):
+    """What the layers of one decode step share, built once per step by
+    :func:`decode_step_inputs`."""
+    pos: int                                   # absolute position of the new token
+    rope: Tuple[torch.Tensor, torch.Tensor]    # its rope_tables
+    valid: torch.Tensor                        # (B, cap) bool: slots valid after the write
+
+
+def decode_step_inputs(cfg: ArchConfig, pos: int, batch: int, cap: int,
+                       device) -> DecodeStep:
+    """The RoPE rotation at ``pos`` and the valid mask over ``cap`` cache
+    slots after slot ``pos % cap`` is written, for a batch sharing ``pos``."""
+    positions = torch.full((batch, 1), pos, dtype=torch.long, device=device)
     # Absolute position held by slot j after the write.
-    j = torch.arange(cap, device=x.device)
+    j = torch.arange(cap, device=device)
     abs_pos = pos - ((pos - j) % cap)
     valid = abs_pos >= 0
     if cfg.sliding_window is not None:
         valid &= abs_pos > pos - cfg.sliding_window
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
-                               valid[None].expand(B, cap))
-    y = out.reshape(B, 1, -1) @ params["wo"]
+    return DecodeStep(pos, _rope(cfg, positions),
+                      valid[None].expand(batch, cap).contiguous())
+
+
+def decode_step_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                          step: DecodeStep, cache: dict) -> Tuple[torch.Tensor, dict]:
+    """One-token decode: x (B, 1, d) at ``step.pos``, shared by the batch.
+    Writes k/v into slot ``pos % cap`` of the cache in place and attends
+    over every valid slot."""
+    q, k, v = _project_qkv(params, x, cfg, step.rope)
+    slot = step.pos % cache["k"].shape[1]
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], step.valid)
+    y = out.reshape(x.shape[0], 1, -1) @ params["wo"]
     return y, cache

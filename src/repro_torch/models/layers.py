@@ -62,17 +62,27 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., seq, heads, head_dim); positions: (..., seq) int.  Rotates
-    the two halves of the head dimension (half split)."""
-    head_dim = x.shape[-1]
-    inv = rope_freqs(head_dim, theta, x.device)                 # (hd/2,)
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of the rotation angles at ``positions`` (..., seq) int,
+    each (..., seq, 1, head_dim//2) fp32, broadcasting over the heads."""
+    inv = rope_freqs(head_dim, theta, positions.device)         # (hd/2,)
     angles = positions[..., :, None].float() * inv              # (..., seq, hd/2)
-    cos = torch.cos(angles)[..., :, None, :]                    # (..., seq, 1, hd/2)
-    sin = torch.sin(angles)[..., :, None, :]
+    return torch.cos(angles)[..., :, None, :], torch.sin(angles)[..., :, None, :]
+
+
+def rotate(x: torch.Tensor, tables: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """Rotate the two halves of the head dimension (half split) of
+    x (..., seq, heads, head_dim) by the angles of ``rope_tables``."""
+    cos, sin = tables
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq) int."""
+    return rotate(x, rope_tables(positions, x.shape[-1], theta))
 
 
 # ---------------------------------------------------------------------------

@@ -85,7 +85,7 @@ def _block_init(generator: torch.Generator, cfg: ArchConfig, dtype,
 
 
 def _apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
-                 positions: Optional[torch.Tensor], pos: Optional[int],
+                 positions: Optional[torch.Tensor], step: Optional[attn.DecodeStep],
                  cache: Optional[dict]) -> torch.Tensor:
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "full":
@@ -93,7 +93,7 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
     elif mode == "prefill":
         y, _ = attn.prefill_into_cache(p["attn"], h, cfg, positions, cache)
     else:
-        y, _ = attn.decode_step_attention(p["attn"], h, cfg, pos, cache)
+        y, _ = attn.decode_step_attention(p["attn"], h, cfg, step, cache)
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + swiglu(p["mlp"], h2)
@@ -101,7 +101,7 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
 
 def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
                mode: str, caches=None, positions: Optional[torch.Tensor] = None,
-               pos: Optional[int] = None) -> torch.Tensor:
+               step: Optional[attn.DecodeStep] = None) -> torch.Tensor:
     """Run x through every layer: a loop over groups, and over the kinds in
     each group.  ``caches`` mirrors ``params_groups`` (stacked per kind) and
     is written in place."""
@@ -109,7 +109,7 @@ def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
         for i in range(len(kinds)):
             c = None if caches is None else _layer(caches[i], g)
             x = _apply_block(_layer(params_groups[i], g), x, cfg, mode,
-                             positions, pos, c)
+                             positions, step, c)
     return x
 
 
@@ -191,6 +191,8 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     new token, shared by the batch.  Returns (logits (B,1,V), caches)."""
     kinds, _ = _plan(cfg)
     x = _embed(params, cfg, tokens)
+    cap = caches["layers"][0]["k"].shape[2]        # (groups, B, cap, Hkv, hd)
+    step = attn.decode_step_inputs(cfg, int(pos), x.shape[0], cap, x.device)
     x = _run_stack(params["blocks"], kinds, x, cfg, "decode", caches["layers"],
-                   pos=int(pos))
+                   step=step)
     return _unembed(params, cfg, x), caches

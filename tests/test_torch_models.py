@@ -123,8 +123,9 @@ def test_prefill_and_decode_attention_match_jax(n_kv_heads, window, S, seq_len):
         p = S + step
         jy, jcache = jattn.decode_step_attention(jp, jnp.asarray(xt), jcfg,
                                                  jnp.int32(p), jcache)
+        step_in = tattn.decode_step_inputs(tcfg, p, B, tcache["k"].shape[1], "cpu")
         ty, tcache = tattn.decode_step_attention(tp, torch.from_numpy(xt), tcfg,
-                                                 p, tcache)
+                                                 step_in, tcache)
         _close(ty, jy)
     _close(tcache["k"], jcache["k"])
 

@@ -161,3 +161,11 @@ def test_launcher_runs_on_cpu(capsys):
     serve.main(["--device", "cpu", "--batch-slots", "2", "--max-new-tokens", "3"])
     out = capsys.readouterr().out
     assert "measured prefill" in out and "decode step" in out
+
+
+@pytest.mark.parametrize("option", [["--backend", "junctiond"], ["--requests", "4"]])
+def test_launcher_rejects_the_faas_options(option):
+    """The FaaS half is not ported: its options are refused, not ignored."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", *option])
