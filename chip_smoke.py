@@ -6,7 +6,7 @@
 Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 
 1. device and toolchain: versions, the card's name and power limit, SMs;
-2. build: both attention kernels from ``src/repro_torch/csrc`` into
+2. build: the attention and AES kernels from ``src/repro_torch/csrc`` into
    ``build/kernels`` (one ``nvcc`` per source, in parallel), with nvcc's
    ``-Xptxas -v`` report;
 3. each kernel against its plain PyTorch version on the card, over the
@@ -20,7 +20,16 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    logits within atol/rtol 1e-4;
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
    ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each, with the
-   kernel launch counts of that run checked against the layer count.
+   kernel launch counts of that run checked against the layer count;
+6. the AES-128-CTR kernel: the FIPS-197 C.1 known answer, bit-exact
+   agreement with its plain version on the card over N, nonces (one across
+   the 2**31 sign wrap) and two keys, a round trip, its launch count, and
+   its time at the function's 38 blocks (600 B) and at 2**20 blocks;
+7. the FaaS path through the port's faasd runtime: the AES function's body
+   (600 B to the card, the kernel, back, synchronised) timed on the card as
+   ``work_us``, then deployed with the full-width model endpoint of phase 5
+   on containerd and on junctiond.  Those latencies are simulated on the
+   host from the paper's host costs; only ``work_us`` is measured here.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -38,6 +47,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12           # dense tensor cores; the timed shapes are bf16
+SMEM_LOOKUPS_PER_CLOCK = 32        # one conflict-free 32-lane shared-memory load per SM
 
 FLASH_SWEEP = [  # B, Hq, Hkv, S, T, d, causal, window (tests/test_kernels.py)
     (2, 4, 2, 128, 128, 64, True, None),
@@ -51,6 +61,14 @@ FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)
 DECODE_MAIN = (8, 16, 8, 1024, 128)
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PROFILED_STEPS = 4
+AES_SWEEP_N = (1, 38, 40, 4096, 2**20)
+AES_NONCES = (0, 7, 2**31 - 20)
+AES_FN_BLOCKS, AES_BATCH_BLOCKS = 38, 2**20   # 600 B; 16 MiB of plaintext
+AES_LOOKUPS_PER_BLOCK = 160                   # 16 S-box lookups in each of 10 rounds
+FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccddeeff",
+              "69c4e0d86a7b0430d8cdb78070b4c55a")    # key, plaintext, ciphertext
+BODY_CALLS = 200
+AES_REQUESTS, MODEL_REQUESTS = 100, 50
 TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-3, 1e-2)}   # (atol, rtol)
 
 
@@ -132,7 +150,9 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.config import get_arch, reduced
+    from repro_torch.core import FaasdRuntime, FunctionSpec, Simulator, run_sequential
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.aes_ctr import aes_ctr as aes_kernel
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import tree_to
     from repro_torch.serving import ServingEngine
@@ -146,13 +166,15 @@ def main() -> int:
     phase("1 device and toolchain")
     smi = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader")
     smi = smi.splitlines()[0]
+    sm_clock_hz = 1e6 * float(sh("nvidia-smi", "--query-gpu=clocks.max.sm",
+                                 "--format=csv,noheader,nounits").splitlines()[0])
     props = torch.cuda.get_device_properties(0)
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}")
     print(sh(_build.nvcc(), "--version").splitlines()[-1])
     print(smi)
     print(f"{props.name}: {props.multi_processor_count} SMs, "
-          f"{props.total_memory / 2**30:.1f} GiB")
+          f"{props.total_memory / 2**30:.1f} GiB, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
 
     # -- 2 ------------------------------------------------------------------
     phase("2 build")
@@ -226,7 +248,8 @@ def main() -> int:
         library_ms=time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kq, vq, is_causal=True), 20, flush),
         bytes=sum(t.numel() * t.element_size() for t in (q, k, v, out)),
-        flops=4 * d * pairs * B * Hq,
+        ops=f"{4 * d * pairs * B * Hq} FLOP",
+        ops_ms=1e3 * 4 * d * pairs * B * Hq / PEAK_BF16_FLOPS,
         replaces="src/repro/kernels/flash_attention.py:98",
         source="src/repro_torch/csrc/flash_attention.cu")
 
@@ -249,17 +272,21 @@ def main() -> int:
         # K/V of invalid slots cannot change the output: only valid slots count
         bytes=sum(t.numel() * t.element_size() for t in (q, valid, out))
         + 2 * int(valid.sum()) * Hkv * d * k.element_size(),
-        flops=4 * d * Hq * int(valid.sum()),
+        ops=f"{4 * d * Hq * int(valid.sum())} FLOP",
+        ops_ms=1e3 * 4 * d * Hq * int(valid.sum()) / PEAK_BF16_FLOPS,
         replaces="src/repro/kernels/decode_attention.py:77",
         source="src/repro_torch/csrc/decode_attention.cu")
-    for name, r in records.items():
+    def report(name, r):
         t_bytes = 1e3 * r["bytes"] / PEAK_BYTES_PER_S
-        t_ops = 1e3 * r["flops"] / PEAK_BF16_FLOPS
-        r["bound_ms"], r["bound_by"] = max((t_bytes, "bytes"), (t_ops, "operations"))
+        r["bound_ms"], r["bound_by"] = max((t_bytes, "bytes"), (r["ops_ms"], "operations"))
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"kernels {name}: ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
-              f"library_ms {r['library_ms']:.4f}  bound_ms {r['bound_ms']:.4f} "
-              f"({r['bound_by']}; {r['bytes']} B, {r['flops']} FLOP)  "
+              f"library_ms {lib}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']}; "
+              f"{r['bytes']} B in {t_bytes:.6f} ms, {r['ops']} in {r['ops_ms']:.6f} ms)  "
               f"max |diff| {r['err']:.3g}")
+
+    for name, r in records.items():
+        report(name, r)
 
     # -- 4 ------------------------------------------------------------------
     phase("4 reduced qwen3-1.7b, card against CPU, float32")
@@ -304,7 +331,8 @@ def main() -> int:
     outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
     launches = dict(ops.LAUNCHES)
     n_decode = len(eng.step_times_s) - 1
-    expect = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * n_decode}
+    expect = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * n_decode,
+              "aes_ctr": 0}
     print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
     if launches != expect:
         raise AssertionError(f"launch counts {launches}, expected {expect}")
@@ -332,6 +360,140 @@ def main() -> int:
               f"wall_us {wall_us:.1f}  device idle share {1 - device_us / wall_us:.3f}")
         for name, us in top:
             print(f"  {us:10.1f} us/step  {name[:100]}")
+
+    # -- 6 ------------------------------------------------------------------
+    phase("6 AES-128-CTR kernel against its plain version, bit-exact")
+    key_hex, pt_hex, ct_hex = FIPS197_C1
+
+    def hex_bytes(h, device):
+        return torch.tensor(list(bytes.fromhex(h)), dtype=torch.int32, device=device)
+
+    fips_key, fips_pt = hex_bytes(key_hex, dev), hex_bytes(pt_hex, dev)
+    got = bytes(ref.aes_encrypt_block_ref(fips_pt, ref.aes_key_expand(fips_key)).tolist()).hex()
+    if got != ct_hex:
+        raise AssertionError(f"FIPS-197 C.1: plain AES gives {got}, expected {ct_hex}")
+    print(f"  FIPS-197 C.1 through the plain block cipher: {got}")
+    keys = {"fips": fips_key,
+            "random": torch.tensor(rng.integers(0, 256, 16), dtype=torch.int32, device=dev)}
+    calls_before, calls = ops.LAUNCHES["aes_ctr"], 0
+
+    def rand_int32(n):
+        return torch.randint(-2**31, 2**31, (n, 16), generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    # the kernel's counter-mode output against the plain keystream of the C.1 key
+    pt = fips_pt.repeat(AES_FN_BLOCKS, 1)
+    ct = ops.aes_ctr(pt, fips_key, nonce=0)
+    calls += 1
+    if not torch.equal(ct ^ pt, ref.aes_ctr_keystream(AES_FN_BLOCKS, ref.aes_key_expand(fips_key))):
+        raise AssertionError("aes_ctr: ct ^ pt is not the plain keystream under the C.1 key")
+    aes_err = 0
+    for kname, key in keys.items():
+        for n in AES_SWEEP_N:
+            for nonce in AES_NONCES:
+                pt = rand_int32(n)
+                out = ops.aes_ctr(pt, key, nonce=nonce)
+                calls += 1
+                plain = ref.aes_ctr_ref(pt, key, nonce)
+                torch.cuda.synchronize()
+                err = int((out.long() - plain.long()).abs().max())
+                if not torch.equal(out, plain):
+                    raise AssertionError(f"aes_ctr key {kname} N {n} nonce {nonce}: "
+                                         f"max |diff| {err}, expected bit-exact")
+                aes_err = max(aes_err, err)
+        print(f"  key {kname}: N {AES_SWEEP_N} x nonces {AES_NONCES} bit-exact")
+    pt = rand_int32(AES_FN_BLOCKS)
+    back = ops.aes_ctr(ops.aes_ctr(pt, keys["random"], nonce=5), keys["random"], nonce=5)
+    calls += 2
+    if not torch.equal(back, pt):
+        raise AssertionError("aes_ctr: the round trip does not decrypt")
+    if ops.aes_ctr(rand_int32(0), keys["random"]).shape != (0, 16):
+        raise AssertionError("aes_ctr: N = 0 does not give an empty (0, 16) result")
+    if ops.LAUNCHES["aes_ctr"] - calls_before != calls:
+        raise AssertionError(f"aes_ctr launches {ops.LAUNCHES['aes_ctr'] - calls_before}, "
+                             f"expected {calls}")
+    print(f"  round trip decrypts; N = 0 launches nothing; {calls} launches counted")
+
+    rk = ref.aes_key_expand(keys["random"])
+    sms = props.multi_processor_count
+    aes_times = {}
+    for n in (AES_FN_BLOCKS, AES_BATCH_BLOCKS):
+        pt = rand_int32(n)
+        aes_times[n] = dict(
+            err=aes_err,
+            ms=time_ms(torch, lambda: aes_kernel(pt, rk, nonce=7), 50, flush),
+            plain_ms=time_ms(torch, lambda: pt ^ ref.aes_ctr_keystream(n, rk, 7), 10, flush),
+            library_ms=None,            # no PyTorch call computes AES
+            bytes=2 * pt.numel() * pt.element_size() + rk.numel() * rk.element_size(),
+            ops=f"{AES_LOOKUPS_PER_BLOCK * n} S-box lookups",
+            ops_ms=1e3 * AES_LOOKUPS_PER_BLOCK * n / (SMEM_LOOKUPS_PER_CLOCK * sms * sm_clock_hz),
+            replaces="src/repro/kernels/aes_ctr.py:76",
+            source="src/repro_torch/csrc/aes_ctr.cu")
+        report(f"aes_ctr N={n}", aes_times[n])
+    records["aes_ctr"] = aes_times[AES_FN_BLOCKS]
+
+    # -- 7 ------------------------------------------------------------------
+    phase("7 FaaS path: both functions deployed on containerd and junctiond (simulated)")
+    payload = torch.tensor(rng.integers(0, 256, (AES_FN_BLOCKS, 16)), dtype=torch.int32)
+    fn_key = keys["random"].cpu()
+    ops.reset_launches()
+    body_us = []
+    for _ in range(BODY_CALLS):
+        t0 = time.perf_counter()
+        ct = ops.aes_ctr(payload.to(dev), fn_key, nonce=0).cpu()
+        torch.cuda.synchronize()
+        body_us.append(1e6 * (time.perf_counter() - t0))
+    if not torch.equal(ct, ref.aes_ctr_ref(payload, fn_key, 0)):
+        raise AssertionError("the AES function's reply differs from the plain version on the CPU")
+    aes_us = float(np.median(body_us))
+    print(f"AES function body (600 B to the card, kernel, back, synchronised), "
+          f"median of {BODY_CALLS} calls on {props.name}: work_us {aes_us:.1f}")
+
+    def host_us(fn):
+        """Median host time of ``fn`` and a synchronise, over BODY_CALLS calls."""
+        ts = []
+        for _ in range(BODY_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(1e6 * (time.perf_counter() - t0))
+        return float(np.median(ts))
+
+    ct_dev = ct.to(dev)
+    print(f"  parts of the body, each alone: key schedule to the card "
+          f"{host_us(lambda: ref.aes_key_expand(fn_key).to(dev)):.1f} us, payload to the card "
+          f"{host_us(lambda: payload.to(dev)):.1f} us, reply to the host "
+          f"{host_us(lambda: ct_dev.cpu()):.1f} us; kernel alone (phase 6, CUDA events) "
+          f"{1e3 * records['aes_ctr']['ms']:.1f} us")
+    functions = {
+        "aes": (FunctionSpec(name="aes", work_us=aes_us), AES_REQUESTS),
+        cfg.name: (FunctionSpec(name=cfg.name, work_us=step_us, payload_bytes=2048,
+                                response_bytes=4096), MODEL_REQUESTS),
+    }
+    for fname, (spec, n_req) in functions.items():
+        medians = {}
+        for backend in ("containerd", "junctiond"):
+            rt = FaasdRuntime(Simulator(seed=1), backend=backend)
+            rt.deploy_blocking(spec)
+            s = run_sequential(rt, fname, n=n_req)
+            if s.n != n_req:
+                raise AssertionError(f"{fname} on {backend}: {s.n} latencies for {n_req} requests")
+            medians[backend] = s
+            print(f"  {fname} (work_us {spec.work_us:.1f} measured) on {backend:10s}: "
+                  f"simulated median_ms {s.median_ms:.4f}  p99_ms {s.p99_ms:.4f}  n {s.n}")
+        c, j = medians["containerd"], medians["junctiond"]
+        if not j.median_ms < c.median_ms:
+            raise AssertionError(f"{fname}: junctiond median {j.median_ms} is not below "
+                                 f"containerd's {c.median_ms}")
+        print(f"  {fname}: junctiond cuts the simulated median by "
+              f"{100 * (1 - j.median_ms / c.median_ms):.2f} % and the p99 by "
+              f"{100 * (1 - j.p99_ms / c.p99_ms):.2f} %")
+    faas_launches = dict(ops.LAUNCHES)
+    print(f"launches {faas_launches} on the FaaS path")
+    if faas_launches != {"flash_attention": 0, "decode_attention": 0, "aes_ctr": BODY_CALLS}:
+        raise AssertionError(f"FaaS path launches {faas_launches}, expected "
+                             f"{BODY_CALLS} of aes_ctr only")
+    launches["aes_ctr"] = faas_launches["aes_ctr"]
 
     # -- result -------------------------------------------------------------
     print(smi)

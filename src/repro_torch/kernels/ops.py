@@ -1,4 +1,4 @@
-"""Public attention ops, dispatched by the device of the tensors.
+"""Public kernel ops, dispatched by the device of the tensors.
 
 Counterpart of the JAX package's ``kernels/ops.py``.  A CPU tensor goes to
 the plain PyTorch version in :mod:`repro_torch.kernels.ref`; a CUDA tensor
@@ -14,11 +14,12 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.kernels import aes_ctr as _aes
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0}
 
 
 def reset_launches() -> None:
@@ -52,4 +53,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.decode_attention_ref(q, k, v, valid)
     out = _decode.decode_attention(q, k, v, valid)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def aes_ctr(plaintext: torch.Tensor, key_bytes: torch.Tensor, *,
+            nonce: int = 0) -> torch.Tensor:
+    """AES-128-CTR: plaintext (N, 16) int32 bytes, key (16,) -> (N, 16) int32.
+
+    The key schedule is plain torch, as in the JAX package, and lands on the
+    plaintext's device as an (11, 16) int32 tensor.  An empty plaintext
+    launches nothing and counts nothing."""
+    if not _on_cuda("aes_ctr", plaintext):
+        return ref.aes_ctr_ref(plaintext, key_bytes, nonce)
+    rk = ref.aes_key_expand(key_bytes).to(plaintext.device)
+    out = _aes.aes_ctr(plaintext, rk, nonce=nonce)
+    if plaintext.shape[0]:
+        LAUNCHES["aes_ctr"] += 1
     return out

@@ -36,6 +36,28 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_faas_path_loads_no_jax_and_no_repro():
+    """``core/backends.py`` imports its backends by module name, which the
+    AST check below cannot see: run the FaaS path and look at what got
+    loaded."""
+    code = ("import sys\n"
+            "from repro_torch.core import (FaasdRuntime, FunctionSpec, Simulator,\n"
+            "                              available_backends, run_sequential)\n"
+            "assert available_backends() == ('containerd', 'junctiond')\n"
+            "for b in available_backends():\n"
+            "    rt = FaasdRuntime(Simulator(seed=1), backend=b)\n"
+            "    rt.deploy_blocking(FunctionSpec('aes'))\n"
+            "    assert run_sequential(rt, 'aes', n=20).n == 20\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+            "             or n == 'repro' or n.startswith('repro.'))\n"
+            "assert 'repro_torch.core.junctiond' in sys.modules\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, cwd=ROOT, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def _imported_roots(path):
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         if isinstance(node, ast.Import):

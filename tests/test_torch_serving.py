@@ -163,9 +163,21 @@ def test_launcher_runs_on_cpu(capsys):
     assert "measured prefill" in out and "decode step" in out
 
 
-@pytest.mark.parametrize("option", [["--backend", "junctiond"], ["--requests", "4"]])
-def test_launcher_rejects_the_faas_options(option):
-    """The FaaS half is not ported: its options are refused, not ignored."""
+@pytest.mark.parametrize("backend", ["containerd", "junctiond"])
+def test_launcher_runs_the_faas_half(backend, capsys):
+    """The measured decode step is deployed on the backend and driven with
+    ``--requests`` sequential invocations through the simulated runtime."""
+    from repro_torch.launch import serve
+    summary = serve.main(["--device", "cpu", "--backend", backend, "--requests", "5",
+                          "--batch-slots", "2", "--max-new-tokens", "3"])
+    out = capsys.readouterr().out
+    assert f"behind {backend}" in out
+    assert f"5 invocations through the {backend} runtime (simulated): median=" in out
+    assert "FaaS runtime overhead at median" in out
+    assert summary.n == 5 and summary.median_ms <= summary.p99_ms
+
+
+def test_launcher_refuses_a_backend_not_ported():
     from repro_torch.launch import serve
     with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", *option])
+        serve.main(["--device", "cpu", "--backend", "quark"])
