@@ -6,29 +6,36 @@
 Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 
 1. device and toolchain: versions, the card's name and power limit, SMs;
-2. build: the attention and AES kernels from ``src/repro_torch/csrc`` into
-   ``build/kernels`` (one ``nvcc`` per source, in parallel), with nvcc's
-   ``-Xptxas -v`` report;
+2. build: the attention, MoE and AES kernels from ``src/repro_torch/csrc``
+   into ``build/kernels`` (one ``nvcc`` per source, in parallel), with
+   nvcc's ``-Xptxas -v`` report;
 3. each kernel against its plain PyTorch version on the card, over the
    sweep of ``tests/test_kernels.py`` and at the main path's shapes in
    bf16, then timed there with CUDA events, L2 flushed before every
    launch.  Kernels and plain versions both compute in fp32 and round
-   once, so fp32 is held at atol = rtol = 3e-5 and bf16 at atol 1e-3,
-   rtol 1e-2 (one bf16 ulp is at most 2**-7 of |x|);
+   once, so fp32 is held at atol = rtol = 3e-5 (``moe_gmm`` at the fp32
+   limit of ``tests/test_kernels.py``, atol 2e-3 / rtol 2e-4) and bf16 at
+   atol 1e-3, rtol 1e-2 (one bf16 ulp is at most 2**-7 of |x|);
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
+4b. the same for a reduced ``mixtral-8x7b`` (4 experts, top 2, window
+   128): a 150-token prompt in a 192-slot cache, so the ring wraps, and
+   batch 4, so that decode runs at capacity 2 and drops pairs;
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
    ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each, with the
    kernel launch counts of that run checked against the layer count;
+5b. the same traffic through full-width ``mixtral-8x7b`` cut from 32 to 24
+   layers (bf16, 70.2 GB of weights: all 32 layers do not fit one 80 GB
+   card), every expert matmul through the ``moe_gmm`` kernel;
 6. the AES-128-CTR kernel: the FIPS-197 C.1 known answer, bit-exact
    agreement with its plain version on the card over N, nonces (one across
    the 2**31 sign wrap) and two keys, a round trip, its launch count, and
    its time at the function's 38 blocks (600 B) and at 2**20 blocks;
 7. the FaaS path through the port's faasd runtime: the AES function's body
    (600 B to the card, the kernel, back, synchronised) timed on the card as
-   ``work_us``, then deployed with the full-width model endpoint of phase 5
-   on containerd and on junctiond.  Those latencies are simulated on the
+   ``work_us``, then deployed with the two model endpoints of phases 5 and
+   5b on containerd and on junctiond.  Those latencies are simulated on the
    host from the paper's host costs; only ``work_us`` is measured here.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -37,6 +44,7 @@ last is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -59,6 +67,15 @@ FLASH_SWEEP = [  # B, Hq, Hkv, S, T, d, causal, window (tests/test_kernels.py)
 DECODE_SWEEP = [(2, 8, 2, 300, 64), (1, 4, 4, 512, 128), (3, 16, 8, 257, 64)]
 FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)
 DECODE_MAIN = (8, 16, 8, 1024, 128)
+GMM_SWEEP = [(4, 100, 96, 130), (2, 64, 256, 64), (8, 33, 48, 72)]   # E, C, D, F
+GMM_MAIN = {   # E, C, D, F of mixtral-8x7b's expert matmuls at the serving traffic
+    "decode gate/up": (8, 2, 4096, 14336),
+    "decode down": (8, 2, 14336, 4096),
+    "prefill gate/up": (8, 1280, 4096, 14336),
+    "prefill down": (8, 1280, 14336, 4096),
+}
+MOE_LAYERS = 24              # of mixtral-8x7b's 32: 70.2 GB of bf16 weights
+MOE_PROMPT, MOE_SEQ, MOE_BATCH = 150, 192, 4     # phase 4b
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PROFILED_STEPS = 4
 AES_SWEEP_N = (1, 38, 40, 4096, 2**20)
@@ -70,6 +87,7 @@ FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccdde
 BODY_CALLS = 200
 AES_REQUESTS, MODEL_REQUESTS = 100, 50
 TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-3, 1e-2)}   # (atol, rtol)
+GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
 
 
 def phase(name: str) -> None:
@@ -153,6 +171,7 @@ def main() -> int:
     from repro_torch.core import FaasdRuntime, FunctionSpec, Simulator, run_sequential
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.aes_ctr import aes_ctr as aes_kernel
+    from repro_torch.models import attention
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import tree_to
     from repro_torch.serving import ServingEngine
@@ -184,8 +203,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "ptxas" in line and ("registers" in line or "spill" in line
-                                    or "Compiling" in line):
+            if "spill" in line or ("ptxas" in line and ("registers" in line
+                                                        or "Compiling" in line)):
                 print(f"  {name}: {line.strip()}")
 
     # -- 3 ------------------------------------------------------------------
@@ -288,6 +307,45 @@ def main() -> int:
     for name, r in records.items():
         report(name, r)
 
+    # the MoE expert matmul: the sweep in fp32 and bf16, then mixtral-8x7b's
+    # serving shapes in bf16, with weights at the model's scale N(0, 1/D) as
+    # dense_init draws them (so |y| is of the order of the partial sums)
+    def gmm_case(E, C, D, F, dt, w_scale=1.0):
+        return randn(E, C, D, dtype=dt), (randn(E, D, F, dtype=torch.float32) * w_scale).to(dt)
+
+    for case in GMM_SWEEP:
+        for dname, dt in dtypes.items():
+            x, w = gmm_case(*case, dt)
+            out = ops.moe_gmm(x, w)
+            torch.cuda.synchronize()
+            err = check_close(f"moe_gmm{case} {dname}", out, ref.moe_gmm_ref(x, w),
+                              GMM_TOL[dname])
+            print(f"  moe_gmm {case} {dname}: max |diff| {err:.3g} "
+                  f"(atol, rtol {GMM_TOL[dname]})")
+    gmm_times = {}
+    for label, (E, C, D, F) in GMM_MAIN.items():
+        x, w = gmm_case(E, C, D, F, torch.bfloat16, D ** -0.5)
+        out = ops.moe_gmm(x, w)
+        err = check_close(f"moe_gmm {label} {(E, C, D, F)}", out, ref.moe_gmm_ref(x, w),
+                          GMM_TOL["bfloat16"])
+        print(f"  moe_gmm {label} {(E, C, D, F)} bfloat16: max |diff| {err:.3g}")
+        reps = 5 if C > 64 else 20
+        gmm_times[label] = dict(
+            err=err,
+            ms=time_ms(torch, lambda: ops.moe_gmm(x, w), reps, flush),
+            plain_ms=time_ms(torch, lambda: ref.moe_gmm_ref(x, w), 3, flush),
+            library_ms=time_ms(torch, lambda: torch.bmm(x, w), reps, flush),
+            bytes=sum(t.numel() * t.element_size() for t in (x, w, out)),
+            ops=f"{2 * E * C * D * F} FLOP",
+            ops_ms=1e3 * 2 * E * C * D * F / PEAK_BF16_FLOPS,
+            replaces="src/repro/kernels/moe_gmm.py:52",
+            source="src/repro_torch/csrc/moe_gmm.cu")
+        report(f"moe_gmm {label}", gmm_times[label])
+        del x, w, out
+    # the line's record: decode gate/up, 1488 of the 2304 launches of 5b
+    # (decode down takes 744, the prefill 48 gate/up and 24 down)
+    records["moe_gmm"] = gmm_times["decode gate/up"]
+
     # -- 4 ------------------------------------------------------------------
     phase("4 reduced qwen3-1.7b, card against CPU, float32")
     rng = np.random.default_rng(SEED)
@@ -315,51 +373,113 @@ def main() -> int:
             raise AssertionError(f"greedy tokens differ: cpu {outs[0]} cuda {outs[1]}")
         print(f"  kv_heads {cfg.n_kv_heads}: greedy tokens equal ({outs[1][0]} ...)")
 
+    # -- 4b -----------------------------------------------------------------
+    phase("4b reduced mixtral-8x7b, card against CPU, float32")
+    cfg = dataclasses.replace(reduced(get_arch("mixtral-8x7b")), dtype="float32")
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED))
+    p_gpu = tree_to(p_cpu, dev)
+    prompts = np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).tolist()
+    toks = torch.tensor(prompts)
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    cap = attention.kv_cache_capacity(cfg, MOE_SEQ)
+    if not cap < MOE_PROMPT:
+        raise AssertionError(f"the {cap}-slot cache does not wrap under a {MOE_PROMPT}-token prompt")
+    print(f"  {E} experts, top {k}, window {cfg.sliding_window}: a {cap}-slot ring under "
+          f"a {MOE_PROMPT}-token prompt; decode capacity "
+          f"{max(1, int(cfg.moe.capacity_factor * k * MOE_BATCH / E))} per expert "
+          f"for {k * MOE_BATCH} pairs")
+    logits = {}
+    for where, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        ops.reset_launches()
+        lg, c = T.prefill(p, cfg, {"tokens": toks.to(where)}, seq_len=MOE_SEQ)
+        lg2, _ = T.decode_step(p, cfg, lg.argmax(-1), MOE_PROMPT, c)
+        logits[where] = (lg.cpu(), lg2.cpu())
+    if ops.LAUNCHES["moe_gmm"] != 2 * 3 * cfg.n_layers:
+        raise AssertionError(f"card run: {ops.LAUNCHES['moe_gmm']} moe_gmm launches, "
+                             f"expected {2 * 3 * cfg.n_layers}")
+    for i, step in enumerate(("prefill", "decode")):
+        e = check_close(f"{cfg.name} {step} logits", logits["cuda"][i], logits["cpu"][i],
+                        (1e-4, 1e-4))
+        print(f"  {step} logits max |diff| {e:.3g}")
+    outs = [ServingEngine(cfg, batch_slots=MOE_BATCH, max_seq_len=MOE_SEQ, device=where,
+                          params=p).generate(prompts, max_new_tokens=8)
+            for where, p in (("cpu", p_cpu), ("cuda", p_gpu))]
+    if outs[0] != outs[1]:
+        raise AssertionError(f"greedy tokens differ: cpu {outs[0]} cuda {outs[1]}")
+    print(f"  greedy tokens equal ({outs[1][0]} ...)")
+
     # -- 5 ------------------------------------------------------------------
+    def serve(cfg, prompts):
+        """Serve ``prompts`` through a fresh engine of ``cfg`` on the card:
+        a warm-up, then the measured run with the launch counters reset just
+        before it and checked just after, a finite-logits check and the
+        profiled decode steps.  Returns (mean decode step us, launches)."""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServingEngine(cfg, batch_slots=SLOTS, max_seq_len=MAX_SEQ, seed=SEED,
+                            device="cuda")
+        torch.cuda.synchronize()
+        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}; "
+              f"weights drawn in {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated()} bytes on the card")
+        eng.generate(prompts, max_new_tokens=2)          # warm-up: cuBLAS, libraries
+        eng.step_times_s.clear()
+        ops.reset_launches()
+        outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
+        launches = dict(ops.LAUNCHES)
+        n_decode = len(eng.step_times_s) - 1
+        L = cfg.n_layers
+        expect = {"flash_attention": L, "decode_attention": L * n_decode, "aes_ctr": 0,
+                  "moe_gmm": 3 * L * (n_decode + 1) if cfg.moe is not None else 0}
+        print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
+        if launches != expect:
+            raise AssertionError(f"launch counts {launches}, expected {expect}")
+        if [len(o) for o in outs] != [NEW_TOKENS] * SLOTS or \
+                not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+            raise AssertionError("generated tokens out of shape or range")
+        with torch.inference_mode():
+            lg, _ = T.prefill(eng.params, cfg,
+                              {"tokens": torch.tensor(prompts, device=dev)[:1]},
+                              seq_len=MAX_SEQ)
+        if not bool(lg.float().isfinite().all()):
+            raise AssertionError("full-width logits are not finite")
+        prefill_ms = 1e3 * eng.step_times_s[0]
+        total_s = sum(eng.step_times_s)
+        step_us = eng.mean_decode_step_us()
+        print(f"serve prefill_ms {prefill_ms:.3f}  mean_decode_step_us {step_us:.1f}  "
+              f"generated_tok_per_s {SLOTS * NEW_TOKENS / total_s:.1f}  "
+              f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
+        print(f"  first request's tokens: {outs[0][:8]} ...")
+        device_us, wall_us, top = profile_decode(torch, T, eng, cfg, prompts, dev)
+        if device_us is None:
+            print(f"decode step device time: not measured (the profiler saw no kernel); "
+                  f"wall_us {wall_us:.1f}")
+        else:
+            print(f"decode step over {PROFILED_STEPS} profiled steps: device_us "
+                  f"{device_us:.1f}  wall_us {wall_us:.1f}  device idle share "
+                  f"{1 - device_us / wall_us:.3f}")
+            for name, us in top:
+                print(f"  {us:10.1f} us/step  {name[:100]}")
+        return step_us, launches
+
     phase("5 full-width qwen3-1.7b served on the card")
     cfg = get_arch("qwen3-1.7b")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    eng = ServingEngine(cfg, batch_slots=SLOTS, max_seq_len=MAX_SEQ, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}; "
-          f"weights drawn in {time.perf_counter() - t0:.1f} s")
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    eng.generate(prompts, max_new_tokens=2)          # warm-up: cuBLAS, libraries
-    eng.step_times_s.clear()
-    ops.reset_launches()
-    outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
-    launches = dict(ops.LAUNCHES)
-    n_decode = len(eng.step_times_s) - 1
-    expect = {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * n_decode,
-              "aes_ctr": 0}
-    print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches}, expected {expect}")
-    if [len(o) for o in outs] != [NEW_TOKENS] * SLOTS or \
-            not all(0 <= t < cfg.vocab_size for o in outs for t in o):
-        raise AssertionError("generated tokens out of shape or range")
-    with torch.inference_mode():
-        lg, _ = T.prefill(eng.params, cfg, {"tokens": torch.tensor(prompts, device=dev)[:1]},
-                          seq_len=MAX_SEQ)
-    if not bool(lg.float().isfinite().all()):
-        raise AssertionError("full-width logits are not finite")
-    prefill_ms = 1e3 * eng.step_times_s[0]
-    total_s = sum(eng.step_times_s)
-    step_us = eng.mean_decode_step_us()
-    print(f"serve prefill_ms {prefill_ms:.3f}  mean_decode_step_us {step_us:.1f}  "
-          f"generated_tok_per_s {SLOTS * NEW_TOKENS / total_s:.1f}  "
-          f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
-    print(f"  first request's tokens: {outs[0][:8]} ...")
-    device_us, wall_us, top = profile_decode(torch, T, eng, cfg, prompts, dev)
-    if device_us is None:
-        print(f"decode step device time: not measured (the profiler saw no kernel); "
-              f"wall_us {wall_us:.1f}")
-    else:
-        print(f"decode step over {PROFILED_STEPS} profiled steps: device_us {device_us:.1f}  "
-              f"wall_us {wall_us:.1f}  device idle share {1 - device_us / wall_us:.3f}")
-        for name, us in top:
-            print(f"  {us:10.1f} us/step  {name[:100]}")
+    step_us, launches = serve(cfg, prompts)
+    endpoints = {cfg.name: step_us}
+
+    # -- 5b -----------------------------------------------------------------
+    phase(f"5b full-width mixtral-8x7b, {MOE_LAYERS} of 32 layers, served on the card")
+    gc.collect()
+    torch.cuda.empty_cache()         # phase 5's engine is gone: room for 70 GB
+    cfg = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=MOE_LAYERS)
+    prompts = np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
+    endpoints[cfg.name], moe_launches = serve(cfg, prompts)
+    launches["moe_gmm"] = moe_launches["moe_gmm"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 6 ------------------------------------------------------------------
     phase("6 AES-128-CTR kernel against its plain version, bit-exact")
@@ -433,7 +553,8 @@ def main() -> int:
     records["aes_ctr"] = aes_times[AES_FN_BLOCKS]
 
     # -- 7 ------------------------------------------------------------------
-    phase("7 FaaS path: both functions deployed on containerd and junctiond (simulated)")
+    phase("7 FaaS path: the AES function and both model endpoints deployed on containerd "
+          "and junctiond (simulated)")
     payload = torch.tensor(rng.integers(0, 256, (AES_FN_BLOCKS, 16)), dtype=torch.int32)
     fn_key = keys["random"].cpu()
     ops.reset_launches()
@@ -465,11 +586,10 @@ def main() -> int:
           f"{host_us(lambda: payload.to(dev)):.1f} us, reply to the host "
           f"{host_us(lambda: ct_dev.cpu()):.1f} us; kernel alone (phase 6, CUDA events) "
           f"{1e3 * records['aes_ctr']['ms']:.1f} us")
-    functions = {
-        "aes": (FunctionSpec(name="aes", work_us=aes_us), AES_REQUESTS),
-        cfg.name: (FunctionSpec(name=cfg.name, work_us=step_us, payload_bytes=2048,
-                                response_bytes=4096), MODEL_REQUESTS),
-    }
+    functions = {"aes": (FunctionSpec(name="aes", work_us=aes_us), AES_REQUESTS)}
+    for name, us in endpoints.items():     # the model endpoints, as suites.py pairs them
+        functions[name] = (FunctionSpec(name=name, work_us=us, payload_bytes=2048,
+                                        response_bytes=4096), MODEL_REQUESTS)
     for fname, (spec, n_req) in functions.items():
         medians = {}
         for backend in ("containerd", "junctiond"):
@@ -490,7 +610,8 @@ def main() -> int:
               f"{100 * (1 - j.p99_ms / c.p99_ms):.2f} %")
     faas_launches = dict(ops.LAUNCHES)
     print(f"launches {faas_launches} on the FaaS path")
-    if faas_launches != {"flash_attention": 0, "decode_attention": 0, "aes_ctr": BODY_CALLS}:
+    if faas_launches != {"flash_attention": 0, "decode_attention": 0, "aes_ctr": BODY_CALLS,
+                         "moe_gmm": 0}:
         raise AssertionError(f"FaaS path launches {faas_launches}, expected "
                              f"{BODY_CALLS} of aes_ctr only")
     launches["aes_ctr"] = faas_launches["aes_ctr"]

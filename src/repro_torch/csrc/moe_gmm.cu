@@ -1,0 +1,262 @@
+// Expert-batched matrix product of the MoE layer: y[e] = x[e] @ w[e] for
+// every expert e, the inner loop of the capacity dispatch (gate, up and down
+// projections of the experts' SwiGLU).
+//
+// Replaces the Pallas kernel `moe_gmm` (body `_gmm_kernel`) in
+// src/repro/kernels/moe_gmm.py.  Plain version:
+// repro_torch.kernels.ref.moe_gmm_ref.
+//
+// Layouts: x (E, C, D), w (E, D, F), y (E, C, F), row-major and contiguous.
+// fp32 or bf16 in and out; the sum is kept in fp32 and rounded once on
+// store, as in the plain version.
+//
+// What bounds it on this card: the product does 2 * C operations for every
+// element of w it reads.  At a decode step of mixtral-8x7b (batch 8, so C = 2
+// rows per expert) that is 1 operation per byte of bf16 weight, far below the
+// ~295 per byte at which an H100 turns from bound by its 3.35 TB/s of memory
+// to bound by its 989 TFLOP/s of bf16 tensor cores: there the least time is
+// the bytes of w (0.94 GB, 0.28 ms for the gate of one layer).  At a prefill
+// of 8 x 512 tokens (C = 1280) it is 1280 operations per byte, and the least
+// time is the operations (1.20 TFLOP, 1.22 ms).
+//
+// What this simple design does about it: one block of 256 threads per
+// (expert, 64-row tile of C, 128-column tile of F) loops over D (the TPU's
+// sequential minor grid axis) in steps of BK.  Tiles of x and w are staged
+// through shared memory; the next step's global loads are issued into
+// registers before the current tiles are multiplied, so one step of loads is
+// in flight behind the arithmetic.  bf16: each of the 8 warps computes a
+// 32 x 32 block with `mma.sync` m16n8k16 on the tensor cores, fp32
+// accumulators (products of bf16 values are exact in fp32).  fp32: the CUDA
+// cores, 4 x 8 outputs per thread in fp32 multiply-adds, never TF32.  The
+// tails of C, D and F are masked by bounds, with no padded copy.  One C tile
+// covers C <= 64, so at decode each element of w is read once.  Not done here:
+// wgmma with TMA and a deeper pipeline for the prefill shape, and split-D or
+// a persistent design so that the small-C decode shape fills the card.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBM = 64;    // rows of C per block
+constexpr int kBN = 128;   // columns of F per block
+
+// Per-type tile depth and shared-memory row padding; elements are moved as
+// raw bits, so a zero fill is the same for both types.
+template <typename T> struct Tile;
+template <> struct Tile<float> {
+  using Bits = uint32_t;
+  static constexpr int BK = 32, PAD = 4;
+};
+template <> struct Tile<__nv_bfloat16> {
+  using Bits = uint16_t;
+  static constexpr int BK = 64, PAD = 8;
+};
+
+// A ROWS x COLS tile of a row-major (nrows, ncols) matrix with leading
+// dimension ld, held in registers as 16-byte chunks, zero outside bounds.
+// kVec: ncols and ld are multiples of the chunk, so a chunk is wholly in or
+// out of bounds and is loaded as one 16-byte access.
+template <typename Bits, int ROWS, int COLS, bool kVec>
+struct TileLoader {
+  static constexpr int VEC = 16 / sizeof(Bits);
+  static constexpr int CPR = COLS / VEC;            // chunks per row
+  static constexpr int N = ROWS * CPR / kThreads;   // chunks per thread
+  static_assert(ROWS * CPR % kThreads == 0, "the tile must split evenly over the threads");
+  union Chunk {
+    uint4 u;
+    Bits b[VEC];
+  };
+  Chunk regs[N];
+
+  __device__ __forceinline__ void load(const Bits* __restrict__ src, long long ld, int row0,
+                                       int nrows, int col0, int ncols) {
+#pragma unroll
+    for (int p = 0; p < N; ++p) {
+      const int idx = threadIdx.x + p * kThreads;
+      const int r = row0 + idx / CPR, c = col0 + (idx % CPR) * VEC;
+      if constexpr (kVec) {
+        regs[p].u = (r < nrows && c < ncols)
+                        ? *reinterpret_cast<const uint4*>(src + (long long)r * ld + c)
+                        : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          regs[p].b[i] = (r < nrows && c + i < ncols) ? src[(long long)r * ld + c + i] : Bits(0);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(Bits* dst, int ld_s) const {
+#pragma unroll
+    for (int p = 0; p < N; ++p) {
+      const int idx = threadIdx.x + p * kThreads;
+      *reinterpret_cast<uint4*>(dst + (idx / CPR) * ld_s + (idx % CPR) * VEC) = regs[p].u;
+    }
+  }
+};
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+moe_gmm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int C,
+               int D, int F) {
+  using Bits = typename Tile<T>::Bits;
+  constexpr int BK = Tile<T>::BK;
+  constexpr int LDA = BK + Tile<T>::PAD;    // padded rows: no bank conflicts
+  constexpr int LDB = kBN + Tile<T>::PAD;
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  __shared__ __align__(16) Bits As[kBM * LDA];   // x tile, [c][d]
+  __shared__ __align__(16) Bits Bs[BK * LDB];    // w tile, [d][f]
+
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM, e = blockIdx.z;
+  const Bits* xe = reinterpret_cast<const Bits*>(x) + (long long)e * C * D;
+  const Bits* we = reinterpret_cast<const Bits*>(w) + (long long)e * D * F;
+  T* ye = y + (long long)e * C * F;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // bf16: warp (wm, wn) of a 2 x 4 grid owns rows wm*32.., columns wn*32..;
+  // lane (g, t) holds the m16n8k16 fragments.  fp32: thread (tm, tn) of a
+  // 16 x 16 grid owns rows tm*4.. and columns tn*4.. and 64 + tn*4...
+  const int g = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
+  const int tm = tid >> 4, tn = tid & 15;
+  // bf16: acc[mi * 4 + ni] is the fragment of m-tile mi and n-tile ni.
+  // fp32: acc[i * 2 + j / 4][j % 4] is row i, column j of the thread's 4 x 8.
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  TileLoader<Bits, kBM, BK, kVec> la;
+  TileLoader<Bits, BK, kBN, kVec> lb;
+  const int nk = (D + BK - 1) / BK;
+  if (nk > 0) {
+    la.load(xe, D, m0, C, 0, D);
+    lb.load(we, F, 0, D, n0, F);
+    la.store(As, LDA);
+    lb.store(Bs, LDB);
+  }
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const bool more = kt + 1 < nk;
+    if (more) {  // the next step's loads, in flight during the arithmetic
+      la.load(xe, D, m0, C, (kt + 1) * BK, D);
+      lb.load(we, F, (kt + 1) * BK, D, n0, F);
+    }
+    if constexpr (kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const Bits* pa = As + (wm * 32 + mi * 16 + g) * LDA + kk + 2 * t;
+          a[mi][0] = *reinterpret_cast<const uint32_t*>(pa);
+          a[mi][1] = *reinterpret_cast<const uint32_t*>(pa + 8 * LDA);
+          a[mi][2] = *reinterpret_cast<const uint32_t*>(pa + 8);
+          a[mi][3] = *reinterpret_cast<const uint32_t*>(pa + 8 * LDA + 8);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          const Bits* pb = Bs + (kk + 2 * t) * LDB + wn * 32 + ni * 8 + g;
+          const uint32_t b0 = (uint32_t)pb[0] | (uint32_t)pb[LDB] << 16;
+          const uint32_t b1 = (uint32_t)pb[8 * LDB] | (uint32_t)pb[9 * LDB] << 16;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            mma_bf16(acc[mi * 4 + ni], a[mi], b0, b1);
+        }
+      }
+    } else {
+      const float* Af = reinterpret_cast<const float*>(As);
+      const float* Bf = reinterpret_cast<const float*>(Bs);
+#pragma unroll 8
+      for (int k = 0; k < BK; ++k) {
+        float a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = Af[(tm * 4 + i) * LDA + k];
+        const float4 b0 = *reinterpret_cast<const float4*>(Bf + k * LDB + tn * 4);
+        const float4 b1 = *reinterpret_cast<const float4*>(Bf + k * LDB + 64 + tn * 4);
+        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i * 2 + (j >> 2)][j & 3] = fmaf(a[i], b[j], acc[i * 2 + (j >> 2)][j & 3]);
+      }
+    }
+    __syncthreads();
+    if (more) {
+      la.store(As, LDA);
+      lb.store(Bs, LDB);
+    }
+    __syncthreads();
+  }
+
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          const int r = m0 + wm * 32 + mi * 16 + g + (h >> 1) * 8;
+          const int c = n0 + wn * 32 + ni * 8 + 2 * t + (h & 1);
+          if (r < C && c < F) store_out(ye + (long long)r * F + c, acc[mi * 4 + ni][h]);
+        }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int r = m0 + tm * 4 + i;
+        const int c = n0 + (j >> 2) * 64 + tn * 4 + (j & 3);
+        if (r < C && c < F) store_out(ye + (long long)r * F + c, acc[i * 2 + (j >> 2)][j & 3]);
+      }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D, int F,
+                   cudaStream_t stream) {
+  constexpr int vec = 16 / sizeof(T);
+  const dim3 grid((F + kBN - 1) / kBN, (C + kBM - 1) / kBM, E);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* yp = static_cast<T*>(y);
+  if (D % vec == 0 && F % vec == 0)
+    moe_gmm_kernel<T, true><<<grid, kThreads, 0, stream>>>(xp, wp, yp, C, D, F);
+  else
+    moe_gmm_kernel<T, false><<<grid, kThreads, 0, stream>>>(xp, wp, yp, C, D, F);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x (E, C, D), w (E, D, F), y (E, C, F), contiguous and 16-byte aligned on the
+// device; E, C, F > 0.  dtype: 0 = float32, 1 = bfloat16.  Returns
+// cudaGetLastError() after the launch (0 on success); the caller raises on
+// anything else.
+extern "C" int moe_gmm_fwd(const void* x, const void* w, void* y, int E, int C, int D, int F,
+                           int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch<float>(x, w, y, E, C, D, F, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, w, y, E, C, D, F, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -17,9 +17,11 @@ import torch
 from repro_torch.kernels import aes_ctr as _aes
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
+                            "moe_gmm": 0}
 
 
 def reset_launches() -> None:
@@ -53,6 +55,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.decode_attention_ref(q, k, v, valid)
     out = _decode.decode_attention(q, k, v, valid)
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Expert-batched matmul: x (E,C,D), w (E,D,F) -> (E,C,F) in x.dtype,
+    summed in fp32.  An empty output launches nothing and counts nothing."""
+    if not _on_cuda("moe_gmm", x):
+        return ref.moe_gmm_ref(x, w)
+    out = _gmm.moe_gmm(x, w)
+    if out.numel():
+        LAUNCHES["moe_gmm"] += 1
     return out
 
 

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels.
 
-Counterparts of ``flash_attention_ref``, ``decode_attention_ref`` and the
-AES-128-CTR oracles in the JAX package's ``kernels/ref.py``: same layouts,
-same fp32 softmax, same finite ``NEG_INF`` for masked scores, the same
+Counterparts of ``flash_attention_ref``, ``decode_attention_ref``,
+``moe_gmm_ref`` and the AES-128-CTR oracles in the JAX package's
+``kernels/ref.py``: same layouts, same fp32 softmax, same finite ``NEG_INF``
+for masked scores, the same fp32 expert matmul rounded once, the same
 table-based AES.  ``kernels.ops`` runs them for CPU tensors;
 ``chip_smoke.py`` and the GPU tests hold the CUDA kernels against them on
 the card.  They run on any device.
@@ -58,6 +59,16 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v.float())
     return o.reshape(B, Hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE grouped matmul
+
+
+def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (E, C, d); w: (E, d, f) -> (E, C, f), in fp32, rounded once to
+    x.dtype."""
+    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

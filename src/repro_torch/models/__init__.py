@@ -1,2 +1,2 @@
-"""Model code of the port: layers, attention, the decoder stack and the
-weight bridge from the JAX package."""
+"""Model code of the port: layers, attention, the MoE layer, the decoder
+stack and the weight bridge from the JAX package."""

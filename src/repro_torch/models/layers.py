@@ -24,9 +24,17 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
                lead: Tuple[int, ...] = ()) -> torch.Tensor:
+    """N(0, 1/d_in) weights (*lead, d_in, d_out) in ``dtype``.  A stacked
+    tensor is drawn one leading index at a time into the result, so the fp32
+    temporary is one (d_in, d_out) matrix, not the whole stack."""
+    if lead:
+        out = torch.empty((*lead, d_in, d_out), dtype=dtype, device=generator.device)
+        for i in range(lead[0]):
+            out[i] = dense_init(generator, d_in, d_out, dtype, lead[1:])
+        return out
     scale = (1.0 / d_in) ** 0.5
-    w = torch.randn((*lead, d_in, d_out), generator=generator,
-                    device=generator.device, dtype=torch.float32)
+    w = torch.randn((d_in, d_out), generator=generator, device=generator.device,
+                    dtype=torch.float32)
     return (w * scale).to(dtype)
 
 

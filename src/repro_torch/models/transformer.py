@@ -1,4 +1,5 @@
-"""Decoder stack for the architectures ported so far (ATTN blocks).
+"""Decoder stack for the architectures ported so far (ATTN and ATTN_MOE
+blocks).
 
 Counterpart of the JAX package's ``models/transformer.py``.  The parameter
 tree has the same shape and keys: ``params["blocks"]`` is a tuple over the
@@ -8,7 +9,10 @@ the layers, so ``convert.params_from_jax`` is a plain copy.  The JAX
 
 Entry points: ``forward`` (full sequence), ``prefill`` (writes the KV
 caches) and ``decode_step`` (one token against the caches, with a scalar
-``pos`` shared by the batch).  Caches are updated in place.
+``pos`` shared by the batch).  Caches are updated in place.  A MoE block
+runs ``models.moe.moe_apply`` in capacity mode on the ``ln2`` output in
+place of the dense SwiGLU, and its router's aux loss is summed over the
+layers.
 """
 from __future__ import annotations
 
@@ -18,13 +22,13 @@ import torch
 
 from repro_torch.config import ArchConfig, BlockKind
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        rms_norm, rms_norm_init, swiglu,
                                        swiglu_init, tree_to)
 
 #: block kinds still to port, with the ROADMAP queue 1 item that ports them
 _NOT_PORTED = {
-    BlockKind.ATTN_MOE: "MoE blocks (ROADMAP queue 1 item 9)",
     BlockKind.MAMBA: "Mamba blocks (ROADMAP queue 1 item 10)",
     BlockKind.MAMBA_MOE: "Mamba blocks (ROADMAP queue 1 item 10)",
     BlockKind.RWKV: "RWKV6 blocks (ROADMAP queue 1 item 11)",
@@ -72,21 +76,28 @@ def _layer(tree, i: int):
 # Blocks
 
 
-def _block_init(generator: torch.Generator, cfg: ArchConfig, dtype,
-                n: int) -> dict:
-    """Parameters of ``n`` ATTN blocks, stacked on a leading axis."""
+def _block_init(generator: torch.Generator, kind: BlockKind, cfg: ArchConfig,
+                dtype, n: int) -> dict:
+    """Parameters of ``n`` blocks of ``kind`` (ATTN or ATTN_MOE), stacked on
+    a leading axis.  A MoE block has ``"moe"`` where a dense one has
+    ``"mlp"``."""
     d, dev = cfg.d_model, generator.device
-    return {
+    p = {
         "ln1": rms_norm_init(d, dtype, dev, (n,)),
         "attn": attn.attn_init(generator, cfg, dtype, (n,)),
         "ln2": rms_norm_init(d, dtype, dev, (n,)),
-        "mlp": swiglu_init(generator, d, cfg.d_ff, dtype, (n,)),
     }
+    if kind == BlockKind.ATTN_MOE:
+        p["moe"] = moe_mod.moe_init(generator, cfg, dtype, (n,))
+    else:
+        p["mlp"] = swiglu_init(generator, d, cfg.d_ff, dtype, (n,))
+    return p
 
 
 def _apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
                  positions: Optional[torch.Tensor], step: Optional[attn.DecodeStep],
-                 cache: Optional[dict]) -> torch.Tensor:
+                 cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Returns (x, moe aux loss); a dense block has no aux loss (None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "full":
         y = attn.attention_forward(p["attn"], h, cfg, positions)
@@ -96,21 +107,28 @@ def _apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
         y, _ = attn.decode_step_attention(p["attn"], h, cfg, step, cache)
     x = x + y
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + swiglu(p["mlp"], h2)
+    if "moe" in p:
+        y2, aux = moe_mod.moe_apply(p["moe"], h2, cfg)
+        return x + y2, aux
+    return x + swiglu(p["mlp"], h2), None
 
 
 def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
                mode: str, caches=None, positions: Optional[torch.Tensor] = None,
-               step: Optional[attn.DecodeStep] = None) -> torch.Tensor:
+               step: Optional[attn.DecodeStep] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run x through every layer: a loop over groups, and over the kinds in
     each group.  ``caches`` mirrors ``params_groups`` (stacked per kind) and
-    is written in place."""
+    is written in place.  Returns (x, the aux losses summed over layers)."""
+    total = torch.zeros((), device=x.device)
     for g in range(params_groups[0]["ln1"].shape[0]):
         for i in range(len(kinds)):
             c = None if caches is None else _layer(caches[i], g)
-            x = _apply_block(_layer(params_groups[i], g), x, cfg, mode,
-                             positions, step, c)
-    return x
+            x, aux = _apply_block(_layer(params_groups[i], g), x, cfg, mode,
+                                  positions, step, c)
+            if aux is not None:
+                total = total + aux
+    return x, total
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +148,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dtype)
-    params["blocks"] = tuple(_block_init(generator, cfg, dtype, n_groups)
-                             for _ in kinds)
+    params["blocks"] = tuple(_block_init(generator, kind, cfg, dtype, n_groups)
+                             for kind in kinds)
     return params if device is None else tree_to(params, device)
 
 
@@ -152,16 +170,16 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def forward(params: dict, cfg: ArchConfig, batch: dict
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full sequence -> (logits (B,S,V), moe_aux).  The aux loss is zero:
-    no ported block kind has a router."""
+    """Full sequence -> (logits (B,S,V), moe_aux): the routers' aux loss
+    summed over the layers, zero for a dense model."""
     kinds, _ = _plan(cfg)
     x = _embed(params, cfg, batch["tokens"])
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(B, S, x.device)
-    x = _run_stack(params["blocks"], kinds, x, cfg, "full", positions=positions)
-    return _unembed(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux = _run_stack(params["blocks"], kinds, x, cfg, "full", positions=positions)
+    return _unembed(params, cfg, x), aux
 
 
 def init_caches(params, cfg: ArchConfig, batch: int, seq_len: int):
@@ -179,8 +197,8 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, seq_len: int):
     x = _embed(params, cfg, batch["tokens"])
     B, S, _ = x.shape
     caches = init_caches(params, cfg, B, seq_len)
-    x = _run_stack(params["blocks"], kinds, x, cfg, "prefill", caches,
-                   positions=_positions(B, S, x.device))
+    x, _ = _run_stack(params["blocks"], kinds, x, cfg, "prefill", caches,
+                      positions=_positions(B, S, x.device))
     logits = _unembed(params, cfg, x[:, -1:])
     return logits, {"layers": caches}
 
@@ -193,6 +211,6 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     cap = caches["layers"][0]["k"].shape[2]        # (groups, B, cap, Hkv, hd)
     step = attn.decode_step_inputs(cfg, int(pos), x.shape[0], cap, x.device)
-    x = _run_stack(params["blocks"], kinds, x, cfg, "decode", caches["layers"],
-                   step=step)
+    x, _ = _run_stack(params["blocks"], kinds, x, cfg, "decode", caches["layers"],
+                      step=step)
     return _unembed(params, cfg, x), caches

@@ -4,8 +4,10 @@ Marked ``gpu``; each test skips with a reason where there is no card.  Run
 on a machine with one:  ``pytest -m gpu tests/test_torch_gpu.py``.  The
 sweep is that of ``tests/test_kernels.py`` plus the serving path's shapes.
 Kernels and plain versions both compute in fp32 and round once, so fp32 is
-held at atol = rtol = 3e-5 and bf16 at atol 1e-3, rtol 1e-2 (one bf16 ulp
-is at most 2**-7 of |x|).  AES-128-CTR is integer arithmetic and is held
+held at atol = rtol = 3e-5 (the MoE matmul, whose sums run over up to 14336
+terms, at the fp32 limit of ``tests/test_kernels.py``, atol 2e-3 / rtol
+2e-4) and bf16 at atol 1e-3, rtol 1e-2 (one bf16 ulp is at most 2**-7 of
+|x|).  AES-128-CTR is integer arithmetic and is held
 bit-exact.
 """
 import pytest
@@ -82,6 +84,72 @@ def test_kernel_refuses_strided_operands(cuda):
     k = _randn(cuda, (1, 2, 64, 64), torch.float32)
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(2, 3), k, k)
+
+
+# ---------------------------------------------------------------------------
+# MoE expert matmul: fp32 at the limit of tests/test_kernels.py (atol 2e-3,
+# rtol 2e-4); bf16 at one ulp, as above
+
+
+GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("E,C,D,F", [
+    (4, 100, 96, 130), (2, 64, 256, 64), (8, 33, 48, 72),   # tests/test_kernels.py
+    (3, 70, 40, 36),                        # D and F not multiples of 8: scalar loads
+])
+def test_moe_gmm_kernel(cuda, E, C, D, F, dtype):
+    _check_moe_gmm(cuda, (E, C, D), (E, D, F), dtype)
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (8, 2, 4096, 14336),                    # mixtral-8x7b decode, gate and up
+    (8, 2, 14336, 4096),                    # mixtral-8x7b decode, down
+    (8, 1280, 4096, 14336),                 # prefill of 8 x 512 tokens, gate and up
+    (8, 1280, 14336, 4096),                 # prefill, down
+])
+def test_moe_gmm_kernel_at_the_serving_shapes(cuda, E, C, D, F):
+    """bf16, with weights at the model's scale, N(0, 1/D) as ``dense_init``
+    draws them, so that |y| is of the order of the partial sums and the
+    fp32 sums of both versions stay far inside one bf16 ulp of |y|."""
+    _check_moe_gmm(cuda, (E, C, D), (E, D, F), "bfloat16", w_scale=D ** -0.5)
+
+
+def _check_moe_gmm(cuda, xs, ws, dtype, w_scale=1.0):
+    dt = getattr(torch, dtype)
+    x, w = _randn(cuda, xs, dt), (_randn(cuda, ws, torch.float32) * w_scale).to(dt)
+    E, C, F = xs[0], xs[1], ws[2]
+    before = ops.LAUNCHES["moe_gmm"]
+    out = ops.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["moe_gmm"] == before + 1
+    assert out.dtype == dt and out.shape == (E, C, F)
+    atol, rtol = GMM_TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.moe_gmm_ref(x, w).float(), atol=atol, rtol=rtol)
+
+
+def test_moe_gmm_kernel_on_an_empty_output(cuda):
+    before = ops.LAUNCHES["moe_gmm"]
+    out = ops.moe_gmm(_randn(cuda, (2, 0, 8), torch.float32),
+                      _randn(cuda, (2, 8, 4), torch.float32))
+    assert out.shape == (2, 0, 4) and ops.LAUNCHES["moe_gmm"] == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "strided", "experts", "depth"])
+def test_moe_gmm_kernel_refuses_bad_operands(cuda, case):
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    x, w = _randn(cuda, (2, 16, 32), torch.float32), _randn(cuda, (2, 32, 24), torch.float32)
+    if case == "dtype":
+        x, w = x.half(), w.half()
+    elif case == "strided":
+        x = _randn(cuda, (2, 32, 32), torch.float32)[:, ::2]
+    elif case == "experts":
+        w = _randn(cuda, (3, 32, 24), torch.float32)
+    else:
+        w = _randn(cuda, (2, 40, 24), torch.float32)
+    with pytest.raises(ValueError, match="moe_gmm"):
+        moe_gmm(x, w)
 
 
 # ---------------------------------------------------------------------------

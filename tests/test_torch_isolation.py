@@ -23,6 +23,14 @@ def _modules():
         yield ".".join(parts)
 
 
+def test_the_walk_covers_the_moe_modules():
+    """The import check below walks the package; the MoE slice's modules
+    are among those it imports."""
+    mods = set(_modules())
+    assert {"repro_torch.models.moe", "repro_torch.kernels.moe_gmm",
+            "repro_torch.configs.mixtral_8x7b"} <= mods
+
+
 def test_importing_every_module_loads_no_jax_and_no_repro():
     code = ("import importlib, sys\n"
             f"for m in {list(_modules())!r}:\n"

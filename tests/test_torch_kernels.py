@@ -141,7 +141,8 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     out = ops.decode_attention(dq, dk, dv, valid)
     torch.testing.assert_close(out, tref.decode_attention_ref(dq, dk, dv, valid),
                                atol=0, rtol=0)
-    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
+                            "moe_gmm": 0}
 
 
 def test_other_devices_raise():
@@ -151,7 +152,8 @@ def test_other_devices_raise():
     dq, dk, dv, valid = (t.to("meta") for t in _decode_inputs())
     with pytest.raises(ValueError, match="no implementation"):
         ops.decode_attention(dq, dk, dv, valid)
-    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0}
+    assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
+                            "moe_gmm": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

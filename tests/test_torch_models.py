@@ -223,7 +223,8 @@ def test_init_params_tree_matches_jax_shapes():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(moe=MoEConfig(num_experts=4)), "item 9"),
+    (dict(arch_type=ArchType.HYBRID, attn_every=2, mamba=MambaConfig(),
+          moe=MoEConfig(num_experts=4)), "item 10"),     # Jamba-style MAMBA_MOE
     (dict(arch_type=ArchType.HYBRID, attn_every=2, mamba=MambaConfig()), "item 10"),
     (dict(arch_type=ArchType.SSM), "item 11"),
     (dict(encdec=EncDecConfig(encoder_layers=2)), "item 12"),
