@@ -6,36 +6,49 @@
 Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 
 1. device and toolchain: versions, the card's name and power limit, SMs;
-2. build: the attention, MoE and AES kernels from ``src/repro_torch/csrc``
-   into ``build/kernels`` (one ``nvcc`` per source, in parallel), with
-   nvcc's ``-Xptxas -v`` report;
+2. build: the attention, MoE, scan and AES kernels (six sources) from
+   ``src/repro_torch/csrc`` into ``build/kernels`` (one ``nvcc`` per source,
+   in parallel), with nvcc's ``-Xptxas -v`` report;
 3. each kernel against its plain PyTorch version on the card, over the
-   sweep of ``tests/test_kernels.py`` and at the main path's shapes in
-   bf16, then timed there with CUDA events, L2 flushed before every
-   launch.  Kernels and plain versions both compute in fp32 and round
-   once, so fp32 is held at atol = rtol = 3e-5 (``moe_gmm`` at the fp32
-   limit of ``tests/test_kernels.py``, atol 2e-3 / rtol 2e-4) and bf16 at
-   atol 1e-3, rtol 1e-2 (one bf16 ulp is at most 2**-7 of |x|);
+   sweep of ``tests/test_kernels.py`` and at the main path's shapes, then
+   timed there with CUDA events, L2 flushed before every launch.  Kernels
+   and plain versions both compute in fp32 and round once, so fp32 is held
+   at atol = rtol = 3e-5 (``moe_gmm`` at the fp32 limit of
+   ``tests/test_kernels.py``, atol 2e-3 / rtol 2e-4; the two scans, which
+   carry a state through every step, at theirs, 2e-4) and bf16 at atol
+   1e-3, rtol 1e-2 (one bf16 ulp is at most 2**-7 of |x|).  ``moe_gmm`` is
+   held and timed at mixtral's and Jamba's serving shapes, the scans at
+   Jamba's and RWKV6's prefill and decode;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
 4b. the same for a reduced ``mixtral-8x7b`` (4 experts, top 2, window
    128): a 150-token prompt in a 192-slot cache, so the ring wraps, and
    batch 4, so that decode runs at capacity 2 and drops pairs;
+4c. the same for a reduced ``jamba-v0.1-52b`` of 8 layers (the whole 1:7
+   group: Mamba, Mamba+MoE and one attention block): a 150-token prompt,
+   so that the scan's tails run, at batch 4, where decode drops pairs;
+4d. the same for a reduced ``rwkv6-1.6b``;
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
    ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each, with the
-   kernel launch counts of that run checked against the layer count;
+   kernel launch counts of that run checked against the layers by kind;
 5b. the same traffic through full-width ``mixtral-8x7b`` cut from 32 to 24
    layers (bf16, 70.2 GB of weights: all 32 layers do not fit one 80 GB
    card), every expert matmul through the ``moe_gmm`` kernel;
+5c. the same traffic through full-width ``jamba-v0.1-52b`` cut from 32 to
+   24 layers, 3 of its 4 groups of 8 (bf16, 77.6 GB of weights): every
+   selective scan through ``mamba_scan``, the experts through ``moe_gmm``,
+   the attention through the flash and decode kernels;
+5d. the same traffic through full-width, full-depth ``rwkv6-1.6b``, every
+   wkv recurrence through ``rwkv6_scan``;
 6. the AES-128-CTR kernel: the FIPS-197 C.1 known answer, bit-exact
    agreement with its plain version on the card over N, nonces (one across
    the 2**31 sign wrap) and two keys, a round trip, its launch count, and
    its time at the function's 38 blocks (600 B) and at 2**20 blocks;
 7. the FaaS path through the port's faasd runtime: the AES function's body
    (600 B to the card, the kernel, back, synchronised) timed on the card as
-   ``work_us``, then deployed with the two model endpoints of phases 5 and
-   5b on containerd and on junctiond.  Those latencies are simulated on the
+   ``work_us``, then deployed with the four model endpoints of phases 5-5d
+   on containerd and on junctiond.  Those latencies are simulated on the
    host from the paper's host costs; only ``work_us`` is measured here.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -46,6 +59,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -56,6 +70,8 @@ SEED = 0
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12           # dense tensor cores; the timed shapes are bf16
 SMEM_LOOKUPS_PER_CLOCK = 32        # one conflict-free 32-lane shared-memory load per SM
+FP32_LANES = 128                   # fp32 fused multiply-adds per clock per SM (CUDA cores)
+SFU_EXP_PER_CLOCK = 16             # exponentials per clock per SM (special-function units)
 
 FLASH_SWEEP = [  # B, Hq, Hkv, S, T, d, causal, window (tests/test_kernels.py)
     (2, 4, 2, 128, 128, 64, True, None),
@@ -68,14 +84,30 @@ DECODE_SWEEP = [(2, 8, 2, 300, 64), (1, 4, 4, 512, 128), (3, 16, 8, 257, 64)]
 FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)
 DECODE_MAIN = (8, 16, 8, 1024, 128)
 GMM_SWEEP = [(4, 100, 96, 130), (2, 64, 256, 64), (8, 33, 48, 72)]   # E, C, D, F
-GMM_MAIN = {   # E, C, D, F of mixtral-8x7b's expert matmuls at the serving traffic
+GMM_MAIN = {   # E, C, D, F of the expert matmuls of mixtral-8x7b and jamba at the serving traffic
     "decode gate/up": (8, 2, 4096, 14336),
     "decode down": (8, 2, 14336, 4096),
     "prefill gate/up": (8, 1280, 4096, 14336),
     "prefill down": (8, 1280, 14336, 4096),
+    "jamba decode gate/up": (16, 1, 4096, 14336),
+    "jamba decode down": (16, 1, 14336, 4096),
+    "jamba prefill gate/up": (16, 640, 4096, 14336),
+    "jamba prefill down": (16, 640, 14336, 4096),
 }
+MAMBA_SWEEP = [  # B, S, di, ds, with a state: tests/test_kernels.py, then tails and decode
+    (2, 128, 64, 16, False), (1, 256, 128, 8, False), (2, 64, 32, 4, False),
+    (2, 150, 64, 16, True), (3, 77, 333, 16, True), (4, 1, 256, 16, True),
+]
+RWKV_SWEEP = [   # B, T, H, hd, with a state
+    (2, 128, 2, 64, False), (1, 64, 4, 32, False), (2, 96, 1, 16, False),
+    (2, 150, 2, 64, True), (3, 1, 4, 64, True), (1, 70, 3, 32, True),
+]
+MAMBA_MAIN = {"prefill": (8, 512, 8192, 16), "decode": (8, 1, 8192, 16)}   # jamba, fp32
+RWKV_MAIN = {"prefill": (8, 512, 32, 64), "decode": (8, 1, 32, 64)}       # rwkv6-1.6b, fp32
+SCAN_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-3, 1e-2)}
 MOE_LAYERS = 24              # of mixtral-8x7b's 32: 70.2 GB of bf16 weights
-MOE_PROMPT, MOE_SEQ, MOE_BATCH = 150, 192, 4     # phase 4b
+JAMBA_LAYERS = 24            # of jamba-v0.1-52b's 32, 3 groups of 8: 77.6 GB of bf16 weights
+MOE_PROMPT, MOE_SEQ, MOE_BATCH = 150, 192, 4     # phases 4b-4d
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PROFILED_STEPS = 4
 AES_SWEEP_N = (1, 38, 40, 4096, 2**20)
@@ -111,12 +143,28 @@ def check_close(name: str, out, expect, tol) -> float:
     return float(err.max())
 
 
-def time_ms(torch, fn, iters: int, flush) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, L2 flushed
+def layer_counts(cfg) -> dict:
+    """The layers of ``cfg`` by what they run: attention, Mamba, RWKV6, MoE."""
+    kinds = [k.value for k in cfg.block_kinds()]
+    return {"attn": sum(k.startswith("attn") for k in kinds),
+            "mamba": sum(k.startswith("mamba") for k in kinds),
+            "rwkv": kinds.count("rwkv"),
+            "moe": sum(k.endswith("_moe") for k in kinds)}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors in a tree of dicts and tuples."""
+    if isinstance(tree, (dict, tuple)):
+        return sum(tree_bytes(v) for v in (tree.values() if isinstance(tree, dict) else tree))
+    return tree.numel() * tree.element_size()
+
+
+def launch_times_ms(torch, fn, iters: int, flush) -> list:
+    """Device time of each of ``iters`` launches of ``fn``, L2 flushed
     before each (outside the timed span)."""
     fn()
     torch.cuda.synchronize()
-    total = 0.0
+    times = []
     for _ in range(iters):
         flush()
         start = torch.cuda.Event(enable_timing=True)
@@ -125,8 +173,13 @@ def time_ms(torch, fn, iters: int, flush) -> float:
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def time_ms(torch, fn, iters: int, flush) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches."""
+    return statistics.fmean(launch_times_ms(torch, fn, iters, flush))
 
 
 def profile_decode(torch, T, eng, cfg, prompts, dev):
@@ -346,6 +399,94 @@ def main() -> int:
     # (decode down takes 744, the prefill 48 gate/up and 24 down)
     records["moe_gmm"] = gmm_times["decode gate/up"]
 
+    # the two scans: the sweep in fp32 and bf16, then the serving shapes in
+    # fp32 (the model feeds them fp32), inputs at the scales of
+    # tests/test_kernels.py and an fp32 state
+    fp32_flops = FP32_LANES * 2 * props.multi_processor_count * sm_clock_hz
+    exp_rate = SFU_EXP_PER_CLOCK * props.multi_processor_count * sm_clock_hz
+
+    def mamba_case(B, S, di, ds, dt_, with_state=True):
+        f32 = torch.float32
+        dt = (torch.nn.functional.softplus(randn(B, S, di, dtype=f32)) * 0.1).to(dt_)
+        dtx = (randn(B, S, di, dtype=f32) * 0.1).to(dt_)
+        A = (-torch.exp(randn(di, ds, dtype=f32))).to(dt_)
+        h0 = randn(B, di, ds, dtype=f32) if with_state else None
+        return dt, dtx, randn(B, S, ds, dtype=dt_), randn(B, S, ds, dtype=dt_), A, h0
+
+    def rwkv_case(B, T, H, hd, dt_, with_state=True):
+        f32 = torch.float32
+        r = randn(B, T, H, hd, dtype=dt_)
+        k, v = ((randn(B, T, H, hd, dtype=f32) * 0.3).to(dt_) for _ in range(2))
+        w = torch.sigmoid(randn(B, T, H, hd, dtype=f32) * 0.5 + 2).to(dt_)
+        u = (randn(H, hd, dtype=f32) * 0.1).to(dt_)
+        S0 = randn(B, H, hd, hd, dtype=f32) * 0.3 if with_state else None
+        return r, k, v, w, u, S0
+
+    def check_scan(name, op, plain, args, dname):
+        out, state = op(*args)
+        torch.cuda.synchronize()
+        expect, expect_state = plain(*args)
+        return max(check_close(f"{name} out", out, expect, SCAN_TOL[dname]),
+                   check_close(f"{name} state", state, expect_state, SCAN_TOL["float32"]))
+
+    scans = {
+        "mamba_scan": dict(op=ops.mamba_scan, plain=ref.mamba_scan_ref, make=mamba_case,
+                           sweep=MAMBA_SWEEP, main=MAMBA_MAIN),
+        "rwkv6_scan": dict(op=ops.rwkv6_scan, plain=ref.rwkv6_scan_ref, make=rwkv_case,
+                           sweep=RWKV_SWEEP, main=RWKV_MAIN),
+    }
+    scan_times = {}
+    for name, kd in scans.items():
+        for case in kd["sweep"]:
+            for dname, dt_ in dtypes.items():
+                err = check_scan(f"{name}{case} {dname}", kd["op"], kd["plain"],
+                                 kd["make"](*case[:4], dt_, case[4]), dname)
+                print(f"  {name} {case} {dname}: max |diff| {err:.3g} "
+                      f"(atol, rtol {SCAN_TOL[dname]})")
+        for label, shape in kd["main"].items():
+            args = kd["make"](*shape, torch.float32)
+            err = check_scan(f"{name} {label} {shape}", kd["op"], kd["plain"], args, "float32")
+            out, state = kd["op"](*args)
+            B, S = shape[:2]
+            if name == "mamba_scan":
+                n_exp = B * S * shape[2] * shape[3]
+                ops_desc, ops_ms = f"{n_exp} exponentials", 1e3 * n_exp / exp_rate
+            else:
+                # the least the function needs: per step and head, an FMA for
+                # o and a MUL and an FMA for S at each (i, j), since o_t[j] =
+                # sum_i r_i S[i, j] + v_j sum_i r_i u_i k_i; the second sum and
+                # its use are 5 FLOP per i
+                H, hd = shape[2:]
+                flop = 5 * B * S * H * hd * (hd + 1)
+                ops_desc, ops_ms = f"{flop} fp32 FLOP", 1e3 * flop / fp32_flops
+            if S > 1:
+                ms = time_ms(torch, lambda: kd["op"](*args), 20, flush)
+            else:
+                # a few-microsecond kernel: a host stall between the start
+                # event and the launch that outlasts the flush (the host's
+                # cores are shared) idles the card inside the timed span and
+                # adds its length to one sample, so the record is the median
+                times = launch_times_ms(torch, lambda: kd["op"](*args), 200, flush)
+                ms = statistics.median(times)
+                print(f"  {name} {label}: median {ms:.4f} ms, mean "
+                      f"{statistics.fmean(times):.4f}, min {min(times):.4f}, "
+                      f"max {max(times):.4f} over {len(times)} launches")
+            scan_times[(name, label)] = dict(
+                err=err,
+                ms=ms,
+                plain_ms=time_ms(torch, lambda: kd["plain"](*args), 3, flush),
+                library_ms=None,        # no PyTorch call computes either recurrence
+                bytes=sum(t.numel() * t.element_size() for t in (*args, out, state)),
+                ops=ops_desc, ops_ms=ops_ms,
+                replaces={"mamba_scan": "src/repro/kernels/mamba_scan.py:64",
+                          "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:58"}[name],
+                source=f"src/repro_torch/csrc/{name}.cu")
+            report(f"{name} {label} {shape}", scan_times[(name, label)])
+            del args, out, state
+        # the line's record: the decode step, 651 of 672 launches of 5c
+        # (31 of 32 for each Mamba layer) and 744 of 768 of 5d
+        records[name] = scan_times[(name, "decode")]
+
     # -- 4 ------------------------------------------------------------------
     phase("4 reduced qwen3-1.7b, card against CPU, float32")
     rng = np.random.default_rng(SEED)
@@ -373,41 +514,65 @@ def main() -> int:
             raise AssertionError(f"greedy tokens differ: cpu {outs[0]} cuda {outs[1]}")
         print(f"  kv_heads {cfg.n_kv_heads}: greedy tokens equal ({outs[1][0]} ...)")
 
-    # -- 4b -----------------------------------------------------------------
+    # -- 4b-4d ---------------------------------------------------------------
+    def card_against_cpu(cfg, seed, expect):
+        """Prefill a MOE_PROMPT-token prompt at batch MOE_BATCH and take one
+        decode step, on the CPU and on the card with the same weights; then
+        greedy generation through both engines.  ``expect`` is the card
+        run's kernel launches by name."""
+        p_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED))
+        p_gpu = tree_to(p_cpu, dev)
+        prompts = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).tolist()
+        toks = torch.tensor(prompts)
+        logits = {}
+        for where, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+            ops.reset_launches()
+            lg, c = T.prefill(p, cfg, {"tokens": toks.to(where)}, seq_len=MOE_SEQ)
+            lg2, _ = T.decode_step(p, cfg, lg.argmax(-1), MOE_PROMPT, c)
+            logits[where] = (lg.cpu(), lg2.cpu())
+        got = {name: n for name, n in ops.LAUNCHES.items() if n}
+        if got != expect:
+            raise AssertionError(f"card run: launches {got}, expected {expect}")
+        for i, step in enumerate(("prefill", "decode")):
+            e = check_close(f"{cfg.name} {step} logits", logits["cuda"][i], logits["cpu"][i],
+                            (1e-4, 1e-4))
+            print(f"  {step} logits max |diff| {e:.3g}")
+        outs = [ServingEngine(cfg, batch_slots=MOE_BATCH, max_seq_len=MOE_SEQ, device=where,
+                              params=p).generate(prompts, max_new_tokens=8)
+                for where, p in (("cpu", p_cpu), ("cuda", p_gpu))]
+        if outs[0] != outs[1]:
+            raise AssertionError(f"greedy tokens differ: cpu {outs[0]} cuda {outs[1]}")
+        print(f"  launches {got} in the card's prefill and decode step; "
+              f"greedy tokens equal ({outs[1][0]} ...)")
+
+    def decode_capacity(cfg):
+        E, k = cfg.moe.num_experts, cfg.moe.top_k
+        return (f"{E} experts, top {k}: decode capacity "
+                f"{max(1, int(cfg.moe.capacity_factor * k * MOE_BATCH / E))} per expert "
+                f"for {k * MOE_BATCH} pairs")
+
     phase("4b reduced mixtral-8x7b, card against CPU, float32")
     cfg = dataclasses.replace(reduced(get_arch("mixtral-8x7b")), dtype="float32")
-    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED))
-    p_gpu = tree_to(p_cpu, dev)
-    prompts = np.random.default_rng(SEED + 1).integers(
-        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT)).tolist()
-    toks = torch.tensor(prompts)
-    E, k = cfg.moe.num_experts, cfg.moe.top_k
     cap = attention.kv_cache_capacity(cfg, MOE_SEQ)
     if not cap < MOE_PROMPT:
         raise AssertionError(f"the {cap}-slot cache does not wrap under a {MOE_PROMPT}-token prompt")
-    print(f"  {E} experts, top {k}, window {cfg.sliding_window}: a {cap}-slot ring under "
-          f"a {MOE_PROMPT}-token prompt; decode capacity "
-          f"{max(1, int(cfg.moe.capacity_factor * k * MOE_BATCH / E))} per expert "
-          f"for {k * MOE_BATCH} pairs")
-    logits = {}
-    for where, p in (("cpu", p_cpu), ("cuda", p_gpu)):
-        ops.reset_launches()
-        lg, c = T.prefill(p, cfg, {"tokens": toks.to(where)}, seq_len=MOE_SEQ)
-        lg2, _ = T.decode_step(p, cfg, lg.argmax(-1), MOE_PROMPT, c)
-        logits[where] = (lg.cpu(), lg2.cpu())
-    if ops.LAUNCHES["moe_gmm"] != 2 * 3 * cfg.n_layers:
-        raise AssertionError(f"card run: {ops.LAUNCHES['moe_gmm']} moe_gmm launches, "
-                             f"expected {2 * 3 * cfg.n_layers}")
-    for i, step in enumerate(("prefill", "decode")):
-        e = check_close(f"{cfg.name} {step} logits", logits["cuda"][i], logits["cpu"][i],
-                        (1e-4, 1e-4))
-        print(f"  {step} logits max |diff| {e:.3g}")
-    outs = [ServingEngine(cfg, batch_slots=MOE_BATCH, max_seq_len=MOE_SEQ, device=where,
-                          params=p).generate(prompts, max_new_tokens=8)
-            for where, p in (("cpu", p_cpu), ("cuda", p_gpu))]
-    if outs[0] != outs[1]:
-        raise AssertionError(f"greedy tokens differ: cpu {outs[0]} cuda {outs[1]}")
-    print(f"  greedy tokens equal ({outs[1][0]} ...)")
+    print(f"  {decode_capacity(cfg)}; window {cfg.sliding_window}: a {cap}-slot ring under "
+          f"a {MOE_PROMPT}-token prompt")
+    L = cfg.n_layers
+    card_against_cpu(cfg, SEED + 1, {"flash_attention": L, "decode_attention": L,
+                                     "moe_gmm": 2 * 3 * L})
+
+    phase("4c reduced jamba-v0.1-52b (8 layers, one whole group), card against CPU, float32")
+    cfg = dataclasses.replace(reduced(get_arch("jamba-v0.1-52b"), n_layers=8), dtype="float32")
+    n = layer_counts(cfg)
+    print(f"  kinds {[k.value for k in cfg.block_kinds()]}; {decode_capacity(cfg)}")
+    card_against_cpu(cfg, SEED + 3, {"flash_attention": n["attn"], "decode_attention": n["attn"],
+                                     "mamba_scan": 2 * n["mamba"], "moe_gmm": 2 * 3 * n["moe"]})
+
+    phase("4d reduced rwkv6-1.6b, card against CPU, float32")
+    cfg = dataclasses.replace(reduced(get_arch("rwkv6-1.6b")), dtype="float32")
+    card_against_cpu(cfg, SEED + 4, {"rwkv6_scan": 2 * layer_counts(cfg)["rwkv"]})
 
     # -- 5 ------------------------------------------------------------------
     def serve(cfg, prompts):
@@ -420,18 +585,23 @@ def main() -> int:
         eng = ServingEngine(cfg, batch_slots=SLOTS, max_seq_len=MAX_SEQ, seed=SEED,
                             device="cuda")
         torch.cuda.synchronize()
+        groups = eng.params["blocks"]
         print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}; "
               f"weights drawn in {time.perf_counter() - t0:.1f} s, "
-              f"{torch.cuda.memory_allocated()} bytes on the card")
+              f"{torch.cuda.memory_allocated()} bytes on the card; weights {tree_bytes(eng.params)} "
+              f"bytes, {tree_bytes(groups) // groups[0]['ln1'].shape[0]} per "
+              f"{len(groups)}-layer group")
         eng.generate(prompts, max_new_tokens=2)          # warm-up: cuBLAS, libraries
         eng.step_times_s.clear()
         ops.reset_launches()
         outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
         launches = dict(ops.LAUNCHES)
         n_decode = len(eng.step_times_s) - 1
-        L = cfg.n_layers
-        expect = {"flash_attention": L, "decode_attention": L * n_decode, "aes_ctr": 0,
-                  "moe_gmm": 3 * L * (n_decode + 1) if cfg.moe is not None else 0}
+        n = layer_counts(cfg)
+        expect = {"flash_attention": n["attn"], "decode_attention": n["attn"] * n_decode,
+                  "aes_ctr": 0, "moe_gmm": 3 * n["moe"] * (n_decode + 1),
+                  "mamba_scan": n["mamba"] * (n_decode + 1),
+                  "rwkv6_scan": n["rwkv"] * (n_decode + 1)}
         print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
         if launches != expect:
             raise AssertionError(f"launch counts {launches}, expected {expect}")
@@ -478,6 +648,32 @@ def main() -> int:
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], moe_launches = serve(cfg, prompts)
     launches["moe_gmm"] = moe_launches["moe_gmm"]
+
+    # -- 5c -----------------------------------------------------------------
+    phase(f"5c full-width jamba-v0.1-52b, {JAMBA_LAYERS} of 32 layers, served on the card")
+    gc.collect()
+    torch.cuda.empty_cache()         # phase 5b's engine is gone: room for 77.6 GB
+    held = torch.cuda.memory_allocated()
+    print(f"  before the draw: {held} bytes allocated on the card")
+    if held > 1e9:
+        raise AssertionError(f"{held} bytes still allocated before phase 5c")
+    free, total = torch.cuda.mem_get_info()
+    print(f"  before the draw: {free} of {total} bytes free on the card")
+    cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
+    prompts = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
+    endpoints[cfg.name], jamba_launches = serve(cfg, prompts)
+    launches["mamba_scan"] = jamba_launches["mamba_scan"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5d -----------------------------------------------------------------
+    phase("5d full-width rwkv6-1.6b served on the card")
+    cfg = get_arch("rwkv6-1.6b")
+    prompts = np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
+    endpoints[cfg.name], rwkv_launches = serve(cfg, prompts)
+    launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -553,8 +749,8 @@ def main() -> int:
     records["aes_ctr"] = aes_times[AES_FN_BLOCKS]
 
     # -- 7 ------------------------------------------------------------------
-    phase("7 FaaS path: the AES function and both model endpoints deployed on containerd "
-          "and junctiond (simulated)")
+    phase("7 FaaS path: the AES function and the four model endpoints deployed on "
+          "containerd and junctiond (simulated)")
     payload = torch.tensor(rng.integers(0, 256, (AES_FN_BLOCKS, 16)), dtype=torch.int32)
     fn_key = keys["random"].cpu()
     ops.reset_launches()
@@ -587,7 +783,7 @@ def main() -> int:
           f"{host_us(lambda: ct_dev.cpu()):.1f} us; kernel alone (phase 6, CUDA events) "
           f"{1e3 * records['aes_ctr']['ms']:.1f} us")
     functions = {"aes": (FunctionSpec(name="aes", work_us=aes_us), AES_REQUESTS)}
-    for name, us in endpoints.items():     # the model endpoints, as suites.py pairs them
+    for name, us in endpoints.items():     # the four endpoints of benchmarks/model_endpoints.py
         functions[name] = (FunctionSpec(name=name, work_us=us, payload_bytes=2048,
                                         response_bytes=4096), MODEL_REQUESTS)
     for fname, (spec, n_req) in functions.items():
@@ -611,7 +807,7 @@ def main() -> int:
     faas_launches = dict(ops.LAUNCHES)
     print(f"launches {faas_launches} on the FaaS path")
     if faas_launches != {"flash_attention": 0, "decode_attention": 0, "aes_ctr": BODY_CALLS,
-                         "moe_gmm": 0}:
+                         "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}:
         raise AssertionError(f"FaaS path launches {faas_launches}, expected "
                              f"{BODY_CALLS} of aes_ctr only")
     launches["aes_ctr"] = faas_launches["aes_ctr"]

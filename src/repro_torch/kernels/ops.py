@@ -10,18 +10,20 @@ that it went through the kernels; the plain versions do not count.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import aes_ctr as _aes
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mamba_scan as _mamba
 from repro_torch.kernels import moe_gmm as _gmm
 from repro_torch.kernels import ref
+from repro_torch.kernels import rwkv6_scan as _rwkv
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
-                            "moe_gmm": 0}
+                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}
 
 
 def reset_launches() -> None:
@@ -66,6 +68,35 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = _gmm.moe_gmm(x, w)
     if out.numel():
         LAUNCHES["moe_gmm"] += 1
+    return out
+
+
+def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, A: torch.Tensor,
+               h0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan: dt, dtx (B,S,di), Bm, Cm (B,S,ds), A (di,ds), h0
+    (B,di,ds) fp32 or None -> y (B,S,di) in dt.dtype, h_last (B,di,ds) fp32.
+    An empty input launches nothing and counts nothing."""
+    if not _on_cuda("mamba_scan", dt):
+        return ref.mamba_scan_ref(dt, dtx, Bm, Cm, A, h0)
+    out = _mamba.mamba_scan(dt, dtx, Bm, Cm, A, h0)
+    if dt.numel():
+        LAUNCHES["mamba_scan"] += 1
+    return out
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+               u: torch.Tensor, S0: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wkv recurrence: r, k, v, w (B,T,H,hd), u (H,hd), S0 (B,H,hd,hd) fp32 or
+    None -> o (B,T,H,hd) in r.dtype, S_last (B,H,hd,hd) fp32.  An empty input
+    launches nothing and counts nothing."""
+    if not _on_cuda("rwkv6_scan", r):
+        return ref.rwkv6_scan_ref(r, k, v, w, u, S0)
+    out = _rwkv.rwkv6_scan(r, k, v, w, u, S0)
+    if r.numel():
+        LAUNCHES["rwkv6_scan"] += 1
     return out
 
 

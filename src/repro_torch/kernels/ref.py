@@ -1,16 +1,17 @@
 """Plain PyTorch versions of the kernels.
 
 Counterparts of ``flash_attention_ref``, ``decode_attention_ref``,
-``moe_gmm_ref`` and the AES-128-CTR oracles in the JAX package's
-``kernels/ref.py``: same layouts, same fp32 softmax, same finite ``NEG_INF``
-for masked scores, the same fp32 expert matmul rounded once, the same
-table-based AES.  ``kernels.ops`` runs them for CPU tensors;
+``mamba_scan_ref``, ``rwkv6_scan_ref``, ``moe_gmm_ref`` and the AES-128-CTR
+oracles in the JAX package's ``kernels/ref.py``: same layouts, same fp32
+softmax, same finite ``NEG_INF`` for masked scores, the same sequential
+fp32 recurrences from an optional initial state, the same fp32 expert
+matmul rounded once, the same table-based AES.  ``kernels.ops`` runs them for CPU tensors;
 ``chip_smoke.py`` and the GPU tests hold the CUDA kernels against them on
 the card.  They run on any device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,6 +60,55 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v.float())
     return o.reshape(B, Hq, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba selective scan
+
+
+def mamba_scan_ref(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, A: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dt, dtx: (B, S, di); Bm, Cm: (B, S, ds); A: (di, ds); h0: (B, di, ds)
+    or None (zeros).  A loop over time in fp32:
+    h_t = exp(dt_t A) h_{t-1} + dtx_t B_t and y_t = h_t . C_t.
+    Returns y (B, S, di) rounded once to dt.dtype, and h_S (B, di, ds) fp32."""
+    Bsz, S, di = dt.shape
+    ds = Bm.shape[-1]
+    h = (torch.zeros((Bsz, di, ds), dtype=torch.float32, device=dt.device)
+         if h0 is None else h0.float())
+    dtf, dtxf, Bf, Cf, Af = (t.float() for t in (dt, dtx, Bm, Cm, A))
+    y = torch.empty((Bsz, S, di), dtype=torch.float32, device=dt.device)
+    for t in range(S):
+        h = torch.exp(dtf[:, t, :, None] * Af) * h + dtxf[:, t, :, None] * Bf[:, t, None, :]
+        y[:, t] = torch.einsum("bde,be->bd", h, Cf[:, t])
+    return y.to(dt.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 wkv recurrence
+
+
+def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   w: torch.Tensor, u: torch.Tensor,
+                   S0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w: (B, T, H, hd); u: (H, hd); S0: (B, H, hd, hd) or None
+    (zeros).  A loop over time in fp32, per head:
+    o_t[j] = sum_i r_t[i] (S[i, j] + u[i] k_t[i] v_t[j]) and then
+    S[i, j] = w_t[i] S[i, j] + k_t[i] v_t[j].
+    Returns o (B, T, H, hd) rounded once to r.dtype, and S_T fp32."""
+    B, T, H, hd = r.shape
+    S = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if S0 is None else S0.float())
+    rf, kf, vf, wf, uf = (t.float() for t in (r, k, v, w, u))
+    o = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
+    for t in range(T):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B,H,hd,hd)
+        o[:, t] = torch.einsum("bhij,bhi->bhj", S + uf[None, :, :, None] * kv, rf[:, t])
+        S = wf[:, t, :, :, None] * S + kv
+    return o.to(r.dtype), S
 
 
 # ---------------------------------------------------------------------------

@@ -1,18 +1,22 @@
-"""Decoder stack for the architectures ported so far (ATTN and ATTN_MOE
-blocks).
+"""Decoder stack for every block kind: attention (ATTN, ATTN_MOE), Mamba
+(MAMBA, MAMBA_MOE) and RWKV6 (RWKV).
 
 Counterpart of the JAX package's ``models/transformer.py``.  The parameter
 tree has the same shape and keys: ``params["blocks"]`` is a tuple over the
 in-group positions of ``_stack_plan``, each a dict of tensors stacked over
-the layers, so ``convert.params_from_jax`` is a plain copy.  The JAX
-``lax.scan`` over layers becomes a loop that indexes the stacked tensors.
+the groups, so ``convert.params_from_jax`` is a plain copy.  Jamba's 1:7
+Mamba:attention interleave is one group of ``attn_every`` kinds, repeated.
+The JAX ``lax.scan`` over groups becomes a loop that indexes the stacked
+tensors.
 
-Entry points: ``forward`` (full sequence), ``prefill`` (writes the KV
-caches) and ``decode_step`` (one token against the caches, with a scalar
-``pos`` shared by the batch).  Caches are updated in place.  A MoE block
-runs ``models.moe.moe_apply`` in capacity mode on the ``ln2`` output in
-place of the dense SwiGLU, and its router's aux loss is summed over the
-layers.
+Entry points: ``forward`` (full sequence), ``prefill`` (writes the caches)
+and ``decode_step`` (one token against the caches, with a scalar ``pos``
+shared by the batch).  The caches are per kind, as in JAX: a KV cache for
+attention, the recurrent state ``{"h", "conv"}`` for Mamba and
+``{"wkv", "shift_tm", "shift_cm"}`` for RWKV6; all are updated in place.  A
+MoE block runs ``models.moe.moe_apply`` in capacity mode on the ``ln2``
+output in place of the dense SwiGLU, and its router's aux loss is summed
+over the layers.
 """
 from __future__ import annotations
 
@@ -22,17 +26,15 @@ import torch
 
 from repro_torch.config import ArchConfig, BlockKind
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rk
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        rms_norm, rms_norm_init, swiglu,
                                        swiglu_init, tree_to)
 
-#: block kinds still to port, with the ROADMAP queue 1 item that ports them
-_NOT_PORTED = {
-    BlockKind.MAMBA: "Mamba blocks (ROADMAP queue 1 item 10)",
-    BlockKind.MAMBA_MOE: "Mamba blocks (ROADMAP queue 1 item 10)",
-    BlockKind.RWKV: "RWKV6 blocks (ROADMAP queue 1 item 11)",
-}
+_ATTN_KINDS = (BlockKind.ATTN, BlockKind.ATTN_MOE)
+_MAMBA_KINDS = (BlockKind.MAMBA, BlockKind.MAMBA_MOE)
 
 
 def _stack_plan(cfg: ArchConfig):
@@ -58,10 +60,6 @@ def _plan(cfg: ArchConfig):
             f"{cfg.name}: encoder-decoder and frontend models are not ported "
             "yet (ROADMAP queue 1 item 12)")
     (kinds, n_groups), = _stack_plan(cfg)
-    for kind in kinds:
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]} are not "
-                                      "ported yet")
     return kinds, n_groups
 
 
@@ -78,28 +76,55 @@ def _layer(tree, i: int):
 
 def _block_init(generator: torch.Generator, kind: BlockKind, cfg: ArchConfig,
                 dtype, n: int) -> dict:
-    """Parameters of ``n`` blocks of ``kind`` (ATTN or ATTN_MOE), stacked on
-    a leading axis.  A MoE block has ``"moe"`` where a dense one has
-    ``"mlp"``."""
+    """Parameters of ``n`` blocks of ``kind``, stacked on a leading axis, with
+    the keys of the JAX ``_block_init``: ``"attn"`` or ``"mamba"``, then
+    ``"moe"`` (MoE kinds) or ``"mlp"``; an RWKV block has ``"rwkv"`` and
+    ``"ln2"`` only, its channel mix living in ``"rwkv"``."""
     d, dev = cfg.d_model, generator.device
-    p = {
-        "ln1": rms_norm_init(d, dtype, dev, (n,)),
-        "attn": attn.attn_init(generator, cfg, dtype, (n,)),
-        "ln2": rms_norm_init(d, dtype, dev, (n,)),
-    }
-    if kind == BlockKind.ATTN_MOE:
+    p = {"ln1": rms_norm_init(d, dtype, dev, (n,))}
+    if kind == BlockKind.RWKV:
+        p["rwkv"] = rk.rwkv_init(generator, cfg, dtype, (n,))
+        p["ln2"] = rms_norm_init(d, dtype, dev, (n,))
+        return p
+    if kind in _ATTN_KINDS:
+        p["attn"] = attn.attn_init(generator, cfg, dtype, (n,))
+    else:
+        p["mamba"] = mb.mamba_init(generator, cfg, dtype, (n,))
+    p["ln2"] = rms_norm_init(d, dtype, dev, (n,))
+    if kind in (BlockKind.ATTN_MOE, BlockKind.MAMBA_MOE):
         p["moe"] = moe_mod.moe_init(generator, cfg, dtype, (n,))
     else:
         p["mlp"] = swiglu_init(generator, d, cfg.d_ff, dtype, (n,))
     return p
 
 
-def _apply_block(p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
+def _store(cache: dict, new: dict) -> None:
+    """Write a block's new recurrent state into its cache views in place."""
+    for k, v in new.items():
+        cache[k].copy_(v)
+
+
+def _apply_block(kind: BlockKind, p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
                  positions: Optional[torch.Tensor], step: Optional[attn.DecodeStep],
                  cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Returns (x, moe aux loss); a dense block has no aux loss (None)."""
+    """Returns (x, moe aux loss); a block without MoE has no aux loss (None).
+    In "prefill" and "decode" mode ``cache`` is the block's cache, read and
+    written in place; in "full" mode it is None."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode == "full":
+    if kind == BlockKind.RWKV:
+        y, tm = rk.rwkv_time_mix(p["rwkv"], h, cfg, cache)
+        x = x + y
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        y2, cm = rk.rwkv_channel_mix(p["rwkv"], h2, None if cache is None else cache["shift_cm"])
+        if cache is not None:
+            _store(cache, {**tm, "shift_cm": cm})
+        return x + y2, None
+
+    if kind in _MAMBA_KINDS:
+        y, new = mb.mamba_forward(p["mamba"], h, cfg, cache)    # decode: S = 1 from the state
+        if cache is not None:
+            _store(cache, new)
+    elif mode == "full":
         y = attn.attention_forward(p["attn"], h, cfg, positions)
     elif mode == "prefill":
         y, _ = attn.prefill_into_cache(p["attn"], h, cfg, positions, cache)
@@ -122,9 +147,9 @@ def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
     is written in place.  Returns (x, the aux losses summed over layers)."""
     total = torch.zeros((), device=x.device)
     for g in range(params_groups[0]["ln1"].shape[0]):
-        for i in range(len(kinds)):
+        for i, kind in enumerate(kinds):
             c = None if caches is None else _layer(caches[i], g)
-            x, aux = _apply_block(_layer(params_groups[i], g), x, cfg, mode,
+            x, aux = _apply_block(kind, _layer(params_groups[i], g), x, cfg, mode,
                                   positions, step, c)
             if aux is not None:
                 total = total + aux
@@ -183,12 +208,19 @@ def forward(params: dict, cfg: ArchConfig, batch: dict
 
 
 def init_caches(params, cfg: ArchConfig, batch: int, seq_len: int):
-    """Per-kind caches stacked over the groups, on the parameters' device."""
+    """Per-kind caches stacked over the groups, on the parameters' device:
+    a KV cache for attention, the recurrent state for Mamba and RWKV6."""
     kinds, n_groups = _plan(cfg)
-    device = params["embed"].device
-    return tuple(attn.init_kv_cache(cfg, batch, seq_len, dtype_of(cfg), device,
-                                    (n_groups,))
-                 for _ in kinds)
+    device, dtype, lead = params["embed"].device, dtype_of(cfg), (n_groups,)
+
+    def one(kind):
+        if kind in _ATTN_KINDS:
+            return attn.init_kv_cache(cfg, batch, seq_len, dtype, device, lead)
+        if kind in _MAMBA_KINDS:
+            return mb.mamba_init_state(cfg, batch, dtype, device, lead)
+        return rk.rwkv_init_state(cfg, batch, dtype, device, lead)
+
+    return tuple(one(kind) for kind in kinds)
 
 
 def prefill(params: dict, cfg: ArchConfig, batch: dict, seq_len: int):
@@ -209,8 +241,11 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     new token, shared by the batch.  Returns (logits (B,1,V), caches)."""
     kinds, _ = _plan(cfg)
     x = _embed(params, cfg, tokens)
-    cap = caches["layers"][0]["k"].shape[2]        # (groups, B, cap, Hkv, hd)
-    step = attn.decode_step_inputs(cfg, int(pos), x.shape[0], cap, x.device)
+    step = None
+    first_attn = next((i for i, k in enumerate(kinds) if k in _ATTN_KINDS), None)
+    if first_attn is not None:
+        cap = caches["layers"][first_attn]["k"].shape[2]   # (groups, B, cap, Hkv, hd)
+        step = attn.decode_step_inputs(cfg, int(pos), x.shape[0], cap, x.device)
     x, _ = _run_stack(params["blocks"], kinds, x, cfg, "decode", caches["layers"],
                       step=step)
     return _unembed(params, cfg, x), caches

@@ -7,8 +7,9 @@ Kernels and plain versions both compute in fp32 and round once, so fp32 is
 held at atol = rtol = 3e-5 (the MoE matmul, whose sums run over up to 14336
 terms, at the fp32 limit of ``tests/test_kernels.py``, atol 2e-3 / rtol
 2e-4) and bf16 at atol 1e-3, rtol 1e-2 (one bf16 ulp is at most 2**-7 of
-|x|).  AES-128-CTR is integer arithmetic and is held
-bit-exact.
+|x|).  The two scans carry an fp32 state through every step, so fp32 is
+held at their limit in ``tests/test_kernels.py``, atol = rtol = 2e-4.
+AES-128-CTR is integer arithmetic and is held bit-exact.
 """
 import pytest
 
@@ -150,6 +151,145 @@ def test_moe_gmm_kernel_refuses_bad_operands(cuda, case):
         w = _randn(cuda, (2, 40, 24), torch.float32)
     with pytest.raises(ValueError, match="moe_gmm"):
         moe_gmm(x, w)
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (16, 1, 4096, 14336),                   # jamba-v0.1-52b decode, gate and up
+    (16, 1, 14336, 4096),                   # jamba decode, down
+    (16, 640, 4096, 14336),                 # jamba prefill of 8 x 512 tokens, gate and up
+    (16, 640, 14336, 4096),                 # jamba prefill, down
+])
+def test_moe_gmm_kernel_at_jambas_serving_shapes(cuda, E, C, D, F):
+    _check_moe_gmm(cuda, (E, C, D), (E, D, F), "bfloat16", w_scale=D ** -0.5)
+
+
+# ---------------------------------------------------------------------------
+# The two scans: fp32 at 2e-4, the limit of tests/test_kernels.py; bf16 at
+# one ulp of the output, as above
+
+
+SCAN_TOL = {"float32": (2e-4, 2e-4), "bfloat16": TOL["bfloat16"]}
+MAMBA_CASES = [   # B, S, di, ds, with a state
+    (2, 128, 64, 16, False), (1, 256, 128, 8, False), (2, 64, 32, 4, False),  # test_kernels
+    (2, 150, 64, 16, True),                 # S not a multiple of the kernel's 32-step chunk
+    (3, 77, 333, 16, True),                 # odd di: a ragged block of channels
+    (4, 1, 256, 16, True),                  # one step from a state, as at decode
+]
+RWKV_CASES = [    # B, T, H, hd, with a state
+    (2, 128, 2, 64, False), (1, 64, 4, 32, False), (2, 96, 1, 16, False),     # test_kernels
+    (2, 150, 2, 64, True),                  # T not a multiple of the 32-step chunk
+    (3, 1, 4, 64, True),                    # one step from a state, as at decode
+    (1, 70, 3, 32, True),
+]
+
+
+def _mamba_inputs(gen, B, S, di, ds, dtype, with_state=True):
+    """Scan terms at the scales of tests/test_kernels.py, and an fp32 state."""
+    dt = (torch.nn.functional.softplus(_randn(gen, (B, S, di), torch.float32)) * 0.1).to(dtype)
+    dtx = (_randn(gen, (B, S, di), torch.float32) * 0.1).to(dtype)
+    Bm, Cm = _randn(gen, (B, S, ds), dtype), _randn(gen, (B, S, ds), dtype)
+    A = (-torch.exp(_randn(gen, (di, ds), torch.float32))).to(dtype)
+    h0 = _randn(gen, (B, di, ds), torch.float32) if with_state else None
+    return dt, dtx, Bm, Cm, A, h0
+
+
+def _rwkv_inputs(gen, B, T, H, hd, dtype, with_state=True):
+    r = _randn(gen, (B, T, H, hd), dtype)
+    k = (_randn(gen, (B, T, H, hd), torch.float32) * 0.3).to(dtype)
+    v = (_randn(gen, (B, T, H, hd), torch.float32) * 0.3).to(dtype)
+    w = torch.sigmoid(_randn(gen, (B, T, H, hd), torch.float32) * 0.5 + 2).to(dtype)
+    u = (_randn(gen, (H, hd), torch.float32) * 0.1).to(dtype)
+    S0 = _randn(gen, (B, H, hd, hd), torch.float32) * 0.3 if with_state else None
+    return r, k, v, w, u, S0
+
+
+def _check_scan(name, op, plain, args, dtype):
+    before = ops.LAUNCHES[name]
+    out, state = op(*args)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES[name] == before + 1
+    expect, expect_state = plain(*args)
+    assert out.dtype == args[0].dtype and state.dtype == torch.float32
+    atol, rtol = SCAN_TOL[dtype]
+    torch.testing.assert_close(out.float(), expect.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(state, expect_state, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,di,ds,with_state", MAMBA_CASES + [
+    (8, 512, 8192, 16, True),               # jamba-v0.1-52b prefill of 8 x 512 tokens
+    (8, 1, 8192, 16, True),                 # jamba decode step
+])
+def test_mamba_scan_kernel(cuda, B, S, di, ds, with_state, dtype):
+    args = _mamba_inputs(cuda, B, S, di, ds, getattr(torch, dtype), with_state)
+    _check_scan("mamba_scan", ops.mamba_scan, ref.mamba_scan_ref, args, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,hd,with_state", RWKV_CASES + [
+    (8, 512, 32, 64, True),                 # rwkv6-1.6b prefill of 8 x 512 tokens
+    (8, 1, 32, 64, True),                   # rwkv6 decode step
+])
+def test_rwkv6_scan_kernel(cuda, B, T, H, hd, with_state, dtype):
+    args = _rwkv_inputs(cuda, B, T, H, hd, getattr(torch, dtype), with_state)
+    _check_scan("rwkv6_scan", ops.rwkv6_scan, ref.rwkv6_scan_ref, args, dtype)
+
+
+def test_scan_kernels_on_an_empty_input(cuda):
+    before = dict(ops.LAUNCHES)
+    dt, dtx, Bm, Cm, A, h0 = _mamba_inputs(cuda, 2, 0, 64, 16, torch.float32)
+    y, h = ops.mamba_scan(dt, dtx, Bm, Cm, A, h0)
+    assert y.shape == (2, 0, 64) and torch.equal(h, h0)
+    r, k, v, w, u, S0 = _rwkv_inputs(cuda, 2, 0, 2, 64, torch.float32)
+    o, S = ops.rwkv6_scan(r, k, v, w, u, S0)
+    assert o.shape == (2, 0, 2, 64) and torch.equal(S, S0)
+    assert ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed", "strided", "shape", "ds", "state_dtype",
+                                  "state_shape"])
+def test_mamba_scan_kernel_refuses_bad_operands(cuda, case):
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    dt, dtx, Bm, Cm, A, h0 = _mamba_inputs(cuda, 2, 8, 64, 16, torch.float32)
+    if case == "dtype":
+        dt, dtx, Bm, Cm, A = (t.half() for t in (dt, dtx, Bm, Cm, A))
+    elif case == "mixed":
+        A = A.bfloat16()
+    elif case == "strided":
+        Bm = _randn(cuda, (2, 8, 32), torch.float32)[..., ::2]
+    elif case == "shape":
+        dtx = dtx[:, :7].contiguous()
+    elif case == "ds":
+        Bm, Cm, A = (_randn(cuda, s, torch.float32) for s in ((2, 8, 17), (2, 8, 17), (64, 17)))
+    elif case == "state_dtype":
+        h0 = h0.bfloat16()
+    else:
+        h0 = h0[:, :32].contiguous()
+    with pytest.raises(ValueError, match="mamba_scan"):
+        mamba_scan(dt, dtx, Bm, Cm, A, h0)
+
+
+@pytest.mark.parametrize("case", ["dtype", "mixed", "strided", "shape", "head_size",
+                                  "state_dtype", "state_shape"])
+def test_rwkv6_scan_kernel_refuses_bad_operands(cuda, case):
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    r, k, v, w, u, S0 = _rwkv_inputs(cuda, 2, 8, 2, 64, torch.float32)
+    if case == "dtype":
+        r, k, v, w, u = (t.half() for t in (r, k, v, w, u))
+    elif case == "mixed":
+        u = u.bfloat16()
+    elif case == "strided":
+        r = _randn(cuda, (2, 8, 2, 128), torch.float32)[..., ::2]
+    elif case == "shape":
+        v = v[:, :7].contiguous()
+    elif case == "head_size":
+        r, k, v, w, u, S0 = _rwkv_inputs(cuda, 2, 8, 2, 48, torch.float32)
+    elif case == "state_dtype":
+        S0 = S0.double()
+    else:
+        S0 = S0[:1].contiguous()
+    with pytest.raises(ValueError, match="rwkv6_scan"):
+        rwkv6_scan(r, k, v, w, u, S0)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,14 @@ def test_the_walk_covers_the_moe_modules():
             "repro_torch.configs.mixtral_8x7b"} <= mods
 
 
+def test_the_walk_covers_the_scan_modules():
+    """The Mamba and RWKV6 slice's modules are among those it imports."""
+    mods = set(_modules())
+    assert {"repro_torch.models.mamba", "repro_torch.models.rwkv",
+            "repro_torch.kernels.mamba_scan", "repro_torch.kernels.rwkv6_scan",
+            "repro_torch.configs.jamba_v01", "repro_torch.configs.rwkv6_1p6b"} <= mods
+
+
 def test_importing_every_module_loads_no_jax_and_no_repro():
     code = ("import importlib, sys\n"
             f"for m in {list(_modules())!r}:\n"

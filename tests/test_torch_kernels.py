@@ -142,7 +142,7 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     torch.testing.assert_close(out, tref.decode_attention_ref(dq, dk, dv, valid),
                                atol=0, rtol=0)
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
-                            "moe_gmm": 0}
+                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}
 
 
 def test_other_devices_raise():
@@ -153,7 +153,7 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="no implementation"):
         ops.decode_attention(dq, dk, dv, valid)
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
-                            "moe_gmm": 0}
+                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -18,8 +18,8 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.train.checkpoint import _flatten  # noqa: E402
-from repro_torch.config import (ArchType, EncDecConfig, MambaConfig,  # noqa: E402
-                                MoEConfig, get_arch, reduced)
+from repro_torch.config import (ArchType, EncDecConfig, FrontendStub,  # noqa: E402
+                                MambaConfig, MoEConfig, get_arch, reduced)
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -223,10 +223,12 @@ def test_init_params_tree_matches_jax_shapes():
 
 
 @pytest.mark.parametrize("change,item", [
+    # every block kind is ported: what is left is the enc-dec stack and the
+    # modality frontends, on any kind of decoder stack
     (dict(arch_type=ArchType.HYBRID, attn_every=2, mamba=MambaConfig(),
-          moe=MoEConfig(num_experts=4)), "item 10"),     # Jamba-style MAMBA_MOE
-    (dict(arch_type=ArchType.HYBRID, attn_every=2, mamba=MambaConfig()), "item 10"),
-    (dict(arch_type=ArchType.SSM), "item 11"),
+          moe=MoEConfig(num_experts=4), encdec=EncDecConfig(encoder_layers=2)), "item 12"),
+    (dict(frontend=FrontendStub("audio_frames", 16, 256)), "item 12"),
+    (dict(arch_type=ArchType.SSM, frontend=FrontendStub("image_patches", 16, 256)), "item 12"),
     (dict(encdec=EncDecConfig(encoder_layers=2)), "item 12"),
 ])
 def test_unported_block_kinds_raise(change, item):
