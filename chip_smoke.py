@@ -8,10 +8,17 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 1. device and toolchain: versions, the card's name and power limit, SMs;
 2. build: the attention, MoE, scan and AES kernels (six sources) from
    ``src/repro_torch/csrc`` into ``build/kernels`` (one ``nvcc`` per source,
-   in parallel), with nvcc's ``-Xptxas -v`` report;
+   in parallel), with nvcc's ``-Xptxas -v`` report; a kernel that spills
+   registers fails the run;
 3. each kernel against its plain PyTorch version on the card, over the
    sweep of ``tests/test_kernels.py`` and at the main path's shapes, then
-   timed there with CUDA events, L2 flushed before every launch.  Kernels
+   timed there with CUDA events, L2 flushed before every launch.  The two
+   kernels with two designs (``flash_attention`` and the ``moe_gmm``
+   prefill: ``wgmma`` for bf16, the previous design on its own entry point)
+   are held against the plain version in both designs and timed in turns,
+   previous, new, new, previous, with the median and mean of the launches;
+   the PyTorch call (SDPA with K and V repeated, ``torch.bmm``) beside them;
+   ``moe_gmm``'s two designs are also timed from C = 1 to 64.  Kernels
    and plain versions both compute in fp32 and round once, so fp32 is held
    at atol = rtol = 3e-5 (``moe_gmm`` at the fp32 limit of
    ``tests/test_kernels.py``, atol 2e-3 / rtol 2e-4; the two scans, which
@@ -31,7 +38,11 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 4d. the same for a reduced ``rwkv6-1.6b``;
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
    ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each, with the
-   kernel launch counts of that run checked against the layers by kind;
+   kernel launch counts of that run checked against the layers by kind, and
+   the launches by route: every bf16 prefill attention on ``wgmma``, every
+   expert matmul of a prefill on ``wgmma`` and of a decode step on
+   ``mma_sync`` (the routes that ``route`` in the wrappers gives their
+   shapes); then 4 decode steps and one prefill under the profiler;
 5b. the same traffic through full-width ``mixtral-8x7b`` cut from 32 to 24
    layers (bf16, 70.2 GB of weights: all 32 layers do not fit one 80 GB
    card), every expert matmul through the ``moe_gmm`` kernel;
@@ -59,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -84,6 +96,11 @@ DECODE_SWEEP = [(2, 8, 2, 300, 64), (1, 4, 4, 512, 128), (3, 16, 8, 257, 64)]
 FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)
 DECODE_MAIN = (8, 16, 8, 1024, 128)
 GMM_SWEEP = [(4, 100, 96, 130), (2, 64, 256, 64), (8, 33, 48, 72)]   # E, C, D, F
+GMM_THRESHOLD_C = (1, 2, 4, 16, 32, 64)   # C timed in both moe_gmm designs
+GMM_WGMMA_SWEEP = [   # bf16 shapes of the wgmma route: tails of C, D and F, C at the threshold
+    (4, 200, 4096, 14336), (3, 200, 96, 72), (2, 640, 96, 14336), (1, 1280, 4096, 72),
+    (2, 64, 4096, 4096),
+]
 GMM_MAIN = {   # E, C, D, F of the expert matmuls of mixtral-8x7b and jamba at the serving traffic
     "decode gate/up": (8, 2, 4096, 14336),
     "decode down": (8, 2, 14336, 4096),
@@ -182,6 +199,49 @@ def time_ms(torch, fn, iters: int, flush) -> float:
     return statistics.fmean(launch_times_ms(torch, fn, iters, flush))
 
 
+def in_turns(torch, previous, new, iters: int, flush):
+    """Launch times of two designs timed in turns, previous, new, new,
+    previous, ``iters`` launches a turn: (previous's, new's)."""
+    old, cur = [], []
+    for fn, into in ((previous, old), (new, cur), (new, cur), (previous, old)):
+        into += launch_times_ms(torch, fn, iters, flush)
+    return old, cur
+
+
+def spread(ts) -> str:
+    return (f"median {statistics.median(ts):.4f} mean {statistics.fmean(ts):.4f} "
+            f"over {len(ts)}")
+
+
+def device_top(torch, prof, per: int):
+    """Device time of the kernels a profile saw, divided by ``per``, and the
+    six that take most of it; (None, []) when it saw no kernel."""
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(us for _, us in kernels)
+    if not total:
+        return None, []
+    top = sorted(kernels, key=lambda kv: -kv[1])[:6]
+    return total / per, [(k, us / per) for k, us in top]
+
+
+def profile_prefill(torch, T, eng, cfg, prompts, dev):
+    """Device time and host wall time of one profiled prefill of
+    ``prompts``, and the kernels that take most of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        toks = torch.tensor(prompts, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            T.prefill(eng.params, cfg, {"tokens": toks}, seq_len=MAX_SEQ)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+    device_us, top = device_top(torch, prof, 1)
+    return device_us, wall_us, top
+
+
 def profile_decode(torch, T, eng, cfg, prompts, dev):
     """Device time and host wall time of one decode step at the serving
     shapes, both over the same ``PROFILED_STEPS`` profiled steps (the wall
@@ -202,13 +262,8 @@ def profile_decode(torch, T, eng, cfg, prompts, dev):
                 tok = lg.argmax(-1)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0) / PROFILED_STEPS
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(us for _, us in kernels)
-    if not total:
-        return None, wall_us, []
-    top = sorted(kernels, key=lambda kv: -kv[1])[:6]
-    return total / PROFILED_STEPS, wall_us, [(k, us / PROFILED_STEPS) for k, us in top]
+    device_us, top = device_top(torch, prof, PROFILED_STEPS)
+    return device_us, wall_us, top
 
 
 def main() -> int:
@@ -223,6 +278,8 @@ def main() -> int:
     from repro_torch.config import get_arch, reduced
     from repro_torch.core import FaasdRuntime, FunctionSpec, Simulator, run_sequential
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import flash_attention as _flash
+    from repro_torch.kernels import moe_gmm as _gmm
     from repro_torch.kernels.aes_ctr import aes_ctr as aes_kernel
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
@@ -254,11 +311,17 @@ def main() -> int:
     logs = _build.build()
     print(f"built {sorted(logs) or 'nothing (up to date)'} in "
           f"{time.perf_counter() - t0:.1f} s")
+    spills = []
     for name, log in logs.items():
         for line in log.splitlines():
             if "spill" in line or ("ptxas" in line and ("registers" in line
                                                         or "Compiling" in line)):
                 print(f"  {name}: {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and int(m.group(1)):
+                spills.append(f"{name}: {line.strip()}")
+    if spills:
+        raise AssertionError("kernels spill registers: " + "; ".join(spills))
 
     # -- 3 ------------------------------------------------------------------
     phase("3 kernels against their plain versions")
@@ -299,26 +362,44 @@ def main() -> int:
                 print(f"  {name} {case} {dname}: max |diff| {err:.3g} "
                       f"(atol, rtol {TOL[dname]})")
 
+    for case in FLASH_SWEEP:      # the previous design, reachable for bf16 on its own
+        args, kw = flash_case(case, torch.bfloat16)
+        out = _flash.flash_attention_simt(*args, **kw)
+        torch.cuda.synchronize()
+        err = check_close(f"flash_attention{case} bfloat16 simt", out,
+                          ref.flash_attention_ref(*args, **kw), TOL["bfloat16"])
+        print(f"  flash_attention {case} bfloat16, simt design: max |diff| {err:.3g}")
+
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
     def flush():
         flush_buf.zero_()
 
     records = {}
-    # flash at the prefill of the main path
+    # flash at the prefill of the main path: both designs, timed in turns
     B, Hq, Hkv, S, Tk, d, causal, win = FLASH_MAIN
     (q, k, v), kw = flash_case(FLASH_MAIN, torch.bfloat16)
+    if _flash.route(q.dtype) != "wgmma":
+        raise AssertionError(f"flash_attention: bf16 routes to {_flash.route(q.dtype)}")
     out = ops.flash_attention(q, k, v, **kw)
-    err = check_close(f"flash_attention{FLASH_MAIN}", out,
-                      ref.flash_attention_ref(q, k, v, **kw), TOL["bfloat16"])
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    err = check_close(f"flash_attention{FLASH_MAIN}", out, plain, TOL["bfloat16"])
+    err_prev = check_close(f"flash_attention{FLASH_MAIN} simt",
+                           _flash.flash_attention_simt(q, k, v, **kw), plain, TOL["bfloat16"])
     pairs = int(torch.tril(torch.ones(S, Tk, dtype=torch.bool), Tk - S).sum())
     kq, vq = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
+    old, new = in_turns(torch, lambda: _flash.flash_attention_simt(q, k, v, **kw),
+                        lambda: ops.flash_attention(q, k, v, **kw), 20, flush)
+    lib = launch_times_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kq, vq, is_causal=True), 40, flush)
+    print(f"  flash_attention {FLASH_MAIN} bfloat16: wgmma {spread(new)}, max |diff| "
+          f"{err:.3g}; simt (previous) {spread(old)}, max |diff| {err_prev:.3g}; "
+          f"SDPA {spread(lib)}")
     records["flash_attention"] = dict(
         err=err,
-        ms=time_ms(torch, lambda: ops.flash_attention(q, k, v, **kw), 20, flush),
+        ms=statistics.fmean(new), previous_ms=statistics.fmean(old),
         plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 5, flush),
-        library_ms=time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, kq, vq, is_causal=True), 20, flush),
+        library_ms=statistics.fmean(lib),
         bytes=sum(t.numel() * t.element_size() for t in (q, k, v, out)),
         ops=f"{4 * d * pairs * B * Hq} FLOP",
         ops_ms=1e3 * 4 * d * pairs * B * Hq / PEAK_BF16_FLOPS,
@@ -352,7 +433,8 @@ def main() -> int:
         t_bytes = 1e3 * r["bytes"] / PEAK_BYTES_PER_S
         r["bound_ms"], r["bound_by"] = max((t_bytes, "bytes"), (r["ops_ms"], "operations"))
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"kernels {name}: ms {r['ms']:.4f}  plain_ms {r['plain_ms']:.4f}  "
+        prev = f"previous_ms {r['previous_ms']:.4f}  " if "previous_ms" in r else ""
+        print(f"kernels {name}: ms {r['ms']:.4f}  {prev}plain_ms {r['plain_ms']:.4f}  "
               f"library_ms {lib}  bound_ms {r['bound_ms']:.6f} ({r['bound_by']}; "
               f"{r['bytes']} B in {t_bytes:.6f} ms, {r['ops']} in {r['ops_ms']:.6f} ms)  "
               f"max |diff| {r['err']:.3g}")
@@ -375,29 +457,61 @@ def main() -> int:
                               GMM_TOL[dname])
             print(f"  moe_gmm {case} {dname}: max |diff| {err:.3g} "
                   f"(atol, rtol {GMM_TOL[dname]})")
+    for case in GMM_WGMMA_SWEEP:
+        E, C, D, F = case
+        if _gmm.route(torch.bfloat16, C, D, F) != "wgmma":
+            raise AssertionError(f"moe_gmm{case}: bf16 does not route to wgmma")
+        x, w = gmm_case(*case, torch.bfloat16, D ** -0.5)
+        err = check_close(f"moe_gmm{case} wgmma", ops.moe_gmm(x, w), ref.moe_gmm_ref(x, w),
+                          GMM_TOL["bfloat16"])
+        print(f"  moe_gmm {case} bfloat16, wgmma design: max |diff| {err:.3g}")
+    # the two designs below the route's threshold, at mixtral's gate/up widths
+    x_all, w = gmm_case(8, max(GMM_THRESHOLD_C), 4096, 14336, torch.bfloat16, 4096 ** -0.5)
+    for C in GMM_THRESHOLD_C:
+        x = x_all[:, :C].contiguous()
+        old, new = in_turns(torch, lambda: _gmm.moe_gmm_mma_sync(x, w),
+                            lambda: _gmm.moe_gmm_wgmma(x, w), 10, flush)
+        print(f"  moe_gmm (8, {C}, 4096, 14336) route {_gmm.route(x.dtype, C, 4096, 14336)}: "
+              f"mma_sync {spread(old)}; wgmma {spread(new)}")
+    del x_all, x, w
     gmm_times = {}
     for label, (E, C, D, F) in GMM_MAIN.items():
         x, w = gmm_case(E, C, D, F, torch.bfloat16, D ** -0.5)
+        route = _gmm.route(x.dtype, C, D, F)
         out = ops.moe_gmm(x, w)
-        err = check_close(f"moe_gmm {label} {(E, C, D, F)}", out, ref.moe_gmm_ref(x, w),
-                          GMM_TOL["bfloat16"])
-        print(f"  moe_gmm {label} {(E, C, D, F)} bfloat16: max |diff| {err:.3g}")
-        reps = 5 if C > 64 else 20
+        plain = ref.moe_gmm_ref(x, w)
+        err = check_close(f"moe_gmm {label} {(E, C, D, F)}", out, plain, GMM_TOL["bfloat16"])
+        print(f"  moe_gmm {label} {(E, C, D, F)} bfloat16, {route} design: max |diff| {err:.3g}")
+        if route == "wgmma":   # both designs, timed in turns
+            err_prev = check_close(f"moe_gmm {label} mma_sync", _gmm.moe_gmm_mma_sync(x, w),
+                                   plain, GMM_TOL["bfloat16"])
+            old, new = in_turns(torch, lambda: _gmm.moe_gmm_mma_sync(x, w),
+                                lambda: ops.moe_gmm(x, w), 5, flush)
+            lib = launch_times_ms(torch, lambda: torch.bmm(x, w), 10, flush)
+            print(f"  moe_gmm {label}: wgmma {spread(new)}; mma_sync (previous) {spread(old)}, "
+                  f"max |diff| {err_prev:.3g}; bmm {spread(lib)}")
+            times = dict(ms=statistics.fmean(new), previous_ms=statistics.fmean(old),
+                         library_ms=statistics.fmean(lib))
+        else:                  # unchanged: timed as before
+            new = launch_times_ms(torch, lambda: ops.moe_gmm(x, w), 20, flush)
+            lib = launch_times_ms(torch, lambda: torch.bmm(x, w), 20, flush)
+            print(f"  moe_gmm {label}: mma_sync {spread(new)}; bmm {spread(lib)}")
+            times = dict(ms=statistics.fmean(new), library_ms=statistics.fmean(lib))
         gmm_times[label] = dict(
-            err=err,
-            ms=time_ms(torch, lambda: ops.moe_gmm(x, w), reps, flush),
+            err=err, **times,
             plain_ms=time_ms(torch, lambda: ref.moe_gmm_ref(x, w), 3, flush),
-            library_ms=time_ms(torch, lambda: torch.bmm(x, w), reps, flush),
             bytes=sum(t.numel() * t.element_size() for t in (x, w, out)),
             ops=f"{2 * E * C * D * F} FLOP",
             ops_ms=1e3 * 2 * E * C * D * F / PEAK_BF16_FLOPS,
             replaces="src/repro/kernels/moe_gmm.py:52",
             source="src/repro_torch/csrc/moe_gmm.cu")
         report(f"moe_gmm {label}", gmm_times[label])
-        del x, w, out
-    # the line's record: decode gate/up, 1488 of the 2304 launches of 5b
-    # (decode down takes 744, the prefill 48 gate/up and 24 down)
+        del x, w, out, plain
+    # the line's records: decode gate/up, 1488 of the 2304 launches of 5b
+    # (decode down takes 744, the prefill 48 gate/up and 24 down), and the
+    # redesigned prefill, gate/up, under its own name
     records["moe_gmm"] = gmm_times["decode gate/up"]
+    records["moe_gmm_prefill"] = gmm_times["prefill gate/up"]
 
     # the two scans: the sweep in fp32 and bf16, then the serving shapes in
     # fp32 (the model feeds them fp32), inputs at the scales of
@@ -596,6 +710,7 @@ def main() -> int:
         ops.reset_launches()
         outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
         launches = dict(ops.LAUNCHES)
+        routes = {name: dict(c) for name, c in ops.ROUTE_LAUNCHES.items()}
         n_decode = len(eng.step_times_s) - 1
         n = layer_counts(cfg)
         expect = {"flash_attention": n["attn"], "decode_attention": n["attn"] * n_decode,
@@ -605,6 +720,23 @@ def main() -> int:
         print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
         if launches != expect:
             raise AssertionError(f"launch counts {launches}, expected {expect}")
+        # by route: the prefill's attention takes the route of the model's
+        # dtype; each expert matmul that of its capacity, the rows per expert
+        # of a prefill (all prompts' tokens) or a decode step (one per slot)
+        dtype = getattr(torch, cfg.dtype)
+        expect_routes = {"flash_attention": {"wgmma": 0, "simt": 0},
+                         "moe_gmm": {"wgmma": 0, "mma_sync": 0}}
+        expect_routes["flash_attention"][_flash.route(dtype)] += n["attn"]
+        if n["moe"]:
+            E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+            for tokens, steps in ((SLOTS * PROMPT_LEN, 1), (SLOTS, n_decode)):
+                C = max(1, int(cf * k * tokens / E))
+                for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
+                             (cfg.d_ff, cfg.d_model)):
+                    expect_routes["moe_gmm"][_gmm.route(dtype, C, D, F)] += n["moe"] * steps
+        print(f"launches by route {routes}")
+        if routes != expect_routes:
+            raise AssertionError(f"launches by route {routes}, expected {expect_routes}")
         if [len(o) for o in outs] != [NEW_TOKENS] * SLOTS or \
                 not all(0 <= t < cfg.vocab_size for o in outs for t in o):
             raise AssertionError("generated tokens out of shape or range")
@@ -621,22 +753,26 @@ def main() -> int:
               f"generated_tok_per_s {SLOTS * NEW_TOKENS / total_s:.1f}  "
               f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
         print(f"  first request's tokens: {outs[0][:8]} ...")
-        device_us, wall_us, top = profile_decode(torch, T, eng, cfg, prompts, dev)
-        if device_us is None:
-            print(f"decode step device time: not measured (the profiler saw no kernel); "
-                  f"wall_us {wall_us:.1f}")
-        else:
-            print(f"decode step over {PROFILED_STEPS} profiled steps: device_us "
-                  f"{device_us:.1f}  wall_us {wall_us:.1f}  device idle share "
-                  f"{1 - device_us / wall_us:.3f}")
+        for what, prof_fn in ((f"decode step over {PROFILED_STEPS} profiled steps",
+                               profile_decode),
+                              ("prefill, profiled once", profile_prefill)):
+            device_us, wall_us, top = prof_fn(torch, T, eng, cfg, prompts, dev)
+            if device_us is None:
+                print(f"{what}: device time not measured (the profiler saw no kernel); "
+                      f"wall_us {wall_us:.1f}")
+                continue
+            print(f"{what}: device_us {device_us:.1f}  wall_us {wall_us:.1f}  "
+                  f"device idle share {1 - device_us / wall_us:.3f}")
             for name, us in top:
-                print(f"  {us:10.1f} us/step  {name[:100]}")
-        return step_us, launches
+                print(f"  {us:10.1f} us  {name[:100]}")
+        return step_us, launches, routes
 
     phase("5 full-width qwen3-1.7b served on the card")
     cfg = get_arch("qwen3-1.7b")
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    step_us, launches = serve(cfg, prompts)
+    step_us, launches, routes = serve(cfg, prompts)
+    if routes["flash_attention"] != {"wgmma": 28, "simt": 0}:
+        raise AssertionError(f"qwen3's prefill attention by route {routes['flash_attention']}")
     endpoints = {cfg.name: step_us}
 
     # -- 5b -----------------------------------------------------------------
@@ -646,8 +782,12 @@ def main() -> int:
     cfg = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=MOE_LAYERS)
     prompts = np.random.default_rng(SEED + 2).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    endpoints[cfg.name], moe_launches = serve(cfg, prompts)
+    endpoints[cfg.name], moe_launches, routes = serve(cfg, prompts)
     launches["moe_gmm"] = moe_launches["moe_gmm"]
+    if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
+                  "moe_gmm": {"wgmma": 72, "mma_sync": 2232}}:
+        raise AssertionError(f"mixtral's launches by route {routes}")
+    launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
 
     # -- 5c -----------------------------------------------------------------
     phase(f"5c full-width jamba-v0.1-52b, {JAMBA_LAYERS} of 32 layers, served on the card")
@@ -662,7 +802,10 @@ def main() -> int:
     cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
     prompts = np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    endpoints[cfg.name], jamba_launches = serve(cfg, prompts)
+    endpoints[cfg.name], jamba_launches, routes = serve(cfg, prompts)
+    if routes != {"flash_attention": {"wgmma": 3, "simt": 0},
+                  "moe_gmm": {"wgmma": 36, "mma_sync": 1116}}:
+        raise AssertionError(f"Jamba's launches by route {routes}")
     launches["mamba_scan"] = jamba_launches["mamba_scan"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -672,7 +815,7 @@ def main() -> int:
     cfg = get_arch("rwkv6-1.6b")
     prompts = np.random.default_rng(SEED + 6).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    endpoints[cfg.name], rwkv_launches = serve(cfg, prompts)
+    endpoints[cfg.name], rwkv_launches, _ = serve(cfg, prompts)
     launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -818,7 +961,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
          "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"],
+         **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {})}
         for name, r in records.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,26 +12,55 @@
 // What bounds it on this card: a causal prefill does 2 * S^2 * d operations
 // per query head for about 6 * S * d bytes of q, k, v and out in bf16 (with
 // G = 2), so S / 3 operations per byte.  That passes the ~295 per byte at
-// which an H100 turns from bound by bytes to bound by its 989 TFLOP/s tensor
-// cores at S ~ 900: at the serving path's S = T = 512 the least time is still
-// the bytes, and from S ~ 900 up it is the operations.  This version computes
-// on the CUDA cores in fp32 (67 TFLOP/s), which is what limits it.
+// which an H100 (SXM, 700 W) turns from bound by its 3.35 TB/s of memory to
+// bound by its 989 TFLOP/s of bf16 tensor cores at S ~ 900: at the serving
+// path's S = T = 512, d = 128 the least time is the bytes (0.0150 ms), and
+// from S ~ 900 up it is the operations.
 //
-// What this simple design does about it: one block of 256 threads per
-// 64-query tile and query head walks the key tiles in a loop (the TPU's
-// sequential grid axis).  Q, K and V tiles sit in shared memory as fp32 and
-// each thread computes a 4 x 4 block of scores and a 4 x (d/16) block of the
-// output in registers, so every shared-memory value read feeds four
-// multiply-adds.  Key tiles that no query of the block may see (above the
-// causal diagonal, or before the window) are skipped, which halves the work of
-// a causal prefill.  It runs on the CUDA cores in fp32: tensor cores (wgmma),
-// TMA loads and warp specialisation are for a later version.
+// Two designs, one C entry point each; the wrapper picks the route from the
+// dtype before the launch (kernels/flash_attention.py: route), never after a
+// failure: bf16 -> "wgmma" (flash_attention_wgmma_fwd), fp32 -> "simt"
+// (flash_attention_fwd), which stays on fp32 CUDA-core arithmetic, never
+// TF32.  The simt design also takes bf16 through its own entry point, so the
+// two can be timed against each other.
 //
-// Masking: a masked score is kNegInf, as in the JAX kernel.  Keys past T are
-// excluded by bounds, not by padding.  A block holding a query with no
-// allowed key at all walks every tile, so that row averages v over the real
-// T, as the plain version does.
+// What this design does about it (wgmma, bf16; the FlashAttention-3 shape,
+// kept simple): a block of 288 threads per (128-query tile, query head,
+// batch row).  One producer warp loads the Q tile once and then K and V
+// tiles of 64 keys by TMA into a ring of three stages (mbarriers count the
+// bytes), 3-D tensor maps per (batch x head, position, d) so that ragged S
+// and T are zero-filled per head.  Two consumer warpgroups each own 64 query
+// rows: S = Q K^T by wgmma from shared memory (both K-major, 128-byte
+// swizzle), the online softmax in the accumulator's own layout (a row's max
+// and sum by quad shuffles, no shared-memory round trip, no block barrier),
+// then O += P V by wgmma with P from registers and V read through a
+// transposed (MN-major) descriptor.  Tile t's Q K^T is issued together with
+// tile t-1's P V, so the softmax of tile t runs while that product is on the
+// tensor cores.  P is split into a bf16 head and the bf16 remainder, and both
+// are multiplied: P V then keeps the plain version's fp32 accuracy at 1.5
+// times the tensor work (a single bf16 P errs by up to 2^-9 of each weight,
+// more than atol 1e-3 on a short causal row whose few terms cancel).  Key
+// tiles above the causal
+// diagonal or before the window are skipped, the masking arithmetic runs
+// only on tiles that cross a boundary, and query tiles are issued last-first
+// so that the longest causal rows start first.  Registers bound the tiles:
+// ptxas compiles a block of 9 to 12 warps against 168 registers a thread
+// whatever setmaxnreg asks for later (nvcc 12.9), so 64 keys a tile keep S,
+// both halves of P and O within them without spilling.
+//
+// The simt design (fp32): one block of 256 threads per 64-query tile and
+// query head walks the key tiles in a loop (the TPU's sequential grid axis).
+// Q, K and V tiles sit in shared memory as fp32 and each thread computes a
+// 4 x 4 block of scores and a 4 x (d/16) block of the output in registers,
+// so every shared-memory value read feeds four multiply-adds; it is bound by
+// the CUDA cores' 67 TFLOP/s.
+//
+// Masking, both designs: a masked score is kNegInf, as in the JAX kernel.
+// Keys past T are excluded by bounds, not by padding.  A block holding a
+// query with no allowed key at all walks every tile, so that row averages v
+// over the real T, as the plain version does.
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -256,6 +285,354 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The wgmma design (bf16)
+
+namespace wg {
+
+constexpr int kBM = 128;            // queries per block: two consumer warpgroups of 64
+constexpr int kBN = 64;             // keys per tile
+constexpr int kStages = 3;          // K/V tiles in flight
+constexpr int kConsumers = 256;     // two warpgroups, threads 0..255
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+
+template <int D>
+struct Cfg {
+  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle = bytes of a slab's row
+  static constexpr int DS = SW / 2;               // head elements per slab
+  static constexpr int NSLAB = D / DS;
+  static constexpr int KSTEP = DS / 16;           // 16-deep steps per slab
+  static constexpr int Q_BYTES = kBM * D * 2;
+  static constexpr int KV_BYTES = kBN * D * 2;    // one K or one V tile
+  static constexpr int BARS = 1 + 3 * kStages;
+  static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 8 * BARS + 1024;
+};
+
+// The block's query tile, kv head and range of key tiles.
+struct BlockTiles {
+  int h, b, hk, q0, off, t_begin, n_tiles;
+
+  __device__ __forceinline__ BlockTiles(int Hq, int Hkv, int S, int Tlen, int causal,
+                                        int has_window, int window) {
+    h = blockIdx.x;
+    b = blockIdx.y;
+    hk = h / (Hq / Hkv);
+    q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // the last query tile first
+    off = Tlen - S;
+    // Union of the allowed key ranges of the tile's queries, in closed form:
+    // rows are consecutive positions.  A causal row at a negative position
+    // has no allowed key; then every tile is walked.
+    const int p_first = q0 + off, p_last = q0 + min(kBM, S - q0) - 1 + off;
+    int lo = 0, hi = Tlen - 1;
+    if (!(causal && p_first < 0)) {
+      if (causal) hi = min(hi, p_last);
+      if (has_window) lo = max(0, p_first - window + 1);
+    }
+    t_begin = (lo / kBN) * kBN;
+    n_tiles = (hi - t_begin) / kBN + 1;
+  }
+};
+
+// One consumer warpgroup's state: 64 query rows, of which this thread holds
+// two (r and r + 8) in the accumulator layout.
+template <int D>
+struct Rows {
+  float o[D / 2];
+  float m0, m1, l0, l1;
+  uint32_t phi[kBN / 16][4], plo[kBN / 16][4];   // P as bf16 head and remainder
+};
+
+// S = Q K^T for the tile in stage `k_addr`: 64 x kBN, both operands K-major.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_addr, uint32_t k_addr) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t koff = (kk % C::KSTEP) * 32;   // 16 elements along a swizzled row
+    const uint64_t da =
+        hopper::make_desc(q_addr + (kk / C::KSTEP) * kBM * C::SW + koff, 16, 8 * C::SW, C::SW);
+    const uint64_t db =
+        hopper::make_desc(k_addr + (kk / C::KSTEP) * kBN * C::SW + koff, 16, 8 * C::SW, C::SW);
+    hopper::wgmma_ss<0>(s, da, db, kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P V for the tile in stage `v_addr`: V is [key][d], read as an
+// MN-major B through slabs of d; both halves of P are multiplied.
+template <int D>
+__device__ __forceinline__ void issue_pv(Rows<D>& R, uint32_t v_addr) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint64_t db =
+        hopper::make_desc(v_addr + kk * 16 * C::SW, kBN * C::SW, 8 * C::SW, C::SW);
+    hopper::wgmma_rs<1>(R.o, R.phi[kk], db, 1);
+    hopper::wgmma_rs<1>(R.o, R.plo[kk], db, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// Scores of one tile to weights, in place: scale to log2 units, mask, update
+// the running max and sum.  Returns the rescale of the rows' earlier terms.
+__device__ __forceinline__ float2 softmax_tile(float (&s)[kBN / 2], float& m0, float& m1,
+                                               float& l0, float& l1, bool need_mask, int t0,
+                                               int col0, int pa, int pb, int Tlen, int causal,
+                                               int has_window, int window, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = s[4 * j + i] * scale_log2;
+      if (need_mask) {
+        const int kp = t0 + 8 * j + col0 + (i & 1);
+        const int p = i < 2 ? pa : pb;
+        if (kp >= Tlen)
+          x = -INFINITY;   // past T: out of the max, weight 0
+        else if ((causal && kp > p) || (has_window && kp <= p - window))
+          x = attn::kNegInf;
+      }
+      s[4 * j + i] = x;
+    }
+  // each row lives in the four threads of a quad
+  float mx0 = m0, mx1 = m1;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+  }
+  const float2 alpha = make_float2(hopper::exp2_approx(m0 - mx0), hopper::exp2_approx(m1 - mx1));
+  m0 = mx0;
+  m1 = mx1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    s[4 * j] = hopper::exp2_approx(s[4 * j] - mx0);
+    s[4 * j + 1] = hopper::exp2_approx(s[4 * j + 1] - mx0);
+    s[4 * j + 2] = hopper::exp2_approx(s[4 * j + 2] - mx1);
+    s[4 * j + 3] = hopper::exp2_approx(s[4 * j + 3] - mx1);
+    sum0 += s[4 * j] + s[4 * j + 1];
+    sum1 += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * alpha.x + sum0;   // this thread's part; the quad is summed at the end
+  l1 = l1 * alpha.y + sum1;
+  return alpha;
+}
+
+// Rescale O and turn the weights into the A operands of P V.
+template <int D>
+__device__ __forceinline__ void rescale_and_pack(Rows<D>& R, const float (&s)[kBN / 2],
+                                                 float2 alpha) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    R.o[4 * j] *= alpha.x;
+    R.o[4 * j + 1] *= alpha.x;
+    R.o[4 * j + 2] *= alpha.y;
+    R.o[4 * j + 3] *= alpha.y;
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 2 * kk + (r >> 1), i = (r & 1) * 2;
+      const float x0 = s[4 * j + i], x1 = s[4 * j + i + 1];
+      const uint32_t hv = hopper::pack_bf16(x0, x1);
+      R.phi[kk][r] = hv;
+      R.plo[kk][r] = hopper::pack_bf16(x0 - __uint_as_float(hv << 16),
+                                       x1 - __uint_as_float(hv & 0xFFFF0000u));
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void fence_pv(Rows<D>& R) {
+  hopper::fence_regs(R.o);
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    hopper::fence_regs(R.phi[kk]);
+    hopper::fence_regs(R.plo[kk]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
+                   int Hq, int Hkv, int S, int Tlen, int causal, int has_window, int window,
+                   float scale_log2) {
+  using C = Cfg<D>;
+  constexpr int SW = C::SW;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the swizzle phase is taken from the address bits
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;                              // NSLAB slabs of kBM rows
+  uint8_t* ks = qs + C::Q_BYTES;                   // kStages x NSLAB slabs of kBN rows
+  uint8_t* vs = ks + kStages * C::KV_BYTES;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kStages * C::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+  const BlockTiles bt(Hq, Hkv, S, Tlen, causal, has_window, window);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp: one thread issues every load
+    if (threadIdx.x == kConsumers) {
+      hopper::tma_prefetch_map(&tm_q);
+      hopper::tma_prefetch_map(&tm_k);
+      hopper::tma_prefetch_map(&tm_v);
+      hopper::mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+      for (int s = 0; s < C::NSLAB; ++s)
+        hopper::tma_load_3d(qs + s * kBM * SW, &tm_q, q_full, s * C::DS, bt.q0,
+                            bt.b * Hq + bt.h);
+      for (int it = 0; it < bt.n_tiles; ++it) {
+        const int st = it % kStages;
+        const uint32_t ph = (it / kStages) & 1;
+        const int t0 = bt.t_begin + it * kBN;
+        hopper::mbar_wait(&empty[st], ph ^ 1);
+        hopper::mbar_arrive_expect_tx(&k_full[st], C::KV_BYTES);
+#pragma unroll
+        for (int s = 0; s < C::NSLAB; ++s)
+          hopper::tma_load_3d(ks + st * C::KV_BYTES + s * kBN * SW, &tm_k, &k_full[st],
+                              s * C::DS, t0, bt.b * Hkv + bt.hk);
+        hopper::mbar_arrive_expect_tx(&v_full[st], C::KV_BYTES);
+#pragma unroll
+        for (int s = 0; s < C::NSLAB; ++s)
+          hopper::tma_load_3d(vs + st * C::KV_BYTES + s * kBN * SW, &tm_v, &v_full[st],
+                              s * C::DS, t0, bt.b * Hkv + bt.hk);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns query rows 64c .. 64c + 63 of the tile
+  const int c = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int r0 = c * 64 + warp * 16 + lane / 4;   // this thread's rows: r0 and r0 + 8
+  const int pa = bt.q0 + r0 + bt.off, pb = pa + 8;   // their absolute positions
+  const int pw_first = bt.q0 + c * 64 + bt.off;      // the warpgroup's first position
+  const int col0 = 2 * (lane % 4);
+  const uint32_t q_addr = hopper::smem_addr(qs) + c * 64 * SW;
+  const uint32_t k_base = hopper::smem_addr(ks), v_base = hopper::smem_addr(vs);
+  // a tile needs the masking arithmetic only where it crosses T, the causal
+  // diagonal or the window's start for some row of the warpgroup
+  auto need_mask = [&](int t0) {
+    return t0 + kBN > Tlen || (causal && t0 + kBN - 1 > pw_first) ||
+           (has_window && t0 <= pw_first + 63 - window);
+  };
+
+  Rows<D> R;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) R.o[i] = 0.f;
+  R.m0 = R.m1 = attn::kNegInf;
+  R.l0 = R.l1 = 0.f;
+  float s[kBN / 2];
+  hopper::mbar_wait(q_full, 0);
+
+  // Tile it's scores are computed while tile it-1's P V runs on the tensor
+  // cores, and the softmax of tile it overlaps that product.
+  hopper::mbar_wait(&k_full[0], 0);
+  hopper::wgmma_fence();
+  issue_qk<D>(s, q_addr, k_base);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  float2 alpha = softmax_tile(s, R.m0, R.m1, R.l0, R.l1, need_mask(bt.t_begin), bt.t_begin,
+                              col0, pa, pb, Tlen, causal, has_window, window, scale_log2);
+  rescale_and_pack(R, s, alpha);
+  for (int it = 1; it < bt.n_tiles; ++it) {
+    const int st = it % kStages, pst = (it - 1) % kStages;
+    const int t0 = bt.t_begin + it * kBN;
+    hopper::mbar_wait(&k_full[st], (it / kStages) & 1);
+    hopper::wgmma_fence();
+    issue_qk<D>(s, q_addr, k_base + st * C::KV_BYTES);
+    hopper::mbar_wait(&v_full[pst], ((it - 1) / kStages) & 1);
+    issue_pv(R, v_base + pst * C::KV_BYTES);
+    hopper::wgmma_wait<1>();   // the scores; P V may still run
+    hopper::fence_regs(s);
+    alpha = softmax_tile(s, R.m0, R.m1, R.l0, R.l1, need_mask(t0), t0, col0, pa, pb, Tlen,
+                         causal, has_window, window, scale_log2);
+    hopper::wgmma_wait<0>();
+    fence_pv(R);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[pst]);
+    rescale_and_pack(R, s, alpha);
+  }
+  {
+    const int pst = (bt.n_tiles - 1) % kStages;
+    hopper::mbar_wait(&v_full[pst], ((bt.n_tiles - 1) / kStages) & 1);
+    hopper::wgmma_fence();
+    issue_pv(R, v_base + pst * C::KV_BYTES);
+    hopper::wgmma_wait<0>();
+    fence_pv(R);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[pst]);
+  }
+
+  float l0 = R.l0, l1 = R.l1;
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, sh);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, sh);
+  }
+  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  const int ra = bt.q0 + r0, rb = ra + 8;
+  __nv_bfloat16* ob = out + ((size_t)bt.b * Hq + bt.h) * (size_t)S * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (ra < S)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + col) =
+          hopper::pack_bf16(R.o[4 * j] * inv0, R.o[4 * j + 1] * inv0);
+    if (rb < S)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)rb * D + col) =
+          hopper::pack_bf16(R.o[4 * j + 2] * inv1, R.o[4 * j + 3] * inv1);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Hq,
+                   int Hkv, int S, int Tlen, int causal, int has_window, int window,
+                   float scale, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::encode_bf16_3d(&tq, q, D, S, (uint64_t)B * Hq, D, (uint64_t)S * D, C::DS, kBM,
+                              C::SW) ||
+      !hopper::encode_bf16_3d(&tk, k, D, Tlen, (uint64_t)B * Hkv, D, (uint64_t)Tlen * D, C::DS,
+                              kBN, C::SW) ||
+      !hopper::encode_bf16_3d(&tv, v, D, Tlen, (uint64_t)B * Hkv, D, (uint64_t)Tlen * D, C::DS,
+                              kBN, C::SW))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_wgmma_kernel<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hq, B, (S + kBM - 1) / kBM);
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), Hq,
+                                              Hkv, S, Tlen, causal, has_window, window,
+                                              scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -272,4 +649,27 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     return launch_d<__nv_bfloat16>(D, q, k, v, out, B, Hq, Hkv, S, Tlen, causal,
                                    has_window, window, scale, s);
   return cudaErrorInvalidValue;
+}
+
+// bf16 only: the wgmma design.  Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue for a head dim it does not take or a tensor map
+// that cuTensorMapEncodeTiled refuses; the caller raises on anything but 0.
+extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* out,
+                                         int B, int Hq, int Hkv, int S, int Tlen, int D,
+                                         int causal, int has_window, int window, float scale,
+                                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return wg::launch<32>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
+                            scale, s);
+    case 64:
+      return wg::launch<64>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
+                            scale, s);
+    case 128:
+      return wg::launch<128>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
+                             scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

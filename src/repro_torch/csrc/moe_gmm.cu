@@ -13,30 +13,57 @@
 // What bounds it on this card: the product does 2 * C operations for every
 // element of w it reads.  At a decode step of mixtral-8x7b (batch 8, so C = 2
 // rows per expert) that is 1 operation per byte of bf16 weight, far below the
-// ~295 per byte at which an H100 turns from bound by its 3.35 TB/s of memory
-// to bound by its 989 TFLOP/s of bf16 tensor cores: there the least time is
-// the bytes of w (0.94 GB, 0.28 ms for the gate of one layer).  At a prefill
-// of 8 x 512 tokens (C = 1280) it is 1280 operations per byte, and the least
-// time is the operations (1.20 TFLOP, 1.22 ms).
+// ~295 per byte at which an H100 (SXM, 700 W) turns from bound by its
+// 3.35 TB/s of memory to bound by its 989 TFLOP/s of bf16 tensor cores:
+// there the least time is the bytes of w (0.94 GB, 0.28 ms for the gate of
+// one layer).  At a prefill of 8 x 512 tokens (C = 1280) it is 1280
+// operations per byte, and the least time is the operations (1.20 TFLOP,
+// 1.22 ms).
 //
-// What this simple design does about it: one block of 256 threads per
-// (expert, 64-row tile of C, 128-column tile of F) loops over D (the TPU's
-// sequential minor grid axis) in steps of BK.  Tiles of x and w are staged
-// through shared memory; the next step's global loads are issued into
-// registers before the current tiles are multiplied, so one step of loads is
-// in flight behind the arithmetic.  bf16: each of the 8 warps computes a
-// 32 x 32 block with `mma.sync` m16n8k16 on the tensor cores, fp32
-// accumulators (products of bf16 values are exact in fp32).  fp32: the CUDA
-// cores, 4 x 8 outputs per thread in fp32 multiply-adds, never TF32.  The
-// tails of C, D and F are masked by bounds, with no padded copy.  One C tile
-// covers C <= 64, so at decode each element of w is read once.  Not done here:
-// wgmma with TMA and a deeper pipeline for the prefill shape, and split-D or
-// a persistent design so that the small-C decode shape fills the card.
+// Two designs, one C entry point each; the wrapper picks the route from the
+// dtype and shape before the launch (kernels/moe_gmm.py: route), never after
+// a failure: bf16 with C >= 64 and D and F multiples of 8 (TMA's 16-byte
+// strides) -> "wgmma" (moe_gmm_wgmma_fwd); everything else -> "mma_sync"
+// (moe_gmm_fwd): the decode shapes, ragged D or F, and fp32, which that
+// entry computes on the CUDA cores, never in TF32.  The threshold is one of
+// scope, not of speed: on an H100 (700 W) the wgmma design was the faster at
+// every C timed from 1 to 64 at mixtral's widths, but the decode shapes
+// (C <= 2) stay on mma_sync here, and no serving path has C from 3 to 63.
+//
+// What this design does about it (wgmma, bf16, the prefill shapes): a
+// persistent kernel, one block of 384 threads per SM walking 128 x 256
+// output tiles, the row tiles of one column slab of w next to each other so
+// that the blocks in flight share w in L2.  Warpgroup 0 is the producer: one
+// thread loads x and w by TMA (3-D tensor maps with E outermost, so the
+// tails of C and D are zero-filled per expert) into a ring of four stages of
+// 128-byte swizzled tiles, 64 deep, with mbarriers counting the bytes; the
+// next tile's loads run during the current tile's epilogue.  Warpgroups 1
+// and 2 each own 64 rows and issue wgmma m64n256k16 from shared memory, x
+// K-major and w MN-major through the transpose bit, keeping one group of
+// products in flight while they wait for the next stage; fp32 sums are
+// rounded once to bf16 on store.  setmaxnreg hands the producer's registers
+// to them at run time; ptxas still compiles every thread against the 168
+// registers of a 384-thread block, which the 128 accumulators fit.
+//
+// The mma_sync design: one block of 256 threads per (expert, 64-row C tile,
+// 128-column F tile) loops over D (the TPU's sequential minor grid axis) in
+// steps of BK.  Tiles of x and w are staged through shared memory; the next
+// step's global loads are issued into registers before the current tiles
+// are multiplied, so one step of loads is in flight behind the arithmetic.
+// bf16: each of the 8 warps computes a 32 x 32 block with `mma.sync`
+// m16n8k16 on the tensor cores, fp32 accumulators (products of bf16 values
+// are exact in fp32).  fp32: the CUDA cores, 4 x 8 outputs per thread in
+// fp32 multiply-adds.  The tails of C, D and F are masked by bounds, with no
+// padded copy.  One C tile covers C <= 64, so at decode each element of w is
+// read once.  Not done here: split-D or a persistent design so that the
+// small-C decode shape fills the card.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -247,6 +274,152 @@ cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D, i
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The wgmma design (bf16, large C)
+
+namespace wg {
+
+constexpr int kBM = 128;        // rows of C per tile: two consumer warpgroups of 64
+constexpr int kBN = 256;        // columns of F per tile
+constexpr int kBK = 64;         // depth of a stage: one 128-byte swizzled row of x
+constexpr int kStages = 4;
+constexpr int kThreads = 384;   // producer warpgroup, then two consumer warpgroups
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // 128 * 40 + 256 * 232 <= 65536
+constexpr int kSlab = 64;                         // columns of w per TMA box (128 bytes)
+constexpr int A_BYTES = kBM * kBK * 2;            // x tile, [c][d]
+constexpr int B_SLAB_BYTES = kBK * kSlab * 2;     // one slab of the w tile, [d][64 f]
+constexpr int STAGE_BYTES = A_BYTES + (kBN / kSlab) * B_SLAB_BYTES;
+constexpr int SMEM = kStages * STAGE_BYTES + 2 * kStages * 8 + 1024;
+
+__global__ void __launch_bounds__(kThreads, 1)
+moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                     const __grid_constant__ CUtensorMap tm_w, __nv_bfloat16* __restrict__ y,
+                     int E, int C, int D, int F) {
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the swizzle phase is taken from the address bits
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * STAGE_BYTES);
+  uint64_t* empty = full + kStages;
+
+  const int nm = (C + kBM - 1) / kBM, nn = (F + kBN - 1) / kBN, nk = (D + kBK - 1) / kBK;
+  const int n_tiles = E * nm * nn;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // ---- producer: one thread issues every load
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_map(&tm_x);
+      hopper::tma_prefetch_map(&tm_w);
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m = tile % nm, n = (tile / nm) % nn, e = tile / (nm * nn);
+        // slabs wholly past F are not loaded: they feed only columns >= F,
+        // which are not stored
+        const int nslab = min(kBN / kSlab, (F - n * kBN + kSlab - 1) / kSlab);
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int st = it % kStages;
+          const uint32_t ph = (it / kStages) & 1;
+          uint8_t* a_s = smem + st * STAGE_BYTES;
+          hopper::mbar_wait(&empty[st], ph ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[st], A_BYTES + nslab * B_SLAB_BYTES);
+          hopper::tma_load_3d(a_s, &tm_x, &full[st], kb * kBK, m * kBM, e);
+          for (int s = 0; s < nslab; ++s)
+            hopper::tma_load_3d(a_s + A_BYTES + s * B_SLAB_BYTES, &tm_w, &full[st],
+                                n * kBN + s * kSlab, kb * kBK, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup c owns rows 64c .. 64c + 63 of each tile
+  hopper::regs_inc<kConsumerRegs>();
+  const int c = wgi - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  float acc[kBN / 2];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m = tile % nm, n = (tile / nm) % nn, e = tile / (nm * nn);
+    for (int kb = 0; kb < nk; ++kb, ++it) {
+      const int st = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const uint32_t a_addr = hopper::smem_addr(smem + st * STAGE_BYTES) + c * 64 * 128;
+      const uint32_t b_addr = hopper::smem_addr(smem + st * STAGE_BYTES + A_BYTES);
+      hopper::mbar_wait(&full[st], ph);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // x: K-major, 16 elements = 32 bytes along the swizzled row; w:
+        // MN-major, 16 rows of 128 bytes, slabs B_SLAB_BYTES apart
+        const uint64_t da = hopper::make_desc(a_addr + kk * 32, 16, 8 * 128, 128);
+        const uint64_t db = hopper::make_desc(b_addr + kk * 16 * 128, B_SLAB_BYTES, 8 * 128, 128);
+        hopper::wgmma_ss<1>(acc, da, db, kb > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+      // keep this stage's products in flight; the previous stage is done
+      hopper::wgmma_wait<1>();
+      if (kb > 0) {
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[(it - 1) % kStages]);
+
+    // epilogue: rows r and r + 8, columns 8j + 2t, 8j + 2t + 1; F is even
+    const int ra = m * kBM + c * 64 + warp * 16 + lane / 4, rb = ra + 8;
+    __nv_bfloat16* ye = y + (long long)e * C * F;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = n * kBN + 8 * j + 2 * (lane % 4);
+      if (col < F) {
+        if (ra < C)
+          *reinterpret_cast<uint32_t*>(ye + (long long)ra * F + col) =
+              hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        if (rb < C)
+          *reinterpret_cast<uint32_t*>(ye + (long long)rb * F + col) =
+              hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D, int F,
+                   cudaStream_t stream) {
+  if (C < 1 || D < 1 || F < 1 || D % 8 || F % 8) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  if (!hopper::encode_bf16_3d(&tx, x, D, C, E, D, (uint64_t)C * D, kBK, kBM, 128) ||
+      !hopper::encode_bf16_3d(&tw, w, F, D, E, F, (uint64_t)D * F, kSlab, kBK, 128))
+    return cudaErrorInvalidValue;
+  const int sms = hopper::sm_count();
+  if (!sms) return cudaErrorInvalidDevice;
+  cudaError_t err =
+      cudaFuncSetAttribute(moe_gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const long long n_tiles =
+      (long long)E * ((C + kBM - 1) / kBM) * ((F + kBN - 1) / kBN);
+  const int grid = (int)(n_tiles < sms ? n_tiles : sms);
+  moe_gmm_wgmma_kernel<<<grid, kThreads, SMEM, stream>>>(
+      tx, tw, static_cast<__nv_bfloat16*>(y), E, C, D, F);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // x (E, C, D), w (E, D, F), y (E, C, F), contiguous and 16-byte aligned on the
@@ -259,4 +432,13 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* y, int E, int C, 
   if (dtype == 0) return (int)launch<float>(x, w, y, E, C, D, F, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(x, w, y, E, C, D, F, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// bf16 only: the wgmma design, for D and F multiples of 8.  Returns
+// cudaGetLastError() after the launch, or an error for a shape it does not
+// take or a tensor map that cuTensorMapEncodeTiled refuses; the caller
+// raises on anything but 0.
+extern "C" int moe_gmm_wgmma_fwd(const void* x, const void* w, void* y, int E, int C, int D,
+                                 int F, void* stream) {
+  return (int)wg::launch(x, w, y, E, C, D, F, static_cast<cudaStream_t>(stream));
 }

@@ -1,14 +1,22 @@
 """Wrapper of the CUDA prefill attention kernel ``csrc/flash_attention.cu``.
 
 Counterpart of the Pallas ``flash_attention`` in the JAX package's
-``kernels/flash_attention.py``; same layouts and masking.  The kernel masks
-the ragged edge of S and T itself, so nothing is padded here.
+``kernels/flash_attention.py``; same layouts and masking.  The kernels mask
+the ragged edge of S and T themselves, so nothing is padded here.
+
+Two designs, each its own C entry point, chosen by :func:`route` from the
+dtype before the launch: bf16 takes ``"wgmma"`` (Hopper's tensor cores, TMA
+loads, warp-specialised), fp32 takes ``"simt"`` (fp32 on the CUDA cores,
+never TF32).  A failed build or launch raises; no route stands in for
+another.  :func:`flash_attention_simt` reaches the simt design for bf16
+too, so that the two can be timed against each other on the card.
+``LAUNCHES`` counts the launches of each route.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -19,12 +27,27 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_head_dim,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+#: launches of each route
+LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0}
+
+
+def route(dtype: torch.dtype) -> str:
+    """The design a CUDA call in ``dtype`` takes: bf16 -> ``"wgmma"``,
+    anything else -> ``"simt"``."""
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
 
 @functools.cache
-def _entry():
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _I, _P]
+def _entry(which: str):
+    lib = _build.load("flash_attention")
+    if which == "wgmma":
+        fn = lib.flash_attention_wgmma_fwd
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P]
+    else:
+        fn = lib.flash_attention_fwd
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _I, _P]
     fn.restype = _I
     return fn
 
@@ -49,15 +72,31 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel: q (B,Hq,S,d), k/v (B,Hkv,T,d) -> (B,Hq,S,d)."""
+    """Launch the kernel of ``route(q.dtype)``: q (B,Hq,S,d), k/v
+    (B,Hkv,T,d) -> (B,Hq,S,d)."""
+    return _launch(route(q.dtype), q, k, v, causal, window)
+
+
+def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Launch the simt design whatever the dtype (the previous design for
+    bf16, kept to be timed beside the wgmma one)."""
+    return _launch("simt", q, k, v, causal, window)
+
+
+def _launch(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: Optional[int]) -> torch.Tensor:
     check_inputs(q, k, v, window)
     check_operands("flash_attention", q, k, v)
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    err = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   B, Hq, Hkv, S, T, d, int(causal), int(window is not None),
-                   window or 0, d ** -0.5, DTYPE_CODES[q.dtype],
-                   stream_handle(q.device))
-    raise_on_error("flash_attention", err)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, T, d,
+            int(causal), int(window is not None), window or 0, d ** -0.5]
+    if which == "simt":
+        args.append(DTYPE_CODES[q.dtype])
+    err = _entry(which)(*args, stream_handle(q.device))
+    raise_on_error(f"flash_attention ({which})", err)
+    LAUNCHES[which] += 1
     return out

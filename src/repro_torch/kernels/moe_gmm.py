@@ -2,13 +2,25 @@
 
 Counterpart of the Pallas ``moe_gmm`` in the JAX package's
 ``kernels/moe_gmm.py``: x (E, C, D), w (E, D, F) -> y (E, C, F) in x.dtype,
-summed in fp32 and rounded once.  The kernel masks the tails of C, D and F
-itself, so nothing is padded here.
+summed in fp32 and rounded once.  The kernels mask the tails of C, D and F
+themselves, so nothing is padded here.
+
+Two designs, each its own C entry point, chosen by :func:`route` from the
+dtype and shape before the launch: bf16 with ``C >= WGMMA_MIN_C`` and D and F
+multiples of 8 (TMA's 16-byte row strides) takes ``"wgmma"`` (Hopper's
+tensor cores, TMA loads, warp-specialised, persistent); everything else --
+the decode shapes, ragged D or F, fp32 -- takes ``"mma_sync"`` (bf16 on
+``mma.sync``, fp32 on the CUDA cores, never TF32).  A failed build or launch
+raises; no route stands in for another.  :func:`moe_gmm_mma_sync` and
+:func:`moe_gmm_wgmma` reach each design at any shape it takes, so that the
+two can be timed against each other on the card.  ``LAUNCHES`` counts the
+launches of each route.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict
 
 import torch
 
@@ -19,12 +31,32 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_operands,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _GRID_LIMIT = 65535        # gridDim.y (C / 64) and gridDim.z (E)
 _INDEX_LIMIT = 2 ** 31     # C, D and F are int in the kernel
+#: the least C (rows per expert) that takes the wgmma design.  Set by scope,
+#: not by speed: the decode shapes (C <= 2) stay on mma_sync; chip_smoke.py
+#: times both designs from C = 1 to 64.
+WGMMA_MIN_C = 64
+
+#: launches of each route
+LAUNCHES: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
+
+
+def route(dtype: torch.dtype, C: int, D: int, F: int) -> str:
+    """The design a CUDA call takes: ``"wgmma"`` for bf16 with C >=
+    ``WGMMA_MIN_C`` and D, F multiples of 8, else ``"mma_sync"``."""
+    if dtype == torch.bfloat16 and C >= WGMMA_MIN_C and D % 8 == 0 and F % 8 == 0:
+        return "wgmma"
+    return "mma_sync"
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("moe_gmm").moe_gmm_fwd
-    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+def _entry(which: str):
+    lib = _build.load("moe_gmm")
+    if which == "wgmma":
+        fn = lib.moe_gmm_wgmma_fwd
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
+    else:
+        fn = lib.moe_gmm_fwd
+        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
 
@@ -45,8 +77,24 @@ def check_inputs(x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel: x (E,C,D), w (E,D,F) -> (E,C,F).  An empty output
-    returns without a launch."""
+    """Launch the kernel of :func:`route`: x (E,C,D), w (E,D,F) -> (E,C,F).
+    An empty output returns without a launch."""
+    return _launch(None, x, w)
+
+
+def moe_gmm_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the mma_sync design at any shape (the previous design for the
+    prefill shapes, kept to be timed beside the wgmma one)."""
+    return _launch("mma_sync", x, w)
+
+
+def moe_gmm_wgmma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the wgmma design at any bf16 shape it takes, whatever C (to
+    time it against the mma_sync design below the threshold)."""
+    return _launch("wgmma", x, w)
+
+
+def _launch(which, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     check_inputs(x, w)
     check_operands("moe_gmm", x, w)
     E, C, D = x.shape
@@ -54,7 +102,14 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    err = _entry()(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F,
-                   DTYPE_CODES[x.dtype], stream_handle(x.device))
-    raise_on_error("moe_gmm", err)
+    which = which or route(x.dtype, C, D, F)
+    args = [x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F]
+    if which == "mma_sync":
+        args.append(DTYPE_CODES[x.dtype])
+    elif x.dtype != torch.bfloat16 or D % 8 or F % 8:
+        raise ValueError(f"moe_gmm: the wgmma route takes bf16 with D and F multiples of 8, "
+                         f"got {x.dtype}, D {D}, F {F}")
+    err = _entry(which)(*args, stream_handle(x.device))
+    raise_on_error(f"moe_gmm ({which})", err)
+    LAUNCHES[which] += 1
     return out

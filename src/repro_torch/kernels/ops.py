@@ -7,6 +7,9 @@ There is no override and no fallback.
 
 ``LAUNCHES`` counts the kernel launches of each op, so that a run can show
 that it went through the kernels; the plain versions do not count.
+``ROUTE_LAUNCHES`` counts, for the two ops with two designs, the launches of
+each design (``route`` in their wrappers), so that a run can show which one
+it took.
 """
 from __future__ import annotations
 
@@ -26,9 +29,17 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ct
                             "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}
 
 
+#: launches by route of the ops with more than one design (the wrappers' counts)
+ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {"flash_attention": _flash.LAUNCHES,
+                                             "moe_gmm": _gmm.LAUNCHES}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counts in ROUTE_LAUNCHES.values():
+        for r in counts:
+            counts[r] = 0
 
 
 def _on_cuda(name: str, t: torch.Tensor) -> bool:

@@ -15,6 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -80,6 +82,42 @@ def test_decode_attention_kernel(cuda, B, Hq, Hkv, T, d, dtype):
     _assert_close(out, ref.decode_attention_ref(q, k, v, valid), dtype)
 
 
+FLASH_SWEEP = [   # tests/test_kernels.py
+    (2, 4, 2, 128, 128, 64, True, None), (1, 8, 2, 96, 96, 64, True, 32),
+    (2, 2, 2, 64, 192, 32, True, None), (1, 4, 4, 128, 128, 128, False, None),
+    (1, 2, 1, 257, 257, 64, True, None),
+]
+FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)   # the prefill of the serving path
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win", FLASH_SWEEP + [
+    (1, 4, 2, 512, 512, 128, True, None),   # G = 2 at the serving length
+    (1, 4, 2, 200, 700, 128, True, None),   # ragged S in a longer T: a prefix offset
+    (1, 4, 2, 70, 40, 32, True, None),      # S > T: rows with no allowed key
+])
+@pytest.mark.parametrize("which", ["wgmma", "simt"])
+def test_flash_attention_routes_in_bf16(cuda, B, Hq, Hkv, S, T, d, causal, win, which):
+    """Each design in bf16 against the plain version: the wgmma one through
+    the routed entry point, the simt one through its own."""
+    q = _randn(cuda, (B, Hq, S, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, Hkv, T, d), torch.bfloat16) for _ in range(2))
+    fn = tflash.flash_attention if which == "wgmma" else tflash.flash_attention_simt
+    before = dict(tflash.LAUNCHES)
+    out = fn(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES[which] == before[which] + 1
+    _assert_close(out, ref.flash_attention_ref(q, k, v, causal=causal, window=win), "bfloat16")
+
+
+def test_flash_attention_routes_agree_at_the_serving_shape(cuda):
+    B, Hq, Hkv, S, T, d, causal, win = FLASH_MAIN
+    q = _randn(cuda, (B, Hq, S, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, Hkv, T, d), torch.bfloat16) for _ in range(2))
+    new = tflash.flash_attention(q, k, v)
+    old = tflash.flash_attention_simt(q, k, v)
+    _assert_close(new, old, "bfloat16")
+
+
 def test_kernel_refuses_strided_operands(cuda):
     q = _randn(cuda, (1, 4, 64, 64), torch.float32)
     k = _randn(cuda, (1, 2, 64, 64), torch.float32)
@@ -128,6 +166,42 @@ def _check_moe_gmm(cuda, xs, ws, dtype, w_scale=1.0):
     assert out.dtype == dt and out.shape == (E, C, F)
     atol, rtol = GMM_TOL[dtype]
     torch.testing.assert_close(out.float(), ref.moe_gmm_ref(x, w).float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (8, 1280, 4096, 14336),                 # mixtral prefill, gate and up
+    (16, 640, 14336, 4096),                 # jamba prefill, down
+    (4, 200, 4096, 14336),                  # a C tail
+    (2, 64, 4096, 4096),                    # C at the threshold
+    (3, 200, 96, 72),                       # tails of C, D (K) and F
+    (2, 640, 96, 14336),                    # a D tail at the serving F
+    (1, 1280, 4096, 72),                    # one expert, an F tail
+])
+def test_moe_gmm_wgmma_route(cuda, E, C, D, F):
+    """The wgmma design against the plain version in bf16, weights at the
+    model's scale as above."""
+    assert tgmm.route(torch.bfloat16, C, D, F) == "wgmma"
+    before = dict(tgmm.LAUNCHES)
+    _check_moe_gmm(cuda, (E, C, D), (E, D, F), "bfloat16", w_scale=D ** -0.5)
+    assert tgmm.LAUNCHES == {**before, "wgmma": before["wgmma"] + 1}
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (8, 1280, 4096, 14336), (8, 1280, 14336, 4096),     # mixtral prefill
+    (16, 640, 4096, 14336), (16, 640, 14336, 4096),     # jamba prefill
+])
+def test_moe_gmm_routes_agree_at_the_serving_shapes(cuda, E, C, D, F):
+    """The two designs on the same bf16 operands: the wgmma one through the
+    routed entry point, the mma_sync one through its own; both sum in fp32
+    and round once."""
+    x = _randn(cuda, (E, C, D), torch.bfloat16)
+    w = (_randn(cuda, (E, D, F), torch.float32) * D ** -0.5).bfloat16()
+    before = dict(tgmm.LAUNCHES)
+    new, old = tgmm.moe_gmm(x, w), tgmm.moe_gmm_mma_sync(x, w)
+    assert tgmm.LAUNCHES == {"wgmma": before["wgmma"] + 1,
+                             "mma_sync": before["mma_sync"] + 1}
+    atol, rtol = TOL["bfloat16"]
+    torch.testing.assert_close(new.float(), old.float(), atol=atol, rtol=rtol)
 
 
 def test_moe_gmm_kernel_on_an_empty_output(cuda):
@@ -355,3 +429,11 @@ def test_aes_ctr_kernel_refuses_bad_operands(cuda, case):
         rk = rk.reshape(16, 11)
     with pytest.raises(ValueError, match="aes_ctr"):
         aes_ctr(pt, rk)
+
+
+@pytest.mark.parametrize("dtype,F", [("float32", 64), ("bfloat16", 130)])
+def test_moe_gmm_wgmma_entry_refuses_what_it_cannot_take(cuda, dtype, F):
+    dt = getattr(torch, dtype)
+    x, w = _randn(cuda, (2, 64, 32), dt), _randn(cuda, (2, 32, F), dt)
+    with pytest.raises(ValueError, match="wgmma route"):
+        tgmm.moe_gmm_wgmma(x, w)

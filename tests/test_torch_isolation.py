@@ -90,10 +90,11 @@ def test_no_jax_or_repro_import(path):
 
 
 def test_every_cuda_source_has_its_note():
-    """Each kernel source names the Pallas kernel it replaces and what
-    bounds it on the card."""
+    """Each kernel source names the Pallas kernel it replaces, what bounds
+    it on the card and what its design does about that."""
     for cu in sorted((PORT / "csrc").glob("*.cu")):
         head = cu.read_text()[:3000]
         assert "Replaces the Pallas kernel" in head, cu
         assert "What bounds it on this card" in head, cu
-        assert "What this simple design does about it" in head, cu
+        assert ("What this simple design does about it" in head
+                or "What this design does about it" in head), cu

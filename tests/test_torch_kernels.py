@@ -232,3 +232,66 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     before = _build.library_path("decode_attention")
     (csrc / "attn_common.cuh").write_text((csrc / "attn_common.cuh").read_text() + "\n")
     assert _build.library_path("decode_attention") != before
+
+
+# ---------------------------------------------------------------------------
+# routes: the design a CUDA call takes is fixed by dtype and shape before the
+# launch, by pure functions that run here
+
+
+@pytest.mark.parametrize("dtype,expect", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])
+def test_flash_route(dtype, expect):
+    assert tflash.route(dtype) == expect
+
+
+@pytest.mark.parametrize("E,C,D,F,dtype,expect", [
+    (8, 1280, 4096, 14336, torch.bfloat16, "wgmma"),   # mixtral-8x7b prefill, gate and up
+    (8, 1280, 14336, 4096, torch.bfloat16, "wgmma"),   # mixtral prefill, down
+    (16, 640, 4096, 14336, torch.bfloat16, "wgmma"),   # jamba-v0.1-52b prefill, gate and up
+    (16, 640, 14336, 4096, torch.bfloat16, "wgmma"),   # jamba prefill, down
+    (8, 1280, 4096, 14336, torch.float32, "mma_sync"),  # fp32 stays off the tensor cores
+    (8, 2, 4096, 14336, torch.bfloat16, "mma_sync"),   # mixtral decode
+    (16, 1, 14336, 4096, torch.bfloat16, "mma_sync"),  # jamba decode
+    (4, 1280, 96, 130, torch.bfloat16, "mma_sync"),    # F not a multiple of 8: no TMA stride
+    (4, 1280, 100, 128, torch.bfloat16, "mma_sync"),   # D not a multiple of 8
+])
+def test_moe_gmm_route(E, C, D, F, dtype, expect):
+    from repro_torch.kernels import moe_gmm as tgmm
+    assert tgmm.route(dtype, C, D, F) == expect
+
+
+def test_moe_gmm_route_threshold():
+    from repro_torch.kernels import moe_gmm as tgmm
+    c = tgmm.WGMMA_MIN_C
+    assert 2 < c <= 200
+    assert tgmm.route(torch.bfloat16, c, 96, 72) == "wgmma"
+    assert tgmm.route(torch.bfloat16, c - 1, 96, 72) == "mma_sync"
+
+
+def test_route_counts_reset_and_ignore_cpu_tensors():
+    ops.ROUTE_LAUNCHES["flash_attention"]["wgmma"] += 3
+    ops.ROUTE_LAUNCHES["moe_gmm"]["mma_sync"] += 2
+    ops.reset_launches()
+    ops.flash_attention(*_flash_inputs(torch.bfloat16))
+    g = torch.Generator().manual_seed(2)
+    ops.moe_gmm(torch.randn((2, 64, 32), generator=g).bfloat16(),
+                torch.randn((2, 32, 24), generator=g).bfloat16())
+    assert ops.ROUTE_LAUNCHES == {"flash_attention": {"wgmma": 0, "simt": 0},
+                                  "moe_gmm": {"wgmma": 0, "mma_sync": 0}}
+
+
+def test_every_entry_point_refuses_cpu_tensors():
+    """The entry points of both designs raise on CPU tensors before any
+    build or launch: they never fall back to the plain version."""
+    from repro_torch.kernels import moe_gmm as tgmm
+    before = dict(tflash.LAUNCHES), dict(tgmm.LAUNCHES)
+    q, k, v = _flash_inputs(torch.bfloat16)
+    for fn in (tflash.flash_attention, tflash.flash_attention_simt):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(q, k, v)
+    x, w = torch.zeros((2, 64, 32), dtype=torch.bfloat16), torch.zeros((2, 32, 24),
+                                                                       dtype=torch.bfloat16)
+    for fn in (tgmm.moe_gmm, tgmm.moe_gmm_mma_sync, tgmm.moe_gmm_wgmma):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(x, w)
+    assert (tflash.LAUNCHES, tgmm.LAUNCHES) == before
