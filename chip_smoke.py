@@ -12,13 +12,16 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    registers fails the run;
 3. each kernel against its plain PyTorch version on the card, over the
    sweep of ``tests/test_kernels.py`` and at the main path's shapes, then
-   timed there with CUDA events, L2 flushed before every launch.  The two
-   kernels with two designs (``flash_attention`` and the ``moe_gmm``
-   prefill: ``wgmma`` for bf16, the previous design on its own entry point)
-   are held against the plain version in both designs and timed in turns,
-   previous, new, new, previous, with the median and mean of the launches;
-   the PyTorch call (SDPA with K and V repeated, ``torch.bmm``) beside them;
-   ``moe_gmm``'s two designs are also timed from C = 1 to 64.  Kernels
+   timed there with CUDA events, L2 flushed before every launch and the card
+   held busy while the host enqueues it.  The kernels with more than one
+   design (``flash_attention`` and the ``moe_gmm`` prefill: ``wgmma`` for
+   bf16; ``decode_attention``: ``split`` for bf16; the ``moe_gmm`` decode
+   shapes: ``stream``; the previous design on its own entry point) are held
+   against the plain version in every design, head_dim 120 included, and
+   timed in turns, previous, new, new, previous, with the median and mean of
+   the launches; the PyTorch call (SDPA with K and V repeated, ``torch.bmm``)
+   beside them; ``moe_gmm``'s three designs are also timed from C = 1 to 64.
+   Kernels
    and plain versions both compute in fp32 and round once, so fp32 is held
    at atol = rtol = 3e-5 (``moe_gmm`` at the fp32 limit of
    ``tests/test_kernels.py``, atol 2e-3 / rtol 2e-4; the two scans, which
@@ -36,13 +39,16 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    group: Mamba, Mamba+MoE and one attention block): a 150-token prompt,
    so that the scan's tails run, at batch 4, where decode drops pairs;
 4d. the same for a reduced ``rwkv6-1.6b``;
+4e. the same for a reduced ``h2o-danube-3-4b`` with its heads 120 wide, as
+   in the full model, under a 128-slot window, so the ring wraps;
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
    ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each, with the
    kernel launch counts of that run checked against the layers by kind, and
    the launches by route: every bf16 prefill attention on ``wgmma``, every
-   expert matmul of a prefill on ``wgmma`` and of a decode step on
-   ``mma_sync`` (the routes that ``route`` in the wrappers gives their
-   shapes); then 4 decode steps and one prefill under the profiler;
+   bf16 decode attention on ``split``, every expert matmul of a prefill on
+   ``wgmma`` and of a decode step on ``stream`` (the routes that ``route``
+   in the wrappers gives their shapes); then 4 decode steps and one prefill
+   under the profiler;
 5b. the same traffic through full-width ``mixtral-8x7b`` cut from 32 to 24
    layers (bf16, 70.2 GB of weights: all 32 layers do not fit one 80 GB
    card), every expert matmul through the ``moe_gmm`` kernel;
@@ -52,6 +58,9 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    the attention through the flash and decode kernels;
 5d. the same traffic through full-width, full-depth ``rwkv6-1.6b``, every
    wkv recurrence through ``rwkv6_scan``;
+5e. the same traffic through full-width, full-depth ``h2o-danube-3-4b``
+   (24 layers, 7.9 GB of bf16 weights, heads 120 wide): the attention of
+   head_dim 120 on the flash ``wgmma`` and decode ``split`` designs;
 6. the AES-128-CTR kernel: the FIPS-197 C.1 known answer, bit-exact
    agreement with its plain version on the card over N, nonces (one across
    the 2**31 sign wrap) and two keys, a round trip, its launch count, and
@@ -95,8 +104,21 @@ FLASH_SWEEP = [  # B, Hq, Hkv, S, T, d, causal, window (tests/test_kernels.py)
 DECODE_SWEEP = [(2, 8, 2, 300, 64), (1, 4, 4, 512, 128), (3, 16, 8, 257, 64)]
 FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)
 DECODE_MAIN = (8, 16, 8, 1024, 128)
+DECODE_MIXTRAL = (8, 32, 8, 1024, 128)     # G = 4: mixtral-8x7b, jamba, h2o (d 120)
+DECODE_STRESS = [   # B, Hq, Hkv, T, d, mask: cases the split design treats apart
+    (8, 16, 8, 1024, 128, "wrap"), (8, 16, 8, 1024, 128, "empty_row"),
+    (8, 16, 8, 1024, 128, "few"), (3, 16, 8, 257, 128, "prefix"),
+    (2, 16, 8, 1500, 128, "wrap"), (8, 32, 8, 1024, 120, "prefix"),
+    (2, 32, 8, 300, 120, "empty_row"), (1, 2, 1, 9, 32, "empty_row"),
+]
+FLASH_D120 = [(2, 32, 8, 200, 200, 120, True, None), (1, 4, 2, 70, 40, 120, True, None),
+              (1, 8, 2, 300, 300, 120, True, 64),
+              (8, 32, 8, 512, 512, 120, True, 4096)]   # phase 5e's prefill: h2o-danube-3-4b
 GMM_SWEEP = [(4, 100, 96, 130), (2, 64, 256, 64), (8, 33, 48, 72)]   # E, C, D, F
-GMM_THRESHOLD_C = (1, 2, 4, 16, 32, 64)   # C timed in both moe_gmm designs
+GMM_THRESHOLD_C = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32, 64)   # C timed in the moe_gmm designs
+GMM_STREAM_SWEEP = [   # bf16 shapes of the stream design: ragged C and E, tails of D and F
+    (3, 5, 96, 72), (5, 6, 4096, 200), (1, 3, 8, 8), (2, 4, 1000, 1032), (4, 8, 512, 264),
+]
 GMM_WGMMA_SWEEP = [   # bf16 shapes of the wgmma route: tails of C, D and F, C at the threshold
     (4, 200, 4096, 14336), (3, 200, 96, 72), (2, 640, 96, 14336), (1, 1280, 4096, 72),
     (2, 64, 4096, 4096),
@@ -127,6 +149,7 @@ JAMBA_LAYERS = 24            # of jamba-v0.1-52b's 32, 3 groups of 8: 77.6 GB of
 MOE_PROMPT, MOE_SEQ, MOE_BATCH = 150, 192, 4     # phases 4b-4d
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PROFILED_STEPS = 4
+HOLD_CYCLES = 400_000        # ~0.2 ms of the card's clock, held before each timed launch
 AES_SWEEP_N = (1, 38, 40, 4096, 2**20)
 AES_NONCES = (0, 7, 2**31 - 20)
 AES_FN_BLOCKS, AES_BATCH_BLOCKS = 38, 2**20   # 600 B; 16 MiB of plaintext
@@ -178,12 +201,15 @@ def tree_bytes(tree) -> int:
 
 def launch_times_ms(torch, fn, iters: int, flush) -> list:
     """Device time of each of ``iters`` launches of ``fn``, L2 flushed
-    before each (outside the timed span)."""
+    before each (outside the timed span).  After the flush the card spins
+    for ``HOLD_CYCLES`` while the host records the start event and enqueues
+    ``fn``, so that the host's time to dispatch ``fn`` stays out of the span."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         flush()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -278,6 +304,7 @@ def main() -> int:
     from repro_torch.config import get_arch, reduced
     from repro_torch.core import FaasdRuntime, FunctionSpec, Simulator, run_sequential
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import decode_attention as _decode
     from repro_torch.kernels import flash_attention as _flash
     from repro_torch.kernels import moe_gmm as _gmm
     from repro_torch.kernels.aes_ctr import aes_ctr as aes_kernel
@@ -369,6 +396,47 @@ def main() -> int:
         err = check_close(f"flash_attention{case} bfloat16 simt", out,
                           ref.flash_attention_ref(*args, **kw), TOL["bfloat16"])
         print(f"  flash_attention {case} bfloat16, simt design: max |diff| {err:.3g}")
+    for case in FLASH_D120:       # head_dim 120, both designs and fp32
+        for dname, dt in dtypes.items():
+            args, kw = flash_case(case, dt)
+            plain = ref.flash_attention_ref(*args, **kw)
+            designs = {_flash.route(dt): ops.flash_attention}
+            if dt == torch.bfloat16:
+                if "wgmma" not in designs:
+                    raise AssertionError(f"flash_attention: bf16 routes to {_flash.route(dt)}")
+                designs["simt"] = _flash.flash_attention_simt
+            for design, fn in designs.items():
+                err = check_close(f"flash_attention{case} {dname} {design}", fn(*args, **kw),
+                                  plain, TOL[dname])
+                print(f"  flash_attention {case} {dname}, {design} design: max |diff| {err:.3g}")
+
+    def decode_mask(B, Tk, mask):
+        j = torch.arange(Tk, device=dev)
+        if mask == "prefix":      # a 512-token prompt and one new token
+            v = j <= min(PROMPT_LEN, Tk - 1)
+        elif mask == "wrap":      # a ring that wraps: slots 700 .. T-1 and 0 .. 188
+            v = (j >= min(700, Tk - 1)) | (j < 189)
+        elif mask == "few":       # 3 valid slots in one tile: the other splits get none
+            v = (j == 1) | (j == 5) | (j == 63)
+        else:                     # random, the last row with no valid slot
+            r = torch.rand((B, Tk), generator=gen, device=dev) < 0.5
+            r[-1] = False
+            return r
+        return v[None].expand(B, Tk).contiguous()
+
+    for case in DECODE_SWEEP + [c[:5] for c in DECODE_STRESS]:
+        mask = dict((c[:5], c[5]) for c in DECODE_STRESS).get(case, "empty_row")
+        for dname, dt in dtypes.items():
+            (q, k, v, valid), _ = decode_case(case, dt, decode_mask(case[0], case[3], mask))
+            plain = ref.decode_attention_ref(q, k, v, valid)
+            designs = {_decode.route(dt, case[1] // case[2], case[3]): ops.decode_attention}
+            if dt == torch.bfloat16:
+                designs["simt"] = _decode.decode_attention_simt
+            for design, fn in designs.items():
+                err = check_close(f"decode_attention{case} {mask} {dname} {design}",
+                                  fn(q, k, v, valid), plain, TOL[dname])
+                print(f"  decode_attention {case} {mask} {dname}, {design} design: "
+                      f"max |diff| {err:.3g}")
 
     flush_buf = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
@@ -406,29 +474,44 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention.py:98",
         source="src/repro_torch/csrc/flash_attention.cu")
 
-    # decode at a step of the main path: a 512-token prompt in a 1024-slot cache
-    B, Hq, Hkv, Tk, d = DECODE_MAIN
-    valid = (torch.arange(Tk, device=dev) <= PROMPT_LEN)[None].expand(B, Tk).contiguous()
-    (q, k, v, valid), _ = decode_case(DECODE_MAIN, torch.bfloat16, valid)
-    out = ops.decode_attention(q, k, v, valid)
-    err = check_close(f"decode_attention{DECODE_MAIN}", out,
-                      ref.decode_attention_ref(q, k, v, valid), TOL["bfloat16"])
-    kq = k.transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
-    vq = v.transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
-    q4, mask4 = q[:, :, None], valid[:, None, None, :]
-    records["decode_attention"] = dict(
-        err=err,
-        ms=time_ms(torch, lambda: ops.decode_attention(q, k, v, valid), 50, flush),
-        plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, valid), 10, flush),
-        library_ms=time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-            q4, kq, vq, attn_mask=mask4), 50, flush),
-        # K/V of invalid slots cannot change the output: only valid slots count
-        bytes=sum(t.numel() * t.element_size() for t in (q, valid, out))
-        + 2 * int(valid.sum()) * Hkv * d * k.element_size(),
-        ops=f"{4 * d * Hq * int(valid.sum())} FLOP",
-        ops_ms=1e3 * 4 * d * Hq * int(valid.sum()) / PEAK_BF16_FLOPS,
-        replaces="src/repro/kernels/decode_attention.py:77",
-        source="src/repro_torch/csrc/decode_attention.cu")
+    # decode at a step of the main path, a 512-token prompt in a 1024-slot
+    # cache, at qwen3's G = 2 and at G = 4: both designs, timed in turns
+    for shape in (DECODE_MAIN, DECODE_MIXTRAL):
+        B, Hq, Hkv, Tk, d = shape
+        (q, k, v, valid), _ = decode_case(shape, torch.bfloat16, decode_mask(B, Tk, "prefix"))
+        if _decode.route(q.dtype, Hq // Hkv, Tk) != "split":
+            raise AssertionError(f"decode_attention{shape}: bf16 does not route to split")
+        plain = ref.decode_attention_ref(q, k, v, valid)
+        err = check_close(f"decode_attention{shape}", ops.decode_attention(q, k, v, valid),
+                          plain, TOL["bfloat16"])
+        err_prev = check_close(f"decode_attention{shape} simt",
+                               _decode.decode_attention_simt(q, k, v, valid), plain,
+                               TOL["bfloat16"])
+        kq = k.transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+        vq = v.transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+        q4, mask4 = q[:, :, None], valid[:, None, None, :]
+        old, new = in_turns(torch, lambda: _decode.decode_attention_simt(q, k, v, valid),
+                            lambda: ops.decode_attention(q, k, v, valid), 25, flush)
+        lib = launch_times_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kq, vq, attn_mask=mask4), 50, flush)
+        print(f"  decode_attention {shape} bfloat16, {int(valid[0].sum())} valid slots, "
+              f"splits {_decode.splits(B, Hkv, Tk, props.multi_processor_count)}: split "
+              f"{spread(new)}, max |diff| {err:.3g}; simt (previous) {spread(old)}, max |diff| "
+              f"{err_prev:.3g}; SDPA {spread(lib)}")
+        if shape != DECODE_MAIN:
+            continue
+        records["decode_attention"] = dict(
+            err=err,
+            ms=statistics.fmean(new), previous_ms=statistics.fmean(old),
+            plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, valid), 10, flush),
+            library_ms=statistics.fmean(lib),
+            # K/V of invalid slots cannot change the output: only valid slots count
+            bytes=sum(t.numel() * t.element_size() for t in (q, valid, plain))
+            + 2 * int(valid.sum()) * Hkv * d * k.element_size(),
+            ops=f"{4 * d * Hq * int(valid.sum())} FLOP",
+            ops_ms=1e3 * 4 * d * Hq * int(valid.sum()) / PEAK_BF16_FLOPS,
+            replaces="src/repro/kernels/decode_attention.py:77",
+            source="src/repro_torch/csrc/decode_attention.cu")
     def report(name, r):
         t_bytes = 1e3 * r["bytes"] / PEAK_BYTES_PER_S
         r["bound_ms"], r["bound_by"] = max((t_bytes, "bytes"), (r["ops_ms"], "operations"))
@@ -465,14 +548,25 @@ def main() -> int:
         err = check_close(f"moe_gmm{case} wgmma", ops.moe_gmm(x, w), ref.moe_gmm_ref(x, w),
                           GMM_TOL["bfloat16"])
         print(f"  moe_gmm {case} bfloat16, wgmma design: max |diff| {err:.3g}")
-    # the two designs below the route's threshold, at mixtral's gate/up widths
+    for case in GMM_STREAM_SWEEP:   # the last past the route's threshold: the kernel's own entry
+        E, C, D, F = case
+        x, w = gmm_case(*case, torch.bfloat16, D ** -0.5)
+        err = check_close(f"moe_gmm{case} stream", _gmm.moe_gmm_stream(x, w),
+                          ref.moe_gmm_ref(x, w), GMM_TOL["bfloat16"])
+        print(f"  moe_gmm {case} bfloat16, stream design (route {_gmm.route(x.dtype, C, D, F)}): "
+              f"max |diff| {err:.3g}")
+    # the three designs across the routes' thresholds, at mixtral's gate/up widths
     x_all, w = gmm_case(8, max(GMM_THRESHOLD_C), 4096, 14336, torch.bfloat16, 4096 ** -0.5)
     for C in GMM_THRESHOLD_C:
         x = x_all[:, :C].contiguous()
         old, new = in_turns(torch, lambda: _gmm.moe_gmm_mma_sync(x, w),
                             lambda: _gmm.moe_gmm_wgmma(x, w), 10, flush)
-        print(f"  moe_gmm (8, {C}, 4096, 14336) route {_gmm.route(x.dtype, C, 4096, 14336)}: "
-              f"mma_sync {spread(old)}; wgmma {spread(new)}")
+        line = (f"  moe_gmm (8, {C}, 4096, 14336) route {_gmm.route(x.dtype, C, 4096, 14336)}: "
+                f"mma_sync {spread(old)}; wgmma {spread(new)}")
+        if C <= _gmm.STREAM_KERNEL_MAX_C:
+            ts = launch_times_ms(torch, lambda: _gmm.moe_gmm_stream(x, w), 20, flush)
+            line += f"; stream {spread(ts)}"
+        print(line)
     del x_all, x, w
     gmm_times = {}
     for label, (E, C, D, F) in GMM_MAIN.items():
@@ -492,11 +586,17 @@ def main() -> int:
                   f"max |diff| {err_prev:.3g}; bmm {spread(lib)}")
             times = dict(ms=statistics.fmean(new), previous_ms=statistics.fmean(old),
                          library_ms=statistics.fmean(lib))
-        else:                  # unchanged: timed as before
-            new = launch_times_ms(torch, lambda: ops.moe_gmm(x, w), 20, flush)
+        else:                  # stream, against mma_sync in turns; wgmma beside them
+            err_prev = check_close(f"moe_gmm {label} mma_sync", _gmm.moe_gmm_mma_sync(x, w),
+                                   plain, GMM_TOL["bfloat16"])
+            old, new = in_turns(torch, lambda: _gmm.moe_gmm_mma_sync(x, w),
+                                lambda: ops.moe_gmm(x, w), 10, flush)
+            wg = launch_times_ms(torch, lambda: _gmm.moe_gmm_wgmma(x, w), 20, flush)
             lib = launch_times_ms(torch, lambda: torch.bmm(x, w), 20, flush)
-            print(f"  moe_gmm {label}: mma_sync {spread(new)}; bmm {spread(lib)}")
-            times = dict(ms=statistics.fmean(new), library_ms=statistics.fmean(lib))
+            print(f"  moe_gmm {label}: stream {spread(new)}; mma_sync (previous) {spread(old)}, "
+                  f"max |diff| {err_prev:.3g}; wgmma {spread(wg)}; bmm {spread(lib)}")
+            times = dict(ms=statistics.fmean(new), previous_ms=statistics.fmean(old),
+                         library_ms=statistics.fmean(lib))
         gmm_times[label] = dict(
             err=err, **times,
             plain_ms=time_ms(torch, lambda: ref.moe_gmm_ref(x, w), 3, flush),
@@ -688,6 +788,15 @@ def main() -> int:
     cfg = dataclasses.replace(reduced(get_arch("rwkv6-1.6b")), dtype="float32")
     card_against_cpu(cfg, SEED + 4, {"rwkv6_scan": 2 * layer_counts(cfg)["rwkv"]})
 
+    phase("4e reduced h2o-danube-3-4b with heads 120 wide, card against CPU, float32")
+    cfg = dataclasses.replace(reduced(get_arch("h2o-danube-3-4b")), dtype="float32",
+                              head_dim=120, n_kv_heads=2)
+    cap = attention.kv_cache_capacity(cfg, MOE_SEQ)
+    print(f"  head_dim {cfg.resolved_head_dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads; window "
+          f"{cfg.sliding_window}: a {cap}-slot ring under a {MOE_PROMPT}-token prompt")
+    card_against_cpu(cfg, SEED + 7, {"flash_attention": cfg.n_layers,
+                                     "decode_attention": cfg.n_layers})
+
     # -- 5 ------------------------------------------------------------------
     def serve(cfg, prompts):
         """Serve ``prompts`` through a fresh engine of ``cfg`` on the card:
@@ -725,8 +834,13 @@ def main() -> int:
         # of a prefill (all prompts' tokens) or a decode step (one per slot)
         dtype = getattr(torch, cfg.dtype)
         expect_routes = {"flash_attention": {"wgmma": 0, "simt": 0},
-                         "moe_gmm": {"wgmma": 0, "mma_sync": 0}}
+                         "decode_attention": {"split": 0, "simt": 0},
+                         "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0}}
         expect_routes["flash_attention"][_flash.route(dtype)] += n["attn"]
+        if n["attn"]:
+            G, cap = cfg.n_heads // cfg.n_kv_heads, attention.kv_cache_capacity(cfg, MAX_SEQ)
+            expect_routes["decode_attention"][_decode.route(dtype, G, cap)] += \
+                n["attn"] * n_decode
         if n["moe"]:
             E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
             for tokens, steps in ((SLOTS * PROMPT_LEN, 1), (SLOTS, n_decode)):
@@ -771,8 +885,9 @@ def main() -> int:
     cfg = get_arch("qwen3-1.7b")
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     step_us, launches, routes = serve(cfg, prompts)
-    if routes["flash_attention"] != {"wgmma": 28, "simt": 0}:
-        raise AssertionError(f"qwen3's prefill attention by route {routes['flash_attention']}")
+    if (routes["flash_attention"], routes["decode_attention"]) != (
+            {"wgmma": 28, "simt": 0}, {"split": 868, "simt": 0}):
+        raise AssertionError(f"qwen3's attention by route {routes}")
     endpoints = {cfg.name: step_us}
 
     # -- 5b -----------------------------------------------------------------
@@ -785,7 +900,8 @@ def main() -> int:
     endpoints[cfg.name], moe_launches, routes = serve(cfg, prompts)
     launches["moe_gmm"] = moe_launches["moe_gmm"]
     if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
-                  "moe_gmm": {"wgmma": 72, "mma_sync": 2232}}:
+                  "decode_attention": {"split": 744, "simt": 0},
+                  "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0}}:
         raise AssertionError(f"mixtral's launches by route {routes}")
     launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
 
@@ -804,7 +920,8 @@ def main() -> int:
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], jamba_launches, routes = serve(cfg, prompts)
     if routes != {"flash_attention": {"wgmma": 3, "simt": 0},
-                  "moe_gmm": {"wgmma": 36, "mma_sync": 1116}}:
+                  "decode_attention": {"split": 93, "simt": 0},
+                  "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0}}:
         raise AssertionError(f"Jamba's launches by route {routes}")
     launches["mamba_scan"] = jamba_launches["mamba_scan"]
     gc.collect()
@@ -817,6 +934,23 @@ def main() -> int:
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], rwkv_launches, _ = serve(cfg, prompts)
     launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5e -----------------------------------------------------------------
+    phase("5e full-width, full-depth h2o-danube-3-4b (heads 120 wide) served on the card")
+    cfg = get_arch("h2o-danube-3-4b")
+    print(f"  head_dim {cfg.resolved_head_dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, window "
+          f"{cfg.sliding_window}")
+    prompts = np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
+    _, h2o_launches, routes = serve(cfg, prompts)
+    if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
+                  "decode_attention": {"split": 744, "simt": 0},
+                  "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0}}:
+        raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
+    h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
+                f"prefill and {h2o_launches['decode_attention']} decode launches")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -878,9 +1012,15 @@ def main() -> int:
     aes_times = {}
     for n in (AES_FN_BLOCKS, AES_BATCH_BLOCKS):
         pt = rand_int32(n)
+        # 600 B is a few-microsecond kernel: as for the scans' decode steps, the
+        # record is the median of 200, since a host stall that outlasts the
+        # flush and the hold adds its length to one sample
+        times = launch_times_ms(torch, lambda: aes_kernel(pt, rk, nonce=7),
+                                200 if n == AES_FN_BLOCKS else 50, flush)
+        print(f"  aes_ctr N={n}: {spread(times)}")
         aes_times[n] = dict(
             err=aes_err,
-            ms=time_ms(torch, lambda: aes_kernel(pt, rk, nonce=7), 50, flush),
+            ms=statistics.median(times) if n == AES_FN_BLOCKS else statistics.fmean(times),
             plain_ms=time_ms(torch, lambda: pt ^ ref.aes_ctr_keystream(n, rk, 7), 10, flush),
             library_ms=None,            # no PyTorch call computes AES
             bytes=2 * pt.numel() * pt.element_size() + rk.numel() * rk.element_size(),
@@ -962,7 +1102,8 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {})}
+         **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
+         **({"note": h2o_note} if name in ("flash_attention", "decode_attention") else {})}
         for name, r in records.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -83,7 +83,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        float scale) {
   constexpr int QS = D + 1, KS = D + 1;  // padded rows: no bank conflicts
   constexpr int CH = D / 8;              // 16-byte chunks per row
-  constexpr int DJ = D / 16;             // output columns per thread
+  constexpr int DJ = (D + 15) / 16;      // output columns per thread (the last
+                                         // may fall past D, as at D = 120)
   const int q0 = blockIdx.x * kBlockQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -227,7 +228,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = 0; t < nt; ++t) {
       float vv[DJ];
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vs[t * D + tx + 16 * j];
+      for (int j = 0; j < DJ; ++j) vv[j] = tx + 16 * j < D ? vs[t * D + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float pw = ps[(ty + 16 * i) * kPS + t];
@@ -246,7 +247,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float l = l_s[r];
     if (l == 0.f) l = 1.f;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) attn::store(ob + (size_t)r * D + tx + 16 * j, o[i][j] / l);
+    for (int j = 0; j < DJ; ++j)
+      if (tx + 16 * j < D) attn::store(ob + (size_t)r * D + tx + 16 * j, o[i][j] / l);
   }
 }
 
@@ -277,6 +279,9 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
     case 64:
       return launch<T, 64>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
                            scale, stream);
+    case 120:
+      return launch<T, 120>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
+                            scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
                             scale, stream);
@@ -297,14 +302,19 @@ constexpr int kStages = 3;          // K/V tiles in flight
 constexpr int kConsumers = 256;     // two warpgroups, threads 0..255
 constexpr int kThreads = kConsumers + 32;   // and one producer warp
 
+// D is the true head width; DP, the width of the tiles in shared memory and
+// of the products, rounds it up to whole slabs.  At D = 120 the tensor maps
+// keep the true width, so TMA zero-fills columns 120..127 of Q, K and V:
+// they add nothing to Q K^T, give zero columns of O, and are not stored.
 template <int D>
 struct Cfg {
   static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle = bytes of a slab's row
   static constexpr int DS = SW / 2;               // head elements per slab
-  static constexpr int NSLAB = D / DS;
+  static constexpr int NSLAB = (D + DS - 1) / DS;
+  static constexpr int DP = NSLAB * DS;
   static constexpr int KSTEP = DS / 16;           // 16-deep steps per slab
-  static constexpr int Q_BYTES = kBM * D * 2;
-  static constexpr int KV_BYTES = kBN * D * 2;    // one K or one V tile
+  static constexpr int Q_BYTES = kBM * DP * 2;
+  static constexpr int KV_BYTES = kBN * DP * 2;   // one K or one V tile
   static constexpr int BARS = 1 + 3 * kStages;
   static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 8 * BARS + 1024;
 };
@@ -338,7 +348,7 @@ struct BlockTiles {
 // two (r and r + 8) in the accumulator layout.
 template <int D>
 struct Rows {
-  float o[D / 2];
+  float o[Cfg<D>::DP / 2];
   float m0, m1, l0, l1;
   uint32_t phi[kBN / 16][4], plo[kBN / 16][4];   // P as bf16 head and remainder
 };
@@ -348,7 +358,7 @@ template <int D>
 __device__ __forceinline__ void issue_qk(float (&s)[kBN / 2], uint32_t q_addr, uint32_t k_addr) {
   using C = Cfg<D>;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < C::DP / 16; ++kk) {
     const uint32_t koff = (kk % C::KSTEP) * 32;   // 16 elements along a swizzled row
     const uint64_t da =
         hopper::make_desc(q_addr + (kk / C::KSTEP) * kBM * C::SW + koff, 16, 8 * C::SW, C::SW);
@@ -430,7 +440,7 @@ template <int D>
 __device__ __forceinline__ void rescale_and_pack(Rows<D>& R, const float (&s)[kBN / 2],
                                                  float2 alpha) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < Cfg<D>::DP / 8; ++j) {
     R.o[4 * j] *= alpha.x;
     R.o[4 * j + 1] *= alpha.x;
     R.o[4 * j + 2] *= alpha.y;
@@ -541,7 +551,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   Rows<D> R;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) R.o[i] = 0.f;
+  for (int i = 0; i < C::DP / 2; ++i) R.o[i] = 0.f;
   R.m0 = R.m1 = attn::kNegInf;
   R.l0 = R.l1 = 0.f;
   float s[kBN / 2];
@@ -596,7 +606,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int ra = bt.q0 + r0, rb = ra + 8;
   __nv_bfloat16* ob = out + ((size_t)bt.b * Hq + bt.h) * (size_t)S * D;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {   // the columns past D (zero) are not stored
     const int col = 8 * j + col0;
     if (ra < S)
       *reinterpret_cast<uint32_t*>(ob + (size_t)ra * D + col) =
@@ -614,11 +624,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   if (!hopper::encode_bf16_3d(&tq, q, D, S, (uint64_t)B * Hq, D, (uint64_t)S * D, C::DS, kBM,
-                              C::SW) ||
+                              1, C::SW) ||
       !hopper::encode_bf16_3d(&tk, k, D, Tlen, (uint64_t)B * Hkv, D, (uint64_t)Tlen * D, C::DS,
-                              kBN, C::SW) ||
+                              kBN, 1, C::SW) ||
       !hopper::encode_bf16_3d(&tv, v, D, Tlen, (uint64_t)B * Hkv, D, (uint64_t)Tlen * D, C::DS,
-                              kBN, C::SW))
+                              kBN, 1, C::SW))
     return cudaErrorInvalidValue;
   auto kernel = flash_wgmma_kernel<D>;
   cudaError_t err =
@@ -666,6 +676,9 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
     case 64:
       return wg::launch<64>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
                             scale, s);
+    case 120:
+      return wg::launch<120>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
+                             scale, s);
     case 128:
       return wg::launch<128>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
                              scale, s);

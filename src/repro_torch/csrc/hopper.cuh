@@ -251,6 +251,12 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// A barrier of `threads` threads (a multiple of 32) on hardware barrier
+// `id` (1..15; __syncthreads uses 0), for a subset of the block's warps.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Warpgroup register reallocation: every warp of a warpgroup executes it.
 
@@ -267,6 +273,11 @@ __device__ __forceinline__ void regs_inc() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A bf16 pair as two fp32 values: the low half, then the high half.
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xFFFF0000u));
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -302,24 +313,27 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A 3-D bf16 tensor of extents {n0, n1, n2} (n0 contiguous) with row
-// strides s1, s2 in elements, cut into boxes {b0, b1, 1}, swizzled by `sw`
-// bytes, 128 or 64 (b0 * 2 == sw).  Returns false if cuTensorMapEncodeTiled
-// refuses it.
+// strides s1, s2 in elements, cut into boxes {b0, b1, b2}, swizzled by `sw`
+// bytes: 128 or 64 (b0 * 2 == sw), or 0 for none (rows of b0 * 2 bytes, a
+// multiple of 16, one after another).  Returns false if
+// cuTensorMapEncodeTiled refuses it.
 inline bool encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
                            uint64_t n2, uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1,
-                           int sw) {
+                           uint32_t b2, int sw) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (!fn) return false;
   const cuuint64_t dims[3] = {n0, n1, n2};
   const cuuint64_t strides[2] = {s1 * 2, s2 * 2};
-  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t box[3] = {b0, b1, b2};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz = sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                            : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle swz = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_NONE;
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
 
 // SMs of the current device, for persistent grids; 0 if it cannot be read.
 inline int sm_count() {

@@ -20,15 +20,39 @@
 // operations per byte, and the least time is the operations (1.20 TFLOP,
 // 1.22 ms).
 //
-// Two designs, one C entry point each; the wrapper picks the route from the
-// dtype and shape before the launch (kernels/moe_gmm.py: route), never after
-// a failure: bf16 with C >= 64 and D and F multiples of 8 (TMA's 16-byte
-// strides) -> "wgmma" (moe_gmm_wgmma_fwd); everything else -> "mma_sync"
-// (moe_gmm_fwd): the decode shapes, ragged D or F, and fp32, which that
-// entry computes on the CUDA cores, never in TF32.  The threshold is one of
-// scope, not of speed: on an H100 (700 W) the wgmma design was the faster at
-// every C timed from 1 to 64 at mixtral's widths, but the decode shapes
-// (C <= 2) stay on mma_sync here, and no serving path has C from 3 to 63.
+// Three designs, one C entry point each; the wrapper picks the route from
+// the dtype and shape before the launch (kernels/moe_gmm.py: route), never
+// after a failure.  For bf16 with D and F multiples of 8 (TMA's 16-byte
+// strides): C <= STREAM_MAX_C (6) -> "stream" (moe_gmm_stream_fwd), the
+// decode shapes; C >= 64 -> "wgmma" (moe_gmm_wgmma_fwd), the prefill shapes.
+// Everything else -> "mma_sync" (moe_gmm_fwd): C from 7 to 63, ragged D or
+// F, and fp32, which that entry computes on the CUDA cores, never in TF32.
+// No serving path has C from 3 to 63; chip_smoke.py times the three designs
+// from C = 1 to 64.
+//
+// What this design does about it (stream, bf16, C <= 8): at C rows per
+// expert every weight feeds C multiply-adds, so the kernel is a stream of w
+// at the memory's rate and nothing else.  The mma_sync design lost a
+// quarter of that rate at decode: 62 of its 64 tile rows were padding, a
+// block had one 16 KB step of w in flight, and a grid of F/128 x E blocks
+// ended in a part-empty wave.  Here w is cut into equal units, (expert, 128
+// columns of F) over the whole of D, and one persistent block per SM walks
+// every 132nd unit, so the blocks stream equal bytes to within one unit and
+// D is never split (the sums keep one fixed order).  One producer thread loads 64 x 128
+// tiles of w, and the matching 64 columns of x's C rows, by TMA into a ring
+// of eight stages, 128 KB of w in flight per SM, and runs on into the next
+// unit while the consumers finish this one.  The 256 consumer threads
+// multiply on the CUDA cores in fp32: thread (cq, rg) keeps C x 4 sums of
+// the columns 4cq .. 4cq + 3 over rows rg, rg + 8, ..., reading w as 8
+// bytes of a 256-byte row (a warp reads one whole row) and x as a bf16
+// broadcast; the 8 row groups are summed in a fixed order and rounded once.
+// At C <= 6 that is at most 6 fused multiply-adds per 2-byte weight, 42 per
+// clock per SM at 3.35 TB/s, inside the 128 of the CUDA cores (at C = 8 the
+// issue of the multiply-adds and x's loads starts to bound it, which sets
+// the threshold); a wgmma with the operands swapped (w^T as A, M = 64
+// columns; x^T as B, N = 8) would do the same work on the tensor cores but
+// needs w in the swizzled layout and gains nothing while the weights'
+// bytes bound it.
 //
 // What this design does about it (wgmma, bf16, the prefill shapes): a
 // persistent kernel, one block of 384 threads per SM walking 128 x 256
@@ -55,8 +79,7 @@
 // are exact in fp32).  fp32: the CUDA cores, 4 x 8 outputs per thread in
 // fp32 multiply-adds.  The tails of C, D and F are masked by bounds, with no
 // padded copy.  One C tile covers C <= 64, so at decode each element of w is
-// read once.  Not done here: split-D or a persistent design so that the
-// small-C decode shape fills the card.
+// read once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -402,8 +425,8 @@ cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D, i
                    cudaStream_t stream) {
   if (C < 1 || D < 1 || F < 1 || D % 8 || F % 8) return cudaErrorInvalidValue;
   CUtensorMap tx, tw;
-  if (!hopper::encode_bf16_3d(&tx, x, D, C, E, D, (uint64_t)C * D, kBK, kBM, 128) ||
-      !hopper::encode_bf16_3d(&tw, w, F, D, E, F, (uint64_t)D * F, kSlab, kBK, 128))
+  if (!hopper::encode_bf16_3d(&tx, x, D, C, E, D, (uint64_t)C * D, kBK, kBM, 1, 128) ||
+      !hopper::encode_bf16_3d(&tw, w, F, D, E, F, (uint64_t)D * F, kSlab, kBK, 1, 128))
     return cudaErrorInvalidValue;
   const int sms = hopper::sm_count();
   if (!sms) return cudaErrorInvalidDevice;
@@ -419,6 +442,170 @@ cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D, i
 }
 
 }  // namespace wg
+
+// ---------------------------------------------------------------------------
+// The stream design (bf16, C <= 8: the decode shapes)
+
+namespace streamed {
+
+constexpr int kMaxC = 8;
+constexpr int kBN = 128;            // columns of F per unit: 256 bytes of each row of w
+constexpr int kBK = 64;             // rows of D per stage
+constexpr int kStages = 8;          // 128 KB of w in flight per block (16 KB a stage)
+constexpr int kBlocksPerSM = 1;
+constexpr int kConsumers = 256;     // column quads x row groups
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kWarps = kConsumers / 32;
+constexpr int kQuads = kBN / 4;             // threads across a row of the tile
+constexpr int kRowGroups = kConsumers / kQuads;
+constexpr int W_BYTES = kBK * kBN * 2;      // one stage of w, [d][128 f]
+constexpr int X_BYTES = kMaxC * kBK * 2;    // room for one stage of x, [c][64 d]
+constexpr int STAGE_BYTES = W_BYTES + X_BYTES;
+constexpr int RED_FLOATS = kWarps * kMaxC * kBN;   // one buffer of the warps' sums
+constexpr int SMEM = 1024 + kStages * STAGE_BYTES + 2 * RED_FLOATS * 4 + 2 * kStages * 8;
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+moe_gmm_stream_kernel(const __grid_constant__ CUtensorMap tm_x,
+                      const __grid_constant__ CUtensorMap tm_w, __nv_bfloat16* __restrict__ y,
+                      int E, int D, int F) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* red = reinterpret_cast<float*>(ring + kStages * STAGE_BYTES);   // two buffers
+  uint64_t* full = reinterpret_cast<uint64_t*>(red + 2 * RED_FLOATS);
+  uint64_t* empty = full + kStages;
+
+  const int nslab = (F + kBN - 1) / kBN, nk = (D + kBK - 1) / kBK;
+  const int n_units = E * nslab;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kWarps);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer: one thread streams w and x through the ring, unit after
+    // unit, so the next unit's loads run during this one's epilogue
+    if (threadIdx.x == kConsumers) {
+      hopper::tma_prefetch_map(&tm_x);
+      hopper::tma_prefetch_map(&tm_w);
+      int it = 0;
+      for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x) {
+        const int e = unit / nslab, n = unit % nslab;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int st = it % kStages;
+          uint8_t* dst = ring + st * STAGE_BYTES;
+          hopper::mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[st], W_BYTES + C * kBK * 2);
+          hopper::tma_load_3d(dst, &tm_w, &full[st], n * kBN, kb * kBK, e);
+          hopper::tma_load_3d(dst + W_BYTES, &tm_x, &full[st], kb * kBK, 0, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: thread (cq, rg) sums columns 4cq .. 4cq + 3 over rows
+  // rg, rg + kRowGroups, ... of every stage; a warp reads whole rows
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int cq = tid % kQuads, rg = tid / kQuads;
+  int it = 0, u = 0;
+  for (int unit = blockIdx.x; unit < n_units; unit += gridDim.x, ++u) {
+    const int e = unit / nslab, n = unit % nslab;
+    float acc[C][4];
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+    for (int kb = 0; kb < nk; ++kb, ++it) {
+      const int st = it % kStages;
+      hopper::mbar_wait(&full[st], (it / kStages) & 1);
+      const uint8_t* ws = ring + st * STAGE_BYTES;
+      const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(ws + W_BYTES);
+#pragma unroll
+      for (int i = 0; i < kBK / kRowGroups; ++i) {
+        const int r = rg + kRowGroups * i;
+        const uint2 wv = *reinterpret_cast<const uint2*>(ws + r * kBN * 2 + cq * 8);
+        const float2 w01 = hopper::unpack_bf16(wv.x), w23 = hopper::unpack_bf16(wv.y);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const float xv = __bfloat162float(xs[c * kBK + r]);
+          acc[c][0] = fmaf(xv, w01.x, acc[c][0]);
+          acc[c][1] = fmaf(xv, w01.y, acc[c][1]);
+          acc[c][2] = fmaf(xv, w23.x, acc[c][2]);
+          acc[c][3] = fmaf(xv, w23.y, acc[c][3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);
+    }
+
+    // epilogue: the row groups summed in a fixed order (first those of a
+    // warp, by shuffles, then the eight warps through shared memory),
+    // rounded once to bf16
+    float* rb = red + (u & 1) * RED_FLOATS;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+#pragma unroll
+      for (int off = kQuads; off < 32; off <<= 1)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[c][j] += __shfl_xor_sync(0xffffffffu, acc[c][j], off);
+      if (lane < kQuads)
+        *reinterpret_cast<float4*>(rb + (warp * C + c) * kBN + cq * 4) =
+            make_float4(acc[c][0], acc[c][1], acc[c][2], acc[c][3]);
+    }
+    hopper::named_sync(1, kConsumers);
+    __nv_bfloat16* ye = y + (size_t)e * C * F;
+    for (int idx = tid; idx < C * kBN; idx += kConsumers) {
+      const int c = idx / kBN, col = idx % kBN, f = n * kBN + col;
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += rb[(w * C + c) * kBN + col];
+      if (f < F) ye[(size_t)c * F + f] = __float2bfloat16_rn(sum);
+    }
+  }
+}
+
+template <int C>
+cudaError_t launch(const void* x, const void* w, void* y, int E, int D, int F,
+                   cudaStream_t stream) {
+  CUtensorMap tx, tw;
+  if (!hopper::encode_bf16_3d(&tx, x, D, C, E, D, (uint64_t)C * D, kBK, C, 1, 0) ||
+      !hopper::encode_bf16_3d(&tw, w, F, D, E, F, (uint64_t)D * F, kBN, kBK, 1, 0))
+    return cudaErrorInvalidValue;
+  const int sms = hopper::sm_count();
+  if (!sms) return cudaErrorInvalidDevice;
+  auto kernel = moe_gmm_stream_kernel<C>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const long long n_units = (long long)E * ((F + kBN - 1) / kBN);
+  const int grid = (int)(n_units < kBlocksPerSM * sms ? n_units : kBlocksPerSM * sms);
+  kernel<<<grid, kThreads, SMEM, stream>>>(tx, tw, static_cast<__nv_bfloat16*>(y), E, D, F);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_c(const void* x, const void* w, void* y, int E, int C, int D, int F,
+                     cudaStream_t s) {
+  if (E < 1 || D < 1 || F < 1 || D % 8 || F % 8) return cudaErrorInvalidValue;
+  switch (C) {
+    case 1: return launch<1>(x, w, y, E, D, F, s);
+    case 2: return launch<2>(x, w, y, E, D, F, s);
+    case 3: return launch<3>(x, w, y, E, D, F, s);
+    case 4: return launch<4>(x, w, y, E, D, F, s);
+    case 5: return launch<5>(x, w, y, E, D, F, s);
+    case 6: return launch<6>(x, w, y, E, D, F, s);
+    case 7: return launch<7>(x, w, y, E, D, F, s);
+    case 8: return launch<8>(x, w, y, E, D, F, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace streamed
 
 }  // namespace
 
@@ -441,4 +628,13 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* y, int E, int C, 
 extern "C" int moe_gmm_wgmma_fwd(const void* x, const void* w, void* y, int E, int C, int D,
                                  int F, void* stream) {
   return (int)wg::launch(x, w, y, E, C, D, F, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 only: the stream design, for 1 <= C <= 8 and D and F multiples of 8.
+// Returns cudaGetLastError() after the launch, or an error for a shape it
+// does not take or a tensor map that cuTensorMapEncodeTiled refuses; the
+// caller raises on anything but 0.
+extern "C" int moe_gmm_stream_fwd(const void* x, const void* w, void* y, int E, int C, int D,
+                                  int F, void* stream) {
+  return (int)streamed::launch_c(x, w, y, E, C, D, F, static_cast<cudaStream_t>(stream));
 }

@@ -8,7 +8,7 @@ import torch
 #: I/O types the kernels take, with the code their C entry points expect
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head widths the kernels are instantiated for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 120, 128)
 
 
 def check_operands(name: str, *tensors: torch.Tensor) -> None:

@@ -5,16 +5,18 @@ Counterpart of the Pallas ``moe_gmm`` in the JAX package's
 summed in fp32 and rounded once.  The kernels mask the tails of C, D and F
 themselves, so nothing is padded here.
 
-Two designs, each its own C entry point, chosen by :func:`route` from the
-dtype and shape before the launch: bf16 with ``C >= WGMMA_MIN_C`` and D and F
-multiples of 8 (TMA's 16-byte row strides) takes ``"wgmma"`` (Hopper's
-tensor cores, TMA loads, warp-specialised, persistent); everything else --
-the decode shapes, ragged D or F, fp32 -- takes ``"mma_sync"`` (bf16 on
-``mma.sync``, fp32 on the CUDA cores, never TF32).  A failed build or launch
-raises; no route stands in for another.  :func:`moe_gmm_mma_sync` and
-:func:`moe_gmm_wgmma` reach each design at any shape it takes, so that the
-two can be timed against each other on the card.  ``LAUNCHES`` counts the
-launches of each route.
+Three designs, each its own C entry point, chosen by :func:`route` from the
+dtype and shape before the launch.  bf16 with D and F multiples of 8 (TMA's
+16-byte row strides) takes ``"stream"`` for ``C <= STREAM_MAX_C`` (the
+decode shapes: w streamed through a deep TMA ring by persistent blocks, fp32
+sums on the CUDA cores) and ``"wgmma"`` for ``C >= WGMMA_MIN_C`` (the
+prefill shapes: Hopper's tensor cores, TMA loads, warp-specialised,
+persistent); everything else -- C between the two, ragged D or F, fp32 --
+takes ``"mma_sync"`` (bf16 on ``mma.sync``, fp32 on the CUDA cores, never
+TF32).  A failed build or launch raises; no route stands in for another.
+:func:`moe_gmm_mma_sync`, :func:`moe_gmm_wgmma` and :func:`moe_gmm_stream`
+reach each design at any shape it takes, so that they can be timed against
+each other on the card.  ``LAUNCHES`` counts the launches of each route.
 """
 from __future__ import annotations
 
@@ -32,27 +34,38 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _GRID_LIMIT = 65535        # gridDim.y (C / 64) and gridDim.z (E)
 _INDEX_LIMIT = 2 ** 31     # C, D and F are int in the kernel
 #: the least C (rows per expert) that takes the wgmma design.  Set by scope,
-#: not by speed: the decode shapes (C <= 2) stay on mma_sync; chip_smoke.py
-#: times both designs from C = 1 to 64.
+#: not by speed: no serving path has C between STREAM_MAX_C and 64;
+#: chip_smoke.py times the three designs from C = 1 to 64.
 WGMMA_MIN_C = 64
+#: the most C that the stream kernel is instantiated for
+STREAM_KERNEL_MAX_C = 8
+#: the most C that routes to the stream design: the decode shapes (C = 1 or
+#: 2 at batch 8) and up to where chip_smoke.py's C sweep (H100, mixtral's
+#: gate/up widths) finds it ahead of mma_sync, which takes C = 7 to 63; at
+#: C = 8 its fp32 multiply-adds bound it, 8 per weight
+STREAM_MAX_C = 6
 
 #: launches of each route
-LAUNCHES: Dict[str, int] = {"wgmma": 0, "mma_sync": 0}
+LAUNCHES: Dict[str, int] = {"stream": 0, "wgmma": 0, "mma_sync": 0}
 
 
 def route(dtype: torch.dtype, C: int, D: int, F: int) -> str:
-    """The design a CUDA call takes: ``"wgmma"`` for bf16 with C >=
-    ``WGMMA_MIN_C`` and D, F multiples of 8, else ``"mma_sync"``."""
-    if dtype == torch.bfloat16 and C >= WGMMA_MIN_C and D % 8 == 0 and F % 8 == 0:
-        return "wgmma"
+    """The design a CUDA call takes: for bf16 with D, F multiples of 8,
+    ``"stream"`` when C <= ``STREAM_MAX_C`` and ``"wgmma"`` when C >=
+    ``WGMMA_MIN_C``; else ``"mma_sync"``."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0:
+        if C <= STREAM_MAX_C:
+            return "stream"
+        if C >= WGMMA_MIN_C:
+            return "wgmma"
     return "mma_sync"
 
 
 @functools.cache
 def _entry(which: str):
     lib = _build.load("moe_gmm")
-    if which == "wgmma":
-        fn = lib.moe_gmm_wgmma_fwd
+    if which in ("wgmma", "stream"):
+        fn = getattr(lib, f"moe_gmm_{which}_fwd")
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     else:
         fn = lib.moe_gmm_fwd
@@ -84,14 +97,21 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def moe_gmm_mma_sync(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the mma_sync design at any shape (the previous design for the
-    prefill shapes, kept to be timed beside the wgmma one)."""
+    prefill and decode shapes, kept to be timed beside the wgmma and stream
+    ones)."""
     return _launch("mma_sync", x, w)
 
 
 def moe_gmm_wgmma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Launch the wgmma design at any bf16 shape it takes, whatever C (to
-    time it against the mma_sync design below the threshold)."""
+    time it against the other designs below the threshold)."""
     return _launch("wgmma", x, w)
+
+
+def moe_gmm_stream(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Launch the stream design at any bf16 shape it takes (C <=
+    ``STREAM_KERNEL_MAX_C``, past the route's threshold too)."""
+    return _launch("stream", x, w)
 
 
 def _launch(which, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -107,8 +127,11 @@ def _launch(which, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if which == "mma_sync":
         args.append(DTYPE_CODES[x.dtype])
     elif x.dtype != torch.bfloat16 or D % 8 or F % 8:
-        raise ValueError(f"moe_gmm: the wgmma route takes bf16 with D and F multiples of 8, "
+        raise ValueError(f"moe_gmm: the {which} route takes bf16 with D and F multiples of 8, "
                          f"got {x.dtype}, D {D}, F {F}")
+    elif which == "stream" and C > STREAM_KERNEL_MAX_C:
+        raise ValueError(f"moe_gmm: the stream route takes C <= {STREAM_KERNEL_MAX_C}, "
+                         f"got C {C}")
     err = _entry(which)(*args, stream_handle(x.device))
     raise_on_error(f"moe_gmm ({which})", err)
     LAUNCHES[which] += 1

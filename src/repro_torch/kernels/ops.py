@@ -7,9 +7,9 @@ There is no override and no fallback.
 
 ``LAUNCHES`` counts the kernel launches of each op, so that a run can show
 that it went through the kernels; the plain versions do not count.
-``ROUTE_LAUNCHES`` counts, for the two ops with two designs, the launches of
-each design (``route`` in their wrappers), so that a run can show which one
-it took.
+``ROUTE_LAUNCHES`` counts, for the ops with more than one design, the
+launches of each design (``route`` in their wrappers), so that a run can
+show which one it took.
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ct
 
 #: launches by route of the ops with more than one design (the wrappers' counts)
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {"flash_attention": _flash.LAUNCHES,
+                                             "decode_attention": _decode.LAUNCHES,
                                              "moe_gmm": _gmm.LAUNCHES}
 
 

@@ -15,6 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -198,7 +199,7 @@ def test_moe_gmm_routes_agree_at_the_serving_shapes(cuda, E, C, D, F):
     w = (_randn(cuda, (E, D, F), torch.float32) * D ** -0.5).bfloat16()
     before = dict(tgmm.LAUNCHES)
     new, old = tgmm.moe_gmm(x, w), tgmm.moe_gmm_mma_sync(x, w)
-    assert tgmm.LAUNCHES == {"wgmma": before["wgmma"] + 1,
+    assert tgmm.LAUNCHES == {**before, "wgmma": before["wgmma"] + 1,
                              "mma_sync": before["mma_sync"] + 1}
     atol, rtol = TOL["bfloat16"]
     torch.testing.assert_close(new.float(), old.float(), atol=atol, rtol=rtol)
@@ -437,3 +438,176 @@ def test_moe_gmm_wgmma_entry_refuses_what_it_cannot_take(cuda, dtype, F):
     x, w = _randn(cuda, (2, 64, 32), dt), _randn(cuda, (2, 32, F), dt)
     with pytest.raises(ValueError, match="wgmma route"):
         tgmm.moe_gmm_wgmma(x, w)
+
+
+# ---------------------------------------------------------------------------
+# decode attention: both designs, and the cases that stress the split one
+
+
+def _decode_valid(cuda, B, T, mask):
+    j = torch.arange(T, device="cuda")
+    if mask == "prefix":        # a 512-token prompt and one new token
+        v = j <= min(512, T - 1)
+    elif mask == "wrap":        # a ring that wraps: slots 700 .. T-1 and 0 .. 188
+        v = (j >= min(700, T - 1)) | (j < 189)
+    elif mask == "few":         # 3 valid slots in the first tile: the other splits get none
+        v = (j == 1) | (j == 5) | (j == 63)
+    else:                       # random, and the last row with no valid slot
+        r = torch.rand((B, T), generator=cuda, device="cuda") < 0.5
+        r[-1] = False
+        return r
+    return v[None].expand(B, T).contiguous()
+
+
+DECODE_CASES = [   # B, Hq, Hkv, T, d, mask
+    (2, 8, 2, 300, 64, "random"), (1, 4, 4, 512, 128, "random"), (3, 16, 8, 257, 64, "random"),
+    (8, 16, 8, 1024, 128, "prefix"),        # the serving shape, 513 valid slots
+    (8, 16, 8, 1024, 128, "wrap"),
+    (8, 16, 8, 1024, 128, "random"),        # a row with no valid slot
+    (8, 16, 8, 1024, 128, "few"),           # splits whose tiles are all invalid
+    (8, 32, 8, 1024, 128, "prefix"),        # mixtral-8x7b's G = 4
+    (3, 16, 8, 257, 128, "prefix"),         # one slot in the last tile
+    (2, 16, 8, 1500, 128, "wrap"),
+    (8, 32, 8, 1024, 120, "prefix"),        # h2o-danube-3-4b: head_dim 120
+    (2, 32, 8, 300, 120, "random"),
+    (2, 16, 2, 300, 32, "random"),          # G = 8
+    (1, 2, 1, 9, 32, "random"),             # T shorter than a tile
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,d,mask", DECODE_CASES)
+@pytest.mark.parametrize("which", ["split", "simt"])
+def test_decode_attention_routes_in_bf16(cuda, B, Hq, Hkv, T, d, mask, which):
+    """Each design in bf16 against the plain version: the split one through
+    the routed entry point, the simt one through its own."""
+    q = _randn(cuda, (B, Hq, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, T, Hkv, d), torch.bfloat16) for _ in range(2))
+    valid = _decode_valid(cuda, B, T, mask)
+    fn = tdecode.decode_attention if which == "split" else tdecode.decode_attention_simt
+    assert tdecode.route(torch.bfloat16, Hq // Hkv, T) == "split"
+    before = dict(tdecode.LAUNCHES)
+    out = fn(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tdecode.LAUNCHES == {**before, which: before[which] + 1}
+    _assert_close(out, ref.decode_attention_ref(q, k, v, valid), "bfloat16")
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,d,mask", [c for c in DECODE_CASES if c[4] == 120])
+def test_decode_attention_head_dim_120_in_fp32(cuda, B, Hq, Hkv, T, d, mask):
+    q = _randn(cuda, (B, Hq, d), torch.float32)
+    k, v = (_randn(cuda, (B, T, Hkv, d), torch.float32) for _ in range(2))
+    valid = _decode_valid(cuda, B, T, mask)
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    _assert_close(out, ref.decode_attention_ref(q, k, v, valid), "float32")
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,d,mask", [
+    (8, 8, 8, 2 ** 19, 32, "wrap"),      # 2 splits of 4096 tiles
+    (17, 8, 8, 131136, 32, "random"),    # B x Hkv past the SMs: one split of 2049 tiles
+])
+def test_decode_split_at_long_rows(cuda, B, Hq, Hkv, T, d, mask):
+    """Rows longer than 2048 tiles per split still take and pass the split
+    design, at any batch."""
+    q = _randn(cuda, (B, Hq, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, T, Hkv, d), torch.bfloat16) for _ in range(2))
+    valid = _decode_valid(cuda, B, T, mask)
+    assert tdecode.route(torch.bfloat16, Hq // Hkv, T) == "split"
+    before = dict(tdecode.LAUNCHES)
+    out = tdecode.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tdecode.LAUNCHES == {**before, "split": before["split"] + 1}
+    _assert_close(out, ref.decode_attention_ref(q, k, v, valid), "bfloat16")
+
+
+def test_decode_split_is_deterministic_and_agrees_with_simt(cuda):
+    B, Hq, Hkv, T, d = 8, 16, 8, 1024, 128
+    q = _randn(cuda, (B, Hq, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, T, Hkv, d), torch.bfloat16) for _ in range(2))
+    valid = _decode_valid(cuda, B, T, "prefix")
+    first = tdecode.decode_attention(q, k, v, valid)
+    assert all(torch.equal(first, tdecode.decode_attention(q, k, v, valid.int()))
+               for _ in range(3))
+    _assert_close(first, tdecode.decode_attention_simt(q, k, v, valid), "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# flash attention at head_dim 120, both designs
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win", [
+    (2, 32, 8, 200, 200, 120, True, None),
+    (1, 4, 2, 70, 40, 120, True, None),     # S > T: rows with no allowed key
+    (1, 8, 2, 300, 300, 120, True, 64),     # a window
+    (1, 4, 4, 128, 128, 120, False, None),
+    (8, 32, 8, 512, 512, 120, True, 4096),  # h2o-danube-3-4b's prefill at the serving traffic
+])
+@pytest.mark.parametrize("which", ["wgmma", "simt", "simt_fp32"])
+def test_flash_attention_head_dim_120(cuda, B, Hq, Hkv, S, T, d, causal, win, which):
+    dtype = "float32" if which == "simt_fp32" else "bfloat16"
+    dt = getattr(torch, dtype)
+    q = _randn(cuda, (B, Hq, S, d), dt)
+    k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
+    fn = tflash.flash_attention_simt if which == "simt" else tflash.flash_attention
+    before = dict(tflash.LAUNCHES)
+    out = fn(q, k, v, causal=causal, window=win)
+    torch.cuda.synchronize()
+    route = "wgmma" if which == "wgmma" else "simt"
+    assert tflash.LAUNCHES == {**before, route: before[route] + 1}
+    _assert_close(out, ref.flash_attention_ref(q, k, v, causal=causal, window=win), dtype)
+
+
+# ---------------------------------------------------------------------------
+# the stream design of moe_gmm (bf16, C <= 8)
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (8, 2, 4096, 14336), (8, 2, 14336, 4096),     # mixtral-8x7b decode: gate/up, down
+    (16, 1, 4096, 14336), (16, 1, 14336, 4096),   # jamba-v0.1-52b decode
+    (3, 5, 96, 72),                               # ragged C, E; D and F below a tile
+    (5, 6, 4096, 200),                            # C at the threshold, an F tail
+    (1, 3, 8, 8),
+    (2, 4, 1000, 1032),                           # D and F tails
+])
+def test_moe_gmm_stream_route(cuda, E, C, D, F):
+    assert tgmm.route(torch.bfloat16, C, D, F) == "stream"
+    before = dict(tgmm.LAUNCHES)
+    _check_moe_gmm(cuda, (E, C, D), (E, D, F), "bfloat16", w_scale=D ** -0.5)
+    assert tgmm.LAUNCHES == {**before, "stream": before["stream"] + 1}
+
+
+@pytest.mark.parametrize("C", [7, 8])
+def test_moe_gmm_stream_past_the_threshold(cuda, C):
+    """The kernel takes C up to 8, past the route's threshold, so that the
+    three designs can be timed across it."""
+    x = _randn(cuda, (4, C, 512), torch.bfloat16)
+    w = (_randn(cuda, (4, 512, 264), torch.float32) * 512 ** -0.5).bfloat16()
+    out = tgmm.moe_gmm_stream(x, w)
+    torch.cuda.synchronize()
+    _assert_close(out, ref.moe_gmm_ref(x, w), "bfloat16")
+
+
+@pytest.mark.parametrize("case", ["fp32", "ragged_f", "ragged_d", "too_many_rows"])
+def test_moe_gmm_stream_entry_refuses_what_it_cannot_take(cuda, case):
+    E, C, D, F, dt = 2, 2, 64, 64, torch.bfloat16
+    if case == "fp32":
+        dt = torch.float32
+    elif case == "ragged_f":
+        F = 130
+    elif case == "ragged_d":
+        D = 100
+    else:
+        C = tgmm.STREAM_KERNEL_MAX_C + 1
+    x, w = _randn(cuda, (E, C, D), dt), _randn(cuda, (E, D, F), dt)
+    with pytest.raises(ValueError, match="stream route"):
+        tgmm.moe_gmm_stream(x, w)
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (8, 2, 4096, 14336), (8, 2, 14336, 4096), (16, 1, 4096, 14336), (16, 1, 14336, 4096)])
+def test_moe_gmm_decode_designs_agree(cuda, E, C, D, F):
+    """The stream design and the previous one (mma_sync) on the same bf16
+    operands at the decode shapes."""
+    x = _randn(cuda, (E, C, D), torch.bfloat16)
+    w = (_randn(cuda, (E, D, F), torch.float32) * D ** -0.5).bfloat16()
+    _assert_close(tgmm.moe_gmm(x, w), tgmm.moe_gmm_mma_sync(x, w), "bfloat16")

@@ -250,10 +250,16 @@ def test_flash_route(dtype, expect):
     (16, 640, 4096, 14336, torch.bfloat16, "wgmma"),   # jamba-v0.1-52b prefill, gate and up
     (16, 640, 14336, 4096, torch.bfloat16, "wgmma"),   # jamba prefill, down
     (8, 1280, 4096, 14336, torch.float32, "mma_sync"),  # fp32 stays off the tensor cores
-    (8, 2, 4096, 14336, torch.bfloat16, "mma_sync"),   # mixtral decode
-    (16, 1, 14336, 4096, torch.bfloat16, "mma_sync"),  # jamba decode
+    (8, 2, 4096, 14336, torch.bfloat16, "stream"),     # mixtral decode
+    (16, 1, 14336, 4096, torch.bfloat16, "stream"),    # jamba decode
     (4, 1280, 96, 130, torch.bfloat16, "mma_sync"),    # F not a multiple of 8: no TMA stride
     (4, 1280, 100, 128, torch.bfloat16, "mma_sync"),   # D not a multiple of 8
+    (8, 2, 14336, 4096, torch.bfloat16, "stream"),     # mixtral decode, down
+    (16, 1, 4096, 14336, torch.bfloat16, "stream"),    # jamba decode, gate and up
+    (8, 2, 4096, 14336, torch.float32, "mma_sync"),    # fp32 decode
+    (8, 2, 4096, 130, torch.bfloat16, "mma_sync"),     # a decode shape with ragged F
+    (8, 2, 100, 128, torch.bfloat16, "mma_sync"),      # a decode shape with ragged D
+    (8, 32, 4096, 14336, torch.bfloat16, "mma_sync"),  # between the two thresholds
 ])
 def test_moe_gmm_route(E, C, D, F, dtype, expect):
     from repro_torch.kernels import moe_gmm as tgmm
@@ -268,6 +274,17 @@ def test_moe_gmm_route_threshold():
     assert tgmm.route(torch.bfloat16, c - 1, 96, 72) == "mma_sync"
 
 
+@pytest.mark.parametrize("dtype,expect_at,expect_past", [
+    (torch.bfloat16, "stream", "mma_sync"), (torch.float32, "mma_sync", "mma_sync")])
+def test_moe_gmm_stream_threshold(dtype, expect_at, expect_past):
+    from repro_torch.kernels import moe_gmm as tgmm
+    c = tgmm.STREAM_MAX_C
+    assert 2 <= c <= tgmm.STREAM_KERNEL_MAX_C < tgmm.WGMMA_MIN_C
+    assert tgmm.route(dtype, 1, 96, 72) == expect_at
+    assert tgmm.route(dtype, c, 96, 72) == expect_at
+    assert tgmm.route(dtype, c + 1, 96, 72) == expect_past
+
+
 def test_route_counts_reset_and_ignore_cpu_tensors():
     ops.ROUTE_LAUNCHES["flash_attention"]["wgmma"] += 3
     ops.ROUTE_LAUNCHES["moe_gmm"]["mma_sync"] += 2
@@ -276,8 +293,11 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
     g = torch.Generator().manual_seed(2)
     ops.moe_gmm(torch.randn((2, 64, 32), generator=g).bfloat16(),
                 torch.randn((2, 32, 24), generator=g).bfloat16())
+    ops.moe_gmm(torch.randn((2, 2, 32), generator=g).bfloat16(),
+                torch.randn((2, 32, 24), generator=g).bfloat16())
     assert ops.ROUTE_LAUNCHES == {"flash_attention": {"wgmma": 0, "simt": 0},
-                                  "moe_gmm": {"wgmma": 0, "mma_sync": 0}}
+                                  "decode_attention": {"split": 0, "simt": 0},
+                                  "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0}}
 
 
 def test_every_entry_point_refuses_cpu_tensors():
@@ -291,7 +311,7 @@ def test_every_entry_point_refuses_cpu_tensors():
             fn(q, k, v)
     x, w = torch.zeros((2, 64, 32), dtype=torch.bfloat16), torch.zeros((2, 32, 24),
                                                                        dtype=torch.bfloat16)
-    for fn in (tgmm.moe_gmm, tgmm.moe_gmm_mma_sync, tgmm.moe_gmm_wgmma):
+    for fn in (tgmm.moe_gmm, tgmm.moe_gmm_mma_sync, tgmm.moe_gmm_wgmma, tgmm.moe_gmm_stream):
         with pytest.raises(ValueError, match="CUDA tensors"):
             fn(x, w)
     assert (tflash.LAUNCHES, tgmm.LAUNCHES) == before
