@@ -16,7 +16,8 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    held busy while the host enqueues it.  The kernels with more than one
    design (``flash_attention`` and the ``moe_gmm`` prefill: ``wgmma`` for
    bf16; ``decode_attention``: ``split`` for bf16; the ``moe_gmm`` decode
-   shapes: ``stream``; the previous design on its own entry point) are held
+   shapes: ``stream``; ``mamba_scan``: ``lanes``; ``rwkv6_scan``: ``cols``;
+   the previous design on its own entry point) are held
    against the plain version in every design, head_dim 120 included, and
    timed in turns, previous, new, new, previous, with the median and mean of
    the launches; the PyTorch call (SDPA with K and V repeated, ``torch.bmm``)
@@ -54,10 +55,11 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    card), every expert matmul through the ``moe_gmm`` kernel;
 5c. the same traffic through full-width ``jamba-v0.1-52b`` cut from 32 to
    24 layers, 3 of its 4 groups of 8 (bf16, 77.6 GB of weights): every
-   selective scan through ``mamba_scan``, the experts through ``moe_gmm``,
-   the attention through the flash and decode kernels;
+   selective scan through ``mamba_scan`` on its ``lanes`` design, the
+   experts through ``moe_gmm``, the attention through the flash and decode
+   kernels;
 5d. the same traffic through full-width, full-depth ``rwkv6-1.6b``, every
-   wkv recurrence through ``rwkv6_scan``;
+   wkv recurrence through ``rwkv6_scan`` on its ``cols`` design;
 5e. the same traffic through full-width, full-depth ``h2o-danube-3-4b``
    (24 layers, 7.9 GB of bf16 weights, heads 120 wide): the attention of
    head_dim 120 on the flash ``wgmma`` and decode ``split`` designs;
@@ -306,7 +308,9 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import decode_attention as _decode
     from repro_torch.kernels import flash_attention as _flash
+    from repro_torch.kernels import mamba_scan as _mamba
     from repro_torch.kernels import moe_gmm as _gmm
+    from repro_torch.kernels import rwkv6_scan as _rwkv
     from repro_torch.kernels.aes_ctr import aes_ctr as aes_kernel
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
@@ -643,23 +647,39 @@ def main() -> int:
         return max(check_close(f"{name} out", out, expect, SCAN_TOL[dname]),
                    check_close(f"{name} state", state, expect_state, SCAN_TOL["float32"]))
 
+    # each scan in both designs: the routed one (lanes, cols) and the
+    # previous one on its own entry point (simt); every sweep and serving
+    # shape routes to the new design (ds a multiple of 4; hd 16, 32, 64)
     scans = {
-        "mamba_scan": dict(op=ops.mamba_scan, plain=ref.mamba_scan_ref, make=mamba_case,
-                           sweep=MAMBA_SWEEP, main=MAMBA_MAIN),
-        "rwkv6_scan": dict(op=ops.rwkv6_scan, plain=ref.rwkv6_scan_ref, make=rwkv_case,
-                           sweep=RWKV_SWEEP, main=RWKV_MAIN),
+        "mamba_scan": dict(op=ops.mamba_scan, previous=_mamba.mamba_scan_simt,
+                           route=lambda dt_, case: _mamba.route(dt_, case[3]), new="lanes",
+                           plain=ref.mamba_scan_ref, make=mamba_case, sweep=MAMBA_SWEEP,
+                           main=MAMBA_MAIN),
+        "rwkv6_scan": dict(op=ops.rwkv6_scan, previous=_rwkv.rwkv6_scan_simt,
+                           route=lambda dt_, case: _rwkv.route(dt_, case[3]), new="cols",
+                           plain=ref.rwkv6_scan_ref, make=rwkv_case, sweep=RWKV_SWEEP,
+                           main=RWKV_MAIN),
     }
     scan_times = {}
     for name, kd in scans.items():
         for case in kd["sweep"]:
             for dname, dt_ in dtypes.items():
-                err = check_scan(f"{name}{case} {dname}", kd["op"], kd["plain"],
-                                 kd["make"](*case[:4], dt_, case[4]), dname)
-                print(f"  {name} {case} {dname}: max |diff| {err:.3g} "
-                      f"(atol, rtol {SCAN_TOL[dname]})")
+                if kd["route"](dt_, case) != kd["new"]:
+                    raise AssertionError(f"{name}{case} {dname} routes to "
+                                         f"{kd['route'](dt_, case)}")
+                args = kd["make"](*case[:4], dt_, case[4])
+                for design, fn in ((kd["new"], kd["op"]), ("simt", kd["previous"])):
+                    err = check_scan(f"{name}{case} {dname} {design}", fn, kd["plain"], args,
+                                     dname)
+                    print(f"  {name} {case} {dname}, {design} design: max |diff| {err:.3g} "
+                          f"(atol, rtol {SCAN_TOL[dname]})")
         for label, shape in kd["main"].items():
             args = kd["make"](*shape, torch.float32)
+            if kd["route"](torch.float32, shape) != kd["new"]:
+                raise AssertionError(f"{name} {label} {shape} does not route to {kd['new']}")
             err = check_scan(f"{name} {label} {shape}", kd["op"], kd["plain"], args, "float32")
+            err_prev = check_scan(f"{name} {label} {shape} simt", kd["previous"], kd["plain"],
+                                  args, "float32")
             out, state = kd["op"](*args)
             B, S = shape[:2]
             if name == "mamba_scan":
@@ -673,21 +693,20 @@ def main() -> int:
                 H, hd = shape[2:]
                 flop = 5 * B * S * H * hd * (hd + 1)
                 ops_desc, ops_ms = f"{flop} fp32 FLOP", 1e3 * flop / fp32_flops
-            if S > 1:
-                ms = time_ms(torch, lambda: kd["op"](*args), 20, flush)
-            else:
-                # a few-microsecond kernel: a host stall between the start
-                # event and the launch that outlasts the flush (the host's
-                # cores are shared) idles the card inside the timed span and
-                # adds its length to one sample, so the record is the median
-                times = launch_times_ms(torch, lambda: kd["op"](*args), 200, flush)
-                ms = statistics.median(times)
-                print(f"  {name} {label}: median {ms:.4f} ms, mean "
-                      f"{statistics.fmean(times):.4f}, min {min(times):.4f}, "
-                      f"max {max(times):.4f} over {len(times)} launches")
+            # both designs in turns; at the prefill the mean of 20 launches
+            # each, at a decode step the median of 200: a few-microsecond
+            # kernel, where a host stall between the start event and the
+            # launch that outlasts the flush (the host's cores are shared)
+            # idles the card inside the timed span and adds its length to
+            # one sample
+            old, new = in_turns(torch, lambda: kd["previous"](*args), lambda: kd["op"](*args),
+                                10 if S > 1 else 100, flush)
+            pick = statistics.fmean if S > 1 else statistics.median
+            print(f"  {name} {label} {shape} float32: {kd['new']} {spread(new)}, max |diff| "
+                  f"{err:.3g}; simt (previous) {spread(old)}, max |diff| {err_prev:.3g}")
             scan_times[(name, label)] = dict(
                 err=err,
-                ms=ms,
+                ms=pick(new), previous_ms=pick(old),
                 plain_ms=time_ms(torch, lambda: kd["plain"](*args), 3, flush),
                 library_ms=None,        # no PyTorch call computes either recurrence
                 bytes=sum(t.numel() * t.element_size() for t in (*args, out, state)),
@@ -696,6 +715,13 @@ def main() -> int:
                           "rwkv6_scan": "src/repro/kernels/rwkv6_scan.py:58"}[name],
                 source=f"src/repro_torch/csrc/{name}.cu")
             report(f"{name} {label} {shape}", scan_times[(name, label)])
+            if S == 1:
+                # the floor a decode step meets in this timing: one PyTorch
+                # copy of the state it reads and writes (no kernel of the port)
+                st0 = args[5]
+                copy = launch_times_ms(torch, lambda: st0.clone(), 200, flush)
+                print(f"  {name} {label}: a copy of the {st0.numel() * 4}-byte state "
+                      f"(read and written once) {spread(copy)}")
             del args, out, state
         # the line's record: the decode step, 651 of 672 launches of 5c
         # (31 of 32 for each Mamba layer) and 744 of 768 of 5d
@@ -835,7 +861,9 @@ def main() -> int:
         dtype = getattr(torch, cfg.dtype)
         expect_routes = {"flash_attention": {"wgmma": 0, "simt": 0},
                          "decode_attention": {"split": 0, "simt": 0},
-                         "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0}}
+                         "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
+                         "mamba_scan": {"lanes": 0, "simt": 0},
+                         "rwkv6_scan": {"cols": 0, "simt": 0}}
         expect_routes["flash_attention"][_flash.route(dtype)] += n["attn"]
         if n["attn"]:
             G, cap = cfg.n_heads // cfg.n_kv_heads, attention.kv_cache_capacity(cfg, MAX_SEQ)
@@ -848,6 +876,13 @@ def main() -> int:
                 for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
                              (cfg.d_ff, cfg.d_model)):
                     expect_routes["moe_gmm"][_gmm.route(dtype, C, D, F)] += n["moe"] * steps
+        # the scans take fp32 from the models, one launch a layer and step
+        if n["mamba"]:
+            expect_routes["mamba_scan"][_mamba.route(torch.float32, cfg.mamba.d_state)] += \
+                n["mamba"] * (n_decode + 1)
+        if n["rwkv"]:
+            expect_routes["rwkv6_scan"][_rwkv.route(torch.float32, cfg.rwkv.head_size)] += \
+                n["rwkv"] * (n_decode + 1)
         print(f"launches by route {routes}")
         if routes != expect_routes:
             raise AssertionError(f"launches by route {routes}, expected {expect_routes}")
@@ -901,7 +936,8 @@ def main() -> int:
     launches["moe_gmm"] = moe_launches["moe_gmm"]
     if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
                   "decode_attention": {"split": 744, "simt": 0},
-                  "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0}}:
+                  "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
+                  "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
         raise AssertionError(f"mixtral's launches by route {routes}")
     launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
 
@@ -921,7 +957,8 @@ def main() -> int:
     endpoints[cfg.name], jamba_launches, routes = serve(cfg, prompts)
     if routes != {"flash_attention": {"wgmma": 3, "simt": 0},
                   "decode_attention": {"split": 93, "simt": 0},
-                  "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0}}:
+                  "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
+                  "mamba_scan": {"lanes": 672, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
         raise AssertionError(f"Jamba's launches by route {routes}")
     launches["mamba_scan"] = jamba_launches["mamba_scan"]
     gc.collect()
@@ -932,7 +969,9 @@ def main() -> int:
     cfg = get_arch("rwkv6-1.6b")
     prompts = np.random.default_rng(SEED + 6).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    endpoints[cfg.name], rwkv_launches, _ = serve(cfg, prompts)
+    endpoints[cfg.name], rwkv_launches, routes = serve(cfg, prompts)
+    if routes["rwkv6_scan"] != {"cols": 768, "simt": 0}:
+        raise AssertionError(f"RWKV6's wkv launches by route {routes['rwkv6_scan']}")
     launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -947,7 +986,8 @@ def main() -> int:
     _, h2o_launches, routes = serve(cfg, prompts)
     if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
                   "decode_attention": {"split": 744, "simt": 0},
-                  "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0}}:
+                  "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
+                  "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
         raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
     h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
                 f"prefill and {h2o_launches['decode_attention']} decode launches")

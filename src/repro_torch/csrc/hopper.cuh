@@ -247,6 +247,39 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// A bulk copy of `bytes` (a multiple of 16; both addresses 16-byte aligned)
+// from global to shared memory, completion counted in bytes on `bar`: one
+// instruction for a whole row, where TMA's 16-byte global strides do not hold.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: 16 bytes from global to shared memory, not through registers,
+// for rows that TMA cannot take (TMA needs 16-byte global strides).  The
+// bytes past `src_bytes` (0..16) are written as zeros; with 0 nothing is
+// read.  A thread's copies are grouped by commit and waited for by
+// wait_group, which returns once at most N of its groups are in flight.
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -312,28 +345,36 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 3-D bf16 tensor of extents {n0, n1, n2} (n0 contiguous) with row
-// strides s1, s2 in elements, cut into boxes {b0, b1, b2}, swizzled by `sw`
-// bytes: 128 or 64 (b0 * 2 == sw), or 0 for none (rows of b0 * 2 bytes, a
-// multiple of 16, one after another).  Returns false if
-// cuTensorMapEncodeTiled refuses it.
-inline bool encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
-                           uint64_t n2, uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1,
-                           uint32_t b2, int sw) {
+// A 3-D tensor of `elem_bytes`-byte elements (4: fp32, 2: bf16) of extents
+// {n0, n1, n2} (n0 contiguous) with row strides s1, s2 in elements, cut into
+// boxes {b0, b1, b2}, swizzled by `sw` bytes: 128 or 64 (b0 * elem_bytes ==
+// sw), or 0 for none (rows of b0 * elem_bytes bytes, a multiple of 16, one
+// after another).  Returns false if cuTensorMapEncodeTiled refuses it.
+inline bool encode_3d(CUtensorMap* map, int elem_bytes, const void* base, uint64_t n0,
+                      uint64_t n1, uint64_t n2, uint64_t s1, uint64_t s2, uint32_t b0,
+                      uint32_t b1, uint32_t b2, int sw) {
   EncodeTiledFn fn = encode_tiled_fn();
-  if (!fn) return false;
+  if (!fn || (elem_bytes != 4 && elem_bytes != 2)) return false;
   const cuuint64_t dims[3] = {n0, n1, n2};
-  const cuuint64_t strides[2] = {s1 * 2, s2 * 2};
+  const cuuint64_t strides[2] = {s1 * elem_bytes, s2 * elem_bytes};
   const cuuint32_t box[3] = {b0, b1, b2};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUtensorMapSwizzle swz = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                             : CU_TENSOR_MAP_SWIZZLE_NONE;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUtensorMapDataType type = elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The same for a bf16 tensor.
+inline bool encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t n0, uint64_t n1,
+                           uint64_t n2, uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1,
+                           uint32_t b2, int sw) {
+  return encode_3d(map, 2, base, n0, n1, n2, s1, s2, b0, b1, b2, sw);
+}
 
 // SMs of the current device, for persistent grids; 0 if it cannot be read.
 inline int sm_count() {

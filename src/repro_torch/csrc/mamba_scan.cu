@@ -27,20 +27,57 @@
 // in time but independent across (b, c, n): B * di = 65536 independent
 // chains at the serving shape.
 //
-// What this simple design does about it: one thread per (batch row, inner
-// channel) keeps its ds <= 16 state values and its row of A in registers and
-// walks all of S, so the state never touches device memory between steps.
-// A block of 128 threads covers 128 channels of one batch row; the time axis
-// is cut into chunks of 32 steps.  For each chunk, the block first copies
-// its dt and dtx (each thread its own channel: coalesced, and 64 independent
-// loads in flight per thread) and the chunk's B_t and C_t (shared by every
-// channel of the row) into shared memory, then steps through the chunk from
-// there; y is stored per step, coalesced along di.  Tails of di and S are
-// masked by bounds.  `expf`, not `__expf`: the error compounds over S steps.
-// Not done here: a chunked parallel scan across time for long S with few
-// channels, and splitting ds across lanes to cut registers.
+// What this design does about it: two designs, each its own C entry
+// point, chosen before the launch by `route` in kernels/mamba_scan.py:
+// `lanes` (mamba_scan_lanes_fwd) for ds a multiple of 4, `simt`
+// (mamba_scan_simt_fwd) for any other ds <= 16.
+//
+// simt, the first design: one thread per (batch row, inner channel) keeps
+// its ds <= 16 state values and its row of A in registers and walks all of
+// S, so the state never touches device memory between steps.  A block of
+// 128 threads covers 128 channels of one batch row; the time axis is cut
+// into chunks of 32 steps.  For each chunk, the block first copies its dt
+// and dtx (each thread its own channel: coalesced, and 64 independent loads
+// in flight per thread) and the chunk's B_t and C_t (shared by every channel
+// of the row) into shared memory, then steps through the chunk from there;
+// y is stored per step, coalesced along di.  Tails of di and S are masked by
+// bounds.  `expf`, not `__expf`.  What holds it back on this card: a decode
+// step loads the state and A with a 64-byte stride between neighbouring
+// threads (32 lines per warp load); the loads of a chunk never overlap the
+// arithmetic of the one before; each step takes 34 scalar shared-memory
+// broadcasts per thread.
+//
+// lanes, the Hopper design: ds is split across L = 1, 2 or 4 neighbouring
+// lanes (ds 4, 8, 12 or 16; at 12 the fourth lane holds zeros), and each
+// lane holds 4 state values (and A) of 4 neighbouring channels, 16 values
+// at ds 16.  So a warp's loads of h0 and A and its stores of h_last are
+// whole 64-byte runs, and each shared load feeds 16 state updates: the
+// lane's 4 channels of dt and of dtx in one 16-byte load each, its 4 values
+// of B_t and of C_t in one each.  Each step a lane updates its 16 states and
+// sums its parts of y across the L lanes in log2 L rounds of xor-shuffles
+// that halve the values a lane holds (3 shuffles for 4 channels at L 4); a
+// chunk's y is staged in shared memory and stored in whole rows, 16 bytes a
+// thread.  A block of 32 L threads covers 128 channels of one batch row.
+// The time axis is cut into chunks of 8 steps held in a ring of 3 stages,
+// two chunks ahead of the one computed.  Where the rows are 16-byte aligned
+// (di and ds times the element size multiples of 16: every model shape),
+// warp 0 fills a stage with one bulk copy (cp.async.bulk) per row of dt and
+// dtx and per run of B_t and C_t, counted on the stage's mbarrier, whose
+// wait traps after 2^26 polls; any other shape (ragged di) takes 16-byte
+// cp.async words from the word that holds each row's first element, zero-
+// filled past the tensor's end, with scalar shared loads and stores.  TMA is
+// not used: its 3-D boxes would need the same 16-byte strides and add the
+// host's tensor maps.  One block-wide barrier per chunk publishes the chunk
+// and frees the stage of the one before.  The exponential is ex2.approx of
+// dt * A * log2(e), A prescaled once: one special-function op per state
+// value and step, the bound; its error over 512 steps is checked on the CPU
+// (tests/test_torch_scan_routes.py) and on the card against the plain
+// version at 2e-4.  Blocks are held to 128 registers a thread.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
+
 
 namespace {
 
@@ -130,6 +167,284 @@ cudaError_t launch(const void* dt, const void* dtx, const void* Bm, const void* 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The lanes design (see the head of the file).
+
+namespace lanes {
+
+constexpr int kUnroll = 2;   // steps unrolled in the inner loop
+constexpr int kTile = 128;   // inner channels per block
+constexpr int kGroup = 4;    // neighbouring channels per lane
+constexpr int kChunk = 8;    // time steps per stage of the ring
+constexpr int kStages = 3;   // chunks held in shared memory: the one computed, two in flight
+constexpr int kMaxDS = 16;
+
+// A stage holds a chunk's dt and dtx, one row of channels per step, and its
+// B_t and C_t as one run; each has a 16-byte word of slack, since a word
+// copy starts at the word that holds the first element.
+template <typename T>
+struct Smem {
+  static constexpr int kVec = 16 / sizeof(T);          // elements per 16-byte word
+  static constexpr int kRow = kTile + kVec;            // a step's channels, with the slack
+  static constexpr int kRun = kChunk * kMaxDS + kVec;  // a chunk's B_t (or C_t), with the slack
+  alignas(16) uint64_t full[kStages];  // bulk copies of a stage landed (aligned rows only)
+  alignas(16) T dt[kStages][kChunk][kRow];
+  alignas(16) T dtx[kStages][kChunk][kRow];
+  alignas(16) T bm[kStages][kRun];
+  alignas(16) T cm[kStages][kRun];
+  alignas(16) float y[2][kChunk][kTile];  // the chunk's y, double-buffered
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Four neighbouring values (16-byte aligned in fp32, 8-byte in bf16).
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = hopper::unpack_bf16(u.x), hi = hopper::unpack_bf16(u.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(hopper::pack_bf16(v.x, v.y), hopper::pack_bf16(v.z, v.w));
+}
+
+// A lane's four channels of a row of dt or dtx in shared memory: one
+// vector load on aligned rows (ALIGNED), else four scalar ones.
+template <bool ALIGNED, typename T>
+__device__ __forceinline__ float4 load_group(const T* p) {
+  if constexpr (ALIGNED) return load4(p);
+  return make_float4(to_f(p[0]), to_f(p[1]), to_f(p[2]), to_f(p[3]));
+}
+
+// Aligned rows (di and ds times the element size multiples of 16 bytes):
+// warp 0 copies a chunk with one bulk copy per row of dt and of dtx (the
+// block's channels of a step) and one per run of B_t and of C_t, all
+// counted on the stage's barrier.
+template <typename T>
+__device__ __forceinline__ void fill_bulk(Smem<T>& sm, int st, const T* dt, const T* dtx,
+                                          const T* Bm, const T* Cm, long long row0, int t0,
+                                          int steps, int di, int ds, int c0) {
+  const int lane = threadIdx.x;
+  const uint32_t row = min(kTile, di - c0) * sizeof(T), run = steps * ds * sizeof(T);
+  if (lane == 0) hopper::mbar_arrive_expect_tx(&sm.full[st], 2 * steps * row + 2 * run);
+  __syncwarp();
+  if (lane < 2 * steps) {
+    const int which = lane >= steps, t = lane - which * steps;
+    hopper::bulk_load((which ? sm.dtx : sm.dt)[st][t], (which ? dtx : dt) + (row0 + t0 + t) * di + c0,
+                      row, &sm.full[st]);
+  } else if (lane < 2 * steps + 2) {
+    const int which = lane - 2 * steps;
+    hopper::bulk_load((which ? sm.cm : sm.bm)[st], (which ? Cm : Bm) + (row0 + t0) * ds, run,
+                      &sm.full[st]);
+  }
+}
+
+// The 16-byte word of `base` starting at element `idx`, into `dst`; the
+// part past `n` elements is zero-filled (nothing is read past the end).
+template <typename T>
+__device__ __forceinline__ void copy_word(T* dst, const T* base, long long idx, long long n) {
+  const long long left = (n - idx) * (long long)sizeof(T);
+  const int bytes = left <= 0 ? 0 : left >= 16 ? 16 : (int)left;
+  hopper::cp_async_16(dst, bytes ? base + idx : base, bytes);
+}
+
+// Any other rows: every thread copies 16-byte words by cp.async, each row
+// from the word that holds its first element.
+template <typename T, int NT>
+__device__ __forceinline__ void fill_words(Smem<T>& sm, int st, const T* dt, const T* dtx,
+                                           const T* Bm, const T* Cm, long long row0, int t0,
+                                           int steps, int di, int ds, int c0, long long n_x,
+                                           long long n_bc) {
+  constexpr int V = Smem<T>::kVec, RW = Smem<T>::kRow / V;  // words per row
+  constexpr int PER = kChunk * RW;                           // words of a chunk of dt
+  const int tid = threadIdx.x;
+#pragma unroll 4
+  for (int k = 0; k < (2 * PER + NT - 1) / NT; ++k) {
+    const int e = tid + k * NT;
+    const int which = e >= PER, rem = e - which * PER, t = rem / RW, w = rem - t * RW;
+    if (e < 2 * PER && t < steps) {
+      const long long first = (row0 + t0 + t) * di + c0;
+      const long long idx = (first & ~(long long)(V - 1)) + w * V;
+      copy_word((which ? sm.dtx : sm.dt)[st][t] + w * V, which ? dtx : dt, idx, n_x);
+    }
+  }
+  const long long first = (row0 + t0) * ds;
+  const long long word0 = first & ~(long long)(V - 1);
+  const int words = ((int)(first - word0) + steps * ds + V - 1) / V;
+  for (int e = tid; e < 2 * words; e += NT) {
+    const int which = e >= words, w = e - which * words;
+    copy_word((which ? sm.cm : sm.bm)[st] + w * V, which ? Cm : Bm, word0 + (long long)w * V,
+              n_bc);
+  }
+  hopper::cp_async_commit();
+}
+
+// Store a staged chunk of y: `steps` rows of the block's channels, whole
+// rows at a time, four channels a store on aligned rows.
+template <typename T, int NT, bool ALIGNED>
+__device__ __forceinline__ void store_y(const float (*ys)[kTile], T* y, long long row, int steps,
+                                        int di, int c0) {
+  const int width = min(kTile, di - c0);
+  constexpr int PER = ALIGNED ? 4 : 1;  // channels a store
+#pragma unroll 4
+  for (int k = 0; k < kChunk * kTile / PER / NT; ++k) {
+    const int e = threadIdx.x + k * NT, t = e / (kTile / PER), c = PER * (e - t * (kTile / PER));
+    if (t < steps && c < width) {
+      if constexpr (ALIGNED)
+        store4(y + (row + t) * di + c0 + c, *reinterpret_cast<const float4*>(&ys[t][c]));
+      else
+        store(y + (row + t) * di + c0 + c, ys[t][c]);
+    }
+  }
+}
+
+// Block (channel tile, batch row); thread tid is lane q = tid % L of the
+// group of channels c0 + 4 (tid / L) .. + 3 and holds states 4q .. 4q + 3 of
+// each of them: 16 state values at ds = 16.
+template <typename T, int L, bool ALIGNED>
+__global__ void __launch_bounds__(kTile / kGroup * L, 512 / (kTile / kGroup * L))
+mamba_scan_lanes_kernel(const T* __restrict__ dt, const T* __restrict__ dtx,
+                        const T* __restrict__ Bm, const T* __restrict__ Cm,
+                        const T* __restrict__ A, const float* h0, T* __restrict__ y,
+                        float* h_last, int S, int di, int ds, long long n_x, long long n_bc) {
+  constexpr int NT = kTile / kGroup * L, V = Smem<T>::kVec, kRow = Smem<T>::kRow;
+  __shared__ Smem<T> sm;
+  const int tid = threadIdx.x, q = tid % L, g = tid / L;
+  const int b = blockIdx.y, c0 = blockIdx.x * kTile;
+  const bool on = 4 * q < ds;          // false only for the fourth lane at ds = 12
+  const long long row0 = (long long)b * S;
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  auto fill = [&](int i) {  // chunk i into its stage
+    const int t0 = i * kChunk, steps = min(kChunk, S - t0);
+    if constexpr (ALIGNED) {
+      if (tid < 32) fill_bulk<T>(sm, i % kStages, dt, dtx, Bm, Cm, row0, t0, steps, di, ds, c0);
+    } else {
+      fill_words<T, NT>(sm, i % kStages, dt, dtx, Bm, Cm, row0, t0, steps, di, ds, c0, n_x,
+                        n_bc);
+    }
+  };
+
+  if constexpr (ALIGNED) {
+    if (tid == 0) {
+#pragma unroll
+      for (int st = 0; st < kStages; ++st) hopper::mbar_init(&sm.full[st], 1);
+      hopper::mbar_fence_init();
+    }
+    __syncthreads();
+  }
+  for (int i = 0; i < kStages - 1; ++i) {  // the first chunks in flight
+    if (i < n_chunks) fill(i);
+    else if (!ALIGNED) hopper::cp_async_commit();
+  }
+  float4 a[kGroup], h[kGroup];
+#pragma unroll
+  for (int m = 0; m < kGroup; ++m) {
+    const int c = c0 + kGroup * g + m;
+    a[m] = h[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (on && c < di) {
+      constexpr float kLog2e = 1.4426950408889634f;
+      const float4 v = load4(A + (long long)c * ds + 4 * q);
+      a[m] = make_float4(v.x * kLog2e, v.y * kLog2e, v.z * kLog2e, v.w * kLog2e);
+      if (h0 != nullptr)
+        h[m] = *reinterpret_cast<const float4*>(h0 + ((long long)b * di + c) * ds + 4 * q);
+    }
+  }
+
+  for (int i = 0; i < n_chunks; ++i) {
+    const int t0 = i * kChunk, steps = min(kChunk, S - t0), st = i % kStages;
+    if constexpr (ALIGNED)
+      hopper::mbar_wait(&sm.full[st], (i / kStages) & 1);  // chunk i has landed
+    else
+      hopper::cp_async_wait<kStages - 2>();  // this thread's copies of chunk i have landed
+    __syncthreads();  // everyone's have, and everyone is done with chunk i - 1
+    const int next = i + kStages - 1;  // into the stage of chunk i - 1
+    if (next < n_chunks) fill(next);
+    else if (!ALIGNED) hopper::cp_async_commit();
+    if (i > 0) store_y<T, NT, ALIGNED>(sm.y[(i - 1) & 1], y, row0 + t0 - kChunk, kChunk, di, c0);
+
+    // each row's first element sits `off` elements into its first word
+    // (always 0 on aligned rows)
+    const unsigned first = (unsigned)((row0 + t0) * di + c0);
+    const T* dts = &sm.dt[st][0][kGroup * g];
+    const T* dtxs = &sm.dtx[st][0][kGroup * g];
+    const int boff = (ALIGNED ? 0 : (int)(((row0 + t0) * ds) & (V - 1))) + 4 * q;
+    const T* bms = &sm.bm[st][boff];
+    const T* cms = &sm.cm[st][boff];
+    float* ys = &sm.y[i & 1][0][kGroup * g + q * (kGroup / L)];
+#pragma unroll kUnroll
+    for (int t = 0; t < steps; ++t) {
+      const int off = (ALIGNED ? 0 : (int)((first + (unsigned)t * (unsigned)di) & (V - 1))) +
+                      t * kRow;
+      const float4 d4 = load_group<ALIGNED>(dts + off), x4 = load_group<ALIGNED>(dtxs + off);
+      const float d[kGroup] = {d4.x, d4.y, d4.z, d4.w}, x[kGroup] = {x4.x, x4.y, x4.z, x4.w};
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 bq = on ? load4(bms + t * ds) : zero;
+      const float4 cq = on ? load4(cms + t * ds) : zero;
+      float part[kGroup];
+#pragma unroll
+      for (int m = 0; m < kGroup; ++m) {
+        float4& hm = h[m];
+        hm.x = fmaf(hopper::exp2_approx(d[m] * a[m].x), hm.x, x[m] * bq.x);
+        hm.y = fmaf(hopper::exp2_approx(d[m] * a[m].y), hm.y, x[m] * bq.y);
+        hm.z = fmaf(hopper::exp2_approx(d[m] * a[m].z), hm.z, x[m] * bq.z);
+        hm.w = fmaf(hopper::exp2_approx(d[m] * a[m].w), hm.w, x[m] * bq.w);
+        part[m] = fmaf(hm.x, cq.x, fmaf(hm.y, cq.y, fmaf(hm.z, cq.z, hm.w * cq.w)));
+      }
+      // Sum each channel's parts over its L lanes, halving the values a lane
+      // holds each round: lane q ends with the channels q * 4 / L .. + 4 / L - 1.
+#pragma unroll
+      for (int m = L / 2, n = kGroup; m >= 1; m /= 2, n /= 2) {
+        const bool hi = q & m;
+#pragma unroll
+        for (int k = 0; k < n / 2; ++k) {
+          const float send = hi ? part[k] : part[k + n / 2];
+          const float keep = hi ? part[k + n / 2] : part[k];
+          part[k] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kGroup / L; ++k) ys[t * kTile + k] = part[k];
+    }
+  }
+  __syncthreads();
+  const int last = n_chunks - 1;
+  store_y<T, NT, ALIGNED>(sm.y[last & 1], y, row0 + last * kChunk, S - last * kChunk, di, c0);
+#pragma unroll
+  for (int m = 0; m < kGroup; ++m) {
+    const int c = c0 + kGroup * g + m;
+    if (on && c < di)
+      *reinterpret_cast<float4*>(h_last + ((long long)b * di + c) * ds + 4 * q) = h[m];
+  }
+}
+
+template <typename T, int L>
+cudaError_t launch(const void* dt, const void* dtx, const void* Bm, const void* Cm,
+                   const void* A, const void* h0, void* y, void* h_last, int B, int S, int di,
+                   int ds, cudaStream_t stream) {
+  const dim3 grid((di + kTile - 1) / kTile, B);
+  const long long n_x = (long long)B * S * di, n_bc = (long long)B * S * ds;
+  const bool aligned = (di * sizeof(T)) % 16 == 0 && (ds * sizeof(T)) % 16 == 0;
+  auto kernel = aligned ? mamba_scan_lanes_kernel<T, L, true> : mamba_scan_lanes_kernel<T, L, false>;
+  kernel<<<grid, kTile / kGroup * L, 0, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(dtx), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const T*>(A), static_cast<const float*>(h0),
+      static_cast<T*>(y), static_cast<float*>(h_last), S, di, ds, n_x, n_bc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_ds(const void* dt, const void* dtx, const void* Bm, const void* Cm,
+                      const void* A, const void* h0, void* y, void* h_last, int B, int S,
+                      int di, int ds, cudaStream_t s) {
+  if (ds <= 4) return launch<T, 1>(dt, dtx, Bm, Cm, A, h0, y, h_last, B, S, di, ds, s);
+  if (ds <= 8) return launch<T, 2>(dt, dtx, Bm, Cm, A, h0, y, h_last, B, S, di, ds, s);
+  return launch<T, 4>(dt, dtx, Bm, Cm, A, h0, y, h_last, B, S, di, ds, s);
+}
+
+}  // namespace lanes
+
 }  // namespace
 
 // dt, dtx, y (B, S, di); Bm, Cm (B, S, ds); A (di, ds), contiguous on the
@@ -137,9 +452,9 @@ cudaError_t launch(const void* dt, const void* dtx, const void* Bm, const void* 
 // null for zeros; h_last (B, di, ds) fp32, which may be h0.  B, S, di > 0,
 // B <= 65535, 0 < ds <= 16.  Returns cudaGetLastError() after the launch (0 on
 // success); the caller raises on anything else.
-extern "C" int mamba_scan_fwd(const void* dt, const void* dtx, const void* Bm, const void* Cm,
-                              const void* A, const void* h0, void* y, void* h_last, int B,
-                              int S, int di, int ds, int dtype, void* stream) {
+extern "C" int mamba_scan_simt_fwd(const void* dt, const void* dtx, const void* Bm, const void* Cm,
+                                   const void* A, const void* h0, void* y, void* h_last,
+                                   int B, int S, int di, int ds, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ds < 1 || ds > kMaxDS) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
@@ -147,4 +462,25 @@ extern "C" int mamba_scan_fwd(const void* dt, const void* dtx, const void* Bm, c
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(dt, dtx, Bm, Cm, A, h0, y, h_last, B, S, di, ds, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The lanes design: the same arguments, ds in {4, 8, 12, 16}.
+extern "C" int mamba_scan_lanes_fwd(const void* dt, const void* dtx, const void* Bm,
+                                    const void* Cm, const void* A, const void* h0, void* y,
+                                    void* h_last, int B, int S, int di, int ds, int dtype,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ds < 4 || ds > lanes::kMaxDS || ds % 4) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)lanes::launch_ds<float>(dt, dtx, Bm, Cm, A, h0, y, h_last, B, S, di, ds, s);
+  if (dtype == 1)
+    return (int)lanes::launch_ds<__nv_bfloat16>(dt, dtx, Bm, Cm, A, h0, y, h_last, B, S, di,
+                                                ds, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of one block of the lanes design (dtype 0 = float32, 1 =
+// bfloat16), for the wrapper's launch geometry to be checked against.
+extern "C" int mamba_scan_lanes_smem_bytes(int dtype) {
+  return dtype == 0 ? (int)sizeof(lanes::Smem<float>) : (int)sizeof(lanes::Smem<__nv_bfloat16>);
 }

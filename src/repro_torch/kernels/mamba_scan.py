@@ -4,14 +4,25 @@ Counterpart of the Pallas ``mamba_scan`` in the JAX package's
 ``kernels/mamba_scan.py``, with the signature of its plain oracle
 ``ref.mamba_scan_ref``: dt, dtx (B, S, di), Bm, Cm (B, S, ds), A (di, ds) and
 an optional fp32 initial state h0 (B, di, ds) -> y (B, S, di) in dt.dtype and
-the last state (B, di, ds) in fp32.  The kernel masks the tails of S and di
-itself, so nothing is padded here.
+the last state (B, di, ds) in fp32.  The kernels mask the tails of S and di
+themselves, so nothing is padded here.
+
+Two designs, each its own C entry point, chosen by :func:`route` from the
+dtype and ds before the launch: ds a multiple of 4 takes ``"lanes"`` (ds
+split across 1, 2 or 4 lanes of 4 state values, each lane holding 4
+neighbouring channels, chunks of dt, dtx, B_t and C_t brought by bulk
+copies, or cp.async words where rows are not 16-byte aligned, into a ring
+in shared memory); any other ds takes ``"simt"`` (a thread per channel).  A
+failed build or launch raises; no route stands in for another.
+:func:`mamba_scan_simt` reaches the simt design for any ds, so that the two
+can be timed against each other on the card.  ``LAUNCHES`` counts the launches of each route, and
+:func:`lanes_geometry` is the lanes launch that the source makes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -23,14 +34,74 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 MAX_STATE = 16             # state values per channel the kernel keeps in registers
 _GRID_LIMIT = 65535        # gridDim.y (B)
 _INDEX_LIMIT = 2 ** 31     # S, di and ds are int in the kernel
+#: the lanes design's constants (csrc/mamba_scan.cu, namespace lanes)
+LANES_TILE = 128           # inner channels per block
+LANES_GROUP = 4            # neighbouring channels per lane
+LANES_CHUNK = 8            # time steps per stage of the ring
+LANES_STAGES = 3           # stages of the ring
+SMEM_LIMIT = 227 * 1024    # shared memory a block may have on Hopper
+
+#: launches of each route
+LAUNCHES: Dict[str, int] = {"lanes": 0, "simt": 0}
+
+
+def route(dtype: torch.dtype, ds: int) -> str:
+    """The design a CUDA call takes: ``"lanes"`` for fp32 or bf16 with ds a
+    multiple of 4 (4, 8, 12, 16), else ``"simt"``."""
+    if dtype in (torch.float32, torch.bfloat16) and 0 < ds <= MAX_STATE and ds % 4 == 0:
+        return "lanes"
+    return "simt"
+
+
+class LanesGeometry(NamedTuple):
+    lanes: int             # lanes per group of channels, each holding 4 state values
+    block: int             # threads per block
+    grid: Tuple[int, int]  # (channel tiles, batch rows)
+    chunks: int            # chunks of LANES_CHUNK steps that cover S
+    smem: int              # static shared memory per block, in bytes
+
+
+def lanes_geometry(B: int, S: int, di: int, ds: int, itemsize: int) -> LanesGeometry:
+    """The launch of the lanes design for these shapes and an element of
+    ``itemsize`` bytes (4 or 2): the grid, the block, the chunks and the
+    shared memory of ``lanes::Smem`` (a stage holds a chunk's dt and dtx,
+    each a row of 128 channels and one 16-byte word of slack per step, and
+    its B_t and C_t, each a run of 8 * 16 values and a word, and has an
+    mbarrier; y is staged as fp32, twice)."""
+    if ds % 4 or not 0 < ds <= MAX_STATE:
+        raise ValueError(f"mamba_scan: the lanes design takes ds in (4, 8, 12, 16), got {ds}")
+    lanes = 1 if ds <= 4 else 2 if ds <= 8 else 4
+    vec = 16 // itemsize
+    stage = itemsize * (2 * LANES_CHUNK * (LANES_TILE + vec) + 2 * (LANES_CHUNK * MAX_STATE + vec))
+    barriers = 16 * -(-8 * LANES_STAGES // 16)   # one 8-byte mbarrier a stage, in 16 bytes
+    smem = barriers + LANES_STAGES * stage + 4 * 2 * LANES_CHUNK * LANES_TILE
+    return LanesGeometry(lanes, LANES_TILE // LANES_GROUP * lanes, (-(-di // LANES_TILE), B),
+                         -(-S // LANES_CHUNK), smem)
+
+
+def lanes_owner(g: LanesGeometry, bx: int, tid: int) -> Tuple[range, range]:
+    """(inner channels, state values) that thread ``tid`` of block column
+    ``bx`` holds in the lanes design: lane q = tid % lanes of the group of
+    channels 128 bx + 4 (tid // lanes) .. + 3, states 4q .. 4q + 3 of each
+    (those past di or ds are masked)."""
+    q, c = tid % g.lanes, bx * LANES_TILE + LANES_GROUP * (tid // g.lanes)
+    return range(c, c + LANES_GROUP), range(4 * q, 4 * q + 4)
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("mamba_scan").mamba_scan_fwd
+def _entry(which: str):
+    fn = getattr(_build.load("mamba_scan"), f"mamba_scan_{which}_fwd")
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
+
+
+def lanes_smem_bytes(dtype: torch.dtype) -> int:
+    """Shared memory of one block of the lanes design as the compiled source
+    has it (builds the library)."""
+    fn = _build.load("mamba_scan").mamba_scan_lanes_smem_bytes
+    fn.argtypes, fn.restype = [_I], _I
+    return fn(DTYPE_CODES[dtype])
 
 
 def check_inputs(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
@@ -64,9 +135,22 @@ def check_inputs(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
 def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
                A: torch.Tensor, h0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel: -> (y (B, S, di) in dt.dtype, h_last (B, di, ds)
-    fp32).  An empty input returns without a launch; its state is h0 (or
-    zeros)."""
+    """Launch the kernel of :func:`route`: -> (y (B, S, di) in dt.dtype,
+    h_last (B, di, ds) fp32).  An empty input returns without a launch; its
+    state is h0 (or zeros)."""
+    return _launch(None, dt, dtx, Bm, Cm, A, h0)
+
+
+def mamba_scan_simt(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                    A: torch.Tensor, h0: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the simt design whatever ds (the previous design, kept to be
+    timed beside the lanes one)."""
+    return _launch("simt", dt, dtx, Bm, Cm, A, h0)
+
+
+def _launch(which, dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+            A: torch.Tensor, h0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     check_operands("mamba_scan", dt, dtx, Bm, Cm, A)
     check_inputs(dt, dtx, Bm, Cm, A, h0)
     B, S, di = dt.shape
@@ -75,9 +159,12 @@ def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: torch.
     if y.numel() == 0:
         h = torch.zeros((B, di, ds), dtype=torch.float32, device=dt.device)
         return y, (h if h0 is None else h.copy_(h0))
+    which = which or route(dt.dtype, ds)
     h_last = torch.empty((B, di, ds), dtype=torch.float32, device=dt.device)
-    err = _entry()(dt.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), A.data_ptr(),
-                   None if h0 is None else h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                   B, S, di, ds, DTYPE_CODES[dt.dtype], stream_handle(dt.device))
-    raise_on_error("mamba_scan", err)
+    err = _entry(which)(dt.data_ptr(), dtx.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+                        A.data_ptr(), None if h0 is None else h0.data_ptr(), y.data_ptr(),
+                        h_last.data_ptr(), B, S, di, ds, DTYPE_CODES[dt.dtype],
+                        stream_handle(dt.device))
+    raise_on_error(f"mamba_scan ({which})", err)
+    LAUNCHES[which] += 1
     return y, h_last

@@ -32,7 +32,9 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ct
 #: launches by route of the ops with more than one design (the wrappers' counts)
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {"flash_attention": _flash.LAUNCHES,
                                              "decode_attention": _decode.LAUNCHES,
-                                             "moe_gmm": _gmm.LAUNCHES}
+                                             "moe_gmm": _gmm.LAUNCHES,
+                                             "mamba_scan": _mamba.LAUNCHES,
+                                             "rwkv6_scan": _rwkv.LAUNCHES}
 
 
 def reset_launches() -> None:

@@ -4,14 +4,25 @@ Counterpart of the Pallas ``rwkv6_scan`` in the JAX package's
 ``kernels/rwkv6_scan.py``, with the signature of its plain oracle
 ``ref.rwkv6_scan_ref``: r, k, v, w (B, T, H, hd), u (H, hd) and an optional
 fp32 initial state S0 (B, H, hd, hd) -> o (B, T, H, hd) in r.dtype and the
-last state (B, H, hd, hd) in fp32.  The kernel covers any T by bounds, so
+last state (B, H, hd, hd) in fp32.  The kernels cover any T by bounds, so
 nothing is padded here.
+
+Two designs, each its own C entry point, chosen by :func:`route` before the
+launch: fp32 and bf16 at every hd the kernels take (16, 32, 64) take
+``"cols"`` (the rows of the state split into slices of 8 across the warps,
+one or two columns a thread, the slices' parts of o summed through shared
+memory, chunks of r, k, w and v brought by TMA into a ring there);
+``"simt"`` (a thread per column) stays reachable through
+:func:`rwkv6_scan_simt`, so that the two can be timed against each other on
+the card.  A failed build or launch raises; no route stands in for another.
+``LAUNCHES`` counts the launches of each route, and :func:`cols_geometry`
+is the cols launch that the source makes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -20,16 +31,75 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_operands,
                                          raise_on_error, stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-HEAD_SIZES = (16, 32, 64)  # hd the kernel is instantiated for (a thread per column)
-_INDEX_LIMIT = 2 ** 31     # B * H blocks and T are int in the kernel
+HEAD_SIZES = (16, 32, 64)  # hd the kernels are instantiated for
+_INDEX_LIMIT = 2 ** 31     # B * H blocks and the B * T steps (TMA's row index) are int
+#: the cols design's constants (csrc/rwkv6_scan.cu, namespace cols)
+COLS_CHUNK = 8             # time steps per stage of the ring
+COLS_STAGES = 4            # stages of the ring
+COLS_ROWS = 8              # rows i of the state per thread
+SMEM_LIMIT = 227 * 1024    # shared memory a block may have on Hopper
+
+#: launches of each route
+LAUNCHES: Dict[str, int] = {"cols": 0, "simt": 0}
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The design a CUDA call takes: ``"cols"`` for fp32 or bf16 with hd in
+    ``HEAD_SIZES``, else ``"simt"`` (which refuses such an hd too)."""
+    if dtype in (torch.float32, torch.bfloat16) and hd in HEAD_SIZES:
+        return "cols"
+    return "simt"
+
+
+class ColsGeometry(NamedTuple):
+    columns: int           # neighbouring columns of the state per thread
+    slices: int            # slices of COLS_ROWS rows, whose parts of o are summed
+    block: int             # threads per block: a (batch row, head)
+    grid: int              # blocks: batch rows x heads
+    chunks: int            # chunks of COLS_CHUNK steps that cover T
+    smem: int              # dynamic shared memory per block, in bytes
+
+
+def cols_geometry(B: int, T: int, H: int, hd: int, itemsize: int) -> ColsGeometry:
+    """The launch of the cols design for these shapes and an element of
+    ``itemsize`` bytes (4 or 2): the block, the grid, the chunks and the
+    shared memory of ``cols::Smem`` (a stage holds a chunk's r, k, w and v
+    rows and has an mbarrier; each slice's part of o is kept as fp32 for two
+    chunks)."""
+    if hd not in HEAD_SIZES:
+        raise ValueError(f"rwkv6_scan: the cols design takes hd in {HEAD_SIZES}, got {hd}")
+    columns = 2 if hd == 64 else 1
+    slices = hd // COLS_ROWS
+    raw = (COLS_STAGES * 4 * COLS_CHUNK * hd * itemsize + 4 * 2 * slices * COLS_CHUNK * hd
+           + 8 * COLS_STAGES)                  # and one 8-byte mbarrier a stage
+    smem = 128 * -(-raw // 128)                # the struct is 128-byte aligned for TMA
+    return ColsGeometry(columns, slices, slices * hd // columns, B * H, -(-T // COLS_CHUNK),
+                        smem)
+
+
+def cols_owner(g: ColsGeometry, hd: int, tid: int) -> Tuple[range, range]:
+    """(columns j, rows i) of a head's state that thread ``tid`` holds in the
+    cols design: rows 8 s .. 8 s + 7 of columns C l .. C l + C - 1, with s =
+    tid // (hd / C) and l = tid % (hd / C), C = ``g.columns``."""
+    lanes = hd // g.columns
+    s, j0 = tid // lanes, g.columns * (tid % lanes)
+    return range(j0, j0 + g.columns), range(COLS_ROWS * s, COLS_ROWS * (s + 1))
 
 
 @functools.cache
-def _entry():
-    fn = _build.load("rwkv6_scan").rwkv6_scan_fwd
+def _entry(which: str):
+    fn = getattr(_build.load("rwkv6_scan"), f"rwkv6_scan_{which}_fwd")
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
+
+
+def cols_smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block of the cols design as the compiled source
+    has it (builds the library)."""
+    fn = _build.load("rwkv6_scan").rwkv6_scan_cols_smem_bytes
+    fn.argtypes, fn.restype = [_I, _I], _I
+    return fn(hd, DTYPE_CODES[dtype])
 
 
 def check_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -42,8 +112,8 @@ def check_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
         raise ValueError(f"rwkv6_scan: u must be (H, hd) = {(H, hd)}, got {tuple(u.shape)}")
     if hd not in HEAD_SIZES:
         raise ValueError(f"rwkv6_scan: head size {hd} not supported (takes {HEAD_SIZES})")
-    if B * H >= _INDEX_LIMIT or T >= _INDEX_LIMIT:
-        raise ValueError("rwkv6_scan: B * H and T must be below 2**31")
+    if B * H >= _INDEX_LIMIT or B * T >= _INDEX_LIMIT:
+        raise ValueError("rwkv6_scan: B * H and B * T must be below 2**31")
     if S0 is not None:
         if tuple(S0.shape) != (B, H, hd, hd):
             raise ValueError(f"rwkv6_scan: S0 must be (B, H, hd, hd) = {(B, H, hd, hd)}, "
@@ -58,9 +128,22 @@ def check_inputs(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Ten
 def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                u: torch.Tensor, S0: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel: -> (o (B, T, H, hd) in r.dtype, S_last (B, H, hd,
-    hd) fp32).  An empty input returns without a launch; its state is S0 (or
-    zeros)."""
+    """Launch the kernel of :func:`route`: -> (o (B, T, H, hd) in r.dtype,
+    S_last (B, H, hd, hd) fp32).  An empty input returns without a launch;
+    its state is S0 (or zeros)."""
+    return _launch(None, r, k, v, w, u, S0)
+
+
+def rwkv6_scan_simt(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                    u: torch.Tensor, S0: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the simt design (the previous design, kept to be timed beside
+    the cols one)."""
+    return _launch("simt", r, k, v, w, u, S0)
+
+
+def _launch(which, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+            u: torch.Tensor, S0: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     check_operands("rwkv6_scan", r, k, v, w, u)
     check_inputs(r, k, v, w, u, S0)
     B, T, H, hd = r.shape
@@ -68,9 +151,12 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     if o.numel() == 0:
         S = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
         return o, (S if S0 is None else S.copy_(S0))
+    which = which or route(r.dtype, hd)
     S_last = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
-    err = _entry()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                   None if S0 is None else S0.data_ptr(), o.data_ptr(), S_last.data_ptr(),
-                   B, T, H, hd, DTYPE_CODES[r.dtype], stream_handle(r.device))
-    raise_on_error("rwkv6_scan", err)
+    err = _entry(which)(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                        u.data_ptr(), None if S0 is None else S0.data_ptr(), o.data_ptr(),
+                        S_last.data_ptr(), B, T, H, hd, DTYPE_CODES[r.dtype],
+                        stream_handle(r.device))
+    raise_on_error(f"rwkv6_scan ({which})", err)
+    LAUNCHES[which] += 1
     return o, S_last

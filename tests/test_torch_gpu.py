@@ -17,7 +17,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as tdecode  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import mamba_scan as tmamba  # noqa: E402
 from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as trwkv  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -278,11 +280,14 @@ def _rwkv_inputs(gen, B, T, H, hd, dtype, with_state=True):
     return r, k, v, w, u, S0
 
 
-def _check_scan(name, op, plain, args, dtype):
-    before = ops.LAUNCHES[name]
+def _check_scan(name, op, plain, args, dtype, design=None):
+    """``op`` against ``plain``; ``design``, where given, is the route whose
+    count the launch must raise by one."""
+    counts = ops.ROUTE_LAUNCHES[name] if design else ops.LAUNCHES
+    before = counts[design or name]
     out, state = op(*args)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES[name] == before + 1
+    assert counts[design or name] == before + 1
     expect, expect_state = plain(*args)
     assert out.dtype == args[0].dtype and state.dtype == torch.float32
     atol, rtol = SCAN_TOL[dtype]
@@ -290,24 +295,65 @@ def _check_scan(name, op, plain, args, dtype):
     torch.testing.assert_close(state, expect_state, atol=2e-4, rtol=2e-4)
 
 
+MAMBA_SERVING = [(8, 512, 8192, 16, True),   # jamba-v0.1-52b prefill of 8 x 512 tokens
+                 (8, 1, 8192, 16, True)]     # jamba decode step
+RWKV_SERVING = [(8, 512, 32, 64, True),      # rwkv6-1.6b prefill of 8 x 512 tokens
+                (8, 1, 32, 64, True)]        # rwkv6 decode step
+
+
+@pytest.mark.parametrize("design", ["lanes", "simt"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,di,ds,with_state", MAMBA_CASES + [
-    (8, 512, 8192, 16, True),               # jamba-v0.1-52b prefill of 8 x 512 tokens
-    (8, 1, 8192, 16, True),                 # jamba decode step
+@pytest.mark.parametrize("B,S,di,ds,with_state", MAMBA_CASES + MAMBA_SERVING + [
+    (2, 40, 70, 12, True),                  # ds 12: lanes leaves a lane of each group empty
 ])
-def test_mamba_scan_kernel(cuda, B, S, di, ds, with_state, dtype):
+def test_mamba_scan_kernel(cuda, B, S, di, ds, with_state, dtype, design):
+    """Both designs: lanes through ops (every case has ds a multiple of 4),
+    simt through its own entry point; the ragged (3, 77, 333, 16) tail too."""
     args = _mamba_inputs(cuda, B, S, di, ds, getattr(torch, dtype), with_state)
-    _check_scan("mamba_scan", ops.mamba_scan, ref.mamba_scan_ref, args, dtype)
+    assert tmamba.route(getattr(torch, dtype), ds) == "lanes"
+    op = ops.mamba_scan if design == "lanes" else tmamba.mamba_scan_simt
+    _check_scan("mamba_scan", op, ref.mamba_scan_ref, args, dtype, design)
 
 
+@pytest.mark.parametrize("design", ["cols", "simt"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,T,H,hd,with_state", RWKV_CASES + [
-    (8, 512, 32, 64, True),                 # rwkv6-1.6b prefill of 8 x 512 tokens
-    (8, 1, 32, 64, True),                   # rwkv6 decode step
-])
-def test_rwkv6_scan_kernel(cuda, B, T, H, hd, with_state, dtype):
+@pytest.mark.parametrize("B,T,H,hd,with_state", RWKV_CASES + RWKV_SERVING)
+def test_rwkv6_scan_kernel(cuda, B, T, H, hd, with_state, dtype, design):
+    """Both designs: cols through ops, simt through its own entry point;
+    the ragged (1, 70, 3, 32) tail too."""
     args = _rwkv_inputs(cuda, B, T, H, hd, getattr(torch, dtype), with_state)
-    _check_scan("rwkv6_scan", ops.rwkv6_scan, ref.rwkv6_scan_ref, args, dtype)
+    assert trwkv.route(getattr(torch, dtype), hd) == "cols"
+    op = ops.rwkv6_scan if design == "cols" else trwkv.rwkv6_scan_simt
+    _check_scan("rwkv6_scan", op, ref.rwkv6_scan_ref, args, dtype, design)
+
+
+@pytest.mark.parametrize("case", MAMBA_SERVING)
+def test_mamba_scan_routes_agree_at_the_serving_shape(cuda, case):
+    args = _mamba_inputs(cuda, *case[:4], torch.float32, case[4])
+    y, h = ops.mamba_scan(*args)
+    y_prev, h_prev = tmamba.mamba_scan_simt(*args)
+    torch.testing.assert_close(y, y_prev, **dict(zip(("atol", "rtol"), SCAN_TOL["float32"])))
+    torch.testing.assert_close(h, h_prev, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("case", RWKV_SERVING)
+def test_rwkv6_scan_routes_agree_at_the_serving_shape(cuda, case):
+    args = _rwkv_inputs(cuda, *case[:4], torch.float32, case[4])
+    o, S = ops.rwkv6_scan(*args)
+    o_prev, S_prev = trwkv.rwkv6_scan_simt(*args)
+    torch.testing.assert_close(o, o_prev, **dict(zip(("atol", "rtol"), SCAN_TOL["float32"])))
+    torch.testing.assert_close(S, S_prev, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_designs_shared_memory_matches_the_geometry(cuda, dtype):
+    """The wrappers' launch geometry counts the shared memory that the
+    compiled sources declare."""
+    assert tmamba.lanes_smem_bytes(dtype) == \
+        tmamba.lanes_geometry(1, 1, 64, 16, dtype.itemsize).smem
+    for hd in trwkv.HEAD_SIZES:
+        assert trwkv.cols_smem_bytes(hd, dtype) == \
+            trwkv.cols_geometry(1, 1, 1, hd, dtype.itemsize).smem
 
 
 def test_scan_kernels_on_an_empty_input(cuda):
