@@ -64,14 +64,23 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    (24 layers, 7.9 GB of bf16 weights, heads 120 wide): the attention of
    head_dim 120 on the flash ``wgmma`` and decode ``split`` designs;
 6. the AES-128-CTR kernel: the FIPS-197 C.1 known answer, bit-exact
-   agreement with its plain version on the card over N, nonces (one across
-   the 2**31 sign wrap) and two keys, a round trip, its launch count, and
-   its time at the function's 38 blocks (600 B) and at 2**20 blocks;
+   agreement with its plain version on the card, through the op and through
+   each design's own entry point (``ttable``, the design ``route`` gives
+   every N, and ``simt``, the previous one), over N (ragged ones too),
+   nonces (across the 2**31 sign wrap and past 2**32) and two keys, a round
+   trip, its launch counts by route, and both designs timed in turns at 1
+   block, the function's 38 blocks (600 B) and 2**20 blocks, beside a
+   PyTorch copy of the 2**20 blocks' bytes;
 7. the FaaS path through the port's faasd runtime: the AES function's body
-   (600 B to the card, the kernel, back, synchronised) timed on the card as
-   ``work_us``, then deployed with the four model endpoints of phases 5-5d
-   on containerd and on junctiond.  Those latencies are simulated on the
-   host from the paper's host costs; only ``work_us`` is measured here.
+   deployed (``AesFunction``: the key expanded and its round keys placed on
+   the card once; a call moves 600 B to the card, runs the kernel, brings
+   the reply back and synchronises) timed in turns beside the previous
+   body, which expands the key and copies the round keys on every call; the
+   deployed body's median is AES's ``work_us``, and its 200 counted calls
+   must all launch on the route of 38 blocks.  The AES function and the four
+   model endpoints of phases 5-5d are then deployed on containerd and on
+   junctiond.  Those latencies are simulated on the host from the paper's
+   host costs; only ``work_us`` is measured here.
 
 The line before the last is a JSON object with one entry per kernel; the
 last is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -152,8 +161,9 @@ MOE_PROMPT, MOE_SEQ, MOE_BATCH = 150, 192, 4     # phases 4b-4d
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PROFILED_STEPS = 4
 HOLD_CYCLES = 400_000        # ~0.2 ms of the card's clock, held before each timed launch
-AES_SWEEP_N = (1, 38, 40, 4096, 2**20)
-AES_NONCES = (0, 7, 2**31 - 20)
+AES_SWEEP_N = (1, 38, 40, 4096, 2**20,
+               513, 135169)          # ragged: not a multiple of a ttable pass, past the first
+AES_NONCES = (0, 7, 2**31 - 20, 2**32 - 20)   # across the int32 sign wrap, and past 2**32
 AES_FN_BLOCKS, AES_BATCH_BLOCKS = 38, 2**20   # 600 B; 16 MiB of plaintext
 AES_LOOKUPS_PER_BLOCK = 160                   # 16 S-box lookups in each of 10 rounds
 FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccddeeff",
@@ -306,16 +316,16 @@ def main() -> int:
     from repro_torch.config import get_arch, reduced
     from repro_torch.core import FaasdRuntime, FunctionSpec, Simulator, run_sequential
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import aes_ctr as _aes
     from repro_torch.kernels import decode_attention as _decode
     from repro_torch.kernels import flash_attention as _flash
     from repro_torch.kernels import mamba_scan as _mamba
     from repro_torch.kernels import moe_gmm as _gmm
     from repro_torch.kernels import rwkv6_scan as _rwkv
-    from repro_torch.kernels.aes_ctr import aes_ctr as aes_kernel
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import tree_to
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import AesFunction, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -861,6 +871,7 @@ def main() -> int:
         dtype = getattr(torch, cfg.dtype)
         expect_routes = {"flash_attention": {"wgmma": 0, "simt": 0},
                          "decode_attention": {"split": 0, "simt": 0},
+                         "aes_ctr": {"ttable": 0, "simt": 0},
                          "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
                          "mamba_scan": {"lanes": 0, "simt": 0},
                          "rwkv6_scan": {"cols": 0, "simt": 0}}
@@ -936,6 +947,7 @@ def main() -> int:
     launches["moe_gmm"] = moe_launches["moe_gmm"]
     if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
                   "decode_attention": {"split": 744, "simt": 0},
+                  "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
                   "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
         raise AssertionError(f"mixtral's launches by route {routes}")
@@ -957,6 +969,7 @@ def main() -> int:
     endpoints[cfg.name], jamba_launches, routes = serve(cfg, prompts)
     if routes != {"flash_attention": {"wgmma": 3, "simt": 0},
                   "decode_attention": {"split": 93, "simt": 0},
+                  "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
                   "mamba_scan": {"lanes": 672, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
         raise AssertionError(f"Jamba's launches by route {routes}")
@@ -986,6 +999,7 @@ def main() -> int:
     _, h2o_launches, routes = serve(cfg, prompts)
     if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
                   "decode_attention": {"split": 744, "simt": 0},
+                  "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
                   "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
         raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
@@ -1008,33 +1022,55 @@ def main() -> int:
     print(f"  FIPS-197 C.1 through the plain block cipher: {got}")
     keys = {"fips": fips_key,
             "random": torch.tensor(rng.integers(0, 256, 16), dtype=torch.int32, device=dev)}
+    # ttable, the design route gives every N, through the routed entry point;
+    # simt, the previous one, through its own
+    designs = {"ttable": _aes.aes_ctr, "simt": _aes.aes_ctr_simt}
+    for n in (1, AES_FN_BLOCKS, AES_BATCH_BLOCKS):
+        if _aes.route(n) != "ttable":
+            raise AssertionError(f"aes_ctr: {n} blocks route to {_aes.route(n)}")
+    print(f"  ttable: {_aes.TTABLE_BLOCKS} blocks a thread, {_aes.TTABLE_THREADS} threads a "
+          f"CTA, at most {_aes.TTABLE_CTAS_PER_SM} CTAs an SM")
     calls_before, calls = ops.LAUNCHES["aes_ctr"], 0
+    routes_before = dict(_aes.LAUNCHES)
 
     def rand_int32(n):
         return torch.randint(-2**31, 2**31, (n, 16), generator=gen, device=dev,
                              dtype=torch.int64).to(torch.int32)
 
-    # the kernel's counter-mode output against the plain keystream of the C.1 key
+    # the counter-mode output of the op and of each design against the plain
+    # keystream of the C.1 key
     pt = fips_pt.repeat(AES_FN_BLOCKS, 1)
+    fips_rk = ref.aes_key_expand(fips_key)
+    fips_ks = ref.aes_ctr_keystream(AES_FN_BLOCKS, fips_rk)
     ct = ops.aes_ctr(pt, fips_key, nonce=0)
     calls += 1
-    if not torch.equal(ct ^ pt, ref.aes_ctr_keystream(AES_FN_BLOCKS, ref.aes_key_expand(fips_key))):
+    if not torch.equal(ct ^ pt, fips_ks):
         raise AssertionError("aes_ctr: ct ^ pt is not the plain keystream under the C.1 key")
+    for design, fn in designs.items():
+        if not torch.equal(fn(pt, fips_rk) ^ pt, fips_ks):
+            raise AssertionError(f"aes_ctr {design}: ct ^ pt is not the plain keystream under "
+                                 f"the C.1 key")
+    print("  FIPS-197 C.1 key: the op and both designs give the plain keystream")
     aes_err = 0
     for kname, key in keys.items():
+        rk = ref.aes_key_expand(key)
         for n in AES_SWEEP_N:
             for nonce in AES_NONCES:
                 pt = rand_int32(n)
-                out = ops.aes_ctr(pt, key, nonce=nonce)
-                calls += 1
                 plain = ref.aes_ctr_ref(pt, key, nonce)
+                outs = {"op": ops.aes_ctr(pt, key, nonce=nonce)}
+                calls += 1
+                for design, fn in designs.items():
+                    outs[design] = fn(pt, rk, nonce=nonce)
                 torch.cuda.synchronize()
-                err = int((out.long() - plain.long()).abs().max())
-                if not torch.equal(out, plain):
-                    raise AssertionError(f"aes_ctr key {kname} N {n} nonce {nonce}: "
-                                         f"max |diff| {err}, expected bit-exact")
-                aes_err = max(aes_err, err)
-        print(f"  key {kname}: N {AES_SWEEP_N} x nonces {AES_NONCES} bit-exact")
+                for what, out in outs.items():
+                    err = int((out.long() - plain.long()).abs().max())
+                    if not torch.equal(out, plain):
+                        raise AssertionError(f"aes_ctr ({what}) key {kname} N {n} nonce {nonce}: "
+                                             f"max |diff| {err}, expected bit-exact")
+                    aes_err = max(aes_err, err)
+        print(f"  key {kname}: N {AES_SWEEP_N} x nonces {AES_NONCES}, the op and both designs "
+              f"bit-exact")
     pt = rand_int32(AES_FN_BLOCKS)
     back = ops.aes_ctr(ops.aes_ctr(pt, keys["random"], nonce=5), keys["random"], nonce=5)
     calls += 2
@@ -1045,22 +1081,32 @@ def main() -> int:
     if ops.LAUNCHES["aes_ctr"] - calls_before != calls:
         raise AssertionError(f"aes_ctr launches {ops.LAUNCHES['aes_ctr'] - calls_before}, "
                              f"expected {calls}")
-    print(f"  round trip decrypts; N = 0 launches nothing; {calls} launches counted")
+    by_route = {r: _aes.LAUNCHES[r] - routes_before[r] for r in _aes.LAUNCHES}
+    print(f"  round trip decrypts; N = 0 launches nothing; {calls} launches of the op counted; "
+          f"launches by route, the op's and each design's own: {by_route}")
 
     rk = ref.aes_key_expand(keys["random"])
     sms = props.multi_processor_count
     aes_times = {}
-    for n in (AES_FN_BLOCKS, AES_BATCH_BLOCKS):
+    for n in (1, AES_FN_BLOCKS, AES_BATCH_BLOCKS):
         pt = rand_int32(n)
-        # 600 B is a few-microsecond kernel: as for the scans' decode steps, the
-        # record is the median of 200, since a host stall that outlasts the
-        # flush and the hold adds its length to one sample
-        times = launch_times_ms(torch, lambda: aes_kernel(pt, rk, nonce=7),
-                                200 if n == AES_FN_BLOCKS else 50, flush)
-        print(f"  aes_ctr N={n}: {spread(times)}")
+        # both designs in turns, simt (previous), ttable, ttable, simt.  A few
+        # blocks make a few-microsecond kernel: as for the scans' decode
+        # steps, the record is the median of 200, since a host stall that
+        # outlasts the flush and the hold adds its length to one sample
+        small = n <= AES_FN_BLOCKS
+        old, new = in_turns(torch, lambda: _aes.aes_ctr_simt(pt, rk, nonce=7),
+                            lambda: _aes.aes_ctr(pt, rk, nonce=7),
+                            100 if small else 25, flush)
+        pick = statistics.median if small else statistics.fmean
+        verdict = "no slower than" if pick(new) <= pick(old) else "SLOWER than"
+        print(f"  aes_ctr N={n}: ttable {spread(new)}; simt (previous) {spread(old)}: ttable "
+              f"{verdict} simt; route({n}) = {_aes.route(n)}")
+        if n == 1:
+            continue
         aes_times[n] = dict(
             err=aes_err,
-            ms=statistics.median(times) if n == AES_FN_BLOCKS else statistics.fmean(times),
+            ms=pick(new), previous_ms=pick(old),
             plain_ms=time_ms(torch, lambda: pt ^ ref.aes_ctr_keystream(n, rk, 7), 10, flush),
             library_ms=None,            # no PyTorch call computes AES
             bytes=2 * pt.numel() * pt.element_size() + rk.numel() * rk.element_size(),
@@ -1069,6 +1115,15 @@ def main() -> int:
             replaces="src/repro/kernels/aes_ctr.py:76",
             source="src/repro_torch/csrc/aes_ctr.cu")
         report(f"aes_ctr N={n}", aes_times[n])
+        r = aes_times[n]
+        print(f"  aes_ctr N={n}: ttable at {100 * r['bound_ms'] / r['ms']:.1f} % of its bound, "
+              f"simt at {100 * r['bound_ms'] / r['previous_ms']:.1f} %")
+    big = rand_int32(AES_BATCH_BLOCKS)
+    copy_out = torch.empty_like(big)
+    copy = launch_times_ms(torch, lambda: copy_out.copy_(big), 50, flush)
+    print(f"  a PyTorch copy of the same {2 * big.numel() * 4} bytes (read and written once, no "
+          f"kernel of the port): {spread(copy)}")
+    del big, copy_out
     records["aes_ctr"] = aes_times[AES_FN_BLOCKS]
 
     # -- 7 ------------------------------------------------------------------
@@ -1076,35 +1131,55 @@ def main() -> int:
           "containerd and junctiond (simulated)")
     payload = torch.tensor(rng.integers(0, 256, (AES_FN_BLOCKS, 16)), dtype=torch.int32)
     fn_key = keys["random"].cpu()
-    ops.reset_launches()
-    body_us = []
-    for _ in range(BODY_CALLS):
-        t0 = time.perf_counter()
-        ct = ops.aes_ctr(payload.to(dev), fn_key, nonce=0).cpu()
-        torch.cuda.synchronize()
-        body_us.append(1e6 * (time.perf_counter() - t0))
-    if not torch.equal(ct, ref.aes_ctr_ref(payload, fn_key, 0)):
-        raise AssertionError("the AES function's reply differs from the plain version on the CPU")
-    aes_us = float(np.median(body_us))
-    print(f"AES function body (600 B to the card, kernel, back, synchronised), "
-          f"median of {BODY_CALLS} calls on {props.name}: work_us {aes_us:.1f}")
+    expect_reply = ref.aes_ctr_ref(payload, fn_key, 0)
+    # the deploy: the key expanded once, its round keys placed on the card
+    aes_fn = AesFunction(fn_key, device=dev)
 
-    def host_us(fn):
-        """Median host time of ``fn`` and a synchronise, over BODY_CALLS calls."""
+    def per_call_body():
+        """The previous body: the key expanded and copied to the card on every call."""
+        out = ops.aes_ctr(payload.to(dev), fn_key, nonce=0).cpu()
+        torch.cuda.synchronize()
+        return out
+
+    def host_us(fn, calls=BODY_CALLS):
+        """Host times of ``calls`` calls of ``fn`` and a synchronise, in us."""
         ts = []
-        for _ in range(BODY_CALLS):
+        for _ in range(calls):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             ts.append(1e6 * (time.perf_counter() - t0))
-        return float(np.median(ts))
+        return ts
 
-    ct_dev = ct.to(dev)
-    print(f"  parts of the body, each alone: key schedule to the card "
-          f"{host_us(lambda: ref.aes_key_expand(fn_key).to(dev)):.1f} us, payload to the card "
-          f"{host_us(lambda: payload.to(dev)):.1f} us, reply to the host "
-          f"{host_us(lambda: ct_dev.cpu()):.1f} us; kernel alone (phase 6, CUDA events) "
+    if not (torch.equal(per_call_body(), expect_reply)
+            and torch.equal(aes_fn(payload), expect_reply)):
+        raise AssertionError("the AES function's reply differs from the plain version on the CPU")
+    # both bodies in turns, per-call expansion, deployed, deployed, per-call
+    old_body, new_body = [], []
+    for fn, into in ((per_call_body, old_body), (lambda: aes_fn(payload), new_body),
+                     (lambda: aes_fn(payload), new_body), (per_call_body, old_body)):
+        into += host_us(fn, BODY_CALLS // 2)
+    aes_us = float(np.median(new_body))
+    print(f"AES function body on {props.name}, in turns, {len(new_body)} calls each: deployed "
+          f"(round keys on the card since the deploy; 600 B to the card, kernel, back, "
+          f"synchronised) median {aes_us:.1f} us, mean {statistics.fmean(new_body):.1f}; "
+          f"per-call expansion (previous) median {float(np.median(old_body)):.1f} us, mean "
+          f"{statistics.fmean(old_body):.1f}")
+    ct_dev = expect_reply.to(dev)
+    print(f"  parts of the body, each alone (medians): key schedule to the card "
+          f"{float(np.median(host_us(lambda: ref.aes_key_expand(fn_key).to(dev)))):.1f} us "
+          f"(previous body only), payload to the card "
+          f"{float(np.median(host_us(lambda: payload.to(dev)))):.1f} us, reply to the host "
+          f"{float(np.median(host_us(lambda: ct_dev.cpu()))):.1f} us; kernel alone "
+          f"(phase 6, CUDA events, {_aes.route(AES_FN_BLOCKS)}) "
           f"{1e3 * records['aes_ctr']['ms']:.1f} us")
+
+    # the main path: the deployed body's calls, then the five functions
+    # deployed on both backends, AES with the deployed body's median
+    ops.reset_launches()
+    replies = [aes_fn(payload) for _ in range(BODY_CALLS)]
+    if not all(torch.equal(r, expect_reply) for r in replies):
+        raise AssertionError("a reply of the deployed AES body differs from the plain version")
     functions = {"aes": (FunctionSpec(name="aes", work_us=aes_us), AES_REQUESTS)}
     for name, us in endpoints.items():     # the four endpoints of benchmarks/model_endpoints.py
         functions[name] = (FunctionSpec(name=name, work_us=us, payload_bytes=2048,
@@ -1128,11 +1203,17 @@ def main() -> int:
               f"{100 * (1 - j.median_ms / c.median_ms):.2f} % and the p99 by "
               f"{100 * (1 - j.p99_ms / c.p99_ms):.2f} %")
     faas_launches = dict(ops.LAUNCHES)
-    print(f"launches {faas_launches} on the FaaS path")
+    faas_routes = dict(ops.ROUTE_LAUNCHES["aes_ctr"])
+    print(f"launches {faas_launches} on the FaaS path; aes_ctr by route {faas_routes}")
     if faas_launches != {"flash_attention": 0, "decode_attention": 0, "aes_ctr": BODY_CALLS,
                          "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}:
         raise AssertionError(f"FaaS path launches {faas_launches}, expected "
                              f"{BODY_CALLS} of aes_ctr only")
+    expect_routes = {"ttable": 0, "simt": 0}
+    expect_routes[_aes.route(AES_FN_BLOCKS)] = BODY_CALLS
+    if faas_routes != expect_routes:
+        raise AssertionError(f"the AES body's launches by route {faas_routes}, expected "
+                             f"{expect_routes}")
     launches["aes_ctr"] = faas_launches["aes_ctr"]
 
     # -- result -------------------------------------------------------------

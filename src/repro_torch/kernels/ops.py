@@ -32,6 +32,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ct
 #: launches by route of the ops with more than one design (the wrappers' counts)
 ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {"flash_attention": _flash.LAUNCHES,
                                              "decode_attention": _decode.LAUNCHES,
+                                             "aes_ctr": _aes.LAUNCHES,
                                              "moe_gmm": _gmm.LAUNCHES,
                                              "mamba_scan": _mamba.LAUNCHES,
                                              "rwkv6_scan": _rwkv.LAUNCHES}
@@ -114,17 +115,28 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     return out
 
 
+def aes_ctr_expanded(plaintext: torch.Tensor, round_keys: torch.Tensor, *,
+                     nonce: int = 0) -> torch.Tensor:
+    """AES-128-CTR under expanded round keys: plaintext (N, 16) int32 bytes,
+    round keys (11, 16) int32 on the plaintext's device -> (N, 16) int32; the
+    signature of the JAX package's Pallas ``aes_ctr``.  An empty plaintext
+    launches nothing and counts nothing."""
+    if not _on_cuda("aes_ctr", plaintext):
+        return plaintext ^ ref.aes_ctr_keystream(plaintext.shape[0], round_keys, nonce)
+    out = _aes.aes_ctr(plaintext, round_keys, nonce=nonce)
+    if plaintext.shape[0]:
+        LAUNCHES["aes_ctr"] += 1
+    return out
+
+
 def aes_ctr(plaintext: torch.Tensor, key_bytes: torch.Tensor, *,
             nonce: int = 0) -> torch.Tensor:
     """AES-128-CTR: plaintext (N, 16) int32 bytes, key (16,) -> (N, 16) int32.
 
     The key schedule is plain torch, as in the JAX package, and lands on the
-    plaintext's device as an (11, 16) int32 tensor.  An empty plaintext
-    launches nothing and counts nothing."""
+    plaintext's device as an (11, 16) int32 tensor on every call; a caller
+    with a fixed key expands it once and calls :func:`aes_ctr_expanded`."""
     if not _on_cuda("aes_ctr", plaintext):
         return ref.aes_ctr_ref(plaintext, key_bytes, nonce)
-    rk = ref.aes_key_expand(key_bytes).to(plaintext.device)
-    out = _aes.aes_ctr(plaintext, rk, nonce=nonce)
-    if plaintext.shape[0]:
-        LAUNCHES["aes_ctr"] += 1
-    return out
+    return aes_ctr_expanded(plaintext, ref.aes_key_expand(key_bytes).to(plaintext.device),
+                            nonce=nonce)

@@ -478,6 +478,92 @@ def test_aes_ctr_kernel_refuses_bad_operands(cuda, case):
         aes_ctr(pt, rk)
 
 
+AES_ROUTE_N = [1, 38, 40, 4096, 2**20,
+               513,                  # not a multiple of blocks-a-thread x threads
+               135169]               # past the persistent grid's first pass, ragged
+
+
+@pytest.mark.parametrize("design", ["ttable", "simt"])
+@pytest.mark.parametrize("nonce", [0, 7, 2**31 - 20, 2**32 - 20])   # the last wraps past 2**32
+@pytest.mark.parametrize("n", AES_ROUTE_N)
+def test_aes_ctr_each_design(cuda, n, nonce, design):
+    from repro_torch.kernels import aes_ctr as taes
+    key, pt = _aes_key(cuda, "random"), _int32_blocks(cuda, n)
+    assert taes.route(n) == "ttable"
+    fn = {"ttable": taes.aes_ctr, "simt": taes.aes_ctr_simt}[design]
+    before = taes.LAUNCHES[design]
+    out = fn(pt, ref.aes_key_expand(key), nonce=nonce)
+    torch.cuda.synchronize()
+    assert taes.LAUNCHES[design] == before + 1
+    assert torch.equal(out, ref.aes_ctr_ref(pt, key, nonce))
+
+
+def test_aes_ctr_route_counts_add_up(cuda):
+    from repro_torch.kernels import aes_ctr as taes
+    ops.reset_launches()
+    key = _aes_key(cuda, "fips")
+    rk = ref.aes_key_expand(key)
+    sizes = (1, 38, 4096, 0)
+    for n in sizes:
+        ops.aes_ctr(_int32_blocks(cuda, n), key)
+        ops.aes_ctr_expanded(_int32_blocks(cuda, n), rk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["aes_ctr"] == 6
+    assert sum(ops.ROUTE_LAUNCHES["aes_ctr"].values()) == 6
+    expect = {"ttable": 0, "simt": 0}
+    for n in sizes[:-1]:
+        expect[taes.route(n)] += 2
+    assert ops.ROUTE_LAUNCHES["aes_ctr"] == expect
+
+
+@pytest.mark.parametrize("nonce", [0, 2**31 - 20])
+@pytest.mark.parametrize("n", [38, 2**20])
+def test_aes_ctr_expanded_kernel(cuda, n, nonce):
+    key, pt = _aes_key(cuda, "random"), _int32_blocks(cuda, n)
+    before = ops.LAUNCHES["aes_ctr"]
+    out = ops.aes_ctr_expanded(pt, ref.aes_key_expand(key), nonce=nonce)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["aes_ctr"] == before + 1
+    assert torch.equal(out, ref.aes_ctr_ref(pt, key, nonce))
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "strided", "keys_shape", "keys_dtype",
+                                  "keys_on_cpu"])
+def test_aes_ctr_expanded_refuses_bad_operands(cuda, case):
+    pt = _int32_blocks(cuda, 64)
+    rk = ref.aes_key_expand(_aes_key(cuda, "fips"))
+    if case == "dtype":
+        pt = pt.long()
+    elif case == "shape":
+        pt = pt.reshape(128, 8)
+    elif case == "strided":
+        pt = _int32_blocks(cuda, 128)[::2]
+    elif case == "keys_shape":
+        rk = rk.reshape(16, 11)
+    elif case == "keys_dtype":
+        rk = rk.long()
+    else:
+        rk = rk.cpu()
+    before = ops.LAUNCHES["aes_ctr"]
+    with pytest.raises(ValueError, match="aes_ctr"):
+        ops.aes_ctr_expanded(pt, rk)
+    assert ops.LAUNCHES["aes_ctr"] == before
+
+
+def test_aes_function_deployed_on_the_card(cuda):
+    from repro_torch.serving import AesFunction
+    key = _aes_key(cuda, "random").cpu()
+    fn = AesFunction(key, nonce=0)
+    assert fn.round_keys.is_cuda
+    payload = torch.randint(0, 256, (38, 16), dtype=torch.int32)
+    before = ops.LAUNCHES["aes_ctr"]
+    for _ in range(3):
+        reply = fn(payload)
+        assert reply.device.type == "cpu"
+        assert torch.equal(reply, ref.aes_ctr_ref(payload, key, 0))
+    assert ops.LAUNCHES["aes_ctr"] == before + 3
+
+
 @pytest.mark.parametrize("dtype,F", [("float32", 64), ("bfloat16", 130)])
 def test_moe_gmm_wgmma_entry_refuses_what_it_cannot_take(cuda, dtype, F):
     dt = getattr(torch, dtype)

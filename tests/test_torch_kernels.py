@@ -297,6 +297,7 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                 torch.randn((2, 32, 24), generator=g).bfloat16())
     assert ops.ROUTE_LAUNCHES == {"flash_attention": {"wgmma": 0, "simt": 0},
                                   "decode_attention": {"split": 0, "simt": 0},
+                                  "aes_ctr": {"ttable": 0, "simt": 0},
                                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
                                   "mamba_scan": {"lanes": 0, "simt": 0},
                                   "rwkv6_scan": {"cols": 0, "simt": 0}}
