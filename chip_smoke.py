@@ -29,7 +29,14 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    carry a state through every step, at theirs, 2e-4) and bf16 at atol
    1e-3, rtol 1e-2 (one bf16 ulp is at most 2**-7 of |x|).  ``moe_gmm`` is
    held and timed at mixtral's and Jamba's serving shapes, the scans at
-   Jamba's and RWKV6's prefill and decode;
+   Jamba's and RWKV6's prefill and decode, and the attention kernels at
+   the shapes of phases 5f and 5g: flash without the causal bound at
+   seamless-m4t's encoder (S = T = 1500, d 64) and cross prefill (S 512
+   against T 1500), causal at seamless's decoder prefill (512, d 64, G 1)
+   and pixtral-12b's (1024, d 128, G 4), and decode against seamless's
+   1500 encoder frames, all valid and under a ragged prefix, with the
+   transposed copy of a layer's cross K/V, and in seamless's 1024-slot and
+   pixtral's 2048-slot KV caches;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -42,6 +49,12 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 4d. the same for a reduced ``rwkv6-1.6b``;
 4e. the same for a reduced ``h2o-danube-3-4b`` with its heads 120 wide, as
    in the full model, under a 128-slot window, so the ring wraps;
+4f. a reduced ``seamless-m4t-large-v2`` (encoder-decoder): a 40-token
+   decoder prompt over 150 encoder frames at batch 4, then 8 greedy decode
+   steps through ``T.prefill`` and ``T.decode_step``, card against CPU:
+   every step's logits within atol/rtol 1e-4 and equal tokens;
+4g. the same for a reduced ``pixtral-12b`` (4 query heads a kv head, as
+   in the full model) on a prompt of 40 image-patch embeddings;
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
    ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each, with the
    kernel launch counts of that run checked against the layers by kind, and
@@ -63,6 +76,15 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 5e. the same traffic through full-width, full-depth ``h2o-danube-3-4b``
    (24 layers, 7.9 GB of bf16 weights, heads 120 wide): the attention of
    head_dim 120 on the flash ``wgmma`` and decode ``split`` designs;
+5f. full-width, full-depth ``seamless-m4t-large-v2`` (24 encoder and 24
+   decoder layers, 4.07 GB of bf16 weights): 8 requests of 1500 stub
+   frames, a 512-token decoder prompt and 32 new tokens, through
+   ``T.prefill`` and a greedy ``T.decode_step`` loop timed as the engine
+   times (the engine takes no encoder inputs); every attention (encoder,
+   self, cross) on flash ``wgmma`` and decode ``split``, checked by route;
+5g. full-width, full-depth ``pixtral-12b`` (24.5 GB of bf16 weights, 5f's
+   memory freed first): 8 prompts of 1024 stub image-patch embeddings and
+   32 new tokens, the same way;
 6. the AES-128-CTR kernel: the FIPS-197 C.1 known answer, bit-exact
    agreement with its plain version on the card, through the op and through
    each design's own entry point (``ttable``, the design ``route`` gives
@@ -87,6 +109,7 @@ last is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -122,6 +145,20 @@ DECODE_STRESS = [   # B, Hq, Hkv, T, d, mask: cases the split design treats apar
     (2, 16, 8, 1500, 128, "wrap"), (8, 32, 8, 1024, 120, "prefix"),
     (2, 32, 8, 300, 120, "empty_row"), (1, 2, 1, 9, 32, "empty_row"),
 ]
+ENCDEC_FLASH = {   # B, Hq, Hkv, S, T, d, causal: the prefill attention of phases 5f and 5g
+    "seamless encoder": (8, 16, 16, 1500, 1500, 64, False),
+    "seamless cross prefill": (8, 16, 16, 512, 1500, 64, False),
+    "seamless self prefill": (8, 16, 16, 512, 512, 64, True),
+    "pixtral prefill": (8, 32, 8, 1024, 1024, 128, True),
+}
+CROSS_DECODE = (8, 16, 16, 1500, 64)   # B, Hq, Hkv, T, d: seamless's decode against its frames
+ENCDEC_DECODE = {   # (B, Hq, Hkv, T, d), valid mask: the decode attention of phases 5f and 5g
+    "seamless cross, all valid": (CROSS_DECODE, "all"),
+    "seamless cross, ragged prefix": (CROSS_DECODE, "ragged"),
+    # self-attention in the KV cache at the middle decode step: prompt + 17 slots valid
+    "seamless self": ((8, 16, 16, 1024, 64), 512),
+    "pixtral self": ((8, 32, 8, 2048, 128), 1024),
+}
 FLASH_D120 = [(2, 32, 8, 200, 200, 120, True, None), (1, 4, 2, 70, 40, 120, True, None),
               (1, 8, 2, 300, 300, 120, True, 64),
               (8, 32, 8, 512, 512, 120, True, 4096)]   # phase 5e's prefill: h2o-danube-3-4b
@@ -158,7 +195,9 @@ SCAN_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-3, 1e-2)}
 MOE_LAYERS = 24              # of mixtral-8x7b's 32: 70.2 GB of bf16 weights
 JAMBA_LAYERS = 24            # of jamba-v0.1-52b's 32, 3 groups of 8: 77.6 GB of bf16 weights
 MOE_PROMPT, MOE_SEQ, MOE_BATCH = 150, 192, 4     # phases 4b-4d
+ENCDEC_PROMPT, ENCDEC_FRAMES = 40, 150           # phases 4f, 4g: S != T, both ragged
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
+PIXTRAL_SEQ = 2048           # phase 5g: 1024 patch embeddings and 32 new tokens
 PROFILED_STEPS = 4
 HOLD_CYCLES = 400_000        # ~0.2 ms of the card's clock, held before each timed launch
 AES_SWEEP_N = (1, 38, 40, 4096, 2**20,
@@ -263,45 +302,66 @@ def device_top(torch, prof, per: int):
     return total / per, [(k, us / per) for k, us in top]
 
 
-def profile_prefill(torch, T, eng, cfg, prompts, dev):
+def prompt_len(batch) -> int:
+    """Positions a prefill of ``batch`` fills: its tokens or embeddings."""
+    return (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[1]
+
+
+def profile_prefill(torch, T, params, cfg, batch, seq_len):
     """Device time and host wall time of one profiled prefill of
-    ``prompts``, and the kernels that take most of the device time."""
+    ``batch``, and the kernels that take most of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        toks = torch.tensor(prompts, device=dev)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            T.prefill(eng.params, cfg, {"tokens": toks}, seq_len=MAX_SEQ)
+            T.prefill(params, cfg, batch, seq_len=seq_len)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
     device_us, top = device_top(torch, prof, 1)
     return device_us, wall_us, top
 
 
-def profile_decode(torch, T, eng, cfg, prompts, dev):
-    """Device time and host wall time of one decode step at the serving
-    shapes, both over the same ``PROFILED_STEPS`` profiled steps (the wall
-    time includes the profiler's own cost), and the kernels that take most
-    of the device time.  Device time is None when the profiler sees no
-    kernel."""
+def profile_decode(torch, T, params, cfg, batch, seq_len):
+    """Device time and host wall time of one decode step after a prefill of
+    ``batch``, both over the same ``PROFILED_STEPS`` profiled steps (the
+    wall time includes the profiler's own cost), and the kernels that take
+    most of the device time.  Device time is None when the profiler sees
+    no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        lg, caches = T.prefill(eng.params, cfg, {"tokens": torch.tensor(prompts, device=dev)},
-                               seq_len=MAX_SEQ)
+        lg, caches = T.prefill(params, cfg, batch, seq_len=seq_len)
+        pos = prompt_len(batch)
         tok = lg.argmax(-1)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for i in range(PROFILED_STEPS):
-                lg, caches = T.decode_step(eng.params, cfg, tok, PROMPT_LEN + i, caches)
+                lg, caches = T.decode_step(params, cfg, tok, pos + i, caches)
                 tok = lg.argmax(-1)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0) / PROFILED_STEPS
     device_us, top = device_top(torch, prof, PROFILED_STEPS)
     return device_us, wall_us, top
+
+
+def print_profiles(torch, T, params, cfg, batch, seq_len) -> None:
+    """Profile ``PROFILED_STEPS`` decode steps and one prefill of ``batch``
+    and print their device time, wall time, idle share and top kernels."""
+    for what, prof_fn in ((f"decode step over {PROFILED_STEPS} profiled steps",
+                           profile_decode),
+                          ("prefill, profiled once", profile_prefill)):
+        device_us, wall_us, top = prof_fn(torch, T, params, cfg, batch, seq_len)
+        if device_us is None:
+            print(f"{what}: device time not measured (the profiler saw no kernel); "
+                  f"wall_us {wall_us:.1f}")
+            continue
+        print(f"{what}: device_us {device_us:.1f}  wall_us {wall_us:.1f}  "
+              f"device idle share {1 - device_us / wall_us:.3f}")
+        for name, us in top:
+            print(f"  {us:10.1f} us  {name[:100]}")
 
 
 def main() -> int:
@@ -324,6 +384,7 @@ def main() -> int:
     from repro_torch.kernels import rwkv6_scan as _rwkv
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
+    from repro_torch.models.frontends import stub_frontend_embeddings
     from repro_torch.models.layers import tree_to
     from repro_torch.serving import AesFunction, ServingEngine
 
@@ -538,6 +599,97 @@ def main() -> int:
 
     for name, r in records.items():
         report(name, r)
+
+    # the enc-dec and frontend models' attention (phases 5f and 5g): flash
+    # without the causal bound at seamless-m4t's encoder (a ragged T of 1500,
+    # d 64, G 1) and cross prefill (S 512 against T 1500), and causal at
+    # pixtral-12b's prefill; both designs held in bf16 and simt in fp32, then
+    # timed in turns, SDPA beside them
+    for label, case in ENCDEC_FLASH.items():
+        B, Hq, Hkv, S, Tk, d, causal = case
+        if _flash.route(torch.bfloat16) != "wgmma":
+            raise AssertionError(f"flash_attention: bf16 routes to {_flash.route(torch.bfloat16)}")
+        (q, k, v), kw = flash_case((*case, None), torch.float32)
+        err32 = check_close(f"flash_attention {label} float32 simt", ops.flash_attention(q, k, v, **kw),
+                            ref.flash_attention_ref(q, k, v, **kw), TOL["float32"])
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        plain = ref.flash_attention_ref(q, k, v, **kw)
+        out = ops.flash_attention(q, k, v, **kw)
+        err = check_close(f"flash_attention {label} wgmma", out, plain, TOL["bfloat16"])
+        err_prev = check_close(f"flash_attention {label} simt",
+                               _flash.flash_attention_simt(q, k, v, **kw), plain, TOL["bfloat16"])
+        pairs = int(torch.tril(torch.ones(S, Tk, dtype=torch.bool), Tk - S).sum()) if causal \
+            else S * Tk
+        kq, vq = k.repeat_interleave(Hq // Hkv, 1), v.repeat_interleave(Hq // Hkv, 1)
+        old, new = in_turns(torch, lambda: _flash.flash_attention_simt(q, k, v, **kw),
+                            lambda: ops.flash_attention(q, k, v, **kw), 10, flush)
+        lib = launch_times_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kq, vq, is_causal=causal), 20, flush)
+        print(f"  flash_attention {label} {case}: wgmma {spread(new)}, max |diff| {err:.3g}; "
+              f"simt {spread(old)}, max |diff| {err_prev:.3g}; SDPA {spread(lib)}; "
+              f"fp32 simt max |diff| {err32:.3g}")
+        report(f"flash_attention {label}", dict(
+            err=err, ms=statistics.fmean(new), previous_ms=statistics.fmean(old),
+            plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3, flush),
+            library_ms=statistics.fmean(lib),
+            bytes=sum(t.numel() * t.element_size() for t in (q, k, v, out)),
+            ops=f"{4 * d * pairs * B * Hq} FLOP",
+            ops_ms=1e3 * 4 * d * pairs * B * Hq / PEAK_BF16_FLOPS))
+        del q, k, v, kq, vq, out, plain
+
+    # the decode attention of phases 5f and 5g: against seamless-m4t's 1500
+    # encoder frames (G 1, d 64, not a ring; all valid, so every tile is
+    # live, then a ragged prefix), and in seamless's 1024-slot and pixtral's
+    # 2048-slot KV caches at a step of their decode; both designs, timed in
+    # turns, SDPA beside them
+    for label, (shape, mask) in ENCDEC_DECODE.items():
+        B, Hq, Hkv, Tk, d = shape
+        j = torch.arange(Tk, device=dev)
+        if mask == "all":
+            valid = torch.ones((B, Tk), dtype=torch.bool, device=dev)
+        elif mask == "ragged":
+            valid = j[None] < torch.tensor([Tk - 97 * b for b in range(B)], device=dev)[:, None]
+        else:                     # a prompt of ``mask`` positions, NEW_TOKENS // 2 steps on
+            valid = (j <= mask + NEW_TOKENS // 2)[None].expand(B, Tk).contiguous()
+        (q, k, v, valid), _ = decode_case(shape, torch.bfloat16, valid)
+        if _decode.route(q.dtype, Hq // Hkv, Tk) != "split":
+            raise AssertionError(f"decode_attention {label}{shape}: bf16 does not route to split")
+        plain = ref.decode_attention_ref(q, k, v, valid)
+        err = check_close(f"decode_attention {label}{shape} split",
+                          ops.decode_attention(q, k, v, valid), plain, TOL["bfloat16"])
+        err_prev = check_close(f"decode_attention {label}{shape} simt",
+                               _decode.decode_attention_simt(q, k, v, valid), plain,
+                               TOL["bfloat16"])
+        q4, mask4 = q[:, :, None], valid[:, None, None, :]
+        kq = k.transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+        vq = v.transpose(1, 2).repeat_interleave(Hq // Hkv, 1)
+        old, new = in_turns(torch, lambda: _decode.decode_attention_simt(q, k, v, valid),
+                            lambda: ops.decode_attention(q, k, v, valid), 25, flush)
+        lib = launch_times_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kq, vq, attn_mask=mask4), 50, flush)
+        n_valid = int(valid.sum())
+        print(f"  decode_attention {label} {shape} bfloat16, {n_valid} valid slots, "
+              f"splits {_decode.splits(B, Hkv, Tk, props.multi_processor_count)}: split "
+              f"{spread(new)}, max |diff| {err:.3g}; simt {spread(old)}, max |diff| "
+              f"{err_prev:.3g}; SDPA {spread(lib)}")
+        report(f"decode_attention {label}", dict(
+            err=err, ms=statistics.fmean(new), previous_ms=statistics.fmean(old),
+            plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, valid), 10, flush),
+            library_ms=statistics.fmean(lib),
+            bytes=sum(t.numel() * t.element_size() for t in (q, valid, plain))
+            + 2 * n_valid * Hkv * d * k.element_size(),
+            ops=f"{4 * d * Hq * n_valid} FLOP",
+            ops_ms=1e3 * 4 * d * Hq * n_valid / PEAK_BF16_FLOPS))
+        if shape == CROSS_DECODE and mask == "all":
+            # what the cross prefill's layout costs: K and V of a layer, kept
+            # in the decode kernel's (B, T, Hkv, d), copied once to the flash
+            # kernel's (B, Hkv, T, d)
+            copy = launch_times_ms(torch, lambda: (k.transpose(1, 2).contiguous(),
+                                                   v.transpose(1, 2).contiguous()), 50, flush)
+            print(f"  cross K/V of one layer to the flash layout "
+                  f"({2 * k.numel() * k.element_size()} bytes, two transposed copies): "
+                  f"{spread(copy)}")
+        del q, k, v, kq, vq, valid, plain
 
     # the MoE expert matmul: the sweep in fp32 and bf16, then mixtral-8x7b's
     # serving shapes in bf16, with weights at the model's scale N(0, 1/D) as
@@ -833,7 +985,118 @@ def main() -> int:
     card_against_cpu(cfg, SEED + 7, {"flash_attention": cfg.n_layers,
                                      "decode_attention": cfg.n_layers})
 
+    # -- 4f, 4g --------------------------------------------------------------
+    def generate_direct(params, cfg, batch, seq_len, new_tokens):
+        """Greedy generation through ``T.prefill`` and a ``T.decode_step``
+        loop: (the logits of every step on the host, the tokens (B, new))."""
+        with torch.inference_mode():
+            lg, caches = T.prefill(params, cfg, batch, seq_len=seq_len)
+            pos = prompt_len(batch)
+            steps, toks = [lg.float().cpu()], [lg.argmax(-1)]
+            for i in range(new_tokens - 1):
+                lg, caches = T.decode_step(params, cfg, toks[-1], pos + i, caches)
+                steps.append(lg.float().cpu())
+                toks.append(lg.argmax(-1))
+        return steps, torch.cat(toks, 1).cpu()
+
+    def generate_against_cpu(cfg, batch, expect):
+        """Greedy generation of 8 tokens from ``batch`` (numpy arrays) on the
+        CPU and on the card with the same weights: every step's logits
+        within atol/rtol 1e-4 and the same tokens; ``expect`` is the card
+        run's kernel launches by name."""
+        p_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED))
+        runs = {}
+        for where, p in (("cpu", p_cpu), ("cuda", tree_to(p_cpu, dev))):
+            ops.reset_launches()
+            runs[where] = generate_direct(p, cfg, {k: torch.from_numpy(a).to(where)
+                                                   for k, a in batch.items()}, 64, 9)
+        got = {name: n for name, n in ops.LAUNCHES.items() if n}
+        if got != expect:
+            raise AssertionError(f"card run: launches {got}, expected {expect}")
+        errs = [check_close(f"{cfg.name} step {i} logits", lc, lp, (1e-4, 1e-4))
+                for i, (lc, lp) in enumerate(zip(runs["cuda"][0], runs["cpu"][0]))]
+        if not torch.equal(runs["cuda"][1], runs["cpu"][1]):
+            raise AssertionError(f"greedy tokens differ: cpu {runs['cpu'][1].tolist()} "
+                                 f"cuda {runs['cuda'][1].tolist()}")
+        print(f"  launches {got} in the card's prefill and 8 decode steps; logits max |diff| "
+              f"{max(errs):.3g} over the 9 steps; greedy tokens equal "
+              f"({runs['cuda'][1][0].tolist()} ...)")
+
+    phase("4f reduced seamless-m4t-large-v2, card against CPU, float32")
+    cfg = dataclasses.replace(reduced(get_arch("seamless-m4t-large-v2")), dtype="float32")
+    enc_rng = np.random.default_rng(SEED + 9)
+    L, E = cfg.n_layers, cfg.encdec.encoder_layers
+    print(f"  {E} encoder and {L} decoder layers, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}: a {ENCDEC_PROMPT}-token decoder prompt over "
+          f"{ENCDEC_FRAMES} encoder frames, batch {MOE_BATCH}, no mask")
+    generate_against_cpu(cfg, {
+        "tokens": enc_rng.integers(0, cfg.vocab_size, (MOE_BATCH, ENCDEC_PROMPT)),
+        "enc_embeds": enc_rng.standard_normal((MOE_BATCH, ENCDEC_FRAMES, cfg.d_model),
+                                              np.float32)},
+        {"flash_attention": E + 2 * L, "decode_attention": 2 * L * 8})
+
+    phase("4g reduced pixtral-12b, a prompt of image-patch embeddings, card against CPU, float32")
+    cfg = dataclasses.replace(reduced(get_arch("pixtral-12b")), dtype="float32", n_kv_heads=1)
+    print(f"  {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim} (pixtral's G = 4): "
+          f"{ENCDEC_PROMPT} patch embeddings of width {cfg.frontend.embed_dim}, batch "
+          f"{MOE_BATCH}")
+    generate_against_cpu(cfg, {"embeds": enc_rng.standard_normal(
+        (MOE_BATCH, ENCDEC_PROMPT, cfg.frontend.embed_dim), np.float32)},
+        {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * 8})
+
     # -- 5 ------------------------------------------------------------------
+    def check_routes(name, expect_routes):
+        """The launches of the run just made, by op and by route; raises
+        unless each route in ``expect_routes`` ({op: {route: n}}) holds its
+        count and every other route none."""
+        launches = dict(ops.LAUNCHES)
+        routes = {op: dict(c) for op, c in ops.ROUTE_LAUNCHES.items()}
+        want = {op: {r: 0 for r in c} for op, c in ops.ROUTE_LAUNCHES.items()}
+        for op, by_route in expect_routes.items():
+            for r, n in by_route.items():
+                want[op][r] += n
+        print(f"launches by route {routes}")
+        if routes != want:
+            raise AssertionError(f"{name}: launches by route {routes}, expected {want}")
+        return launches, routes
+
+    def print_run(times_s, first_tokens):
+        """The measured run's prefill, mean decode step, rate and peak memory."""
+        step_us = 1e6 * statistics.fmean(times_s[1:])
+        print(f"serve prefill_ms {1e3 * times_s[0]:.3f}  mean_decode_step_us {step_us:.1f}  "
+              f"generated_tok_per_s {SLOTS * NEW_TOKENS / sum(times_s):.1f}  "
+              f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
+        print(f"  first request's tokens: {first_tokens[:8]} ...")
+        return step_us
+
+    def engine_routes(cfg, n_decode):
+        """The launches by route of one prefill and ``n_decode`` decode
+        steps of the engine: the prefill's attention takes the route of the
+        model's dtype; each expert matmul that of its capacity, the rows per
+        expert of a prefill (all prompts' tokens) or a decode step (one per
+        slot); the scans take fp32 from the models, one launch a layer and
+        step."""
+        n, dtype = layer_counts(cfg), getattr(torch, cfg.dtype)
+        want = {"flash_attention": {_flash.route(dtype): n["attn"]}}
+        if n["attn"]:
+            G, cap = cfg.n_heads // cfg.n_kv_heads, attention.kv_cache_capacity(cfg, MAX_SEQ)
+            want["decode_attention"] = {_decode.route(dtype, G, cap): n["attn"] * n_decode}
+        if n["moe"]:
+            E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+            want["moe_gmm"] = collections.Counter()
+            for tokens, steps in ((SLOTS * PROMPT_LEN, 1), (SLOTS, n_decode)):
+                C = max(1, int(cf * k * tokens / E))
+                for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
+                             (cfg.d_ff, cfg.d_model)):
+                    want["moe_gmm"][_gmm.route(dtype, C, D, F)] += n["moe"] * steps
+        if n["mamba"]:
+            want["mamba_scan"] = {_mamba.route(torch.float32, cfg.mamba.d_state):
+                                  n["mamba"] * (n_decode + 1)}
+        if n["rwkv"]:
+            want["rwkv6_scan"] = {_rwkv.route(torch.float32, cfg.rwkv.head_size):
+                                  n["rwkv"] * (n_decode + 1)}
+        return want
+
     def serve(cfg, prompts):
         """Serve ``prompts`` through a fresh engine of ``cfg`` on the card:
         a warm-up, then the measured run with the launch counters reset just
@@ -854,49 +1117,16 @@ def main() -> int:
         eng.step_times_s.clear()
         ops.reset_launches()
         outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
-        launches = dict(ops.LAUNCHES)
-        routes = {name: dict(c) for name, c in ops.ROUTE_LAUNCHES.items()}
         n_decode = len(eng.step_times_s) - 1
         n = layer_counts(cfg)
         expect = {"flash_attention": n["attn"], "decode_attention": n["attn"] * n_decode,
                   "aes_ctr": 0, "moe_gmm": 3 * n["moe"] * (n_decode + 1),
                   "mamba_scan": n["mamba"] * (n_decode + 1),
                   "rwkv6_scan": n["rwkv"] * (n_decode + 1)}
+        launches, routes = check_routes(cfg.name, engine_routes(cfg, n_decode))
         print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
         if launches != expect:
             raise AssertionError(f"launch counts {launches}, expected {expect}")
-        # by route: the prefill's attention takes the route of the model's
-        # dtype; each expert matmul that of its capacity, the rows per expert
-        # of a prefill (all prompts' tokens) or a decode step (one per slot)
-        dtype = getattr(torch, cfg.dtype)
-        expect_routes = {"flash_attention": {"wgmma": 0, "simt": 0},
-                         "decode_attention": {"split": 0, "simt": 0},
-                         "aes_ctr": {"ttable": 0, "simt": 0},
-                         "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
-                         "mamba_scan": {"lanes": 0, "simt": 0},
-                         "rwkv6_scan": {"cols": 0, "simt": 0}}
-        expect_routes["flash_attention"][_flash.route(dtype)] += n["attn"]
-        if n["attn"]:
-            G, cap = cfg.n_heads // cfg.n_kv_heads, attention.kv_cache_capacity(cfg, MAX_SEQ)
-            expect_routes["decode_attention"][_decode.route(dtype, G, cap)] += \
-                n["attn"] * n_decode
-        if n["moe"]:
-            E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
-            for tokens, steps in ((SLOTS * PROMPT_LEN, 1), (SLOTS, n_decode)):
-                C = max(1, int(cf * k * tokens / E))
-                for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
-                             (cfg.d_ff, cfg.d_model)):
-                    expect_routes["moe_gmm"][_gmm.route(dtype, C, D, F)] += n["moe"] * steps
-        # the scans take fp32 from the models, one launch a layer and step
-        if n["mamba"]:
-            expect_routes["mamba_scan"][_mamba.route(torch.float32, cfg.mamba.d_state)] += \
-                n["mamba"] * (n_decode + 1)
-        if n["rwkv"]:
-            expect_routes["rwkv6_scan"][_rwkv.route(torch.float32, cfg.rwkv.head_size)] += \
-                n["rwkv"] * (n_decode + 1)
-        print(f"launches by route {routes}")
-        if routes != expect_routes:
-            raise AssertionError(f"launches by route {routes}, expected {expect_routes}")
         if [len(o) for o in outs] != [NEW_TOKENS] * SLOTS or \
                 not all(0 <= t < cfg.vocab_size for o in outs for t in o):
             raise AssertionError("generated tokens out of shape or range")
@@ -906,25 +1136,9 @@ def main() -> int:
                               seq_len=MAX_SEQ)
         if not bool(lg.float().isfinite().all()):
             raise AssertionError("full-width logits are not finite")
-        prefill_ms = 1e3 * eng.step_times_s[0]
-        total_s = sum(eng.step_times_s)
-        step_us = eng.mean_decode_step_us()
-        print(f"serve prefill_ms {prefill_ms:.3f}  mean_decode_step_us {step_us:.1f}  "
-              f"generated_tok_per_s {SLOTS * NEW_TOKENS / total_s:.1f}  "
-              f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
-        print(f"  first request's tokens: {outs[0][:8]} ...")
-        for what, prof_fn in ((f"decode step over {PROFILED_STEPS} profiled steps",
-                               profile_decode),
-                              ("prefill, profiled once", profile_prefill)):
-            device_us, wall_us, top = prof_fn(torch, T, eng, cfg, prompts, dev)
-            if device_us is None:
-                print(f"{what}: device time not measured (the profiler saw no kernel); "
-                      f"wall_us {wall_us:.1f}")
-                continue
-            print(f"{what}: device_us {device_us:.1f}  wall_us {wall_us:.1f}  "
-                  f"device idle share {1 - device_us / wall_us:.3f}")
-            for name, us in top:
-                print(f"  {us:10.1f} us  {name[:100]}")
+        step_us = print_run(eng.step_times_s, outs[0])
+        print_profiles(torch, T, eng.params, cfg, {"tokens": torch.tensor(prompts, device=dev)},
+                       MAX_SEQ)
         return step_us, launches, routes
 
     phase("5 full-width qwen3-1.7b served on the card")
@@ -1005,6 +1219,92 @@ def main() -> int:
         raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
     h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
                 f"prefill and {h2o_launches['decode_attention']} decode launches")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5f, 5g --------------------------------------------------------------
+    def serve_direct(cfg, batch, seq_len, expect_routes):
+        """Prefill ``batch`` and decode greedily to ``NEW_TOKENS`` tokens
+        through ``T.prefill`` and ``T.decode_step`` on the card, timed as
+        the engine times (host clock up to ``torch.cuda.synchronize()``): a
+        warm-up, then the measured run with the launch counters reset just
+        before it and checked by route just after; then the profiled decode
+        steps and prefill.  Returns the launches by name."""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        print(f"{cfg.name}: {cfg.n_layers} decoder layers"
+              + (f", {cfg.encdec.encoder_layers} encoder layers" if cfg.encdec else "")
+              + f", d_model {cfg.d_model}, {cfg.dtype}; weights drawn in "
+              f"{time.perf_counter() - t0:.1f} s, weights {tree_bytes(params)} bytes")
+
+        def run(new_tokens):
+            times, toks = [], []
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                lg, caches = T.prefill(params, cfg, batch, seq_len=seq_len)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                pos = prompt_len(batch)
+                toks.append(lg.argmax(-1))
+                for i in range(new_tokens - 1):
+                    t0 = time.perf_counter()
+                    lg, caches = T.decode_step(params, cfg, toks[-1], pos + i, caches)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    toks.append(lg.argmax(-1))
+                if not bool(lg.float().isfinite().all()):
+                    raise AssertionError(f"{cfg.name}: full-width logits are not finite")
+            return times, torch.cat(toks, 1).cpu()
+
+        run(2)                                   # warm-up: cuBLAS, libraries
+        ops.reset_launches()
+        times, toks = run(NEW_TOKENS)
+        launches, _ = check_routes(cfg.name, expect_routes)
+        print(f"launches {launches} over 1 prefill and {NEW_TOKENS - 1} decode steps")
+        if toks.shape != (SLOTS, NEW_TOKENS) or not bool(((0 <= toks) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{cfg.name}: generated tokens out of shape or range")
+        print_run(times, toks[0].tolist())
+        print_profiles(torch, T, params, cfg, batch, seq_len)
+        return launches
+
+    phase("5f full-width, full-depth seamless-m4t-large-v2 (encoder-decoder) on the card")
+    cfg = get_arch("seamless-m4t-large-v2")
+    L, E = cfg.n_layers, cfg.encdec.encoder_layers
+    n_decode = NEW_TOKENS - 1
+    frames = stub_frontend_embeddings(cfg, torch.Generator(device=dev).manual_seed(SEED + 10),
+                                      SLOTS)
+    batch = {"tokens": torch.tensor(np.random.default_rng(SEED + 10).integers(
+        0, cfg.vocab_size, (SLOTS, PROMPT_LEN)), device=dev), "enc_embeds": frames}
+    print(f"  {SLOTS} requests: {frames.shape[1]} stub frames of width {frames.shape[2]} "
+          f"({frames.dtype}), a {PROMPT_LEN}-token decoder prompt, {NEW_TOKENS} new tokens, "
+          f"a {MAX_SEQ}-slot cache; no enc_mask")
+    seamless_launches = serve_direct(cfg, batch, MAX_SEQ, {   # 72 and 1488
+        "flash_attention": {"wgmma": E + 2 * L}, "decode_attention": {"split": 2 * L * n_decode}})
+    del frames, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("5g full-width, full-depth pixtral-12b, a prompt of image-patch embeddings, on the card")
+    held = torch.cuda.memory_allocated()
+    print(f"  before the draw: {held} bytes allocated on the card")
+    if held > 1e9:
+        raise AssertionError(f"{held} bytes still allocated before phase 5g")
+    cfg = get_arch("pixtral-12b")
+    patches = stub_frontend_embeddings(cfg, torch.Generator(device=dev).manual_seed(SEED + 11),
+                                       SLOTS)
+    print(f"  {SLOTS} prompts of {patches.shape[1]} stub patch embeddings of width "
+          f"{patches.shape[2]} ({patches.dtype}), {NEW_TOKENS} new tokens, a {PIXTRAL_SEQ}-slot "
+          f"cache")
+    pixtral_launches = serve_direct(cfg, {"embeds": patches}, PIXTRAL_SEQ, {
+        "flash_attention": {"wgmma": cfg.n_layers},
+        "decode_attention": {"split": cfg.n_layers * n_decode}})   # 40 and 1240
+    encdec_note = (f"seamless-m4t-large-v2, phase 5f: {seamless_launches['flash_attention']} "
+                   f"prefill and {seamless_launches['decode_attention']} decode launches; "
+                   f"pixtral-12b, phase 5g: {pixtral_launches['flash_attention']} prefill and "
+                   f"{pixtral_launches['decode_attention']} decode launches")
+    del patches
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1224,7 +1524,8 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
          **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
-         **({"note": h2o_note} if name in ("flash_attention", "decode_attention") else {})}
+         **({"note": f"{h2o_note}; {encdec_note}"}
+            if name in ("flash_attention", "decode_attention") else {})}
         for name, r in records.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,15 @@
 """GQA attention with RoPE, optional qk-norm and sliding window, plus a
-single-token decode path against a (ring-buffered) KV cache.
+single-token decode path against a (ring-buffered) KV cache, the
+bidirectional self-attention of an encoder and the cross-attention of an
+encoder-decoder's decoder.
 
-Counterpart of the JAX package's ``models/attention.py`` for the dense
-causal path.  Unlike the JAX model, which computes attention with jnp,
-prefill and decode call the attention ops in :mod:`repro_torch.kernels.ops`:
-the CUDA kernels for tensors on the card, their plain versions on the CPU.
-``gqa_attend`` stays as the plain reference.
+Counterpart of the JAX package's ``models/attention.py`` and of the
+encoder and cross sub-layers of its ``models/transformer.py``.  Unlike the
+JAX model, which computes attention with jnp, prefill, decode, the encoder
+and the cross-attention call the attention ops in
+:mod:`repro_torch.kernels.ops`: the CUDA kernels for tensors on the card,
+their plain versions on the CPU.  ``gqa_attend`` stays as the plain
+reference, and is what cross-attention takes on the CPU, as in JAX.
 
 The caches are updated in place: the decode step writes one slot instead
 of copying the whole cache, as the JAX version's functional update does.
@@ -76,14 +80,15 @@ def _rope(cfg: ArchConfig, positions: torch.Tensor
     return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
-def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           cfg: ArchConfig) -> torch.Tensor:
-    """Causal self-attention through the flash op, converting the model's
-    (B,S,H,hd) to the kernel's (B,H,S,hd) and back."""
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: Optional[int]) -> torch.Tensor:
+    """Attention through the flash op, converting the model's (B,S,H,hd) to
+    the kernel's (B,H,S,hd) with one contiguous copy of each operand, and
+    back."""
     out = ops.flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(),
-                              causal=True, window=cfg.sliding_window)
+                              causal=causal, window=window)
     return out.transpose(1, 2)
 
 
@@ -93,7 +98,76 @@ def attention_forward(params: dict, x: torch.Tensor, cfg: ArchConfig,
     cache)."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, _rope(cfg, positions))
-    out = _flash(q, k, v, cfg)
+    out = _flash(q, k, v, True, cfg.sliding_window)
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
+def encoder_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                      positions: torch.Tensor) -> torch.Tensor:
+    """The encoder's bidirectional self-attention: RoPE at ``positions``,
+    no mask and no window (JAX ``transformer._apply_block`` with
+    ``causal=False``)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, _rope(cfg, positions))
+    out = _flash(q, k, v, False, None)
+    return out.reshape(B, S, -1) @ params["wo"]
+
+
+def project_kv_for_cross(params: dict, enc: torch.Tensor, cfg: ArchConfig
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Project encoder output once into cross-attention K/V (no RoPE), each
+    (B, T, Hkv, hd): the decode kernel's layout."""
+    B, T, _ = enc.shape
+    hd = cfg.resolved_head_dim
+    k = (enc @ params["wk"]).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (enc @ params["wv"]).reshape(B, T, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+def cross_route(device_type: str, S: int, masked: bool) -> str:
+    """How a cross-attention of S queries runs: ``"plain"`` (``gqa_attend``,
+    as the JAX model) on the CPU; on the card ``"decode"`` (the decode
+    kernel) at S = 1 and ``"flash"`` (the flash kernel, non-causal) at S > 1.
+    Raises ValueError at S > 1 with a key mask on the card: no kernel of the
+    port takes a key mask over several queries (ROADMAP queue 2 item D), and
+    nothing stands in for one."""
+    if device_type == "cpu":
+        return "plain"
+    if S == 1:
+        return "decode"
+    if masked:
+        raise ValueError(
+            f"cross-attention of {S} queries under an encoder key mask has no "
+            "kernel on the card yet (ROADMAP queue 2 item D: a key-masked "
+            "prefill attention route); run it without enc_mask, or on the CPU")
+    return "flash"
+
+
+def cross_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                    cross_kv: Tuple[torch.Tensor, torch.Tensor],
+                    cross_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (B,S,d) attends over the encoder's K/V, each (B,T,Hkv,hd), with no
+    RoPE; ``cross_mask`` (B,T) bool marks the valid encoder positions, or is
+    None.  The path is :func:`cross_route`'s; the decode kernel takes a
+    valid mask, all True where there is none."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+    ck, cv = cross_kv
+    how = cross_route(x.device.type, S, cross_mask is not None)
+    if how == "decode":
+        valid = cross_mask if cross_mask is not None else torch.ones(
+            (B, ck.shape[1]), dtype=torch.bool, device=x.device)
+        out = ops.decode_attention(q[:, 0], ck, cv, valid)
+    elif how == "flash":
+        out = _flash(q, ck, cv, False, None)
+    else:
+        mask = None if cross_mask is None else cross_mask[:, None, :].expand(B, S, ck.shape[1])
+        out = gqa_attend(q, ck, cv, mask)
     return out.reshape(B, S, -1) @ params["wo"]
 
 
@@ -123,7 +197,7 @@ def prefill_into_cache(params: dict, x: torch.Tensor, cfg: ArchConfig,
     """Self-attention over the prompt, and write the (ring) cache in place."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, _rope(cfg, positions))
-    out = _flash(q, k, v, cfg)
+    out = _flash(q, k, v, True, cfg.sliding_window)
     cap = cache["k"].shape[1]
     if cap >= S:
         cache["k"][:, :S] = k

@@ -1,5 +1,7 @@
 """Decoder stack for every block kind: attention (ATTN, ATTN_MOE), Mamba
-(MAMBA, MAMBA_MOE) and RWKV6 (RWKV).
+(MAMBA, MAMBA_MOE) and RWKV6 (RWKV), with the bidirectional encoder and the
+cross-attention of an encoder-decoder (seamless-m4t) and the stub frontends'
+embeddings as inputs (seamless-m4t, pixtral).
 
 Counterpart of the JAX package's ``models/transformer.py``.  The parameter
 tree has the same shape and keys: ``params["blocks"]`` is a tuple over the
@@ -7,19 +9,27 @@ in-group positions of ``_stack_plan``, each a dict of tensors stacked over
 the groups, so ``convert.params_from_jax`` is a plain copy.  Jamba's 1:7
 Mamba:attention interleave is one group of ``attn_every`` kinds, repeated.
 The JAX ``lax.scan`` over groups becomes a loop that indexes the stacked
-tensors.
+tensors.  An enc-dec model adds ``enc_blocks`` (one group of
+``encoder_layers`` ATTN blocks), ``enc_norm``, and ``ln_cross`` and
+``cross`` in every decoder block; ``frontend_proj`` maps frontend
+embeddings of another width onto ``d_model``.
 
 Entry points: ``forward`` (full sequence), ``prefill`` (writes the caches)
 and ``decode_step`` (one token against the caches, with a scalar ``pos``
-shared by the batch).  The caches are per kind, as in JAX: a KV cache for
-attention, the recurrent state ``{"h", "conv"}`` for Mamba and
-``{"wkv", "shift_tm", "shift_cm"}`` for RWKV6; all are updated in place.  A
-MoE block runs ``models.moe.moe_apply`` in capacity mode on the ``ln2``
-output in place of the dense SwiGLU, and its router's aux loss is summed
-over the layers.
+shared by the batch).  A batch holds ``"tokens"`` or frontend
+``"embeds"``, and for an enc-dec model ``"enc_embeds"`` and optionally
+``"enc_mask"`` (B, T) bool.  The caches are per kind, as in JAX: a KV cache
+for attention, the recurrent state ``{"h", "conv"}`` for Mamba and
+``{"wkv", "shift_tm", "shift_cm"}`` for RWKV6; all are updated in place.
+An enc-dec prefill adds the per-layer ``"cross_kv"`` and ``"cross_valid"``,
+the decode kernel's valid mask over the encoder positions: the batch's
+``"enc_mask"``, or all True when it has none.  A MoE block runs
+``models.moe.moe_apply`` in capacity mode on the ``ln2`` output in place
+of the dense SwiGLU, and its router's aux loss is summed over the layers.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -54,12 +64,16 @@ def _stack_plan(cfg: ArchConfig):
 
 
 def _plan(cfg: ArchConfig):
-    """The stack plan, raising NotImplementedError for what is not ported."""
-    if cfg.encdec is not None or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend models are not ported "
-            "yet (ROADMAP queue 1 item 12)")
+    """The stack plan.  Raises NotImplementedError for an encoder under a
+    decoder without cross-attention (RWKV blocks, or ``cross_attention``
+    off), which the JAX model cannot run either: it finds no ``cross``
+    parameters to project the encoder's output with."""
     (kinds, n_groups), = _stack_plan(cfg)
+    if cfg.encdec is not None and (not cfg.encdec.cross_attention
+                                   or BlockKind.RWKV in kinds):
+        raise NotImplementedError(
+            f"{cfg.name}: an encoder needs cross-attention in every decoder "
+            "block, and an RWKV decoder has none")
     return kinds, n_groups
 
 
@@ -75,11 +89,12 @@ def _layer(tree, i: int):
 
 
 def _block_init(generator: torch.Generator, kind: BlockKind, cfg: ArchConfig,
-                dtype, n: int) -> dict:
+                dtype, n: int, cross: bool = False) -> dict:
     """Parameters of ``n`` blocks of ``kind``, stacked on a leading axis, with
     the keys of the JAX ``_block_init``: ``"attn"`` or ``"mamba"``, then
-    ``"moe"`` (MoE kinds) or ``"mlp"``; an RWKV block has ``"rwkv"`` and
-    ``"ln2"`` only, its channel mix living in ``"rwkv"``."""
+    ``"ln_cross"`` and ``"cross"`` if ``cross``, then ``"moe"`` (MoE kinds)
+    or ``"mlp"``; an RWKV block has ``"rwkv"`` and ``"ln2"`` only, its
+    channel mix living in ``"rwkv"``."""
     d, dev = cfg.d_model, generator.device
     p = {"ln1": rms_norm_init(d, dtype, dev, (n,))}
     if kind == BlockKind.RWKV:
@@ -90,6 +105,9 @@ def _block_init(generator: torch.Generator, kind: BlockKind, cfg: ArchConfig,
         p["attn"] = attn.attn_init(generator, cfg, dtype, (n,))
     else:
         p["mamba"] = mb.mamba_init(generator, cfg, dtype, (n,))
+    if cross:
+        p["ln_cross"] = rms_norm_init(d, dtype, dev, (n,))
+        p["cross"] = attn.attn_init(generator, cfg, dtype, (n,))
     p["ln2"] = rms_norm_init(d, dtype, dev, (n,))
     if kind in (BlockKind.ATTN_MOE, BlockKind.MAMBA_MOE):
         p["moe"] = moe_mod.moe_init(generator, cfg, dtype, (n,))
@@ -106,10 +124,13 @@ def _store(cache: dict, new: dict) -> None:
 
 def _apply_block(kind: BlockKind, p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
                  positions: Optional[torch.Tensor], step: Optional[attn.DecodeStep],
-                 cache: Optional[dict]) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                 cache: Optional[dict], cross=None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, moe aux loss); a block without MoE has no aux loss (None).
     In "prefill" and "decode" mode ``cache`` is the block's cache, read and
-    written in place; in "full" mode it is None."""
+    written in place; in "full" and "encode" (the encoder's bidirectional
+    attention) mode it is None.  ``cross`` is the layer's encoder K/V and
+    key mask, ``(k, v, mask)``, or None."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == BlockKind.RWKV:
         y, tm = rk.rwkv_time_mix(p["rwkv"], h, cfg, cache)
@@ -126,11 +147,17 @@ def _apply_block(kind: BlockKind, p: dict, x: torch.Tensor, cfg: ArchConfig, mod
             _store(cache, new)
     elif mode == "full":
         y = attn.attention_forward(p["attn"], h, cfg, positions)
+    elif mode == "encode":
+        y = attn.encoder_attention(p["attn"], h, cfg, positions)
     elif mode == "prefill":
         y, _ = attn.prefill_into_cache(p["attn"], h, cfg, positions, cache)
     else:
         y, _ = attn.decode_step_attention(p["attn"], h, cfg, step, cache)
     x = x + y
+    if cross is not None:
+        ck, cv, mask = cross
+        hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
+        x = x + attn.cross_attention(p["cross"], hc, cfg, (ck, cv), mask)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         y2, aux = moe_mod.moe_apply(p["moe"], h2, cfg)
@@ -140,17 +167,24 @@ def _apply_block(kind: BlockKind, p: dict, x: torch.Tensor, cfg: ArchConfig, mod
 
 def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
                mode: str, caches=None, positions: Optional[torch.Tensor] = None,
-               step: Optional[attn.DecodeStep] = None
+               step: Optional[attn.DecodeStep] = None, cross=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run x through every layer: a loop over groups, and over the kinds in
     each group.  ``caches`` mirrors ``params_groups`` (stacked per kind) and
-    is written in place.  Returns (x, the aux losses summed over layers)."""
+    is written in place.  ``cross`` is ``(cross_kv, mask)``: the encoder's
+    K/V of every layer (``_cross_kv_all_layers``) and its key mask or None
+    (JAX ``_run_stack_cross``).  Returns (x, the aux losses summed over
+    layers)."""
     total = torch.zeros((), device=x.device)
     for g in range(params_groups[0]["ln1"].shape[0]):
         for i, kind in enumerate(kinds):
             c = None if caches is None else _layer(caches[i], g)
+            layer_cross = None
+            if cross is not None:
+                (ck, cv), mask = cross[0][i], cross[1]
+                layer_cross = (ck[g], cv[g], mask)
             x, aux = _apply_block(kind, _layer(params_groups[i], g), x, cfg, mode,
-                                  positions, step, c)
+                                  positions, step, c, layer_cross)
             if aux is not None:
                 total = total + aux
     return x, total
@@ -173,8 +207,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, dtype)
-    params["blocks"] = tuple(_block_init(generator, kind, cfg, dtype, n_groups)
+    cross = cfg.encdec is not None
+    params["blocks"] = tuple(_block_init(generator, kind, cfg, dtype, n_groups, cross)
                              for kind in kinds)
+    # drawn after the decoder, so that a config without them keeps its weights
+    if cfg.encdec is not None:
+        params["enc_blocks"] = (_block_init(generator, BlockKind.ATTN, _encoder_cfg(cfg),
+                                            dtype, cfg.encdec.encoder_layers),)
+        params["enc_norm"] = rms_norm_init(cfg.d_model, dtype, generator.device)
+    if cfg.frontend is not None and cfg.frontend.embed_dim != cfg.d_model:
+        params["frontend_proj"] = dense_init(generator, cfg.frontend.embed_dim,
+                                             cfg.d_model, dtype)
     return params if device is None else tree_to(params, device)
 
 
@@ -193,17 +236,68 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    return dataclasses.replace(cfg, sliding_window=None)
+
+
+def _encode(params, cfg: ArchConfig, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Bidirectional encoder over stub frame embeddings (B, T, embed_dim) ->
+    (B, T, d).  Like the JAX encoder it applies no key mask."""
+    x = enc_embeds
+    if "frontend_proj" in params:
+        x = x @ params["frontend_proj"]
+    B, T, _ = x.shape
+    x, _ = _run_stack(params["enc_blocks"], (BlockKind.ATTN,), x, _encoder_cfg(cfg),
+                      "encode", positions=_positions(B, T, x.device))
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def _cross_kv_all_layers(params, cfg: ArchConfig, enc_out: torch.Tensor):
+    """Project the encoder's output into every decoder layer's cross K/V: a
+    tuple over the in-group kinds of (k, v), each (n_groups, B, T, Hkv, hd)."""
+    kinds, n_groups = _plan(cfg)
+    out = []
+    for i in range(len(kinds)):
+        p = params["blocks"][i]["cross"]
+        ks, vs = zip(*(attn.project_kv_for_cross(_layer(p, g), enc_out, cfg)
+                       for g in range(n_groups)))
+        out.append((torch.stack(ks), torch.stack(vs)))
+    return tuple(out)
+
+
+def model_inputs_to_embeds(params, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Token or stub-frontend embeddings -> (B, S, d): ``"embeds"`` replaces
+    the tokens, through ``frontend_proj`` where the model has one."""
+    if "embeds" in batch:
+        x = batch["embeds"]
+        if "frontend_proj" in params:
+            x = x @ params["frontend_proj"]
+        return x
+    return _embed(params, cfg, batch["tokens"])
+
+
+def _encode_for_cross(params, cfg: ArchConfig, batch: dict):
+    """Encode ``batch["enc_embeds"]`` and project it for every decoder
+    layer: (``_cross_kv_all_layers``'s K/V, the batch's ``enc_mask`` as
+    bool or None)."""
+    enc_out = _encode(params, cfg, batch["enc_embeds"])
+    mask = batch.get("enc_mask")
+    return _cross_kv_all_layers(params, cfg, enc_out), None if mask is None else mask.bool()
+
+
 def forward(params: dict, cfg: ArchConfig, batch: dict
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full sequence -> (logits (B,S,V), moe_aux): the routers' aux loss
     summed over the layers, zero for a dense model."""
     kinds, _ = _plan(cfg)
-    x = _embed(params, cfg, batch["tokens"])
+    x = model_inputs_to_embeds(params, cfg, batch)
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(B, S, x.device)
-    x, aux = _run_stack(params["blocks"], kinds, x, cfg, "full", positions=positions)
+    cross = None if cfg.encdec is None else _encode_for_cross(params, cfg, batch)
+    x, aux = _run_stack(params["blocks"], kinds, x, cfg, "full", positions=positions,
+                        cross=cross)
     return _unembed(params, cfg, x), aux
 
 
@@ -226,13 +320,19 @@ def init_caches(params, cfg: ArchConfig, batch: int, seq_len: int):
 def prefill(params: dict, cfg: ArchConfig, batch: dict, seq_len: int):
     """Run the prompt, returning (last-token logits, caches dict)."""
     kinds, _ = _plan(cfg)
-    x = _embed(params, cfg, batch["tokens"])
+    x = model_inputs_to_embeds(params, cfg, batch)
     B, S, _ = x.shape
     caches = init_caches(params, cfg, B, seq_len)
+    extra, cross = {}, None
+    if cfg.encdec is not None:
+        cross = ckv, mask = _encode_for_cross(params, cfg, batch)
+        extra["cross_kv"] = ckv
+        extra["cross_valid"] = mask if mask is not None else torch.ones(
+            batch["enc_embeds"].shape[:2], dtype=torch.bool, device=x.device)
     x, _ = _run_stack(params["blocks"], kinds, x, cfg, "prefill", caches,
-                      positions=_positions(B, S, x.device))
+                      positions=_positions(B, S, x.device), cross=cross)
     logits = _unembed(params, cfg, x[:, -1:])
-    return logits, {"layers": caches}
+    return logits, {"layers": caches, **extra}
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -246,6 +346,9 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     if first_attn is not None:
         cap = caches["layers"][first_attn]["k"].shape[2]   # (groups, B, cap, Hkv, hd)
         step = attn.decode_step_inputs(cfg, int(pos), x.shape[0], cap, x.device)
+    cross = None
+    if cfg.encdec is not None and "cross_kv" in caches:
+        cross = (caches["cross_kv"], caches["cross_valid"])
     x, _ = _run_stack(params["blocks"], kinds, x, cfg, "decode", caches["layers"],
-                      step=step)
+                      step=step, cross=cross)
     return _unembed(params, cfg, x), caches

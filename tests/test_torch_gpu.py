@@ -743,3 +743,92 @@ def test_moe_gmm_decode_designs_agree(cuda, E, C, D, F):
     x = _randn(cuda, (E, C, D), torch.bfloat16)
     w = (_randn(cuda, (E, D, F), torch.float32) * D ** -0.5).bfloat16()
     _assert_close(tgmm.moe_gmm(x, w), tgmm.moe_gmm_mma_sync(x, w), "bfloat16")
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and frontend models: flash without the causal bound at
+# seamless-m4t's shapes (a ragged T of 1500 = 11 x 128 + 92, S != T, d 64 at
+# G = 1) and at pixtral-12b's prefill; decode against cross-attention K/V
+
+
+ENCDEC_FLASH = [   # B, Hq, Hkv, S, T, d, causal
+    (8, 16, 16, 1500, 1500, 64, False),     # seamless-m4t's encoder
+    (8, 16, 16, 512, 1500, 64, False),      # its cross-attention at the prefill
+    (2, 4, 4, 37, 1500, 64, False),         # S < T: no prefix offset without the causal bound
+    (1, 4, 4, 1500, 37, 64, False),         # S > T
+    (8, 32, 8, 1024, 1024, 128, True),      # pixtral-12b's prefill
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal", ENCDEC_FLASH)
+@pytest.mark.parametrize("which", ["wgmma", "simt"])
+def test_flash_attention_at_the_encdec_shapes(cuda, B, Hq, Hkv, S, T, d, causal, which):
+    q = _randn(cuda, (B, Hq, S, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, Hkv, T, d), torch.bfloat16) for _ in range(2))
+    fn = tflash.flash_attention if which == "wgmma" else tflash.flash_attention_simt
+    before = dict(tflash.LAUNCHES)
+    out = fn(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES == {**before, which: before[which] + 1}
+    _assert_close(out, ref.flash_attention_ref(q, k, v, causal=causal), "bfloat16")
+
+
+def _cross_valid(B, T, mask):
+    """All 1500 encoder frames valid, or a ragged prefix of each row."""
+    if mask == "all":
+        return torch.ones((B, T), dtype=torch.bool, device="cuda")
+    lengths = torch.tensor([T - 97 * b for b in range(B)], device="cuda")
+    return torch.arange(T, device="cuda")[None] < lengths[:, None]
+
+
+@pytest.mark.parametrize("mask", ["all", "prefix"])
+@pytest.mark.parametrize("which", ["split", "simt"])
+def test_decode_attention_at_the_cross_shape(cuda, mask, which):
+    """One decoder token against seamless-m4t's 1500 encoder frames (G = 1,
+    d 64), not a ring: every tile live under the all-valid mask."""
+    B, Hq, Hkv, T, d = 8, 16, 16, 1500, 64
+    q = _randn(cuda, (B, Hq, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, T, Hkv, d), torch.bfloat16) for _ in range(2))
+    valid = _cross_valid(B, T, mask)
+    assert tdecode.route(torch.bfloat16, Hq // Hkv, T) == "split"
+    fn = tdecode.decode_attention if which == "split" else tdecode.decode_attention_simt
+    before = dict(tdecode.LAUNCHES)
+    out = fn(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert tdecode.LAUNCHES == {**before, which: before[which] + 1}
+    _assert_close(out, ref.decode_attention_ref(q, k, v, valid), "bfloat16")
+
+
+def test_reduced_seamless_in_bf16_on_the_card(cuda):
+    """Reduced seamless-m4t in bf16 with the same weights on the card
+    (kernels) and on the CPU (plain versions): prefill and 4 decode steps
+    over 150 encoder frames.  Every matmul and norm rounds to bf16 on both
+    sides, in other orders, so the logits are held at the bf16 limit of
+    ``tests/test_kernels.py`` (atol = rtol = 5e-2), and the kernels'
+    launches are counted."""
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_to
+
+    cfg = reduced(get_arch("seamless-m4t-large-v2"))
+    assert cfg.dtype == "bfloat16"
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 40), generator=g)
+    enc = torch.randn((4, 150, cfg.d_model), generator=g).bfloat16()
+    logits = {}
+    for where, p in (("cpu", p_cpu), ("cuda", tree_to(p_cpu, "cuda"))):
+        ops.reset_launches()
+        batch = {"tokens": toks.to(where), "enc_embeds": enc.to(where)}
+        lg, c = T.prefill(p, cfg, batch, seq_len=48)
+        steps = [lg.float().cpu()]
+        for i in range(4):
+            nxt = toks[:, i:i + 1].to(where)        # the same tokens on both sides
+            lg, c = T.decode_step(p, cfg, nxt, 40 + i, c)
+            steps.append(lg.float().cpu())
+        logits[where] = steps
+    L = cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == cfg.encdec.encoder_layers + 2 * L   # + self, cross
+    assert ops.LAUNCHES["decode_attention"] == 2 * L * 4
+    for got, expect in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(got, expect, atol=5e-2, rtol=5e-2)

@@ -39,6 +39,13 @@ def test_the_walk_covers_the_scan_modules():
             "repro_torch.configs.jamba_v01", "repro_torch.configs.rwkv6_1p6b"} <= mods
 
 
+def test_the_walk_covers_the_encdec_modules():
+    """The enc-dec and frontend slice's modules are among those it imports."""
+    mods = set(_modules())
+    assert {"repro_torch.models.frontends", "repro_torch.configs.seamless_m4t_v2",
+            "repro_torch.configs.pixtral_12b"} <= mods
+
+
 def test_importing_every_module_loads_no_jax_and_no_repro():
     code = ("import importlib, sys\n"
             f"for m in {list(_modules())!r}:\n"
