@@ -36,7 +36,10 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    and pixtral-12b's (1024, d 128, G 4), and decode against seamless's
    1500 encoder frames, all valid and under a ragged prefix, with the
    transposed copy of a layer's cross K/V, and in seamless's 1024-slot and
-   pixtral's 2048-slot KV caches;
+   pixtral's 2048-slot KV caches; the flash kernel's key-masked route at
+   seamless's cross prefill (ragged valid lengths, one fully masked row) in
+   fp32 and bf16, timed in turns with the simt design unmasked, SDPA given
+   the same boolean mask beside them;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -52,7 +55,8 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 4f. a reduced ``seamless-m4t-large-v2`` (encoder-decoder): a 40-token
    decoder prompt over 150 encoder frames at batch 4, then 8 greedy decode
    steps through ``T.prefill`` and ``T.decode_step``, card against CPU:
-   every step's logits within atol/rtol 1e-4 and equal tokens;
+   every step's logits within atol/rtol 1e-4 and equal tokens; then again
+   under a ragged ``enc_mask``, the cross prefill on the masked route;
 4g. the same for a reduced ``pixtral-12b`` (4 query heads a kv head, as
    in the full model) on a prompt of 40 image-patch embeddings;
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
@@ -82,6 +86,8 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    ``T.prefill`` and a greedy ``T.decode_step`` loop timed as the engine
    times (the engine takes no encoder inputs); every attention (encoder,
    self, cross) on flash ``wgmma`` and decode ``split``, checked by route;
+   then one prefill under a ragged ``enc_mask``, timed, its cross
+   attention on the masked route;
 5g. full-width, full-depth ``pixtral-12b`` (24.5 GB of bf16 weights, 5f's
    memory freed first): 8 prompts of 1024 stub image-patch embeddings and
    32 new tokens, the same way;
@@ -102,10 +108,19 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    must all launch on the route of 38 blocks.  The AES function and the four
    model endpoints of phases 5-5d are then deployed on containerd and on
    junctiond.  Those latencies are simulated on the host from the paper's
-   host costs; only ``work_us`` is measured here.
+   host costs; only ``work_us`` is measured here;
+8. the open loop of the paper's Fig 6 on those measured bodies, simulated
+   on the host: ``sustainable_throughput`` of AES (phase 7's body) on both
+   backends over the default grid of 250 to 24000 rps under a 50 ms p99
+   SLO, each curve printed, both knees and their ratio (junctiond's must be
+   the higher; its sweep is run twice and must repeat), a ``KneeSearch``
+   with a ``drive`` probe on each backend; then the four model endpoints
+   of phases 5-5d on a grid of 0.1 to 1.0 of the cores' rate under a p99
+   SLO of twice the body, their knees printed.  It launches no kernel.
 
-The line before the last is a JSON object with one entry per kernel; the
-last is ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
+The line before the last is a JSON object with one entry per kernel (the
+flash kernel's masked route with its own); the last is
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -196,6 +211,7 @@ MOE_LAYERS = 24              # of mixtral-8x7b's 32: 70.2 GB of bf16 weights
 JAMBA_LAYERS = 24            # of jamba-v0.1-52b's 32, 3 groups of 8: 77.6 GB of bf16 weights
 MOE_PROMPT, MOE_SEQ, MOE_BATCH = 150, 192, 4     # phases 4b-4d
 ENCDEC_PROMPT, ENCDEC_FRAMES = 40, 150           # phases 4f, 4g: S != T, both ragged
+ENCDEC_MASK_LENGTHS = (150, 97, 31, 64)          # phase 4f's ragged enc_mask, a row each
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PIXTRAL_SEQ = 2048           # phase 5g: 1024 patch embeddings and 32 new tokens
 PROFILED_STEPS = 4
@@ -209,6 +225,7 @@ FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccdde
               "69c4e0d86a7b0430d8cdb78070b4c55a")    # key, plaintext, ciphertext
 BODY_CALLS = 200
 AES_REQUESTS, MODEL_REQUESTS = 100, 50
+FIG6_SLO_MS = 50.0           # phase 8: the p99 SLO of sustainable_throughput's AES sweep
 TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-3, 1e-2)}   # (atol, rtol)
 GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
 
@@ -374,7 +391,8 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.config import get_arch, reduced
-    from repro_torch.core import FaasdRuntime, FunctionSpec, Simulator, run_sequential
+    from repro_torch.core import (FaasdRuntime, FunctionSpec, KneeSearch, LoadSpec, Simulator,
+                                  drive, run_sequential, sustainable_throughput)
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import aes_ctr as _aes
     from repro_torch.kernels import decode_attention as _decode
@@ -636,6 +654,51 @@ def main() -> int:
             ops=f"{4 * d * pairs * B * Hq} FLOP",
             ops_ms=1e3 * 4 * d * pairs * B * Hq / PEAK_BF16_FLOPS))
         del q, k, v, kq, vq, out, plain
+
+    # the key-masked route (phases 4f and 5f under an encoder mask) at
+    # seamless's cross prefill: ragged valid lengths and one fully masked
+    # row, held in fp32 and bf16, then timed in bf16 in turns with the simt
+    # design unmasked at the same shape, SDPA given the same boolean mask
+    B, Hq, Hkv, S, Tk, d, _ = ENCDEC_FLASH["seamless cross prefill"]
+    lengths = [Tk - 97 * b for b in range(B)]
+    lengths[1] = 0                # a row with no valid key averages v over T
+    key_valid = torch.arange(Tk, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
+    kw = dict(causal=False, key_valid=key_valid)
+    errs = {}
+    for dname, dt in dtypes.items():
+        if _flash.route(dt, True) != "masked":
+            raise AssertionError(f"flash_attention: a key mask in {dname} routes to "
+                                 f"{_flash.route(dt, True)}")
+        (q, k, v), _ = flash_case((B, Hq, Hkv, S, Tk, d, False, None), dt)
+        plain = ref.flash_attention_ref(q, k, v, **kw)
+        out = ops.flash_attention(q, k, v, **kw)
+        errs[dname] = check_close(f"flash_attention masked cross prefill {dname}", out, plain,
+                                  TOL[dname])
+    old, new = in_turns(torch, lambda: _flash.flash_attention_simt(q, k, v, causal=False),
+                        lambda: ops.flash_attention(q, k, v, **kw), 10, flush)
+    lib = launch_times_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=key_valid[:, None, None, :]), 20, flush)
+    # the products the data needs: each query against its row's valid keys
+    # (the fully masked row's output, the mean of v, costs no product).  The
+    # bytes it needs: q, out and the mask once, k over the valid keys, v over
+    # the valid keys and over all of T for each row with none
+    pairs = S * sum(lengths)
+    kv_row_bytes = Hkv * d * k.element_size()
+    needed_bytes = (sum(t.numel() * t.element_size() for t in (q, key_valid, out))
+                    + kv_row_bytes * (2 * sum(lengths) + Tk * lengths.count(0)))
+    print(f"  flash_attention masked cross prefill {(B, Hq, Hkv, S, Tk, d)}, valid lengths "
+          f"{lengths}: masked {spread(new)}, max |diff| bf16 {errs['bfloat16']:.3g} fp32 "
+          f"{errs['float32']:.3g}; simt unmasked {spread(old)}; SDPA with the mask {spread(lib)}")
+    records["flash_attention_masked"] = dict(
+        err=errs["bfloat16"], ms=statistics.fmean(new),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3, flush),
+        library_ms=statistics.fmean(lib),
+        bytes=needed_bytes,
+        ops=f"{4 * d * pairs * Hq} FLOP", ops_ms=1e3 * 4 * d * pairs * Hq / PEAK_BF16_FLOPS,
+        replaces="src/repro/models/transformer.py:137",
+        source="src/repro_torch/csrc/flash_attention.cu")
+    report("flash_attention masked cross prefill", records["flash_attention_masked"])
+    del q, k, v, out, plain, key_valid
 
     # the decode attention of phases 5f and 5g: against seamless-m4t's 1500
     # encoder frames (G 1, d 64, not a ring; all valid, so every tile is
@@ -999,11 +1062,12 @@ def main() -> int:
                 toks.append(lg.argmax(-1))
         return steps, torch.cat(toks, 1).cpu()
 
-    def generate_against_cpu(cfg, batch, expect):
+    def generate_against_cpu(cfg, batch, expect, expect_flash=None):
         """Greedy generation of 8 tokens from ``batch`` (numpy arrays) on the
         CPU and on the card with the same weights: every step's logits
         within atol/rtol 1e-4 and the same tokens; ``expect`` is the card
-        run's kernel launches by name."""
+        run's kernel launches by name, ``expect_flash`` (or None) its flash
+        launches by route."""
         p_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED))
         runs = {}
         for where, p in (("cpu", p_cpu), ("cuda", tree_to(p_cpu, dev))):
@@ -1013,12 +1077,17 @@ def main() -> int:
         got = {name: n for name, n in ops.LAUNCHES.items() if n}
         if got != expect:
             raise AssertionError(f"card run: launches {got}, expected {expect}")
+        flash_routes = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+        if expect_flash is not None and flash_routes != expect_flash:
+            raise AssertionError(f"card run: flash launches by route {flash_routes}, expected "
+                                 f"{expect_flash}")
         errs = [check_close(f"{cfg.name} step {i} logits", lc, lp, (1e-4, 1e-4))
                 for i, (lc, lp) in enumerate(zip(runs["cuda"][0], runs["cpu"][0]))]
         if not torch.equal(runs["cuda"][1], runs["cpu"][1]):
             raise AssertionError(f"greedy tokens differ: cpu {runs['cpu'][1].tolist()} "
                                  f"cuda {runs['cuda'][1].tolist()}")
-        print(f"  launches {got} in the card's prefill and 8 decode steps; logits max |diff| "
+        print(f"  launches {got} in the card's prefill and 8 decode steps, flash by route "
+              f"{flash_routes}; logits max |diff| "
               f"{max(errs):.3g} over the 9 steps; greedy tokens equal "
               f"({runs['cuda'][1][0].tolist()} ...)")
 
@@ -1029,11 +1098,20 @@ def main() -> int:
     print(f"  {E} encoder and {L} decoder layers, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.resolved_head_dim}: a {ENCDEC_PROMPT}-token decoder prompt over "
           f"{ENCDEC_FRAMES} encoder frames, batch {MOE_BATCH}, no mask")
-    generate_against_cpu(cfg, {
+    encdec_batch = {
         "tokens": enc_rng.integers(0, cfg.vocab_size, (MOE_BATCH, ENCDEC_PROMPT)),
         "enc_embeds": enc_rng.standard_normal((MOE_BATCH, ENCDEC_FRAMES, cfg.d_model),
-                                              np.float32)},
-        {"flash_attention": E + 2 * L, "decode_attention": 2 * L * 8})
+                                              np.float32)}
+    generate_against_cpu(cfg, encdec_batch,
+                         {"flash_attention": E + 2 * L, "decode_attention": 2 * L * 8},
+                         {"wgmma": 0, "simt": E + 2 * L, "masked": 0})
+    lengths = ENCDEC_MASK_LENGTHS
+    print(f"  again under a ragged enc_mask, valid lengths {lengths}: the cross prefill on the "
+          f"masked route, the decode steps' cross-attention under the decode kernel's mask")
+    encdec_batch["enc_mask"] = np.arange(ENCDEC_FRAMES)[None] < np.array(lengths)[:, None]
+    generate_against_cpu(cfg, encdec_batch,
+                         {"flash_attention": E + 2 * L, "decode_attention": 2 * L * 8},
+                         {"wgmma": 0, "simt": E + L, "masked": L})
 
     phase("4g reduced pixtral-12b, a prompt of image-patch embeddings, card against CPU, float32")
     cfg = dataclasses.replace(reduced(get_arch("pixtral-12b")), dtype="float32", n_kv_heads=1)
@@ -1146,7 +1224,7 @@ def main() -> int:
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     step_us, launches, routes = serve(cfg, prompts)
     if (routes["flash_attention"], routes["decode_attention"]) != (
-            {"wgmma": 28, "simt": 0}, {"split": 868, "simt": 0}):
+            {"wgmma": 28, "simt": 0, "masked": 0}, {"split": 868, "simt": 0}):
         raise AssertionError(f"qwen3's attention by route {routes}")
     endpoints = {cfg.name: step_us}
 
@@ -1159,7 +1237,7 @@ def main() -> int:
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], moe_launches, routes = serve(cfg, prompts)
     launches["moe_gmm"] = moe_launches["moe_gmm"]
-    if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
+    if routes != {"flash_attention": {"wgmma": 24, "simt": 0, "masked": 0},
                   "decode_attention": {"split": 744, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
@@ -1181,7 +1259,7 @@ def main() -> int:
     prompts = np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], jamba_launches, routes = serve(cfg, prompts)
-    if routes != {"flash_attention": {"wgmma": 3, "simt": 0},
+    if routes != {"flash_attention": {"wgmma": 3, "simt": 0, "masked": 0},
                   "decode_attention": {"split": 93, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
@@ -1211,7 +1289,7 @@ def main() -> int:
     prompts = np.random.default_rng(SEED + 8).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     _, h2o_launches, routes = serve(cfg, prompts)
-    if routes != {"flash_attention": {"wgmma": 24, "simt": 0},
+    if routes != {"flash_attention": {"wgmma": 24, "simt": 0, "masked": 0},
                   "decode_attention": {"split": 744, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
@@ -1223,13 +1301,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5f, 5g --------------------------------------------------------------
-    def serve_direct(cfg, batch, seq_len, expect_routes):
+    def serve_direct(cfg, batch, seq_len, expect_routes, enc_mask=None):
         """Prefill ``batch`` and decode greedily to ``NEW_TOKENS`` tokens
         through ``T.prefill`` and ``T.decode_step`` on the card, timed as
         the engine times (host clock up to ``torch.cuda.synchronize()``): a
         warm-up, then the measured run with the launch counters reset just
         before it and checked by route just after; then the profiled decode
-        steps and prefill.  Returns the launches by name."""
+        steps and prefill.  Given ``enc_mask``, then one more prefill of
+        ``batch`` under it, timed the same way and its counters read alone.
+        Returns the launches by name, and the masked prefill's flash
+        launches by route (or None)."""
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
@@ -1267,7 +1348,23 @@ def main() -> int:
             raise AssertionError(f"{cfg.name}: generated tokens out of shape or range")
         print_run(times, toks[0].tolist())
         print_profiles(torch, T, params, cfg, batch, seq_len)
-        return launches
+        if enc_mask is None:
+            return launches, None
+        masked_batch = {**batch, "enc_mask": enc_mask}
+        with torch.inference_mode():
+            T.prefill(params, cfg, masked_batch, seq_len=seq_len)      # warm-up
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            lg, _ = T.prefill(params, cfg, masked_batch, seq_len=seq_len)
+            torch.cuda.synchronize()
+            masked_ms = 1e3 * (time.perf_counter() - t0)
+            routes = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+            if not bool(lg.float().isfinite().all()):
+                raise AssertionError(f"{cfg.name}: masked prefill logits are not finite")
+        print(f"masked prefill (enc_mask valid lengths {enc_mask.sum(1).tolist()}): "
+              f"prefill_ms {masked_ms:.3f}; flash launches by route {routes}")
+        return launches, routes
 
     phase("5f full-width, full-depth seamless-m4t-large-v2 (encoder-decoder) on the card")
     cfg = get_arch("seamless-m4t-large-v2")
@@ -1279,10 +1376,18 @@ def main() -> int:
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)), device=dev), "enc_embeds": frames}
     print(f"  {SLOTS} requests: {frames.shape[1]} stub frames of width {frames.shape[2]} "
           f"({frames.dtype}), a {PROMPT_LEN}-token decoder prompt, {NEW_TOKENS} new tokens, "
-          f"a {MAX_SEQ}-slot cache; no enc_mask")
-    seamless_launches = serve_direct(cfg, batch, MAX_SEQ, {   # 72 and 1488
-        "flash_attention": {"wgmma": E + 2 * L}, "decode_attention": {"split": 2 * L * n_decode}})
-    del frames, batch
+          f"a {MAX_SEQ}-slot cache; then one prefill under a ragged enc_mask")
+    n_frames = frames.shape[1]
+    enc_mask = torch.arange(n_frames, device=dev)[None] < torch.tensor(
+        [n_frames - 97 * b for b in range(SLOTS)], device=dev)[:, None]
+    seamless_launches, masked_routes = serve_direct(cfg, batch, MAX_SEQ, {   # 72 and 1488
+        "flash_attention": {"wgmma": E + 2 * L}, "decode_attention": {"split": 2 * L * n_decode}},
+        enc_mask=enc_mask)
+    if masked_routes != {"wgmma": E + L, "simt": 0, "masked": L}:
+        raise AssertionError(f"seamless's masked prefill: flash launches by route "
+                             f"{masked_routes}, expected wgmma {E + L} and masked {L}")
+    launches["flash_attention_masked"] = masked_routes["masked"]
+    del frames, batch, enc_mask
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1297,7 +1402,7 @@ def main() -> int:
     print(f"  {SLOTS} prompts of {patches.shape[1]} stub patch embeddings of width "
           f"{patches.shape[2]} ({patches.dtype}), {NEW_TOKENS} new tokens, a {PIXTRAL_SEQ}-slot "
           f"cache")
-    pixtral_launches = serve_direct(cfg, {"embeds": patches}, PIXTRAL_SEQ, {
+    pixtral_launches, _ = serve_direct(cfg, {"embeds": patches}, PIXTRAL_SEQ, {
         "flash_attention": {"wgmma": cfg.n_layers},
         "decode_attention": {"split": cfg.n_layers * n_decode}})   # 40 and 1240
     encdec_note = (f"seamless-m4t-large-v2, phase 5f: {seamless_launches['flash_attention']} "
@@ -1515,6 +1620,70 @@ def main() -> int:
         raise AssertionError(f"the AES body's launches by route {faas_routes}, expected "
                              f"{expect_routes}")
     launches["aes_ctr"] = faas_launches["aes_ctr"]
+
+    # -- 8 ------------------------------------------------------------------
+    phase("8 open-loop load (Fig 6) on the bodies the card measured (simulated)")
+
+    def print_curve(label, res):
+        print(f"  {label}: sustainable_rps {res['sustainable_rps']}")
+        for row in res["curve"]:
+            print(f"    rate {row['offered_rps']:9.1f}  achieved_rps {row['achieved_rps']:10.2f}  "
+                  f"median_ms {row['median_ms']:10.4f}  p99_ms {row['p99_ms']:10.4f}  "
+                  f"rejected {row['rejected']}")
+
+    def knee_search(backend, spec, slo_ms, rate0):
+        """``KneeSearch`` with a ``drive`` probe: a fresh runtime of 10
+        cores per probe, Poisson arrivals, bracketing probes at half the
+        duration."""
+        def probe(rate, phase_name):
+            rt = FaasdRuntime(Simulator(seed=SEED), backend=backend, n_cores=10)
+            rt.deploy_blocking(spec)
+            return drive(rt, LoadSpec.single(spec.name, rate, warmup_s=0.3,
+                                             duration_s=1.0 if phase_name == "bracket" else 2.0))
+        return KneeSearch(probe, slo_p99_ms=slo_ms, rate0=rate0).run()
+
+    t0 = time.perf_counter()
+    aes_spec = FunctionSpec(name="aes", work_us=aes_us)
+    knees = {}
+    print(f"AES, work_us {aes_us:.1f} (phase 7's deployed body on {props.name}), 10 cores, the "
+          f"default grid of 250 to 24000 rps, p99 SLO {FIG6_SLO_MS} ms:")
+    for backend in ("containerd", "junctiond"):
+        res = sustainable_throughput(backend, aes_spec, slo_p99_ms=FIG6_SLO_MS)
+        print_curve(backend, res)
+        knees[backend] = res["sustainable_rps"]
+        if backend == "junctiond":
+            again = sustainable_throughput(backend, aes_spec, slo_p99_ms=FIG6_SLO_MS)
+            if json.dumps(again, default=str) != json.dumps(res, default=str):
+                raise AssertionError("junctiond's AES sweep differs between two runs of one seed")
+            print("  junctiond's sweep run twice: the same curve, row for row")
+        search = knee_search(backend, aes_spec, FIG6_SLO_MS, 2000.0)
+        print(f"  {backend}: KneeSearch knee_rps {search.knee_rps:.1f} in {search.n_probes} "
+              f"probes (bracket {search.lo_rps:.1f} .. {search.hi_rps:.1f}, converged "
+              f"{search.converged})")
+    if not knees["junctiond"] > knees["containerd"]:
+        raise AssertionError(f"AES: junctiond's knee {knees['junctiond']} rps is not above "
+                             f"containerd's {knees['containerd']} rps")
+    print(f"AES knees: containerd {knees['containerd']} rps, junctiond {knees['junctiond']} rps, "
+          f"ratio {knees['junctiond'] / knees['containerd']:.2f} (the paper: about 10)")
+    for name, us in endpoints.items():
+        n_cores, work_s = 10, us * 1e-6
+        rates = [round(f / 10 * n_cores / work_s, 3) for f in range(1, 11)]
+        spec = FunctionSpec(name=name, work_us=us, payload_bytes=2048, response_bytes=4096)
+        ep = {b: sustainable_throughput(b, spec, slo_p99_ms=2e-3 * us, rates=rates,
+                                        n_cores=n_cores) for b in ("containerd", "junctiond")}
+        print(f"{name}, work_us {us:.1f} (phases 5-5d), rates {rates[0]} .. {rates[-1]} rps, "
+              f"p99 SLO {2e-3 * us:.3f} ms:")
+        for b, res in ep.items():
+            print_curve(b, res)
+        c, j = ep["containerd"]["sustainable_rps"], ep["junctiond"]["sustainable_rps"]
+        print(f"{name} knees: containerd {c} rps, junctiond {j} rps, ratio "
+              f"{j / c if c else float('nan'):.3f}")
+    if dict(ops.LAUNCHES) != faas_launches or \
+            dict(ops.ROUTE_LAUNCHES["aes_ctr"]) != faas_routes:
+        raise AssertionError(f"phase 8 launched kernels: {dict(ops.LAUNCHES)} against phase 7's "
+                             f"{faas_launches}")
+    print(f"launches {dict(ops.LAUNCHES)}: none past phase 7's {BODY_CALLS} AES calls; "
+          f"phase 8 took {time.perf_counter() - t0:.1f} s of host time")
 
     # -- result -------------------------------------------------------------
     print(smi)

@@ -12,8 +12,8 @@ per-operation costs, and is exactly reproducible for tests.
 
 The port's copy of the JAX package's ``core/simulator.py``: numpy on the
 host, the same event order and the same RNG streams, so one seed gives the
-same latencies in both packages.  The flat-callback ``EventLoop`` of the
-open-loop ``drive`` comes with it (ROADMAP.md, queue 1 item 6d).
+same latencies in both packages.  It holds the generator processes of the
+closed loop and the flat-callback ``EventLoop`` of the open-loop ``drive``.
 """
 from __future__ import annotations
 
@@ -130,6 +130,80 @@ class Queue:
 
     def __len__(self) -> int:
         return len(self.items)
+
+
+class EventLoop:
+    """Flat-callback fast path over the simulator's event heap.
+
+    The generator :class:`Process` machinery costs several allocations
+    and dispatches per wait; at fleet scale (10^7+ simulated requests
+    per suite) that overhead dominates wall time.  ``EventLoop`` runs
+    the same heap with plain ``(time, counter, fn, args)`` callback
+    entries — no Event/Timeout/Process objects on the hot path — and
+    merges a presorted arrival stream into the event order without
+    materialising one heap entry per arrival.
+
+    Generator processes scheduled on the same simulator (autoscaler
+    control loops, backend lifecycle/scale operations, the Junction
+    scheduler's poll loop, mid-run provisioning storms) interleave
+    exactly as under :meth:`Simulator.run`: both paths share the one
+    heap and the one clock, so a fast-driven open loop and a legacy
+    generator process can contend for the same :class:`CorePool`.
+    """
+
+    __slots__ = ("sim",)
+
+    def __init__(self, sim: "Simulator"):
+        self.sim = sim
+
+    def schedule(self, delay: float, fn: Callable, *args) -> None:
+        """Schedule a plain callback ``fn(*args)`` after ``delay``."""
+        self.sim._schedule(delay, fn, *args)
+
+    def run(self, until: float, arrival_times=None, admit=None) -> int:
+        """Drain the heap up to ``until``, delivering ``admit(i, t)``
+        for each entry of the presorted ``arrival_times`` sequence,
+        merged into the heap's time order (ties: arrival first).
+
+        Mirrors :meth:`Simulator.run` clock/stop semantics: the clock
+        lands on ``until`` unless :meth:`Simulator.stop` fired, and
+        events beyond ``until`` stay queued.  Returns the number of
+        arrivals delivered.
+
+        Invariant: the clock never moves backwards — every popped event
+        and every admitted arrival is timestamped at or after ``now``.  The
+        JAX package's sanitizer asserts it on an operation-for-operation
+        copy of this loop; the port's comes with ROADMAP item 6g."""
+        sim = self.sim
+        heap = sim._heap
+        pop = heapq.heappop
+        arr = arrival_times if arrival_times is not None else ()
+        n_arr = len(arr)
+        inf = float("inf")
+        i = 0
+        # t_ar is loop-invariant between admits, so it is cached and
+        # refreshed only when i advances; t_ev must be re-read from the
+        # heap every iteration (callbacks and admit push new events)
+        t_ar = arr[0] if n_arr else inf
+        sim.stopped = False
+        while not sim.stopped:
+            t_ev = heap[0][0] if heap else inf
+            if t_ar <= t_ev:
+                if t_ar > until:
+                    break
+                sim.now = t_ar
+                admit(i, t_ar)
+                i += 1
+                t_ar = arr[i] if i < n_arr else inf
+            else:
+                if t_ev > until:
+                    break
+                t, _, fn, args = pop(heap)
+                sim.now = t
+                fn(*args)
+        if not sim.stopped:
+            sim.now = max(sim.now, until)
+        return i
 
 
 class Simulator:

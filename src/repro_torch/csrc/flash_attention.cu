@@ -59,6 +59,15 @@
 // Keys past T are excluded by bounds, not by padding.  A block holding a
 // query with no allowed key at all walks every tile, so that row averages v
 // over the real T, as the plain version does.
+//
+// The key-masked route (flash_attention_masked_fwd, fp32 and bf16): the simt
+// design with a (B, T) byte mask of valid keys, the encoder mask of a cross
+// prefill (JAX: gqa_attend under enc_mask, src/repro/models/transformer.py).
+// Each key tile's valid bytes are staged in shared memory beside K and V,
+// and a key whose byte is 0 scores kNegInf, like a causal or window miss.
+// Any row may lose every key to the mask, so the masked kernel walks every
+// tile, and such a row averages v over the real T, as the plain version
+// does.
 #include "attn_common.cuh"
 #include "hopper.cuh"
 
@@ -69,18 +78,19 @@ constexpr int kBlockK = 64;
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr int kPS = kBlockK + 1;
 
-template <int D>
+template <int D, bool MASKED>
 size_t smem_bytes() {
   return sizeof(float) * (size_t)(kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D +
-                                  kBlockQ * kPS + 3 * kBlockQ);
+                                  kBlockQ * kPS + 3 * kBlockQ + (MASKED ? kBlockK : 0));
 }
 
-template <typename T, int D>
+// MASKED: kvalid (B, Tlen) bytes, a key with 0 masked; otherwise unused.
+template <typename T, int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Hq, int Hkv,
-                       int S, int Tlen, int causal, int has_window, int window,
-                       float scale) {
+                       const T* __restrict__ v, const uint8_t* __restrict__ kvalid,
+                       T* __restrict__ out, int Hq, int Hkv, int S, int Tlen, int causal,
+                       int has_window, int window, float scale) {
   constexpr int QS = D + 1, KS = D + 1;  // padded rows: no bank conflicts
   constexpr int CH = D / 8;              // 16-byte chunks per row
   constexpr int DJ = (D + 15) / 16;      // output columns per thread (the last
@@ -101,6 +111,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* m_s = ps + kBlockQ * kPS;     // running max per query
   float* l_s = m_s + kBlockQ;          // running denominator
   float* a_s = l_s + kBlockQ;          // rescale of this tile
+  float* kv_s = a_s + kBlockQ;         // MASKED: the key tile's valid bytes
   __shared__ int key_lo, key_hi;
 
   const T* qb = q + (((size_t)b * Hq + h) * S + q0) * D;
@@ -134,8 +145,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         hi = max(hi, rh);
       }
     }
-    key_lo = empty_row ? 0 : lo;
-    key_hi = empty_row ? Tlen - 1 : hi;
+    key_lo = empty_row || MASKED ? 0 : lo;
+    key_hi = empty_row || MASKED ? Tlen - 1 : hi;
   }
   __syncthreads();
   const int t_begin = (key_lo / kBlockK) * kBlockK, t_end = key_hi;
@@ -158,6 +169,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 8; ++i) vs[t * D + d0 + i] = f[i];
     }
+    if (MASKED && tid < nt) kv_s[tid] = kvalid[(size_t)b * Tlen + t0 + tid] ? 1.f : 0.f;
     __syncthreads();
 
     // scores for queries ty + 16 i and keys tx + 16 j
@@ -191,6 +203,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
           bool ok = true;
           if (causal) ok = ok && kp <= p;
           if (has_window) ok = ok && kp > p - window;
+          if (MASKED) ok = ok && kv_s[c] != 0.f;
           s = ok ? sc[i][j] : attn::kNegInf;
         }
         ps[r * kPS + c] = s;
@@ -252,42 +265,56 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                   int Hkv, int S, int Tlen, int causal, int has_window, int window,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  auto kernel = flash_attention_kernel<T, D>;
+template <typename T, int D, bool MASKED>
+cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* kvalid,
+                   void* out, int B, int Hq, int Hkv, int S, int Tlen, int causal,
+                   int has_window, int window, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<D, MASKED>();
+  auto kernel = flash_attention_kernel<T, D, MASKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, Hq, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kvalid,
       static_cast<T*>(out), Hq, Hkv, S, Tlen, causal, has_window, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* out, int B,
-                     int Hq, int Hkv, int S, int Tlen, int causal, int has_window,
-                     int window, float scale, cudaStream_t stream) {
+template <typename T, bool MASKED>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const uint8_t* kvalid,
+                     void* out, int B, int Hq, int Hkv, int S, int Tlen, int causal,
+                     int has_window, int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                           scale, stream);
+      return launch<T, 32, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal,
+                                   has_window, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                           scale, stream);
+      return launch<T, 64, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal,
+                                   has_window, window, scale, stream);
     case 120:
-      return launch<T, 120>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                            scale, stream);
+      return launch<T, 120, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal,
+                                    has_window, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                            scale, stream);
+      return launch<T, 128, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal,
+                                    has_window, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <bool MASKED>
+cudaError_t launch_dtype(int dtype, int D, const void* q, const void* k, const void* v,
+                         const uint8_t* kvalid, void* out, int B, int Hq, int Hkv, int S,
+                         int Tlen, int causal, int has_window, int window, float scale,
+                         cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_d<float, MASKED>(D, q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal,
+                                   has_window, window, scale, stream);
+  if (dtype == 1)
+    return launch_d<__nv_bfloat16, MASKED>(D, q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen,
+                                           causal, has_window, window, scale, stream);
+  return cudaErrorInvalidValue;
 }
 
 
@@ -651,14 +678,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int B, int Hq, int Hkv, int S, int Tlen, int D,
                                    int causal, int has_window, int window, float scale,
                                    int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                           scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, out, B, Hq, Hkv, S, Tlen, causal,
-                                   has_window, window, scale, s);
-  return cudaErrorInvalidValue;
+  return launch_dtype<false>(dtype, D, q, k, v, nullptr, out, B, Hq, Hkv, S, Tlen, causal,
+                             has_window, window, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The key-masked route: the simt design, with kvalid (B, Tlen) bytes (0 =
+// masked key).  dtype: 0 = float32, 1 = bfloat16.  Returns
+// cudaGetLastError() after the launch; the caller raises on anything but 0.
+extern "C" int flash_attention_masked_fwd(const void* q, const void* k, const void* v,
+                                          const uint8_t* kvalid, void* out, int B, int Hq,
+                                          int Hkv, int S, int Tlen, int D, int causal,
+                                          int has_window, int window, float scale, int dtype,
+                                          void* stream) {
+  return launch_dtype<true>(dtype, D, q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal,
+                            has_window, window, scale, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 only: the wgmma design.  Returns cudaGetLastError() after the launch,

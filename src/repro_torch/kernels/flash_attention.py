@@ -4,13 +4,15 @@ Counterpart of the Pallas ``flash_attention`` in the JAX package's
 ``kernels/flash_attention.py``; same layouts and masking.  The kernels mask
 the ragged edge of S and T themselves, so nothing is padded here.
 
-Two designs, each its own C entry point, chosen by :func:`route` from the
-dtype before the launch: bf16 takes ``"wgmma"`` (Hopper's tensor cores, TMA
-loads, warp-specialised), fp32 takes ``"simt"`` (fp32 on the CUDA cores,
-never TF32).  A failed build or launch raises; no route stands in for
-another.  :func:`flash_attention_simt` reaches the simt design for bf16
-too, so that the two can be timed against each other on the card.
-``LAUNCHES`` counts the launches of each route.
+Three routes, each its own C entry point, chosen by :func:`route` from the
+dtype and the key mask before the launch: bf16 takes ``"wgmma"`` (Hopper's
+tensor cores, TMA loads, warp-specialised), fp32 takes ``"simt"`` (fp32 on
+the CUDA cores, never TF32), and a call with a (B, T) key mask, in either
+dtype, takes ``"masked"`` (the simt design with the mask in its score
+loop: a cross prefill under an encoder mask).  A failed build or launch
+raises; no route stands in for another.  :func:`flash_attention_simt`
+reaches the simt design for bf16 too, so that the two can be timed against
+each other on the card.  ``LAUNCHES`` counts the launches of each route.
 """
 from __future__ import annotations
 
@@ -28,12 +30,14 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_head_dim,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: launches of each route
-LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0}
+LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "masked": 0}
 
 
-def route(dtype: torch.dtype) -> str:
-    """The design a CUDA call in ``dtype`` takes: bf16 -> ``"wgmma"``,
-    anything else -> ``"simt"``."""
+def route(dtype: torch.dtype, masked: bool = False) -> str:
+    """The design a CUDA call in ``dtype`` takes: ``"masked"`` under a key
+    mask, else bf16 -> ``"wgmma"`` and anything else -> ``"simt"``."""
+    if masked:
+        return "masked"
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
@@ -44,6 +48,10 @@ def _entry(which: str):
         fn = lib.flash_attention_wgmma_fwd
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _P]
+    elif which == "masked":
+        fn = lib.flash_attention_masked_fwd
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _I, _P]
     else:
         fn = lib.flash_attention_fwd
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -53,7 +61,8 @@ def _entry(which: str):
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 window: Optional[int]) -> None:
+                 window: Optional[int],
+                 key_valid: Optional[torch.Tensor] = None) -> None:
     """Raise ValueError on anything the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("flash_attention: q (B,Hq,S,d), k and v (B,Hkv,T,d)")
@@ -67,14 +76,21 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: B and Hq must be at most 65535 (grid limit)")
     if window is not None and not 0 < window < 2 ** 31:
         raise ValueError(f"flash_attention: window {window} out of range")
+    if key_valid is not None and (key_valid.dtype != torch.bool
+                                  or tuple(key_valid.shape) != (B, T)
+                                  or key_valid.device != q.device):
+        raise ValueError(f"flash_attention: key_valid must be ({B}, {T}) bool on {q.device}, "
+                         f"got {tuple(key_valid.shape)} {key_valid.dtype} on {key_valid.device}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel of ``route(q.dtype)``: q (B,Hq,S,d), k/v
-    (B,Hkv,T,d) -> (B,Hq,S,d)."""
-    return _launch(route(q.dtype), q, k, v, causal, window)
+                    causal: bool = True, window: Optional[int] = None,
+                    key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the kernel of ``route(q.dtype, key_valid is not None)``: q
+    (B,Hq,S,d), k/v (B,Hkv,T,d), key_valid (B,T) bool or None ->
+    (B,Hq,S,d)."""
+    return _launch(route(q.dtype, key_valid is not None), q, k, v, causal, window,
+                   key_valid)
 
 
 def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -86,15 +102,20 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _launch(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: Optional[int]) -> torch.Tensor:
-    check_inputs(q, k, v, window)
+            causal: bool, window: Optional[int],
+            key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    check_inputs(q, k, v, window, key_valid)
     check_operands("flash_attention", q, k, v)
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq, Hkv, S, T, d,
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    if which == "masked":
+        key_valid = key_valid.contiguous()      # bool is one byte: 0 = masked key
+        ptrs.append(key_valid.data_ptr())
+    args = [*ptrs, out.data_ptr(), B, Hq, Hkv, S, T, d,
             int(causal), int(window is not None), window or 0, d ** -0.5]
-    if which == "simt":
+    if which != "wgmma":
         args.append(DTYPE_CODES[q.dtype])
     err = _entry(which)(*args, stream_handle(q.device))
     raise_on_error(f"flash_attention ({which})", err)

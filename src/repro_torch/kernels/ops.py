@@ -55,12 +55,15 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """q (B,Hq,S,d), k/v (B,Hkv,T,d) -> (B,Hq,S,d)."""
+                    causal: bool = True, window: Optional[int] = None,
+                    key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q (B,Hq,S,d), k/v (B,Hkv,T,d), key_valid (B,T) bool or None ->
+    (B,Hq,S,d)."""
     if not _on_cuda("flash_attention", q):
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
-    out = _flash.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       key_valid=key_valid)
+    out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                 key_valid=key_valid)
     LAUNCHES["flash_attention"] += 1
     return out
 

@@ -21,8 +21,11 @@ NEG_INF = -1e30
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
                         window: Optional[int] = None,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Hq, S, d); k, v: (B, Hkv, T, d) -> (B, Hq, S, d)."""
+                        scale: Optional[float] = None,
+                        key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (B, Hq, S, d); k, v: (B, Hkv, T, d); key_valid: (B, T) bool or
+    None -> (B, Hq, S, d).  A masked key scores ``NEG_INF`` as a causal or
+    window miss does, so a row with no key left averages v over T."""
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -37,6 +40,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kp <= qp + (T - S)     # allow prefix cache offset
     if window is not None:
         mask &= kp > qp + (T - S) - window
+    if key_valid is not None:
+        mask = mask & key_valid.bool()[:, None, None, :]
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)

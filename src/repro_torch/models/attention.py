@@ -81,14 +81,15 @@ def _rope(cfg: ArchConfig, positions: torch.Tensor
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-           window: Optional[int]) -> torch.Tensor:
+           window: Optional[int],
+           key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention through the flash op, converting the model's (B,S,H,hd) to
     the kernel's (B,H,S,hd) with one contiguous copy of each operand, and
-    back."""
+    back; ``key_valid`` (B,T) bool masks keys, or is None."""
     out = ops.flash_attention(q.transpose(1, 2).contiguous(),
                               k.transpose(1, 2).contiguous(),
                               v.transpose(1, 2).contiguous(),
-                              causal=causal, window=window)
+                              causal=causal, window=window, key_valid=key_valid)
     return out.transpose(1, 2)
 
 
@@ -129,20 +130,14 @@ def project_kv_for_cross(params: dict, enc: torch.Tensor, cfg: ArchConfig
 def cross_route(device_type: str, S: int, masked: bool) -> str:
     """How a cross-attention of S queries runs: ``"plain"`` (``gqa_attend``,
     as the JAX model) on the CPU; on the card ``"decode"`` (the decode
-    kernel) at S = 1 and ``"flash"`` (the flash kernel, non-causal) at S > 1.
-    Raises ValueError at S > 1 with a key mask on the card: no kernel of the
-    port takes a key mask over several queries (ROADMAP queue 2 item D), and
-    nothing stands in for one."""
+    kernel, which takes the valid mask) at S = 1, and at S > 1
+    ``"flash_masked"`` (the flash kernel's key-masked route) under an
+    encoder mask, else ``"flash"`` (the flash kernel, non-causal)."""
     if device_type == "cpu":
         return "plain"
     if S == 1:
         return "decode"
-    if masked:
-        raise ValueError(
-            f"cross-attention of {S} queries under an encoder key mask has no "
-            "kernel on the card yet (ROADMAP queue 2 item D: a key-masked "
-            "prefill attention route); run it without enc_mask, or on the CPU")
-    return "flash"
+    return "flash_masked" if masked else "flash"
 
 
 def cross_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -163,8 +158,8 @@ def cross_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
         valid = cross_mask if cross_mask is not None else torch.ones(
             (B, ck.shape[1]), dtype=torch.bool, device=x.device)
         out = ops.decode_attention(q[:, 0], ck, cv, valid)
-    elif how == "flash":
-        out = _flash(q, ck, cv, False, None)
+    elif how in ("flash", "flash_masked"):
+        out = _flash(q, ck, cv, False, None, cross_mask)
     else:
         mask = None if cross_mask is None else cross_mask[:, None, :].expand(B, S, ck.shape[1])
         out = gqa_attend(q, ck, cv, mask)

@@ -241,10 +241,9 @@ def test_cross_route(device, S, masked, route):
 
 @pytest.mark.parametrize("S", [2, 512])
 def test_cross_route_refuses_a_masked_prefill_on_the_card(S):
-    """No kernel takes a key mask over several queries: the card refuses
-    instead of falling back to the plain version."""
-    with pytest.raises(ValueError, match="queue 2 item D"):
-        tattn.cross_route("cuda", S, True)
+    """A key mask over several queries takes the flash kernel's masked
+    route on the card, never the plain version (this once raised)."""
+    assert tattn.cross_route("cuda", S, True) == "flash_masked"
 
 
 # ---------------------------------------------------------------------------

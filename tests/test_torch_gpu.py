@@ -773,6 +773,61 @@ def test_flash_attention_at_the_encdec_shapes(cuda, B, Hq, Hkv, S, T, d, causal,
     _assert_close(out, ref.flash_attention_ref(q, k, v, causal=causal), "bfloat16")
 
 
+def _key_valid(B, T, lengths):
+    return torch.arange(T, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_masked_at_the_cross_prefill_shape(cuda, dtype):
+    """seamless-m4t's cross prefill (B8 H16/16, S 512, T 1500, d 64) under a
+    ragged encoder mask with one fully masked row, which averages v over
+    all of T as the plain version does."""
+    B, Hq, Hkv, S, T, d = 8, 16, 16, 512, 1500, 64
+    dt = getattr(torch, dtype)
+    q = _randn(cuda, (B, Hq, S, d), dt)
+    k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
+    lengths = [T - 97 * b for b in range(B)]
+    lengths[1] = 0
+    valid = _key_valid(B, T, lengths)
+    assert tflash.route(dt, True) == "masked"
+    before = dict(tflash.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=False, key_valid=valid)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES == {**before, "masked": before["masked"] + 1}
+    plain = ref.flash_attention_ref(q, k, v, causal=False, key_valid=valid)
+    _assert_close(out, plain, dtype)
+    _assert_close(out[1], v[1].float().mean(1, keepdim=True).expand(Hkv, S, d), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win,lengths", [
+    (2, 4, 2, 37, 150, 32, False, None, (150, 1)),        # G 2, a row with one key
+    (3, 4, 4, 70, 129, 120, False, None, (0, 64, 65)),    # head_dim 120, tile edges
+    (2, 8, 2, 96, 200, 128, False, None, (200, 0)),
+    (2, 4, 2, 128, 128, 64, True, None, (128, 40)),       # causal under the mask
+    (1, 8, 2, 96, 96, 64, True, 32, (50,)),               # and a window
+])
+def test_flash_attention_masked_kernel(cuda, B, Hq, Hkv, S, T, d, causal, win, lengths, dtype):
+    dt = getattr(torch, dtype)
+    q = _randn(cuda, (B, Hq, S, d), dt)
+    k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
+    valid = _key_valid(B, T, lengths)
+    out = tflash.flash_attention(q, k, v, causal=causal, window=win, key_valid=valid)
+    torch.cuda.synchronize()
+    _assert_close(out, ref.flash_attention_ref(q, k, v, causal=causal, window=win,
+                                               key_valid=valid), dtype)
+
+
+def test_flash_attention_masked_refuses_a_bad_mask(cuda):
+    q = _randn(cuda, (2, 4, 9, 32), torch.float32)
+    k = _randn(cuda, (2, 2, 9, 32), torch.float32)
+    for bad in (torch.ones((2, 8), dtype=torch.bool, device="cuda"),
+                torch.ones((2, 9), dtype=torch.int32, device="cuda"),
+                torch.ones((2, 9), dtype=torch.bool)):
+        with pytest.raises(ValueError, match="key_valid"):
+            tflash.flash_attention(q, k, k, key_valid=bad)
+
+
 def _cross_valid(B, T, mask):
     """All 1500 encoder frames valid, or a ragged prefix of each row."""
     if mask == "all":
@@ -829,6 +884,38 @@ def test_reduced_seamless_in_bf16_on_the_card(cuda):
         logits[where] = steps
     L = cfg.n_layers
     assert ops.LAUNCHES["flash_attention"] == cfg.encdec.encoder_layers + 2 * L   # + self, cross
+    assert ops.LAUNCHES["decode_attention"] == 2 * L * 4
+    for got, expect in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(got, expect, atol=5e-2, rtol=5e-2)
+
+
+def test_reduced_seamless_under_an_enc_mask_on_the_card(cuda):
+    """The same under a ragged ``enc_mask``: the cross prefill takes the
+    flash kernel's masked route, the decode steps the decode kernel's mask,
+    and the logits hold at the bf16 limit against the plain versions."""
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_to
+
+    cfg = reduced(get_arch("seamless-m4t-large-v2"))
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (4, 40), generator=g)
+    enc = torch.randn((4, 150, cfg.d_model), generator=g).bfloat16()
+    mask = torch.arange(150)[None] < torch.tensor([150, 97, 31, 64])[:, None]
+    logits = {}
+    for where, p in (("cpu", p_cpu), ("cuda", tree_to(p_cpu, "cuda"))):
+        ops.reset_launches()
+        batch = {"tokens": toks.to(where), "enc_embeds": enc.to(where),
+                 "enc_mask": mask.to(where)}
+        lg, c = T.prefill(p, cfg, batch, seq_len=48)
+        steps = [lg.float().cpu()]
+        for i in range(4):
+            lg, c = T.decode_step(p, cfg, toks[:, i:i + 1].to(where), 40 + i, c)
+            steps.append(lg.float().cpu())
+        logits[where] = steps
+    L, E = cfg.n_layers, cfg.encdec.encoder_layers
+    assert tflash.LAUNCHES == {"wgmma": E + L, "simt": 0, "masked": L}
     assert ops.LAUNCHES["decode_attention"] == 2 * L * 4
     for got, expect in zip(logits["cuda"], logits["cpu"]):
         torch.testing.assert_close(got, expect, atol=5e-2, rtol=5e-2)

@@ -114,6 +114,55 @@ def test_flash_row_without_allowed_key_averages_v():
                                atol=3e-5, rtol=3e-5)
 
 
+def _key_valid(B, T, mask):
+    """(B, T) bool: ragged valid prefixes, the second row fully masked under
+    ``"masked_row"``."""
+    lengths = np.array([T, T // 2 + 1, 3, T - 5][:B])
+    valid = np.arange(T)[None] < lengths[:, None]
+    if mask == "masked_row":
+        valid[1] = False
+    return valid
+
+
+@pytest.mark.parametrize("mask", ["ragged", "masked_row"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d", [
+    (2, 4, 2, 9, 37, 32),       # a cross prefill: S < T, G 2
+    (4, 4, 4, 70, 150, 64),     # G 1, ragged tiles of 64 keys
+    (3, 8, 2, 5, 200, 128),
+])
+def test_flash_attention_ref_under_a_key_mask_matches_jax(B, Hq, Hkv, S, T, d, mask):
+    """The plain version's key mask against the JAX model's cross-attention
+    (``gqa_attend`` under the encoder mask, no causal bound): a fully masked
+    row averages v over all of T in both."""
+    from repro.models.attention import gqa_attend
+    rng = np.random.default_rng(46)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Hq, S, d), (B, Hkv, T, d), (B, Hkv, T, d)))
+    valid = _key_valid(B, T, mask)
+    out = tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)), causal=False,
+                                   key_valid=torch.from_numpy(valid))
+    jmask = np.broadcast_to(valid[:, None, :], (B, S, T))
+    oracle = gqa_attend(*(jnp.asarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v)),
+                        jnp.asarray(jmask))
+    np.testing.assert_allclose(out.numpy(), np.asarray(oracle).transpose(0, 2, 1, 3),
+                               atol=3e-5, rtol=3e-5)
+    if mask == "masked_row":
+        np.testing.assert_allclose(out[1].numpy(),
+                                   np.repeat(v[1].mean(axis=1)[:, None], S, 1).repeat(
+                                       Hq // Hkv, 0), atol=3e-5, rtol=3e-5)
+
+
+def test_flash_attention_ref_all_valid_mask_equals_no_mask():
+    rng = np.random.default_rng(47)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 4, 11, 32), (2, 2, 23, 32), (2, 2, 23, 32)))
+    for causal in (True, False):
+        torch.testing.assert_close(
+            tref.flash_attention_ref(q, k, v, causal=causal,
+                                     key_valid=torch.ones((2, 23), dtype=torch.bool)),
+            tref.flash_attention_ref(q, k, v, causal=causal), atol=0, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # dispatch
 
@@ -176,6 +225,18 @@ def test_flash_check_inputs_rejects(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         tflash.check_inputs(q, k, v, None)
+
+
+@pytest.mark.parametrize("key_valid", [
+    torch.ones((1, 8), dtype=torch.bool),                 # T differs
+    torch.ones((2, 9), dtype=torch.bool),                 # B differs
+    torch.ones((1, 9), dtype=torch.int32),                # not bool
+    torch.ones((1, 9), dtype=torch.bool, device="meta"),  # another device than q
+])
+def test_flash_check_inputs_rejects_a_bad_key_mask(key_valid):
+    q, k, v = _flash_inputs()
+    with pytest.raises(ValueError, match="key_valid"):
+        tflash.check_inputs(q, k, v, None, key_valid)
 
 
 def test_flash_check_inputs_rejects_bad_window():
@@ -244,6 +305,13 @@ def test_flash_route(dtype, expect):
     assert tflash.route(dtype) == expect
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_route_under_a_key_mask(dtype):
+    """A key mask takes the masked route in either dtype."""
+    assert tflash.route(dtype, True) == "masked"
+    assert tflash.route(dtype, False) == tflash.route(dtype)
+
+
 @pytest.mark.parametrize("E,C,D,F,dtype,expect", [
     (8, 1280, 4096, 14336, torch.bfloat16, "wgmma"),   # mixtral-8x7b prefill, gate and up
     (8, 1280, 14336, 4096, torch.bfloat16, "wgmma"),   # mixtral prefill, down
@@ -295,7 +363,7 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                 torch.randn((2, 32, 24), generator=g).bfloat16())
     ops.moe_gmm(torch.randn((2, 2, 32), generator=g).bfloat16(),
                 torch.randn((2, 32, 24), generator=g).bfloat16())
-    assert ops.ROUTE_LAUNCHES == {"flash_attention": {"wgmma": 0, "simt": 0},
+    assert ops.ROUTE_LAUNCHES == {"flash_attention": {"wgmma": 0, "simt": 0, "masked": 0},
                                   "decode_attention": {"split": 0, "simt": 0},
                                   "aes_ctr": {"ttable": 0, "simt": 0},
                                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
