@@ -116,7 +116,19 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    the higher; its sweep is run twice and must repeat), a ``KneeSearch``
    with a ``drive`` probe on each backend; then the four model endpoints
    of phases 5-5d on a grid of 0.1 to 1.0 of the cores' rate under a p99
-   SLO of twice the body, their knees printed.  It launches no kernel.
+   SLO of twice the body, their knees printed.  It launches no kernel;
+9. the six backends, the autoscaler and the sanitizer on those bodies,
+   simulated on the host (``control_plane``): 9a phase 7's closed loop on
+   containerd, junctiond, quark, wasm (whose ``work_mult`` 1.35 scales the
+   body), firecracker and gVisor on both platforms, junctiond's median
+   the lowest for every function, the warm-path order of the 95 us body
+   printed, not asserted; 9b the AES function's cold start on each,
+   firecracker's boot, restore and boot after ``remove``, junctiond's
+   scale to 4 with shared uProcs and isolated instances; 9c bursts of AES
+   through ``drive`` with an ``Autoscaler(LeadTimePolicy)`` on each
+   backend: every one scales up, junctiond reacts faster than
+   containerd; 9d junctiond's and containerd's drives again under the
+   sanitizer, float for float the same.  It launches no kernel.
 
 The line before the last is a JSON object with one entry per kernel (the
 flash kernel's masked route with its own); the last is
@@ -128,6 +140,7 @@ import collections
 import dataclasses
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -226,6 +239,14 @@ FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccdde
 BODY_CALLS = 200
 AES_REQUESTS, MODEL_REQUESTS = 100, 50
 FIG6_SLO_MS = 50.0           # phase 8: the p99 SLO of sustainable_throughput's AES sweep
+# phase 9: every backend, gVisor on both platforms; the warm-path order that
+# tests/test_backends.py::test_fig5_style_warm_latency_ordering asserts at 95 us
+BACKEND_VARIANTS = ("junctiond", "containerd", "wasm", "firecracker", "gvisor",
+                    "gvisor-ptrace", "quark")
+WARM_ORDER = ("junctiond", "wasm", "containerd", "firecracker", "gvisor", "quark")
+# phase 9c: AES bursts that make every backend scale up while none overloads
+BURST = {"base_rps": 100.0, "burst_rps": 1200.0, "mean_quiet_s": 0.25, "mean_burst_s": 0.05}
+BURST_DURATION_S, BURST_WARMUP_S, BURST_TARGET_INFLIGHT = 4.0, 0.3, 2.0
 TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-3, 1e-2)}   # (atol, rtol)
 GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
 
@@ -379,6 +400,146 @@ def print_profiles(torch, T, params, cfg, batch, seq_len) -> None:
               f"device idle share {1 - device_us / wall_us:.3f}")
         for name, us in top:
             print(f"  {us:10.1f} us  {name[:100]}")
+
+
+def control_plane(aes_us: float, endpoints: dict) -> None:
+    """Phase 9: the six backends, the autoscaler and the sanitizer on the
+    bodies the card measured, simulated on the host.  ``aes_us`` is phase
+    7's deployed AES body and ``endpoints`` phases 5-5d's decode steps (us);
+    a missing or non-finite body fails the phase.  Launches no kernel."""
+    from repro_torch.analysis import sanitizer
+    from repro_torch.core import (Autoscaler, BurstyArrivals, FaasdRuntime, FunctionSpec,
+                                  GVisor, LeadTimePolicy, LoadSpec, Simulator,
+                                  available_backends, drive, run_sequential)
+
+    want = ("rwkv6-1.6b", "qwen3-1.7b", "mixtral-8x7b", "jamba-v0.1-52b")
+    bodies = {"aes": aes_us, **{n: endpoints.get(n) for n in want}}
+    bad = {n: us for n, us in bodies.items()
+           if not (isinstance(us, float) and math.isfinite(us) and us > 0)}
+    if bad or set(endpoints) != set(want):
+        raise AssertionError(f"phase 9 needs the bodies the card measured: {bad or endpoints}")
+    if set(available_backends()) | {"gvisor-ptrace"} != set(BACKEND_VARIANTS):
+        raise AssertionError(f"backends {available_backends()} against {BACKEND_VARIANTS}")
+
+    def runtime(variant):
+        """A runtime of 10 cores on ``Simulator(seed=1)``, phase 7's."""
+        sim = Simulator(seed=1)
+        if variant == "gvisor-ptrace":
+            return FaasdRuntime(sim, backend=GVisor(sim, platform="ptrace"))
+        return FaasdRuntime(sim, backend=variant)
+
+    def spec(name):
+        if name == "aes":
+            return FunctionSpec(name="aes", work_us=aes_us)
+        return FunctionSpec(name=name, work_us=bodies[name], payload_bytes=2048,
+                            response_bytes=4096)
+
+    # -- 9a: phase 7's closed loop on every backend -------------------------
+    print("9a closed loop, Simulator(seed=1), run_sequential (wasm's work_mult 1.35 scales the "
+          "card's body inside its sandbox):")
+    for name, us in bodies.items():
+        n_req = AES_REQUESTS if name == "aes" else MODEL_REQUESTS
+        runs = {}
+        for variant in BACKEND_VARIANTS:
+            rt = runtime(variant)
+            rt.deploy_blocking(spec(name))
+            s = run_sequential(rt, name, n=n_req)
+            if s.n != n_req:
+                raise AssertionError(f"{name} on {variant}: {s.n} latencies for {n_req}")
+            runs[variant] = s
+        j = runs["junctiond"].median_ms
+        print(f"  {name} (work_us {us:.1f} measured):")
+        for variant, s in runs.items():
+            print(f"    {variant:13s} median_ms {s.median_ms:10.4f}  p99_ms {s.p99_ms:10.4f}  "
+                  f"n {s.n}  median x junctiond {s.median_ms / j:.3f}")
+        low = min(runs, key=lambda v: runs[v].median_ms)
+        if low != "junctiond":
+            raise AssertionError(f"{name}: {low}'s median {runs[low].median_ms} is below "
+                                 f"junctiond's {j}")
+        order = sorted(WARM_ORDER, key=lambda v: runs[v].median_ms)
+        print(f"    by median: {' < '.join(order)}; the order of the 95 us body "
+              f"({' < '.join(WARM_ORDER)}) {'held' if tuple(order) == WARM_ORDER else 'did not hold'}")
+
+    # -- 9b: cold starts ----------------------------------------------------
+    def deploy_ms(rt):
+        t0 = rt.sim.now
+        rt.deploy_blocking(spec("aes"))
+        return 1e3 * (rt.sim.now - t0)
+
+    def drive_ms(rt, gen):
+        t0 = rt.sim.now
+        p = rt.sim.process(gen)
+        p.completion.callbacks.append(lambda _v: rt.sim.stop())
+        rt.sim.run()
+        if not p.done:
+            raise AssertionError("a lifecycle operation did not finish")
+        return 1e3 * (rt.sim.now - t0)
+
+    print("9b cold start of the AES function (simulated ms):")
+    print("  " + "  ".join(f"{v} {deploy_ms(runtime(v)):.4f}" for v in BACKEND_VARIANTS))
+    rt = runtime("firecracker")
+    boot = deploy_ms(rt)
+    restore = drive_ms(rt, rt.backend.scale("aes", 2))
+    rt.backend.remove("aes")
+    again = deploy_ms(rt)
+    print(f"  firecracker: first deploy (boot + snapshot save) {boot:.4f}, a scale-up replica "
+          f"(restore) {restore:.4f}, redeploy after remove (boot again) {again:.4f}; boots "
+          f"{rt.backend.boots}, restores {rt.backend.restores}")
+    if not (restore < boot and math.isclose(again, boot)):
+        raise AssertionError(f"firecracker: restore {restore} ms, boot {boot}, again {again}")
+    scale4 = {}
+    for isolate in (False, True):
+        rt = runtime("junctiond")
+        scale4[isolate] = drive_ms(rt, rt.manager.deploy("f4", scale=4, isolate_replicas=isolate))
+    print(f"  junctiond scale 4: shared uProcs {scale4[False]:.4f}, isolated instances "
+          f"{scale4[True]:.4f}")
+
+    # -- 9c: the autoscaler under a burst -----------------------------------
+    def burst(variant):
+        rt = runtime(variant)
+        rt.deploy_blocking(spec("aes"))
+        asc = Autoscaler(rt.sim, rt, LeadTimePolicy(
+            target_inflight_per_replica=BURST_TARGET_INFLIGHT))
+        asc.run()
+        res = drive(rt, LoadSpec(arrivals=BurstyArrivals(**BURST), functions=("aes",),
+                                 duration_s=BURST_DURATION_S, warmup_s=BURST_WARMUP_S),
+                    observer=asc)
+        recs = [(r.fn, r.t_arrival, r.t_start_exec, r.t_end_exec, r.t_done, r.cold)
+                for r in rt.records]
+        events = json.dumps([dataclasses.asdict(e) for e in asc.scale_events])
+        return res, asc, recs, events
+
+    print(f"9c AES bursts {BURST}, {BURST_DURATION_S} s after {BURST_WARMUP_S} s, 10 cores, "
+          f"LeadTimePolicy(target_inflight_per_replica={BURST_TARGET_INFLIGHT}) on drive:")
+    drives, reaction = {}, {}
+    for variant in BACKEND_VARIANTS:
+        res, asc, recs, events = burst(variant)
+        drives[variant] = (json.dumps(res, sort_keys=True, default=str), recs, events)
+        ups = [e for e in asc.scale_events if e.up and e.ready]
+        if not ups:
+            raise AssertionError(f"{variant} never scaled up under the burst")
+        r_ms = [1e3 * e.reaction_s for e in ups]
+        reaction[variant] = statistics.median(r_ms)
+        print(f"  {variant:13s} scale-ups {len(ups)} (events {len(asc.scale_events)}, "
+              f"period {1e3 * asc.policy.control_period(asc.runtime.backend.coldstart):.1f} "
+              f"ms)  reaction_ms median {reaction[variant]:.4f} max {max(r_ms):.4f}  "
+              f"invocations n {res['n']} median_ms {res['median_ms']:.4f} p99_ms "
+              f"{res['p99_ms']:.4f} rejected {res['rejected']}")
+    if not reaction["junctiond"] < reaction["containerd"]:
+        raise AssertionError(f"junctiond's median reaction {reaction['junctiond']} ms is not "
+                             f"below containerd's {reaction['containerd']}")
+
+    # -- 9d: the same drives under the sanitizer ----------------------------
+    sanitizer.install()
+    try:
+        for variant in ("junctiond", "containerd"):
+            res, _, recs, events = burst(variant)
+            if (json.dumps(res, sort_keys=True, default=str), recs, events) != drives[variant]:
+                raise AssertionError(f"{variant}: the checked drive differs from 9c's")
+            print(f"9d {variant}: the checked drive gives 9c's row, {len(recs)} records and "
+                  f"scale events, float for float")
+    finally:
+        sanitizer.uninstall()
 
 
 def main() -> int:
@@ -1684,6 +1845,18 @@ def main() -> int:
                              f"{faas_launches}")
     print(f"launches {dict(ops.LAUNCHES)}: none past phase 7's {BODY_CALLS} AES calls; "
           f"phase 8 took {time.perf_counter() - t0:.1f} s of host time")
+
+    # -- 9 ------------------------------------------------------------------
+    phase("9 the six backends, the autoscaler and the sanitizer on the bodies the card "
+          "measured (simulated)")
+    t0 = time.perf_counter()
+    control_plane(aes_us, endpoints)
+    if dict(ops.LAUNCHES) != faas_launches or \
+            dict(ops.ROUTE_LAUNCHES["aes_ctr"]) != faas_routes:
+        raise AssertionError(f"phase 9 launched kernels: {dict(ops.LAUNCHES)} against phase 7's "
+                             f"{faas_launches}")
+    print(f"launches {dict(ops.LAUNCHES)}: none past phase 7's {BODY_CALLS} AES calls; "
+          f"phase 9 took {time.perf_counter() - t0:.1f} s of host time")
 
     # -- result -------------------------------------------------------------
     print(smi)

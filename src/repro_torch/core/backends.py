@@ -23,13 +23,14 @@ backend:
 Implementations register under a unique name with ``@register_backend``;
 :func:`resolve_backend` turns a name (via the registry) or a ready
 instance into the bundle ``FaasdRuntime`` composes with.  Adding a
-backend therefore never touches ``faas.py``.
+backend therefore never touches ``faas.py`` — see the six built-ins:
+``containerd``, ``junctiond`` (the paper's pair), ``quark`` (secure
+container runtime, arXiv:2309.12624), ``wasm`` (lightweight sandbox,
+arXiv:2010.07115), ``firecracker`` (microVM with snapshot-restore cold
+starts) and ``gvisor`` (Sentry-intercepted sandbox, KVM or ptrace
+platform).
 
-The port's copy of the JAX package's ``core/backends.py``.  It has the
-paper's pair, ``containerd`` and ``junctiond``; the JAX package's four
-modeled backends from related work (``quark``, ``wasm``, ``firecracker``,
-``gvisor``) are not ported yet, and asking for one raises ``ValueError``
-naming the ROADMAP item that ports it.
+The port's copy of the JAX package's ``core/backends.py``, with all six.
 """
 from __future__ import annotations
 
@@ -87,6 +88,61 @@ class ColdStartModel:
         return self.query_ms * 1e-3
 
 
+@dataclasses.dataclass(frozen=True)
+class SnapshotColdStartModel(ColdStartModel):
+    """Two-mode cold-start class for snapshotting backends (Firecracker
+    microVMs): a function's *first* cold start pays the full boot
+    (``deploy_ms``) and warms a per-function snapshot; every later cold
+    start restores from that snapshot in ``restore_ms``.
+
+    ``scale_seconds`` — what
+    :class:`~repro_torch.core.autoscaler.LeadTimePolicy` derives its control
+    period and headroom from — and ``scale_factor`` are both **derived
+    from the restore path** (scale-ups always run against a snapshot the
+    deploy already warmed); callers pass ``restore_ms`` and cannot
+    desynchronise the marginal replica cost from it.
+
+    ``save_ms`` is the snapshot-warming surcharge the *boot* path pays
+    (pause the VM, serialize memory + device state) before the cache
+    can serve restores: a full boot costs ``boot_seconds`` =
+    ``deploy_seconds + save_seconds``, and boot-without-save
+    (``deploy_seconds``) is the floor the conformance suite pins.
+    """
+    restore_ms: float = 0.0
+    scale_factor: float = dataclasses.field(default=0.0, kw_only=True)
+    save_ms: float = 0.0
+
+    def __post_init__(self):
+        if not 0 < self.restore_ms < self.deploy_ms:
+            raise ValueError(
+                f"restore_ms must be in (0, deploy_ms={self.deploy_ms}), "
+                f"got {self.restore_ms} — a snapshot restore is the cheap "
+                "mode of a two-mode cold start")
+        if self.save_ms < 0:
+            raise ValueError(
+                f"save_ms must be >= 0, got {self.save_ms}")
+        object.__setattr__(self, "scale_factor",
+                           self.restore_ms / self.deploy_ms)
+
+    @property
+    def restore_seconds(self) -> float:
+        return self.restore_ms * 1e-3
+
+    @property
+    def save_seconds(self) -> float:
+        return self.save_ms * 1e-3
+
+    @property
+    def boot_seconds(self) -> float:
+        """Full first boot: sandbox bring-up plus snapshot warming."""
+        return (self.deploy_ms + self.save_ms) * 1e-3
+
+    @property
+    def scale_seconds(self) -> float:
+        # one extra replica = one snapshot restore, never a full boot
+        return self.restore_seconds
+
+
 class ExecutionBackend(abc.ABC):
     """One execution backend: cost tables + host resources + lifecycle.
 
@@ -128,7 +184,11 @@ class ExecutionBackend(abc.ABC):
         """Process: create the function's sandbox(es); yields until ready.
         Re-deploying an existing name first releases the old *runtime*
         resources (sandboxes, scheduler registrations — as :meth:`remove`
-        would) so config updates never leak."""
+        would) so config updates never leak.  One deliberate exception:
+        a snapshotting backend keeps the function's image-keyed snapshot
+        across redeploys so they restore fast; only :meth:`remove` (full
+        teardown) evicts it.  The snapshot-cache conformance tests
+        (``tests/test_torch_backends.py``) pin this lifecycle."""
 
     @abc.abstractmethod
     def scale(self, fn_name: str, replicas: int) -> Generator:
@@ -172,10 +232,11 @@ _REGISTRY: Dict[str, Type[ExecutionBackend]] = {}
 _BUILTIN_MODULES = (
     "repro_torch.core.containerd",
     "repro_torch.core.junctiond",
+    "repro_torch.core.quark",
+    "repro_torch.core.wasm",
+    "repro_torch.core.firecracker",
+    "repro_torch.core.gvisor",
 )
-
-# Backends of the JAX package that the port does not have yet.
-_NOT_PORTED = ("quark", "wasm", "firecracker", "gvisor")
 
 
 def register_backend(cls: Type[ExecutionBackend]) -> Type[ExecutionBackend]:
@@ -204,10 +265,6 @@ def available_backends() -> Tuple[str, ...]:
 
 def get_backend_class(name: str) -> Type[ExecutionBackend]:
     _ensure_builtins()
-    if name in _NOT_PORTED and name not in _REGISTRY:
-        raise ValueError(f"backend {name!r} is not ported yet (ROADMAP.md, "
-                         "queue 1 item 6c); ported backends: "
-                         f"{', '.join(sorted(_REGISTRY))}")
     try:
         return _REGISTRY[name]
     except KeyError:

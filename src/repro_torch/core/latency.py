@@ -1,8 +1,10 @@
 """Calibrated per-operation cost constants for the two datapaths.
 
-The port's copy of the JAX package's ``core/latency.py``, holding the
-tables of the two backends ported so far (containerd and junctiond).  They
-are the paper's x86 host costs: nothing here was measured on a GPU.
+The port's copy of the JAX package's ``core/latency.py``: the tables of the
+paper's pair (containerd and junctiond) and of the four modeled backends
+from related work (quark, wasm, firecracker, gvisor), with their cold-start
+and query constants.  They are the paper's x86 host costs and figures from
+the related-work literature: nothing here was measured on a TPU or a GPU.
 
 Values are literature-grounded (µs scale):
 
@@ -126,6 +128,139 @@ JUNCTION_RUNTIME = RuntimeCosts(
     offpath_cpu_mult=1.05,
 )
 
+# --- modeled backends from related work -----------------------------------
+#
+# Quark-style secure container runtime (arXiv:2309.12624): containers run
+# on a user-space guest kernel (QKernel) behind a hypervisor boundary
+# (QVisor).  Every syscall and every packet crosses the interception
+# layer, so the kernel datapath costs grow; cold start pays a guest-kernel
+# boot on top of the container create.
+
+QUARK_STACK = StackCosts(
+    name="quark",
+    send_lat_us=9.0,      # sendmsg forwarded through QVisor + host TCP tx
+    wire_us=1.0,
+    rx_lat_us=10.0,       # host rx + virtio-style delivery into the guest
+    wakeup_us=18.0,       # host interrupt + guest scheduler wakeup
+    tx_cpu_us=8.0, rx_cpu_us=9.0, wakeup_cpu_us=4.0,
+    per_kb_us=1.0,        # extra copy across the sandbox boundary
+    jitter_sigma=0.32,
+    hiccup_p=0.012, hiccup_lo_ms=0.7, hiccup_hi_ms=2.4,
+)
+
+QUARK_RUNTIME = RuntimeCosts(
+    name="quark",
+    gateway_us=172.0, provider_us=230.0, watchdog_us=115.0,
+    exec_syscall_overhead_us=140.0,   # per-syscall interception tax
+    exec_hiccup_p=0.028, exec_hiccup_lo_ms=0.8, exec_hiccup_hi_ms=3.0,
+    app_jitter_sigma=0.32,
+    thrash_coeff=0.95, thrash_cap=6.0,
+    offpath_cpu_mult=5.5,
+    work_mult=1.08,                   # guest-kernel virtualisation drag
+)
+
+# Wasm-style lightweight sandbox (arXiv:2010.07115, WasmEdge-class): the
+# function is a Wasm module instantiated in-process.  Kernel network stack
+# (no bypass), but instantiation is sub-ms and OS interactions go through
+# a thin WASI shim; the compute itself pays a moderate AOT/JIT overhead.
+
+WASM_RUNTIME = RuntimeCosts(
+    name="wasm",
+    gateway_us=150.0, provider_us=200.0, watchdog_us=70.0,
+    exec_syscall_overhead_us=24.0,    # WASI shim, far fewer OS round-trips
+    exec_hiccup_p=0.020, exec_hiccup_lo_ms=0.6, exec_hiccup_hi_ms=2.0,
+    app_jitter_sigma=0.28,
+    thrash_coeff=0.9, thrash_cap=6.0,
+    offpath_cpu_mult=4.2,
+    work_mult=1.35,                   # moderate compute overhead vs native
+)
+
+# Firecracker-style microVM (NSDI '20): a minimal VMM boots a slim guest
+# kernel per function.  The datapath rides virtio-net through TWO stacks
+# (guest kernel TCP + host tap forwarding), so warm costs sit just above
+# plain containers; the cold path is where the design moves — a full
+# microVM boot is ~125 ms, but restoring a pre-warmed snapshot takes
+# single-digit ms (the serverless snapshot-restore literature, e.g.
+# arXiv:2202.09251 and the unikernel comparisons in arXiv:2403.00515,
+# report 3–10 ms restores).
+
+FIRECRACKER_STACK = StackCosts(
+    name="firecracker",
+    send_lat_us=7.0,      # guest TCP tx + virtio-net + host tap forward
+    wire_us=1.0,
+    rx_lat_us=8.0,        # host rx + virtio delivery into the guest
+    wakeup_us=16.5,       # host interrupt + guest vCPU wakeup
+    tx_cpu_us=6.5, rx_cpu_us=7.5, wakeup_cpu_us=3.5,
+    per_kb_us=0.8,        # extra copy across the virtio boundary
+    jitter_sigma=0.31,
+    hiccup_p=0.011, hiccup_lo_ms=0.7, hiccup_hi_ms=2.3,
+)
+
+FIRECRACKER_RUNTIME = RuntimeCosts(
+    name="firecracker",
+    gateway_us=158.0, provider_us=212.0, watchdog_us=104.0,
+    exec_syscall_overhead_us=75.0,    # mostly-native guest syscalls + VM exits
+    exec_hiccup_p=0.026, exec_hiccup_lo_ms=0.8, exec_hiccup_hi_ms=2.8,
+    app_jitter_sigma=0.30,
+    thrash_coeff=0.92, thrash_cap=6.0,
+    offpath_cpu_mult=5.1,
+    work_mult=1.02,                   # near-native compute inside the guest
+)
+
+# gVisor-style sandboxed runtime (runsc): the Sentry, a user-space kernel
+# written in Go, intercepts every syscall and owns a user-space netstack.
+# With the KVM platform the interception is a lightweight VM exit; with
+# the ptrace platform every syscall costs two context switches, several
+# times slower (gVisor's own platform guide and the published syscall
+# microbenchmarks).  Warm costs land between containerd and quark.
+
+GVISOR_KVM_STACK = StackCosts(
+    name="gvisor-kvm",
+    send_lat_us=8.0,      # Sentry netstack tx + host forward
+    wire_us=1.0,
+    rx_lat_us=9.0,        # host rx + netstack delivery
+    wakeup_us=17.0,       # host interrupt + Sentry goroutine wakeup
+    tx_cpu_us=7.0, rx_cpu_us=8.0, wakeup_cpu_us=4.0,
+    per_kb_us=0.9,        # copy through the Sentry
+    jitter_sigma=0.32,
+    hiccup_p=0.012,       # Go GC pauses inside the Sentry
+    hiccup_lo_ms=0.7, hiccup_hi_ms=2.4,
+)
+
+GVISOR_KVM_RUNTIME = RuntimeCosts(
+    name="gvisor-kvm",
+    gateway_us=165.0, provider_us=222.0, watchdog_us=110.0,
+    exec_syscall_overhead_us=112.0,   # Sentry interception via KVM exits
+    exec_hiccup_p=0.027, exec_hiccup_lo_ms=0.8, exec_hiccup_hi_ms=2.9,
+    app_jitter_sigma=0.31,
+    thrash_coeff=0.93, thrash_cap=6.0,
+    offpath_cpu_mult=5.3,
+    work_mult=1.05,
+)
+
+GVISOR_PTRACE_STACK = StackCosts(
+    name="gvisor-ptrace",
+    send_lat_us=11.0,     # every netstack hop pays ptrace stops
+    wire_us=1.0,
+    rx_lat_us=12.0,
+    wakeup_us=19.0,
+    tx_cpu_us=9.5, rx_cpu_us=10.5, wakeup_cpu_us=4.5,
+    per_kb_us=1.1,
+    jitter_sigma=0.33,
+    hiccup_p=0.013, hiccup_lo_ms=0.7, hiccup_hi_ms=2.5,
+)
+
+GVISOR_PTRACE_RUNTIME = RuntimeCosts(
+    name="gvisor-ptrace",
+    gateway_us=170.0, provider_us=228.0, watchdog_us=112.0,
+    exec_syscall_overhead_us=230.0,   # two context switches per syscall
+    exec_hiccup_p=0.028, exec_hiccup_lo_ms=0.8, exec_hiccup_hi_ms=3.0,
+    app_jitter_sigma=0.33,
+    thrash_coeff=0.95, thrash_cap=6.0,
+    offpath_cpu_mult=5.6,
+    work_mult=1.06,
+)
+
 # Paper §5: measured Junction single-threaded instance init.
 JUNCTION_INSTANCE_INIT_MS = 3.4
 # Junctiond scale-up: one uProc spawn inside an already-running libOS.
@@ -138,6 +273,26 @@ CONTAINERD_COLDSTART_MS = 450.0
 # function execution time itself).
 CONTAINERD_QUERY_MS = 1.8
 JUNCTIOND_QUERY_MS = 0.15
+# Quark: container create + guest kernel (QKernel) boot behind QVisor.
+QUARK_COLDSTART_MS = 620.0
+QUARK_QUERY_MS = 2.1
+# Wasm: module instantiation from a compiled image — sub-ms.
+WASM_COLDSTART_MS = 0.6
+WASM_QUERY_MS = 0.4
+# Firecracker: full microVM boot (VMM init + guest kernel + init) vs
+# restoring a pre-warmed memory/device snapshot of the booted guest.
+# Warming the snapshot is not free: the first boot also pauses the VM
+# and serializes guest memory + device state to disk before the cache
+# can serve restores.
+FIRECRACKER_BOOT_MS = 125.0
+FIRECRACKER_SNAPSHOT_SAVE_MS = 60.0
+FIRECRACKER_RESTORE_MS = 5.0
+FIRECRACKER_QUERY_MS = 1.6
+# gVisor: runsc create + Sentry boot — no guest Linux kernel to bring up,
+# so it lands just under a containerd cold start (and well under quark's
+# guest-kernel boot).
+GVISOR_COLDSTART_MS = 400.0
+GVISOR_QUERY_MS = 1.9
 
 # The benchmark function: AES-128-CTR over a 600-byte input (vSwarm),
 # pure compute time on one 2.2 GHz Xeon core (~0.5 cycles/byte with AES-NI

@@ -129,9 +129,9 @@ class CorePool:
     # and the moment anything has to queue (contention) the pending
     # releases materialise into real heap events so waiting grants still
     # fire at the exact release times.  Invariant: ``_off_pend`` is
-    # non-empty only while the waiter queue is empty — the JAX package's
-    # sanitizer enforces it at run time and bounds ``busy`` transitions
-    # against ``n_cores``; the port's comes with ROADMAP item 6g.
+    # non-empty only while the waiter queue is empty — enforced at run
+    # time by ``repro_torch.analysis.sanitizer`` (REPRO_SIM_CHECK=1), which
+    # also bounds ``busy`` transitions against ``n_cores``.
 
     def release_at(self, t: float) -> None:
         """Lazily release one already-held busy core at absolute ``t``

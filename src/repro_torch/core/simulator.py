@@ -171,9 +171,10 @@ class EventLoop:
         arrivals delivered.
 
         Invariant: the clock never moves backwards — every popped event
-        and every admitted arrival is timestamped at or after ``now``.  The
-        JAX package's sanitizer asserts it on an operation-for-operation
-        copy of this loop; the port's comes with ROADMAP item 6g."""
+        and every admitted arrival is timestamped at or after ``now``.
+        ``repro_torch.analysis.sanitizer`` swaps in an operation-for-operation
+        copy of this loop that asserts it (keep the two in sync when
+        editing)."""
         sim = self.sim
         heap = sim._heap
         pop = heapq.heappop

@@ -10,14 +10,15 @@ The port's copy of the JAX package's ``core/workload.py``: the closed loop
 (``run_sequential``), the open loop ``drive(runtime, LoadSpec)`` on both
 engines with function chains and fusion, the SLO-knee search
 (``KneeSearch``) and ``sustainable_throughput`` (Fig 6).  One seed gives
-the same rows, latencies and records in both packages.  Three parts stay
+the same rows, latencies and records in both packages.  Two parts stay
 out.  The deprecated shims ``run_open_loop`` and ``run_mixed_open_loop``:
 their counterpart is ``drive(runtime, LoadSpec.single(fn, rate))``, or a
 ``LoadSpec`` over a weighted mix, and the ``deprecated-shim`` lint rule
 allows them in the JAX package only.  The fleet branch of ``drive`` (a
 ``Cluster``), which raises until the fleet layer is ported (ROADMAP item
-6f).  The ``SIM_CHECK`` sanitizer hook: the flag stays, and the event
-engine raises while it is set, until the sanitizer is ported (item 6g).
+6f).  ``SIM_CHECK`` is wired as in the JAX package: while it is on (the
+port's ``analysis.sanitizer`` sets it), the event engine's fused admits
+assert their preconditions.
 """
 from __future__ import annotations
 
@@ -806,11 +807,19 @@ def _drive_process(runtime: FaasdRuntime, load: LoadSpec,
 # unfused accounting on contention-free schedules.
 FUSED_FAST_PATH = True
 
-# Runtime sim-sanitizer hook: in the JAX package, the fused-admit branches
-# below assert their preconditions while this is on.  The port has no
-# sanitizer yet, so the event engine refuses to run with the flag set
-# rather than run unchecked.
+# Runtime sim-sanitizer hook (repro_torch.analysis.sanitizer): when flipped on
+# (REPRO_SIM_CHECK=1 or sanitizer.install()), the fused-admit branches
+# below assert their preconditions via _fused_admit_check.  Same
+# zero-overhead pattern as FUSED_FAST_PATH: drivers hoist the flag to a
+# local once per run, so the disabled cost is one boolean read per run.
 SIM_CHECK = False
+
+
+def _fused_admit_check(pool, t, end_t, off_end_t=None):
+    """Delegate to the sanitizer's fused-admit assertion (imported
+    lazily: only ever called when SIM_CHECK is on)."""
+    from repro_torch.analysis.sanitizer import fused_admit_check
+    fused_admit_check(pool, t, end_t, off_end_t)
 
 
 def _sample_request_matrices(runtime_of, fn_names, picks, rng, n):
@@ -986,9 +995,6 @@ def _drive_events(runtime: FaasdRuntime, load: LoadSpec,
     event (see ``FUSED_FAST_PATH`` above) — ~1-2 heap events per request
     instead of ~4 — while contended admits walk the per-station machine
     below, unchanged."""
-    if SIM_CHECK:
-        raise ValueError("drive: SIM_CHECK needs the sim sanitizer, which is "
-                         "not ported yet (ROADMAP queue 1 item 6g)")
     sim = runtime.sim
     fn_names = load.functions
     duration_s = load.duration_s
@@ -1088,6 +1094,7 @@ def _drive_events(runtime: FaasdRuntime, load: LoadSpec,
     st_weight = InvocationPlan.STATION_BACKLOG_WEIGHT
     observed = obs is not _NULL_OBSERVER
     fuse = FUSED_FAST_PATH
+    check = SIM_CHECK
     t_warm = t0 + warmup_s
     outstanding = 0
     busy_time = 0.0
@@ -1128,6 +1135,9 @@ def _drive_events(runtime: FaasdRuntime, load: LoadSpec,
                 off = OFFL[i]
                 if off > 0.0:
                     if b + 2 < pool.n_cores:
+                        if check:
+                            _fused_admit_check(pool, t, ENDL[i],
+                                               OFFENDL[i])
                         pool.busy = b + 2
                         fused[i] = 1
                         push(heap, (ENDL[i], next(counter),
@@ -1135,6 +1145,8 @@ def _drive_events(runtime: FaasdRuntime, load: LoadSpec,
                         hpush(off_pend, OFFENDL[i])
                         return
                 elif b + 1 < pool.n_cores:
+                    if check:
+                        _fused_admit_check(pool, t, ENDL[i])
                     pool.busy = b + 1
                     fused[i] = 1
                     push(heap, (ENDL[i], next(counter), _fused_done, (i,)))

@@ -1,7 +1,7 @@
-"""Helpers of the open-loop tests of the port's simulator
-(``tests/test_torch_{open_loop,chains,knee}.py``): run one scenario on the
-port's ``repro_torch.core`` and on the JAX package's ``repro.core`` and
-hold the results to exact equality.  Both packages are the same numpy code
+"""Helpers of the tests of the port's simulator
+(``tests/test_torch_{open_loop,chains,knee,backends,sanitizer,autoscaler}.py``):
+run one scenario on the port's ``repro_torch.core`` and on the JAX
+package's ``repro.core`` and hold the results to exact equality.  Both packages are the same numpy code
 on the same RNG streams, so every float must match bit for bit."""
 import dataclasses
 import math
@@ -12,6 +12,22 @@ import repro_torch.core as tcore
 CORES = {"jax": jcore, "torch": tcore}
 BACKENDS = ("containerd", "junctiond")
 ENGINES = ("events", "process")
+SIX = ("containerd", "junctiond", "quark", "wasm", "firecracker", "gvisor")
+# every backend, and gVisor once more on its ptrace platform's cost tables
+VARIANTS = SIX + ("gvisor-ptrace",)
+
+
+def runtime_of(core, variant, seed=0):
+    """A fresh runtime on ``core`` for one of ``VARIANTS``."""
+    sim = core.Simulator(seed=seed)
+    if variant == "gvisor-ptrace":
+        return core.FaasdRuntime(sim, backend=core.GVisor(sim, platform="ptrace"))
+    return core.FaasdRuntime(sim, backend=variant)
+
+
+def scale_events(asc):
+    """An autoscaler's decisions, every field, in order."""
+    return [dataclasses.asdict(e) for e in asc.scale_events]
 
 
 def same(a, b, path="result"):

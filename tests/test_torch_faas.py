@@ -10,7 +10,7 @@ pytest.importorskip("torch")
 import repro.core as jcore  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 
-BACKENDS = ["containerd", "junctiond"]
+BACKENDS = ["containerd", "junctiond", "quark", "wasm", "firecracker", "gvisor"]
 
 
 class _Work:
@@ -74,14 +74,8 @@ def test_junctiond_cuts_the_median_as_the_paper_does():
     assert 0.36 < cut < 0.39           # paper: 37.33 %
 
 
-def test_available_backends_are_the_ported_pair():
-    assert tcore.available_backends() == ("containerd", "junctiond")
-
-
-@pytest.mark.parametrize("name", ["quark", "wasm", "firecracker", "gvisor"])
-def test_backends_not_ported_yet_raise(name):
-    with pytest.raises(ValueError, match="not ported yet.*queue 1 item 6c"):
-        tcore.FaasdRuntime(tcore.Simulator(0), backend=name)
+def test_available_backends_equal_repro_core():
+    assert tcore.available_backends() == jcore.available_backends() == tuple(sorted(BACKENDS))
 
 
 def test_unknown_backend_raises():

@@ -46,6 +46,16 @@ def test_the_walk_covers_the_encdec_modules():
             "repro_torch.configs.pixtral_12b"} <= mods
 
 
+def test_the_walk_covers_the_control_plane_modules():
+    """The four other backends, the autoscaler, multi-tenancy and the sim
+    sanitizer are among those it imports."""
+    mods = set(_modules())
+    assert {"repro_torch.core.quark", "repro_torch.core.wasm",
+            "repro_torch.core.firecracker", "repro_torch.core.gvisor",
+            "repro_torch.core.autoscaler", "repro_torch.core.multitenant",
+            "repro_torch.analysis", "repro_torch.analysis.sanitizer"} <= mods
+
+
 def test_importing_every_module_loads_no_jax_and_no_repro():
     code = ("import importlib, sys\n"
             f"for m in {list(_modules())!r}:\n"
@@ -60,20 +70,27 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
 
 
 def test_faas_path_loads_no_jax_and_no_repro():
-    """``core/backends.py`` imports its backends by module name, which the
-    AST check below cannot see: run the FaaS path and look at what got
-    loaded."""
+    """``core/backends.py`` imports its backends by module name, and the
+    sanitizer patches ``repro_torch.core`` from inside ``install()``, which
+    the AST check below cannot see: run the FaaS path on every backend,
+    checked, and look at what got loaded."""
     code = ("import sys\n"
-            "from repro_torch.core import (FaasdRuntime, FunctionSpec, Simulator,\n"
-            "                              available_backends, run_sequential)\n"
-            "assert available_backends() == ('containerd', 'junctiond')\n"
+            "from repro_torch.analysis import sanitizer\n"
+            "from repro_torch.core import (FaasdRuntime, FunctionSpec, LoadSpec, Simulator,\n"
+            "                              available_backends, drive, run_sequential)\n"
+            "assert available_backends() == ('containerd', 'firecracker', 'gvisor',\n"
+            "                                'junctiond', 'quark', 'wasm')\n"
+            "sanitizer.install()\n"
             "for b in available_backends():\n"
             "    rt = FaasdRuntime(Simulator(seed=1), backend=b)\n"
             "    rt.deploy_blocking(FunctionSpec('aes'))\n"
             "    assert run_sequential(rt, 'aes', n=20).n == 20\n"
+            "    assert drive(rt, LoadSpec.single('aes', 500.0, duration_s=0.1))['n'] > 0\n"
+            "sanitizer.uninstall()\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
             "             or n == 'repro' or n.startswith('repro.'))\n"
-            "assert 'repro_torch.core.junctiond' in sys.modules\n"
+            "for m in ('junctiond', 'quark', 'wasm', 'firecracker', 'gvisor'):\n"
+            "    assert 'repro_torch.core.' + m in sys.modules, m\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

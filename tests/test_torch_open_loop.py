@@ -4,8 +4,8 @@ package's ``repro.core`` on the same seeds: both engines, both backends,
 every arrival process, a weighted mix, heavy-tailed work and overload with
 rejections, held to exact equality of the result rows, the latencies, the
 invocation records and the runtime's counters.  Then ``LoadSpec``'s
-validation, the two parts that raise until their items are ported (the
-fleet branch, ``SIM_CHECK``), the ``EventLoop`` merge of arrivals into the
+validation, the fleet branch that raises until its item is ported,
+``SIM_CHECK`` (checked runs give the unchecked records), the ``EventLoop`` merge of arrivals into the
 heap, and the invariants of the heap path under mixed traffic (the cases
 of ``tests/test_corepool_properties.py`` that need no fleet)."""
 import numpy as np
@@ -17,6 +17,7 @@ from _hypothesis_compat import given, settings, st  # noqa: E402
 from _torch_core_compare import (BACKENDS, CORES, ENGINES, counters, records,  # noqa: E402
                                  same, same_runs)
 
+import repro.core as jcore  # noqa: E402
 import repro.core.workload as jworkload  # noqa: E402
 import repro_torch.core.workload as tworkload  # noqa: E402
 from repro_torch.core import FaasdRuntime, FunctionSpec, LoadSpec, Simulator, drive  # noqa: E402
@@ -230,12 +231,30 @@ def test_the_fleet_branch_raises_with_its_item():
         drive(Cluster(), LoadSpec.single("aes", 100.0))
 
 
-def test_sim_check_raises_with_its_item(monkeypatch):
-    monkeypatch.setattr(tworkload, "SIM_CHECK", True)
-    rt = FaasdRuntime(Simulator(seed=0), backend="junctiond")
-    rt.deploy_blocking(FunctionSpec("aes"))
-    with pytest.raises(ValueError, match="item 6g"):
-        drive(rt, LoadSpec.single("aes", 100.0, duration_s=0.1))
+@pytest.mark.parametrize("engine", ENGINES)
+def test_sim_check_runs_checked_and_gives_the_unchecked_records(engine, monkeypatch):
+    """``SIM_CHECK`` on: the event engine's fused admits call the
+    sanitizer's check, and the run gives the row and the records of an
+    unchecked run (and of the JAX package's)."""
+    from repro_torch.analysis import sanitizer
+    checks = []
+    monkeypatch.setattr(sanitizer, "fused_admit_check", lambda *a: checks.append(a))
+
+    def run(flag):
+        monkeypatch.setattr(tworkload, "SIM_CHECK", flag)
+        rt = FaasdRuntime(Simulator(seed=0), backend="junctiond")
+        rt.deploy_blocking(FunctionSpec("aes"))
+        return rt, drive(rt, LoadSpec.single("aes", 3000.0, duration_s=0.2), engine=engine)
+
+    (urt, unchecked), (crt, checked) = run(False), run(True)
+    same(checked, unchecked)
+    assert records(crt) == records(urt)
+    assert bool(checks) == (engine == "events")
+    jrt = jcore.FaasdRuntime(jcore.Simulator(seed=0), backend="junctiond")
+    jrt.deploy_blocking(jcore.FunctionSpec("aes"))
+    same(checked, jcore.drive(jrt, jcore.LoadSpec.single("aes", 3000.0, duration_s=0.2),
+                              engine=engine))
+    assert records(crt) == records(jrt)
 
 
 def test_the_deprecated_shims_stay_out_of_the_port():
