@@ -128,7 +128,20 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    through ``drive`` with an ``Autoscaler(LeadTimePolicy)`` on each
    backend: every one scales up, junctiond reacts faster than
    containerd; 9d junctiond's and containerd's drives again under the
-   sanitizer, float for float the same.  It launches no kernel.
+   sanitizer, float for float the same.  It launches no kernel;
+10. the experiments runner and the fleet on those bodies, simulated on the
+   host (``fleet_and_experiments``): 10a the ``smoke`` suite with every AES
+   body swapped for phase 7's and ``model-endpoint``'s two for phases 5 and
+   5b's; the artifact must validate with no failed cell and
+   ``fig6_throughput_ratio >= 5``; the Fig 5 cuts, both Fig 6 knees and
+   their ratio, the cold-start ratio, the fleet's tree speedup per backend,
+   the autoscaler's reaction ratio and the chain hop tax are printed beside
+   the paper's figures, and the artifact is written to
+   ``build/phase10_smoke.json``; 10b a ``Cluster`` of 4 workers on
+   containerd and on junctiond under AES through ``drive``, run twice and
+   once under the sanitizer, float for float the same, with no rejection,
+   then a ``scale_out`` storm under ``FaasNetTree`` against
+   ``NaiveRegistryPull``.  It launches no kernel.
 
 The line before the last is a JSON object with one entry per kernel (the
 flash kernel's masked route with its own); the last is
@@ -247,6 +260,20 @@ WARM_ORDER = ("junctiond", "wasm", "containerd", "firecracker", "gvisor", "quark
 # phase 9c: AES bursts that make every backend scale up while none overloads
 BURST = {"base_rps": 100.0, "burst_rps": 1200.0, "mean_quiet_s": 0.25, "mean_burst_s": 0.05}
 BURST_DURATION_S, BURST_WARMUP_S, BURST_TARGET_INFLIGHT = 4.0, 0.3, 2.0
+# phase 10b: a fleet of 4 workers (10 cores each) under AES at a rate both
+# backends sustain with no rejection on the card's 79-120 us bodies; the
+# provisioning storm at the scale of tests/test_fleet.py
+FLEET_WORKERS, FLEET_RATE_RPS, FLEET_DURATION_S, FLEET_WARMUP_S = 4, 3000.0, 2.0, 0.3
+STORM_WORKERS, STORM_REPLICAS = 32, 1000
+# the runner's flat metrics that phase 10a prints, in order
+PHASE10_METRICS = (
+    "fig5_containerd_median", "fig5_junctiond_median", "fig5_median_reduction",
+    "fig5_p99_reduction", "fig6_containerd_sustainable_rps", "fig6_junctiond_sustainable_rps",
+    "fig6_throughput_ratio", "coldstart_ratio", "coldstart_storm_speedup",
+    "fleet_tree_provisioning_speedup", "fleet_containerd_tree_speedup",
+    "fleet_junctiond_tree_speedup", "autoscale_containerd_reaction",
+    "autoscale_junctiond_reaction", "autoscale_reaction_ratio", "chain_containerd_hop_tax",
+    "chain_junctiond_hop_tax", "chain_hop_tax_ratio")
 TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-3, 1e-2)}   # (atol, rtol)
 GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
 
@@ -540,6 +567,133 @@ def control_plane(aes_us: float, endpoints: dict) -> None:
                   f"scale events, float for float")
     finally:
         sanitizer.uninstall()
+
+
+def fleet_and_experiments(aes_us: float, endpoints: dict) -> None:
+    """Phase 10: the experiments runner and the fleet on the bodies the card
+    measured, simulated on the host.  ``aes_us`` is phase 7's deployed AES
+    body and ``endpoints`` phases 5-5d's decode steps (us).  10a runs the
+    ``smoke`` suite with every AES body and ``model-endpoint``'s two bodies
+    swapped for the card's; 10b drives a fleet of workers on containerd and
+    junctiond, twice and once under the sanitizer, then a provisioning
+    storm under each image distribution.  Launches no kernel."""
+    from repro_torch.analysis import sanitizer
+    from repro_torch.core import FunctionSpec, LoadSpec, Simulator, drive
+    from repro_torch.core.latency import AES_600B_WORK_US
+    from repro_torch.experiments import (SMOKE_DURATION_SCALE, ExperimentRunner, get_suite,
+                                         validate_artifact, write_artifact)
+    from repro_torch.fleet import Cluster
+
+    # -- 10a: the smoke suite on the card's bodies ----------------------------
+    suite, swapped = [], 0
+    for sc in get_suite("smoke"):
+        fns = []
+        for f in sc.functions:
+            if sc.name == "model-endpoint":
+                f = dataclasses.replace(f, work_us=endpoints[f.name])
+            elif f.work_us == AES_600B_WORK_US:
+                f = dataclasses.replace(f, work_us=aes_us)
+            else:
+                raise AssertionError(f"{sc.name}: {f.name}'s body {f.work_us} us is neither "
+                                     f"AES's nor an endpoint's")
+            swapped += 1
+            fns.append(f)
+        suite.append(dataclasses.replace(sc, functions=tuple(fns)))
+    print(f"10a smoke suite ({len(suite)} scenarios, duration_scale {SMOKE_DURATION_SCALE}): "
+          f"{swapped} function bodies swapped for the card's, AES {aes_us!r} us, "
+          + ", ".join(f"{f.name} {f.work_us!r} us" for sc in suite
+                      if sc.name == "model-endpoint" for f in sc.functions))
+    doc = ExperimentRunner(duration_scale=SMOKE_DURATION_SCALE, smoke=True).run_suite(
+        suite, suite="smoke")
+    validate_artifact(doc)
+    if doc["failures"]:
+        raise AssertionError(f"phase 10a: failed cells {doc['failures']}")
+    out = ROOT / "build" / "phase10_smoke.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    write_artifact(str(out), doc)
+    metrics = {m["name"]: m for m in doc["metrics"]}
+    for name in PHASE10_METRICS:
+        m = metrics[name]
+        print(f"  {name:34s} {m['value']}  ({m['derived']})")
+    for entry in doc["scenarios"]:
+        claims = entry.get("claims", {})
+        paper = {k: c for k, c in claims.items() if isinstance(c, dict) and "paper" in c}
+        if paper:
+            print(f"  {entry['name']} claims against the paper: " + "; ".join(
+                f"{k} {c['measured']} (paper {c['paper']})" for k, c in paper.items()))
+        if entry["name"] == "model-endpoint":
+            for b, res in entry["backends"].items():
+                print(f"  model-endpoint on {b}: median_ms {res['median_ms']:.4f} p99_ms "
+                      f"{res['p99_ms']:.4f} n {res['n']}")
+    ratio = metrics["fig6_throughput_ratio"]["value"]
+    if not ratio >= 5.0:
+        raise AssertionError(f"fig6_throughput_ratio {ratio} < 5 on the card's bodies")
+    print(f"  the artifact validates, no failed cell, fig6_throughput_ratio {ratio} >= 5; "
+          f"written to {out.relative_to(ROOT)} (suite wall {doc['meta']['wall_s']} s)")
+
+    # -- 10b: a fleet of workers, twice and under the sanitizer -----------------
+    aes = FunctionSpec(name="aes", work_us=aes_us)
+
+    def fleet_drive(backend):
+        cl = Cluster(Simulator(seed=1), FLEET_WORKERS, backend=backend)
+        cl.deploy_blocking(aes)
+        res = drive(cl, LoadSpec.single("aes", FLEET_RATE_RPS, duration_s=FLEET_DURATION_S,
+                                        warmup_s=FLEET_WARMUP_S))
+        recs = [[(r.fn, r.t_arrival, r.t_start_exec, r.t_end_exec, r.t_done, r.cold)
+                 for r in w.runtime.records] for w in cl.workers]
+        return res, json.dumps(res, sort_keys=True, default=str), recs
+
+    print(f"10b Cluster of {FLEET_WORKERS} workers of 10 cores, AES at {aes_us!r} us, "
+          f"{FLEET_RATE_RPS} rps Poisson for {FLEET_DURATION_S} s after {FLEET_WARMUP_S} s, "
+          f"Simulator(seed=1), least-loaded placement:")
+    medians = {}
+    for backend in ("containerd", "junctiond"):
+        res, key, recs = fleet_drive(backend)
+        if fleet_drive(backend)[1:] != (key, recs):
+            raise AssertionError(f"{backend}: two fleet drives of one seed differ")
+        sanitizer.install()
+        try:
+            checked = fleet_drive(backend)
+        finally:
+            sanitizer.uninstall()
+        if checked[1:] != (key, recs):
+            raise AssertionError(f"{backend}: the checked fleet drive differs")
+        if res["rejected"] or res["achieved_rps"] < 0.85 * FLEET_RATE_RPS:
+            raise AssertionError(f"{backend}: the fleet did not sustain {FLEET_RATE_RPS} rps: "
+                                 f"achieved {res['achieved_rps']}, rejected {res['rejected']}")
+        medians[backend] = res["median_ms"]
+        print(f"  {backend:10s} n {res['n']} achieved_rps {res['achieved_rps']:.1f} median_ms "
+              f"{res['median_ms']:.4f} p99_ms {res['p99_ms']:.4f} rejected {res['rejected']}; "
+              f"per worker n {[w['n'] for w in res['fleet']['workers']]}; run twice and once "
+              f"under the sanitizer: the same row and {sum(map(len, recs))} records")
+    if not medians["junctiond"] < medians["containerd"]:
+        raise AssertionError(f"fleet: junctiond's median {medians['junctiond']} ms is not below "
+                             f"containerd's {medians['containerd']}")
+
+    def storm(backend, distribution):
+        sim = Simulator(seed=1)
+        cl = Cluster(sim, STORM_WORKERS, backend=backend, distribution=distribution)
+        out = {}
+
+        def go():
+            out.update((yield from cl.scale_out(aes, STORM_REPLICAS)))
+            sim.stop()
+
+        sim.process(go())
+        sim.run()
+        if not out:
+            raise AssertionError(f"{backend}/{distribution}: the storm did not finish")
+        return out
+
+    print(f"  scale_out storm of {STORM_REPLICAS} AES replicas over {STORM_WORKERS} workers:")
+    for backend in ("containerd", "junctiond"):
+        full = {d: storm(backend, d)["time_to_full_s"] for d in ("tree", "naive")}
+        if not full["tree"] < full["naive"]:
+            raise AssertionError(f"{backend}: FaasNetTree {full['tree']} s is not below "
+                                 f"NaiveRegistryPull {full['naive']} s")
+        print(f"    {backend:10s} FaasNetTree time_to_full_s {full['tree']:.4f}, "
+              f"NaiveRegistryPull {full['naive']:.4f}, speedup "
+              f"{full['naive'] / full['tree']:.2f}")
 
 
 def main() -> int:
@@ -1857,6 +2011,18 @@ def main() -> int:
                              f"{faas_launches}")
     print(f"launches {dict(ops.LAUNCHES)}: none past phase 7's {BODY_CALLS} AES calls; "
           f"phase 9 took {time.perf_counter() - t0:.1f} s of host time")
+
+    # -- 10 -----------------------------------------------------------------
+    phase("10 the experiments runner and the fleet on the bodies the card measured "
+          "(simulated)")
+    t0 = time.perf_counter()
+    fleet_and_experiments(aes_us, endpoints)
+    if dict(ops.LAUNCHES) != faas_launches or \
+            dict(ops.ROUTE_LAUNCHES["aes_ctr"]) != faas_routes:
+        raise AssertionError(f"phase 10 launched kernels: {dict(ops.LAUNCHES)} against "
+                             f"phase 7's {faas_launches}")
+    print(f"launches {dict(ops.LAUNCHES)}: none past phase 7's {BODY_CALLS} AES calls; "
+          f"phase 10 took {time.perf_counter() - t0:.1f} s of host time")
 
     # -- result -------------------------------------------------------------
     print(smi)

@@ -22,7 +22,7 @@ hot paths with checked variants that assert, on every transition:
   while lazy releases are pending (callers must ``_materialize``
   first);
 * **fused fast path** — the fused-admit branches in
-  ``repro_torch.core.workload`` call
+  ``repro_torch.core.workload`` and ``repro_torch.fleet.driver`` call
   :func:`fused_admit_check` (gated on ``workload.SIM_CHECK``, the same
   zero-overhead module-flag pattern as ``FUSED_FAST_PATH``) to assert
   the pool is genuinely uncontended and the precomputed completion
@@ -85,8 +85,8 @@ def fused_admit_check(pool: Any, t: float, end_t: float,
                       off_end_t: Optional[float] = None) -> None:
     """Assert a fused fast-path admit is legitimate: the pool is
     uncontended and the precomputed timeline lies ahead of the clock.
-    Called from the fused branches in ``workload._drive_events`` when
-    ``workload.SIM_CHECK`` is on."""
+    Called from the fused branches in ``workload._drive_events`` and
+    ``fleet.driver.drive_cluster`` when ``workload.SIM_CHECK`` is on."""
     if pool._waiters:
         raise SimCheckError(
             "fused fast path admitted while the pool has waiters "

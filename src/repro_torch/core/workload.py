@@ -10,15 +10,16 @@ The port's copy of the JAX package's ``core/workload.py``: the closed loop
 (``run_sequential``), the open loop ``drive(runtime, LoadSpec)`` on both
 engines with function chains and fusion, the SLO-knee search
 (``KneeSearch``) and ``sustainable_throughput`` (Fig 6).  One seed gives
-the same rows, latencies and records in both packages.  Two parts stay
-out.  The deprecated shims ``run_open_loop`` and ``run_mixed_open_loop``:
-their counterpart is ``drive(runtime, LoadSpec.single(fn, rate))``, or a
+the same rows, latencies and records in both packages.  ``drive`` on a
+fleet ``Cluster`` runs the port's ``fleet.driver.drive_cluster``, on the
+event engine only, as in the JAX package.  One part stays out: the
+deprecated shims ``run_open_loop`` and ``run_mixed_open_loop``.  Their
+counterpart is ``drive(runtime, LoadSpec.single(fn, rate))``, or a
 ``LoadSpec`` over a weighted mix, and the ``deprecated-shim`` lint rule
-allows them in the JAX package only.  The fleet branch of ``drive`` (a
-``Cluster``), which raises until the fleet layer is ported (ROADMAP item
-6f).  ``SIM_CHECK`` is wired as in the JAX package: while it is on (the
-port's ``analysis.sanitizer`` sets it), the event engine's fused admits
-assert their preconditions.
+allows them in the JAX package only.  ``SIM_CHECK`` is wired as in the
+JAX package: while it is on (the port's ``analysis.sanitizer`` sets it),
+the fused admits of the event engine and of the fleet driver assert
+their preconditions.
 """
 from __future__ import annotations
 
@@ -653,9 +654,11 @@ def drive(runtime: FaasdRuntime, load: LoadSpec,
     obs = observer if observer is not None else _NULL_OBSERVER
     if getattr(runtime, "is_cluster", False):
         # a fleet Cluster quacks like a runtime but routes per-arrival
-        # through its gateway
-        raise ValueError("drive: a fleet Cluster is not ported yet "
-                         "(ROADMAP queue 1 item 6f)")
+        # through its gateway; only the event engine drives fleets
+        if engine != "events":
+            raise ValueError("a Cluster only runs on the event engine")
+        from repro_torch.fleet.driver import drive_cluster
+        return drive_cluster(runtime, load, obs)
     if engine == "events" and not _fast_capable(runtime, load):
         engine = "process"
     if engine == "events":

@@ -1,0 +1,333 @@
+"""The scenario registry and named suites.
+
+Scenario backlog rationale: production FaaS platforms are defined by
+workload diversity — paper Fig 5/6 cover a single warm function, FaaSNet
+motivates bursty provisioning storms, Shahrad et al. motivate long-tail
+multi-tenancy, and model serving adds ms-scale service times where the
+runtime overhead question changes shape.  Every scenario runs across its
+backend matrix (the paper's containerd-vs-junctiond pair by default;
+``--backends`` widens it to any registered set, e.g. quark/wasm) with
+paper-claim deltas always computed from the scenario's claims pair.
+
+The port's copy of the JAX package's ``experiments/suites.py``: every
+scenario is the reference's but ``model-endpoint``, whose two bodies are
+the decode steps the card measured, where the reference reads TPU
+dry-run records or falls back to TPU estimates.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+from repro_torch.core.latency import AES_600B_WORK_US
+from repro_torch.core.workload import ChainEdge, FusionPlan
+from repro_torch.experiments.scenario import (ArrivalSpec, AutoscalerSpec,
+                                              FleetSpec, FunctionProfile, Scenario,
+                                              SearchSpec, zipf_mix)
+
+# Open-mode scenarios default to the adaptive SLO-knee search (no
+# per-backend rate grids to hand-measure; see SearchSpec): the paper-fig6
+# knee claim gets the fine default tolerance, the satellite scenarios get
+# a coarser/cheaper spec — their job is behaviour at load, not a tight
+# knee estimate (under 20x MMPP bursts the SLO knee is legitimately 0 at
+# short durations), so smoke caps them at two probes: one calibrated
+# bracketing probe plus its full-resolution confirmation, which is what
+# the old one-rate smoke grids bought, minus the hand-sizing.
+# ``multi-tenant-mix`` deliberately keeps its measured grids as the
+# grid-mode regression anchor (exact-reproduction path).
+_COARSE_SEARCH = SearchSpec(rate0_frac=0.15, rel_tol=0.20, max_probes=6,
+                            smoke_rel_tol=0.35, smoke_max_probes=2)
+
+# Decode-step bodies (µs) of the two model endpoints, measured on the card:
+# the port's ``ServingEngine.mean_decode_step_us()`` at full width, batch 8,
+# 512-token prompts (``chip_smoke.py`` phases 5 and 5b; mixtral-8x7b at 24
+# of its 32 layers), on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit.
+_ENDPOINT_WORK_US = {"qwen3-1.7b": 34930.5, "mixtral-8x7b": 51498.9}
+
+
+def _trace_burst_train(n_bursts: int = 6, burst_n: int = 120,
+                       spacing_s: float = 0.18,
+                       intra_gap_s: float = 0.0004) -> tuple:
+    """Synthetic provisioning-trace: tight request trains every spacing_s
+    (deterministic stand-in for a recorded Azure/FaaSNet trace slice)."""
+    out: List[float] = []
+    for b in range(n_bursts):
+        t0 = 0.05 + b * spacing_s
+        out.extend(t0 + i * intra_gap_s for i in range(burst_n))
+    return tuple(round(t, 6) for t in out)
+
+
+def _pipeline_mix() -> tuple:
+    """3-hop ingest -> transform -> store pipeline: only the root takes
+    gateway traffic (weight 1); the downstream hops are chain-only
+    targets (weight 0) that still deploy with the mix."""
+    return (
+        FunctionProfile("ingest", max_cores=8,
+                        edges=(ChainEdge("transform"),)),
+        FunctionProfile("transform", max_cores=8, weight=0.0,
+                        edges=(ChainEdge("store"),)),
+        FunctionProfile("store", max_cores=8, weight=0.0,
+                        response_bytes=128),
+    )
+
+
+_CHAIN_RATES = {"containerd": (300.0,), "junctiond": (900.0,),
+                "quark": (220.0,), "wasm": (400.0,),
+                "firecracker": (280.0,), "gvisor": (260.0,),
+                "*": (300.0,)}
+
+
+def build_scenarios() -> Dict[str, Scenario]:
+    aes = FunctionProfile("aes")
+    scenarios = [
+        Scenario(
+            name="paper-fig5",
+            description="100 sequential AES(600B) invocations per seed; "
+                        "paper Fig 5 latency-distribution claims",
+            mode="closed", functions=(aes,), n_requests=100,
+            seeds=tuple(range(8)), claims_kind="fig5",
+            tags=("paper", "latency")),
+        Scenario(
+            name="paper-fig6",
+            description="Open-loop Poisson load sweep to the SLO knee; "
+                        "paper Fig 6 throughput/latency claims",
+            mode="open", functions=(FunctionProfile("aes", max_cores=8),),
+            arrival=ArrivalSpec("poisson"),
+            search=SearchSpec(rate0_frac=0.5),
+            duration_s=1.5, seeds=(3,), slo_p99_ms=10.0, claims_kind="fig6",
+            tags=("paper", "throughput")),
+        Scenario(
+            name="cold-start-storm",
+            description="Concurrent deploy+first-invoke storm (FaaSNet's "
+                        "bursty provisioning regime) + paper instance-init",
+            mode="storm", functions=(aes,), storm_functions=16,
+            seeds=(0, 1, 2), claims_kind="coldstart",
+            tags=("coldstart", "provisioning")),
+        Scenario(
+            name="multi-tenant-mix",
+            description="32 functions, Zipf(1.5) popularity, one open-loop "
+                        "stream on a 36-core worker (Shahrad long-tail mix); "
+                        "pinned rate grids (grid-mode regression anchor)",
+            mode="open", functions=zipf_mix(32),
+            arrival=ArrivalSpec("poisson"),
+            # the one scenario that keeps hand-measured grids: exercises
+            # the exact-reproduction grid path + the '*' fallback warning
+            # so search mode can never silently become the only executor
+            rates={"containerd": (600.0, 1000.0, 1400.0),
+                   "junctiond": (1500.0, 4000.0, 8000.0),
+                   "quark": (400.0, 700.0, 1000.0),
+                   "wasm": (700.0, 1200.0, 1700.0),
+                   "firecracker": (500.0, 900.0, 1300.0),
+                   "gvisor": (450.0, 800.0, 1200.0),
+                   "*": (600.0, 1000.0, 1400.0)},
+            smoke_rates={"containerd": (1000.0,), "junctiond": (4000.0,),
+                         "quark": (700.0,), "wasm": (1200.0,),
+                         "firecracker": (900.0,), "gvisor": (800.0,),
+                         "*": (1000.0,)},
+            duration_s=1.0, n_cores=36, seeds=(0,), slo_p99_ms=10.0,
+            tags=("multitenant",)),
+        Scenario(
+            name="bursty-burst",
+            description="MMPP-2 bursty arrivals: quiet floor with 20x "
+                        "bursts; tests knee robustness to burstiness",
+            mode="open", functions=(FunctionProfile("aes", max_cores=8),),
+            arrival=ArrivalSpec("bursty", quiet_frac=0.25,
+                                mean_quiet_s=0.20, mean_burst_s=0.05),
+            search=_COARSE_SEARCH,
+            duration_s=1.2, seeds=(1,), slo_p99_ms=10.0,
+            tags=("bursty",)),
+        Scenario(
+            name="diurnal-drift",
+            description="Sinusoidal rate drift (diurnal pattern compressed "
+                        "to sim time): latency across the peak/trough",
+            mode="open", functions=(FunctionProfile("aes", max_cores=8),),
+            arrival=ArrivalSpec("diurnal", amplitude=0.8, period_s=0.5),
+            search=_COARSE_SEARCH,
+            duration_s=1.0, seeds=(2,), slo_p99_ms=10.0,
+            tags=("diurnal",)),
+        Scenario(
+            name="heavy-tail-mix",
+            description="Pareto(1.5) per-invocation work pinned to the AES "
+                        "median: heavy-tailed payloads vs the tail claims",
+            mode="open",
+            functions=(FunctionProfile("aes-ht", work_us=AES_600B_WORK_US,
+                                       max_cores=8, heavy_tail_alpha=1.5),),
+            arrival=ArrivalSpec("poisson"),
+            search=_COARSE_SEARCH,
+            duration_s=1.0, seeds=(4,), slo_p99_ms=25.0,
+            tags=("heavytail",)),
+        Scenario(
+            name="trace-replay",
+            description="Deterministic burst-train trace replay "
+                        "(provisioning-trace stand-in, ~640 rps mean)",
+            mode="open", functions=(FunctionProfile("aes", max_cores=8),),
+            arrival=ArrivalSpec("trace", trace_s=_trace_burst_train()),
+            rates={"*": (0.0,)},      # the trace fixes the rate
+            duration_s=1.2, seeds=(0,), slo_p99_ms=25.0,
+            tags=("trace",)),
+        Scenario(
+            name="autoscale-burst",
+            description="MMPP-2 bursts against an autoscaled function: "
+                        "gates on scale-up reaction time (pressure onset "
+                        "-> capacity ready; FaaSNet's production metric)",
+            mode="open", functions=(FunctionProfile("aes", max_cores=8),),
+            arrival=ArrivalSpec("bursty", quiet_frac=0.25,
+                                mean_quiet_s=0.20, mean_burst_s=0.05),
+            autoscaler=AutoscalerSpec(policy="lead-time",
+                                      target_inflight_per_replica=2.0,
+                                      max_replicas=16),
+            search=_COARSE_SEARCH,
+            duration_s=1.2, seeds=(1,), slo_p99_ms=15.0,
+            claims_kind="autoscale",
+            tags=("autoscale", "bursty", "provisioning")),
+        Scenario(
+            name="autoscale-diurnal",
+            description="Diurnal rate drift with the lead-time autoscaler "
+                        "tracking it: replica timeline follows the "
+                        "sinusoid, scale events off the critical path",
+            mode="open", functions=(FunctionProfile("aes", max_cores=8),),
+            arrival=ArrivalSpec("diurnal", amplitude=0.8, period_s=0.5),
+            autoscaler=AutoscalerSpec(policy="lead-time",
+                                      target_inflight_per_replica=2.0,
+                                      max_replicas=16),
+            search=_COARSE_SEARCH,
+            duration_s=1.0, seeds=(2,), slo_p99_ms=15.0,
+            tags=("autoscale", "diurnal")),
+        Scenario(
+            name="mixed-cold-warm",
+            description="Steady warm traffic plus a provisioning storm on "
+                        "the same worker: warm-path P99 interference from "
+                        "the cold path, autoscaler in the loop",
+            mode="mixed", functions=(FunctionProfile("aes", max_cores=8),),
+            arrival=ArrivalSpec("poisson"),
+            autoscaler=AutoscalerSpec(policy="lead-time",
+                                      target_inflight_per_replica=2.0,
+                                      max_replicas=16),
+            rates={"containerd": (600.0,), "junctiond": (2000.0,),
+                   "quark": (450.0,), "wasm": (700.0,),
+                   "firecracker": (550.0,), "gvisor": (500.0,),
+                   "*": (600.0,)},
+            duration_s=3.0, warmup_frac=0.1, storm_functions=16,
+            seeds=(0,), slo_p99_ms=15.0, claims_kind="interference",
+            tags=("mixed", "coldstart", "autoscale", "provisioning")),
+        Scenario(
+            name="fleet-storm",
+            description="32-worker fleet behind a gateway: a 1000-replica "
+                        "provisioning storm lands mid-run, FaaSNet tree "
+                        "distribution vs naive registry pulls, warm "
+                        "traffic riding along (rates are per worker)",
+            mode="fleet", functions=(FunctionProfile("aes", max_cores=8),),
+            arrival=ArrivalSpec("poisson"),
+            fleet=FleetSpec(n_workers=32, placement="least-loaded",
+                            distribution="tree",
+                            compare_distributions=("naive",),
+                            storm_replicas=1000, storm_t_frac=0.25),
+            rates={"containerd": (300.0,), "junctiond": (1200.0,),
+                   "quark": (220.0,), "wasm": (400.0,),
+                   "firecracker": (280.0,), "gvisor": (260.0,),
+                   "*": (300.0,)},
+            duration_s=4.0, warmup_frac=0.1, seeds=(0,), slo_p99_ms=15.0,
+            claims_kind="fleet",
+            tags=("fleet", "provisioning", "coldstart")),
+        Scenario(
+            name="fleet-zipf-diurnal",
+            description="Zipf(1.5) tenants with diurnal drift across a "
+                        "32-worker fleet, per-worker lead-time "
+                        "autoscalers; least-loaded vs round-robin vs "
+                        "locality placement (rates are per worker)",
+            mode="fleet", functions=zipf_mix(12, prefix="t"),
+            arrival=ArrivalSpec("diurnal", amplitude=0.8, period_s=0.5),
+            fleet=FleetSpec(n_workers=32, placement="least-loaded",
+                            compare_placements=("round-robin", "locality"),
+                            distribution="tree", spread="zipf"),
+            autoscaler=AutoscalerSpec(policy="lead-time",
+                                      target_inflight_per_replica=2.0,
+                                      max_replicas=16),
+            rates={"containerd": (250.0,), "junctiond": (1000.0,),
+                   "quark": (180.0,), "wasm": (320.0,),
+                   "firecracker": (230.0,), "gvisor": (210.0,),
+                   "*": (250.0,)},
+            duration_s=2.0, warmup_frac=0.15, seeds=(0,), slo_p99_ms=25.0,
+            tags=("fleet", "multitenant", "diurnal", "autoscale")),
+        Scenario(
+            name="chain-tax",
+            description="3-hop ingest->transform->store pipeline: every "
+                        "non-fused hop re-enters admission and pays the "
+                        "full gateway+netstack station walk, so the "
+                        "per-hop platform tax compounds with depth; "
+                        "claims the treatment's per-hop overhead is a "
+                        "fraction of the baseline's",
+            mode="chain", functions=_pipeline_mix(),
+            arrival=ArrivalSpec("poisson"),
+            rates=_CHAIN_RATES,
+            duration_s=2.0, warmup_frac=0.1, seeds=(0, 1),
+            slo_p99_ms=25.0, claims_kind="chain",
+            tags=("chain", "pipeline")),
+        Scenario(
+            name="chain-fused",
+            description="Same 3-hop pipeline with a FusionPlan co-locating "
+                        "both edges: fused hops skip gateway+netstack and "
+                        "run inside the caller's sandbox; gates on the "
+                        "end-to-end P99 improvement and pool efficiency "
+                        "of fusion on the baseline backend",
+            mode="chain", functions=_pipeline_mix(),
+            arrival=ArrivalSpec("poisson"),
+            fusion=FusionPlan(edges=(("ingest", "transform"),
+                                     ("transform", "store"))),
+            rates=_CHAIN_RATES,
+            duration_s=2.0, warmup_frac=0.1, seeds=(0, 1),
+            slo_p99_ms=25.0, claims_kind="chain_fusion",
+            tags=("chain", "pipeline", "fusion")),
+        Scenario(
+            name="model-endpoint",
+            description="Model decode steps as junctiond functions: how "
+                        "much of an ms-scale endpoint budget the FaaS "
+                        "runtime costs (decode steps the card measured)",
+            mode="closed",
+            functions=tuple(
+                FunctionProfile(arch, work_us=_ENDPOINT_WORK_US[arch],
+                                payload_bytes=2048, response_bytes=2048)
+                for arch in sorted(_ENDPOINT_WORK_US)),
+            n_requests=50, seeds=(5, 6), tags=("serving", "endpoint")),
+    ]
+    return {sc.name: sc for sc in scenarios}
+
+
+SUITES: Dict[str, List[str]] = {
+    # full matrix at default durations — the acceptance gate
+    "scenarios": ["paper-fig5", "paper-fig6", "cold-start-storm",
+                  "multi-tenant-mix", "bursty-burst", "diurnal-drift",
+                  "heavy-tail-mix", "trace-replay", "autoscale-burst",
+                  "autoscale-diurnal", "mixed-cold-warm", "fleet-storm",
+                  "fleet-zipf-diurnal", "chain-tax", "chain-fused",
+                  "model-endpoint"],
+    # short CI gate: same scenarios, smoke rates + scaled durations
+    "smoke": ["paper-fig5", "paper-fig6", "cold-start-storm",
+              "multi-tenant-mix", "bursty-burst", "diurnal-drift",
+              "heavy-tail-mix", "autoscale-burst", "autoscale-diurnal",
+              "mixed-cold-warm", "fleet-storm", "chain-tax", "chain-fused",
+              "model-endpoint"],
+    # the chain/fusion pair (pipeline workloads)
+    "chain": ["chain-tax", "chain-fused"],
+    # just the paper's headline figures
+    "paper": ["paper-fig5", "paper-fig6", "cold-start-storm"],
+    # the control-plane trio (autoscaler-in-the-loop)
+    "autoscale": ["autoscale-burst", "autoscale-diurnal", "mixed-cold-warm"],
+    # the fleet pair (gateway + N workers + image distribution)
+    "fleet": ["fleet-storm", "fleet-zipf-diurnal"],
+}
+
+SMOKE_DURATION_SCALE = 0.33
+
+
+def get_scenario(name: str) -> Scenario:
+    reg = build_scenarios()
+    if name not in reg:
+        raise KeyError(f"unknown scenario {name!r}; have {sorted(reg)}")
+    return reg[name]
+
+
+def get_suite(name: str) -> List[Scenario]:
+    if name not in SUITES:
+        raise KeyError(f"unknown suite {name!r}; have {sorted(SUITES)}")
+    reg = build_scenarios()
+    return [reg[n] for n in SUITES[name]]

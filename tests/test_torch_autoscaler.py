@@ -2,17 +2,21 @@
 ``repro_torch.core.multitenant``) against the JAX package's: the policies
 as pure functions, the autoscaler's backend-sourced replica truth and its
 scale-event timeline, the per-backend reaction times, the driver's
-observer hooks (the cases of ``tests/test_autoscaler.py`` that need no
-``repro.experiments``), multi-tenant hosting (``tests/test_multitenant_
+observer hooks, multi-tenant hosting (``tests/test_multitenant_
 autoscaler.py``), then the port's ``ScaleEvent`` lists, telemetry and
 records under a burst on every backend, and ``run_zipf_workload``'s
-results, equal to the reference's float for float on the same seeds."""
+results, equal to the reference's float for float on the same seeds.  Last,
+the cases of ``tests/test_autoscaler.py`` that run ``repro_torch.experiments``
+(``AutoscalerSpec``, schema v3, the ``autoscale-burst`` and
+``mixed-cold-warm`` scenarios, the autoscale suite), each on both packages
+and held equal; artifacts without the runner's host wall times
+(``elapsed_s``, ``meta.wall_s``), which no seed fixes."""
 import pytest
 
 pytest.importorskip("torch")
 
-from _torch_core_compare import (ENGINES, VARIANTS, records, runtime_of, same,  # noqa: E402
-                                 scale_events)
+from _torch_core_compare import (ENGINES, VARIANTS, both, raised, records,  # noqa: E402
+                                 runtime_of, same, scale_events, without_wall)
 
 import repro.core as jcore  # noqa: E402
 import repro.core.multitenant as jmultitenant  # noqa: E402
@@ -359,3 +363,114 @@ def test_run_zipf_workload_equals_repro_core(backend, polling):
     jres = jmultitenant.run_zipf_workload(backend, polling=jcore.PollingModel(polling), **kw)
     same(tres, jres)
     assert tres.overall.n > 100
+
+
+# ---------------------------------------------------------------------------
+# AutoscalerSpec + schema v3, against repro.experiments.
+
+
+def test_autoscaler_spec_builds_policies():
+    def run(p):
+        ex = p.experiments
+        pol = ex.AutoscalerSpec(policy="queue-depth", period_s=0.1, max_replicas=8).build()
+        assert isinstance(pol, p.core.QueueDepthPolicy)
+        lead = ex.AutoscalerSpec(policy="lead-time", lead_mult=3.0).build()
+        assert isinstance(lead, p.core.LeadTimePolicy)
+        return vars(pol), vars(lead)
+
+    pol, lead = both(run)
+    assert pol["period_s"] == 0.1 and pol["max_replicas"] == 8
+    assert lead["lead_mult"] == 3.0
+    raised(ValueError, lambda p: p.experiments.AutoscalerSpec(policy="bogus").build(),
+           "unknown autoscaler policy")
+
+
+def test_schema_v3_validates_autoscaler_blocks():
+    good_block = {"policy": "lead-time", "n_scale_events": 3,
+                  "cold_starts": 2, "cold_path_arrivals": 5,
+                  "reaction_p50_ms": 1.5}
+
+    def doc(p, block, metrics=()):
+        ex = p.experiments
+        return ex.build_artifact("unit", [{
+            "name": "s", "mode": "open", "description": "d",
+            "backend_set": ["junctiond"],
+            "backends": {"junctiond": {"autoscaler": block}}}],
+            [ex.metric_row(*m) for m in metrics], [])
+
+    def run(p):
+        assert p.experiments.artifacts.SCHEMA_VERSION == 6
+        good = doc(p, good_block, [("m", 1.0, "d")])
+        p.experiments.validate_artifact(good)
+        bad = doc(p, {"policy": "lead-time"})
+        bad["schema_version"] = 2                 # v2 documents never required the keys
+        p.experiments.validate_artifact(bad)
+        return good, bad
+
+    both(run)
+    for version in (None, 3):
+        def check(p, version=version):
+            bad = doc(p, {"policy": "lead-time"})
+            if version is not None:               # v3 documents require the block's keys too
+                bad["schema_version"] = version
+            p.experiments.validate_artifact(bad)
+        raised(ValueError, check, "autoscaler missing")
+
+
+def _smoke_scenario_doc(name):
+    """One scenario at a third of its duration, smoke rates, on both
+    packages; the artifacts held equal without the host wall times."""
+    def run(p):
+        ex = p.experiments
+        doc = ex.ExperimentRunner(duration_scale=0.33, smoke=True).run_suite(
+            [ex.get_scenario(name)], suite="unit")
+        ex.validate_artifact(doc)
+        return without_wall(doc)
+    return both(run)
+
+
+def test_autoscale_burst_claims_favor_junctiond():
+    doc = _smoke_scenario_doc("autoscale-burst")
+    assert not doc["failures"], doc["failures"]
+    entry = doc["scenarios"][0]
+    assert entry["autoscaler_spec"]["policy"] == "lead-time"
+    for backend, res in entry["backends"].items():
+        block = res["autoscaler"]
+        assert block["n_scale_events"] > 0, f"{backend} never scaled"
+        assert block["reactions_ms"]
+        assert block["timeline"]
+        assert any(r.get("scale_events") for r in res["curve"])
+    claims = entry["claims"]
+    assert claims["scaleup_reaction_ratio"]["measured"] > 1.0
+    names = {m["name"]: m["value"] for m in doc["metrics"]}
+    assert names["autoscale_reaction_ratio"] > 1.0
+    assert "scn_autoscale-burst_junctiond_scaleup_reaction" in names
+
+
+def test_mixed_cold_warm_measures_interference_with_telemetry():
+    doc = _smoke_scenario_doc("mixed-cold-warm")
+    assert not doc["failures"], doc["failures"]
+    entry = doc["scenarios"][0]
+    for res in entry["backends"].values():
+        assert res["mode"] == "mixed"
+        assert res["warm_p99_before_ms"] > 0
+        assert res["warm_p99_during_ms"] > 0
+        assert res["storm_deploy_median_ms"] > 0
+        assert res["autoscaler"]["n_scale_events"] > 0
+    claims = entry["claims"]
+    assert claims["baseline_warm_p99_inflation"]["measured"] > 0
+    # the storm itself resolves orders of magnitude faster on junctiond
+    assert (claims["baseline_storm_total_ms"]["measured"]
+            > 10 * claims["treatment_storm_total_ms"]["measured"])
+
+
+def test_autoscale_suite_and_smoke_cover_the_new_scenarios():
+    def run(p):
+        ex = p.experiments
+        trio = ex.get_suite("autoscale")
+        assert all(s.autoscaler is not None for s in trio)
+        return {s.name for s in ex.get_suite("smoke")}, trio
+
+    smoke, trio = both(run)
+    assert {"autoscale-burst", "autoscale-diurnal", "mixed-cold-warm"} <= smoke
+    assert {s.mode for s in trio} == {"open", "mixed"}

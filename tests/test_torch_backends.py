@@ -2,13 +2,20 @@
 junctiond, quark, wasm, firecracker, gvisor) against the JAX package's
 ``repro.core``: the registry, the lifecycle conformance suite every backend
 passes, the snapshot-cache contract of the backends that keep one, gVisor's
-platform knob, the warm-latency and cold-start orderings (the cases of
-``tests/test_backends.py`` that need no ``repro.experiments``), and the
+platform knob, the warm-latency and cold-start orderings, and the
 property tests of ``tests/test_backend_properties.py``.  Then the port held
 to the reference float for float on the same seeds, for every backend and
 gVisor's ptrace platform: ``run_sequential``, ``drive`` on both engines, the
-deploy/scale/query/remove timeline, and firecracker's snapshot cache."""
+deploy/scale/query/remove timeline, and firecracker's snapshot cache.  Last,
+the cases of ``tests/test_backends.py`` that run ``repro_torch.experiments``
+over backend sets (the runner's matrix, the storm's redeploy wave, the
+claims pair, the rate grids and the adaptive search, schemas v1-v6), each on
+both packages and held equal; artifacts without the runner's host wall
+times (``elapsed_s``, ``meta.wall_s``), which no seed fixes."""
+import dataclasses
+import json
 import math
+import warnings
 
 import numpy as np
 import pytest
@@ -16,8 +23,8 @@ import pytest
 pytest.importorskip("torch")
 
 from _hypothesis_compat import given, settings, st  # noqa: E402
-from _torch_core_compare import (ENGINES, VARIANTS, counters, records, runtime_of,  # noqa: E402
-                                 same, same_runs)
+from _torch_core_compare import (ENGINES, VARIANTS, both, counters, raised,  # noqa: E402
+                                 records, runtime_of, same, same_runs, without_wall)
 
 import repro.core as jcore  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
@@ -28,6 +35,7 @@ from repro_torch.core import (ColdStartModel, FaasdRuntime, FunctionSpec,  # noq
 from repro_torch.core.backends import _REGISTRY, SnapshotColdStartModel, resolve_backend  # noqa: E402
 from repro_torch.core.firecracker import SnapshotCache  # noqa: E402
 from repro_torch.core.gvisor import GVisor  # noqa: E402
+from repro_torch.experiments import validate_artifact, write_artifact  # noqa: E402
 
 ALL_BACKENDS = available_backends()
 # the full isolation spectrum, ordered by warm-path latency
@@ -571,3 +579,195 @@ def test_firecracker_snapshot_cache_equals_repro_core():
         return log
 
     same(run(tcore), run(jcore))
+
+
+# ---------------------------------------------------------------------------
+# The experiments layer over arbitrary backend sets, against repro.experiments.
+
+FOUR = ("containerd", "junctiond", "quark", "wasm")
+
+
+def _suite_doc(make, smoke=True):
+    """``make(experiments)`` -> scenario, run as a one-scenario suite on both
+    packages; the artifacts held equal without the host wall times, the
+    port's returned."""
+    def run(p):
+        ex = p.experiments
+        return without_wall(ex.ExperimentRunner(smoke=smoke).run_suite([make(ex)],
+                                                                        suite="unit"))
+    return both(run)
+
+
+def test_runner_four_backend_matrix_keeps_pair_claims(tmp_path):
+    doc = _suite_doc(lambda ex: dataclasses.replace(
+        ex.get_scenario("paper-fig5"), seeds=(0,), n_requests=25, backends=FOUR))
+    validate_artifact(doc)
+    entry = doc["scenarios"][0]
+    assert set(entry["backends"]) == set(FOUR)
+    assert entry["backend_set"] == sorted(FOUR)
+    assert entry["claims_pair"] == ["containerd", "junctiond"]
+    # paper-claim deltas still come from the baseline/treatment pair
+    assert "e2e_median_reduction_pct" in entry["claims"]
+    names = {m["name"] for m in doc["metrics"]}
+    assert "fig5_median_reduction" in names
+    for b in FOUR:                       # every backend lands in the flat table
+        assert f"scn_paper-fig5_{b}_median" in names
+    path = tmp_path / "BENCH_matrix.json"
+    write_artifact(str(path), doc)
+    validate_artifact(json.loads(path.read_text()))
+
+
+def test_storm_measures_snapshot_restore_vs_full_boot():
+    """The cold-start storm runs a redeploy wave: plain backends pay the
+    same cold start again (speedup ~1x), firecracker restores from the
+    snapshots the first wave warmed (>= 10x)."""
+    doc = _suite_doc(lambda ex: dataclasses.replace(
+        ex.get_scenario("cold-start-storm"), seeds=(0,), storm_functions=4,
+        backends=("containerd", "firecracker")))
+    assert not doc["failures"], doc["failures"]
+    res = doc["scenarios"][0]["backends"]
+    for r in res.values():
+        assert r["redeploy_median_ms"] > 0
+        assert r["single_redeploy_ms"] > 0
+    assert res["containerd"]["redeploy_speedup"] == pytest.approx(1.0)
+    assert res["firecracker"]["redeploy_speedup"] >= 10
+    assert res["firecracker"]["single_redeploy_ms"] < res["containerd"]["single_redeploy_ms"]
+    names = {m["name"]: m["value"] for m in doc["metrics"]}
+    assert names["scn_cold-start-storm_firecracker_redeploy_speedup"] >= 10
+    assert names["scn_cold-start-storm_containerd_redeploy_speedup"] == pytest.approx(1.0)
+
+
+def test_runner_skips_claims_without_the_pair():
+    doc = _suite_doc(lambda ex: dataclasses.replace(
+        ex.get_scenario("paper-fig5"), seeds=(0,), n_requests=20, backends=("quark", "wasm")))
+    validate_artifact(doc)
+    entry = doc["scenarios"][0]
+    assert set(entry["backends"]) == {"quark", "wasm"}
+    assert "claims" not in entry
+    assert all(not m["name"].startswith("fig5_") for m in doc["metrics"])
+
+
+def test_open_mode_fails_loudly_without_a_rate_grid():
+    """A *grid-mode* scenario (explicit ``rates``) run against a backend
+    with neither an explicit grid nor a '*' fallback must fail its cell
+    (caught in the artifact's failures) rather than emit a zero-sample
+    result with NaN medians.  Search-mode scenarios never hit this: any
+    backend can be searched."""
+    def make(ex):
+        anchor = ex.get_scenario("multi-tenant-mix")       # the pinned-grid anchor
+        rates = {b: g for b, g in anchor.rates.items() if b != "*"}
+        sc = dataclasses.replace(anchor, rates=rates, smoke_rates=None,
+                                 backends=("containerd", "turbo"))
+        assert sc.search_spec() is None                     # still grid mode
+        return sc
+
+    doc = _suite_doc(make)
+    assert any(f["backend"] == "turbo" and "rate grid" in f["error"] for f in doc["failures"])
+
+
+def test_validate_artifact_accepts_v1_and_v2_schemas():
+    """Artifacts written by older commits (schema_version 1/2) must keep
+    validating: they are the baselines of an artifact comparison."""
+    def docs(p):
+        ex = p.experiments
+        v1 = ex.build_artifact("old", [{"name": "s", "mode": "closed",
+                                        "description": "d", "backends": {}}],
+                               [ex.metric_row("m", 1.0, "d")], [])
+        v1["schema_version"] = 1
+        v2 = dict(v1, schema_version=2)
+        v2["scenarios"] = [dict(v1["scenarios"][0], backend_set=["containerd"])]
+        return v1, [v2] + [dict(v2, schema_version=n) for n in (3, 4, 5, 6)]
+
+    def run(p):
+        v1, later = docs(p)
+        p.experiments.validate_artifact(v1)          # no backend_set required
+        for doc in later:
+            p.experiments.validate_artifact(doc)
+        return v1, later
+
+    both(run)
+    raised(ValueError, lambda p: p.experiments.validate_artifact(
+        dict(docs(p)[0], schema_version=7)), "schema_version")
+
+
+def test_rates_fall_back_to_wildcard_grid_with_warning():
+    """The '*' fallback still works for unknown backends, but it is no
+    longer silent when the scenario carries explicit per-backend grids: the
+    warning names the backend that fell through."""
+    def run(p):
+        sc = p.experiments.get_scenario("multi-tenant-mix")
+        assert sc.rates_for("junctiond") == (1500.0, 4000.0, 8000.0)
+        with pytest.warns(RuntimeWarning, match="some-new-backend") as w1:
+            assert sc.rates_for("some-new-backend") == sc.rates["*"]
+        with pytest.warns(RuntimeWarning, match="multi-tenant-mix") as w2:
+            assert sc.rates_for("some-new-backend", smoke=True) == sc.smoke_rates["*"]
+        # fig6 carries no grids at all any more: the adaptive search is its
+        # default, for every backend including unregistered future ones
+        fig6 = p.experiments.get_scenario("paper-fig6")
+        assert fig6.rates is None and fig6.search_spec() is not None
+        return ([str(w.message) for w in w1], [str(w.message) for w in w2],
+                fig6.search_spec(), sc.rates["*"], sc.smoke_rates["*"])
+
+    both(run)
+
+
+def test_wildcard_only_grid_stays_silent():
+    """trace-replay's rate table is {'*': ...} by design (the trace fixes
+    the rate); a deliberate one-grid-for-all must not warn."""
+    def run(p):
+        sc = p.experiments.get_scenario("trace-replay")
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            return [sc.rates_for(b) for b in ORDERED]
+
+    assert both(run) == [(0.0,)] * len(ORDERED)
+
+
+@pytest.mark.parametrize("scenario", ["multi-tenant-mix", "mixed-cold-warm"])
+def test_grid_scenarios_keep_knee_sized_backend_grids(scenario):
+    """The two scenarios that still carry rate tables (the pinned-grid
+    regression anchor and the mixed mode's warm rate) keep explicit
+    per-backend entries sized to the measured knees instead of riding the
+    '*' fallback (which reuses the containerd grid and often sits past
+    quark's knee)."""
+    def run(p):
+        sc = p.experiments.get_scenario(scenario)
+        return ({b: sc.rates_for(b) for b in ORDERED if b in sc.rates}, sc.rates,
+                sc.smoke_rates)
+
+    grids, rates, smoke_rates = both(run)
+    for b in ("quark", "wasm", "firecracker", "gvisor"):
+        assert b in rates, f"{scenario} missing explicit {b} grid"
+        assert grids[b] != rates["*"]
+        if smoke_rates:
+            assert b in smoke_rates
+    containerd = grids["containerd"]
+    # interception/virtio taxes put every sandboxed knee at or below
+    # containerd's on the same workload, with quark lowest of the four
+    for b in ("quark", "firecracker", "gvisor"):
+        assert max(grids[b]) <= max(containerd)
+        assert min(grids[b]) <= min(containerd)
+    assert max(grids["quark"]) < max(containerd)
+    assert max(grids["gvisor"]) <= max(grids["firecracker"])
+
+
+@pytest.mark.parametrize("scenario", ["paper-fig6", "bursty-burst",
+                                      "diurnal-drift", "heavy-tail-mix",
+                                      "autoscale-burst", "autoscale-diurnal"])
+def test_open_scenarios_default_to_adaptive_search(scenario):
+    """Every open-mode scenario except the pinned-grid anchor dropped its
+    hand-sized six-backend grids: the adaptive knee search is the
+    default, so registering backend #7 needs zero grid measurement."""
+    def run(p):
+        sc = p.experiments.get_scenario(scenario)
+        assert sc.rates is None and sc.smoke_rates is None
+        spec = sc.search_spec()
+        assert spec is not None
+        # trace replay stays grid-shaped by design: the trace fixes the rate
+        assert p.experiments.get_scenario("trace-replay").search_spec() is None
+        return spec, [spec.max_probes_for(smoke=s) for s in (True, False)], \
+            [spec.rel_tol_for(smoke=s) for s in (True, False)]
+
+    _, probes, tols = both(run)
+    assert probes[0] <= probes[1]
+    assert tols[0] >= tols[1]

@@ -3,13 +3,17 @@
 block) against the JAX package's ``repro.core`` on the same seeds: both
 engines, both backends, with and without a fusion plan, held to exact
 equality of the result rows (the ``chain`` block included), the latencies,
-the invocation records and the runtime's counters."""
+the invocation records and the runtime's counters.  Then chains across a
+fleet (``repro_torch.fleet``): every hop re-enters the gateway, and a
+fleet's chained run equals the JAX package's."""
+import json
+
 import numpy as np
 import pytest
 
 pytest.importorskip("torch")
 
-from _torch_core_compare import BACKENDS, CORES, ENGINES, same, same_runs  # noqa: E402
+from _torch_core_compare import BACKENDS, CORES, ENGINES, both, same, same_runs  # noqa: E402
 
 import repro.core.workload as jworkload  # noqa: E402
 import repro_torch.core.workload as tworkload  # noqa: E402
@@ -150,3 +154,58 @@ def test_fusion_plan_normalizes_and_matches():
     assert only.applies_to("containerd") and not only.applies_to("junctiond")
     e = ChainEdge("f", prob=0.5, payload_scale=2.0)
     assert (e.target, e.prob, e.payload_scale) == ("f", 0.5, 2.0)
+
+
+# ---------------------------------------------------------------------------
+# Fleet: gateway-routed hops across workers.
+
+
+def _fleet_chain_run(p, seed=0, spy=False):
+    class _SpyGateway(p.fleet.Gateway):
+        """Records every routing decision: (fn, worker id)."""
+
+        __slots__ = ("routed",)
+
+        def __init__(self, cluster, policy, spill_load=None):
+            super().__init__(cluster, policy, spill_load)
+            self.routed = []
+
+        def route(self, fn):
+            w = super().route(fn)
+            self.routed.append((fn, None if w is None else w.wid))
+            return w
+
+    cl = p.fleet.Cluster(p.core.Simulator(seed=seed), 4, backend="containerd", n_cores=8,
+                         placement="round-robin")
+    if spy:
+        cl.gateway = _SpyGateway(cl, p.fleet.resolve_placement("round-robin"))
+    for name in PIPELINE:
+        cl.deploy_blocking(p.core.FunctionSpec(name=name, max_cores=8))
+    load = _pipeline_load(p.core, rate=400.0, duration_s=0.6, p2=1.0, scale2=1.0)
+    return cl, p.core.drive(cl, load)
+
+
+def test_fleet_chain_same_seed_byte_identical():
+    def run(p):
+        _, a = _fleet_chain_run(p, seed=3)
+        _, b = _fleet_chain_run(p, seed=3)
+        assert a["latencies_ms"] == b["latencies_ms"]
+        for key in ("chain", "fleet"):
+            assert json.dumps(a[key], sort_keys=True) == json.dumps(b[key], sort_keys=True)
+        return a
+
+    both(run)
+
+
+def test_fleet_chain_hops_route_cross_worker():
+    def run(p):
+        cl, res = _fleet_chain_run(p, seed=0, spy=True)
+        return res, cl.gateway.routed
+
+    res, routed = both(run)
+    assert res["chain"]["n_roots"] > 50
+    assert [h["hop"] for h in res["chain"]["hops"]] == [0, 1, 2]
+    # every hop re-enters the gateway as a request of its own...
+    assert {fn for fn, _ in routed} == {"ingest", "transform", "store"}
+    # ...and round-robin spreads a root's hops across distinct workers
+    assert len({wid for fn, wid in routed if fn == "transform"}) > 1

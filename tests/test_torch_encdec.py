@@ -240,7 +240,7 @@ def test_cross_route(device, S, masked, route):
 
 
 @pytest.mark.parametrize("S", [2, 512])
-def test_cross_route_refuses_a_masked_prefill_on_the_card(S):
+def test_cross_route_sends_a_masked_prefill_on_the_card_to_flash_masked(S):
     """A key mask over several queries takes the flash kernel's masked
     route on the card, never the plain version (this once raised)."""
     assert tattn.cross_route("cuda", S, True) == "flash_masked"

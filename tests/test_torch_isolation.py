@@ -56,6 +56,17 @@ def test_the_walk_covers_the_control_plane_modules():
             "repro_torch.analysis", "repro_torch.analysis.sanitizer"} <= mods
 
 
+def test_the_walk_covers_the_fleet_and_experiments_modules():
+    """The fleet tier and the experiments runner are among those it imports."""
+    mods = set(_modules())
+    assert {"repro_torch.fleet", "repro_torch.fleet.cluster", "repro_torch.fleet.driver",
+            "repro_torch.fleet.gateway", "repro_torch.fleet.placement",
+            "repro_torch.fleet.provisioning",
+            "repro_torch.experiments", "repro_torch.experiments.artifacts",
+            "repro_torch.experiments.runner", "repro_torch.experiments.scenario",
+            "repro_torch.experiments.suites"} <= mods
+
+
 def test_importing_every_module_loads_no_jax_and_no_repro():
     code = ("import importlib, sys\n"
             f"for m in {list(_modules())!r}:\n"

@@ -4,17 +4,19 @@ package's ``repro.core`` on the same seeds: both engines, both backends,
 every arrival process, a weighted mix, heavy-tailed work and overload with
 rejections, held to exact equality of the result rows, the latencies, the
 invocation records and the runtime's counters.  Then ``LoadSpec``'s
-validation, the fleet branch that raises until its item is ported,
-``SIM_CHECK`` (checked runs give the unchecked records), the ``EventLoop`` merge of arrivals into the
-heap, and the invariants of the heap path under mixed traffic (the cases
-of ``tests/test_corepool_properties.py`` that need no fleet)."""
+validation, ``drive`` on a fleet ``Cluster`` (the port's fleet driver,
+equal to the JAX package's), ``SIM_CHECK`` (checked runs give the unchecked
+records), the ``EventLoop`` merge of arrivals into the heap, and the
+invariants of the heap path under mixed traffic and a fleet's telemetry
+with the fused path on and off (the cases of
+``tests/test_corepool_properties.py``)."""
 import numpy as np
 import pytest
 
 pytest.importorskip("torch")
 
 from _hypothesis_compat import given, settings, st  # noqa: E402
-from _torch_core_compare import (BACKENDS, CORES, ENGINES, counters, records,  # noqa: E402
+from _torch_core_compare import (BACKENDS, CORES, ENGINES, both, counters, records,  # noqa: E402
                                  same, same_runs)
 
 import repro.core as jcore  # noqa: E402
@@ -222,13 +224,17 @@ def test_drive_refuses_what_the_reference_refuses():
         drive(rt, LoadSpec.single("other", 100.0))
 
 
-def test_the_fleet_branch_raises_with_its_item():
-    class Cluster:
-        is_cluster = True
-        functions = {"aes": None}
+def test_drive_on_a_cluster_equals_repro_fleet():
+    """``drive`` hands a ``Cluster`` to the port's fleet driver: the row,
+    every worker's records and counters equal the JAX package's."""
+    def run(p):
+        cl = p.fleet.Cluster(p.core.Simulator(seed=4), 3, backend="junctiond", n_cores=6)
+        cl.deploy_blocking(p.core.FunctionSpec(name="aes"))
+        res = p.core.drive(cl, p.core.LoadSpec.single("aes", 3000.0, duration_s=0.4))
+        return res, [(records(w.runtime), counters(w.runtime)) for w in cl.workers]
 
-    with pytest.raises(ValueError, match="item 6f"):
-        drive(Cluster(), LoadSpec.single("aes", 100.0))
+    res, _ = both(run)
+    assert res["n"] > 0 and res["fleet"]["n_workers"] == 3
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -474,3 +480,24 @@ def test_fused_and_unfused_agree_when_uncontended(monkeypatch):
     assert busy_f == pytest.approx(busy_u, rel=1e-9)
     assert res_f["n"] == res_u["n"]
     assert res_f["latencies_ms"] == pytest.approx(res_u["latencies_ms"], rel=1e-9)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_fused_toggle_does_not_change_fleet_telemetry_shape(fused, monkeypatch):
+    monkeypatch.setattr(jworkload, "FUSED_FAST_PATH", fused)
+    monkeypatch.setattr(tworkload, "FUSED_FAST_PATH", fused)
+
+    def run(p):
+        cl = p.fleet.Cluster(p.core.Simulator(seed=5), 4, backend="containerd")
+        cl.deploy_blocking(p.core.FunctionSpec(name="aes"))
+        res = p.core.drive(cl, p.core.LoadSpec.single("aes", 1500.0, duration_s=1.0))
+        return res, [w.runtime.stack.hiccups for w in cl.workers]
+
+    res, hiccups = both(run)
+    rows = res["fleet"]["workers"]
+    assert len(rows) == 4
+    assert all(w["n"] > 0 for w in rows)
+    if sum(hiccups) >= 4:
+        # hiccups are apportioned across routed workers, not booked on
+        # the reference worker alone
+        assert sum(1 for h in hiccups if h > 0) > 1

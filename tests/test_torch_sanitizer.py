@@ -1,10 +1,10 @@
 """The port's sim sanitizer (``repro_torch.analysis.sanitizer``), the cases
-of ``tests/test_sanitizer.py`` that need no fleet: checked runs give the
+of ``tests/test_sanitizer.py``: checked runs, a fleet's included, give the
 same bytes as unchecked ones (and as the JAX package's runs), install and
 uninstall restore the originals of ``repro_torch.core`` and leave
-``repro.core`` alone, every trip condition trips, the event engine's fused
-admits call the check, and ``REPRO_SIM_CHECK`` installs it when
-``repro_torch.core`` is imported."""
+``repro.core`` alone, every trip condition trips, the fused admits of the
+event engine and of the fleet driver call the check, and
+``REPRO_SIM_CHECK`` installs it when ``repro_torch.core`` is imported."""
 import heapq
 import json
 import os
@@ -20,6 +20,7 @@ import repro.core as jcore  # noqa: E402
 import repro.core.workload as jworkload  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 import repro_torch.core.workload as workload  # noqa: E402
+from _torch_core_compare import PKGS  # noqa: E402
 from repro_torch.analysis import sanitizer  # noqa: E402
 from repro_torch.analysis.sanitizer import SimCheckError  # noqa: E402
 from repro_torch.core import EventLoop, LoadSpec, Simulator, drive  # noqa: E402
@@ -79,6 +80,25 @@ def test_checked_run_is_byte_identical_under_contention():
         sanitizer.uninstall()
     assert checked == base
     assert base == _drive_fingerprint("events", n_cores=3, rate=20000.0, core=jcore)
+
+
+def _fleet_fingerprint(pkg=PKGS["torch"]):
+    core = pkg.core
+    cl = pkg.fleet.Cluster(core.Simulator(seed=3), n_workers=4, backend="junctiond", n_cores=8)
+    cl.deploy_blocking(core.FunctionSpec(name="aes"))
+    res = core.drive(cl, core.LoadSpec.single("aes", 6000.0, duration_s=0.5))
+    return json.dumps(res, sort_keys=True, default=str)
+
+
+def test_checked_fleet_run_is_byte_identical():
+    base = _fleet_fingerprint()
+    sanitizer.install()
+    try:
+        checked = _fleet_fingerprint()
+    finally:
+        sanitizer.uninstall()
+    assert checked == base
+    assert base == _fleet_fingerprint(PKGS["jax"])
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +244,24 @@ def test_fused_admits_call_the_check(sanitized, monkeypatch):
     monkeypatch.setattr(workload, "SIM_CHECK", False)
     _, rt = _runtime(n_cores=8)
     drive(rt, LoadSpec.single("aes", 2000.0, duration_s=0.3))
+    assert len(calls) == n
+
+
+def test_fleet_fused_admits_call_the_check(sanitized, monkeypatch):
+    """The fleet driver calls the check on each fused admit too, with and
+    without an off-path job, and only while the flag is on."""
+    calls = []
+
+    def spy(pool, t, end_t, off_end_t=None):
+        calls.append((t, end_t, off_end_t))
+
+    monkeypatch.setattr(sanitizer, "fused_admit_check", spy)
+    base = _fleet_fingerprint()
+    assert calls and all(end >= t for t, end, _ in calls)
+    assert any(off is not None for *_, off in calls)
+    n = len(calls)
+    monkeypatch.setattr(workload, "SIM_CHECK", False)
+    assert _fleet_fingerprint() == base
     assert len(calls) == n
 
 
