@@ -39,7 +39,15 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    pixtral's 2048-slot KV caches; the flash kernel's key-masked route at
    seamless's cross prefill (ragged valid lengths, one fully masked row) in
    fp32 and bf16, timed in turns with the simt design unmasked, SDPA given
-   the same boolean mask beside them;
+   the same boolean mask beside them; the flash backward's two kernels
+   (``bwd_dq``, ``bwd_dkv``) over the sweep in both dtypes and at the
+   training shapes (qwen3-1.7b's and h2o-danube-3-4b's in bf16, S < T and
+   S > T in fp32, a non-causal case), at the forward's limits, then timed
+   at qwen3's in turns with SDPA's backward (``torch.autograd.grad`` of
+   SDPA through K and V repeated to Hq, so that the sum back to Hkv is
+   timed too), both by CUDA events with L2 flushed and the card held for
+   ``BWD_HOLD_CYCLES``, long enough for the autograd engine to enqueue
+   SDPA's backward before the span starts;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -141,10 +149,25 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    containerd and on junctiond under AES through ``drive``, run twice and
    once under the sanitizer, float for float the same, with no rejection,
    then a ``scale_out`` storm under ``FaasNetTree`` against
-   ``NaiveRegistryPull``.  It launches no kernel.
+   ``NaiveRegistryPull``.  It launches no kernel;
+11. training (``repro_torch.train``): 11a reduced float32 ``qwen3-1.7b``
+   and ``h2o-danube-3-4b`` (heads 120 wide, a 128-key window under 160
+   tokens) from the same weights and ``SyntheticLM`` batches, 3 steps of
+   ``make_train_step(remat=True)`` on the CPU and on the card: losses and
+   grad norms within atol/rtol 1e-4, each card step's launches 2 L flash
+   forwards (the recompute) and L of each backward kernel, the plain
+   attention refused; 11b full-width, full-depth ``qwen3-1.7b`` in bf16
+   (fp32 moments, AdamW at 3e-4) on 8 x 512-token batches over its whole
+   vocabulary, 4 steps: finite, falling loss and the same launch counts, with
+   the step time, tokens/s, model FLOPs per second and their share of 989
+   TFLOP/s, peak memory, and one more step under the profiler (device time,
+   idle share, the backward kernels' share); then the same 4 steps from the
+   same weights and batches with SDPA's attention and its own backward in
+   place of the kernels: each step's loss and grad norm within
+   ``TRAIN_SDPA_RTOL`` of the kernels'.
 
 The line before the last is a JSON object with one entry per kernel (the
-flash kernel's masked route with its own); the last is
+flash kernel's masked route and its backward with their own); the last is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -242,6 +265,7 @@ PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PIXTRAL_SEQ = 2048           # phase 5g: 1024 patch embeddings and 32 new tokens
 PROFILED_STEPS = 4
 HOLD_CYCLES = 400_000        # ~0.2 ms of the card's clock, held before each timed launch
+BWD_HOLD_CYCLES = 4_000_000  # ~2 ms: SDPA's backward, enqueued through the autograd engine
 AES_SWEEP_N = (1, 38, 40, 4096, 2**20,
                513, 135169)          # ragged: not a multiple of a ttable pass, past the first
 AES_NONCES = (0, 7, 2**31 - 20, 2**32 - 20)   # across the int32 sign wrap, and past 2**32
@@ -275,6 +299,32 @@ PHASE10_METRICS = (
     "autoscale_junctiond_reaction", "autoscale_reaction_ratio", "chain_containerd_hop_tax",
     "chain_junctiond_hop_tax", "chain_hop_tax_ratio")
 TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-3, 1e-2)}   # (atol, rtol)
+# phase 3: the flash backward beyond the sweep, (case, dtypes)
+FLASH_BWD_MAIN = (8, 16, 8, 512, 512, 128, True, None)   # qwen3-1.7b's training shape, 11b
+FLASH_BWD_CASES = [
+    (FLASH_BWD_MAIN, ("bfloat16",)),
+    ((8, 32, 8, 512, 512, 120, True, 4096), ("bfloat16",)),   # h2o-danube-3-4b's
+    ((2, 4, 2, 192, 320, 64, True, None), ("float32",)),       # S < T: the causal offset
+    ((1, 4, 2, 70, 40, 32, True, None), ("float32",)),         # S > T: rows that see no key
+    ((2, 8, 4, 256, 256, 64, False, None), ("float32", "bfloat16")),   # not causal
+]
+# phase 11: training; 11a reduced, card against CPU (h2o's window of 128 under
+# a longer sequence), 11b full-width qwen3-1.7b
+TRAIN_REDUCED = {"qwen3-1.7b": 64, "h2o-danube-3-4b": 160}   # seq_len by arch, batch 4
+TRAIN_REDUCED_STEPS = 3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+# 11b's AdamW: full from the first step, cosine over the 4 steps.  At 1e-3
+# the loss fell once (12.35 -> 10.68) and then rose (18.63, 14.31).  At 3e-4
+# it also rises at step 3 (18.69) and ends below step 1; SDPA's attention in
+# place of the kernels gives the same rise there, so at 3e-4 the rise is the
+# optimizer's on a freshly drawn model, not the kernels' (not run at 1e-3).
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+# 11b against SDPA's attention over the same steps: relative limits on the
+# loss and the grad norm of each step, from the readings on the H100 (loss
+# 1.8e-5, 1.6e-4 to 4e-4, 4.3e-5, 4.0e-4; grad norm 1.2e-4, 3.4e-4, 8.2e-5,
+# 2.1e-4), wider at later steps, where SDPA's run-to-run spread (its
+# backward sums with atomics) has been carried through more updates
+TRAIN_SDPA_RTOL = (1e-3, 2e-3, 5e-3, 1e-2)
 GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
 
 
@@ -315,17 +365,17 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def launch_times_ms(torch, fn, iters: int, flush) -> list:
+def launch_times_ms(torch, fn, iters: int, flush, hold: int = HOLD_CYCLES) -> list:
     """Device time of each of ``iters`` launches of ``fn``, L2 flushed
     before each (outside the timed span).  After the flush the card spins
-    for ``HOLD_CYCLES`` while the host records the start event and enqueues
+    for ``hold`` cycles while the host records the start event and enqueues
     ``fn``, so that the host's time to dispatch ``fn`` stays out of the span."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         flush()
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(hold)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -341,12 +391,12 @@ def time_ms(torch, fn, iters: int, flush) -> float:
     return statistics.fmean(launch_times_ms(torch, fn, iters, flush))
 
 
-def in_turns(torch, previous, new, iters: int, flush):
+def in_turns(torch, previous, new, iters: int, flush, hold: int = HOLD_CYCLES):
     """Launch times of two designs timed in turns, previous, new, new,
     previous, ``iters`` launches a turn: (previous's, new's)."""
     old, cur = [], []
     for fn, into in ((previous, old), (new, cur), (new, cur), (previous, old)):
-        into += launch_times_ms(torch, fn, iters, flush)
+        into += launch_times_ms(torch, fn, iters, flush, hold)
     return old, cur
 
 
@@ -718,7 +768,7 @@ def main() -> int:
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
     from repro_torch.models.frontends import stub_frontend_embeddings
-    from repro_torch.models.layers import tree_to
+    from repro_torch.models.layers import tree_map, tree_to
     from repro_torch.serving import AesFunction, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -881,6 +931,55 @@ def main() -> int:
         ops_ms=1e3 * 4 * d * pairs * B * Hq / PEAK_BF16_FLOPS,
         replaces="src/repro/kernels/flash_attention.py:98",
         source="src/repro_torch/csrc/flash_attention.cu")
+
+    # the flash backward (phase 11's training): both kernels against the
+    # plain version over the sweep in both dtypes and at the training shapes,
+    # then timed at qwen3-1.7b's, in turns with SDPA's backward (through K
+    # and V repeated to Hq, the sum back to Hkv included)
+    for case, dnames in [(c, tuple(dtypes)) for c in FLASH_SWEEP] + FLASH_BWD_CASES:
+        for dname in dnames:
+            (q, k, v), kw = flash_case(case, dtypes[dname])
+            dout = randn(*q.shape, dtype=dtypes[dname])
+            o = ref.flash_attention_ref(q, k, v, **kw)
+            got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+            torch.cuda.synchronize()
+            errs = [check_close(f"flash_attention_bwd{case} {dname} d{n}", g, e, TOL[dname])
+                    for n, g, e in zip("qkv", got, ref.flash_attention_bwd_ref(q, k, v, o, dout,
+                                                                               **kw))]
+            print(f"  flash_attention_bwd {case} {dname}: max |diff| dq {errs[0]:.3g}, "
+                  f"dk {errs[1]:.3g}, dv {errs[2]:.3g} (atol, rtol {TOL[dname]})")
+    B, Hq, Hkv, S, Tk, d, causal, win = FLASH_BWD_MAIN
+    (q, k, v), kw = flash_case(FLASH_BWD_MAIN, torch.bfloat16)
+    dout = randn(*q.shape, dtype=torch.bfloat16)
+    o = ops.flash_attention(q, k, v, **kw)
+    got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+    err = max(check_close(f"flash_attention_bwd{FLASH_BWD_MAIN} d{n}", g, e, TOL["bfloat16"])
+              for n, g, e in zip("qkv", got, ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)))
+    G = Hq // Hkv
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lo = torch.nn.functional.scaled_dot_product_attention(
+        lq, lk.repeat_interleave(G, 1), lv.repeat_interleave(G, 1), is_causal=True)
+    lib, new = in_turns(
+        torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), dout, retain_graph=True),
+        lambda: _flash.flash_attention_bwd(q, k, v, o, dout, **kw), 10, flush, BWD_HOLD_CYCLES)
+    pairs = int(torch.tril(torch.ones(S, Tk, dtype=torch.bool), Tk - S).sum())
+    print(f"  flash_attention_bwd {FLASH_BWD_MAIN} bfloat16, in turns, card held "
+          f"{BWD_HOLD_CYCLES} cycles: bwd_dq + bwd_dkv {spread(new)}, max |diff| {err:.3g}; "
+          f"SDPA's backward with the sum over G {spread(lib)}")
+    records["flash_attention_bwd"] = dict(
+        err=err, ms=statistics.fmean(new),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw), 3,
+                         flush),
+        library_ms=statistics.fmean(lib),
+        bytes=sum(t.numel() * t.element_size() for t in (q, k, v, o, dout, *got)),
+        ops=f"{10 * d * pairs * B * Hq} FLOP (five products)",
+        ops_ms=1e3 * 10 * d * pairs * B * Hq / PEAK_BF16_FLOPS,
+        replaces="src/repro/kernels/flash_attention.py:98",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        note="the backward of the flash kernel (bwd_dq, then bwd_dkv); the JAX package has "
+             "no Pallas backward and differentiates gqa_attend "
+             "(src/repro/models/attention.py:51); launches: phase 11b's training")
+    del lq, lk, lv, lo, got
 
     # decode at a step of the main path, a 512-token prompt in a 1024-slot
     # cache, at qwen3's G = 2 and at G = 4: both designs, timed in turns
@@ -1515,7 +1614,7 @@ def main() -> int:
         expect = {"flash_attention": n["attn"], "decode_attention": n["attn"] * n_decode,
                   "aes_ctr": 0, "moe_gmm": 3 * n["moe"] * (n_decode + 1),
                   "mamba_scan": n["mamba"] * (n_decode + 1),
-                  "rwkv6_scan": n["rwkv"] * (n_decode + 1)}
+                  "rwkv6_scan": n["rwkv"] * (n_decode + 1), "flash_attention_bwd": 0}
         launches, routes = check_routes(cfg.name, engine_routes(cfg, n_decode))
         print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
         if launches != expect:
@@ -1556,7 +1655,8 @@ def main() -> int:
                   "decode_attention": {"split": 744, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
-                  "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
+                  "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
+                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0}}:
         raise AssertionError(f"mixtral's launches by route {routes}")
     launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
 
@@ -1578,7 +1678,8 @@ def main() -> int:
                   "decode_attention": {"split": 93, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
-                  "mamba_scan": {"lanes": 672, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
+                  "mamba_scan": {"lanes": 672, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
+                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0}}:
         raise AssertionError(f"Jamba's launches by route {routes}")
     launches["mamba_scan"] = jamba_launches["mamba_scan"]
     gc.collect()
@@ -1608,7 +1709,8 @@ def main() -> int:
                   "decode_attention": {"split": 744, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
-                  "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0}}:
+                  "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
+                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0}}:
         raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
     h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
                 f"prefill and {h2o_launches['decode_attention']} decode launches")
@@ -1926,7 +2028,8 @@ def main() -> int:
     faas_routes = dict(ops.ROUTE_LAUNCHES["aes_ctr"])
     print(f"launches {faas_launches} on the FaaS path; aes_ctr by route {faas_routes}")
     if faas_launches != {"flash_attention": 0, "decode_attention": 0, "aes_ctr": BODY_CALLS,
-                         "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}:
+                         "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
+                         "flash_attention_bwd": 0}:
         raise AssertionError(f"FaaS path launches {faas_launches}, expected "
                              f"{BODY_CALLS} of aes_ctr only")
     expect_routes = {"ttable": 0, "simt": 0}
@@ -2024,6 +2127,194 @@ def main() -> int:
     print(f"launches {dict(ops.LAUNCHES)}: none past phase 7's {BODY_CALLS} AES calls; "
           f"phase 10 took {time.perf_counter() - t0:.1f} s of host time")
 
+    # -- 11 -----------------------------------------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import InputShape, StepKind
+    from repro_torch.models import flops
+    from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
+    from repro_torch.train.optimizer import init_state
+
+    def train_routes(cfg, steps):
+        """The launches by route of ``steps`` train steps under remat: each
+        attention layer's forward twice (the recompute), its backward once."""
+        L = layer_counts(cfg)["attn"]
+        return {"flash_attention": {_flash.route(getattr(torch, cfg.dtype)): 2 * L * steps},
+                "flash_attention_bwd": {"bwd_dq": L * steps, "bwd_dkv": L * steps}}
+
+    def check_train_launches(name, cfg, steps):
+        L = layer_counts(cfg)["attn"]
+        check_routes(name, train_routes(cfg, steps))
+        want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps}
+        got = {op: n for op, n in ops.LAUNCHES.items() if n}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+
+    plain_attention = (ref.flash_attention_ref, ref.flash_attention_bwd_ref)
+
+    def refuse_plain(*args, **kwargs):
+        raise AssertionError("the card's train step reached a plain attention")
+
+    phase("11a reduced qwen3-1.7b and h2o-danube-3-4b (heads 120 wide) trained, card against "
+          "CPU, float32")
+    for arch, seq in TRAIN_REDUCED.items():
+        cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="float32")
+        if arch == "h2o-danube-3-4b":
+            cfg = dataclasses.replace(cfg, head_dim=120, n_kv_heads=2)
+        p_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED))
+        it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=4,
+                                    seed=SEED)).batches()
+        batches = [next(it) for _ in range(TRAIN_REDUCED_STEPS)]
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                total_steps=TRAIN_REDUCED_STEPS), remat=True)
+        print(f"{cfg.name}: head_dim {cfg.resolved_head_dim}, {cfg.n_heads}/{cfg.n_kv_heads} "
+              f"heads, window {cfg.sliding_window}; batches of 4 x {seq} tokens")
+        hist = {}
+        for where in ("cpu", "cuda"):
+            params = tree_map(lambda p: p.to(where, copy=True).requires_grad_(True), p_cpu)
+            state = init_state(params)
+            hist[where] = []
+            for i, b in enumerate(batches):
+                batch = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
+                if where == "cuda":
+                    ops.reset_launches()
+                    ref.flash_attention_ref = ref.flash_attention_bwd_ref = refuse_plain
+                try:
+                    params, state, m = step(params, state, batch)
+                finally:
+                    ref.flash_attention_ref, ref.flash_attention_bwd_ref = plain_attention
+                hist[where].append({k: float(m[k]) for k in ("loss", "grad_norm")})
+                if where == "cuda":
+                    check_train_launches(f"{cfg.name} step {i + 1}", cfg, 1)
+        for i, (c, g) in enumerate(zip(hist["cpu"], hist["cuda"])):
+            for key in ("loss", "grad_norm"):
+                if not (math.isfinite(g[key])
+                        and math.isclose(g[key], c[key], rel_tol=1e-4, abs_tol=1e-4)):
+                    raise AssertionError(f"{cfg.name} step {i + 1} {key}: card {g[key]!r}, "
+                                         f"CPU {c[key]!r}")
+            print(f"  step {i + 1}: loss card {g['loss']:.6f} CPU {c['loss']:.6f} (|diff| "
+                  f"{abs(g['loss'] - c['loss']):.3g}); grad_norm card {g['grad_norm']:.6f} CPU "
+                  f"{c['grad_norm']:.6f} (|diff| {abs(g['grad_norm'] - c['grad_norm']):.3g})")
+
+    phase("11b full-width, full-depth qwen3-1.7b trained on the card, bf16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"  before the draw: {held} bytes allocated on the card")
+    if held > 1e9:
+        raise AssertionError(f"{held} bytes still allocated before phase 11b")
+    cfg = get_arch("qwen3-1.7b")
+    L = layer_counts(cfg)["attn"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tree_map(lambda p: p.requires_grad_(True),
+                      T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    state = init_state(params)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype} weights "
+          f"{tree_bytes(params)} bytes, fp32 moments {tree_bytes(state.mu) + tree_bytes(state.nu)}"
+          f" bytes, drawn in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                batch_size=TRAIN_BATCH, seed=SEED)).batches()
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+               for _ in range(TRAIN_STEPS + 1)]
+    print(f"  {TRAIN_STEPS + 1} SyntheticLM batches of {TRAIN_BATCH} x {TRAIN_SEQ} tokens over "
+          f"the {cfg.vocab_size}-token vocabulary, made in {time.perf_counter() - t0:.1f} s")
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), remat=True)
+    print(f"  AdamW {TRAIN_OPT}, remat on")
+    ops.reset_launches()
+    times, hist = [], []
+    for b in batches[:TRAIN_STEPS]:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        hist.append({k: float(v) for k, v in m.items()})
+        h = hist[-1]
+        print(f"  step {len(hist)}: loss {h['loss']:.4f} nll {h['nll']:.4f} grad_norm "
+              f"{h['grad_norm']:.4f} lr {h['lr']:.3g} step_ms {1e3 * times[-1]:.1f}")
+    check_train_launches(f"{cfg.name} training", cfg, TRAIN_STEPS)
+    launches["flash_attention_bwd"] = ops.LAUNCHES["flash_attention_bwd"]
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: losses {losses} not finite and falling")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mf = flops.model_flops(cfg, InputShape(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
+                                           TRAIN_BATCH, StepKind.TRAIN))["model_flops"]
+    steady = statistics.fmean(times[1:])
+    print(f"train step_ms {1e3 * steady:.1f} (mean of steps 2-{TRAIN_STEPS}; step 1 "
+          f"{1e3 * times[0]:.1f})  tokens_per_s {tokens / steady:.1f}  model_flops_per_step "
+          f"{mf:.6g}  model_tflops_per_s {mf / steady / 1e12:.2f}  mfu "
+          f"{mf / steady / PEAK_BF16_FLOPS:.4f} (of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16)  "
+          f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, batches[-1])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device_us, top = device_top(torch, prof, 1)
+    if device_us is None:
+        raise AssertionError("the profiler saw no kernel of the train step")
+    by_kernel = collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            for part, tag in (("bwd::dq_kernel", "bwd_dq"), ("bwd::dkv_kernel", "bwd_dkv"),
+                              ("flash_wgmma_kernel", "flash forward")):
+                if part in e.key:
+                    by_kernel[tag] += e.self_device_time_total
+    print(f"profiled step (one more, its wall including the profiler's cost): device_us "
+          f"{device_us:.1f}  wall_us {wall_us:.1f}  idle share {1 - device_us / wall_us:.3f}")
+    print("  " + ", ".join(f"{tag} {us:.1f} us ({us / device_us:.3f})"
+                           for tag, us in by_kernel.items()))
+    for name, us in top:
+        print(f"    {us:10.1f} us  {name[:100]}")
+    del params, state, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same 4 steps from the same weights and batches with the library's
+    # attention (SDPA, K and V repeated to Hq, its own backward) in place of
+    # the kernels: a full-width reference for the trajectory
+    def sdpa_attention(q, k, v, causal, window, key_valid=None):
+        G = q.shape[2] // k.shape[2]
+        out = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(G, 1),
+            v.transpose(1, 2).repeat_interleave(G, 1), is_causal=causal)
+        return out.transpose(1, 2)
+
+    if cfg.sliding_window is not None:
+        raise AssertionError("the SDPA reference takes no window")
+    params = tree_map(lambda p: p.requires_grad_(True),
+                      T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+    state = init_state(params)
+    kernel_attention, attention._flash = attention._flash, sdpa_attention
+    ref_hist = []
+    try:
+        for b in batches[:TRAIN_STEPS]:
+            params, state, m = step(params, state, b)
+            ref_hist.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    finally:
+        attention._flash = kernel_attention
+    print(f"  the same {TRAIN_STEPS} steps with SDPA's attention (relative limits by step "
+          f"{TRAIN_SDPA_RTOL}):")
+    off = []
+    for i, (h, r) in enumerate(zip(hist, ref_hist)):
+        rel = {k: abs(h[k] - r[k]) / abs(r[k]) for k in ("loss", "grad_norm")}
+        print(f"  step {i + 1}: loss kernels {h['loss']:.6f} SDPA {r['loss']:.6f} (rel "
+              f"{rel['loss']:.3g}); grad_norm kernels {h['grad_norm']:.6f} SDPA "
+              f"{r['grad_norm']:.6f} (rel {rel['grad_norm']:.3g})")
+        off += [f"step {i + 1} {k} rel {x:.3g}" for k, x in rel.items()
+                if not x <= TRAIN_SDPA_RTOL[i]]
+    if off:
+        raise AssertionError(f"{cfg.name}: the kernels' trajectory against SDPA's: "
+                             f"{', '.join(off)}")
+    del params, state, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- result -------------------------------------------------------------
     print(smi)
     print(json.dumps({"kernels": [
@@ -2033,7 +2324,8 @@ def main() -> int:
          "library_ms": r["library_ms"],
          **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
          **({"note": f"{h2o_note}; {encdec_note}"}
-            if name in ("flash_attention", "decode_attention") else {})}
+            if name in ("flash_attention", "decode_attention") else {}),
+         **({"note": r["note"]} if "note" in r else {})}
         for name, r in records.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -149,6 +149,15 @@ class ArchConfig:
                 kinds.append(BlockKind.ATTN_MOE if moe_here else BlockKind.ATTN)
         return tuple(kinds)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings included once)."""
+        from repro_torch.models.flops import param_count  # local import, avoids cycle
+        return param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models.flops import active_param_count
+        return active_param_count(self)
+
     def validate(self) -> None:
         if self.arch_type == ArchType.MICRO:
             return

@@ -1,5 +1,6 @@
 // Helpers shared by the attention kernels: 16-byte loads that widen to
-// fp32, the store back to the I/O type, and warp reductions.
+// fp32, a widening read of one element, the store back to the I/O type,
+// and warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +31,9 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
     f[2 * i + 1] = x.y;
   }
 }
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {

@@ -68,6 +68,31 @@
 // Any row may lose every key to the mask, so the masked kernel walks every
 // tile, and such a row averages v over the real T, as the plain version
 // does.
+//
+// The backward (flash_attention_bwd_dq and flash_attention_bwd_dkv, fp32 and
+// bf16, every head width the forward takes): the gradients dq, dk and dv of
+// the unmasked routes.  The JAX package has no Pallas backward (its training
+// differentiates the XLA attention); plain version:
+// repro_torch.kernels.ref.flash_attention_bwd_ref.  With P the softmax of the
+// scaled, masked scores, D = rowsum(dO o), dP = dO V^T and dS = P (dP - D) on
+// the allowed pairs (0 elsewhere): dq = scale dS K, dk = scale dS^T Q and
+// dv = P^T dO, summed over the G query heads of a kv head.  Five products of
+// 2 S T d operations a query head (halved when causal) against q, k, v, o,
+// dO, dq, dk and dv read or written once: the operations bound it.  This
+// simple design is the simt one twice over, fp32 on the CUDA cores: the dq
+// kernel (a block of 256 threads per 64-query tile and query head) walks
+// the key tiles the tile's rows can see once for each row's max and sum,
+// the forward's statistics recomputed so that the forward entry points stay
+// as they are, then again for dS and dq, and writes each row's log-sum-exp
+// and D (fp32) for the second kernel; the dkv kernel (a block per 64-key
+// tile and kv head) walks the group's G query heads and the query tiles that
+// can see the tile, and sums dk and dv in registers, so no atomics are
+// needed.  Q, dO, K and V tiles sit in shared memory as fp32 (165 KB at
+// d = 128, one block an SM), each thread holds 4 x 4 scores and a 4 x (d/16)
+// block of each sum.  A row that sees no key (a causal row at a negative
+// position) takes P = 1 / T on every key, as the plain version's softmax of
+// equal scores does, and no score gradient: dq is 0 there and its dO is
+// spread over dv.
 #include "attn_common.cuh"
 #include "hopper.cuh"
 
@@ -670,6 +695,399 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// The backward (fp32 and bf16 I/O, fp32 inside)
+
+namespace bwd {
+
+constexpr int kTile = 64;       // queries or keys a tile
+constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 pairs each
+constexpr int kPS = kTile + 1;
+
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + kTile * kPS + 4 * kTile);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile);
+}
+
+__device__ __forceinline__ bool allowed(int p, int kp, int causal, int has_window, int window) {
+  return (!causal || kp <= p) && (!has_window || kp > p - window);
+}
+
+// Rows r < n of a (rows, D) tile at src into dst (fp32, stride D + 1) times
+// mul; rows n .. kTile - 1 are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int n, float mul) {
+  constexpr int CH = D / 8;
+  for (int c = threadIdx.x; c < kTile * CH; c += kThreads) {
+    const int r = c / CH, d0 = (c % CH) * 8;
+    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r < n) attn::load8(src + (size_t)r * D + d0, f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[r * (D + 1) + d0 + i] = f[i] * mul;
+  }
+}
+
+// a[i][j] = sum_d x1[(ty + 16 i) * RS + d] * y1[(tx + 16 j) * RS + d], and
+// the same of (x2, y2) into c when TWO.
+template <int D, bool TWO>
+__device__ __forceinline__ void products(float (&a)[4][4], float (&c)[4][4], const float* x1,
+                                         const float* y1, const float* x2, const float* y2,
+                                         int ty, int tx) {
+  constexpr int RS = D + 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = c[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float u1[4], w1[4], u2[4], w2[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      u1[i] = x1[(ty + 16 * i) * RS + d];
+      w1[i] = y1[(tx + 16 * i) * RS + d];
+      if (TWO) {
+        u2[i] = x2[(ty + 16 * i) * RS + d];
+        w2[i] = y2[(tx + 16 * i) * RS + d];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a[i][j] += u1[i] * w1[j];
+        if (TWO) c[i][j] += u2[i] * w2[j];
+      }
+  }
+}
+
+// One block per (64-query tile, query head, batch row).  Writes dq, and each
+// row's log-sum-exp of its allowed scores and D = rowsum(dO o).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
+          float* __restrict__ lse, float* __restrict__ delta, int Hq, int Hkv, int S, int Tlen,
+          int causal, int has_window, int window, float scale) {
+  constexpr int RS = D + 1;
+  constexpr int DJ = (D + 15) / 16;
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int nq = min(kTile, S - q0);
+  const int off = Tlen - S;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int warp = tid / 32, lane = tid % 32;
+
+  extern __shared__ float smem[];
+  float* qs = smem;                 // kTile x RS, pre-scaled
+  float* dos = qs + kTile * RS;     // kTile x RS
+  float* ks = dos + kTile * RS;     // kTile x RS
+  float* vs = ks + kTile * RS;      // kTile x RS
+  float* ps = vs + kTile * RS;      // kTile x kPS: scores, then dS
+  float* m_s = ps + kTile * kPS;    // running max of each row
+  float* l_s = m_s + kTile;         // running sum
+  float* lse_s = l_s + kTile;       // log-sum-exp
+  float* dl_s = lse_s + kTile;      // D
+
+  const size_t row0 = ((size_t)b * Hq + h) * S + q0;
+  const T* kb = k + ((size_t)b * Hkv + hk) * (size_t)Tlen * D;
+  const T* vb = v + ((size_t)b * Hkv + hk) * (size_t)Tlen * D;
+  load_tile<T, D>(qs, q + row0 * D, nq, scale);
+  load_tile<T, D>(dos, dout + row0 * D, nq, 1.f);
+  if (tid < kTile) {
+    m_s[tid] = attn::kNegInf;
+    l_s[tid] = 0.f;
+  }
+  __syncthreads();
+  // D of each row: a warp a row at a time, lanes across d
+  for (int rr = 0; rr < kTile / 8; ++rr) {
+    const int r = warp * (kTile / 8) + rr;
+    float acc = 0.f;
+    if (r < nq)
+      for (int d = lane; d < D; d += 32)
+        acc += dos[r * RS + d] * attn::to_float(o[(row0 + r) * D + d]);
+    acc = attn::warp_sum(acc);
+    if (lane == 0) dl_s[r] = acc;
+  }
+
+  // The union of the key ranges the tile's rows see, in closed form: a
+  // causal row at a negative position sees none and needs no tile.
+  const int p_first = q0 + off, p_last = q0 + nq - 1 + off;
+  int lo = 0, hi = Tlen - 1;
+  if (causal) hi = min(hi, p_last);
+  if (has_window) lo = max(0, (causal ? max(p_first, 0) : p_first) - window + 1);
+  const int t_begin = (lo / kTile) * kTile;
+
+  // pass 1: each row's max and sum over its allowed keys, as in the forward
+  for (int t0 = t_begin; t0 <= hi; t0 += kTile) {
+    const int nt = min(kTile, Tlen - t0);
+    load_tile<T, D>(ks, kb + (size_t)t0 * D, nt, 1.f);
+    __syncthreads();
+    float sc[4][4], unused[4][4];
+    products<D, false>(sc, unused, qs, ks, nullptr, nullptr, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i, p = q0 + r + off;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        float s = -INFINITY;   // past T: out of the max, weight 0
+        if (c < nt) s = allowed(p, t0 + c, causal, has_window, window) ? sc[i][j] : attn::kNegInf;
+        ps[r * kPS + c] = s;
+      }
+    }
+    __syncthreads();
+    for (int rr = 0; rr < kTile / 8; ++rr) {
+      const int r = warp * (kTile / 8) + rr;
+      const float s0 = ps[r * kPS + lane], s1 = ps[r * kPS + lane + 32];
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, attn::warp_max(fmaxf(s0, s1)));
+      const float sum = attn::warp_sum(expf(s0 - m_new) + expf(s1 - m_new));
+      if (lane == 0) {
+        l_s[r] = l_s[r] * expf(m_prev - m_new) + sum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+  }
+  if (tid < kTile) lse_s[tid] = m_s[tid] + logf(l_s[tid]);
+  __syncthreads();
+
+  // pass 2: dS on the allowed pairs, then dq += dS K
+  float acc[4][DJ];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  for (int t0 = t_begin; t0 <= hi; t0 += kTile) {
+    const int nt = min(kTile, Tlen - t0);
+    load_tile<T, D>(ks, kb + (size_t)t0 * D, nt, 1.f);
+    load_tile<T, D>(vs, vb + (size_t)t0 * D, nt, 1.f);
+    __syncthreads();
+    float sc[4][4], dp[4][4];
+    products<D, true>(sc, dp, qs, ks, dos, vs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i, p = q0 + r + off;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        float ds = 0.f;
+        if (c < nt && allowed(p, t0 + c, causal, has_window, window))
+          ds = expf(sc[i][j] - lse_s[r]) * (dp[i][j] - dl_s[r]);
+        ps[r * kPS + c] = ds;
+      }
+    }
+    __syncthreads();
+    for (int c = 0; c < nt; ++c) {
+      float kk[DJ];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) kk[j] = tx + 16 * j < D ? ks[c * RS + tx + 16 * j] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float w = ps[(ty + 16 * i) * kPS + c];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] += w * kk[j];
+      }
+    }
+    __syncthreads();   // tiles and dS free for the next step
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= nq) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      if (tx + 16 * j < D) attn::store(dq + (row0 + r) * D + tx + 16 * j, acc[i][j] * scale);
+  }
+  if (tid < nq) {
+    lse[row0 + tid] = lse_s[tid];
+    delta[row0 + tid] = dl_s[tid];
+  }
+}
+
+// One block per (64-key tile, kv head, batch row): dk and dv of the tile,
+// summed over the G query heads of the kv head and the query tiles that can
+// see the tile.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+           const T* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Hq,
+           int Hkv, int S, int Tlen, int causal, int has_window, int window, float scale) {
+  constexpr int RS = D + 1;
+  constexpr int DJ = (D + 15) / 16;
+  const int t0 = blockIdx.x * kTile;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int G = Hq / Hkv;
+  const int nt = min(kTile, Tlen - t0);
+  const int off = Tlen - S;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const float inv_t = 1.f / (float)Tlen;
+
+  extern __shared__ float smem[];
+  float* ks = smem;                 // kTile x RS
+  float* vs = ks + kTile * RS;      // kTile x RS
+  float* qs = vs + kTile * RS;      // kTile x RS, pre-scaled
+  float* dos = qs + kTile * RS;     // kTile x RS
+  float* pt = dos + kTile * RS;     // kTile x kPS: P^T, key by query
+  float* dst = pt + kTile * kPS;    // kTile x kPS: dS^T
+  float* lse_s = dst + kTile * kPS;
+  float* dl_s = lse_s + kTile;
+
+  const size_t kv0 = ((size_t)b * Hkv + hk) * Tlen + t0;
+  load_tile<T, D>(ks, k + kv0 * D, nt, 1.f);
+  load_tile<T, D>(vs, v + kv0 * D, nt, 1.f);
+
+  // The query rows that see a key of the tile: from the first whose causal
+  // bound reaches it to the last whose window still does.  A causal row at a
+  // negative position sees no key and spreads dO over all of T: with such
+  // rows, every tile starts at row 0.
+  int i_lo = causal ? max(0, t0 - off) : 0;
+  if (causal && off < 0) i_lo = 0;
+  const int i_hi = has_window ? min(S - 1, t0 + nt - 2 + window - off) : S - 1;
+
+  float ak[4][DJ], av[4][DJ];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) ak[a][j] = av[a][j] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = hk * G + g;
+    for (int q0 = (i_lo / kTile) * kTile; q0 <= i_hi; q0 += kTile) {
+      const int nq = min(kTile, S - q0);
+      const size_t row0 = ((size_t)b * Hq + h) * S + q0;
+      load_tile<T, D>(qs, q + row0 * D, nq, scale);
+      load_tile<T, D>(dos, dout + row0 * D, nq, 1.f);
+      if (tid < kTile) {
+        lse_s[tid] = tid < nq ? lse[row0 + tid] : 0.f;
+        dl_s[tid] = tid < nq ? delta[row0 + tid] : 0.f;
+      }
+      __syncthreads();
+      // keys ty + 16 a against queries tx + 16 c
+      float st[4][4], dpt[4][4];
+      products<D, true>(st, dpt, ks, qs, vs, dos, ty, tx);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int c = ty + 16 * a, kp = t0 + c;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = tx + 16 * j, p = q0 + r + off;
+          float pw = 0.f, ds = 0.f;
+          if (c < nt && r < nq) {
+            if (causal && p < 0) {
+              pw = inv_t;
+            } else if (allowed(p, kp, causal, has_window, window)) {
+              pw = expf(st[a][j] - lse_s[r]);
+              ds = pw * (dpt[a][j] - dl_s[r]);
+            }
+          }
+          pt[c * kPS + r] = pw;
+          dst[c * kPS + r] = ds;
+        }
+      }
+      __syncthreads();
+      for (int r = 0; r < nq; ++r) {
+        float dov[DJ], qv[DJ];
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) {
+          const bool in = tx + 16 * j < D;
+          dov[j] = in ? dos[r * RS + tx + 16 * j] : 0.f;
+          qv[j] = in ? qs[r * RS + tx + 16 * j] : 0.f;
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float pw = pt[(ty + 16 * a) * kPS + r], ds = dst[(ty + 16 * a) * kPS + r];
+#pragma unroll
+          for (int j = 0; j < DJ; ++j) {
+            av[a][j] += pw * dov[j];
+            ak[a][j] += ds * qv[j];
+          }
+        }
+      }
+      __syncthreads();   // tiles free for the next step
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int c = ty + 16 * a;
+    if (c >= nt) continue;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j)
+      if (tx + 16 * j < D) {
+        attn::store(dk + (kv0 + c) * D + tx + 16 * j, ak[a][j]);
+        attn::store(dv + (kv0 + c) * D + tx + 16 * j, av[a][j]);
+      }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  void *dq, *dk, *dv;
+  float *lse, *delta;
+  int B, Hq, Hkv, S, Tlen, causal, has_window, window;
+  float scale;
+};
+
+template <typename T, int D>
+cudaError_t launch(const Args& a, bool dkv, cudaStream_t stream) {
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  if (!dkv) {
+    constexpr size_t smem = dq_smem_bytes<D>();
+    auto kernel = dq_kernel<T, D>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.S + kTile - 1) / kTile, a.Hq, a.B);
+    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, static_cast<const T*>(a.o), dout,
+                                             static_cast<T*>(a.dq), a.lse, a.delta, a.Hq, a.Hkv,
+                                             a.S, a.Tlen, a.causal, a.has_window, a.window,
+                                             a.scale);
+  } else {
+    constexpr size_t smem = dkv_smem_bytes<D>();
+    auto kernel = dkv_kernel<T, D>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((a.Tlen + kTile - 1) / kTile, a.Hkv, a.B);
+    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, dout, a.lse, a.delta,
+                                             static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Hq,
+                                             a.Hkv, a.S, a.Tlen, a.causal, a.has_window,
+                                             a.window, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(int D, const Args& a, bool dkv, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch<T, 32>(a, dkv, stream);
+    case 64: return launch<T, 64>(a, dkv, stream);
+    case 120: return launch<T, 120>(a, dkv, stream);
+    case 128: return launch<T, 128>(a, dkv, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_dtype(int dtype, int D, const Args& a, bool dkv, cudaStream_t stream) {
+  if (dtype == 0) return launch_d<float>(D, a, dkv, stream);
+  if (dtype == 1) return launch_d<__nv_bfloat16>(D, a, dkv, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -718,4 +1136,32 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The backward's first kernel: dq (B, Hq, S, D), and each row's log-sum-exp
+// and D = rowsum(dO o) into lse and delta (B, Hq, S) fp32 for the second.
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// launch; the caller raises on anything but 0.
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                      const void* o, const void* dout, void* dq, float* lse,
+                                      float* delta, int B, int Hq, int Hkv, int S, int Tlen,
+                                      int D, int causal, int has_window, int window,
+                                      float scale, int dtype, void* stream) {
+  const bwd::Args a{q, k, v, o, dout, dq, nullptr, nullptr, lse, delta, B, Hq, Hkv, S, Tlen,
+                    causal, has_window, window, scale};
+  return bwd::launch_dtype(dtype, D, a, false, static_cast<cudaStream_t>(stream));
+}
+
+// The backward's second kernel, after the first on the same stream: dk and
+// dv (B, Hkv, Tlen, D) from lse and delta.  dtype: 0 = float32, 1 =
+// bfloat16.  Returns cudaGetLastError() after the launch.
+extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                       const void* dout, const float* lse, const float* delta,
+                                       void* dk, void* dv, int B, int Hq, int Hkv, int S,
+                                       int Tlen, int D, int causal, int has_window, int window,
+                                       float scale, int dtype, void* stream) {
+  const bwd::Args a{q, k, v, nullptr, dout, nullptr, dk, dv, const_cast<float*>(lse),
+                    const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window,
+                    window, scale};
+  return bwd::launch_dtype(dtype, D, a, true, static_cast<cudaStream_t>(stream));
 }

@@ -13,12 +13,18 @@ loop: a cross prefill under an encoder mask).  A failed build or launch
 raises; no route stands in for another.  :func:`flash_attention_simt`
 reaches the simt design for bf16 too, so that the two can be timed against
 each other on the card.  ``LAUNCHES`` counts the launches of each route.
+
+:func:`flash_attention_bwd` launches the backward's two kernels, each its
+own C entry point and route: ``"bwd_dq"`` (dq, and each row's log-sum-exp
+and D = rowsum(dO o)) and then ``"bwd_dkv"`` (dk and dv), counted in
+``BWD_LAUNCHES``.  It takes what the unmasked routes take, in fp32 and
+bf16; the key-masked route has no backward.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,6 +37,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: launches of each route
 LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "masked": 0}
+#: launches of each of the backward's two kernels
+BWD_LAUNCHES: Dict[str, int] = {"bwd_dq": 0, "bwd_dkv": 0}
 
 
 def route(dtype: torch.dtype, masked: bool = False) -> str:
@@ -48,6 +56,14 @@ def _entry(which: str):
         fn = lib.flash_attention_wgmma_fwd
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _P]
+    elif which == "bwd_dq":
+        fn = lib.flash_attention_bwd_dq
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _I, _P]
+    elif which == "bwd_dkv":
+        fn = lib.flash_attention_bwd_dkv
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _I, _P]
     elif which == "masked":
         fn = lib.flash_attention_masked_fwd
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -121,3 +137,37 @@ def _launch(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise_on_error(f"flash_attention ({which})", err)
     LAUNCHES[which] += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`flash_attention` without a key mask: q, o and
+    dout (B,Hq,S,d), k/v (B,Hkv,T,d), o the forward's output and dout the
+    gradient of the loss by it -> (dq, dk, dv) in the inputs' dtype.  Two
+    launches on the current stream: ``bwd_dq``, then ``bwd_dkv``, which reads
+    the rows' statistics the first wrote."""
+    check_inputs(q, k, v, window)
+    if o.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and dout "
+                         f"{tuple(dout.shape)} must be shaped as q {tuple(q.shape)}")
+    check_operands("flash_attention_bwd", q, k, v, o, dout)
+    B, Hq, S, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    shape = [B, Hq, Hkv, S, T, d, int(causal), int(window is not None), window or 0,
+             d ** -0.5, DTYPE_CODES[q.dtype], stream_handle(q.device)]
+    err = _entry("bwd_dq")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                           dout.data_ptr(), dq.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           *shape)
+    raise_on_error("flash_attention_bwd (bwd_dq)", err)
+    BWD_LAUNCHES["bwd_dq"] += 1
+    err = _entry("bwd_dkv")(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            *shape)
+    raise_on_error("flash_attention_bwd (bwd_dkv)", err)
+    BWD_LAUNCHES["bwd_dkv"] += 1
+    return dq, dk, dv

@@ -10,6 +10,16 @@ that it went through the kernels; the plain versions do not count.
 ``ROUTE_LAUNCHES`` counts, for the ops with more than one design, the
 launches of each design (``route`` in their wrappers), so that a run can
 show which one it took.
+
+Gradients on the card: ``flash_attention`` under grad mode, with q, k or v
+requiring grad, goes through an autograd function whose backward launches
+the kernel's two backward entry points (counted in
+``LAUNCHES["flash_attention_bwd"]``, one a backward, and by kernel in
+``ROUTE_LAUNCHES["flash_attention_bwd"]``).  Every other op, and flash
+under a key mask, has no backward kernel yet (ROADMAP item 14b) and raises
+on a CUDA input that requires grad under grad mode, rather than return an
+output cut off from the graph.  On the CPU the plain versions keep their
+autograd.
 """
 from __future__ import annotations
 
@@ -26,7 +36,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import rwkv6_scan as _rwkv
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
-                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}
+                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
+                            "flash_attention_bwd": 0}
 
 
 #: launches by route of the ops with more than one design (the wrappers' counts)
@@ -35,7 +46,8 @@ ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {"flash_attention": _flash.LAUNCHES,
                                              "aes_ctr": _aes.LAUNCHES,
                                              "moe_gmm": _gmm.LAUNCHES,
                                              "mamba_scan": _mamba.LAUNCHES,
-                                             "rwkv6_scan": _rwkv.LAUNCHES}
+                                             "rwkv6_scan": _rwkv.LAUNCHES,
+                                             "flash_attention_bwd": _flash.BWD_LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -54,6 +66,42 @@ def _on_cuda(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: no implementation for device {t.device}")
 
 
+def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether autograd would have to differentiate a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise on a CUDA call that autograd would have to differentiate: the
+    kernel has no backward yet, and its output would be cut off from the
+    graph."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{name}: no backward kernel on the card yet (ROADMAP item 14b); "
+            "run it under torch.no_grad() or train on the CPU")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel's forward (the route of the dtype) and its backward
+    kernels (``bwd_dq``, then ``bwd_dkv``), which recompute the rows'
+    softmax statistics from the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _flash.flash_attention(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _flash.flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                                causal=ctx.causal, window=ctx.window)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -62,8 +110,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not _on_cuda("flash_attention", q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        key_valid=key_valid)
-    out = _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                 key_valid=key_valid)
+    if _needs_grad(q, k, v):
+        if key_valid is not None:
+            _refuse_grad("flash_attention under a key mask", q, k, v)
+        out = _FlashAttention.apply(q, k, v, causal, window)
+    else:
+        out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                     key_valid=key_valid)
     LAUNCHES["flash_attention"] += 1
     return out
 
@@ -73,6 +126,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,Hq,d), k/v (B,T,Hkv,d), valid (B,T) bool/int32 -> (B,Hq,d)."""
     if not _on_cuda("decode_attention", q):
         return ref.decode_attention_ref(q, k, v, valid)
+    _refuse_grad("decode_attention", q, k, v)
     out = _decode.decode_attention(q, k, v, valid)
     LAUNCHES["decode_attention"] += 1
     return out
@@ -83,6 +137,7 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     summed in fp32.  An empty output launches nothing and counts nothing."""
     if not _on_cuda("moe_gmm", x):
         return ref.moe_gmm_ref(x, w)
+    _refuse_grad("moe_gmm", x, w)
     out = _gmm.moe_gmm(x, w)
     if out.numel():
         LAUNCHES["moe_gmm"] += 1
@@ -98,6 +153,7 @@ def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
     An empty input launches nothing and counts nothing."""
     if not _on_cuda("mamba_scan", dt):
         return ref.mamba_scan_ref(dt, dtx, Bm, Cm, A, h0)
+    _refuse_grad("mamba_scan", dt, dtx, Bm, Cm, A, h0)
     out = _mamba.mamba_scan(dt, dtx, Bm, Cm, A, h0)
     if dt.numel():
         LAUNCHES["mamba_scan"] += 1
@@ -112,6 +168,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     launches nothing and counts nothing."""
     if not _on_cuda("rwkv6_scan", r):
         return ref.rwkv6_scan_ref(r, k, v, w, u, S0)
+    _refuse_grad("rwkv6_scan", r, k, v, w, u, S0)
     out = _rwkv.rwkv6_scan(r, k, v, w, u, S0)
     if r.numel():
         LAUNCHES["rwkv6_scan"] += 1
@@ -126,6 +183,7 @@ def aes_ctr_expanded(plaintext: torch.Tensor, round_keys: torch.Tensor, *,
     launches nothing and counts nothing."""
     if not _on_cuda("aes_ctr", plaintext):
         return plaintext ^ ref.aes_ctr_keystream(plaintext.shape[0], round_keys, nonce)
+    _refuse_grad("aes_ctr", plaintext, round_keys)
     out = _aes.aes_ctr(plaintext, round_keys, nonce=nonce)
     if plaintext.shape[0]:
         LAUNCHES["aes_ctr"] += 1

@@ -7,7 +7,9 @@ softmax, same finite ``NEG_INF`` for masked scores, the same sequential
 fp32 recurrences from an optional initial state, the same fp32 expert
 matmul rounded once, the same table-based AES.  ``kernels.ops`` runs them for CPU tensors;
 ``chip_smoke.py`` and the GPU tests hold the CUDA kernels against them on
-the card.  They run on any device.
+the card.  They run on any device.  ``flash_attention_bwd_ref`` is the
+plain version of the flash kernel's backward, which the JAX package does
+not have (it differentiates its XLA attention).
 """
 from __future__ import annotations
 
@@ -33,18 +35,58 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kk = k.repeat_interleave(G, dim=1).float()
     vv = v.repeat_interleave(G, dim=1).float()
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
-    qp = torch.arange(S, device=q.device)[:, None]
-    kp = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kp <= qp + (T - S)     # allow prefix cache offset
-    if window is not None:
-        mask &= kp > qp + (T - S) - window
+    mask = _attn_mask(S, T, causal, window, q.device)
     if key_valid is not None:
         mask = mask & key_valid.bool()[:, None, None, :]
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)
+
+
+def _attn_mask(S: int, T: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
+    """(S, T) bool, True where query i (at position i + T - S) may see key j."""
+    qp = torch.arange(S, device=device)[:, None]
+    kp = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kp <= qp + (T - S)     # allow prefix cache offset
+    if window is not None:
+        mask &= kp > qp + (T - S) - window
+    return mask
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`flash_attention_ref` (no key mask) by q, k and
+    v, from explicit formulas in fp32: with scale = d**-0.5 (the kernel's),
+    P the softmax of the masked scores, D = rowsum(dout * o) and
+    dS = P (dout v^T - D) on the allowed pairs and 0 elsewhere,
+    dq = scale dS k, dk = scale dS^T q and dv = P^T dout, dk and dv summed
+    over each kv head's G query heads.  A row with no allowed key has
+    P = 1/T (the softmax of equal ``NEG_INF`` scores) and no score gradient.
+    o is the forward's output, dout (B, Hq, S, d) the gradient by it.  Each
+    result is rounded once to its input's dtype."""
+    B, Hq, S, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = d ** -0.5
+    qf, dof = q.float(), dout.float()
+    kk = k.repeat_interleave(G, dim=1).float()
+    vv = v.repeat_interleave(G, dim=1).float()
+    mask = _attn_mask(S, T, causal, window, q.device)
+    s = torch.where(mask, torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - delta), 0.0)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kk) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(B, Hkv, G, T, d).sum(dim=2)
+    dv = dv.reshape(B, Hkv, G, T, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

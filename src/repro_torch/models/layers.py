@@ -133,8 +133,26 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 def tree_to(tree, device):
     """A copy of a tree of dicts and tuples of tensors on ``device``."""
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a tree of dicts, tuples and NamedTuples,
+    keeping its structure."""
     if isinstance(tree, dict):
-        return {k: tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, tuple):
-        return tuple(tree_to(v, device) for v in tree)
-    return tree.to(device)
+        return tuple(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree, in the order JAX flattens it (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]

@@ -8,11 +8,11 @@ tree has the same shape and keys: ``params["blocks"]`` is a tuple over the
 in-group positions of ``_stack_plan``, each a dict of tensors stacked over
 the groups, so ``convert.params_from_jax`` is a plain copy.  Jamba's 1:7
 Mamba:attention interleave is one group of ``attn_every`` kinds, repeated.
-The JAX ``lax.scan`` over groups becomes a loop that indexes the stacked
-tensors.  An enc-dec model adds ``enc_blocks`` (one group of
-``encoder_layers`` ATTN blocks), ``enc_norm``, and ``ln_cross`` and
-``cross`` in every decoder block; ``frontend_proj`` maps frontend
-embeddings of another width onto ``d_model``.
+The JAX ``lax.scan`` over groups becomes a loop over the stacked tensors,
+each taken apart once per call.  An enc-dec model adds ``enc_blocks``
+(one group of ``encoder_layers`` ATTN blocks), ``enc_norm``, and
+``ln_cross`` and ``cross`` in every decoder block; ``frontend_proj`` maps
+frontend embeddings of another width onto ``d_model``.
 
 Entry points: ``forward`` (full sequence), ``prefill`` (writes the caches)
 and ``decode_step`` (one token against the caches, with a scalar ``pos``
@@ -33,6 +33,7 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ArchConfig, BlockKind
 from repro_torch.models import attention as attn
@@ -82,6 +83,18 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a dict of stacked tensors, each leaf taken apart
+    once by ``unbind`` (views, no copy).  Under autograd that is one stack
+    of the layers' gradients per leaf in the backward, where indexing each
+    layer would zero-fill a gradient the size of the whole stack for every
+    layer."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][g] for k in per} for g in range(n)]
+    return tree.unbind(0)
 
 
 # ---------------------------------------------------------------------------
@@ -167,26 +180,42 @@ def _apply_block(kind: BlockKind, p: dict, x: torch.Tensor, cfg: ArchConfig, mod
 
 def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
                mode: str, caches=None, positions: Optional[torch.Tensor] = None,
-               step: Optional[attn.DecodeStep] = None, cross=None
+               step: Optional[attn.DecodeStep] = None, cross=None, remat: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run x through every layer: a loop over groups, and over the kinds in
     each group.  ``caches`` mirrors ``params_groups`` (stacked per kind) and
     is written in place.  ``cross`` is ``(cross_kv, mask)``: the encoder's
     K/V of every layer (``_cross_kv_all_layers``) and its key mask or None
-    (JAX ``_run_stack_cross``).  Returns (x, the aux losses summed over
-    layers)."""
-    total = torch.zeros((), device=x.device)
-    for g in range(params_groups[0]["ln1"].shape[0]):
+    (JAX ``_run_stack_cross``).  ``remat`` (no caches) recomputes each
+    group's activations in the backward instead of keeping them: the group's
+    body runs under ``torch.utils.checkpoint``, as JAX's under
+    ``jax.checkpoint``.  Returns (x, the aux losses summed over layers)."""
+    n_groups = params_groups[0]["ln1"].shape[0]
+    layers = [_unstack(p, n_groups) for p in params_groups]
+
+    def group(x, g_params, g_caches, g_cross):
+        """The group's blocks: (x, their aux losses summed, or None)."""
+        total = None
         for i, kind in enumerate(kinds):
-            c = None if caches is None else _layer(caches[i], g)
-            layer_cross = None
-            if cross is not None:
-                (ck, cv), mask = cross[0][i], cross[1]
-                layer_cross = (ck[g], cv[g], mask)
-            x, aux = _apply_block(kind, _layer(params_groups[i], g), x, cfg, mode,
-                                  positions, step, c, layer_cross)
+            x, aux = _apply_block(kind, g_params[i], x, cfg, mode, positions, step,
+                                  g_caches[i], g_cross[i])
             if aux is not None:
-                total = total + aux
+                total = aux if total is None else total + aux
+        return x, total
+
+    total = torch.zeros((), device=x.device)
+    for g in range(n_groups):
+        g_params = tuple(p[g] for p in layers)
+        g_caches = ((None,) * len(kinds) if caches is None
+                    else tuple(_layer(c, g) for c in caches))
+        g_cross = ((None,) * len(kinds) if cross is None
+                   else tuple((ck[g], cv[g], cross[1]) for ck, cv in cross[0]))
+        if remat and caches is None and torch.is_grad_enabled():
+            x, aux = checkpoint(group, x, g_params, g_caches, g_cross, use_reentrant=False)
+        else:
+            x, aux = group(x, g_params, g_caches, g_cross)
+        if aux is not None:
+            total = total + aux
     return x, total
 
 
@@ -285,10 +314,11 @@ def _encode_for_cross(params, cfg: ArchConfig, batch: dict):
     return _cross_kv_all_layers(params, cfg, enc_out), None if mask is None else mask.bool()
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict
+def forward(params: dict, cfg: ArchConfig, batch: dict, remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full sequence -> (logits (B,S,V), moe_aux): the routers' aux loss
-    summed over the layers, zero for a dense model."""
+    summed over the layers, zero for a dense model.  ``remat`` recomputes
+    each layer group's activations in the backward (training)."""
     kinds, _ = _plan(cfg)
     x = model_inputs_to_embeds(params, cfg, batch)
     B, S, _ = x.shape
@@ -297,7 +327,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict
         positions = _positions(B, S, x.device)
     cross = None if cfg.encdec is None else _encode_for_cross(params, cfg, batch)
     x, aux = _run_stack(params["blocks"], kinds, x, cfg, "full", positions=positions,
-                        cross=cross)
+                        cross=cross, remat=remat)
     return _unembed(params, cfg, x), aux
 
 

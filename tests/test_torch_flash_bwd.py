@@ -1,0 +1,264 @@
+"""The flash kernel's backward on the CPU: its plain version
+``flash_attention_bwd_ref`` and autograd of the port's plain forward against
+``jax.vjp`` of the JAX package's ``flash_attention_ref``, over the flash
+sweep of ``tests/test_kernels.py`` and the cases the two CUDA kernels treat
+apart (rows that see no key, d 120, a window, S != T), fp32 at the flash
+limit of ``tests/test_kernels.py`` (atol = rtol = 3e-5).  Then a model of
+the two kernels' tiling in torch (which tiles each block walks, the rows'
+statistics handed from the first kernel to the second) against the plain
+version, and the dispatch: the wrapper refuses CPU tensors, and on the CPU
+the op keeps its autograd."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+
+TOL = dict(atol=3e-5, rtol=3e-5)
+CASES = [   # B, Hq, Hkv, S, T, d, causal, window
+    (2, 4, 2, 128, 128, 64, True, None),
+    (1, 8, 2, 96, 96, 64, True, 32),       # SWA + padding
+    (2, 2, 2, 64, 192, 32, True, None),    # prefix-cache offset
+    (1, 4, 4, 128, 128, 128, False, None), # bidirectional MHA
+    (1, 2, 1, 257, 257, 64, True, None),   # odd lengths
+    (1, 4, 2, 70, 40, 32, True, None),     # S > T: rows that see no key
+    (1, 4, 2, 70, 40, 32, False, 16),      # S > T, not causal, a window
+    (1, 4, 2, 150, 150, 120, True, 64),    # d 120 under a window that bites
+]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The shapes are small: one intra-op thread, so that torch's thread
+    pool does not spin against the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(case, seed=0):
+    B, Hq, Hkv, S, T, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Hq, S, d), (B, Hkv, T, d), (B, Hkv, T, d), (B, Hq, S, d))]
+
+
+def _jax_vjp(q, k, v, dout, causal, window):
+    out, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(a, b, c, causal=causal,
+                                                                 window=window),
+                       *map(jnp.asarray, (q, k, v)))
+    return np.array(out), [np.array(g) for g in vjp(jnp.asarray(dout))]
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_bwd_ref_matches_jax_vjp(case):
+    causal, window = case[6:]
+    q, k, v, dout = _inputs(case)
+    out, expect = _jax_vjp(q, k, v, dout, causal, window)
+    got = tref.flash_attention_bwd_ref(*map(torch.from_numpy, (q, k, v, out, dout)),
+                                       causal=causal, window=window)
+    for name, g, e in zip("qkv", got, expect):
+        assert g.dtype == torch.float32 and g.shape == e.shape, name
+        np.testing.assert_allclose(g.numpy(), e, **TOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_autograd_of_the_plain_forward_matches_jax_vjp(case):
+    causal, window = case[6:]
+    q, k, v, dout = _inputs(case, seed=1)
+    out, expect = _jax_vjp(q, k, v, dout, causal, window)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    o = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(o.detach().numpy(), out, **TOL)
+    grads = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(dout))
+    for name, g, e in zip("qkv", grads, expect):
+        np.testing.assert_allclose(g.numpy(), e, **TOL, err_msg=f"d{name}")
+
+
+def test_a_row_that_sees_no_key_spreads_dout_over_v():
+    """Causal with S > T: the first S - T rows see no key.  Their output is
+    the mean of v, so their dq is 0, they give nothing to dk, and each key's
+    dv takes 1/T of their dout."""
+    case = (1, 2, 1, 40, 24, 32, True, None)
+    q, k, v, dout = _inputs(case, seed=2)
+    dout[:, :, 16:] = 0.0                    # only the rows with no key
+    o = tref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)))
+    dq, dk, dv = tref.flash_attention_bwd_ref(*map(torch.from_numpy, (q, k, v)), o,
+                                              torch.from_numpy(dout))
+    assert float(dq.abs().max()) == 0.0 and float(dk.abs().max()) == 0.0
+    spread = dout[:, :, :16].sum(axis=(1, 2)) / 24
+    np.testing.assert_allclose(dv.numpy()[0, 0], np.broadcast_to(spread[0], (24, 32)),
+                               **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_ref_rounds_once_to_the_inputs_dtype(dtype):
+    q, k, v, dout = (torch.from_numpy(a).to(dtype)
+                     for a in _inputs((1, 4, 2, 64, 64, 32, True, None), seed=3))
+    o = tref.flash_attention_ref(q, k, v)
+    got = tref.flash_attention_bwd_ref(q, k, v, o, dout)
+    fp32 = tref.flash_attention_bwd_ref(*(t.float() for t in (q, k, v, o, dout)))
+    for g, e in zip(got, fp32):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, e.to(dtype), atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The two kernels' tiling, modelled in torch: each block's loop bounds, the
+# first kernel's per-row log-sum-exp and D handed to the second, and the
+# rows that see no key, as in csrc/flash_attention.cu (namespace bwd).
+
+TILE = 64
+
+
+def _allowed(p, kp, causal, window):
+    ok = torch.ones(p.shape[0], kp.shape[1], dtype=torch.bool)
+    if causal:
+        ok &= kp <= p
+    if window is not None:
+        ok &= kp > p - window
+    return ok
+
+
+def _dq_model(q, k, v, o, dout, causal, window):
+    """dq, lse and D from the dq kernel's walk: a 64-query tile sees the key
+    tiles from the window's start of its first row that has a key to the
+    causal bound of its last row."""
+    B, Hq, S, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G, off, scale = Hq // Hkv, T - S, d ** -0.5
+    dq = torch.zeros_like(q)
+    lse = torch.zeros(B, Hq, S)
+    delta = (dout * o).sum(-1)
+    for b in range(B):
+        for h in range(Hq):
+            kk, vv = k[b, h // G], v[b, h // G]
+            for q0 in range(0, S, TILE):
+                nq = min(TILE, S - q0)
+                p = torch.arange(q0, q0 + nq)[:, None] + off
+                lo, hi = 0, T - 1
+                if causal:
+                    hi = min(hi, q0 + nq - 1 + off)
+                if window is not None:
+                    first = max(q0 + off, 0) if causal else q0 + off
+                    lo = max(0, first - window + 1)
+                tiles = range((lo // TILE) * TILE, hi + 1, TILE)
+                qs = q[b, h, q0:q0 + nq] * scale
+                m = torch.full((nq,), -1e30)
+                l = torch.zeros(nq)
+                for t0 in tiles:
+                    kp = torch.arange(t0, min(t0 + TILE, T))[None]
+                    s = torch.where(_allowed(p, kp, causal, window),
+                                    qs @ kk[t0:t0 + TILE].T, -1e30)
+                    m_new = torch.maximum(m, s.max(-1).values)
+                    l = l * torch.exp(m - m_new) + torch.exp(s - m_new[:, None]).sum(-1)
+                    m = m_new
+                row_lse = m + torch.log(l)
+                lse[b, h, q0:q0 + nq] = row_lse
+                acc = torch.zeros(nq, d)
+                for t0 in tiles:
+                    kp = torch.arange(t0, min(t0 + TILE, T))[None]
+                    ok = _allowed(p, kp, causal, window)
+                    s = qs @ kk[t0:t0 + TILE].T
+                    dp = dout[b, h, q0:q0 + nq] @ vv[t0:t0 + TILE].T
+                    ds = torch.where(ok, torch.exp(s - row_lse[:, None])
+                                     * (dp - delta[b, h, q0:q0 + nq, None]), 0.0)
+                    acc += ds @ kk[t0:t0 + TILE]
+                dq[b, h, q0:q0 + nq] = acc * scale
+    return dq, lse, delta
+
+
+def _dkv_model(q, k, v, dout, lse, delta, causal, window):
+    """dk and dv from the dkv kernel's walk: a 64-key tile sums over the G
+    query heads and the query tiles from the first row whose causal bound
+    reaches it (row 0 when some rows see no key) to the last whose window
+    still does."""
+    B, Hq, S, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G, off, scale = Hq // Hkv, T - S, d ** -0.5
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b in range(B):
+        for hk in range(Hkv):
+            for t0 in range(0, T, TILE):
+                nt = min(TILE, T - t0)
+                kp = torch.arange(t0, t0 + nt)[None]
+                i_lo = max(0, t0 - off) if causal else 0
+                if causal and off < 0:
+                    i_lo = 0
+                i_hi = S - 1 if window is None else min(S - 1, t0 + nt - 2 + window - off)
+                for g in range(G):
+                    h = hk * G + g
+                    for q0 in range((i_lo // TILE) * TILE, i_hi + 1, TILE):
+                        nq = min(TILE, S - q0)
+                        p = torch.arange(q0, q0 + nq)[:, None] + off
+                        qs = q[b, h, q0:q0 + nq] * scale
+                        do = dout[b, h, q0:q0 + nq]
+                        s = qs @ k[b, hk, t0:t0 + nt].T
+                        dp = do @ v[b, hk, t0:t0 + nt].T
+                        ok = _allowed(p, kp, causal, window)
+                        pw = torch.where(ok, torch.exp(s - lse[b, h, q0:q0 + nq, None]), 0.0)
+                        ds = pw * (dp - delta[b, h, q0:q0 + nq, None])
+                        if causal:
+                            empty = (p < 0).expand_as(pw)
+                            pw = torch.where(empty, 1.0 / T, pw)
+                            ds = torch.where(empty, 0.0, ds)
+                        dv[b, hk, t0:t0 + nt] += pw.T @ do
+                        dk[b, hk, t0:t0 + nt] += ds.T @ qs
+    return dk, dv
+
+
+@pytest.mark.parametrize("case", CASES + [(1, 2, 1, 200, 130, 32, True, 50),
+                                          (1, 2, 1, 130, 200, 32, False, 40)], ids=str)
+def test_the_kernels_tiling_matches_the_plain_version(case):
+    causal, window = case[6:]
+    q, k, v, dout = map(torch.from_numpy, _inputs(case, seed=4))
+    o = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    dq, lse, delta = _dq_model(q, k, v, o, dout, causal, window)
+    dk, dv = _dkv_model(q, k, v, dout, lse, delta, causal, window)
+    for name, g, e in zip("qkv", (dq, dk, dv),
+                          tref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
+                                                       window=window)):
+        torch.testing.assert_close(g, e, **TOL, msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+
+def test_the_backward_wrapper_refuses_cpu_tensors():
+    q, k, v, dout = map(torch.from_numpy, _inputs(CASES[0]))
+    before = dict(tflash.BWD_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tflash.flash_attention_bwd(q, k, v, q, dout)
+    with pytest.raises(ValueError, match="shaped as q"):
+        tflash.flash_attention_bwd(q, k, v, q[:, :, :5], dout)
+    assert tflash.BWD_LAUNCHES == before
+
+
+def test_on_the_cpu_the_op_keeps_its_autograd_and_counts_nothing():
+    ops.reset_launches()
+    q, k, v, _ = (torch.from_numpy(a).requires_grad_(True) for a in _inputs(CASES[1]))
+    out = ops.flash_attention(q, k, v, causal=True, window=32)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert all(t.grad is not None for t in (q, k, v))
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 0
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 0, "bwd_dkv": 0}
+
+
+def test_refuse_grad_names_the_item_and_spares_inference():
+    """What every op but flash raises on the card under a gradient: the
+    check itself, which needs no card."""
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        ops._refuse_grad("moe_gmm", x, None)
+    with torch.no_grad():
+        ops._refuse_grad("moe_gmm", x)
+    ops._refuse_grad("moe_gmm", x.detach(), None)

@@ -919,3 +919,115 @@ def test_reduced_seamless_under_an_enc_mask_on_the_card(cuda):
     assert ops.LAUNCHES["decode_attention"] == 2 * L * 4
     for got, expect in zip(logits["cuda"], logits["cpu"]):
         torch.testing.assert_close(got, expect, atol=5e-2, rtol=5e-2)
+
+
+# ---------------------------------------------------------------------------
+# The flash backward: both kernels against the plain version, at the limits
+# of the forward (both compute in fp32 and round once); the op's gradient on
+# the card; every other op refuses one; a reduced train step, card against CPU
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win", FLASH_SWEEP + [
+    (1, 4, 2, 70, 40, 32, True, None),       # S > T: rows that see no key
+    (2, 4, 2, 100, 300, 64, True, None),     # S < T: the causal offset
+    (1, 8, 2, 300, 300, 120, True, 64),      # d 120 under a window
+    (8, 16, 8, 512, 512, 128, True, None),   # qwen3-1.7b's training shape
+])
+def test_flash_attention_bwd_kernels(cuda, B, Hq, Hkv, S, T, d, causal, win, dtype):
+    dt = getattr(torch, dtype)
+    q, dout = (_randn(cuda, (B, Hq, S, d), dt) for _ in range(2))
+    k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
+    o = ref.flash_attention_ref(q, k, v, causal=causal, window=win)
+    before = dict(tflash.BWD_LAUNCHES)
+    got = tflash.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert tflash.BWD_LAUNCHES == {r: n + 1 for r, n in before.items()}
+    expect = ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal, window=win)
+    for g, e in zip(got, expect):
+        assert g.dtype == dt and g.shape == e.shape
+        _assert_close(g, e, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_on_the_card_has_a_grad_fn(cuda, dtype):
+    """Under grad mode the op's output joins the graph, and its backward
+    launches the two backward kernels and gives the plain version's
+    gradients; under no_grad nothing changes."""
+    dt = getattr(torch, dtype)
+    q = _randn(cuda, (2, 4, 96, 64), dt).requires_grad_(True)
+    k, v = (_randn(cuda, (2, 2, 96, 64), dt).requires_grad_(True) for _ in range(2))
+    dout = _randn(cuda, (2, 4, 96, 64), dt)
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=True, window=32)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 1
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 1, "bwd_dkv": 1}
+    expect = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(),
+                                         dout, causal=True, window=32)
+    for g, e in zip(grads, expect):
+        _assert_close(g, e, dtype)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v).grad_fn is None
+
+
+def test_every_other_op_refuses_a_gradient_on_the_card(cuda):
+    """No op returns an output cut off from the graph: without a backward
+    kernel (ROADMAP item 14b) it raises under grad mode, and runs under
+    no_grad."""
+    g = lambda *s: _randn(cuda, s, torch.float32).requires_grad_(True)  # noqa: E731
+    valid = torch.ones((2, 64), dtype=torch.bool, device="cuda")
+    calls = {
+        "decode_attention": lambda: ops.decode_attention(g(2, 4, 64), g(2, 64, 2, 64),
+                                                         g(2, 64, 2, 64), valid),
+        "moe_gmm": lambda: ops.moe_gmm(g(2, 8, 32), g(2, 32, 16)),
+        "mamba_scan": lambda: ops.mamba_scan(g(1, 8, 32), g(1, 8, 32), g(1, 8, 16),
+                                             g(1, 8, 16), g(32, 16)),
+        "rwkv6_scan": lambda: ops.rwkv6_scan(*(g(1, 8, 2, 32) for _ in range(4)), g(2, 32)),
+        "flash_attention under a key mask": lambda: ops.flash_attention(
+            g(2, 4, 8, 64), g(2, 2, 64, 64), g(2, 2, 64, 64), causal=False, key_valid=valid),
+    }
+    for name, call in calls.items():
+        with pytest.raises(NotImplementedError, match="item 14b"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_reduced_train_step_card_against_cpu(cuda, remat):
+    """Two steps of reduced float32 qwen3-1.7b from the same weights and
+    batches on the card and on the CPU: losses and grad norms within 1e-4,
+    and every attention forward and backward on the kernels."""
+    import dataclasses
+
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.optimizer import init_state
+
+    cfg = dataclasses.replace(reduced(get_arch("qwen3-1.7b")), dtype="float32")
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0))
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=2)).batches()
+    batches = [next(it) for _ in range(2)]
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2), remat=remat)
+    metrics = {}
+    for where in ("cpu", "cuda"):
+        params = tree_map(lambda p: p.to(where, copy=True).requires_grad_(True), p_cpu)
+        state = init_state(params)
+        ops.reset_launches()
+        metrics[where] = []
+        for b in batches:
+            params, state, m = step(params, state,
+                                    {k: torch.from_numpy(v).to(where) for k, v in b.items()})
+            metrics[where].append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    L = cfg.n_layers
+    assert ops.LAUNCHES["flash_attention"] == (2 if remat else 1) * L * 2
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 2 * L, "bwd_dkv": 2 * L}
+    for c, g in zip(metrics["cpu"], metrics["cuda"]):
+        for k in c:
+            assert g[k] == pytest.approx(c[k], rel=1e-4, abs=1e-4), k

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
-neither JAX nor the JAX package, and no module of it (nor ``chip_smoke.py``)
-imports either."""
+neither JAX nor the JAX package, and no module of it (nor ``chip_smoke.py``
+or the port's training example) imports either."""
 import ast
 import os
 import subprocess
@@ -13,7 +13,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "examples" / "train_small_torch.py"]
 
 
 def _modules():
@@ -65,6 +66,16 @@ def test_the_walk_covers_the_fleet_and_experiments_modules():
             "repro_torch.experiments", "repro_torch.experiments.artifacts",
             "repro_torch.experiments.runner", "repro_torch.experiments.scenario",
             "repro_torch.experiments.suites"} <= mods
+
+
+def test_the_walk_covers_the_training_modules():
+    """The training path, the FLOP accounting and the input shapes are
+    among the modules it imports."""
+    mods = set(_modules())
+    assert {"repro_torch.train", "repro_torch.train.checkpoint", "repro_torch.train.data",
+            "repro_torch.train.losses", "repro_torch.train.optimizer",
+            "repro_torch.train.train_loop", "repro_torch.launch.train",
+            "repro_torch.models.flops", "repro_torch.config.shapes"} <= mods
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():

@@ -191,7 +191,8 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     torch.testing.assert_close(out, tref.decode_attention_ref(dq, dk, dv, valid),
                                atol=0, rtol=0)
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
-                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}
+                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
+                            "flash_attention_bwd": 0}
 
 
 def test_other_devices_raise():
@@ -202,7 +203,8 @@ def test_other_devices_raise():
     with pytest.raises(ValueError, match="no implementation"):
         ops.decode_attention(dq, dk, dv, valid)
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
-                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0}
+                            "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
+                            "flash_attention_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -368,7 +370,8 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                                   "aes_ctr": {"ttable": 0, "simt": 0},
                                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
                                   "mamba_scan": {"lanes": 0, "simt": 0},
-                                  "rwkv6_scan": {"cols": 0, "simt": 0}}
+                                  "rwkv6_scan": {"cols": 0, "simt": 0},
+                                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0}}
 
 
 def test_every_entry_point_refuses_cpu_tensors():
