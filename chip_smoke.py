@@ -39,15 +39,19 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    pixtral's 2048-slot KV caches; the flash kernel's key-masked route at
    seamless's cross prefill (ragged valid lengths, one fully masked row) in
    fp32 and bf16, timed in turns with the simt design unmasked, SDPA given
-   the same boolean mask beside them; the flash backward's two kernels
-   (``bwd_dq``, ``bwd_dkv``) over the sweep in both dtypes and at the
-   training shapes (qwen3-1.7b's and h2o-danube-3-4b's in bf16, S < T and
-   S > T in fp32, a non-causal case), at the forward's limits, then timed
-   at qwen3's in turns with SDPA's backward (``torch.autograd.grad`` of
-   SDPA through K and V repeated to Hq, so that the sum back to Hkv is
-   timed too), both by CUDA events with L2 flushed and the card held for
-   ``BWD_HOLD_CYCLES``, long enough for the autograd engine to enqueue
-   SDPA's backward before the span starts;
+   the same boolean mask beside them; the flash backward's two kernels in
+   both designs (``bwd_route``: bf16 -> the wgmma pair ``bwd_dq_wgmma``,
+   ``bwd_dkv_wgmma``; fp32 -> the simt pair ``bwd_dq``, ``bwd_dkv``, which
+   also runs bf16 on its own entry point) over the sweep in both dtypes and
+   at the training shapes (qwen3-1.7b's and h2o-danube-3-4b's in bf16, S <
+   T, S > T and a non-causal case in both dtypes, a 128-key window under
+   512 tokens at d 120 and 64 in bf16), at the forward's limits, then timed
+   at qwen3's: the wgmma pair in turns with the simt pair, and in turns
+   with SDPA's backward (``torch.autograd.grad`` of SDPA through K and V
+   repeated to Hq, so that the sum back to Hkv is timed too), all by CUDA
+   events with L2 flushed and the card held for ``BWD_HOLD_CYCLES``, long
+   enough for the autograd engine to enqueue SDPA's backward before the
+   span starts;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -155,8 +159,9 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    tokens) from the same weights and ``SyntheticLM`` batches, 3 steps of
    ``make_train_step(remat=True)`` on the CPU and on the card: losses and
    grad norms within atol/rtol 1e-4, each card step's launches 2 L flash
-   forwards (the recompute) and L of each backward kernel, the plain
-   attention refused; 11b full-width, full-depth ``qwen3-1.7b`` in bf16
+   forwards (the recompute) and L of each backward kernel of the simt pair,
+   the plain attention refused; 11b full-width, full-depth ``qwen3-1.7b`` in
+   bf16, its backward on the wgmma pair (the simt pair launched 0 times)
    (fp32 moments, AdamW at 3e-4) on 8 x 512-token batches over its whole
    vocabulary, 4 steps: finite, falling loss and the same launch counts, with
    the step time, tokens/s, model FLOPs per second and their share of 989
@@ -304,9 +309,11 @@ FLASH_BWD_MAIN = (8, 16, 8, 512, 512, 128, True, None)   # qwen3-1.7b's training
 FLASH_BWD_CASES = [
     (FLASH_BWD_MAIN, ("bfloat16",)),
     ((8, 32, 8, 512, 512, 120, True, 4096), ("bfloat16",)),   # h2o-danube-3-4b's
-    ((2, 4, 2, 192, 320, 64, True, None), ("float32",)),       # S < T: the causal offset
-    ((1, 4, 2, 70, 40, 32, True, None), ("float32",)),         # S > T: rows that see no key
+    ((2, 4, 2, 192, 320, 64, True, None), ("float32", "bfloat16")),   # S < T: the causal offset
+    ((1, 4, 2, 70, 40, 32, True, None), ("float32", "bfloat16")),   # S > T: rows that see no key
     ((2, 8, 4, 256, 256, 64, False, None), ("float32", "bfloat16")),   # not causal
+    ((2, 8, 4, 512, 512, 120, True, 128), ("bfloat16",)),      # a window that bites, d 120
+    ((2, 8, 4, 512, 512, 64, True, 128), ("bfloat16",)),       # and d 64
 ]
 # phase 11: training; 11a reduced, card against CPU (h2o's window of 128 under
 # a longer sequence), 11b full-width qwen3-1.7b
@@ -932,22 +939,31 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention.py:98",
         source="src/repro_torch/csrc/flash_attention.cu")
 
-    # the flash backward (phase 11's training): both kernels against the
-    # plain version over the sweep in both dtypes and at the training shapes,
-    # then timed at qwen3-1.7b's, in turns with SDPA's backward (through K
-    # and V repeated to Hq, the sum back to Hkv included)
+    # the flash backward (phase 11's training): the pair of each design
+    # (bwd_route: bf16 -> wgmma, fp32 -> simt; the simt pair for bf16 too)
+    # against the plain version over the sweep in both dtypes and at the
+    # training shapes, then timed at qwen3-1.7b's: the wgmma pair in turns
+    # with the simt pair, and in turns with SDPA's backward (through K and V
+    # repeated to Hq, the sum back to Hkv included)
+    if _flash.bwd_route(torch.bfloat16) != "wgmma" or _flash.bwd_route(torch.float32) != "simt":
+        raise AssertionError("flash_attention_bwd: bf16 must route to wgmma, fp32 to simt")
     for case, dnames in [(c, tuple(dtypes)) for c in FLASH_SWEEP] + FLASH_BWD_CASES:
         for dname in dnames:
             (q, k, v), kw = flash_case(case, dtypes[dname])
             dout = randn(*q.shape, dtype=dtypes[dname])
             o = ref.flash_attention_ref(q, k, v, **kw)
-            got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
-            torch.cuda.synchronize()
-            errs = [check_close(f"flash_attention_bwd{case} {dname} d{n}", g, e, TOL[dname])
-                    for n, g, e in zip("qkv", got, ref.flash_attention_bwd_ref(q, k, v, o, dout,
-                                                                               **kw))]
-            print(f"  flash_attention_bwd {case} {dname}: max |diff| dq {errs[0]:.3g}, "
-                  f"dk {errs[1]:.3g}, dv {errs[2]:.3g} (atol, rtol {TOL[dname]})")
+            plain = ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)
+            designs = {_flash.bwd_route(dtypes[dname]): _flash.flash_attention_bwd}
+            if dname == "bfloat16":
+                designs["simt"] = _flash.flash_attention_bwd_simt
+            for design, fn in designs.items():
+                got = fn(q, k, v, o, dout, **kw)
+                torch.cuda.synchronize()
+                errs = [check_close(f"flash_attention_bwd{case} {dname} {design} d{n}", g, e,
+                                    TOL[dname]) for n, g, e in zip("qkv", got, plain)]
+                print(f"  flash_attention_bwd {case} {dname}, {design} pair: max |diff| dq "
+                      f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} (atol, rtol "
+                      f"{TOL[dname]})")
     B, Hq, Hkv, S, Tk, d, causal, win = FLASH_BWD_MAIN
     (q, k, v), kw = flash_case(FLASH_BWD_MAIN, torch.bfloat16)
     dout = randn(*q.shape, dtype=torch.bfloat16)
@@ -959,15 +975,19 @@ def main() -> int:
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
     lo = torch.nn.functional.scaled_dot_product_attention(
         lq, lk.repeat_interleave(G, 1), lv.repeat_interleave(G, 1), is_causal=True)
-    lib, new = in_turns(
+    old, new = in_turns(
+        torch, lambda: _flash.flash_attention_bwd_simt(q, k, v, o, dout, **kw),
+        lambda: _flash.flash_attention_bwd(q, k, v, o, dout, **kw), 10, flush, BWD_HOLD_CYCLES)
+    lib, new_lib = in_turns(
         torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), dout, retain_graph=True),
         lambda: _flash.flash_attention_bwd(q, k, v, o, dout, **kw), 10, flush, BWD_HOLD_CYCLES)
     pairs = int(torch.tril(torch.ones(S, Tk, dtype=torch.bool), Tk - S).sum())
     print(f"  flash_attention_bwd {FLASH_BWD_MAIN} bfloat16, in turns, card held "
-          f"{BWD_HOLD_CYCLES} cycles: bwd_dq + bwd_dkv {spread(new)}, max |diff| {err:.3g}; "
-          f"SDPA's backward with the sum over G {spread(lib)}")
+          f"{BWD_HOLD_CYCLES} cycles: wgmma pair {spread(new)} beside the simt pair, "
+          f"{spread(new_lib)} beside SDPA, max |diff| {err:.3g}; simt pair (previous) "
+          f"{spread(old)}; SDPA's backward with the sum over G {spread(lib)}")
     records["flash_attention_bwd"] = dict(
-        err=err, ms=statistics.fmean(new),
+        err=err, ms=statistics.fmean(new + new_lib), previous_ms=statistics.fmean(old),
         plain_ms=time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw), 3,
                          flush),
         library_ms=statistics.fmean(lib),
@@ -976,9 +996,10 @@ def main() -> int:
         ops_ms=1e3 * 10 * d * pairs * B * Hq / PEAK_BF16_FLOPS,
         replaces="src/repro/kernels/flash_attention.py:98",
         source="src/repro_torch/csrc/flash_attention.cu",
-        note="the backward of the flash kernel (bwd_dq, then bwd_dkv); the JAX package has "
-             "no Pallas backward and differentiates gqa_attend "
-             "(src/repro/models/attention.py:51); launches: phase 11b's training")
+        note="the backward of the flash kernel (bwd_dq_wgmma, then bwd_dkv_wgmma; "
+             "previous_ms: the simt pair bwd_dq, bwd_dkv); the JAX package has no Pallas "
+             "backward and differentiates gqa_attend (src/repro/models/attention.py:51); "
+             "launches: phase 11b's training")
     del lq, lk, lv, lo, got
 
     # decode at a step of the main path, a 512-token prompt in a 1024-slot
@@ -1656,7 +1677,8 @@ def main() -> int:
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
                   "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0}}:
+                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
+                                          "bwd_dkv_wgmma": 0}}:
         raise AssertionError(f"mixtral's launches by route {routes}")
     launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
 
@@ -1679,7 +1701,8 @@ def main() -> int:
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
                   "mamba_scan": {"lanes": 672, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0}}:
+                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
+                                          "bwd_dkv_wgmma": 0}}:
         raise AssertionError(f"Jamba's launches by route {routes}")
     launches["mamba_scan"] = jamba_launches["mamba_scan"]
     gc.collect()
@@ -1710,7 +1733,8 @@ def main() -> int:
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
                   "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0}}:
+                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
+                                          "bwd_dkv_wgmma": 0}}:
         raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
     h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
                 f"prefill and {h2o_launches['decode_attention']} decode launches")
@@ -2137,10 +2161,15 @@ def main() -> int:
 
     def train_routes(cfg, steps):
         """The launches by route of ``steps`` train steps under remat: each
-        attention layer's forward twice (the recompute), its backward once."""
+        attention layer's forward twice (the recompute), its backward once,
+        on the pair of ``bwd_route`` (fp32: ``bwd_dq``/``bwd_dkv``, bf16:
+        ``bwd_dq_wgmma``/``bwd_dkv_wgmma``)."""
         L = layer_counts(cfg)["attn"]
-        return {"flash_attention": {_flash.route(getattr(torch, cfg.dtype)): 2 * L * steps},
-                "flash_attention_bwd": {"bwd_dq": L * steps, "bwd_dkv": L * steps}}
+        dt = getattr(torch, cfg.dtype)
+        pair = ("bwd_dq", "bwd_dkv") if _flash.bwd_route(dt) == "simt" else \
+            ("bwd_dq_wgmma", "bwd_dkv_wgmma")
+        return {"flash_attention": {_flash.route(dt): 2 * L * steps},
+                "flash_attention_bwd": {k: L * steps for k in pair}}
 
     def check_train_launches(name, cfg, steps):
         L = layer_counts(cfg)["attn"]
@@ -2262,6 +2291,8 @@ def main() -> int:
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             for part, tag in (("bwd::dq_kernel", "bwd_dq"), ("bwd::dkv_kernel", "bwd_dkv"),
+                              ("wgb::dq_kernel", "bwd_dq_wgmma"),
+                              ("wgb::dkv_kernel", "bwd_dkv_wgmma"),
                               ("flash_wgmma_kernel", "flash forward")):
                 if part in e.key:
                     by_kernel[tag] += e.self_device_time_total

@@ -1088,6 +1088,560 @@ cudaError_t launch_dtype(int dtype, int D, const Args& a, bool dkv, cudaStream_t
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// The backward's wgmma design (bf16): the same two kernels and the same
+// walks as namespace bwd, on Hopper's tensor cores.  Five products of
+// 2 S T d operations a query head (halved when causal) bind the simt pair
+// to the CUDA cores' 67 TFLOP/s; here every product is a wgmma, fed by TMA.
+//
+// Both kernels are blocks of one warpgroup (128 threads) that owns 64 rows.
+// Its thread 0 issues the TMA loads (3-D tensor maps per (batch x head,
+// position, d), 128-byte swizzle, the forward's Cfg slabs, so that at
+// D = 120 TMA zero-fills columns 120..127) into a ring of stages counted by
+// mbarriers, and reissues a stage once a block barrier shows every warp
+// done with it.  A warpgroup waits for each product before its arithmetic,
+// so the tensor cores are kept busy by the other blocks of the SM, and
+// what bounds the blocks an SM is registers: the dkv kernel's two sums
+// take 128 registers a thread at d = 128, and ptxas compiles a kernel for
+// nine or more warps an SM against 168 (three warps share each of the
+// SM's four register files).  So neither kernel has a producer warp: two
+// dkv blocks of four warps fit an SM (two stages of Q and dO), and three dq
+// blocks (one stage of K and V, to fit three in shared memory).
+//
+//   dq kernel, a block per (64-query tile, query head, batch row), the key
+//   tiles the rows can see (bwd's closed form).  D = rowsum(dO o) from
+//   global memory in the accumulator's layout.  Pass 1: S = Q K^T by
+//   wgmma_ss, each row's max and sum in the accumulator's layout (quad
+//   shuffles) -> lse.  Pass 2: S = Q K^T and dP = dO V^T by wgmma_ss (V's
+//   tile [key][d] read K-major like K), dS = P (dP - D) in registers, then
+//   dq += dS K by wgmma_rs with K read through the transposed (MN-major)
+//   descriptor, as the forward reads V.
+//   dkv kernel, a block per (64-key tile, kv head, batch row), the G query
+//   heads and the query tiles that can see the tile (bwd's i_lo, i_hi).  K
+//   and V are loaded once; Q and dO tiles stream through the ring, and the
+//   block copies each query tile's lse and D into shared memory (in the
+//   transposed products they vary along the columns).  S^T = K Q^T and
+//   dP^T = V dO^T by wgmma_ss; P^T and dS^T, keys as rows, are the A
+//   operands from registers of dV += P^T dO and dK += dS^T Q (dO and Q
+//   MN-major).  dk and dv are summed in registers: no atomics, and the
+//   result does not depend on the order of blocks.
+//
+// P and dS are each split into a bf16 head and the bf16 remainder and both
+// are multiplied, as the forward does for P V: a single bf16 copy of either
+// errs up to 6 times past atol 1e-3 + rtol 1e-2 (tests/test_torch_flash_bwd.py
+// models both).  lse is kept in log2 units (scores times scale log2(e)), so
+// P = exp2(s - lse) by ex2.approx.  A causal row at a negative position sees
+// no key: the dq kernel gives it P = 0 and dq = 0, the dkv kernel P = 1 / T
+// on every key and dS = 0, as the plain version's softmax of equal scores.
+
+namespace wgb {
+
+using wg::Cfg;
+constexpr int kT = 64;               // rows of every tile: queries or keys
+constexpr int kConsumers = 128;      // a block is one warpgroup
+constexpr int kDqStages = 1;         // K and V tiles in flight: three dq blocks an SM
+constexpr int kDkvStages = 2;        // Q and dO tiles in flight: two dkv blocks an SM
+
+// Shared memory: the 64-row bf16 tiles (Cfg's KV_BYTES each; dq: Q, dO and
+// a K and a V a stage; dkv: K, V and a Q and a dO a stage), the dkv
+// kernel's lse and D of each stage, the barriers, and room to align.
+template <int D>
+constexpr int dq_smem() {
+  return (2 + 2 * kDqStages) * Cfg<D>::KV_BYTES + 8 * (1 + kDqStages) + 1024;
+}
+template <int D>
+constexpr int dkv_smem() {
+  return (2 + 2 * kDkvStages) * Cfg<D>::KV_BYTES + 2 * kDkvStages * kT * 4 +
+         8 * (1 + kDkvStages) + 1024;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// s = A B^T for two 64-row tiles whose rows run along d (both K-major):
+// 64 x 64, uncommitted.
+template <int D>
+__device__ __forceinline__ void issue_abt(float (&s)[kT / 2], uint32_t a_addr, uint32_t b_addr) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < C::DP / 16; ++kk) {
+    const uint32_t off = (kk / C::KSTEP) * kT * C::SW + (kk % C::KSTEP) * 32;
+    const uint64_t da = hopper::make_desc(a_addr + off, 16, 8 * C::SW, C::SW);
+    const uint64_t db = hopper::make_desc(b_addr + off, 16, 8 * C::SW, C::SW);
+    hopper::wgmma_ss<0>(s, da, db, kk > 0);
+  }
+}
+
+// acc += X B for X (64 x 64) in registers as bf16 head and remainder and B
+// a 64-row tile [row][d] read MN-major through slabs of d; uncommitted.
+template <int D>
+__device__ __forceinline__ void issue_xb(float (&acc)[Cfg<D>::DP / 2], const uint32_t (&hi)[4][4],
+                                         const uint32_t (&lo)[4][4], uint32_t b_addr) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk) {
+    const uint64_t db = hopper::make_desc(b_addr + kk * 16 * C::SW, kT * C::SW, 8 * C::SW, C::SW);
+    hopper::wgmma_rs<1>(acc, hi[kk], db, 1);
+    hopper::wgmma_rs<1>(acc, lo[kk], db, 1);
+  }
+}
+
+// Two values as bf16 pairs: the head and the remainder.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = hopper::pack_bf16(x0, x1);
+  lo = hopper::pack_bf16(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xFFFF0000u));
+}
+
+// A 64 x 64 accumulator as the A operands of the next product: bf16 head
+// and bf16 remainder, 16 columns a step.
+__device__ __forceinline__ void pack_split(const float (&x)[kT / 2], uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = 2 * kk + (r >> 1), i = (r & 1) * 2;
+      split_bf16(x[4 * j + i], x[4 * j + i + 1], hi[kk][r], lo[kk][r]);
+    }
+}
+
+__device__ __forceinline__ void fence_split(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kT / 16; ++kk) {
+    hopper::fence_regs(hi[kk]);
+    hopper::fence_regs(lo[kk]);
+  }
+}
+
+// Rows r and r + 8 (this thread's, at absolute row `row` of a (rows, D)
+// tensor) of acc * mul into dst as bf16, for rows below n; the columns past
+// D (zero) are not stored.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float (&acc)[Cfg<D>::DP / 2],
+                                           int row, int n, int col0, float mul) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (row < n)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)row * D + col) =
+          hopper::pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    if (row + 8 < n)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)(row + 8) * D + col) =
+          hopper::pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// One block per (64-query tile, query head, batch row), the last tile
+// first.  Writes dq, and each row's lse (log2 units) and D for the dkv kernel.
+template <int D>
+__global__ void __launch_bounds__(kConsumers, 3)
+dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+          const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+          __nv_bfloat16* __restrict__ dq, float* __restrict__ lse, float* __restrict__ delta,
+          int Hq, int Hkv, int S, int Tlen, int causal, int has_window, int window, float scale) {
+  using C = Cfg<D>;
+  constexpr int TB = C::KV_BYTES;   // a 64-row bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + TB;
+  uint8_t* ks = dos + TB;                  // kDqStages K tiles, then kDqStages V tiles
+  uint8_t* vs = ks + kDqStages * TB;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + kDqStages * TB);
+  uint64_t* full = q_full + 1;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kT;
+  const int hk = h / (Hq / Hkv);
+  const int off = Tlen - S;
+  const int nq = min(kT, S - q0);
+  // the key tiles the rows see, as in bwd::dq_kernel: none for a tile whose
+  // rows all sit at negative causal positions
+  const int p_first = q0 + off, p_last = q0 + nq - 1 + off;
+  int lo = 0, hi = Tlen - 1;
+  if (causal) hi = min(hi, p_last);
+  if (has_window) lo = max(0, (causal ? max(p_first, 0) : p_first) - window + 1);
+  const int t_begin = (lo / kT) * kT;
+  const int n_tiles = hi < t_begin ? 0 : (hi - t_begin) / kT + 1;
+  const int n_loads = 2 * n_tiles;   // pass 1 streams K tiles, pass 2 K and V tiles
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kDqStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int g) {   // thread 0: the tiles of load g into its stage
+    const int st = g % kDqStages;
+    const bool pass2 = g >= n_tiles;
+    const int t0 = t_begin + (pass2 ? g - n_tiles : g) * kT;
+    hopper::mbar_arrive_expect_tx(&full[st], pass2 ? 2 * TB : TB);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s) {
+      hopper::tma_load_3d(ks + st * TB + s * kT * C::SW, &tm_k, &full[st], s * C::DS, t0,
+                          b * Hkv + hk);
+      if (pass2)
+        hopper::tma_load_3d(vs + st * TB + s * kT * C::SW, &tm_v, &full[st], s * C::DS, t0,
+                            b * Hkv + hk);
+    }
+  };
+  // after load g's tiles are read by every warp, the stage takes load g + kDqStages
+  auto release = [&](int g) {
+    if (g + kDqStages < n_loads) {
+      __syncthreads();
+      if (threadIdx.x == 0) issue(g + kDqStages);
+    }
+  };
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    hopper::mbar_arrive_expect_tx(q_full, 2 * TB);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s) {
+      hopper::tma_load_3d(qs + s * kT * C::SW, &tm_q, q_full, s * C::DS, q0, b * Hq + h);
+      hopper::tma_load_3d(dos + s * kT * C::SW, &tm_do, q_full, s * C::DS, q0, b * Hq + h);
+    }
+    for (int g = 0; g < min(kDqStages, n_loads); ++g) issue(g);
+  }
+
+  // this thread holds rows r0 and r0 + 8 of the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
+  const int pa = q0 + r0 + off, pb = pa + 8;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const size_t row0 = ((size_t)b * Hq + h) * S + q0;
+
+  // D of the two rows: each quad sums a row's products
+  float dl0 = 0.f, dl1 = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (r0 < nq) {
+      const float2 a = hopper::unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(o + (row0 + r0) * D + col));
+      const float2 g = hopper::unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(dout + (row0 + r0) * D + col));
+      dl0 += a.x * g.x + a.y * g.y;
+    }
+    if (r0 + 8 < nq) {
+      const float2 a = hopper::unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(o + (row0 + r0 + 8) * D + col));
+      const float2 g = hopper::unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(dout + (row0 + r0 + 8) * D + col));
+      dl1 += a.x * g.x + a.y * g.y;
+    }
+  }
+  dl0 = quad_sum(dl0);
+  dl1 = quad_sum(dl1);
+
+  const uint32_t q_addr = hopper::smem_addr(qs), do_addr = hopper::smem_addr(dos);
+  const uint32_t k_base = hopper::smem_addr(ks), v_base = hopper::smem_addr(vs);
+  auto need_mask = [&](int t0) {
+    return t0 + kT > Tlen || (causal && t0 + kT - 1 > p_first) ||
+           (has_window && t0 <= p_first + kT - 1 - window);
+  };
+  auto allowed = [&](int p, int kp) {
+    return kp < Tlen && (!causal || kp <= p) && (!has_window || kp > p - window);
+  };
+
+  // pass 1: each row's max and sum over its allowed keys (log2 units)
+  float m0 = attn::kNegInf, m1 = attn::kNegInf, l0 = 0.f, l1 = 0.f;
+  float s[kT / 2];
+  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % kDqStages, t0 = t_begin + it * kT;
+    hopper::mbar_wait(&full[st], (it / kDqStages) & 1);
+    hopper::wgmma_fence();
+    issue_abt<D>(s, q_addr, k_base + st * TB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    release(it);
+    const bool mask = need_mask(t0);
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = s[4 * j + i] * scale_log2;
+        if (mask && !allowed(i < 2 ? pa : pb, t0 + 8 * j + col0 + (i & 1))) x = -INFINITY;
+        s[4 * j + i] = x;
+        if (i < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      sum0 += hopper::exp2_approx(s[4 * j] - mx0) + hopper::exp2_approx(s[4 * j + 1] - mx0);
+      sum1 += hopper::exp2_approx(s[4 * j + 2] - mx1) + hopper::exp2_approx(s[4 * j + 3] - mx1);
+    }
+    l0 = l0 * hopper::exp2_approx(m0 - mx0) + sum0;
+    l1 = l1 * hopper::exp2_approx(m1 - mx1) + sum1;
+    m0 = mx0;
+    m1 = mx1;
+  }
+  // a row with no allowed key has l = 0 and lse = -inf; it takes P = 0 below
+  const float lse0 = m0 + log2f(quad_sum(l0)), lse1 = m1 + log2f(quad_sum(l1));
+
+  // pass 2: dS on the allowed pairs, dq += dS K
+  float acc[C::DP / 2];
+#pragma unroll
+  for (int i = 0; i < C::DP / 2; ++i) acc[i] = 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int g = n_tiles + it, st = g % kDqStages, t0 = t_begin + it * kT;
+    float dp[kT / 2];
+    hopper::mbar_wait(&full[st], (g / kDqStages) & 1);
+    hopper::wgmma_fence();
+    issue_abt<D>(s, q_addr, k_base + st * TB);
+    issue_abt<D>(dp, do_addr, v_base + st * TB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    const bool mask = need_mask(t0);
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool top = i < 2;
+        float pw = hopper::exp2_approx(s[4 * j + i] * scale_log2 - (top ? lse0 : lse1));
+        if (mask && !allowed(top ? pa : pb, t0 + 8 * j + col0 + (i & 1))) pw = 0.f;
+        dp[4 * j + i] = pw * (dp[4 * j + i] - (top ? dl0 : dl1));
+      }
+    uint32_t dhi[4][4], dlo[4][4];
+    pack_split(dp, dhi, dlo);
+    hopper::wgmma_fence();
+    issue_xb<D>(acc, dhi, dlo, k_base + st * TB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    fence_split(dhi, dlo);
+    release(g);
+  }
+
+  store_rows<D>(dq + row0 * D, acc, r0, nq, col0, scale);
+  if (lane % 4 == 0) {
+    if (r0 < nq) {
+      lse[row0 + r0] = lse0;
+      delta[row0 + r0] = dl0;
+    }
+    if (r0 + 8 < nq) {
+      lse[row0 + r0 + 8] = lse1;
+      delta[row0 + r0 + 8] = dl1;
+    }
+  }
+}
+
+// One block per (64-key tile, kv head, batch row), the first tile first:
+// dk and dv of the tile, summed over the G query heads of the kv head and
+// the query tiles that can see the tile.
+template <int D>
+__global__ void __launch_bounds__(kConsumers, 2)
+dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Hq, int Hkv,
+           int S, int Tlen, int causal, int has_window, int window, float scale) {
+  using C = Cfg<D>;
+  constexpr int TB = C::KV_BYTES;   // a 64-row bf16 tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);
+  uint8_t* vs = ks + TB;
+  uint8_t* qs = vs + TB;                   // kDkvStages Q tiles, then kDkvStages dO tiles
+  uint8_t* dos = qs + kDkvStages * TB;
+  float* lse_s = reinterpret_cast<float*>(dos + kDkvStages * TB);   // kDkvStages x kT
+  float* dl_s = lse_s + kDkvStages * kT;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dl_s + kDkvStages * kT);
+  uint64_t* full = kv_full + 1;
+
+  const int hk = blockIdx.x, b = blockIdx.y, t0 = blockIdx.z * kT;
+  const int G = Hq / Hkv;
+  const int off = Tlen - S;
+  const int nt = min(kT, Tlen - t0);
+  // the query rows that see a key of the tile, as in bwd::dkv_kernel
+  int i_lo = causal ? max(0, t0 - off) : 0;
+  if (causal && off < 0) i_lo = 0;
+  const int i_hi = has_window ? min(S - 1, t0 + nt - 2 + window - off) : S - 1;
+  const int q_begin = (i_lo / kT) * kT;
+  const int n_qt = i_hi < q_begin ? 0 : (i_hi - q_begin) / kT + 1;
+  const int n_it = G * n_qt;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int it) {   // thread 0: the Q and dO tiles of iteration it
+    const int st = it % kDkvStages, h = hk * G + it / n_qt, q0 = q_begin + (it % n_qt) * kT;
+    hopper::mbar_arrive_expect_tx(&full[st], 2 * TB);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s) {
+      hopper::tma_load_3d(qs + st * TB + s * kT * C::SW, &tm_q, &full[st], s * C::DS, q0,
+                          b * Hq + h);
+      hopper::tma_load_3d(dos + st * TB + s * kT * C::SW, &tm_do, &full[st], s * C::DS, q0,
+                          b * Hq + h);
+    }
+  };
+  if (tid == 0 && n_it > 0) {
+    hopper::mbar_arrive_expect_tx(kv_full, 2 * TB);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s) {
+      hopper::tma_load_3d(ks + s * kT * C::SW, &tm_k, kv_full, s * C::DS, t0, b * Hkv + hk);
+      hopper::tma_load_3d(vs + s * kT * C::SW, &tm_v, kv_full, s * C::DS, t0, b * Hkv + hk);
+    }
+    for (int it = 0; it < min(kDkvStages, n_it); ++it) issue(it);
+  }
+  // threads 0..63 copy a query tile's lse, threads 64..127 its D
+  float* stat_s = (tid < kT ? lse_s : dl_s) + tid % kT;
+  const float* stat_g = tid < kT ? lse : delta;
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
+  const int ka = t0 + r0, kb = ka + 8;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const float inv_t = 1.f / (float)Tlen;
+  const uint32_t k_addr = hopper::smem_addr(ks), v_addr = hopper::smem_addr(vs);
+  const uint32_t q_base = hopper::smem_addr(qs), do_base = hopper::smem_addr(dos);
+
+  float acc_k[C::DP / 2], acc_v[C::DP / 2];
+#pragma unroll
+  for (int i = 0; i < C::DP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  if (n_it > 0) hopper::mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kDkvStages, q0 = q_begin + (it % n_qt) * kT;
+    const int p0 = q0 + off;   // position of the tile's first query
+    // this thread's lse or D of the tile, read now and stored while the
+    // products run; a stage's slot is rewritten two iterations later, past
+    // the next iteration's barrier, so no thread still reads it
+    const int qr = q0 + tid % kT;
+    const float sv = qr < S ? stat_g[((size_t)b * Hq + hk * G + it / n_qt) * S + qr] : 0.f;
+    float sc[kT / 2], dp[kT / 2];
+    hopper::mbar_wait(&full[st], (it / kDkvStages) & 1);
+    hopper::wgmma_fence();
+    issue_abt<D>(sc, k_addr, q_base + st * TB);
+    issue_abt<D>(dp, v_addr, do_base + st * TB);
+    hopper::wgmma_commit();
+    stat_s[st * kT] = sv;
+    __syncthreads();   // the tile's lse and D in shared memory
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    // masking only where a pair of the tile is not plainly allowed
+    const bool mask = t0 + kT > Tlen || q0 + kT > S || (causal && p0 < 0) ||
+                      (causal && t0 + kT - 1 > p0) ||
+                      (has_window && t0 <= p0 + kT - 1 - window);
+    // P^T and dS^T, 8 query columns at a time, straight into the A operands
+    const float2* ls = reinterpret_cast<const float2*>(lse_s + st * kT) + lane % 4;
+    const float2* dls = reinterpret_cast<const float2*>(dl_s + st * kT) + lane % 4;
+    uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      const float2 l = ls[4 * j], dl = dls[4 * j];   // columns 8j + col0 and + 1
+      float pw[4], g[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * j + col0 + (i & 1);        // query column of the tile
+        pw[i] = hopper::exp2_approx(sc[4 * j + i] * scale_log2 - ((i & 1) ? l.y : l.x));
+        g[i] = pw[i] * (dp[4 * j + i] - ((i & 1) ? dl.y : dl.x));
+        if (mask) {
+          const int p = p0 + c, kp = i < 2 ? ka : kb;
+          if (q0 + c >= S || kp >= Tlen) {
+            pw[i] = g[i] = 0.f;
+          } else if (causal && p < 0) {
+            pw[i] = inv_t;   // a row with no key: the mean of v
+            g[i] = 0.f;
+          } else if ((causal && kp > p) || (has_window && kp <= p - window)) {
+            pw[i] = g[i] = 0.f;
+          }
+        }
+      }
+      const int kk = j / 2, r = 2 * (j % 2);   // rows r0 then r0 + 8 of step kk
+      split_bf16(pw[0], pw[1], phi[kk][r], plo[kk][r]);
+      split_bf16(pw[2], pw[3], phi[kk][r + 1], plo[kk][r + 1]);
+      split_bf16(g[0], g[1], dhi[kk][r], dlo[kk][r]);
+      split_bf16(g[2], g[3], dhi[kk][r + 1], dlo[kk][r + 1]);
+    }
+    hopper::wgmma_fence();
+    issue_xb<D>(acc_v, phi, plo, do_base + st * TB);
+    issue_xb<D>(acc_k, dhi, dlo, q_base + st * TB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc_v);
+    hopper::fence_regs(acc_k);
+    fence_split(phi, plo);
+    fence_split(dhi, dlo);
+    if (it + kDkvStages < n_it) {
+      __syncthreads();   // every warp is done with the stage
+      if (tid == 0) issue(it + kDkvStages);
+    }
+  }
+
+  const size_t kv0 = ((size_t)b * Hkv + hk) * Tlen + t0;
+  store_rows<D>(dk + kv0 * D, acc_k, r0, nt, col0, scale);
+  store_rows<D>(dv + kv0 * D, acc_v, r0, nt, col0, 1.f);
+}
+
+template <int D>
+cudaError_t launch(const bwd::Args& a, bool dkv, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  const uint64_t nq = (uint64_t)a.B * a.Hq, nkv = (uint64_t)a.B * a.Hkv;
+  if (!hopper::encode_bf16_3d(&tq, a.q, D, a.S, nq, D, (uint64_t)a.S * D, C::DS, kT, 1, C::SW) ||
+      !hopper::encode_bf16_3d(&tdo, a.dout, D, a.S, nq, D, (uint64_t)a.S * D, C::DS, kT, 1,
+                              C::SW) ||
+      !hopper::encode_bf16_3d(&tk, a.k, D, a.Tlen, nkv, D, (uint64_t)a.Tlen * D, C::DS, kT, 1,
+                              C::SW) ||
+      !hopper::encode_bf16_3d(&tv, a.v, D, a.Tlen, nkv, D, (uint64_t)a.Tlen * D, C::DS, kT, 1,
+                              C::SW))
+    return cudaErrorInvalidValue;
+  if (!dkv) {
+    auto kernel = dq_kernel<D>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.Hq, a.B, (a.S + kT - 1) / kT);
+    kernel<<<grid, kConsumers, dq_smem<D>(), stream>>>(
+        tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(a.o),
+        static_cast<const __nv_bfloat16*>(a.dout), static_cast<__nv_bfloat16*>(a.dq), a.lse,
+        a.delta, a.Hq, a.Hkv, a.S, a.Tlen, a.causal, a.has_window, a.window, a.scale);
+  } else {
+    auto kernel = dkv_kernel<D>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem<D>());
+    if (err != cudaSuccess) return err;
+    const dim3 grid(a.Hkv, a.B, (a.Tlen + kT - 1) / kT);
+    kernel<<<grid, kConsumers, dkv_smem<D>(), stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
+        static_cast<__nv_bfloat16*>(a.dv), a.Hq, a.Hkv, a.S, a.Tlen, a.causal, a.has_window,
+        a.window, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+cudaError_t launch_d(int D, const bwd::Args& a, bool dkv, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch<32>(a, dkv, stream);
+    case 64: return launch<64>(a, dkv, stream);
+    case 120: return launch<120>(a, dkv, stream);
+    case 128: return launch<128>(a, dkv, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wgb
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
@@ -1164,4 +1718,35 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                     const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window,
                     window, scale};
   return bwd::launch_dtype(dtype, D, a, true, static_cast<cudaStream_t>(stream));
+}
+
+// The wgmma design of the backward's first kernel (bf16 only): dq, and each
+// row's lse (log2 units) and D = rowsum(dO o) into lse and delta (B, Hq, S)
+// fp32 for flash_attention_bwd_dkv_wgmma, which alone reads them.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head
+// dim it does not take or a tensor map that cuTensorMapEncodeTiled refuses;
+// the caller raises on anything but 0.
+extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const void* v,
+                                            const void* o, const void* dout, void* dq, float* lse,
+                                            float* delta, int B, int Hq, int Hkv, int S, int Tlen,
+                                            int D, int causal, int has_window, int window,
+                                            float scale, void* stream) {
+  const bwd::Args a{q, k, v, o, dout, dq, nullptr, nullptr, lse, delta, B, Hq, Hkv, S, Tlen,
+                    causal, has_window, window, scale};
+  return wgb::launch_d(D, a, false, static_cast<cudaStream_t>(stream));
+}
+
+// The wgmma design of the backward's second kernel (bf16 only), after
+// flash_attention_bwd_dq_wgmma on the same stream: dk and dv (B, Hkv, Tlen, D)
+// from its lse and delta.  Returns as flash_attention_bwd_dq_wgmma.
+extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                                             const void* dout, const float* lse,
+                                             const float* delta, void* dk, void* dv, int B, int Hq,
+                                             int Hkv, int S, int Tlen, int D, int causal,
+                                             int has_window, int window, float scale,
+                                             void* stream) {
+  const bwd::Args a{q, k, v, nullptr, dout, nullptr, dk, dv, const_cast<float*>(lse),
+                    const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window,
+                    window, scale};
+  return wgb::launch_d(D, a, true, static_cast<cudaStream_t>(stream));
 }

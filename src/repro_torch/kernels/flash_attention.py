@@ -14,11 +14,15 @@ raises; no route stands in for another.  :func:`flash_attention_simt`
 reaches the simt design for bf16 too, so that the two can be timed against
 each other on the card.  ``LAUNCHES`` counts the launches of each route.
 
-:func:`flash_attention_bwd` launches the backward's two kernels, each its
-own C entry point and route: ``"bwd_dq"`` (dq, and each row's log-sum-exp
-and D = rowsum(dO o)) and then ``"bwd_dkv"`` (dk and dv), counted in
-``BWD_LAUNCHES``.  It takes what the unmasked routes take, in fp32 and
-bf16; the key-masked route has no backward.
+:func:`flash_attention_bwd` launches the backward's two kernels, dq (and
+each row's log-sum-exp and D = rowsum(dO o)) and then dk and dv, in the
+design :func:`bwd_route` gives the dtype: bf16 -> ``"wgmma"`` (the pair
+``bwd_dq_wgmma``, ``bwd_dkv_wgmma`` on the tensor cores), anything else ->
+``"simt"`` (the pair ``bwd_dq``, ``bwd_dkv`` on the CUDA cores).  Each
+kernel is its own C entry point, counted in ``BWD_LAUNCHES``.
+:func:`flash_attention_bwd_simt` reaches the simt pair for bf16 too, to be
+timed beside the wgmma pair.  It takes what the unmasked routes take; the
+key-masked route has no backward.
 """
 from __future__ import annotations
 
@@ -37,8 +41,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: launches of each route
 LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "masked": 0}
-#: launches of each of the backward's two kernels
-BWD_LAUNCHES: Dict[str, int] = {"bwd_dq": 0, "bwd_dkv": 0}
+#: launches of each of the backward's kernels: the simt pair and the wgmma pair
+BWD_LAUNCHES: Dict[str, int] = {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
+                                "bwd_dkv_wgmma": 0}
 
 
 def route(dtype: torch.dtype, masked: bool = False) -> str:
@@ -46,6 +51,12 @@ def route(dtype: torch.dtype, masked: bool = False) -> str:
     mask, else bf16 -> ``"wgmma"`` and anything else -> ``"simt"``."""
     if masked:
         return "masked"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
+
+
+def bwd_route(dtype: torch.dtype) -> str:
+    """The backward design a CUDA call in ``dtype`` takes: bf16 ->
+    ``"wgmma"``, anything else -> ``"simt"``."""
     return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
@@ -64,6 +75,10 @@ def _entry(which: str):
         fn = lib.flash_attention_bwd_dkv
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _I, _P]
+    elif which in ("bwd_dq_wgmma", "bwd_dkv_wgmma"):
+        fn = getattr(lib, f"flash_attention_{which}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P]
     elif which == "masked":
         fn = lib.flash_attention_masked_fwd
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -146,8 +161,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """The gradients of :func:`flash_attention` without a key mask: q, o and
     dout (B,Hq,S,d), k/v (B,Hkv,T,d), o the forward's output and dout the
     gradient of the loss by it -> (dq, dk, dv) in the inputs' dtype.  Two
-    launches on the current stream: ``bwd_dq``, then ``bwd_dkv``, which reads
-    the rows' statistics the first wrote."""
+    launches on the current stream, the pair of ``bwd_route(q.dtype)``: the
+    dq kernel, then the dkv kernel, which reads the rows' statistics the
+    first wrote."""
+    return _bwd(bwd_route(q.dtype), q, k, v, o, dout, causal, window)
+
+
+def flash_attention_bwd_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The simt pair whatever the dtype (the previous design for bf16, kept
+    to be timed beside the wgmma pair)."""
+    return _bwd("simt", q, k, v, o, dout, causal, window)
+
+
+def _bwd(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+         dout: torch.Tensor, causal: bool, window: Optional[int]
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     check_inputs(q, k, v, window)
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and dout "
@@ -159,15 +190,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     shape = [B, Hq, Hkv, S, T, d, int(causal), int(window is not None), window or 0,
-             d ** -0.5, DTYPE_CODES[q.dtype], stream_handle(q.device)]
-    err = _entry("bwd_dq")(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             d ** -0.5]
+    if which == "simt":
+        shape.append(DTYPE_CODES[q.dtype])
+    shape.append(stream_handle(q.device))
+    names = ("bwd_dq", "bwd_dkv") if which == "simt" else ("bwd_dq_wgmma", "bwd_dkv_wgmma")
+    err = _entry(names[0])(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                            dout.data_ptr(), dq.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                            *shape)
-    raise_on_error("flash_attention_bwd (bwd_dq)", err)
-    BWD_LAUNCHES["bwd_dq"] += 1
-    err = _entry("bwd_dkv")(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                            *shape)
-    raise_on_error("flash_attention_bwd (bwd_dkv)", err)
-    BWD_LAUNCHES["bwd_dkv"] += 1
+    raise_on_error(f"flash_attention_bwd ({names[0]})", err)
+    BWD_LAUNCHES[names[0]] += 1
+    err = _entry(names[1])(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                           lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                           *shape)
+    raise_on_error(f"flash_attention_bwd ({names[1]})", err)
+    BWD_LAUNCHES[names[1]] += 1
     return dq, dk, dv

@@ -83,8 +83,9 @@ def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
 
 class _FlashAttention(torch.autograd.Function):
     """The flash kernel's forward (the route of the dtype) and its backward
-    kernels (``bwd_dq``, then ``bwd_dkv``), which recompute the rows'
-    softmax statistics from the saved q, k, v and output."""
+    kernels (the dq kernel, then the dkv kernel, in the design of
+    ``bwd_route``), which recompute the rows' softmax statistics from the
+    saved q, k, v and output."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):

@@ -6,7 +6,9 @@ apart (rows that see no key, d 120, a window, S != T), fp32 at the flash
 limit of ``tests/test_kernels.py`` (atol = rtol = 3e-5).  Then a model of
 the two kernels' tiling in torch (which tiles each block walks, the rows'
 statistics handed from the first kernel to the second) against the plain
-version, and the dispatch: the wrapper refuses CPU tensors, and on the CPU
+version, in fp32 for the simt pair and with the wgmma pair's bf16 operands
+(P and dS split into a bf16 head and remainder) for bf16, and the
+dispatch: ``bwd_route``, the wrapper refuses CPU tensors, and on the CPU
 the op keeps its autograd."""
 import numpy as np
 import pytest
@@ -128,10 +130,31 @@ def _allowed(p, kp, causal, window):
     return ok
 
 
+def _key_tiles(q0, nq, off, T, causal, window):
+    """The key tiles a 64-query tile sees: from the window's start of its
+    first row that has a key to the causal bound of its last row."""
+    lo, hi = 0, T - 1
+    if causal:
+        hi = min(hi, q0 + nq - 1 + off)
+    if window is not None:
+        first = max(q0 + off, 0) if causal else q0 + off
+        lo = max(0, first - window + 1)
+    return range((lo // TILE) * TILE, hi + 1, TILE)
+
+
+def _query_tiles(t0, nt, off, S, causal, window):
+    """The query tiles that see a 64-key tile: from the first row whose
+    causal bound reaches it (row 0 when some rows see no key) to the last
+    whose window still does."""
+    i_lo = max(0, t0 - off) if causal else 0
+    if causal and off < 0:
+        i_lo = 0
+    i_hi = S - 1 if window is None else min(S - 1, t0 + nt - 2 + window - off)
+    return range((i_lo // TILE) * TILE, i_hi + 1, TILE)
+
+
 def _dq_model(q, k, v, o, dout, causal, window):
-    """dq, lse and D from the dq kernel's walk: a 64-query tile sees the key
-    tiles from the window's start of its first row that has a key to the
-    causal bound of its last row."""
+    """dq, lse and D from the dq kernel's walk over ``_key_tiles``."""
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G, off, scale = Hq // Hkv, T - S, d ** -0.5
@@ -144,13 +167,7 @@ def _dq_model(q, k, v, o, dout, causal, window):
             for q0 in range(0, S, TILE):
                 nq = min(TILE, S - q0)
                 p = torch.arange(q0, q0 + nq)[:, None] + off
-                lo, hi = 0, T - 1
-                if causal:
-                    hi = min(hi, q0 + nq - 1 + off)
-                if window is not None:
-                    first = max(q0 + off, 0) if causal else q0 + off
-                    lo = max(0, first - window + 1)
-                tiles = range((lo // TILE) * TILE, hi + 1, TILE)
+                tiles = _key_tiles(q0, nq, off, T, causal, window)
                 qs = q[b, h, q0:q0 + nq] * scale
                 m = torch.full((nq,), -1e30)
                 l = torch.zeros(nq)
@@ -178,9 +195,7 @@ def _dq_model(q, k, v, o, dout, causal, window):
 
 def _dkv_model(q, k, v, dout, lse, delta, causal, window):
     """dk and dv from the dkv kernel's walk: a 64-key tile sums over the G
-    query heads and the query tiles from the first row whose causal bound
-    reaches it (row 0 when some rows see no key) to the last whose window
-    still does."""
+    query heads and its ``_query_tiles``."""
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G, off, scale = Hq // Hkv, T - S, d ** -0.5
@@ -190,13 +205,9 @@ def _dkv_model(q, k, v, dout, lse, delta, causal, window):
             for t0 in range(0, T, TILE):
                 nt = min(TILE, T - t0)
                 kp = torch.arange(t0, t0 + nt)[None]
-                i_lo = max(0, t0 - off) if causal else 0
-                if causal and off < 0:
-                    i_lo = 0
-                i_hi = S - 1 if window is None else min(S - 1, t0 + nt - 2 + window - off)
                 for g in range(G):
                     h = hk * G + g
-                    for q0 in range((i_lo // TILE) * TILE, i_hi + 1, TILE):
+                    for q0 in _query_tiles(t0, nt, off, S, causal, window):
                         nq = min(TILE, S - q0)
                         p = torch.arange(q0, q0 + nq)[:, None] + off
                         qs = q[b, h, q0:q0 + nq] * scale
@@ -230,15 +241,180 @@ def test_the_kernels_tiling_matches_the_plain_version(case):
 
 
 # ---------------------------------------------------------------------------
+# The wgmma pair (csrc/flash_attention.cu, namespace wgb) for bf16: the same
+# walks, tensor-core operands in bf16 and sums in fp32.  Q, K, V and dO are
+# the bf16 inputs as given; P and dS are split into a bf16 head and the bf16
+# remainder, both multiplied; lse is in log2 units, as the kernels keep it.
+
+BF16_TOL = dict(atol=1e-3, rtol=1e-2)     # one bf16 ulp, the card's limit
+LOG2E = 1.4426950408889634
+WGMMA_CASES = CASES + [
+    (1, 2, 1, 512, 512, 120, True, 128),  # a window that bites, d 120
+    (1, 2, 1, 512, 512, 64, True, 128),   # and d 64
+    (1, 2, 1, 512, 512, 128, True, None), # qwen3-1.7b's head width and length
+]
+
+
+def _bf16_parts(x, split):
+    """x as the A operands of a product: its bf16 head and bf16 remainder
+    (both multiplied), or its bf16 copy alone."""
+    head = x.to(torch.bfloat16).float()
+    return [head, (x - head).to(torch.bfloat16).float()] if split else [head]
+
+
+def _wgmma_dq_model(q, k, v, o, dout, causal, window, split_ds=True):
+    """dq, lse (log2 units) and D from the wgmma dq kernel's walk: pass 1
+    the rows' max and sum over ``_key_tiles``, pass 2 dS and dq += dS K."""
+    B, Hq, S, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G, off, scale = Hq // Hkv, T - S, d ** -0.5
+    scale_log2 = scale * LOG2E
+    q, k, v, o, dout = (t.float() for t in (q, k, v, o, dout))
+    dq = torch.zeros_like(q)
+    lse = torch.zeros(B, Hq, S)
+    delta = (dout * o).sum(-1)
+    for b in range(B):
+        for h in range(Hq):
+            kk, vv = k[b, h // G], v[b, h // G]
+            for q0 in range(0, S, TILE):
+                nq = min(TILE, S - q0)
+                p = torch.arange(q0, q0 + nq)[:, None] + off
+                tiles = _key_tiles(q0, nq, off, T, causal, window)
+                qs, dl = q[b, h, q0:q0 + nq], delta[b, h, q0:q0 + nq, None]
+                m = torch.full((nq,), -1e30)
+                l = torch.zeros(nq)
+                for t0 in tiles:
+                    kp = torch.arange(t0, min(t0 + TILE, T))[None]
+                    s = torch.where(_allowed(p, kp, causal, window),
+                                    (qs @ kk[t0:t0 + TILE].T) * scale_log2, -torch.inf)
+                    m_new = torch.maximum(m, s.max(-1).values)
+                    l = l * torch.exp2(m - m_new) + torch.exp2(s - m_new[:, None]).sum(-1)
+                    m = m_new
+                row_lse = m + torch.log2(l)   # -inf for a row with no key
+                lse[b, h, q0:q0 + nq] = row_lse
+                acc = torch.zeros(nq, d)
+                for t0 in tiles:
+                    kp = torch.arange(t0, min(t0 + TILE, T))[None]
+                    s = qs @ kk[t0:t0 + TILE].T
+                    dp = dout[b, h, q0:q0 + nq] @ vv[t0:t0 + TILE].T
+                    pw = torch.where(_allowed(p, kp, causal, window),
+                                     torch.exp2(s * scale_log2 - row_lse[:, None]), 0.0)
+                    for part in _bf16_parts(pw * (dp - dl), split_ds):
+                        acc += part @ kk[t0:t0 + TILE]
+                dq[b, h, q0:q0 + nq] = acc * scale
+    return dq, lse, delta
+
+
+def _wgmma_dkv_model(q, k, v, dout, lse, delta, causal, window, split_p=True, split_ds=True):
+    """dk and dv from the wgmma dkv kernel's walk: S^T = K Q^T and
+    dP^T = V dO^T with keys as rows, lse and D along the columns."""
+    B, Hq, S, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G, off, scale = Hq // Hkv, T - S, d ** -0.5
+    scale_log2 = scale * LOG2E
+    q, k, v, dout = (t.float() for t in (q, k, v, dout))
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for b in range(B):
+        for hk in range(Hkv):
+            for t0 in range(0, T, TILE):
+                nt = min(TILE, T - t0)
+                kp = torch.arange(t0, t0 + nt)[:, None]
+                for g in range(G):
+                    h = hk * G + g
+                    for q0 in _query_tiles(t0, nt, off, S, causal, window):
+                        nq = min(TILE, S - q0)
+                        p = torch.arange(q0, q0 + nq)[None] + off
+                        qs, do = q[b, h, q0:q0 + nq], dout[b, h, q0:q0 + nq]
+                        st = k[b, hk, t0:t0 + nt] @ qs.T
+                        dpt = v[b, hk, t0:t0 + nt] @ do.T
+                        ok = _allowed(p.T, kp.T, causal, window).T
+                        pw = torch.where(ok, torch.exp2(st * scale_log2
+                                                        - lse[b, h, None, q0:q0 + nq]), 0.0)
+                        ds = pw * (dpt - delta[b, h, None, q0:q0 + nq])
+                        if causal:
+                            empty = (p < 0).expand_as(pw)
+                            pw = torch.where(empty, 1.0 / T, pw)
+                            ds = torch.where(empty, 0.0, ds)
+                        for part in _bf16_parts(pw, split_p):
+                            dv[b, hk, t0:t0 + nt] += part @ do
+                        for part in _bf16_parts(ds, split_ds):
+                            dk[b, hk, t0:t0 + nt] += part @ qs
+    return dk * scale, dv
+
+
+def _wgmma_pair(case, seed, split_p=True, split_ds=True):
+    """The wgmma pair's model and the plain version on bf16 inputs: the
+    model's (dq, dk, dv) rounded to bf16, and the plain version's."""
+    causal, window = case[6:]
+    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(case, seed))
+    o = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    dq, lse, delta = _wgmma_dq_model(q, k, v, o, dout, causal, window, split_ds)
+    dk, dv = _wgmma_dkv_model(q, k, v, dout, lse, delta, causal, window, split_p, split_ds)
+    got = [g.to(torch.bfloat16) for g in (dq, dk, dv)]
+    return got, tref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal, window=window)
+
+
+def _excess(got, expect):
+    """The largest |got - expect| over BF16_TOL's allowance."""
+    g, e = got.float(), expect.float()
+    return float(((g - e).abs() / (BF16_TOL["atol"] + BF16_TOL["rtol"] * e.abs())).max())
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=str)
+def test_the_wgmma_pairs_arithmetic_matches_the_plain_version(case):
+    for name, g, e in zip("qkv", *_wgmma_pair(case, seed=5)):
+        assert g.dtype == e.dtype == torch.bfloat16
+        torch.testing.assert_close(g, e, **BF16_TOL, msg=f"d{name}")
+
+
+@pytest.mark.parametrize("single", ["P", "dS"])
+def test_a_single_bf16_copy_of_p_or_ds_errs_past_the_limit(single):
+    """Why the kernels split P and dS into a bf16 head and remainder: with
+    one bf16 copy of P, dv errs past one ulp; with one of dS, dq and dk."""
+    case = (2, 4, 2, 128, 128, 64, True, None)
+    (dq, dk, dv), expect = _wgmma_pair(case, seed=4, split_p=single != "P",
+                                       split_ds=single != "dS")
+    if single == "P":
+        assert _excess(dv, expect[2]) > 2
+        assert max(_excess(dq, expect[0]), _excess(dk, expect[1])) <= 1
+    else:
+        assert min(_excess(dq, expect[0]), _excess(dk, expect[1])) > 1
+        assert _excess(dv, expect[2]) <= 1
+
+
+def test_the_wgmma_pair_keeps_a_row_with_no_key_out_of_dq_and_dk():
+    """Causal with S > T: the rows that see no key get lse = -inf from the
+    dq kernel, dq = 0, and the dkv kernel spreads their dO over dv at 1/T."""
+    case = (1, 2, 1, 40, 24, 32, True, None)
+    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(case, seed=2))
+    dout[:, :, 16:] = 0                      # only the rows with no key
+    o = tref.flash_attention_ref(q, k, v)
+    dq, lse, delta = _wgmma_dq_model(q, k, v, o, dout, True, None)
+    assert bool(torch.isneginf(lse[:, :, :16]).all()) and float(dq.abs().max()) == 0.0
+    dk, dv = _wgmma_dkv_model(q, k, v, dout, lse, delta, True, None)
+    assert float(dk.abs().max()) == 0.0
+    spread = dout[:, :, :16].float().sum(dim=(1, 2)) / 24
+    torch.testing.assert_close(dv[0, 0], spread[0].expand(24, 32), **BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 
-def test_the_backward_wrapper_refuses_cpu_tensors():
-    q, k, v, dout = map(torch.from_numpy, _inputs(CASES[0]))
+def test_bwd_route_sends_bf16_to_wgmma_and_the_rest_to_simt():
+    assert tflash.bwd_route(torch.bfloat16) == "wgmma"
+    for dt in (torch.float32, torch.float16, torch.float64):
+        assert tflash.bwd_route(dt) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fn", ["flash_attention_bwd", "flash_attention_bwd_simt"])
+def test_the_backward_wrapper_refuses_cpu_tensors(fn, dtype):
+    q, k, v, dout = (torch.from_numpy(a).to(dtype) for a in _inputs(CASES[0]))
     before = dict(tflash.BWD_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tflash.flash_attention_bwd(q, k, v, q, dout)
+        getattr(tflash, fn)(q, k, v, q, dout)
     with pytest.raises(ValueError, match="shaped as q"):
-        tflash.flash_attention_bwd(q, k, v, q[:, :, :5], dout)
+        getattr(tflash, fn)(q, k, v, q[:, :, :5], dout)
     assert tflash.BWD_LAUNCHES == before
 
 
@@ -250,7 +426,8 @@ def test_on_the_cpu_the_op_keeps_its_autograd_and_counts_nothing():
     out.sum().backward()
     assert all(t.grad is not None for t in (q, k, v))
     assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 0
-    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 0, "bwd_dkv": 0}
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 0, "bwd_dkv": 0,
+                                                         "bwd_dq_wgmma": 0, "bwd_dkv_wgmma": 0}
 
 
 def test_refuse_grad_names_the_item_and_spares_inference():

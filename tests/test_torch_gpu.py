@@ -922,27 +922,33 @@ def test_reduced_seamless_under_an_enc_mask_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The flash backward: both kernels against the plain version, at the limits
-# of the forward (both compute in fp32 and round once); the op's gradient on
-# the card; every other op refuses one; a reduced train step, card against CPU
+# The flash backward: both kernels of each design against the plain version,
+# at the limits of the forward (all compute in fp32 and round once); the
+# op's gradient on the card; every other op refuses one; a reduced train
+# step, card against CPU
+
+BWD_PAIRS = {"simt": ("bwd_dq", "bwd_dkv"), "wgmma": ("bwd_dq_wgmma", "bwd_dkv_wgmma")}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype,design", [("float32", "simt"), ("bfloat16", "wgmma"),
+                                          ("bfloat16", "simt")])
 @pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win", FLASH_SWEEP + [
     (1, 4, 2, 70, 40, 32, True, None),       # S > T: rows that see no key
     (2, 4, 2, 100, 300, 64, True, None),     # S < T: the causal offset
     (1, 8, 2, 300, 300, 120, True, 64),      # d 120 under a window
     (8, 16, 8, 512, 512, 128, True, None),   # qwen3-1.7b's training shape
 ])
-def test_flash_attention_bwd_kernels(cuda, B, Hq, Hkv, S, T, d, causal, win, dtype):
+def test_flash_attention_bwd_kernels(cuda, B, Hq, Hkv, S, T, d, causal, win, dtype, design):
     dt = getattr(torch, dtype)
     q, dout = (_randn(cuda, (B, Hq, S, d), dt) for _ in range(2))
     k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
     o = ref.flash_attention_ref(q, k, v, causal=causal, window=win)
+    fn = (tflash.flash_attention_bwd if tflash.bwd_route(dt) == design
+          else tflash.flash_attention_bwd_simt)
     before = dict(tflash.BWD_LAUNCHES)
-    got = tflash.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=win)
+    got = fn(q, k, v, o, dout, causal=causal, window=win)
     torch.cuda.synchronize()
-    assert tflash.BWD_LAUNCHES == {r: n + 1 for r, n in before.items()}
+    assert tflash.BWD_LAUNCHES == {r: n + (r in BWD_PAIRS[design]) for r, n in before.items()}
     expect = ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal, window=win)
     for g, e in zip(got, expect):
         assert g.dtype == dt and g.shape == e.shape
@@ -964,7 +970,9 @@ def test_flash_attention_on_the_card_has_a_grad_fn(cuda, dtype):
     grads = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 1
-    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 1, "bwd_dkv": 1}
+    pair = BWD_PAIRS[tflash.bwd_route(dt)]
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {
+        r: int(r in pair) for r in ("bwd_dq", "bwd_dkv", "bwd_dq_wgmma", "bwd_dkv_wgmma")}
     expect = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(),
                                          dout, causal=True, window=32)
     for g, e in zip(grads, expect):
@@ -1027,7 +1035,8 @@ def test_reduced_train_step_card_against_cpu(cuda, remat):
             metrics[where].append({k: float(m[k]) for k in ("loss", "grad_norm")})
     L = cfg.n_layers
     assert ops.LAUNCHES["flash_attention"] == (2 if remat else 1) * L * 2
-    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 2 * L, "bwd_dkv": 2 * L}
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 2 * L, "bwd_dkv": 2 * L,
+                                                         "bwd_dq_wgmma": 0, "bwd_dkv_wgmma": 0}
     for c, g in zip(metrics["cpu"], metrics["cuda"]):
         for k in c:
             assert g[k] == pytest.approx(c[k], rel=1e-4, abs=1e-4), k

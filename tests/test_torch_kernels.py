@@ -371,7 +371,9 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
                                   "mamba_scan": {"lanes": 0, "simt": 0},
                                   "rwkv6_scan": {"cols": 0, "simt": 0},
-                                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0}}
+                                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0,
+                                                          "bwd_dq_wgmma": 0,
+                                                          "bwd_dkv_wgmma": 0}}
 
 
 def test_every_entry_point_refuses_cpu_tensors():
