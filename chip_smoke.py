@@ -36,10 +36,14 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    and pixtral-12b's (1024, d 128, G 4), and decode against seamless's
    1500 encoder frames, all valid and under a ragged prefix, with the
    transposed copy of a layer's cross K/V, and in seamless's 1024-slot and
-   pixtral's 2048-slot KV caches; the flash kernel's key-masked route at
-   seamless's cross prefill (ragged valid lengths, one fully masked row) in
-   fp32 and bf16, timed in turns with the simt design unmasked, SDPA given
-   the same boolean mask beside them; the flash backward's two kernels in
+   pixtral's 2048-slot KV caches; the flash kernel's key-masked designs at
+   seamless's cross prefill (ragged valid lengths with one fully masked row,
+   whose output must be the mean of v; then dead tiles mid-row and a row
+   whose only valid keys sit in its last, partial tile): bf16 on
+   ``wgmma_masked`` (the route) and the simt masked design, fp32 on simt,
+   the tile walks of each mask printed, ``wgmma_masked`` timed in turns with
+   the simt masked design, SDPA given the same boolean mask beside them; the
+   flash backward's two kernels in
    both designs (``bwd_route``: bf16 -> the wgmma pair ``bwd_dq_wgmma``,
    ``bwd_dkv_wgmma``; fp32 -> the simt pair ``bwd_dq``, ``bwd_dkv``, which
    also runs bf16 on its own entry point) over the sweep in both dtypes and
@@ -68,7 +72,7 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    decoder prompt over 150 encoder frames at batch 4, then 8 greedy decode
    steps through ``T.prefill`` and ``T.decode_step``, card against CPU:
    every step's logits within atol/rtol 1e-4 and equal tokens; then again
-   under a ragged ``enc_mask``, the cross prefill on the masked route;
+   under a ragged ``enc_mask``, the cross prefill on the simt masked route;
 4g. the same for a reduced ``pixtral-12b`` (4 query heads a kv head, as
    in the full model) on a prompt of 40 image-patch embeddings;
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
@@ -98,8 +102,8 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    ``T.prefill`` and a greedy ``T.decode_step`` loop timed as the engine
    times (the engine takes no encoder inputs); every attention (encoder,
    self, cross) on flash ``wgmma`` and decode ``split``, checked by route;
-   then one prefill under a ragged ``enc_mask``, timed, its cross
-   attention on the masked route;
+   then one prefill under a ragged ``enc_mask``, timed, its 24 cross
+   prefills on ``wgmma_masked``;
 5g. full-width, full-depth ``pixtral-12b`` (24.5 GB of bf16 weights, 5f's
    memory freed first): 8 prompts of 1024 stub image-patch embeddings and
    32 new tokens, the same way;
@@ -1090,26 +1094,64 @@ def main() -> int:
             ops_ms=1e3 * 4 * d * pairs * B * Hq / PEAK_BF16_FLOPS))
         del q, k, v, kq, vq, out, plain
 
-    # the key-masked route (phases 4f and 5f under an encoder mask) at
-    # seamless's cross prefill: ragged valid lengths and one fully masked
-    # row, held in fp32 and bf16, then timed in bf16 in turns with the simt
-    # design unmasked at the same shape, SDPA given the same boolean mask
+    # the key-masked designs (phase 5f's cross prefill under an encoder mask
+    # in bf16, phase 4f's in fp32) at seamless's cross prefill: the ragged
+    # valid lengths with one fully masked row, then a mask with holes; bf16
+    # on both designs (wgmma_masked, the route, and the simt masked design on
+    # its own entry point), fp32 on simt; then wgmma_masked timed in bf16 in
+    # turns with the simt masked design, SDPA given the same boolean mask
     B, Hq, Hkv, S, Tk, d, _ = ENCDEC_FLASH["seamless cross prefill"]
     lengths = [Tk - 97 * b for b in range(B)]
     lengths[1] = 0                # a row with no valid key averages v over T
-    key_valid = torch.arange(Tk, device=dev)[None] < torch.tensor(lengths, device=dev)[:, None]
-    kw = dict(causal=False, key_valid=key_valid)
+    tpos = torch.arange(Tk, device=dev)
+    masks = {"ragged": tpos[None] < torch.tensor(lengths, device=dev)[:, None]}
+    holes = torch.rand((B, Tk), generator=gen, device=dev) < 0.7
+    holes[:, 320:832] = False                         # tiles 5..12 dead mid-row
+    holes[1] = tpos >= Tk // 64 * 64 + 5              # keys only in the last, partial tile
+    holes[3] = (tpos % 256) < 64                      # every fourth tile live
+    masks["holes"] = holes
+    n_tiles = -(-Tk // 64)
+
+    def tile_walks(key_valid):
+        """The key tiles each batch row's blocks walk (not causal, no
+        window): the live ones, or all of them for a row with no valid key."""
+        live = torch.nn.functional.pad(key_valid, (0, n_tiles * 64 - Tk)).view(
+            B, n_tiles, 64).any(-1).sum(-1)
+        return torch.where(key_valid.any(-1), live, n_tiles).tolist()
+
     errs = {}
     for dname, dt in dtypes.items():
-        if _flash.route(dt, True) != "masked":
+        (q, k, v), _ = flash_case((B, Hq, Hkv, S, Tk, d, False, None), dt)
+        designs = {_flash.route(dt, True): ops.flash_attention}
+        if dt == torch.bfloat16:
+            designs["masked"] = _flash.flash_attention_masked_simt
+        if set(designs) != ({"wgmma_masked", "masked"} if dname == "bfloat16" else {"masked"}):
             raise AssertionError(f"flash_attention: a key mask in {dname} routes to "
                                  f"{_flash.route(dt, True)}")
-        (q, k, v), _ = flash_case((B, Hq, Hkv, S, Tk, d, False, None), dt)
-        plain = ref.flash_attention_ref(q, k, v, **kw)
-        out = ops.flash_attention(q, k, v, **kw)
-        errs[dname] = check_close(f"flash_attention masked cross prefill {dname}", out, plain,
-                                  TOL[dname])
-    old, new = in_turns(torch, lambda: _flash.flash_attention_simt(q, k, v, causal=False),
+        for mname, key_valid in masks.items():
+            kw = dict(causal=False, key_valid=key_valid)
+            plain = ref.flash_attention_ref(q, k, v, **kw)
+            for design, fn in designs.items():
+                out = fn(q, k, v, **kw)
+                torch.cuda.synchronize()
+                errs[dname, mname, design] = check_close(
+                    f"flash_attention masked cross prefill {dname} {mname} {design}", out, plain,
+                    TOL[dname])
+                if mname == "ragged":   # row 1: the mean of v over all of T
+                    check_close(f"flash_attention masked {dname} {design}, the fully masked row",
+                                out[1], v[1].float().mean(1, keepdim=True).expand(Hkv, S, d),
+                                TOL[dname])
+        for mname, key_valid in masks.items():
+            walks = tile_walks(key_valid)
+            print(f"  flash_attention masked cross prefill {dname}, {mname} mask (valid "
+                  f"{key_valid.sum(1).tolist()}): max |diff| "
+                  + ", ".join(f"{design} {errs[dname, mname, design]:.3g}" for design in designs)
+                  + f"; tile walks a query tile {walks}, {sum(walks)} of {B * n_tiles} "
+                  f"({sum(walks) * Hq * -(-S // 128)} of {B * n_tiles * Hq * -(-S // 128)} "
+                  f"block walks)")
+    key_valid = masks["ragged"]
+    kw = dict(causal=False, key_valid=key_valid)
+    old, new = in_turns(torch, lambda: _flash.flash_attention_masked_simt(q, k, v, **kw),
                         lambda: ops.flash_attention(q, k, v, **kw), 10, flush)
     lib = launch_times_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=key_valid[:, None, None, :]), 20, flush)
@@ -1121,19 +1163,33 @@ def main() -> int:
     kv_row_bytes = Hkv * d * k.element_size()
     needed_bytes = (sum(t.numel() * t.element_size() for t in (q, key_valid, out))
                     + kv_row_bytes * (2 * sum(lengths) + Tk * lengths.count(0)))
-    print(f"  flash_attention masked cross prefill {(B, Hq, Hkv, S, Tk, d)}, valid lengths "
-          f"{lengths}: masked {spread(new)}, max |diff| bf16 {errs['bfloat16']:.3g} fp32 "
-          f"{errs['float32']:.3g}; simt unmasked {spread(old)}; SDPA with the mask {spread(lib)}")
+    print(f"  flash_attention masked cross prefill {(B, Hq, Hkv, S, Tk, d)} bfloat16, ragged "
+          f"mask, in turns: wgmma_masked {spread(new)}; simt masked (previous) {spread(old)}; "
+          f"SDPA with the mask {spread(lib)}")
+    # what the live walk saves against the unmasked route, and what a row
+    # with no valid key costs (its blocks walk every tile, each masked)
+    for mname, mlengths in (("ragged, no empty row", [Tk - 97 * b for b in range(B)]),
+                            ("all valid but row 1", [0 if b == 1 else Tk for b in range(B)])):
+        mkv = tpos[None] < torch.tensor(mlengths, device=dev)[:, None]
+        plain_t, masked_t = in_turns(
+            torch, lambda: ops.flash_attention(q, k, v, causal=False),
+            lambda: ops.flash_attention(q, k, v, causal=False, key_valid=mkv), 10, flush)
+        print(f"  flash_attention masked cross prefill bfloat16, {mname} (tile walks "
+              f"{sum(tile_walks(mkv))} of {B * n_tiles}), in turns: wgmma_masked "
+              f"{spread(masked_t)}; wgmma unmasked {spread(plain_t)}")
     records["flash_attention_masked"] = dict(
-        err=errs["bfloat16"], ms=statistics.fmean(new),
+        err=max(errs["bfloat16", m, "wgmma_masked"] for m in masks), ms=statistics.fmean(new),
+        previous_ms=statistics.fmean(old),
         plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(q, k, v, **kw), 3, flush),
         library_ms=statistics.fmean(lib),
         bytes=needed_bytes,
         ops=f"{4 * d * pairs * Hq} FLOP", ops_ms=1e3 * 4 * d * pairs * Hq / PEAK_BF16_FLOPS,
         replaces="src/repro/models/transformer.py:137",
-        source="src/repro_torch/csrc/flash_attention.cu")
+        source="src/repro_torch/csrc/flash_attention.cu",
+        note="the wgmma_masked route (previous_ms: the simt masked design, early-stopped); "
+             "launches: phase 5f's masked prefill")
     report("flash_attention masked cross prefill", records["flash_attention_masked"])
-    del q, k, v, out, plain, key_valid
+    del q, k, v, out, plain, key_valid, masks, holes
 
     # the decode attention of phases 5f and 5g: against seamless-m4t's 1500
     # encoder frames (G 1, d 64, not a ring; all valid, so every tile is
@@ -1539,14 +1595,15 @@ def main() -> int:
                                               np.float32)}
     generate_against_cpu(cfg, encdec_batch,
                          {"flash_attention": E + 2 * L, "decode_attention": 2 * L * 8},
-                         {"wgmma": 0, "simt": E + 2 * L, "masked": 0})
+                         {"wgmma": 0, "simt": E + 2 * L, "masked": 0, "wgmma_masked": 0})
     lengths = ENCDEC_MASK_LENGTHS
     print(f"  again under a ragged enc_mask, valid lengths {lengths}: the cross prefill on the "
-          f"masked route, the decode steps' cross-attention under the decode kernel's mask")
+          f"simt masked route (fp32), the decode steps' cross-attention under the decode "
+          f"kernel's mask")
     encdec_batch["enc_mask"] = np.arange(ENCDEC_FRAMES)[None] < np.array(lengths)[:, None]
     generate_against_cpu(cfg, encdec_batch,
                          {"flash_attention": E + 2 * L, "decode_attention": 2 * L * 8},
-                         {"wgmma": 0, "simt": E + L, "masked": L})
+                         {"wgmma": 0, "simt": E + L, "masked": L, "wgmma_masked": 0})
 
     phase("4g reduced pixtral-12b, a prompt of image-patch embeddings, card against CPU, float32")
     cfg = dataclasses.replace(reduced(get_arch("pixtral-12b")), dtype="float32", n_kv_heads=1)
@@ -1659,7 +1716,8 @@ def main() -> int:
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     step_us, launches, routes = serve(cfg, prompts)
     if (routes["flash_attention"], routes["decode_attention"]) != (
-            {"wgmma": 28, "simt": 0, "masked": 0}, {"split": 868, "simt": 0}):
+            {"wgmma": 28, "simt": 0, "masked": 0, "wgmma_masked": 0},
+            {"split": 868, "simt": 0}):
         raise AssertionError(f"qwen3's attention by route {routes}")
     endpoints = {cfg.name: step_us}
 
@@ -1672,7 +1730,7 @@ def main() -> int:
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], moe_launches, routes = serve(cfg, prompts)
     launches["moe_gmm"] = moe_launches["moe_gmm"]
-    if routes != {"flash_attention": {"wgmma": 24, "simt": 0, "masked": 0},
+    if routes != {"flash_attention": {"wgmma": 24, "simt": 0, "masked": 0, "wgmma_masked": 0},
                   "decode_attention": {"split": 744, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
@@ -1696,7 +1754,7 @@ def main() -> int:
     prompts = np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], jamba_launches, routes = serve(cfg, prompts)
-    if routes != {"flash_attention": {"wgmma": 3, "simt": 0, "masked": 0},
+    if routes != {"flash_attention": {"wgmma": 3, "simt": 0, "masked": 0, "wgmma_masked": 0},
                   "decode_attention": {"split": 93, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
@@ -1728,7 +1786,7 @@ def main() -> int:
     prompts = np.random.default_rng(SEED + 8).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     _, h2o_launches, routes = serve(cfg, prompts)
-    if routes != {"flash_attention": {"wgmma": 24, "simt": 0, "masked": 0},
+    if routes != {"flash_attention": {"wgmma": 24, "simt": 0, "masked": 0, "wgmma_masked": 0},
                   "decode_attention": {"split": 744, "simt": 0},
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
@@ -1824,10 +1882,10 @@ def main() -> int:
     seamless_launches, masked_routes = serve_direct(cfg, batch, MAX_SEQ, {   # 72 and 1488
         "flash_attention": {"wgmma": E + 2 * L}, "decode_attention": {"split": 2 * L * n_decode}},
         enc_mask=enc_mask)
-    if masked_routes != {"wgmma": E + L, "simt": 0, "masked": L}:
+    if masked_routes != {"wgmma": E + L, "simt": 0, "masked": 0, "wgmma_masked": L}:
         raise AssertionError(f"seamless's masked prefill: flash launches by route "
-                             f"{masked_routes}, expected wgmma {E + L} and masked {L}")
-    launches["flash_attention_masked"] = masked_routes["masked"]
+                             f"{masked_routes}, expected wgmma {E + L} and wgmma_masked {L}")
+    launches["flash_attention_masked"] = masked_routes["wgmma_masked"]
     del frames, batch, enc_mask
     gc.collect()
     torch.cuda.empty_cache()

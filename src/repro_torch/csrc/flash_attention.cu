@@ -17,12 +17,14 @@
 // path's S = T = 512, d = 128 the least time is the bytes (0.0150 ms), and
 // from S ~ 900 up it is the operations.
 //
-// Two designs, one C entry point each; the wrapper picks the route from the
-// dtype before the launch (kernels/flash_attention.py: route), never after a
-// failure: bf16 -> "wgmma" (flash_attention_wgmma_fwd), fp32 -> "simt"
-// (flash_attention_fwd), which stays on fp32 CUDA-core arithmetic, never
-// TF32.  The simt design also takes bf16 through its own entry point, so the
-// two can be timed against each other.
+// Two designs, each unmasked and under a key mask, one C entry point each;
+// the wrapper picks the route from the dtype and the mask before the launch
+// (kernels/flash_attention.py: route), never after a failure: bf16 ->
+// "wgmma" (flash_attention_wgmma_fwd) or "wgmma_masked"
+// (flash_attention_wgmma_masked_fwd), fp32 -> "simt" (flash_attention_fwd)
+// or "masked" (flash_attention_masked_fwd), which stay on fp32 CUDA-core
+// arithmetic, never TF32.  The simt entry points also take bf16, so that the
+// designs can be timed against each other.
 //
 // What this design does about it (wgmma, bf16; the FlashAttention-3 shape,
 // kept simple): a block of 288 threads per (128-query tile, query head,
@@ -60,14 +62,28 @@
 // query with no allowed key at all walks every tile, so that row averages v
 // over the real T, as the plain version does.
 //
-// The key-masked route (flash_attention_masked_fwd, fp32 and bf16): the simt
-// design with a (B, T) byte mask of valid keys, the encoder mask of a cross
-// prefill (JAX: gqa_attend under enc_mask, src/repro/models/transformer.py).
-// Each key tile's valid bytes are staged in shared memory beside K and V,
-// and a key whose byte is 0 scores kNegInf, like a causal or window miss.
-// Any row may lose every key to the mask, so the masked kernel walks every
-// tile, and such a row averages v over the real T, as the plain version
-// does.
+// The key mask (B, T) bytes of valid keys, the encoder mask of a cross
+// prefill (JAX: gqa_attend under enc_mask, src/repro/models/transformer.py):
+// a key whose byte is 0 scores kNegInf, like a causal or window miss.  All
+// of a block's queries share batch row b, so one row of the mask decides its
+// walk (km::scan, a block-wide pass over the row's bytes: ballots of 64 keys
+// into a valid word a tile, reduced through shared memory).  If some row of
+// the block has no allowed valid key (none at all, or all in its causal
+// future or before its window), the block walks every tile of [0, T) with
+// the mask applied, and that row averages v over the real T, as the plain
+// version does; a row with a valid key then loses the dead tiles' terms
+// exactly, as exp2(kNegInf - m) is 0.  Otherwise:
+//   simt ("masked"): the block walks from the row's first valid key to its
+//   last, within the union of its rows' causal and window ranges; each key
+//   tile's valid bytes are staged in shared memory beside K and V.
+//   wgmma ("wgmma_masked"): the block walks only the live tiles of that
+//   union, those whose valid word is not 0.  The producer warp builds each
+//   tile's word by ballot as it goes, skips the dead ones, and writes each
+//   walked tile's t0 and word into its stage's slot before the arrival on
+//   k_full; the consumers read them after their wait.  Producer and
+//   consumers agree on the count (km::scan, before the walk), and stage and
+//   parity count walks, not tile positions.  A tile whose word is not all
+//   ones takes the masking arithmetic, as a tile that crosses T does.
 //
 // The backward (flash_attention_bwd_dq and flash_attention_bwd_dkv, fp32 and
 // bf16, every head width the forward takes): the gradients dq, dk and dv of
@@ -97,6 +113,111 @@
 #include "hopper.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// The key mask of a block's batch row, read by both masked designs
+
+namespace km {
+
+constexpr int kTile = 64;   // keys a tile, and bits a word
+
+// The valid word of the key tile at t0: bit c is key t0 + c, 0 at or past
+// Tlen.  Every lane of the warp calls it and gets the same word.
+__device__ __forceinline__ uint64_t tile_word(const uint8_t* __restrict__ vrow, int t0, int Tlen,
+                                              int lane) {
+  const int a = t0 + lane, c = a + 32;
+  const uint32_t lo = __ballot_sync(0xffffffffu, a < Tlen && vrow[a]);
+  const uint32_t hi = __ballot_sync(0xffffffffu, c < Tlen && vrow[c]);
+  return (uint64_t)hi << 32 | lo;
+}
+
+// Bits c of a word with lo <= t0 + c <= hi.
+__device__ __forceinline__ uint64_t range_bits(int t0, int lo, int hi) {
+  const int a = min(max(lo - t0, 0), kTile), b = min(max(hi - t0 + 1, 0), kTile);
+  const uint64_t below_b = b == kTile ? ~0ull : (1ull << b) - 1;
+  const uint64_t below_a = a == kTile ? ~0ull : (1ull << a) - 1;
+  return below_b & ~below_a;
+}
+
+struct Scan {
+  int fv, lv;       // first and last valid key of the row (Tlen and -1 if none)
+  int live;         // key tiles of [tile_lo, tile_hi] that hold a valid key
+  bool any_empty;   // some query row has no allowed valid key
+};
+
+// Reads the block's batch row of the mask, `vrow` (Tlen bytes), for a query
+// tile whose rows 0 .. nrows - 1 sit at positions p_first + r.  Every one of
+// the block's NT threads calls it (it holds block barriers); rows go to
+// threads 0 .. ROWS - 1, whole warps.  The words are built by ballots, one
+// warp a tile, and reduced through shared memory, so no thread walks T.
+//
+// Row p may see keys [rl(p), rh(p)]: rl = max(0, p - window + 1) under a
+// window, else 0; rh = p when causal (p <= Tlen - 1 always), else Tlen - 1.
+// It has an allowed valid key iff the last valid key at or before rh(p) is
+// at least rl(p).  Not causal, rh is Tlen - 1 for every row and rl grows
+// with p, so the last row decides: lv >= rl(p_last).  Causal, each row asks
+// for its own: the last valid key of [rl(p_first), p_first - 1] (m0, reduced
+// with the words) or a later one among the tile's rows (a ballot per warp of
+// rows, and each earlier warp's last).
+template <int NT, int ROWS>
+__device__ Scan scan(const uint8_t* __restrict__ vrow, int Tlen, int p_first, int nrows,
+                     int causal, int has_window, int window, int tile_lo, int tile_hi) {
+  __shared__ int s_fv, s_lv, s_m0, s_live, s_empty;
+  __shared__ int s_wlast[ROWS / 32];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    s_fv = Tlen;
+    s_lv = -1;
+    s_m0 = -1;
+    s_live = 0;
+    s_empty = 0;
+  }
+  __syncthreads();
+  const int m0_lo = has_window ? max(0, p_first - window + 1) : 0, m0_hi = p_first - 1;
+  int fv = Tlen, lv = -1, m0 = -1, live = 0;
+  for (int i = warp; i * kTile < Tlen; i += NT / 32) {
+    const int t0 = i * kTile;
+    const uint64_t w = tile_word(vrow, t0, Tlen, lane);
+    if (!w) continue;
+    fv = min(fv, t0 + __ffsll((long long)w) - 1);
+    lv = max(lv, t0 + 63 - __clzll((long long)w));
+    live += i >= tile_lo && i <= tile_hi;
+    const uint64_t before = causal ? w & range_bits(t0, m0_lo, m0_hi) : 0;
+    if (before) m0 = max(m0, t0 + 63 - __clzll((long long)before));
+  }
+  if (lane == 0) {   // every lane holds the same values
+    atomicMin(&s_fv, fv);
+    atomicMax(&s_lv, lv);
+    atomicMax(&s_m0, m0);
+    atomicAdd(&s_live, live);
+  }
+  __syncthreads();
+  Scan r{s_fv, s_lv, s_live, false};
+  if (!causal) {
+    const int p_last = p_first + nrows - 1;
+    r.any_empty = r.lv < (has_window ? max(0, p_last - window + 1) : 0);
+    return r;
+  }
+  const int p = p_first + tid;
+  uint32_t bits = 0;
+  if (tid < ROWS) {
+    bits = __ballot_sync(0xffffffffu, tid < nrows && p >= 0 && vrow[p]);
+    if (lane == 0) s_wlast[warp] = bits ? p_first + 32 * warp + 31 - __clz(bits) : -1;
+  }
+  __syncthreads();
+  if (tid < nrows) {
+    int prev = s_m0;
+    for (int w = 0; w < warp; ++w) prev = max(prev, s_wlast[w]);
+    const uint32_t upto = bits & (0xffffffffu >> (31 - lane));
+    if (upto) prev = p_first + 32 * warp + 31 - __clz(upto);
+    if (p < 0 || prev < (has_window ? max(0, p - window + 1) : 0)) s_empty = 1;
+  }
+  __syncthreads();
+  r.any_empty = s_empty;
+  return r;
+}
+
+}  // namespace km
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
@@ -154,10 +275,21 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     m_s[r] = attn::kNegInf;
     l_s[r] = 0.f;
   }
+  // MASKED: the block's rows share batch row b, so it walks from the row's
+  // first valid key to its last, unless some row has no allowed valid key
+  int fv = 0, lv = Tlen - 1;
+  bool mask_empty = false;
+  if constexpr (MASKED) {
+    const km::Scan ms = km::scan<kThreads, kBlockQ>(kvalid + (size_t)b * Tlen, Tlen, q0 + off,
+                                                    nq, causal, has_window, window, 0, -1);
+    fv = ms.fv;
+    lv = ms.lv;
+    mask_empty = ms.any_empty;
+  }
   if (tid == 0) {
     // union of the allowed key ranges of the block's queries
     int lo = Tlen, hi = -1;
-    bool empty_row = false;
+    bool empty_row = mask_empty;
     for (int r = 0; r < nq; ++r) {
       const int p = q0 + r + off;
       int rl = 0, rh = Tlen - 1;
@@ -170,8 +302,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         hi = max(hi, rh);
       }
     }
-    key_lo = empty_row || MASKED ? 0 : lo;
-    key_hi = empty_row || MASKED ? Tlen - 1 : hi;
+    key_lo = empty_row ? 0 : max(lo, fv);
+    key_hi = empty_row ? Tlen - 1 : min(hi, lv);
   }
   __syncthreads();
   const int t_begin = (key_lo / kBlockK) * kBlockK, t_end = key_hi;
@@ -368,12 +500,19 @@ struct Cfg {
   static constexpr int Q_BYTES = kBM * DP * 2;
   static constexpr int KV_BYTES = kBN * DP * 2;   // one K or one V tile
   static constexpr int BARS = 1 + 3 * kStages;
-  static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 8 * BARS + 1024;
+  // the masked design's stage slots: each K tile's valid word and t0
+  static constexpr int SLOT_BYTES = kStages * (8 + 4);
+  static constexpr int SMEM = Q_BYTES + 2 * kStages * KV_BYTES + 8 * BARS + SLOT_BYTES + 1024;
 };
 
-// The block's query tile, kv head and range of key tiles.
+// The block's query tile, kv head and range of key tiles.  MASKED: after
+// scan_mask, the walk: n_tiles key tiles from tile_first on, every tile when
+// walk_all, else only the live ones (a valid word that is not 0).
+template <bool MASKED>
 struct BlockTiles {
   int h, b, hk, q0, off, t_begin, n_tiles;
+  int tile_first = 0;
+  bool walk_all = false;
 
   __device__ __forceinline__ BlockTiles(int Hq, int Hkv, int S, int Tlen, int causal,
                                         int has_window, int window) {
@@ -393,6 +532,20 @@ struct BlockTiles {
     }
     t_begin = (lo / kBN) * kBN;
     n_tiles = (hi - t_begin) / kBN + 1;
+  }
+
+  // Every thread of the block calls it: the live tiles of the union, or
+  // every tile of [0, Tlen) when some row has no allowed valid key (that
+  // row then averages v over all of T), so no block has zero tiles.
+  __device__ __forceinline__ void scan_mask(const uint8_t* vrow, int S, int Tlen, int causal,
+                                            int has_window, int window) {
+    const int lo_tile = t_begin / kBN;
+    const km::Scan ms = km::scan<kThreads, kBM>(vrow, Tlen, q0 + off, min(kBM, S - q0), causal,
+                                                has_window, window, lo_tile,
+                                                lo_tile + n_tiles - 1);
+    walk_all = ms.any_empty;
+    tile_first = walk_all ? 0 : lo_tile;
+    n_tiles = walk_all ? (Tlen + kBN - 1) / kBN : ms.live;
   }
 };
 
@@ -438,12 +591,18 @@ __device__ __forceinline__ void issue_pv(Rows<D>& R, uint32_t v_addr) {
 
 // Scores of one tile to weights, in place: scale to log2 units, mask, update
 // the running max and sum.  Returns the rescale of the rows' earlier terms.
+// MASKED: `kbits` is the tile's valid word in shared memory; byte j holds
+// keys 8j .. 8j + 7, and a key whose bit is 0 is masked like a causal miss.
+template <bool MASKED>
 __device__ __forceinline__ float2 softmax_tile(float (&s)[kBN / 2], float& m0, float& m1,
                                                float& l0, float& l1, bool need_mask, int t0,
                                                int col0, int pa, int pb, int Tlen, int causal,
-                                               int has_window, int window, float scale_log2) {
+                                               int has_window, int window, float scale_log2,
+                                               const uint8_t* kbits) {
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j)
+  for (int j = 0; j < kBN / 8; ++j) {
+    uint32_t valid = 3;   // this thread's two keys of the 8-column group
+    if (MASKED && need_mask) valid = kbits[j] >> col0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float x = s[4 * j + i] * scale_log2;
@@ -452,11 +611,13 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[kBN / 2], float& m0, f
         const int p = i < 2 ? pa : pb;
         if (kp >= Tlen)
           x = -INFINITY;   // past T: out of the max, weight 0
-        else if ((causal && kp > p) || (has_window && kp <= p - window))
+        else if ((causal && kp > p) || (has_window && kp <= p - window) ||
+                 !((valid >> (i & 1)) & 1))
           x = attn::kNegInf;
       }
       s[4 * j + i] = x;
     }
+  }
   // each row lives in the four threads of a quad
   float mx0 = m0, mx1 = m1;
 #pragma unroll
@@ -521,13 +682,13 @@ __device__ __forceinline__ void fence_pv(Rows<D>& R) {
   }
 }
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
-                   const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ out,
-                   int Hq, int Hkv, int S, int Tlen, int causal, int has_window, int window,
-                   float scale_log2) {
+                   const __grid_constant__ CUtensorMap tm_v, const uint8_t* __restrict__ kvalid,
+                   __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int S, int Tlen, int causal,
+                   int has_window, int window, float scale_log2) {
   using C = Cfg<D>;
   constexpr int SW = C::SW;
   extern __shared__ uint8_t smem_raw[];
@@ -541,7 +702,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kStages;
   uint64_t* empty = v_full + kStages;
-  const BlockTiles bt(Hq, Hkv, S, Tlen, causal, has_window, window);
+  // MASKED: the stage slots, written by the producer before the stage's
+  // k_full arrival and read by the consumers after their wait on it
+  uint64_t* slot_word = empty + kStages;
+  int* slot_t0 = reinterpret_cast<int*>(slot_word + kStages);
+  BlockTiles<MASKED> bt(Hq, Hkv, S, Tlen, causal, has_window, window);
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -553,33 +718,61 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     hopper::mbar_fence_init();
   }
   __syncthreads();
+  if (threadIdx.x == kConsumers) {   // the producer's first thread loads Q once
+    hopper::tma_prefetch_map(&tm_q);
+    hopper::tma_prefetch_map(&tm_k);
+    hopper::tma_prefetch_map(&tm_v);
+    hopper::mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s)
+      hopper::tma_load_3d(qs + s * kBM * SW, &tm_q, q_full, s * C::DS, bt.q0, bt.b * Hq + bt.h);
+  }
+  const uint8_t* vrow = MASKED ? kvalid + (size_t)bt.b * Tlen : nullptr;
+  if constexpr (MASKED) bt.scan_mask(vrow, S, Tlen, causal, has_window, window);   // under Q's load
+
+  // the producer's first thread: wait for stage it % kStages to be free,
+  // then the K and V tiles at t0 of walk `it` into it
+  auto wait_empty = [&](int it) {
+    hopper::mbar_wait(&empty[it % kStages], ((it / kStages) & 1) ^ 1);
+  };
+  const CUtensorMap* map_k = &tm_k;
+  const CUtensorMap* map_v = &tm_v;
+  auto load_kv = [&](int it, int t0) {
+    const int st = it % kStages;
+    hopper::mbar_arrive_expect_tx(&k_full[st], C::KV_BYTES);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s)
+      hopper::tma_load_3d(ks + st * C::KV_BYTES + s * kBN * SW, map_k, &k_full[st], s * C::DS,
+                          t0, bt.b * Hkv + bt.hk);
+    hopper::mbar_arrive_expect_tx(&v_full[st], C::KV_BYTES);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s)
+      hopper::tma_load_3d(vs + st * C::KV_BYTES + s * kBN * SW, map_v, &v_full[st], s * C::DS,
+                          t0, bt.b * Hkv + bt.hk);
+  };
 
   if (threadIdx.x >= kConsumers) {
-    // ---- producer warp: one thread issues every load
-    if (threadIdx.x == kConsumers) {
-      hopper::tma_prefetch_map(&tm_q);
-      hopper::tma_prefetch_map(&tm_k);
-      hopper::tma_prefetch_map(&tm_v);
-      hopper::mbar_arrive_expect_tx(q_full, C::Q_BYTES);
-#pragma unroll
-      for (int s = 0; s < C::NSLAB; ++s)
-        hopper::tma_load_3d(qs + s * kBM * SW, &tm_q, q_full, s * C::DS, bt.q0,
-                            bt.b * Hq + bt.h);
+    // ---- producer warp: its first thread issues every load
+    if constexpr (MASKED) {
+      // the whole warp builds each tile's word; dead tiles are skipped
+      // unless every tile is walked.  Stage and parity count walks.
+      const int lane = threadIdx.x - kConsumers;
+      for (int i = bt.tile_first, it = 0; it < bt.n_tiles; ++i) {
+        const uint64_t word = km::tile_word(vrow, i * kBN, Tlen, lane);
+        if (!word && !bt.walk_all) continue;
+        if (lane == 0) {
+          wait_empty(it);
+          slot_word[it % kStages] = word;   // released by the arrival on k_full
+          slot_t0[it % kStages] = i * kBN;
+          load_kv(it, i * kBN);
+        }
+        __syncwarp();
+        ++it;
+      }
+    } else if (threadIdx.x == kConsumers) {
       for (int it = 0; it < bt.n_tiles; ++it) {
-        const int st = it % kStages;
-        const uint32_t ph = (it / kStages) & 1;
-        const int t0 = bt.t_begin + it * kBN;
-        hopper::mbar_wait(&empty[st], ph ^ 1);
-        hopper::mbar_arrive_expect_tx(&k_full[st], C::KV_BYTES);
-#pragma unroll
-        for (int s = 0; s < C::NSLAB; ++s)
-          hopper::tma_load_3d(ks + st * C::KV_BYTES + s * kBN * SW, &tm_k, &k_full[st],
-                              s * C::DS, t0, bt.b * Hkv + bt.hk);
-        hopper::mbar_arrive_expect_tx(&v_full[st], C::KV_BYTES);
-#pragma unroll
-        for (int s = 0; s < C::NSLAB; ++s)
-          hopper::tma_load_3d(vs + st * C::KV_BYTES + s * kBN * SW, &tm_v, &v_full[st],
-                              s * C::DS, t0, bt.b * Hkv + bt.hk);
+        wait_empty(it);
+        load_kv(it, bt.t_begin + it * kBN);
       }
     }
     return;
@@ -595,11 +788,17 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const uint32_t q_addr = hopper::smem_addr(qs) + c * 64 * SW;
   const uint32_t k_base = hopper::smem_addr(ks), v_base = hopper::smem_addr(vs);
   // a tile needs the masking arithmetic only where it crosses T, the causal
-  // diagonal or the window's start for some row of the warpgroup
-  auto need_mask = [&](int t0) {
+  // diagonal or the window's start for some row of the warpgroup, or (MASKED)
+  // holds a masked key
+  auto need_mask = [&](int t0, int st) {
     return t0 + kBN > Tlen || (causal && t0 + kBN - 1 > pw_first) ||
-           (has_window && t0 <= pw_first + 63 - window);
+           (has_window && t0 <= pw_first + 63 - window) || (MASKED && slot_word[st] != ~0ull);
   };
+  // the key position of walk `it`, read after the wait on its k_full
+  auto tile_t0 = [&](int it) {
+    return MASKED ? slot_t0[it % kStages] : bt.t_begin + it * kBN;
+  };
+  auto kbits = [&](int st) { return reinterpret_cast<const uint8_t*>(slot_word + st); };
 
   Rows<D> R;
 #pragma unroll
@@ -612,25 +811,26 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   // Tile it's scores are computed while tile it-1's P V runs on the tensor
   // cores, and the softmax of tile it overlaps that product.
   hopper::mbar_wait(&k_full[0], 0);
+  int t0 = tile_t0(0);
   hopper::wgmma_fence();
   issue_qk<D>(s, q_addr, k_base);
   hopper::wgmma_wait<0>();
   hopper::fence_regs(s);
-  float2 alpha = softmax_tile(s, R.m0, R.m1, R.l0, R.l1, need_mask(bt.t_begin), bt.t_begin,
-                              col0, pa, pb, Tlen, causal, has_window, window, scale_log2);
+  float2 alpha = softmax_tile<MASKED>(s, R.m0, R.m1, R.l0, R.l1, need_mask(t0, 0), t0, col0, pa,
+                                      pb, Tlen, causal, has_window, window, scale_log2, kbits(0));
   rescale_and_pack(R, s, alpha);
   for (int it = 1; it < bt.n_tiles; ++it) {
     const int st = it % kStages, pst = (it - 1) % kStages;
-    const int t0 = bt.t_begin + it * kBN;
     hopper::mbar_wait(&k_full[st], (it / kStages) & 1);
+    t0 = tile_t0(it);
     hopper::wgmma_fence();
     issue_qk<D>(s, q_addr, k_base + st * C::KV_BYTES);
     hopper::mbar_wait(&v_full[pst], ((it - 1) / kStages) & 1);
     issue_pv(R, v_base + pst * C::KV_BYTES);
     hopper::wgmma_wait<1>();   // the scores; P V may still run
     hopper::fence_regs(s);
-    alpha = softmax_tile(s, R.m0, R.m1, R.l0, R.l1, need_mask(t0), t0, col0, pa, pb, Tlen,
-                         causal, has_window, window, scale_log2);
+    alpha = softmax_tile<MASKED>(s, R.m0, R.m1, R.l0, R.l1, need_mask(t0, st), t0, col0, pa, pb,
+                                 Tlen, causal, has_window, window, scale_log2, kbits(st));
     hopper::wgmma_wait<0>();
     fence_pv(R);
     __syncwarp();
@@ -669,10 +869,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                   int Hkv, int S, int Tlen, int causal, int has_window, int window,
-                   float scale, cudaStream_t stream) {
+// MASKED: kvalid (B, Tlen) bytes, a key with 0 masked; otherwise unused.
+template <int D, bool MASKED>
+cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* kvalid, void* out,
+                   int B, int Hq, int Hkv, int S, int Tlen, int causal, int has_window,
+                   int window, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   if (!hopper::encode_bf16_3d(&tq, q, D, S, (uint64_t)B * Hq, D, (uint64_t)S * D, C::DS, kBM,
@@ -682,15 +883,38 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
       !hopper::encode_bf16_3d(&tv, v, D, Tlen, (uint64_t)B * Hkv, D, (uint64_t)Tlen * D, C::DS,
                               kBN, 1, C::SW))
     return cudaErrorInvalidValue;
-  auto kernel = flash_wgmma_kernel<D>;
+  auto kernel = flash_wgmma_kernel<D, MASKED>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid(Hq, B, (S + kBM - 1) / kBM);
-  kernel<<<grid, kThreads, C::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(out), Hq,
-                                              Hkv, S, Tlen, causal, has_window, window,
+  kernel<<<grid, kThreads, C::SMEM, stream>>>(tq, tk, tv, kvalid,
+                                              static_cast<__nv_bfloat16*>(out), Hq, Hkv, S, Tlen,
+                                              causal, has_window, window,
                                               scale * 1.4426950408889634f);
   return cudaGetLastError();
+}
+
+template <bool MASKED>
+cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const uint8_t* kvalid,
+                     void* out, int B, int Hq, int Hkv, int S, int Tlen, int causal,
+                     int has_window, int window, float scale, cudaStream_t stream) {
+  switch (D) {
+    case 32:
+      return launch<32, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
+                                window, scale, stream);
+    case 64:
+      return launch<64, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
+                                window, scale, stream);
+    case 120:
+      return launch<120, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
+                                 window, scale, stream);
+    case 128:
+      return launch<128, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
+                                 window, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace wg
@@ -1673,23 +1897,20 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
                                          int B, int Hq, int Hkv, int S, int Tlen, int D,
                                          int causal, int has_window, int window, float scale,
                                          void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return wg::launch<32>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                            scale, s);
-    case 64:
-      return wg::launch<64>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                            scale, s);
-    case 120:
-      return wg::launch<120>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                             scale, s);
-    case 128:
-      return wg::launch<128>(q, k, v, out, B, Hq, Hkv, S, Tlen, causal, has_window, window,
-                             scale, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return wg::launch_d<false>(D, q, k, v, nullptr, out, B, Hq, Hkv, S, Tlen, causal, has_window,
+                             window, scale, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 only: the wgmma design under kvalid (B, Tlen) bytes (0 = masked key),
+// walking only the key tiles that hold a valid key.  Returns as
+// flash_attention_wgmma_fwd.
+extern "C" int flash_attention_wgmma_masked_fwd(const void* q, const void* k, const void* v,
+                                                const uint8_t* kvalid, void* out, int B, int Hq,
+                                                int Hkv, int S, int Tlen, int D, int causal,
+                                                int has_window, int window, float scale,
+                                                void* stream) {
+  return wg::launch_d<true>(D, q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
+                            window, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's first kernel: dq (B, Hq, S, D), and each row's log-sum-exp

@@ -4,15 +4,21 @@ Counterpart of the Pallas ``flash_attention`` in the JAX package's
 ``kernels/flash_attention.py``; same layouts and masking.  The kernels mask
 the ragged edge of S and T themselves, so nothing is padded here.
 
-Three routes, each its own C entry point, chosen by :func:`route` from the
-dtype and the key mask before the launch: bf16 takes ``"wgmma"`` (Hopper's
-tensor cores, TMA loads, warp-specialised), fp32 takes ``"simt"`` (fp32 on
-the CUDA cores, never TF32), and a call with a (B, T) key mask, in either
-dtype, takes ``"masked"`` (the simt design with the mask in its score
-loop: a cross prefill under an encoder mask).  A failed build or launch
-raises; no route stands in for another.  :func:`flash_attention_simt`
-reaches the simt design for bf16 too, so that the two can be timed against
-each other on the card.  ``LAUNCHES`` counts the launches of each route.
+Four routes, each its own C entry point, chosen by :func:`route` from the
+dtype and the key mask before the launch.  Unmasked, bf16 takes ``"wgmma"``
+(Hopper's tensor cores, TMA loads, warp-specialised) and fp32 takes
+``"simt"`` (fp32 on the CUDA cores, never TF32).  Under a (B, T) key mask
+(a cross prefill under an encoder mask), bf16 takes ``"wgmma_masked"``
+(the wgmma design walking only the key tiles that hold a valid key of the
+batch row, each tile's 64-bit valid word beside its K tile) and fp32 takes
+``"masked"`` (the simt design with the mask in its score loop, walking from
+the row's first valid key to its last).  In both masked designs a block
+with a query row that has no allowed valid key walks every key tile, so
+that row averages v over T as the plain version does.  A failed build or
+launch raises; no route stands in for another.
+:func:`flash_attention_simt` and :func:`flash_attention_masked_simt` reach
+the simt designs for bf16 too, so that each can be timed against its wgmma
+counterpart on the card.  ``LAUNCHES`` counts the launches of each route.
 
 :func:`flash_attention_bwd` launches the backward's two kernels, dq (and
 each row's log-sum-exp and D = rowsum(dO o)) and then dk and dv, in the
@@ -40,18 +46,19 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_head_dim,
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: launches of each route
-LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "masked": 0}
+LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "masked": 0, "wgmma_masked": 0}
 #: launches of each of the backward's kernels: the simt pair and the wgmma pair
 BWD_LAUNCHES: Dict[str, int] = {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
                                 "bwd_dkv_wgmma": 0}
 
 
 def route(dtype: torch.dtype, masked: bool = False) -> str:
-    """The design a CUDA call in ``dtype`` takes: ``"masked"`` under a key
-    mask, else bf16 -> ``"wgmma"`` and anything else -> ``"simt"``."""
-    if masked:
-        return "masked"
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    """The design a CUDA call in ``dtype`` takes: bf16 -> ``"wgmma"``, or
+    ``"wgmma_masked"`` under a key mask; anything else -> ``"simt"``, or
+    ``"masked"`` under a key mask."""
+    if dtype == torch.bfloat16:
+        return "wgmma_masked" if masked else "wgmma"
+    return "masked" if masked else "simt"
 
 
 def bwd_route(dtype: torch.dtype) -> str:
@@ -83,6 +90,10 @@ def _entry(which: str):
         fn = lib.flash_attention_masked_fwd
         fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _I, _P]
+    elif which == "wgmma_masked":
+        fn = lib.flash_attention_wgmma_masked_fwd
+        fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P]
     else:
         fn = lib.flash_attention_fwd
         fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -132,6 +143,14 @@ def flash_attention_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch("simt", q, k, v, causal, window)
 
 
+def flash_attention_masked_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                                causal: bool = True, window: Optional[int] = None,
+                                key_valid: torch.Tensor) -> torch.Tensor:
+    """Launch the simt design under a key mask whatever the dtype (the
+    previous design for bf16, kept to be timed beside the wgmma one)."""
+    return _launch("masked", q, k, v, causal, window, key_valid)
+
+
 def _launch(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, window: Optional[int],
             key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -141,12 +160,14 @@ def _launch(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, T = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
-    if which == "masked":
+    if which in ("masked", "wgmma_masked"):
+        if key_valid is None:
+            raise ValueError(f"flash_attention ({which}): takes a key_valid mask")
         key_valid = key_valid.contiguous()      # bool is one byte: 0 = masked key
         ptrs.append(key_valid.data_ptr())
     args = [*ptrs, out.data_ptr(), B, Hq, Hkv, S, T, d,
             int(causal), int(window is not None), window or 0, d ** -0.5]
-    if which != "wgmma":
+    if which in ("simt", "masked"):
         args.append(DTYPE_CODES[q.dtype])
     err = _entry(which)(*args, stream_handle(q.device))
     raise_on_error(f"flash_attention ({which})", err)

@@ -127,17 +127,15 @@ def project_kv_for_cross(params: dict, enc: torch.Tensor, cfg: ArchConfig
     return k, v
 
 
-def cross_route(device_type: str, S: int, masked: bool) -> str:
+def cross_route(device_type: str, S: int) -> str:
     """How a cross-attention of S queries runs: ``"plain"`` (``gqa_attend``,
     as the JAX model) on the CPU; on the card ``"decode"`` (the decode
-    kernel, which takes the valid mask) at S = 1, and at S > 1
-    ``"flash_masked"`` (the flash kernel's key-masked route) under an
-    encoder mask, else ``"flash"`` (the flash kernel, non-causal)."""
+    kernel, which takes the valid mask) at S = 1, else ``"flash"`` (the
+    flash kernel, non-causal, whose wrapper picks its design from the
+    encoder mask, if any)."""
     if device_type == "cpu":
         return "plain"
-    if S == 1:
-        return "decode"
-    return "flash_masked" if masked else "flash"
+    return "decode" if S == 1 else "flash"
 
 
 def cross_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -153,12 +151,12 @@ def cross_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
     ck, cv = cross_kv
-    how = cross_route(x.device.type, S, cross_mask is not None)
+    how = cross_route(x.device.type, S)
     if how == "decode":
         valid = cross_mask if cross_mask is not None else torch.ones(
             (B, ck.shape[1]), dtype=torch.bool, device=x.device)
         out = ops.decode_attention(q[:, 0], ck, cv, valid)
-    elif how in ("flash", "flash_masked"):
+    elif how == "flash":
         out = _flash(q, ck, cv, False, None, cross_mask)
     else:
         mask = None if cross_mask is None else cross_mask[:, None, :].expand(B, S, ck.shape[1])

@@ -31,6 +31,7 @@ from repro.models import transformer as JT  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
 from repro.train.checkpoint import _flatten  # noqa: E402
 from repro_torch.config import FrontendStub, get_arch, reduced  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import frontends as tfront  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -236,14 +237,19 @@ def test_cross_attention_matches_jax(S, mask):
     ("cuda", 7, False, "flash"), ("cuda", 512, False, "flash"),
 ])
 def test_cross_route(device, S, masked, route):
-    assert tattn.cross_route(device, S, masked) == route
+    """The route does not depend on the encoder mask: the flash wrapper
+    picks its masked design from the mask itself."""
+    assert tattn.cross_route(device, S) == route
 
 
 @pytest.mark.parametrize("S", [2, 512])
-def test_cross_route_sends_a_masked_prefill_on_the_card_to_flash_masked(S):
-    """A key mask over several queries takes the flash kernel's masked
-    route on the card, never the plain version (this once raised)."""
-    assert tattn.cross_route("cuda", S, True) == "flash_masked"
+def test_cross_route_sends_a_masked_prefill_on_the_card_to_flash(S):
+    """A key mask over several queries takes the flash kernel on the card,
+    never the plain version (this once raised); the wrapper's route then
+    gives the mask's design."""
+    assert tattn.cross_route("cuda", S) == "flash"
+    assert tflash.route(torch.bfloat16, True) == "wgmma_masked"
+    assert tflash.route(torch.float32, True) == "masked"
 
 
 # ---------------------------------------------------------------------------

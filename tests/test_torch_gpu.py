@@ -777,11 +777,35 @@ def _key_valid(B, T, lengths):
     return torch.arange(T, device="cuda")[None] < torch.tensor(lengths, device="cuda")[:, None]
 
 
+def _masked_designs(dtype):
+    """The masked designs a dtype runs, by route: the wrapper's, and for
+    bf16 the simt one on its own entry point."""
+    dt = getattr(torch, dtype)
+    designs = {tflash.route(dt, True): tflash.flash_attention}
+    if dt == torch.bfloat16:
+        assert set(designs) == {"wgmma_masked"}
+        designs["masked"] = tflash.flash_attention_masked_simt
+    return designs
+
+
+def _check_masked(q, k, v, valid, dtype, causal=False, win=None):
+    """Each masked design of ``dtype`` against the plain version, one launch
+    each on its own route; returns the plain output."""
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=win, key_valid=valid)
+    for which, fn in _masked_designs(dtype).items():
+        before = dict(tflash.LAUNCHES)
+        out = fn(q, k, v, causal=causal, window=win, key_valid=valid)
+        torch.cuda.synchronize()
+        assert tflash.LAUNCHES == {**before, which: before[which] + 1}
+        _assert_close(out, plain, dtype)
+    return plain
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_masked_at_the_cross_prefill_shape(cuda, dtype):
     """seamless-m4t's cross prefill (B8 H16/16, S 512, T 1500, d 64) under a
     ragged encoder mask with one fully masked row, which averages v over
-    all of T as the plain version does."""
+    all of T as the plain version does; bf16 on both designs."""
     B, Hq, Hkv, S, T, d = 8, 16, 16, 512, 1500, 64
     dt = getattr(torch, dtype)
     q = _randn(cuda, (B, Hq, S, d), dt)
@@ -789,12 +813,13 @@ def test_flash_attention_masked_at_the_cross_prefill_shape(cuda, dtype):
     lengths = [T - 97 * b for b in range(B)]
     lengths[1] = 0
     valid = _key_valid(B, T, lengths)
-    assert tflash.route(dt, True) == "masked"
+    assert tflash.route(dt, True) == ("wgmma_masked" if dtype == "bfloat16" else "masked")
     before = dict(tflash.LAUNCHES)
     out = ops.flash_attention(q, k, v, causal=False, key_valid=valid)
     torch.cuda.synchronize()
-    assert tflash.LAUNCHES == {**before, "masked": before["masked"] + 1}
-    plain = ref.flash_attention_ref(q, k, v, causal=False, key_valid=valid)
+    route = tflash.route(dt, True)
+    assert tflash.LAUNCHES == {**before, route: before[route] + 1}
+    plain = _check_masked(q, k, v, valid, dtype)
     _assert_close(out, plain, dtype)
     _assert_close(out[1], v[1].float().mean(1, keepdim=True).expand(Hkv, S, d), dtype)
 
@@ -811,11 +836,41 @@ def test_flash_attention_masked_kernel(cuda, B, Hq, Hkv, S, T, d, causal, win, l
     dt = getattr(torch, dtype)
     q = _randn(cuda, (B, Hq, S, d), dt)
     k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
-    valid = _key_valid(B, T, lengths)
-    out = tflash.flash_attention(q, k, v, causal=causal, window=win, key_valid=valid)
-    torch.cuda.synchronize()
-    _assert_close(out, ref.flash_attention_ref(q, k, v, causal=causal, window=win,
-                                               key_valid=valid), dtype)
+    _check_masked(q, k, v, _key_valid(B, T, lengths), dtype, causal, win)
+
+
+def _holed_valid(B, T, pattern, gen):
+    """Masks that the live-tile walk treats apart, a row each."""
+    t = torch.arange(T, device="cuda")
+    rows = []
+    for b in range(B):
+        if pattern == "holes":          # dead tiles mid-row; keys only in the last tile
+            row = ((t < 128) | (t >= 320)) & ~((t >= 640) & (t < 832)) if b % 2 == 0 else \
+                t >= (T - 1) // 64 * 64 + 3
+            row &= torch.rand(T, generator=gen, device="cuda") < (0.6 if b % 4 == 0 else 1.0)
+        else:   # "future": keys past the early queries, or only before the late windows
+            row = t >= 40 + 30 * b if b % 2 == 0 else t < 20 + 30 * b
+        rows.append(row)
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pattern,B,Hq,Hkv,S,T,d,causal,win", [
+    ("holes", 4, 4, 2, 300, 1000, 64, False, None),    # dead tiles mid-row, ragged T
+    ("holes", 2, 2, 1, 130, 700, 128, False, 200),    # and under a window
+    ("future", 3, 4, 2, 200, 200, 64, True, None),    # causal: early rows see no valid key
+    ("future", 2, 4, 4, 160, 300, 120, True, 96),     # causal with a window, S < T
+])
+def test_flash_attention_masked_skips_dead_tiles_and_walks_empty_rows(
+        cuda, pattern, B, Hq, Hkv, S, T, d, causal, win, dtype):
+    """The live-tile walk: whole dead tiles in the middle of a row, a row
+    whose only valid keys sit in its last partial tile, and rows whose valid
+    keys all lie in their causal future or before their window (their
+    block walks every tile, and such a row averages v over T)."""
+    dt = getattr(torch, dtype)
+    q = _randn(cuda, (B, Hq, S, d), dt)
+    k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
+    _check_masked(q, k, v, _holed_valid(B, T, pattern, cuda), dtype, causal, win)
 
 
 def test_flash_attention_masked_refuses_a_bad_mask(cuda):
@@ -891,8 +946,9 @@ def test_reduced_seamless_in_bf16_on_the_card(cuda):
 
 def test_reduced_seamless_under_an_enc_mask_on_the_card(cuda):
     """The same under a ragged ``enc_mask``: the cross prefill takes the
-    flash kernel's masked route, the decode steps the decode kernel's mask,
-    and the logits hold at the bf16 limit against the plain versions."""
+    flash kernel's ``wgmma_masked`` route, the decode steps the decode
+    kernel's mask, and the logits hold at the bf16 limit against the plain
+    versions."""
     from repro_torch.config import get_arch, reduced
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import tree_to
@@ -915,7 +971,7 @@ def test_reduced_seamless_under_an_enc_mask_on_the_card(cuda):
             steps.append(lg.float().cpu())
         logits[where] = steps
     L, E = cfg.n_layers, cfg.encdec.encoder_layers
-    assert tflash.LAUNCHES == {"wgmma": E + L, "simt": 0, "masked": L}
+    assert tflash.LAUNCHES == {"wgmma": E + L, "simt": 0, "masked": 0, "wgmma_masked": L}
     assert ops.LAUNCHES["decode_attention"] == 2 * L * 4
     for got, expect in zip(logits["cuda"], logits["cpu"]):
         torch.testing.assert_close(got, expect, atol=5e-2, rtol=5e-2)

@@ -309,8 +309,10 @@ def test_flash_route(dtype, expect):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_route_under_a_key_mask(dtype):
-    """A key mask takes the masked route in either dtype."""
-    assert tflash.route(dtype, True) == "masked"
+    """A key mask takes the masked design of the dtype's route: bf16 the
+    wgmma one, fp32 the simt one."""
+    expect = "wgmma_masked" if dtype == torch.bfloat16 else "masked"
+    assert tflash.route(dtype, True) == expect
     assert tflash.route(dtype, False) == tflash.route(dtype)
 
 
@@ -365,7 +367,8 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                 torch.randn((2, 32, 24), generator=g).bfloat16())
     ops.moe_gmm(torch.randn((2, 2, 32), generator=g).bfloat16(),
                 torch.randn((2, 32, 24), generator=g).bfloat16())
-    assert ops.ROUTE_LAUNCHES == {"flash_attention": {"wgmma": 0, "simt": 0, "masked": 0},
+    assert ops.ROUTE_LAUNCHES == {"flash_attention": {"wgmma": 0, "simt": 0, "masked": 0,
+                                                      "wgmma_masked": 0},
                                   "decode_attention": {"split": 0, "simt": 0},
                                   "aes_ctr": {"ttable": 0, "simt": 0},
                                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
