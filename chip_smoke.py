@@ -55,7 +55,18 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    repeated to Hq, so that the sum back to Hkv is timed too), all by CUDA
    events with L2 flushed and the card held for ``BWD_HOLD_CYCLES``, long
    enough for the autograd engine to enqueue SDPA's backward before the
-   span starts;
+   span starts; and the backward kernels of phase 11d's other families:
+   ``moe_gmm_bwd`` (dx and dw on the forward designs over copies by the
+   transpose kernel; ``bwd_route``) over the MoE sweep in both dtypes and
+   at mixtral's and Jamba's gate/up and down at their training capacity
+   (1280, 640), timed beside ``torch.bmm`` for dx and dw and beside the
+   transpose alone; ``mamba_scan_bwd`` (``ckpt``) and ``rwkv6_scan_bwd``
+   (``rows``) over the scans' sweeps in both dtypes, with and without the
+   state and its cotangent, and at Jamba's B8 S512 di8192 ds16 and RWKV6's
+   B8 T512 H32 hd64, timed beside their forward; a gradient that sums over
+   channels, batch rows or time (dB, dC, dA, du, the MoE's dw) held in
+   fp32 at ``SUM_REL`` of its largest magnitude, the others at the
+   forward's limits, bf16 at the bf16 limit;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -173,10 +184,28 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    idle share, the backward kernels' share); then the same 4 steps from the
    same weights and batches with SDPA's attention and its own backward in
    place of the kernels: each step's loss and grad norm within
-   ``TRAIN_SDPA_RTOL`` of the kernels'.
+   ``TRAIN_SDPA_RTOL`` of the kernels'; 11c reduced float32
+   ``mixtral-8x7b``, ``jamba-v0.1-52b`` at 8 layers (attention at layer 4,
+   MoE on the odd layers) and ``rwkv6-1.6b``, 3 remat steps card against
+   CPU as 11a, each step's launches exact by route (the expert matmuls and
+   scans forward twice and backward once), every plain kernel and plain
+   backward refused on the card; RWKV6 held step by step (each card step
+   from the CPU run's weights and moments: its free-running trajectory
+   parts past 1e-4 by rounding alone), mixtral and Jamba free-running over
+   the 3 steps; 11d full-width bf16 training, 4 steps of
+   8 x 512 tokens each, AdamW as 11b: ``mixtral-8x7b`` and
+   ``jamba-v0.1-52b`` at 2 layers, ``rwkv6-1.6b`` at all 24; finite,
+   falling loss, exact launches, step time, tokens/s, MFU, peak memory and
+   a profiled step (device time, idle share, the backward kernels'
+   share), the card freed and checked under 1 GB before each model; after
+   RWKV6, in float32, its wkv kernels against the plain scan inside the
+   step's gradients: every leaf of a 2-layer model within 1e-4 of its
+   largest element, and at all 24 layers each layer's scan forward and
+   backward on the inputs and cotangent it met, within the same share; then
+   the full-depth grad norm by layer from the weights times 1 and 1 +- 1e-6.
 
 The line before the last is a JSON object with one entry per kernel (the
-flash kernel's masked route and its backward with their own); the last is
+flash kernel's masked route and the four backwards with their own); the last is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -337,6 +366,37 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
 # backward sums with atomics) has been carried through more updates
 TRAIN_SDPA_RTOL = (1e-3, 2e-3, 5e-3, 1e-2)
 GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
+# the backward kernels of the MoE matmul and the scans, by route: none in a serving run
+NO_BWD_ROUTES = {"moe_gmm_bwd": {"dx_wgmma_nt": 0, **{f"{p}_{r}": 0 for p in ("dx", "dw")
+                                                      for r in ("stream", "wgmma", "mma_sync")}},
+                 "mamba_scan_bwd": {"ckpt": 0}, "rwkv6_scan_bwd": {"rows": 0}}
+# phase 3: the backward kernels at the training shapes of phase 11d (8 x 512
+# tokens: capacity 1280 for mixtral's 8 experts, 640 for Jamba's 16)
+GMM_BWD_MAIN = {   # E, C, D, F
+    "mixtral gate/up": (8, 1280, 4096, 14336), "mixtral down": (8, 1280, 14336, 4096),
+    "jamba gate/up": (16, 640, 4096, 14336), "jamba down": (16, 640, 14336, 4096),
+}
+GMM_BWD_SWEEP = GMM_SWEEP + [(3, 200, 96, 72), (2, 64, 256, 64), (2, 100, 64, 64),
+                             (2, 300, 200, 264)]   # the tails of a 256-row box of w
+MAMBA_BWD_SWEEP = MAMBA_SWEEP + [(2, 40, 96, 5, True)]
+# a gradient that sums over channels, batch rows or time, held at this share
+# of its largest magnitude (fp32); the others at the forward's limits
+SUM_REL = 1e-4
+# phase 11c: reduced mixtral, 8-layer Jamba and RWKV6 trained card against CPU;
+# 11d: full-width bf16 training of each (layers, batch) at 512 tokens
+TRAIN_FAMILY_REDUCED = {"mixtral-8x7b": 2, "jamba-v0.1-52b": 8, "rwkv6-1.6b": 2}
+TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 64, 3
+#: the families that 11c holds step by step (each card step from the CPU run's
+#: weights and moments); the others run free for all 3 steps
+TRAIN_FAMILY_RESYNC = ("rwkv6-1.6b",)
+TRAIN_FAMILY_FULL = {"mixtral-8x7b": (2, 8), "jamba-v0.1-52b": (2, 8), "rwkv6-1.6b": (24, 8)}
+# 11d's AdamW: a tenth of 11b's lr.  Under 11b's schedule full-width 2-layer
+# mixtral's loss rose 10.74 -> 19.42 and ended at 13.84, and warmed up over
+# the 4 steps it still ended above step 1 (12.17); the same steps with the
+# library's attention and expert matmuls in place of the kernels gave the
+# same losses to 1e-3 (H100, PERF.md), so the rise is the optimizer's on a
+# freshly drawn model
+TRAIN_FAMILY_OPT = dict(lr=3e-5, warmup_steps=1, total_steps=TRAIN_STEPS)
 
 
 def phase(name: str) -> None:
@@ -777,9 +837,11 @@ def main() -> int:
     from repro_torch.kernels import moe_gmm as _gmm
     from repro_torch.kernels import rwkv6_scan as _rwkv
     from repro_torch.models import attention
+    from repro_torch.train import losses as losses_mod
+    from repro_torch.train.checkpoint import _items as tree_items
     from repro_torch.models import transformer as T
     from repro_torch.models.frontends import stub_frontend_embeddings
-    from repro_torch.models.layers import tree_map, tree_to
+    from repro_torch.models.layers import tree_leaves, tree_map, tree_to
     from repro_torch.serving import AesFunction, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1443,6 +1505,148 @@ def main() -> int:
         # (31 of 32 for each Mamba layer) and 744 of 768 of 5d
         records[name] = scan_times[(name, "decode")]
 
+    # the backward kernels of the MoE matmul and the scans (phase 11's
+    # training): each against its plain version over the sweep in fp32 and
+    # bf16 and at phase 11d's shapes, then timed there.  A gradient that sums
+    # over channels, batch rows or time (dB, dC, dA, du; dw of the MoE) is
+    # held in fp32 at SUM_REL of its largest magnitude, the others at the
+    # forward's limits; every bf16 gradient at the bf16 limit (its rounding
+    # to bf16 is the larger error)
+    def check_grads(name, got, expect, dname, fwd_tol, summed):
+        errs = []
+        for g_name, g, e in zip(expect, got, expect.values()):
+            if g_name in summed and dname == "float32":
+                scale = float(e.abs().max())
+                errs.append(check_close(f"{name} {g_name}", g, e, (SUM_REL * scale, 0.0)))
+            else:
+                errs.append(check_close(f"{name} {g_name}", g, e,
+                                        fwd_tol if g.dtype == torch.float32 else TOL["bfloat16"]))
+        return ", ".join(f"{n} {x:.3g}" for n, x in zip(expect, errs))
+
+    for case in GMM_BWD_SWEEP:
+        for dname, dt_ in dtypes.items():
+            E, C, D, F = case
+            x, w = gmm_case(E, C, D, F, dt_, D ** -0.5)
+            dy = randn(E, C, F, dtype=dt_)
+            got = _gmm.moe_gmm_bwd(x, w, dy)
+            torch.cuda.synchronize()
+            exp = dict(zip(("dx", "dw"), ref.moe_gmm_bwd_ref(x, w, dy)))
+            errs = check_grads(f"moe_gmm_bwd{case} {dname}", got, exp, dname, GMM_TOL[dname],
+                               ("dw",))
+            print(f"  moe_gmm_bwd {case} {dname}, routes {_gmm.bwd_route(dt_, C, D, F)}: "
+                  f"max |diff| {errs}")
+    bwd_times = {}
+    for label, (E, C, D, F) in GMM_BWD_MAIN.items():
+        x, w = gmm_case(E, C, D, F, torch.bfloat16, D ** -0.5)
+        dy = randn(E, C, F, dtype=torch.bfloat16)
+        routes = _gmm.bwd_route(torch.bfloat16, C, D, F)
+        if routes != ("wgmma_nt", "wgmma"):
+            raise AssertionError(f"moe_gmm_bwd {label}: routes {routes}")
+        got = _gmm.moe_gmm_bwd(x, w, dy)
+        exp = dict(zip(("dx", "dw"), ref.moe_gmm_bwd_ref(x, w, dy)))
+        errs = check_grads(f"moe_gmm_bwd {label}", got, exp, "bfloat16", GMM_TOL["bfloat16"],
+                           ("dw",))
+        wt = w.transpose(1, 2)
+        xt = x.transpose(1, 2)
+        lib, new = in_turns(torch, lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy)),
+                            lambda: _gmm.moe_gmm_bwd(x, w, dy), 5, flush)
+        if not torch.equal(_gmm._transpose(w), wt.contiguous()):
+            raise AssertionError(f"moe_gmm_bwd {label}: the transpose kernel's copy of w")
+        copy = launch_times_ms(torch, lambda: _gmm._transpose(w), 5, flush)
+        copy_x = launch_times_ms(torch, lambda: _gmm._transpose(x), 5, flush)
+        print(f"  moe_gmm_bwd {label} {(E, C, D, F)} bfloat16, routes {routes}: "
+              f"{spread(new)}, max |diff| {errs}; bmm for dx and dw {spread(lib)}; the "
+              f"transpose kernel's copies alone: w {spread(copy)}, x {spread(copy_x)}")
+        bwd_times[("moe_gmm_bwd", label)] = dict(
+            err=max(float((g.float() - e.float()).abs().max()) for g, e in zip(got, exp.values())),
+            ms=statistics.fmean(new),
+            plain_ms=time_ms(torch, lambda: ref.moe_gmm_bwd_ref(x, w, dy), 3, flush),
+            library_ms=statistics.fmean(lib),
+            bytes=sum(t.numel() * t.element_size() for t in (x, w, dy, *got)),
+            ops=f"{4 * E * C * D * F} FLOP (two products)",
+            ops_ms=1e3 * 4 * E * C * D * F / PEAK_BF16_FLOPS,
+            replaces="src/repro/kernels/moe_gmm.py:52",
+            source="src/repro_torch/csrc/moe_gmm.cu",
+            note="the backward of moe_gmm: dx on the wgmma design reading w transposed, dw on "
+                 f"the forward's designs over an (E, D, C) copy of x (routes {routes}); "
+                 "the JAX package "
+                 "differentiates its einsum experts (src/repro/models/moe.py:60-62); "
+                 "launches: phase 11d's training")
+        report(f"moe_gmm_bwd {label}", bwd_times[("moe_gmm_bwd", label)])
+        del x, w, dy, got, exp, wt, xt
+
+    scan_bwd = {
+        "mamba_scan_bwd": dict(fn=_mamba.mamba_scan_bwd, plain=ref.mamba_scan_bwd_ref,
+                               make=mamba_case, sweep=MAMBA_BWD_SWEEP, main=MAMBA_MAIN["prefill"],
+                               route=lambda dt_, case: _mamba.bwd_route(dt_, case[3]),
+                               names=("ddt", "ddtx", "dB", "dC", "dA", "dh0"),
+                               summed=("dB", "dC", "dA"),
+                               replaces="src/repro/kernels/mamba_scan.py:64"),
+        "rwkv6_scan_bwd": dict(fn=_rwkv.rwkv6_scan_bwd, plain=ref.rwkv6_scan_bwd_ref,
+                               make=rwkv_case, sweep=RWKV_SWEEP, main=RWKV_MAIN["prefill"],
+                               route=lambda dt_, case: _rwkv.bwd_route(dt_, case[3]),
+                               names=("dr", "dk", "dv", "dw", "du", "dS0"), summed=("du",),
+                               replaces="src/repro/kernels/rwkv6_scan.py:58"),
+    }
+
+    def bwd_args(kd, case, dt_, with_state):
+        args = kd["make"](*case[:4], dt_, with_state)
+        out_shape = args[0].shape
+        last = args[5].shape if with_state else None
+        return (*args, randn(*out_shape, dtype=dt_),
+                None if last is None else randn(*last, dtype=torch.float32))
+
+    for name, kd in scan_bwd.items():
+        for case in kd["sweep"]:
+            for dname, dt_ in dtypes.items():
+                args = bwd_args(kd, case, dt_, case[4])
+                got = kd["fn"](*args)
+                torch.cuda.synchronize()
+                exp = dict(zip(kd["names"], kd["plain"](*args)))
+                errs = check_grads(f"{name}{case} {dname}", got, exp, dname,
+                                   SCAN_TOL["float32"], kd["summed"])
+                print(f"  {name} {case} {dname}, {kd['route'](dt_, case)} design: max |diff| "
+                      f"{errs}")
+        shape = kd["main"]
+        args = bwd_args(kd, shape, torch.float32, False)
+        got = kd["fn"](*args)
+        exp = dict(zip(kd["names"], kd["plain"](*args)))
+        errs = check_grads(f"{name} {shape}", got, exp, "float32", SCAN_TOL["float32"],
+                           kd["summed"])
+        fwd = kd["make"](*shape, torch.float32, False)
+        fwd_ts = launch_times_ms(torch, lambda: (ops.mamba_scan if name == "mamba_scan_bwd"
+                                                 else ops.rwkv6_scan)(*fwd), 10, flush)
+        ts = launch_times_ms(torch, lambda: kd["fn"](*args), 10, flush)
+        print(f"  {name} {shape} float32, {kd['route'](torch.float32, shape)} design: "
+              f"{spread(ts)}, max |diff| {errs}; the forward kernel on the same inputs "
+              f"{spread(fwd_ts)}")
+        B, S = shape[:2]
+        if name == "mamba_scan_bwd":
+            n_exp = B * S * shape[2] * shape[3]
+            ops_desc, ops_ms = f"{n_exp} exponentials", 1e3 * n_exp / exp_rate
+        else:
+            # per (i, j) and step: the state and its cotangent updated (a MUL
+            # and an FMA each) and an FMA each for dr, dk, dv and dw
+            H, hd = shape[2:]
+            flop = 10 * B * S * H * hd * hd
+            ops_desc, ops_ms = f"{flop} fp32 FLOP", 1e3 * flop / fp32_flops
+        bwd_times[(name, "train")] = dict(
+            err=max(float((g.float() - e.float()).abs().max()) for g, e in zip(got, exp.values())),
+            ms=statistics.fmean(ts),
+            plain_ms=time_ms(torch, lambda: kd["plain"](*args), 2, flush),
+            library_ms=None,        # no PyTorch call computes either backward
+            bytes=sum(t.numel() * t.element_size() for t in (*args, *got) if t is not None),
+            ops=ops_desc, ops_ms=ops_ms, replaces=kd["replaces"],
+            source=f"src/repro_torch/csrc/{name[:-4]}.cu",
+            note=f"the backward of {name[:-4]} ({kd['route'](torch.float32, shape)} design); "
+                 "the JAX package differentiates its chunked linear_scan_emit; launches: phase "
+                 "11d's training")
+        report(f"{name} {shape}", bwd_times[(name, "train")])
+        del args, got, exp, fwd
+    records["moe_gmm_bwd"] = bwd_times[("moe_gmm_bwd", "mixtral gate/up")]
+    records["mamba_scan_bwd"] = bwd_times[("mamba_scan_bwd", "train")]
+    records["rwkv6_scan_bwd"] = bwd_times[("rwkv6_scan_bwd", "train")]
+
     # -- 4 ------------------------------------------------------------------
     phase("4 reduced qwen3-1.7b, card against CPU, float32")
     rng = np.random.default_rng(SEED)
@@ -1692,7 +1896,8 @@ def main() -> int:
         expect = {"flash_attention": n["attn"], "decode_attention": n["attn"] * n_decode,
                   "aes_ctr": 0, "moe_gmm": 3 * n["moe"] * (n_decode + 1),
                   "mamba_scan": n["mamba"] * (n_decode + 1),
-                  "rwkv6_scan": n["rwkv"] * (n_decode + 1), "flash_attention_bwd": 0}
+                  "rwkv6_scan": n["rwkv"] * (n_decode + 1), "flash_attention_bwd": 0,
+                  **{op: 0 for op in NO_BWD_ROUTES}}
         launches, routes = check_routes(cfg.name, engine_routes(cfg, n_decode))
         print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
         if launches != expect:
@@ -1736,7 +1941,7 @@ def main() -> int:
                   "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
                   "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
                   "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
-                                          "bwd_dkv_wgmma": 0}}:
+                                          "bwd_dkv_wgmma": 0}, **NO_BWD_ROUTES}:
         raise AssertionError(f"mixtral's launches by route {routes}")
     launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
 
@@ -1760,7 +1965,7 @@ def main() -> int:
                   "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
                   "mamba_scan": {"lanes": 672, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
                   "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
-                                          "bwd_dkv_wgmma": 0}}:
+                                          "bwd_dkv_wgmma": 0}, **NO_BWD_ROUTES}:
         raise AssertionError(f"Jamba's launches by route {routes}")
     launches["mamba_scan"] = jamba_launches["mamba_scan"]
     gc.collect()
@@ -1792,7 +1997,7 @@ def main() -> int:
                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
                   "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
                   "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
-                                          "bwd_dkv_wgmma": 0}}:
+                                          "bwd_dkv_wgmma": 0}, **NO_BWD_ROUTES}:
         raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
     h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
                 f"prefill and {h2o_launches['decode_attention']} decode launches")
@@ -2111,7 +2316,7 @@ def main() -> int:
     print(f"launches {faas_launches} on the FaaS path; aes_ctr by route {faas_routes}")
     if faas_launches != {"flash_attention": 0, "decode_attention": 0, "aes_ctr": BODY_CALLS,
                          "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
-                         "flash_attention_bwd": 0}:
+                         "flash_attention_bwd": 0, **{op: 0 for op in NO_BWD_ROUTES}}:
         raise AssertionError(f"FaaS path launches {faas_launches}, expected "
                              f"{BODY_CALLS} of aes_ctr only")
     expect_routes = {"ttable": 0, "simt": 0}
@@ -2215,64 +2420,112 @@ def main() -> int:
     from repro_torch.config import InputShape, StepKind
     from repro_torch.models import flops
     from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
-    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.optimizer import AdamWState, init_state
 
-    def train_routes(cfg, steps):
-        """The launches by route of ``steps`` train steps under remat: each
-        attention layer's forward twice (the recompute), its backward once,
-        on the pair of ``bwd_route`` (fp32: ``bwd_dq``/``bwd_dkv``, bf16:
-        ``bwd_dq_wgmma``/``bwd_dkv_wgmma``)."""
-        L = layer_counts(cfg)["attn"]
+    def train_routes(cfg, steps, tokens):
+        """The launches by route of ``steps`` train steps of ``tokens`` tokens
+        under remat: each layer's forward kernels twice (the recompute), its
+        backward kernels once.  Attention: the flash forward on the route of
+        the dtype, its backward on the pair of ``bwd_route`` (fp32:
+        ``bwd_dq``/``bwd_dkv``, bf16: ``bwd_dq_wgmma``/``bwd_dkv_wgmma``); MoE:
+        the three expert matmuls at the capacity of ``moe_capacity`` on
+        ``route``, their dx and dw on ``bwd_route``; the scans (fp32 in every
+        model) on their designs."""
+        n = layer_counts(cfg)
         dt = getattr(torch, cfg.dtype)
-        pair = ("bwd_dq", "bwd_dkv") if _flash.bwd_route(dt) == "simt" else \
-            ("bwd_dq_wgmma", "bwd_dkv_wgmma")
-        return {"flash_attention": {_flash.route(dt): 2 * L * steps},
-                "flash_attention_bwd": {k: L * steps for k in pair}}
+        expect = {}
+        if n["attn"]:
+            pair = ("bwd_dq", "bwd_dkv") if _flash.bwd_route(dt) == "simt" else \
+                ("bwd_dq_wgmma", "bwd_dkv_wgmma")
+            expect["flash_attention"] = {_flash.route(dt): 2 * n["attn"] * steps}
+            expect["flash_attention_bwd"] = {k: n["attn"] * steps for k in pair}
+        if n["moe"]:
+            E, k = cfg.moe.num_experts, cfg.moe.top_k
+            C = max(1, int(cfg.moe.capacity_factor * k * tokens / E))
+            fwd, bwd = collections.Counter(), collections.Counter()
+            for D, F in ((cfg.d_model, cfg.d_ff),) * 2 + ((cfg.d_ff, cfg.d_model),):
+                fwd[_gmm.route(dt, C, D, F)] += 2 * n["moe"] * steps
+                r_dx, r_dw = _gmm.bwd_route(dt, C, D, F)
+                bwd["dx_" + r_dx] += n["moe"] * steps
+                bwd["dw_" + r_dw] += n["moe"] * steps
+            expect["moe_gmm"], expect["moe_gmm_bwd"] = dict(fwd), dict(bwd)
+        if n["mamba"]:
+            ds = cfg.mamba.d_state
+            expect["mamba_scan"] = {_mamba.route(torch.float32, ds): 2 * n["mamba"] * steps}
+            expect["mamba_scan_bwd"] = {_mamba.bwd_route(torch.float32, ds): n["mamba"] * steps}
+        if n["rwkv"]:
+            hd = cfg.rwkv.head_size
+            expect["rwkv6_scan"] = {_rwkv.route(torch.float32, hd): 2 * n["rwkv"] * steps}
+            expect["rwkv6_scan_bwd"] = {_rwkv.bwd_route(torch.float32, hd): n["rwkv"] * steps}
+        return expect
 
-    def check_train_launches(name, cfg, steps):
-        L = layer_counts(cfg)["attn"]
-        check_routes(name, train_routes(cfg, steps))
-        want = {"flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps}
+    def check_train_launches(name, cfg, steps, tokens):
+        """The launches of the run just made, by route and by op, exactly those
+        of :func:`train_routes` (a backward of flash or of the MoE matmul is
+        two launches by route, one by op)."""
+        expect = train_routes(cfg, steps, tokens)
+        check_routes(name, expect)
+        want = {op: sum(r.values()) // (2 if op in ("flash_attention_bwd", "moe_gmm_bwd") else 1)
+                for op, r in expect.items()}
         got = {op: n for op, n in ops.LAUNCHES.items() if n}
         if got != want:
             raise AssertionError(f"{name}: launches {got}, expected {want}")
 
-    plain_attention = (ref.flash_attention_ref, ref.flash_attention_bwd_ref)
+    plain_names = ("flash_attention_ref", "flash_attention_bwd_ref", "moe_gmm_ref",
+                   "moe_gmm_bwd_ref", "mamba_scan_ref", "mamba_scan_bwd_ref", "rwkv6_scan_ref",
+                   "rwkv6_scan_bwd_ref")
+    plain_kernels = {n: getattr(ref, n) for n in plain_names}
 
     def refuse_plain(*args, **kwargs):
-        raise AssertionError("the card's train step reached a plain attention")
+        raise AssertionError("the card's train step reached a plain kernel")
 
-    phase("11a reduced qwen3-1.7b and h2o-danube-3-4b (heads 120 wide) trained, card against "
-          "CPU, float32")
-    for arch, seq in TRAIN_REDUCED.items():
-        cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="float32")
-        if arch == "h2o-danube-3-4b":
-            cfg = dataclasses.replace(cfg, head_dim=120, n_kv_heads=2)
+    def train_card_against_cpu(cfg, seq, steps, resync=False):
+        """``steps`` remat train steps of ``cfg`` from the same weights and
+        SyntheticLM batches of 4 x ``seq`` tokens on the CPU and on the card,
+        every plain kernel refused on the card: each card step's launches
+        exact, losses and grad norms within atol/rtol 1e-4.  With ``resync``
+        each card step starts from the CPU run's weights and moments before
+        that step, so that the two are held step by step and not along
+        trajectories that part by rounding alone: reduced RWKV6's grad norm
+        at step 3 moves by 2.2e-3 of itself on the CPU alone when the
+        weights move by 1e-6 of themselves, mixtral's and Jamba's by less
+        than 1e-4 (tests/test_torch_family_bwd.py::
+        test_trajectory_sensitivity_to_a_weight_nudge)."""
         p_cpu = T.init_params(cfg, torch.Generator().manual_seed(SEED))
         it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=4,
                                     seed=SEED)).batches()
-        batches = [next(it) for _ in range(TRAIN_REDUCED_STEPS)]
-        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
-                                                total_steps=TRAIN_REDUCED_STEPS), remat=True)
-        print(f"{cfg.name}: head_dim {cfg.resolved_head_dim}, {cfg.n_heads}/{cfg.n_kv_heads} "
-              f"heads, window {cfg.sliding_window}; batches of 4 x {seq} tokens")
-        hist = {}
-        for where in ("cpu", "cuda"):
-            params = tree_map(lambda p: p.to(where, copy=True).requires_grad_(True), p_cpu)
-            state = init_state(params)
-            hist[where] = []
-            for i, b in enumerate(batches):
+        batches = [next(it) for _ in range(steps)]
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps),
+                               remat=True)
+
+        def copy_to(tree, where):
+            return tree_map(lambda p: p.detach().to(where, copy=True), tree)
+
+        params = {w: tree_map(lambda p: p.requires_grad_(True), copy_to(p_cpu, w))
+                  for w in ("cpu", "cuda")}
+        state = {w: init_state(params[w]) for w in ("cpu", "cuda")}
+        hist = {"cpu": [], "cuda": []}
+        for i, b in enumerate(batches):
+            if resync and i:
+                params["cuda"] = tree_map(lambda p: p.requires_grad_(True),
+                                          copy_to(params["cpu"], "cuda"))
+                st = state["cpu"]
+                state["cuda"] = AdamWState(st.step.to("cuda"), copy_to(st.mu, "cuda"),
+                                           copy_to(st.nu, "cuda"))
+            for where in ("cpu", "cuda"):
                 batch = {k: torch.from_numpy(v).to(where) for k, v in b.items()}
                 if where == "cuda":
                     ops.reset_launches()
-                    ref.flash_attention_ref = ref.flash_attention_bwd_ref = refuse_plain
+                    for n in plain_names:
+                        setattr(ref, n, refuse_plain)
                 try:
-                    params, state, m = step(params, state, batch)
+                    params[where], state[where], m = step(params[where], state[where], batch)
                 finally:
-                    ref.flash_attention_ref, ref.flash_attention_bwd_ref = plain_attention
+                    for n, fn in plain_kernels.items():
+                        setattr(ref, n, fn)
                 hist[where].append({k: float(m[k]) for k in ("loss", "grad_norm")})
                 if where == "cuda":
-                    check_train_launches(f"{cfg.name} step {i + 1}", cfg, 1)
+                    check_train_launches(f"{cfg.name} step {i + 1}", cfg, 1, 4 * seq)
         for i, (c, g) in enumerate(zip(hist["cpu"], hist["cuda"])):
             for key in ("loss", "grad_norm"):
                 if not (math.isfinite(g[key])
@@ -2282,6 +2535,17 @@ def main() -> int:
             print(f"  step {i + 1}: loss card {g['loss']:.6f} CPU {c['loss']:.6f} (|diff| "
                   f"{abs(g['loss'] - c['loss']):.3g}); grad_norm card {g['grad_norm']:.6f} CPU "
                   f"{c['grad_norm']:.6f} (|diff| {abs(g['grad_norm'] - c['grad_norm']):.3g})")
+        print(f"  each card step's launches by route: {train_routes(cfg, 1, 4 * seq)}")
+
+    phase("11a reduced qwen3-1.7b and h2o-danube-3-4b (heads 120 wide) trained, card against "
+          "CPU, float32")
+    for arch, seq in TRAIN_REDUCED.items():
+        cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="float32")
+        if arch == "h2o-danube-3-4b":
+            cfg = dataclasses.replace(cfg, head_dim=120, n_kv_heads=2)
+        print(f"{cfg.name}: head_dim {cfg.resolved_head_dim}, {cfg.n_heads}/{cfg.n_kv_heads} "
+              f"heads, window {cfg.sliding_window}; batches of 4 x {seq} tokens")
+        train_card_against_cpu(cfg, seq, TRAIN_REDUCED_STEPS)
 
     phase("11b full-width, full-depth qwen3-1.7b trained on the card, bf16")
     gc.collect()
@@ -2321,7 +2585,7 @@ def main() -> int:
         h = hist[-1]
         print(f"  step {len(hist)}: loss {h['loss']:.4f} nll {h['nll']:.4f} grad_norm "
               f"{h['grad_norm']:.4f} lr {h['lr']:.3g} step_ms {1e3 * times[-1]:.1f}")
-    check_train_launches(f"{cfg.name} training", cfg, TRAIN_STEPS)
+    check_train_launches(f"{cfg.name} training", cfg, TRAIN_STEPS, TRAIN_BATCH * TRAIN_SEQ)
     launches["flash_attention_bwd"] = ops.LAUNCHES["flash_attention_bwd"]
     losses = [h["loss"] for h in hist]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -2403,6 +2667,221 @@ def main() -> int:
     del params, state, batches, step
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 11c, 11d -------------------------------------------------------------
+    phase("11c reduced mixtral-8x7b, jamba-v0.1-52b (8 layers) and rwkv6-1.6b trained, card "
+          "against CPU, float32")
+    for arch, n_layers in TRAIN_FAMILY_REDUCED.items():
+        cfg = dataclasses.replace(reduced(get_arch(arch), n_layers=n_layers), dtype="float32")
+        print(f"{cfg.name}: kinds {[k.value for k in cfg.block_kinds()]}; batches of 4 x "
+              f"{TRAIN_FAMILY_SEQ} tokens")
+        train_card_against_cpu(cfg, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS,
+                               resync=arch in TRAIN_FAMILY_RESYNC)
+
+    def step_grads(cfg, params, batch, remat=True):
+        """Step 1's loss and its gradients by every leaf (``tree_leaves``
+        order), as ``make_train_step`` takes them."""
+        logits, aux = T.forward(params, cfg, batch, remat=remat)
+        loss = losses_mod.cross_entropy(logits, batch["labels"])["loss"] + aux
+        del logits
+        return float(loss.detach()), torch.autograd.grad(loss, tree_leaves(params),
+                                                         allow_unused=True)
+
+    def rel_diff(got, expect):
+        return (float((got.float() - expect.float()).abs().max())
+                / max(float(expect.float().abs().max()), 1e-30))
+
+    def rwkv_scan_checks(cfg, batch):
+        """The wkv kernels inside full-width RWKV6's gradients, float32.
+        (a) At 2 layers and batch 2, step 1's gradients with the kernels
+        against those with the plain scan's autograd from the same weights
+        and batch (the only difference between the two): each leaf within
+        SUM_REL of its largest element.  (b) At all of ``cfg``'s layers and
+        batch 1, each layer's scan forward and backward on the inputs and
+        the output cotangent that layer met in the step, kernels against
+        plain versions: each output and gradient within SUM_REL of its
+        largest magnitude.  (c) That step's grad norm, by layer, from the
+        weights times 1 and 1 +- 1e-6: how far rounding alone moves it.  At
+        full depth the gradient is ill-conditioned, so a whole-model
+        comparison of (a)'s kind cannot hold there, and (b) holds the
+        kernels layer by layer instead."""
+        small = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+        b2 = {k: v[:2] for k, v in batch.items()}
+        params = tree_map(lambda p: p.requires_grad_(True),
+                          T.init_params(small, torch.Generator(device=dev).manual_seed(SEED)))
+        _, kernel_grads = step_grads(small, params, b2)
+        kernel_scan, ops.rwkv6_scan = ops.rwkv6_scan, ref.rwkv6_scan_ref
+        try:
+            _, plain_grads = step_grads(small, params, b2)
+        finally:
+            ops.rwkv6_scan = kernel_scan
+        worst = sorted(((rel_diff(g, r), name) for (name, _), g, r
+                        in zip(tree_items(params), kernel_grads, plain_grads)
+                        if g is not None), reverse=True)
+        print(f"  (a) step 1's gradients of 2 float32 layers at batch 2, the wkv kernels against "
+              f"the plain scan's autograd, max |diff| over each leaf's largest (limit "
+              f"{SUM_REL}): " + ", ".join(f"{n} {x:.3g}" for x, n in worst[:4]))
+        if not worst[0][0] <= SUM_REL:
+            raise AssertionError(f"{small.name}: kernels against the plain scan, {worst[:4]}")
+        del params, kernel_grads, plain_grads
+
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        b1 = {k: v[:1] for k, v in batch.items()}
+        p0 = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        met = []
+
+        def recording_scan(r, k, v, w, u, S0=None):
+            o, S = kernel_scan(r, k, v, w, u, S0)
+            entry = {"inputs": [t.detach().clone() for t in (r, k, v, w, u)]}
+            o.register_hook(lambda g: entry.__setitem__("do", g.detach().contiguous()))
+            met.append(entry)
+            return o, S
+
+        ops.rwkv6_scan = recording_scan
+        try:
+            step_grads(cfg, tree_map(lambda p: p.detach().requires_grad_(True), p0), b1,
+                       remat=False)
+        finally:
+            ops.rwkv6_scan = kernel_scan
+        if len(met) != cfg.n_layers or not all("do" in e for e in met):
+            raise AssertionError(f"{cfg.name}: {len(met)} scans recorded")
+        worst_layer = (-1.0, -1, "")
+        for i, e in enumerate(met):
+            r, k, v, w, u = e["inputs"]
+            got = (*_rwkv.rwkv6_scan(r, k, v, w, u, None),
+                   *_rwkv.rwkv6_scan_bwd(r, k, v, w, u, None, e["do"], None))
+            expect = (*ref.rwkv6_scan_ref(r, k, v, w, u, None),
+                      *ref.rwkv6_scan_bwd_ref(r, k, v, w, u, None, e["do"], None))
+            for name, g, x in zip(("o", "S_last", "dr", "dk", "dv", "dw", "du", "dS0"),
+                                  got, expect):
+                worst_layer = max(worst_layer, (rel_diff(g, x), i, name))
+        print(f"  (b) each of {cfg.n_layers} float32 layers' scan at batch 1 on the inputs and "
+              f"output cotangent it met in step 1, kernels against plain versions: max |diff| "
+              f"over the largest {worst_layer[0]:.3g} (layer {worst_layer[1]}, "
+              f"{worst_layer[2]}; limit {SUM_REL})")
+        if not worst_layer[0] <= SUM_REL:
+            raise AssertionError(f"{cfg.name}: the kernels on the recorded inputs, "
+                                 f"{worst_layer}")
+        del met
+
+        for scale in (1.0, 1.0 + 1e-6, 1.0 - 1e-6):
+            loss, grads = step_grads(
+                cfg, tree_map(lambda p: (p.detach() * scale).requires_grad_(True), p0), b1)
+            sq = [g.float().reshape(cfg.n_layers, -1).square().sum(1)
+                  for (name, _), g in zip(tree_items(p0), grads)
+                  if g is not None and name.startswith("blocks/")]
+            per_layer = sum(sq).sqrt()
+            norm = math.sqrt(sum(float(g.float().square().sum()) for g in grads
+                                 if g is not None))
+            if not math.isfinite(norm):
+                raise AssertionError(f"{cfg.name}: grad norm {norm} at weights x {scale}")
+            print(f"  (c) weights x {scale!r}: loss {loss:.7f}, grad norm {norm:.6g}, by layer "
+                  f"(0 first) {[float(f'{x:.4g}') for x in per_layer.tolist()]}")
+            del grads, sq
+        del p0
+
+    bwd_ops = ("moe_gmm_bwd", "mamba_scan_bwd", "rwkv6_scan_bwd")
+    family_launches = collections.Counter()
+    kernel_tags = (("mamba_scan_bwd_kernel", "mamba_scan_bwd"),
+                   ("mamba_scan_bwd_sum_kernel", "mamba_scan_bwd (sums)"),
+                   ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd"),
+                   ("rwkv6_scan_bwd_sum_kernel", "rwkv6_scan_bwd (sums)"),
+                   ("moe_gmm", "moe_gmm (forward, recompute and backward products)"),
+                   ("mamba_scan_lanes_kernel", "mamba_scan forward"),
+                   ("rwkv6_scan_cols_kernel", "rwkv6_scan forward"),
+                   ("wgb::", "flash backward"), ("flash_wgmma_kernel", "flash forward"))
+    for arch, (n_layers, batch) in TRAIN_FAMILY_FULL.items():
+        full = get_arch(arch)
+        phase(f"11d full-width {arch}, {n_layers} of {full.n_layers} layers, trained on the "
+              f"card, bf16")
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        print(f"  before the draw: {held} bytes allocated on the card")
+        if held > 1e9:
+            raise AssertionError(f"{held} bytes still allocated before phase 11d {arch}")
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tree_map(lambda p: p.requires_grad_(True),
+                          T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+        state = init_state(params)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        largest = max(p.numel() for p in tree_leaves(params))
+        print(f"{cfg.name}: kinds {[k.value for k in cfg.block_kinds()]}, d_model {cfg.d_model}, "
+              f"{n_params} parameters ({cfg.dtype} weights {tree_bytes(params)} bytes, fp32 "
+              f"moments {tree_bytes(state.mu) + tree_bytes(state.nu)} bytes; reckoned at 12 "
+              f"bytes a parameter {12 * n_params} bytes, the largest leaf {largest} values, "
+              f"{4 * largest} bytes in fp32), drawn in {time.perf_counter() - t0:.1f} s")
+        it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    batch_size=batch, seed=SEED)).batches()
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+                   for _ in range(TRAIN_STEPS + 1)]
+        step = make_train_step(cfg, AdamWConfig(**TRAIN_FAMILY_OPT), remat=True)
+        print(f"  {TRAIN_STEPS} steps of {batch} x {TRAIN_SEQ} tokens, AdamW "
+              f"{TRAIN_FAMILY_OPT}, remat on")
+        ops.reset_launches()
+        times, hist = [], []
+        for b in batches[:TRAIN_STEPS]:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            hist.append({k: float(v) for k, v in m.items()})
+            h = hist[-1]
+            print(f"  step {len(hist)}: loss {h['loss']:.4f} nll {h['nll']:.4f} grad_norm "
+                  f"{h['grad_norm']:.4f} moe_aux {h['moe_aux']:.4g} step_ms "
+                  f"{1e3 * times[-1]:.1f}")
+        check_train_launches(f"{cfg.name} training", cfg, TRAIN_STEPS, batch * TRAIN_SEQ)
+        print(f"  launches by op over the {TRAIN_STEPS} steps: "
+              f"{dict((op, n) for op, n in ops.LAUNCHES.items() if n)}")
+        for op in bwd_ops:
+            family_launches[op] += ops.LAUNCHES[op]
+        losses = [h["loss"] for h in hist]
+        tokens = batch * TRAIN_SEQ
+        mf = flops.model_flops(cfg, InputShape(f"train_{batch}x{TRAIN_SEQ}", TRAIN_SEQ,
+                                               batch, StepKind.TRAIN))["model_flops"]
+        steady = statistics.fmean(times[1:])
+        print(f"train {cfg.name} step_ms {1e3 * steady:.1f} (mean of steps 2-{TRAIN_STEPS}; "
+              f"step 1 {1e3 * times[0]:.1f})  tokens_per_s {tokens / steady:.1f}  "
+              f"model_flops_per_step {mf:.6g}  model_tflops_per_s {mf / steady / 1e12:.2f}  "
+              f"mfu {mf / steady / PEAK_BF16_FLOPS:.4f} (of {PEAK_BF16_FLOPS / 1e12:.0f} "
+              f"TFLOP/s bf16)  max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(params, state, batches[-1])
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        device_us, top = device_top(torch, prof, 1)
+        if device_us is None:
+            raise AssertionError(f"the profiler saw no kernel of {cfg.name}'s train step")
+        by_kernel = collections.Counter()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for part, tag in kernel_tags:
+                    if part in e.key:
+                        by_kernel[tag] += e.self_device_time_total
+                        break
+        print(f"profiled step (one more, its wall including the profiler's cost): device_us "
+              f"{device_us:.1f}  wall_us {wall_us:.1f}  idle share {1 - device_us / wall_us:.3f}")
+        print("  " + ", ".join(f"{tag} {us:.1f} us ({us / device_us:.3f})"
+                               for tag, us in by_kernel.items()))
+        for name, us in top:
+            print(f"    {us:10.1f} us  {name[:100]}")
+        del params, state, prof, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch == "rwkv6-1.6b":
+            rwkv_scan_checks(cfg, batches[0])
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{cfg.name}: losses {losses} not finite and falling")
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    for op in bwd_ops:
+        launches[op] = family_launches[op]
 
     # -- result -------------------------------------------------------------
     print(smi)

@@ -3,7 +3,8 @@
 //     h_t[n] = exp(dt_t * A[c, n]) * h_{t-1}[n] + dtx_t * B_t[n],
 //     y_t    = sum_n h_t[n] * C_t[n],
 // from an initial state h0 (zeros when none is given), returning y and the
-// last state.
+// last state; and its backward (entry mamba_scan_bwd, noted where it
+// begins, below the two forward designs).
 //
 // Replaces the Pallas kernel `mamba_scan` (body `_scan_kernel`) in
 // src/repro/kernels/mamba_scan.py.  Plain version:
@@ -445,6 +446,297 @@ cudaError_t launch_ds(const void* dt, const void* dtx, const void* Bm, const voi
 
 }  // namespace lanes
 
+// ---------------------------------------------------------------------------
+// The backward (entry mamba_scan_bwd): the gradients of the scan by dt, dtx,
+// Bm, Cm, A and h0, from dy, the cotangent of y, and dh_last, that of the
+// last state.  The JAX package has no Pallas backward (it differentiates
+// its chunked linear_scan_emit); plain version:
+// repro_torch.kernels.ref.mamba_scan_bwd_ref.  With a_t = exp(dt_t A), a
+// walk back carries lambda_t = dL/dh_t = dy_t C_t + a_{t+1} lambda_{t+1}
+// (dh_last at t = S) and gives
+//     ddtx_t = lambda_t . B_t,            ddt_t = sum_n lambda_t h_{t-1} a_t A,
+//     dC_t   = sum_c dy_t[c] h_t[c, :],   dB_t  = sum_c lambda_t[c, :] dtx_t[c],
+//     dA     = sum_{b,t} lambda_t h_{t-1} a_t dt_t,    dh0 = a_1 lambda_1.
+//
+// What bounds it on this card: at Jamba's training shape (B 8, S 512, di
+// 8192, ds 16, fp32) the function must read dt, dtx and dy (134 MB each) and
+// write ddt and ddtx (134 MB each), about 671 MB, 0.200 ms at 3.35 TB/s, and
+// take the B * S * di * ds = 537 M exponentials of a_t once, 0.128 ms on the
+// special-function units: bound by the bytes.
+//
+// What this design does about it (the simple design, `ckpt`): the states do
+// not run backward (h_{t-1} = (h_t - dtx_t B_t) / a_t blows up where the
+// decay is strong), and the autograd function saves its inputs, not the
+// states.  So one kernel runs each channel forward once from h0, writing its
+// state every kChunk = 16 steps to a checkpoint buffer (B, S/16, di, 16)
+// fp32 (134 MB at the shape above, written and read by the same thread, the
+// latest chunks still in L2 when the walk back reads them), then walks the
+// chunks from the last: it recomputes the chunk's 16 states from its
+// checkpoint into shared memory and steps back through them.  A channel's
+// 16 state values sit on 4 neighbouring lanes, 4 each (ds below 16 masked),
+// 64 channels a block of 256 threads; a chunk's dt, dtx, dy, B_t and C_t are
+// staged in shared memory.  ddt and ddtx sum over the channel's 4 lanes (2
+// shuffles), staged and stored a chunk at a time.  dB and dC sum over
+// channels, which cross warps and blocks: each step the warp's 8 channels
+// are summed by xor-shuffles that halve the 8 values a lane holds (7
+// shuffles), the 8 warps' sums are added in a fixed order at the end of the
+// chunk and written as the block's partial (B, di/64, S, 32) fp32; dA sums
+// over the batch rows, each block writing its (di, ds) partial.  A second
+// kernel adds the partials in a fixed order, so that runs repeat bit for
+// bit: no atomics.  The exponential is expf of dt A, not the forward's
+// ex2.approx of a prescaled A: lambda sums over up to S steps, and the
+// prescale's rounding, amplified by |dt A|, put ddtx 5.5e-4 off the plain
+// version at the shape above.  Cost over the bound: dt and dtx are read
+// twice, the checkpoints and the partials (67 MB) are written and read once,
+// and the exponentials are taken three times (the forward walk, the
+// recompute, the walk back).
+
+namespace bwd {
+
+constexpr int kLanes = 4;                     // lanes of a channel, 4 state values each
+constexpr int kChannels = 64;                 // channels per block
+constexpr int kThreads = kChannels * kLanes;  // 256
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 16;                    // steps between checkpoints
+constexpr int kSlots = 32;                    // a step's partial: dC in 0..15, dB in 16..31
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Smem {
+  float dt[kChunk][kChannels];
+  float dtx[kChunk][kChannels];
+  float dy[kChunk][kChannels];
+  float4 bm[kChunk][kLanes];          // B_t, padded to 16 with zeros
+  float4 cm[kChunk][kLanes];          // C_t
+  float4 hist[kChunk][kThreads];      // h_{t-1} of each step of the chunk, a thread's 4 values
+  float red[kChunk][kWarps][kSlots];  // each warp's sums of dC and dB
+  float ddt[kChunk][kChannels];
+  float ddtx[kChunk][kChannels];
+};
+
+// A chunk's inputs into shared memory, zeros past S, di and ds; dy and C_t
+// only for the walk back.
+template <typename T>
+__device__ __forceinline__ void stage(Smem& sm, const T* dt, const T* dtx, const T* dy,
+                                      const T* Bm, const T* Cm, long long row0, int t0,
+                                      int steps, int di, int ds, int c0, bool back) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < kChunk * kChannels; e += kThreads) {
+    const int s = e / kChannels, cc = e - s * kChannels;
+    const bool on = s < steps && c0 + cc < di;
+    const long long off = (row0 + t0 + s) * di + c0 + cc;
+    sm.dt[s][cc] = on ? load(dt + off) : 0.f;
+    sm.dtx[s][cc] = on ? load(dtx + off) : 0.f;
+    if (back) sm.dy[s][cc] = on ? load(dy + off) : 0.f;
+  }
+  for (int e = tid; e < kChunk * 16; e += kThreads) {
+    const int s = e >> 4, n = e & 15;
+    const bool on = s < steps && n < ds;
+    const long long off = (row0 + t0 + s) * ds + n;
+    reinterpret_cast<float*>(&sm.bm[s][0])[n] = on ? load(Bm + off) : 0.f;
+    if (back) reinterpret_cast<float*>(&sm.cm[s][0])[n] = on ? load(Cm + off) : 0.f;
+  }
+}
+
+// Block (64 channels, batch row); thread tid is lane q = tid % 4 of channel
+// c0 + tid / 4 and holds its states 4q .. 4q + 3.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+mamba_scan_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ dtx,
+                      const T* __restrict__ Bm, const T* __restrict__ Cm,
+                      const T* __restrict__ A, const float* __restrict__ h0,
+                      const T* __restrict__ dy, const float* __restrict__ dh_last,
+                      float* __restrict__ ckpt, float* __restrict__ bc_part,
+                      float* __restrict__ dA_part, T* __restrict__ ddt, T* __restrict__ ddtx,
+                      float* __restrict__ dh0, int S, int di, int ds) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x, q = tid & 3, g = tid >> 2, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, c0 = blockIdx.x * kChannels, c = c0 + g;
+  const bool live = c < di;
+  const long long row0 = (long long)b * S;
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  const long long state = ((long long)b * di + c) * ds;
+
+  float Av[4], h[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = 4 * q + i;
+    const bool on = live && n < ds;
+    Av[i] = on ? load(A + (long long)c * ds + n) : 0.f;
+    h[i] = (on && h0 != nullptr) ? h0[state + n] : 0.f;
+  }
+  // this thread's checkpoint of chunk j: ck[j * ck_stride]
+  float4* ck = reinterpret_cast<float4*>(ckpt) + ((long long)b * n_chunks * di + c) * kLanes + q;
+  const long long ck_stride = (long long)di * kLanes;
+
+  // the forward walk: the state at the start of every chunk
+  for (int j = 0; j < n_chunks; ++j) {
+    const int t0 = j * kChunk, steps = min(kChunk, S - t0);
+    __syncthreads();
+    stage<T>(sm, dt, dtx, dy, Bm, Cm, row0, t0, steps, di, ds, c0, false);
+    __syncthreads();
+    if (live) ck[j * ck_stride] = make_float4(h[0], h[1], h[2], h[3]);
+    for (int s = 0; s < steps; ++s) {
+      const float d = sm.dt[s][g], x = sm.dtx[s][g];
+      const float4 bq = sm.bm[s][q];
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = fmaf(expf(d * Av[i]), h[i], x * bv[i]);
+    }
+  }
+
+  // the walk back
+  float carry[4], dA[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = 4 * q + i;
+    carry[i] = (live && n < ds && dh_last != nullptr) ? dh_last[state + n] : 0.f;
+    dA[i] = 0.f;
+  }
+  for (int j = n_chunks - 1; j >= 0; --j) {
+    const int t0 = j * kChunk, steps = min(kChunk, S - t0);
+    __syncthreads();  // everyone is done with the previous chunk's shared memory
+    stage<T>(sm, dt, dtx, dy, Bm, Cm, row0, t0, steps, di, ds, c0, true);
+    __syncthreads();
+    float hp[4] = {0.f, 0.f, 0.f, 0.f};
+    if (live) {
+      const float4 v = ck[j * ck_stride];
+      hp[0] = v.x, hp[1] = v.y, hp[2] = v.z, hp[3] = v.w;
+    }
+    for (int s = 0; s < steps; ++s) {  // the chunk's states again: h_{t-1} of each step
+      sm.hist[s][tid] = make_float4(hp[0], hp[1], hp[2], hp[3]);
+      const float d = sm.dt[s][g], x = sm.dtx[s][g];
+      const float4 bq = sm.bm[s][q];
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hp[i] = fmaf(expf(d * Av[i]), hp[i], x * bv[i]);
+    }
+    for (int s = steps - 1; s >= 0; --s) {
+      const float4 hv = sm.hist[s][tid], bq = sm.bm[s][q], cq = sm.cm[s][q];
+      const float hpv[4] = {hv.x, hv.y, hv.z, hv.w};
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w}, cv[4] = {cq.x, cq.y, cq.z, cq.w};
+      const float d = sm.dt[s][g], x = sm.dtx[s][g], gy = sm.dy[s][g];
+      float p_dtx = 0.f, p_dt = 0.f, v8[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = expf(d * Av[i]);
+        const float lam = fmaf(gy, cv[i], carry[i]);
+        const float qq = lam * hpv[i] * e;
+        p_dtx = fmaf(lam, bv[i], p_dtx);
+        p_dt = fmaf(qq, Av[i], p_dt);
+        dA[i] = fmaf(qq, d, dA[i]);
+        carry[i] = e * lam;
+        v8[i] = gy * fmaf(e, hpv[i], x * bv[i]);  // dy_t h_t, towards dC
+        v8[4 + i] = lam * x;                       // lambda_t dtx_t, towards dB
+      }
+      {  // ddtx (lanes 0, 1) and ddt (lanes 2, 3) over the channel's 4 lanes
+        const bool hi = q & 2;
+        float t = (hi ? p_dt : p_dtx) + __shfl_xor_sync(kFull, hi ? p_dtx : p_dt, 2);
+        t += __shfl_xor_sync(kFull, t, 1);
+        if (q == 0) sm.ddtx[s][g] = t;
+        if (q == 2) sm.ddt[s][g] = t;
+      }
+      // dC and dB over the warp's 8 channels, halving the values a lane
+      // holds each round: lane 4 g' + q ends with value g' (dC of state
+      // 4q + g' for g' < 4, else dB of state 4q + g' - 4)
+#pragma unroll
+      for (int m = 16, n = 8; m >= 4; m /= 2, n /= 2) {
+        const bool hi = lane & m;
+#pragma unroll
+        for (int k = 0; k < n / 2; ++k) {
+          const float send = hi ? v8[k] : v8[k + n / 2];
+          const float keep = hi ? v8[k + n / 2] : v8[k];
+          v8[k] = keep + __shfl_xor_sync(kFull, send, m);
+        }
+      }
+      sm.red[s][warp][q * 8 + (lane >> 2)] = v8[0];
+    }
+    __syncthreads();
+    // the block's partial of dC and dB at each step: the warps' sums in order
+    for (int e = tid; e < steps * kSlots; e += kThreads) {
+      const int s = e / kSlots, kk = e - s * kSlots, qq = kk >> 3, gp = kk & 7;
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) acc += sm.red[s][w][kk];
+      bc_part[(((long long)b * gridDim.x + blockIdx.x) * S + t0 + s) * kSlots + (gp >> 2) * 16 +
+              4 * qq + (gp & 3)] = acc;
+    }
+    for (int e = tid; e < steps * kChannels; e += kThreads) {
+      const int s = e / kChannels, cc = e - s * kChannels;
+      if (c0 + cc < di) {
+        const long long off = (row0 + t0 + s) * di + c0 + cc;
+        store(ddt + off, sm.ddt[s][cc]);
+        store(ddtx + off, sm.ddtx[s][cc]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = 4 * q + i;
+    if (live && n < ds) {
+      dA_part[state + n] = dA[i];
+      if (dh0 != nullptr) dh0[state + n] = carry[i];
+    }
+  }
+}
+
+// The second pass: dC and dB at each (b, t, n), the blocks' partials added
+// in block order, and dA at each (c, n), the batch rows' added in order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+mamba_scan_bwd_sum_kernel(const float* __restrict__ bc_part, const float* __restrict__ dA_part,
+                          T* __restrict__ dB, T* __restrict__ dC, T* __restrict__ dA, int B,
+                          int S, int di, int ds, int n_blocks) {
+  const long long n_bc = (long long)B * S * ds, n_a = (long long)di * ds;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < 2 * n_bc + n_a;
+       e += (long long)gridDim.x * blockDim.x) {
+    if (e < 2 * n_bc) {
+      const int which = e >= n_bc;                  // 0: dC, 1: dB
+      const long long r = e - which * n_bc;         // (b S + t) ds + n
+      const long long bt = r / ds, bb = bt / S, t = bt - bb * S;
+      const int n = (int)(r - bt * ds);
+      float acc = 0.f;
+      for (int k = 0; k < n_blocks; ++k)
+        acc += bc_part[((bb * n_blocks + k) * S + t) * kSlots + which * 16 + n];
+      store((which ? dB : dC) + r, acc);
+    } else {
+      const long long r = e - 2 * n_bc;             // c ds + n
+      float acc = 0.f;
+      for (int bb = 0; bb < B; ++bb) acc += dA_part[bb * n_a + r];
+      store(dA + r, acc);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* dt, const void* dtx, const void* Bm, const void* Cm,
+                   const void* A, const void* h0, const void* dy, const void* dh_last,
+                   void* ckpt, void* bc_part, void* dA_part, void* ddt, void* ddtx, void* dB,
+                   void* dC, void* dA, void* dh0, int B, int S, int di, int ds,
+                   cudaStream_t stream) {
+  constexpr int bytes = sizeof(Smem);
+  static const cudaError_t set = cudaFuncSetAttribute(
+      mamba_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return set;
+  const dim3 grid((di + kChannels - 1) / kChannels, B);
+  mamba_scan_bwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(dtx), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const T*>(A), static_cast<const float*>(h0),
+      static_cast<const T*>(dy), static_cast<const float*>(dh_last), static_cast<float*>(ckpt),
+      static_cast<float*>(bc_part), static_cast<float*>(dA_part), static_cast<T*>(ddt),
+      static_cast<T*>(ddtx), static_cast<float*>(dh0), S, di, ds);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long total = 2LL * B * S * ds + (long long)di * ds;
+  const int blocks = (int)((total + 255) / 256 < 1056 ? (total + 255) / 256 : 1056);
+  mamba_scan_bwd_sum_kernel<T><<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(bc_part), static_cast<const float*>(dA_part),
+      static_cast<T*>(dB), static_cast<T*>(dC), static_cast<T*>(dA), B, S, di, ds, grid.x);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // dt, dtx, y (B, S, di); Bm, Cm (B, S, ds); A (di, ds), contiguous on the
@@ -483,4 +775,27 @@ extern "C" int mamba_scan_lanes_fwd(const void* dt, const void* dtx, const void*
 // bfloat16), for the wrapper's launch geometry to be checked against.
 extern "C" int mamba_scan_lanes_smem_bytes(int dtype) {
   return dtype == 0 ? (int)sizeof(lanes::Smem<float>) : (int)sizeof(lanes::Smem<__nv_bfloat16>);
+}
+
+// The backward: dt, dtx, Bm, Cm, A as for the forward, h0 (B, di, ds) fp32 or
+// null for zeros, dy (B, S, di) in the input type, dh_last (B, di, ds) fp32 or
+// null for zeros; scratch: ckpt (B, ceil(S / 16), di, 16), bc_part (B,
+// ceil(di / 64), S, 32) and dA_part (B, di, ds), fp32; out: ddt, ddtx (B, S,
+// di), dB, dC (B, S, ds) and dA (di, ds) in the input type, and dh0 (B, di,
+// ds) fp32 or null.  B, S, di > 0, B <= 65535, 0 < ds <= 16.  Returns
+// cudaGetLastError() after the two launches (0 on success).
+extern "C" int mamba_scan_bwd(const void* dt, const void* dtx, const void* Bm, const void* Cm,
+                              const void* A, const void* h0, const void* dy, const void* dh_last,
+                              void* ckpt, void* bc_part, void* dA_part, void* ddt, void* ddtx,
+                              void* dB, void* dC, void* dA, void* dh0, int B, int S, int di,
+                              int ds, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ds < 1 || ds > bwd::kLanes * 4) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)bwd::launch<float>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt, bc_part, dA_part,
+                                   ddt, ddtx, dB, dC, dA, dh0, B, S, di, ds, s);
+  if (dtype == 1)
+    return (int)bwd::launch<__nv_bfloat16>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt, bc_part,
+                                           dA_part, ddt, ddtx, dB, dC, dA, dh0, B, S, di, ds, s);
+  return (int)cudaErrorInvalidValue;
 }

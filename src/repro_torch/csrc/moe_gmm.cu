@@ -80,6 +80,21 @@
 // fp32 multiply-adds.  The tails of C, D and F are masked by bounds, with no
 // padded copy.  One C tile covers C <= 64, so at decode each element of w is
 // read once.
+//
+// The backward (kernels/moe_gmm.py: moe_gmm_bwd): dx[e] = dy[e] w[e]^T and
+// dw[e] = x[e]^T dy[e], summed in fp32 and rounded once, by the three
+// designs above on transposed operands, each product routed at its own
+// shape.  What bounds it at mixtral's training shape (C 1280): two
+// products, 2.43 ms of bf16 operations.  What this simple design does
+// about it: the forward's designs. dx at the training shapes runs the wgmma
+// design with w read transposed (moe_gmm_wgmma_nt_fwd: w's (E, D, F) rows
+// are K-major for the product, loaded as one 256-row TMA box a stage and
+// multiplied without the transpose bit), so w is never copied; every other
+// shape of dx, and dw, take the designs of `route` on operands copied by a
+// tiled transpose kernel (moe_gmm_transpose: 64 x 64 tiles through shared
+// memory, rows read and written whole): x laid out (E, D, C) for dw (0.08
+// GB at mixtral's training shape), w laid out (E, F, D) for a dx off the
+// wgmma route (as large as w).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -315,6 +330,10 @@ constexpr int B_SLAB_BYTES = kBK * kSlab * 2;     // one slab of the w tile, [d]
 constexpr int STAGE_BYTES = A_BYTES + (kBN / kSlab) * B_SLAB_BYTES;
 constexpr int SMEM = kStages * STAGE_BYTES + 2 * kStages * 8 + 1024;
 
+// BT: w is given transposed, (E, F, D) with D contiguous (K-major B, one
+// 256-row TMA box a stage, no transpose bit); else (E, D, F) (MN-major B,
+// 64-column slabs, the transpose bit).
+template <bool BT>
 __global__ void __launch_bounds__(kThreads, 1)
 moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                      const __grid_constant__ CUtensorMap tm_w, __nv_bfloat16* __restrict__ y,
@@ -350,7 +369,7 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
         const int m = tile % nm, n = (tile / nm) % nn, e = tile / (nm * nn);
         // slabs wholly past F are not loaded: they feed only columns >= F,
         // which are not stored
-        const int nslab = min(kBN / kSlab, (F - n * kBN + kSlab - 1) / kSlab);
+        const int nslab = BT ? kBN / kSlab : min(kBN / kSlab, (F - n * kBN + kSlab - 1) / kSlab);
         for (int kb = 0; kb < nk; ++kb, ++it) {
           const int st = it % kStages;
           const uint32_t ph = (it / kStages) & 1;
@@ -358,9 +377,13 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
           hopper::mbar_wait(&empty[st], ph ^ 1);
           hopper::mbar_arrive_expect_tx(&full[st], A_BYTES + nslab * B_SLAB_BYTES);
           hopper::tma_load_3d(a_s, &tm_x, &full[st], kb * kBK, m * kBM, e);
-          for (int s = 0; s < nslab; ++s)
-            hopper::tma_load_3d(a_s + A_BYTES + s * B_SLAB_BYTES, &tm_w, &full[st],
-                                n * kBN + s * kSlab, kb * kBK, e);
+          if constexpr (BT) {
+            hopper::tma_load_3d(a_s + A_BYTES, &tm_w, &full[st], kb * kBK, n * kBN, e);
+          } else {
+            for (int s = 0; s < nslab; ++s)
+              hopper::tma_load_3d(a_s + A_BYTES + s * B_SLAB_BYTES, &tm_w, &full[st],
+                                  n * kBN + s * kSlab, kb * kBK, e);
+          }
         }
       }
     }
@@ -385,10 +408,13 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
         // x: K-major, 16 elements = 32 bytes along the swizzled row; w:
-        // MN-major, 16 rows of 128 bytes, slabs B_SLAB_BYTES apart
+        // MN-major, 16 rows of 128 bytes, slabs B_SLAB_BYTES apart (or, given
+        // transposed, K-major as x)
         const uint64_t da = hopper::make_desc(a_addr + kk * 32, 16, 8 * 128, 128);
-        const uint64_t db = hopper::make_desc(b_addr + kk * 16 * 128, B_SLAB_BYTES, 8 * 128, 128);
-        hopper::wgmma_ss<1>(acc, da, db, kb > 0 || kk > 0);
+        const uint64_t db =
+            BT ? hopper::make_desc(b_addr + kk * 32, 16, 8 * 128, 128)
+               : hopper::make_desc(b_addr + kk * 16 * 128, B_SLAB_BYTES, 8 * 128, 128);
+        hopper::wgmma_ss<BT ? 0 : 1>(acc, da, db, kb > 0 || kk > 0);
       }
       hopper::wgmma_commit();
       // keep this stage's products in flight; the previous stage is done
@@ -421,22 +447,26 @@ moe_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
+// y (E, C, F) = x (E, C, D) @ w, w (E, D, F), or w (E, F, D) transposed (BT).
+template <bool BT>
 cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D, int F,
                    cudaStream_t stream) {
   if (C < 1 || D < 1 || F < 1 || D % 8 || F % 8) return cudaErrorInvalidValue;
   CUtensorMap tx, tw;
-  if (!hopper::encode_bf16_3d(&tx, x, D, C, E, D, (uint64_t)C * D, kBK, kBM, 1, 128) ||
-      !hopper::encode_bf16_3d(&tw, w, F, D, E, F, (uint64_t)D * F, kSlab, kBK, 1, 128))
+  const bool w_ok =
+      BT ? hopper::encode_bf16_3d(&tw, w, D, F, E, D, (uint64_t)F * D, kBK, kBN, 1, 128)
+         : hopper::encode_bf16_3d(&tw, w, F, D, E, F, (uint64_t)D * F, kSlab, kBK, 1, 128);
+  if (!hopper::encode_bf16_3d(&tx, x, D, C, E, D, (uint64_t)C * D, kBK, kBM, 1, 128) || !w_ok)
     return cudaErrorInvalidValue;
   const int sms = hopper::sm_count();
   if (!sms) return cudaErrorInvalidDevice;
-  cudaError_t err =
-      cudaFuncSetAttribute(moe_gmm_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  cudaError_t err = cudaFuncSetAttribute(moe_gmm_wgmma_kernel<BT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   const long long n_tiles =
       (long long)E * ((C + kBM - 1) / kBM) * ((F + kBN - 1) / kBN);
   const int grid = (int)(n_tiles < sms ? n_tiles : sms);
-  moe_gmm_wgmma_kernel<<<grid, kThreads, SMEM, stream>>>(
+  moe_gmm_wgmma_kernel<BT><<<grid, kThreads, SMEM, stream>>>(
       tx, tw, static_cast<__nv_bfloat16*>(y), E, C, D, F);
   return cudaGetLastError();
 }
@@ -607,6 +637,44 @@ cudaError_t launch_c(const void* x, const void* w, void* y, int E, int C, int D,
 
 }  // namespace streamed
 
+// ---------------------------------------------------------------------------
+// The backward's transposes: dst (E, C, R) = src (E, R, C) per expert.
+
+namespace transpose {
+
+constexpr int kTile = 64;   // a 64 x 64 tile of elements a block
+constexpr int kRows = 8;    // rows of threads: 512 threads, 8 elements each
+
+template <typename T>
+__global__ void __launch_bounds__(kTile * kRows)
+transpose_kernel(const T* __restrict__ src, T* __restrict__ dst, int R, int C) {
+  __shared__ T tile[kTile][kTile + 1];
+  const long long base = (long long)blockIdx.z * R * C;
+  const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int i = ty; i < kTile; i += kRows) {  // rows of src, whole and in order
+    const int r = r0 + i, c = c0 + tx;
+    if (r < R && c < C) tile[i][tx] = src[base + (long long)r * C + c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = ty; i < kTile; i += kRows) {  // rows of dst
+    const int c = c0 + i, r = r0 + tx;
+    if (r < R && c < C) dst[base + (long long)c * R + r] = tile[tx][i];
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* src, void* dst, int E, int R, int C, cudaStream_t stream) {
+  const dim3 grid((C + kTile - 1) / kTile, (R + kTile - 1) / kTile, E);
+  transpose_kernel<T><<<grid, dim3(kTile, kRows), 0, stream>>>(static_cast<const T*>(src),
+                                                               static_cast<T*>(dst), R, C);
+  return cudaGetLastError();
+}
+
+}  // namespace transpose
+
 }  // namespace
 
 // x (E, C, D), w (E, D, F), y (E, C, F), contiguous and 16-byte aligned on the
@@ -627,7 +695,16 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, void* y, int E, int C, 
 // raises on anything but 0.
 extern "C" int moe_gmm_wgmma_fwd(const void* x, const void* w, void* y, int E, int C, int D,
                                  int F, void* stream) {
-  return (int)wg::launch(x, w, y, E, C, D, F, static_cast<cudaStream_t>(stream));
+  return (int)wg::launch<false>(x, w, y, E, C, D, F, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 only: the wgmma design with w given transposed, y (E, C, F) = x (E, C,
+// D) @ w[e]^T for w (E, F, D): the backward's dx = dy w^T without a copy of
+// w.  D and F multiples of 8.  Returns cudaGetLastError() after the launch, or
+// an error for a shape it does not take or a refused tensor map.
+extern "C" int moe_gmm_wgmma_nt_fwd(const void* x, const void* w, void* y, int E, int C, int D,
+                                    int F, void* stream) {
+  return (int)wg::launch<true>(x, w, y, E, C, D, F, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 only: the stream design, for 1 <= C <= 8 and D and F multiples of 8.
@@ -637,4 +714,15 @@ extern "C" int moe_gmm_wgmma_fwd(const void* x, const void* w, void* y, int E, i
 extern "C" int moe_gmm_stream_fwd(const void* x, const void* w, void* y, int E, int C, int D,
                                   int F, void* stream) {
   return (int)streamed::launch_c(x, w, y, E, C, D, F, static_cast<cudaStream_t>(stream));
+}
+
+// The backward's transpose: dst (E, C, R) = src (E, R, C), contiguous on the
+// device in one type (dtype 0 = float32, 1 = bfloat16); E, R, C > 0, E and
+// R / 64 at most 65535.  Returns cudaGetLastError() after the launch.
+extern "C" int moe_gmm_transpose(const void* src, void* dst, int E, int R, int C, int dtype,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)transpose::launch<float>(src, dst, E, R, C, s);
+  if (dtype == 1) return (int)transpose::launch<__nv_bfloat16>(src, dst, E, R, C, s);
+  return (int)cudaErrorInvalidValue;
 }

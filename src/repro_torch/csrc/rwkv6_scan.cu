@@ -3,7 +3,8 @@
 // is given),
 //     o_t[j]  = sum_i r_t[i] * (S[i, j] + u[i] * k_t[i] * v_t[j]),
 //     S[i, j] = w_t[i] * S[i, j] + k_t[i] * v_t[j],
-// returning o and the last state.
+// returning o and the last state; and its backward (entry rwkv6_scan_bwd,
+// noted where it begins, below the two forward designs).
 //
 // Replaces the Pallas kernel `rwkv6_scan` (body `_wkv_kernel`) in
 // src/repro/kernels/rwkv6_scan.py.  Plain version:
@@ -416,6 +417,322 @@ int smem_bytes(int hd) {
 
 }  // namespace cols
 
+// ---------------------------------------------------------------------------
+// The backward (entry rwkv6_scan_bwd): the gradients of the recurrence by r,
+// k, v, w, u and S0, from g = do, the cotangent of o, and dS_last, that of
+// the last state.  The JAX package has no Pallas backward (it differentiates
+// its chunked linear_scan_emit); plain version:
+// repro_torch.kernels.ref.rwkv6_scan_bwd_ref.  A walk back carries
+// Lambda_t = dL/dS_t, Lambda_T = dS_last and Lambda_{t-1} = diag(w_t)
+// Lambda_t + r_t g_t^T, and per head
+//     dr_t = (S_{t-1} + diag(u) k_t v_t^T) g_t,   dk_t = Lambda_t v_t + u r_t (v_t . g_t),
+//     dv_t = Lambda_t^T k_t + (r_t . (u k_t)) g_t,  dw_t[i] = sum_j Lambda_t[i, j] S_{t-1}[i, j],
+//     du = sum_{b, t} r_t k_t (v_t . g_t),          dS0 = Lambda_0.
+//
+// What bounds it on this card: at RWKV6-1.6B's training shape (B 8, T 512,
+// H 32, hd 64, fp32) the function must read r, k, v, w and do and write dr,
+// dk, dv and dw, 33.6 MB each, about 302 MB, 0.090 ms at 3.35 TB/s; it needs
+// about 10 fp32 operations at each of the B * T * H * hd * hd = 537 M (i, j)
+// steps (the state and Lambda updated, a MUL and an FMA each; an FMA each
+// for dr, dk, dv and dw), 5.4 GFLOP, 0.080 ms on the CUDA cores: about 0.09
+// ms either way.
+//
+// What this design does about it (the simple design, `rows`): the state
+// does not run backward either (S_{t-1} = (S_t - k_t v_t^T) / w_t, and w can
+// be near 0), and the autograd function saves its inputs, not the states.
+// One block of 4 hd threads per (batch row, head); thread (i, p) holds row i
+// of S and of Lambda at the hd / 4 columns 16 m + 4 p .. + 3, so dr, dk and
+// dw sum inside the thread and over its row's 4 lanes (2 shuffles each).
+// A forward sweep carries S from S0, gives dr a step at a time and writes S
+// every kChunk = 4 steps to a checkpoint buffer (B, H, T / 4, hd, hd) fp32
+// (537 MB at the shape above); the walk back takes the chunks from the
+// last, recomputes the chunk's 4 states S_{t-1} from its checkpoint into
+// shared memory (4 x 16 KB at hd 64) and steps back through them.  dv sums
+// over the rows: each step the warp's 8 rows are summed by xor-shuffles
+// that halve the values a lane holds, and the warps' sums are added in a
+// fixed order at the end of the chunk.  A chunk's r, k, v, w and do are
+// staged in shared memory, its dr, dk, dw and dv stored a chunk at a time.
+// du sums over batch rows and time: each block writes its (hd) partial and
+// a second kernel adds the batch rows' in order; no atomics.  Chunks of 4
+// keep a block's shared memory at 80 KB at hd 64, so two blocks of 256
+// threads share an SM and the 256 blocks of the shape above run in one
+// wave (chunks of 8, 160 KB, one block an SM and two waves: 2.05 ms on the
+// H100).  Cost over the bound: the checkpoints written and read (1.07 GB),
+// the states computed twice, a block-wide barrier and a staging load every
+// 4 steps, and 16 warps an SM to hide the step's chains of FMAs and
+// shuffles.
+
+namespace bwd {
+
+constexpr int kChunk = 4;   // steps between checkpoints, and recomputed at once
+constexpr unsigned kFull = 0xffffffffu;
+
+template <int HD>
+struct Cfg {
+  static constexpr int NT = 4 * HD;   // threads: 4 lanes a row
+  static constexpr int CPT = HD / 4;  // columns a thread
+  static constexpr int M = CPT / 4;   // float4s a thread
+  static constexpr int W = NT / 32;   // warps, 8 rows each
+};
+
+template <int HD>
+struct Smem {
+  float k[kChunk][HD], v[kChunk][HD], w[kChunk][HD], g[kChunk][HD], r[kChunk][HD];
+  float4 hist[kChunk][Cfg<HD>::M][Cfg<HD>::NT];  // S_{t-1} of each step of the chunk
+  float red[kChunk][Cfg<HD>::W][HD];             // each warp's sums of dv
+  float dr[kChunk][HD], dk[kChunk][HD], dw[kChunk][HD];
+};
+
+// A chunk's k, v, w, do (and r, for the walk back) into shared memory,
+// zeros past T.
+template <int HD, typename T>
+__device__ __forceinline__ void stage(Smem<HD>& sm, const T* k, const T* v, const T* w,
+                                      const T* g, const T* r, bool with_r, int b, int h,
+                                      int H, int T_len, int t0, int steps) {
+  float* dst = &sm.k[0][0];
+  const int n_src = with_r ? 5 : 4;
+  for (int e = threadIdx.x; e < n_src * kChunk * HD; e += Cfg<HD>::NT) {
+    const int which = e / (kChunk * HD), rem = e - which * (kChunk * HD);
+    const int s = rem / HD, col = rem - s * HD;
+    const T* src = which == 0 ? k : which == 1 ? v : which == 2 ? w : which == 3 ? g : r;
+    dst[which * kChunk * HD + rem] =
+        s < steps ? load(src + (((long long)b * T_len + t0 + s) * H + h) * HD + col) : 0.f;
+  }
+}
+
+// One round of the dv reduction over a warp's rows: with N > 1 values a
+// lane keeps half (the upper half if its bit m is set), sends the other
+// half to lane ^ m and adds what it gets; with one value it adds the
+// partner's, and the pair holds the same sum (`dup`).  N is a template
+// argument so that every index into the register array is a constant.
+template <int N>
+__device__ __forceinline__ void halve_rows(float* v, int lane, int m, int& base, int& dup) {
+  if constexpr (N > 1) {
+    const bool hi = lane & m;
+#pragma unroll
+    for (int kk = 0; kk < N / 2; ++kk) {
+      const float send = hi ? v[kk] : v[kk + N / 2];
+      const float keep = hi ? v[kk + N / 2] : v[kk];
+      v[kk] = keep + __shfl_xor_sync(kFull, send, m);
+    }
+    base += hi ? N / 2 : 0;
+  } else {
+    v[0] += __shfl_xor_sync(kFull, v[0], m);
+    dup |= m;
+  }
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(Cfg<HD>::NT, 2)
+rwkv6_scan_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ w, const T* __restrict__ u,
+                      const float* __restrict__ S0, const T* __restrict__ dout,
+                      const float* __restrict__ dS_last, float* __restrict__ ckpt,
+                      T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
+                      T* __restrict__ dw, float* __restrict__ du_part,
+                      float* __restrict__ dS0, int T_len, int H) {
+  using C = Cfg<HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
+  const int tid = threadIdx.x, i = tid >> 2, p = tid & 3, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int n_chunks = (T_len + kChunk - 1) / kChunk;
+  const long long row = (long long)bh * HD * HD + (long long)i * HD;  // row i of the state
+  const float ui = load(u + h * HD + i);
+  // this thread's float4 m of chunk c's checkpoint: ck[c * ck_stride + 4 m]
+  float4* ck = reinterpret_cast<float4*>(ckpt) + ((long long)bh * n_chunks * HD + i) * (HD / 4) + p;
+  constexpr long long ck_stride = (long long)HD * HD / 4;
+
+  float4 Sv[C::M];
+#pragma unroll
+  for (int m = 0; m < C::M; ++m)
+    Sv[m] = S0 != nullptr ? *reinterpret_cast<const float4*>(S0 + row + 16 * m + 4 * p)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // the forward sweep: dr, and the state at the start of every chunk
+  for (int c = 0; c < n_chunks; ++c) {
+    const int t0 = c * kChunk, steps = min(kChunk, T_len - t0);
+    __syncthreads();
+    stage<HD, T>(sm, k, v, w, dout, r, false, b, h, H, T_len, t0, steps);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < C::M; ++m) ck[c * ck_stride + 4 * m] = Sv[m];
+    for (int s = 0; s < steps; ++s) {
+      const float ki = sm.k[s][i], wi = sm.w[s][i];
+      float part = 0.f, vg = 0.f;
+#pragma unroll
+      for (int m = 0; m < C::M; ++m) {
+        const float4 v4 = *reinterpret_cast<const float4*>(&sm.v[s][16 * m + 4 * p]);
+        const float4 g4 = *reinterpret_cast<const float4*>(&sm.g[s][16 * m + 4 * p]);
+        float4& S = Sv[m];
+        part = fmaf(S.x, g4.x, fmaf(S.y, g4.y, fmaf(S.z, g4.z, fmaf(S.w, g4.w, part))));
+        vg = fmaf(v4.x, g4.x, fmaf(v4.y, g4.y, fmaf(v4.z, g4.z, fmaf(v4.w, g4.w, vg))));
+        S.x = fmaf(wi, S.x, ki * v4.x);
+        S.y = fmaf(wi, S.y, ki * v4.y);
+        S.z = fmaf(wi, S.z, ki * v4.z);
+        S.w = fmaf(wi, S.w, ki * v4.w);
+      }
+      part = fmaf(ui * ki, vg, part);
+      part += __shfl_xor_sync(kFull, part, 1);
+      part += __shfl_xor_sync(kFull, part, 2);
+      if (p == 0) sm.dr[s][i] = part;
+    }
+    __syncthreads();
+    for (int e = tid; e < steps * HD; e += C::NT) {
+      const int s = e / HD, col = e - s * HD;
+      store(dr + (((long long)b * T_len + t0 + s) * H + h) * HD + col, sm.dr[s][col]);
+    }
+  }
+
+  // the walk back
+  float4 L[C::M];
+#pragma unroll
+  for (int m = 0; m < C::M; ++m)
+    L[m] = dS_last != nullptr ? *reinterpret_cast<const float4*>(dS_last + row + 16 * m + 4 * p)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  float du_acc = 0.f;
+  for (int c = n_chunks - 1; c >= 0; --c) {
+    const int t0 = c * kChunk, steps = min(kChunk, T_len - t0);
+    __syncthreads();  // everyone is done with the previous chunk's shared memory
+    stage<HD, T>(sm, k, v, w, dout, r, true, b, h, H, T_len, t0, steps);
+    __syncthreads();
+    float4 P[C::M];
+#pragma unroll
+    for (int m = 0; m < C::M; ++m) P[m] = ck[c * ck_stride + 4 * m];
+    for (int s = 0; s < steps; ++s) {  // the chunk's states again: S_{t-1} of each step
+      const float ki = sm.k[s][i], wi = sm.w[s][i];
+#pragma unroll
+      for (int m = 0; m < C::M; ++m) {
+        sm.hist[s][m][tid] = P[m];
+        const float4 v4 = *reinterpret_cast<const float4*>(&sm.v[s][16 * m + 4 * p]);
+        P[m].x = fmaf(wi, P[m].x, ki * v4.x);
+        P[m].y = fmaf(wi, P[m].y, ki * v4.y);
+        P[m].z = fmaf(wi, P[m].z, ki * v4.z);
+        P[m].w = fmaf(wi, P[m].w, ki * v4.w);
+      }
+    }
+    for (int s = steps - 1; s >= 0; --s) {
+      const float ri = sm.r[s][i], ki = sm.k[s][i], wi = sm.w[s][i];
+      const float ruk = ri * ui * ki;
+      float pk = 0.f, pw = 0.f, vg = 0.f, dvp[C::CPT];
+#pragma unroll
+      for (int m = 0; m < C::M; ++m) {
+        const float4 v4 = *reinterpret_cast<const float4*>(&sm.v[s][16 * m + 4 * p]);
+        const float4 g4 = *reinterpret_cast<const float4*>(&sm.g[s][16 * m + 4 * p]);
+        const float4 Sp = sm.hist[s][m][tid];
+        float4& Lm = L[m];
+        vg = fmaf(v4.x, g4.x, fmaf(v4.y, g4.y, fmaf(v4.z, g4.z, fmaf(v4.w, g4.w, vg))));
+        pk = fmaf(Lm.x, v4.x, fmaf(Lm.y, v4.y, fmaf(Lm.z, v4.z, fmaf(Lm.w, v4.w, pk))));
+        pw = fmaf(Lm.x, Sp.x, fmaf(Lm.y, Sp.y, fmaf(Lm.z, Sp.z, fmaf(Lm.w, Sp.w, pw))));
+        dvp[4 * m + 0] = fmaf(Lm.x, ki, ruk * g4.x);
+        dvp[4 * m + 1] = fmaf(Lm.y, ki, ruk * g4.y);
+        dvp[4 * m + 2] = fmaf(Lm.z, ki, ruk * g4.z);
+        dvp[4 * m + 3] = fmaf(Lm.w, ki, ruk * g4.w);
+        Lm.x = fmaf(wi, Lm.x, ri * g4.x);
+        Lm.y = fmaf(wi, Lm.y, ri * g4.y);
+        Lm.z = fmaf(wi, Lm.z, ri * g4.z);
+        Lm.w = fmaf(wi, Lm.w, ri * g4.w);
+      }
+      pk = fmaf(ui * ri, vg, pk);
+      du_acc = fmaf(ri * ki, vg, du_acc);
+      {  // dk (lanes 0, 1) and dw (lanes 2, 3) over the row's 4 lanes
+        const bool hi = p & 2;
+        float t = (hi ? pw : pk) + __shfl_xor_sync(kFull, hi ? pk : pw, 2);
+        t += __shfl_xor_sync(kFull, t, 1);
+        if (p == 0) sm.dk[s][i] = t;
+        if (p == 2) sm.dw[s][i] = t;
+      }
+      // dv over the warp's 8 rows (lane bits 2..4): halve the values a lane
+      // holds while it holds more than one, then add what is left; the lane
+      // ends with its values base .. base + n - 1 of the thread's columns
+      int base = 0, dup = 0;
+      constexpr int N1 = C::CPT > 1 ? C::CPT / 2 : 1, N2 = N1 > 1 ? N1 / 2 : 1;
+      constexpr int NF = N2 > 1 ? N2 / 2 : 1;
+      halve_rows<C::CPT>(dvp, lane, 16, base, dup);
+      halve_rows<N1>(dvp, lane, 8, base, dup);
+      halve_rows<N2>(dvp, lane, 4, base, dup);
+      if (!(lane & dup)) {
+#pragma unroll
+        for (int kk = 0; kk < NF; ++kk) {
+          const int idx = base + kk;
+          sm.red[s][warp][16 * (idx >> 2) + 4 * p + (idx & 3)] = dvp[kk];
+        }
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < steps * HD; e += C::NT) {
+      const int s = e / HD, col = e - s * HD;
+      float acc = 0.f;
+#pragma unroll
+      for (int wv = 0; wv < C::W; ++wv) acc += sm.red[s][wv][col];
+      const long long off = (((long long)b * T_len + t0 + s) * H + h) * HD + col;
+      store(dv + off, acc);
+      store(dk + off, sm.dk[s][col]);
+      store(dw + off, sm.dw[s][col]);
+    }
+  }
+  if (dS0 != nullptr) {
+#pragma unroll
+    for (int m = 0; m < C::M; ++m)
+      *reinterpret_cast<float4*>(dS0 + row + 16 * m + 4 * p) = L[m];
+  }
+  du_acc += __shfl_xor_sync(kFull, du_acc, 1);
+  du_acc += __shfl_xor_sync(kFull, du_acc, 2);
+  if (p == 0) du_part[(long long)bh * HD + i] = du_acc;
+}
+
+// The second pass: du at each (h, i), the batch rows' partials added in order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+rwkv6_scan_bwd_sum_kernel(const float* __restrict__ du_part, T* __restrict__ du, int B, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;   // h hd + i
+  if (e >= n) return;
+  float acc = 0.f;
+  for (int bb = 0; bb < B; ++bb) acc += du_part[(long long)bb * n + e];
+  store(du + e, acc);
+}
+
+template <int HD, typename T>
+cudaError_t launch(const void* r, const void* k, const void* v, const void* w, const void* u,
+                   const void* S0, const void* dout, const void* dS_last, void* ckpt,
+                   void* du_part, void* dr, void* dk, void* dv, void* dw, void* du, void* dS0,
+                   int B, int T_len, int H, cudaStream_t stream) {
+  constexpr int bytes = sizeof(Smem<HD>);
+  static const cudaError_t set = cudaFuncSetAttribute(
+      rwkv6_scan_bwd_kernel<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return set;
+  rwkv6_scan_bwd_kernel<HD, T><<<B * H, Cfg<HD>::NT, bytes, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(w), static_cast<const T*>(u), static_cast<const float*>(S0),
+      static_cast<const T*>(dout), static_cast<const float*>(dS_last),
+      static_cast<float*>(ckpt), static_cast<T*>(dr), static_cast<T*>(dk),
+      static_cast<T*>(dv), static_cast<T*>(dw), static_cast<float*>(du_part),
+      static_cast<float*>(dS0), T_len, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rwkv6_scan_bwd_sum_kernel<T><<<(H * HD + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(du_part), static_cast<T*>(du), B, H * HD);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_hd(const void* r, const void* k, const void* v, const void* w,
+                      const void* u, const void* S0, const void* dout, const void* dS_last,
+                      void* ckpt, void* du_part, void* dr, void* dk, void* dv, void* dw,
+                      void* du, void* dS0, int B, int T_len, int H, int hd, cudaStream_t s) {
+  switch (hd) {
+    case 16: return launch<16, T>(r, k, v, w, u, S0, dout, dS_last, ckpt, du_part, dr, dk, dv,
+                                  dw, du, dS0, B, T_len, H, s);
+    case 32: return launch<32, T>(r, k, v, w, u, S0, dout, dS_last, ckpt, du_part, dr, dk, dv,
+                                  dw, du, dS0, B, T_len, H, s);
+    case 64: return launch<64, T>(r, k, v, w, u, S0, dout, dS_last, ckpt, du_part, dr, dk, dv,
+                                  dw, du, dS0, B, T_len, H, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+
 }  // namespace
 
 // r, k, v, w, o (B, T, H, hd); u (H, hd), contiguous on the device in one type
@@ -452,4 +769,26 @@ extern "C" int rwkv6_scan_cols_fwd(const void* r, const void* k, const void* v, 
 // geometry to be checked against.
 extern "C" int rwkv6_scan_cols_smem_bytes(int hd, int dtype) {
   return dtype == 0 ? cols::smem_bytes<float>(hd) : cols::smem_bytes<__nv_bfloat16>(hd);
+}
+
+// The backward: r, k, v, w (B, T, H, hd) and u (H, hd) as for the forward, S0
+// (B, H, hd, hd) fp32 or null for zeros, dout (B, T, H, hd) in the input type,
+// dS_last (B, H, hd, hd) fp32 or null for zeros; scratch: ckpt (B, H,
+// ceil(T / 8), hd, hd) and du_part (B, H, hd), fp32; out: dr, dk, dv, dw (B,
+// T, H, hd) and du (H, hd) in the input type, and dS0 (B, H, hd, hd) fp32 or
+// null.  hd in {16, 32, 64}.  Returns cudaGetLastError() after the two
+// launches (0 on success).
+extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v, const void* w,
+                              const void* u, const void* S0, const void* dout,
+                              const void* dS_last, void* ckpt, void* du_part, void* dr, void* dk,
+                              void* dv, void* dw, void* du, void* dS0, int B, int T_len, int H,
+                              int hd, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)bwd::launch_hd<float>(r, k, v, w, u, S0, dout, dS_last, ckpt, du_part, dr, dk,
+                                      dv, dw, du, dS0, B, T_len, H, hd, s);
+  if (dtype == 1)
+    return (int)bwd::launch_hd<__nv_bfloat16>(r, k, v, w, u, S0, dout, dS_last, ckpt, du_part,
+                                              dr, dk, dv, dw, du, dS0, B, T_len, H, hd, s);
+  return (int)cudaErrorInvalidValue;
 }

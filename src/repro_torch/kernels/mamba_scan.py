@@ -17,6 +17,15 @@ failed build or launch raises; no route stands in for another.
 :func:`mamba_scan_simt` reaches the simt design for any ds, so that the two
 can be timed against each other on the card.  ``LAUNCHES`` counts the launches of each route, and
 :func:`lanes_geometry` is the lanes launch that the source makes.
+
+The backward, :func:`mamba_scan_bwd` (entry ``mamba_scan_bwd``, one design,
+``"ckpt"``, for every ds the forward takes): each channel walks forward
+once writing its state every ``BWD_CHUNK`` steps, then walks the chunks
+back, recomputing each chunk's states from its checkpoint; dB and dC (sums
+over channels) and dA (over batch rows) are written as per-block partials
+and added in a fixed order by a second kernel.  The checkpoints and the
+partials are scratch that the wrapper allocates (:func:`bwd_scratch_shapes`).
+``BWD_LAUNCHES`` counts its launches.
 """
 from __future__ import annotations
 
@@ -43,6 +52,12 @@ SMEM_LIMIT = 227 * 1024    # shared memory a block may have on Hopper
 
 #: launches of each route
 LAUNCHES: Dict[str, int] = {"lanes": 0, "simt": 0}
+#: the backward's constants (csrc/mamba_scan.cu, namespace bwd)
+BWD_CHUNK = 16             # steps between checkpoints, recomputed at once
+BWD_CHANNELS = 64          # channels per block, 4 lanes each
+BWD_SLOTS = 32             # a step's partial per block: dC in 0..15, dB in 16..31
+#: launches of the backward, by design
+BWD_LAUNCHES: Dict[str, int] = {"ckpt": 0}
 
 
 def route(dtype: torch.dtype, ds: int) -> str:
@@ -51,6 +66,24 @@ def route(dtype: torch.dtype, ds: int) -> str:
     if dtype in (torch.float32, torch.bfloat16) and 0 < ds <= MAX_STATE and ds % 4 == 0:
         return "lanes"
     return "simt"
+
+
+def bwd_route(dtype: torch.dtype, ds: int) -> str:
+    """The backward's design: ``"ckpt"`` for fp32 or bf16 and 0 < ds <= 16
+    (ds below 16 masked), the shapes the forward takes."""
+    if dtype in (torch.float32, torch.bfloat16) and 0 < ds <= MAX_STATE:
+        return "ckpt"
+    raise ValueError(f"mamba_scan_bwd: no design for {dtype} at ds {ds}")
+
+
+def bwd_scratch_shapes(B: int, S: int, di: int, ds: int) -> Dict[str, Tuple[int, ...]]:
+    """The fp32 scratch of the backward: the checkpoints (a state of 16
+    values, ds padded, per channel every ``BWD_CHUNK`` steps), the blocks'
+    partials of dC and dB at every step, and the batch rows' partials of
+    dA."""
+    return {"ckpt": (B, -(-S // BWD_CHUNK), di, MAX_STATE),
+            "bc_part": (B, -(-di // BWD_CHANNELS), S, BWD_SLOTS),
+            "dA_part": (B, di, ds)}
 
 
 class LanesGeometry(NamedTuple):
@@ -92,6 +125,14 @@ def lanes_owner(g: LanesGeometry, bx: int, tid: int) -> Tuple[range, range]:
 def _entry(which: str):
     fn = getattr(_build.load("mamba_scan"), f"mamba_scan_{which}_fwd")
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.load("mamba_scan").mamba_scan_bwd
+    fn.argtypes = [_P] * 17 + [_I] * 5 + [_P]
     fn.restype = _I
     return fn
 
@@ -168,3 +209,37 @@ def _launch(which, dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: to
     raise_on_error(f"mamba_scan ({which})", err)
     LAUNCHES[which] += 1
     return y, h_last
+
+
+def mamba_scan_bwd(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                   A: torch.Tensor, h0: Optional[torch.Tensor], dy: torch.Tensor,
+                   dh_last: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The gradients of the scan given dy (B, S, di) in dt.dtype and dh_last
+    (B, di, ds) fp32 or None: (ddt, ddtx, dB, dC, dA) in the inputs' dtype
+    and dh0 (B, di, ds) fp32, as ``ref.mamba_scan_bwd_ref``.  An empty input
+    launches nothing."""
+    check_operands("mamba_scan_bwd", dt, dtx, Bm, Cm, A, dy)
+    check_inputs(dt, dtx, Bm, Cm, A, h0)
+    B, S, di = dt.shape
+    ds = Bm.shape[2]
+    if dy.shape != dt.shape:
+        raise ValueError(f"mamba_scan_bwd: dy must be (B, S, di) = {tuple(dt.shape)}, "
+                         f"got {tuple(dy.shape)}")
+    if dh_last is not None:
+        check_inputs(dt, dtx, Bm, Cm, A, dh_last)
+    grads = tuple(torch.empty_like(t) for t in (dt, dtx, Bm, Cm, A))
+    dh0 = torch.empty((B, di, ds), dtype=torch.float32, device=dt.device)
+    if dt.numel() == 0:
+        for g in grads:
+            g.zero_()
+        return (*grads, dh0.copy_(dh_last) if dh_last is not None else dh0.zero_())
+    which = bwd_route(dt.dtype, ds)
+    scratch = {k: torch.empty(shape, dtype=torch.float32, device=dt.device)
+               for k, shape in bwd_scratch_shapes(B, S, di, ds).items()}
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _bwd_entry()(*map(ptr, (dt, dtx, Bm, Cm, A, h0, dy, dh_last, scratch["ckpt"],
+                                  scratch["bc_part"], scratch["dA_part"], *grads, dh0)),
+                       B, S, di, ds, DTYPE_CODES[dt.dtype], stream_handle(dt.device))
+    raise_on_error(f"mamba_scan_bwd ({which})", err)
+    BWD_LAUNCHES[which] += 1
+    return (*grads, dh0)

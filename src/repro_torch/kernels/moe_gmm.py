@@ -17,12 +17,22 @@ TF32).  A failed build or launch raises; no route stands in for another.
 :func:`moe_gmm_mma_sync`, :func:`moe_gmm_wgmma` and :func:`moe_gmm_stream`
 reach each design at any shape it takes, so that they can be timed against
 each other on the card.  ``LAUNCHES`` counts the launches of each route.
+
+The backward, :func:`moe_gmm_bwd`: dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T
+dy[e], each summed in fp32 and rounded once, routed by :func:`bwd_route`.
+dx takes ``"wgmma_nt"`` where the wgmma design takes its shape (the design
+with w read transposed, ``moe_gmm_wgmma_nt_fwd``: no copy of w); otherwise
+dx is a forward product of dy and a copy of w laid out (E, F, D), and dw is
+always one of a copy of x laid out (E, D, C) and dy, each on the design of
+:func:`route` at its own shape.  The copies are made by the source's tiled
+transpose kernel (``moe_gmm_transpose``).  ``BWD_LAUNCHES`` counts the
+backward's products by product and route.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -47,6 +57,9 @@ STREAM_MAX_C = 6
 
 #: launches of each route
 LAUNCHES: Dict[str, int] = {"stream": 0, "wgmma": 0, "mma_sync": 0}
+#: launches of the backward's two products, by route: "dx_wgmma", "dw_mma_sync", ...
+BWD_LAUNCHES: Dict[str, int] = {"dx_wgmma_nt": 0, **{f"{part}_{r}": 0 for part in ("dx", "dw")
+                                                    for r in ("stream", "wgmma", "mma_sync")}}
 
 
 def route(dtype: torch.dtype, C: int, D: int, F: int) -> str:
@@ -61,10 +74,31 @@ def route(dtype: torch.dtype, C: int, D: int, F: int) -> str:
     return "mma_sync"
 
 
+def bwd_route(dtype: torch.dtype, C: int, D: int, F: int) -> Tuple[str, str]:
+    """The designs of the backward's two products for x (E, C, D), w (E, D,
+    F): dx = dy w^T is a product of C rows over F into D columns: where
+    ``route(dtype, C, F, D)`` is ``"wgmma"`` it takes ``"wgmma_nt"`` (w read
+    transposed), else that route on a copy of w; dw = x^T dy is one of D
+    rows over C into F, ``route(dtype, D, C, F)``.  dw contracts over C, so
+    a C that is not a multiple of 8 sends dw to ``"mma_sync"`` (TMA's
+    16-byte row stride), and a C of the decode shapes sends dx to
+    ``"stream"``."""
+    r_dx = route(dtype, C, F, D)
+    return ("wgmma_nt" if r_dx == "wgmma" else r_dx), route(dtype, D, C, F)
+
+
+@functools.cache
+def _transpose_entry():
+    fn = _build.load("moe_gmm").moe_gmm_transpose
+    fn.argtypes = [_P, _P, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
 @functools.cache
 def _entry(which: str):
     lib = _build.load("moe_gmm")
-    if which in ("wgmma", "stream"):
+    if which in ("wgmma", "stream", "wgmma_nt"):
         fn = getattr(lib, f"moe_gmm_{which}_fwd")
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P]
     else:
@@ -114,15 +148,66 @@ def moe_gmm_stream(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _launch("stream", x, w)
 
 
+def moe_gmm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients by x (E, C, D) and w (E, D, F) given dy (E, C, F), in
+    x's and w's dtype: each product on the design of :func:`bwd_route`.  An
+    empty expert launches nothing: its gradients are zeros."""
+    check_inputs(x, w)
+    check_operands("moe_gmm_bwd", x, w, dy)
+    E, C, D = x.shape
+    F = w.shape[2]
+    if tuple(dy.shape) != (E, C, F):
+        raise ValueError(f"moe_gmm_bwd: dy must be (E, C, F) = {(E, C, F)}, "
+                         f"got {tuple(dy.shape)}")
+    if x.numel() == 0 or w.numel() == 0 or dy.numel() == 0:
+        return torch.zeros_like(x), torch.zeros_like(w)
+    r_dx, r_dw = bwd_route(x.dtype, C, D, F)
+    if r_dx == "wgmma_nt":
+        dx = torch.empty_like(x)           # (E, C, F) @ (E, D, F)^T
+        err = _entry("wgmma_nt")(dy.data_ptr(), w.data_ptr(), dx.data_ptr(), E, C, F, D,
+                                 stream_handle(x.device))
+        raise_on_error("moe_gmm_bwd (wgmma_nt)", err)
+    else:
+        dx = _run(r_dx, dy, _transpose(w))   # (E, C, F) @ (E, F, D)
+    BWD_LAUNCHES[f"dx_{r_dx}"] += 1
+    dw = _run(r_dw, _transpose(x), dy)   # (E, D, C) @ (E, C, F)
+    BWD_LAUNCHES[f"dw_{r_dw}"] += 1
+    return dx, dw
+
+
+def _transpose(t: torch.Tensor) -> torch.Tensor:
+    """(E, R, C) -> a contiguous (E, C, R) copy, by the transpose kernel."""
+    E, R, C = t.shape
+    if E > _GRID_LIMIT or -(-R // 64) > _GRID_LIMIT:
+        raise ValueError("moe_gmm_bwd: E and R / 64 must be at most 65535 (grid limit)")
+    out = torch.empty((E, C, R), dtype=t.dtype, device=t.device)
+    err = _transpose_entry()(t.data_ptr(), out.data_ptr(), E, R, C, DTYPE_CODES[t.dtype],
+                             stream_handle(t.device))
+    raise_on_error("moe_gmm_bwd (transpose)", err)
+    return out
+
+
 def _launch(which, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     check_inputs(x, w)
     check_operands("moe_gmm", x, w)
+    E, C, D = x.shape
+    which = which or route(x.dtype, C, D, w.shape[2])
+    out = _run(which, x, w)
+    if out.numel():
+        LAUNCHES[which] += 1
+    return out
+
+
+def _run(which: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, C, D) @ w (E, D, F) on design ``which``; nothing for an empty
+    output."""
+    check_inputs(x, w)
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    which = which or route(x.dtype, C, D, F)
     args = [x.data_ptr(), w.data_ptr(), out.data_ptr(), E, C, D, F]
     if which == "mma_sync":
         args.append(DTYPE_CODES[x.dtype])
@@ -134,5 +219,4 @@ def _launch(which, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"got C {C}")
     err = _entry(which)(*args, stream_handle(x.device))
     raise_on_error(f"moe_gmm ({which})", err)
-    LAUNCHES[which] += 1
     return out

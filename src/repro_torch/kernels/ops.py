@@ -11,15 +11,19 @@ that it went through the kernels; the plain versions do not count.
 launches of each design (``route`` in their wrappers), so that a run can
 show which one it took.
 
-Gradients on the card: ``flash_attention`` under grad mode, with q, k or v
-requiring grad, goes through an autograd function whose backward launches
-the kernel's two backward entry points (counted in
-``LAUNCHES["flash_attention_bwd"]``, one a backward, and by kernel in
-``ROUTE_LAUNCHES["flash_attention_bwd"]``).  Every other op, and flash
-under a key mask, has no backward kernel yet (ROADMAP item 14b) and raises
-on a CUDA input that requires grad under grad mode, rather than return an
-output cut off from the graph.  On the CPU the plain versions keep their
-autograd.
+Gradients on the card: under grad mode, with an input requiring grad,
+``flash_attention``, ``moe_gmm``, ``mamba_scan`` and ``rwkv6_scan`` go
+through autograd functions whose backward launches the kernel's backward
+entry points: flash's two (``LAUNCHES["flash_attention_bwd"]`` one a
+backward, by kernel in ``ROUTE_LAUNCHES["flash_attention_bwd"]``),
+``moe_gmm``'s two products (``moe_gmm_bwd``, by product and route), and the
+scans' one each (``mamba_scan_bwd``, ``rwkv6_scan_bwd``, by design).  Each
+saves its inputs, not its outputs or states, returns each gradient in its
+input's dtype, and takes a missing cotangent of the last state (or of the
+output) as zeros.  ``decode_attention``, ``aes_ctr`` and flash under a key
+mask have no backward kernel (ROADMAP item 14b) and raise on a CUDA input
+that requires grad under grad mode, rather than return an output cut off
+from the graph.  On the CPU the plain versions keep their autograd.
 """
 from __future__ import annotations
 
@@ -37,7 +41,8 @@ from repro_torch.kernels import rwkv6_scan as _rwkv
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
                             "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0, "moe_gmm_bwd": 0, "mamba_scan_bwd": 0,
+                            "rwkv6_scan_bwd": 0}
 
 
 #: launches by route of the ops with more than one design (the wrappers' counts)
@@ -47,7 +52,10 @@ ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {"flash_attention": _flash.LAUNCHES,
                                              "moe_gmm": _gmm.LAUNCHES,
                                              "mamba_scan": _mamba.LAUNCHES,
                                              "rwkv6_scan": _rwkv.LAUNCHES,
-                                             "flash_attention_bwd": _flash.BWD_LAUNCHES}
+                                             "flash_attention_bwd": _flash.BWD_LAUNCHES,
+                                             "moe_gmm_bwd": _gmm.BWD_LAUNCHES,
+                                             "mamba_scan_bwd": _mamba.BWD_LAUNCHES,
+                                             "rwkv6_scan_bwd": _rwkv.BWD_LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -103,6 +111,66 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _MoeGmm(torch.autograd.Function):
+    """The expert matmul's forward (the route of its shape) and its backward
+    (dx and dw, each on the route of its own product)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _gmm.moe_gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _gmm.moe_gmm_bwd(x, w, dy.contiguous())
+        if dy.numel():
+            LAUNCHES["moe_gmm_bwd"] += 1
+        return dx, dw
+
+
+class _MambaScan(torch.autograd.Function):
+    """The selective scan's forward (the route of its ds) and its backward
+    kernel, which recomputes the states from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, dt, dtx, Bm, Cm, A, h0):
+        ctx.save_for_backward(dt, dtx, Bm, Cm, A, h0)
+        ctx.set_materialize_grads(False)
+        return _mamba.mamba_scan(dt, dtx, Bm, Cm, A, h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        dt, dtx, Bm, Cm, A, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(dt) if dy is None else dy.contiguous()
+        *grads, dh0 = _mamba.mamba_scan_bwd(dt, dtx, Bm, Cm, A, h0, dy,
+                                            None if dh_last is None else dh_last.contiguous())
+        if dt.numel():
+            LAUNCHES["mamba_scan_bwd"] += 1
+        return (*grads, dh0 if ctx.needs_input_grad[5] else None)
+
+
+class _Rwkv6Scan(torch.autograd.Function):
+    """The wkv recurrence's forward (the route of its hd) and its backward
+    kernel, which recomputes the states from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, S0):
+        ctx.save_for_backward(r, k, v, w, u, S0)
+        ctx.set_materialize_grads(False)
+        return _rwkv.rwkv6_scan(r, k, v, w, u, S0)
+
+    @staticmethod
+    def backward(ctx, do, dS_last):
+        r, k, v, w, u, S0 = ctx.saved_tensors
+        do = torch.zeros_like(r) if do is None else do.contiguous()
+        *grads, dS0 = _rwkv.rwkv6_scan_bwd(r, k, v, w, u, S0, do,
+                                           None if dS_last is None else dS_last.contiguous())
+        if r.numel():
+            LAUNCHES["rwkv6_scan_bwd"] += 1
+        return (*grads, dS0 if ctx.needs_input_grad[5] else None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -138,8 +206,10 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     summed in fp32.  An empty output launches nothing and counts nothing."""
     if not _on_cuda("moe_gmm", x):
         return ref.moe_gmm_ref(x, w)
-    _refuse_grad("moe_gmm", x, w)
-    out = _gmm.moe_gmm(x, w)
+    if _needs_grad(x, w):
+        out = _MoeGmm.apply(x, w)
+    else:
+        out = _gmm.moe_gmm(x, w)
     if out.numel():
         LAUNCHES["moe_gmm"] += 1
     return out
@@ -154,8 +224,10 @@ def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
     An empty input launches nothing and counts nothing."""
     if not _on_cuda("mamba_scan", dt):
         return ref.mamba_scan_ref(dt, dtx, Bm, Cm, A, h0)
-    _refuse_grad("mamba_scan", dt, dtx, Bm, Cm, A, h0)
-    out = _mamba.mamba_scan(dt, dtx, Bm, Cm, A, h0)
+    if _needs_grad(dt, dtx, Bm, Cm, A, h0):
+        out = _MambaScan.apply(dt, dtx, Bm, Cm, A, h0)
+    else:
+        out = _mamba.mamba_scan(dt, dtx, Bm, Cm, A, h0)
     if dt.numel():
         LAUNCHES["mamba_scan"] += 1
     return out
@@ -169,8 +241,10 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     launches nothing and counts nothing."""
     if not _on_cuda("rwkv6_scan", r):
         return ref.rwkv6_scan_ref(r, k, v, w, u, S0)
-    _refuse_grad("rwkv6_scan", r, k, v, w, u, S0)
-    out = _rwkv.rwkv6_scan(r, k, v, w, u, S0)
+    if _needs_grad(r, k, v, w, u, S0):
+        out = _Rwkv6Scan.apply(r, k, v, w, u, S0)
+    else:
+        out = _rwkv.rwkv6_scan(r, k, v, w, u, S0)
     if r.numel():
         LAUNCHES["rwkv6_scan"] += 1
     return out

@@ -7,9 +7,11 @@ softmax, same finite ``NEG_INF`` for masked scores, the same sequential
 fp32 recurrences from an optional initial state, the same fp32 expert
 matmul rounded once, the same table-based AES.  ``kernels.ops`` runs them for CPU tensors;
 ``chip_smoke.py`` and the GPU tests hold the CUDA kernels against them on
-the card.  They run on any device.  ``flash_attention_bwd_ref`` is the
-plain version of the flash kernel's backward, which the JAX package does
-not have (it differentiates its XLA attention).
+the card.  They run on any device.  ``flash_attention_bwd_ref``,
+``mamba_scan_bwd_ref``, ``rwkv6_scan_bwd_ref`` and ``moe_gmm_bwd_ref`` are
+the plain versions of the backward kernels, which the JAX package does not
+have (it differentiates the plain code around its kernels): explicit
+formulas, and reverse-time loops for the scans, in fp32.
 """
 from __future__ import annotations
 
@@ -133,6 +135,50 @@ def mamba_scan_ref(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
     return y.to(dt.dtype), h
 
 
+def mamba_scan_bwd_ref(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
+                       Cm: torch.Tensor, A: torch.Tensor, h0: Optional[torch.Tensor],
+                       dy: torch.Tensor, dh_last: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of :func:`mamba_scan_ref` by dt, dtx, Bm, Cm, A and h0,
+    given dy (B, S, di), the cotangent of y, and dh_last (B, di, ds) fp32,
+    that of the last state (None: zeros; h0 None: zeros too).
+
+    The states are run forward once and kept; then a loop from the last step
+    back carries lambda_t = dL/dh_t: with a_t = exp(dt_t A),
+    lambda_t = dy_t C_t + a_{t+1} lambda_{t+1} (the second term dh_last at
+    t = S), and dC_t = sum_i dy_t[i] h_t[i, :], ddtx_t = lambda_t . B_t,
+    dB_t = sum_i lambda_t[i, :] dtx_t[i], ddt_t = sum_s lambda_t h_{t-1} a_t
+    A, dA = sum_{b, t} lambda_t h_{t-1} a_t dt_t and dh0 = a_1 lambda_1.
+    Returns (ddt, ddtx, dB, dC, dA, dh0), each rounded once to its input's
+    dtype, dh0 fp32."""
+    Bsz, S, di = dt.shape
+    ds = Bm.shape[-1]
+    f32 = torch.float32
+    dtf, dtxf, Bf, Cf, Af, dyf = (t.float() for t in (dt, dtx, Bm, Cm, A, dy))
+    h = torch.zeros((Bsz, di, ds), dtype=f32, device=dt.device) if h0 is None else h0.float()
+    hs = [h]                                   # hs[t] = h_{t-1}; hs[t + 1] = h_t
+    for t in range(S):
+        h = torch.exp(dtf[:, t, :, None] * Af) * h + dtxf[:, t, :, None] * Bf[:, t, None, :]
+        hs.append(h)
+    carry = (torch.zeros((Bsz, di, ds), dtype=f32, device=dt.device) if dh_last is None
+             else dh_last.float())
+    ddt, ddtx = torch.empty_like(dtf), torch.empty_like(dtxf)
+    dB, dC = torch.empty_like(Bf), torch.empty_like(Cf)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(S)):
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        lam = dyf[:, t, :, None] * Cf[:, t, None, :] + carry
+        dC[:, t] = torch.einsum("bd,bdn->bn", dyf[:, t], hs[t + 1])
+        ddtx[:, t] = (lam * Bf[:, t, None, :]).sum(-1)
+        dB[:, t] = torch.einsum("bdn,bd->bn", lam, dtxf[:, t])
+        q = lam * hs[t] * a
+        ddt[:, t] = (q * Af).sum(-1)
+        dA += (q * dtf[:, t, :, None]).sum(0)
+        carry = a * lam
+    return (ddt.to(dt.dtype), ddtx.to(dtx.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype),
+            dA.to(A.dtype), carry)
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 wkv recurrence
 
@@ -158,6 +204,50 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(r.dtype), S
 
 
+def rwkv6_scan_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor, S0: Optional[torch.Tensor],
+                       do: torch.Tensor, dS_last: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradients of :func:`rwkv6_scan_ref` by r, k, v, w, u and S0,
+    given do (B, T, H, hd), the cotangent of o, and dS_last (B, H, hd, hd)
+    fp32, that of the last state (None: zeros; S0 None: zeros too).
+
+    The states are run forward once and kept; then a loop from the last step
+    back carries Lambda_t = dL/dS_t, Lambda_T = dS_last and
+    Lambda_{t-1} = diag(w_t) Lambda_t + r_t g_t^T (g = do), and per head
+    dr_t = (S_{t-1} + diag(u) k_t v_t^T) g_t,
+    dk_t = Lambda_t v_t + u r_t (v_t . g_t),
+    dv_t = Lambda_t^T k_t + (r_t . (u k_t)) g_t,
+    dw_t = sum_j Lambda_t[:, j] S_{t-1}[:, j],
+    du = sum_{b, t} r_t k_t (v_t . g_t) and dS0 = Lambda_0.
+    Returns (dr, dk, dv, dw, du, dS0), each rounded once to its input's
+    dtype, dS0 fp32."""
+    B, T, H, hd = r.shape
+    f32 = torch.float32
+    rf, kf, vf, wf, uf, gf = (t.float() for t in (r, k, v, w, u, do))
+    S = torch.zeros((B, H, hd, hd), dtype=f32, device=r.device) if S0 is None else S0.float()
+    Ss = []                                    # Ss[t] = S_{t-1}
+    for t in range(T):
+        Ss.append(S)
+        S = wf[:, t, :, :, None] * S + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    lam = (torch.zeros((B, H, hd, hd), dtype=f32, device=r.device) if dS_last is None
+           else dS_last.float())
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(T)):
+        rt, kt, vt, wt, gt = rf[:, t], kf[:, t], vf[:, t], wf[:, t], gf[:, t]
+        vg = (vt * gt).sum(-1, keepdim=True)                       # (B,H,1)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", Ss[t], gt) + uf * kt * vg
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", lam, vt) + uf * rt * vg
+        dv[:, t] = (torch.einsum("bhij,bhi->bhj", lam, kt)
+                    + (rt * uf * kt).sum(-1, keepdim=True) * gt)
+        dw[:, t] = (lam * Ss[t]).sum(-1)
+        du += (rt * kt * vg).sum(0)
+        lam = wt[..., None] * lam + rt[..., None] * gt[..., None, :]
+    return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype), dw.to(w.dtype), du.to(u.dtype),
+            lam)
+
+
 # ---------------------------------------------------------------------------
 # MoE grouped matmul
 
@@ -166,6 +256,16 @@ def moe_gmm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (E, C, d); w: (E, d, f) -> (E, C, f), in fp32, rounded once to
     x.dtype."""
     return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+
+
+def moe_gmm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`moe_gmm_ref` by x and w, given dy (E, C, f):
+    dx[e] = dy[e] w[e]^T and dw[e] = x[e]^T dy[e], in fp32, each rounded once
+    to its input's dtype."""
+    dyf = dy.float()
+    return (torch.einsum("ecf,edf->ecd", dyf, w.float()).to(x.dtype),
+            torch.einsum("ecd,ecf->edf", x.float(), dyf).to(w.dtype))
 
 
 # ---------------------------------------------------------------------------

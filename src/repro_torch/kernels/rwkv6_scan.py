@@ -17,6 +17,16 @@ memory, chunks of r, k, w and v brought by TMA into a ring there);
 the card.  A failed build or launch raises; no route stands in for another.
 ``LAUNCHES`` counts the launches of each route, and :func:`cols_geometry`
 is the cols launch that the source makes.
+
+The backward, :func:`rwkv6_scan_bwd` (entry ``rwkv6_scan_bwd``, one design,
+``"rows"``, at every hd the forward takes): a block of 4 hd threads per
+(batch row, head), each holding hd / 4 columns of a row of the state and of
+its cotangent; a forward sweep gives dr and writes the state every
+``BWD_CHUNK`` steps, a walk back recomputes each chunk's states from its
+checkpoint and gives dk, dv and dw; du (a sum over batch rows) is written as
+per-block partials and added in order by a second kernel.  The checkpoints
+and the partials are scratch that the wrapper allocates.  ``BWD_LAUNCHES``
+counts its launches.
 """
 from __future__ import annotations
 
@@ -41,6 +51,27 @@ SMEM_LIMIT = 227 * 1024    # shared memory a block may have on Hopper
 
 #: launches of each route
 LAUNCHES: Dict[str, int] = {"cols": 0, "simt": 0}
+#: the backward's constants (csrc/rwkv6_scan.cu, namespace bwd)
+BWD_CHUNK = 4              # steps between checkpoints, recomputed at once
+#: launches of the backward, by design
+BWD_LAUNCHES: Dict[str, int] = {"rows": 0}
+
+
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward's design: ``"rows"`` for fp32 or bf16 with hd in
+    ``HEAD_SIZES``."""
+    if dtype in (torch.float32, torch.bfloat16) and hd in HEAD_SIZES:
+        return "rows"
+    raise ValueError(f"rwkv6_scan_bwd: no design for {dtype} at hd {hd}")
+
+
+def bwd_smem_bytes(hd: int) -> int:
+    """Shared memory of one block of the backward (``bwd::Smem``): a chunk's
+    k, v, w, do and r, the chunk's recomputed states (hd x hd fp32 a step),
+    each warp's sums of dv at each step, and the chunk's dr, dk and dw."""
+    chunk_rows = BWD_CHUNK * hd
+    return 4 * (5 * chunk_rows + BWD_CHUNK * hd * hd + BWD_CHUNK * (hd // 8) * hd
+                + 3 * chunk_rows)
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
@@ -90,6 +121,14 @@ def cols_owner(g: ColsGeometry, hd: int, tid: int) -> Tuple[range, range]:
 def _entry(which: str):
     fn = getattr(_build.load("rwkv6_scan"), f"rwkv6_scan_{which}_fwd")
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+@functools.cache
+def _bwd_entry():
+    fn = _build.load("rwkv6_scan").rwkv6_scan_bwd
+    fn.argtypes = [_P] * 16 + [_I] * 5 + [_P]
     fn.restype = _I
     return fn
 
@@ -160,3 +199,36 @@ def _launch(which, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.T
     raise_on_error(f"rwkv6_scan ({which})", err)
     LAUNCHES[which] += 1
     return o, S_last
+
+
+def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                   u: torch.Tensor, S0: Optional[torch.Tensor], do: torch.Tensor,
+                   dS_last: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    """The gradients of the recurrence given do (B, T, H, hd) in r.dtype and
+    dS_last (B, H, hd, hd) fp32 or None: (dr, dk, dv, dw, du) in the inputs'
+    dtype and dS0 (B, H, hd, hd) fp32, as ``ref.rwkv6_scan_bwd_ref``.  An
+    empty input launches nothing."""
+    check_operands("rwkv6_scan_bwd", r, k, v, w, u, do)
+    check_inputs(r, k, v, w, u, S0)
+    B, T, H, hd = r.shape
+    if do.shape != r.shape:
+        raise ValueError(f"rwkv6_scan_bwd: do must be (B, T, H, hd) = {tuple(r.shape)}, "
+                         f"got {tuple(do.shape)}")
+    if dS_last is not None:
+        check_inputs(r, k, v, w, u, dS_last)
+    grads = tuple(torch.empty_like(t) for t in (r, k, v, w, u))
+    dS0 = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if r.numel() == 0:
+        for g in grads:
+            g.zero_()
+        return (*grads, dS0.copy_(dS_last) if dS_last is not None else dS0.zero_())
+    which = bwd_route(r.dtype, hd)
+    ckpt = torch.empty((B, H, -(-T // BWD_CHUNK), hd, hd), dtype=torch.float32,
+                       device=r.device)
+    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _bwd_entry()(*map(ptr, (r, k, v, w, u, S0, do, dS_last, ckpt, du_part, *grads, dS0)),
+                       B, T, H, hd, DTYPE_CODES[r.dtype], stream_handle(r.device))
+    raise_on_error(f"rwkv6_scan_bwd ({which})", err)
+    BWD_LAUNCHES[which] += 1
+    return (*grads, dS0)

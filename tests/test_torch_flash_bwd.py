@@ -431,11 +431,12 @@ def test_on_the_cpu_the_op_keeps_its_autograd_and_counts_nothing():
 
 
 def test_refuse_grad_names_the_item_and_spares_inference():
-    """What every op but flash raises on the card under a gradient: the
-    check itself, which needs no card."""
+    """What the ops without a backward kernel (decode attention, flash under
+    a key mask) raise on the card under a gradient: the check itself, which
+    needs no card."""
     x = torch.zeros(3, requires_grad=True)
     with pytest.raises(NotImplementedError, match="item 14b"):
-        ops._refuse_grad("moe_gmm", x, None)
+        ops._refuse_grad("decode_attention", x, None)
     with torch.no_grad():
-        ops._refuse_grad("moe_gmm", x)
-    ops._refuse_grad("moe_gmm", x.detach(), None)
+        ops._refuse_grad("decode_attention", x)
+    ops._refuse_grad("decode_attention", x.detach(), None)

@@ -45,6 +45,17 @@ def _assert_close(out, expect, dtype):
     torch.testing.assert_close(out.float(), expect.float(), atol=atol, rtol=rtol)
 
 
+def _assert_close_at(out, expect, tol):
+    torch.testing.assert_close(out.float(), expect.float(), atol=tol[0], rtol=tol[1])
+
+
+def _assert_sum_close(out, expect, rel=1e-4):
+    """A gradient that sums over channels, batch rows or time, held at
+    ``rel`` of its largest magnitude."""
+    scale = float(expect.float().abs().max())
+    torch.testing.assert_close(out.float(), expect.float(), atol=rel * scale, rtol=0.0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win", [
     (2, 4, 2, 128, 128, 64, True, None),
@@ -1039,17 +1050,13 @@ def test_flash_attention_on_the_card_has_a_grad_fn(cuda, dtype):
 
 def test_every_other_op_refuses_a_gradient_on_the_card(cuda):
     """No op returns an output cut off from the graph: without a backward
-    kernel (ROADMAP item 14b) it raises under grad mode, and runs under
-    no_grad."""
+    kernel (ROADMAP item 14b: decode attention, flash under a key mask) it
+    raises under grad mode, and runs under no_grad."""
     g = lambda *s: _randn(cuda, s, torch.float32).requires_grad_(True)  # noqa: E731
     valid = torch.ones((2, 64), dtype=torch.bool, device="cuda")
     calls = {
         "decode_attention": lambda: ops.decode_attention(g(2, 4, 64), g(2, 64, 2, 64),
                                                          g(2, 64, 2, 64), valid),
-        "moe_gmm": lambda: ops.moe_gmm(g(2, 8, 32), g(2, 32, 16)),
-        "mamba_scan": lambda: ops.mamba_scan(g(1, 8, 32), g(1, 8, 32), g(1, 8, 16),
-                                             g(1, 8, 16), g(32, 16)),
-        "rwkv6_scan": lambda: ops.rwkv6_scan(*(g(1, 8, 2, 32) for _ in range(4)), g(2, 32)),
         "flash_attention under a key mask": lambda: ops.flash_attention(
             g(2, 4, 8, 64), g(2, 2, 64, 64), g(2, 2, 64, 64), causal=False, key_valid=valid),
     }
@@ -1059,6 +1066,190 @@ def test_every_other_op_refuses_a_gradient_on_the_card(cuda):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gmm_and_the_scans_on_the_card_have_a_grad_fn(cuda, dtype):
+    """Under grad mode ``moe_gmm``, ``mamba_scan`` and ``rwkv6_scan`` join the
+    graph; their backward launches the new kernels, counted by op and by
+    route, and gives the plain versions' gradients; under no_grad nothing
+    changes."""
+    dt = getattr(torch, dtype)
+    g = lambda *s, scale=1.0: (_randn(cuda, s, torch.float32) * scale).to(dt)  # noqa: E731
+    ops.reset_launches()
+    x, w = g(2, 64, 32), g(2, 32, 16, scale=32 ** -0.5)
+    leaves = [t.requires_grad_(True) for t in (x, w)]
+    out = ops.moe_gmm(*leaves)
+    assert out.grad_fn is not None
+    dy = g(*out.shape)
+    got = torch.autograd.grad(out, leaves, dy)
+    for a, e in zip(got, ref.moe_gmm_bwd_ref(x.detach(), w.detach(), dy)):
+        assert a.dtype == dt
+        _assert_close_at(a, e, GMM_TOL[dtype])
+    assert ops.LAUNCHES["moe_gmm_bwd"] == 1
+    r_dx, r_dw = tgmm.bwd_route(dt, 64, 32, 16)
+    assert ops.ROUTE_LAUNCHES["moe_gmm_bwd"] == {
+        k: int(k in (f"dx_{r_dx}", f"dw_{r_dw}")) for k in ops.ROUTE_LAUNCHES["moe_gmm_bwd"]}
+
+    B, S, di, ds = 2, 40, 96, 16
+    mam = [(torch.nn.functional.softplus(_randn(cuda, (B, S, di), torch.float32)) * 0.1).to(dt),
+           g(B, S, di, scale=0.1), g(B, S, ds), g(B, S, ds),
+           (-torch.exp(_randn(cuda, (di, ds), torch.float32))).to(dt)]
+    h0 = _randn(cuda, (B, di, ds), torch.float32)
+    leaves = [t.requires_grad_(True) for t in (*mam, h0)]
+    y, h_last = ops.mamba_scan(*leaves)
+    assert y.grad_fn is not None and h_last.grad_fn is not None
+    dy, dh = g(B, S, di), _randn(cuda, (B, di, ds), torch.float32)
+    got = torch.autograd.grad((y.float() * dy.float()).sum() + (h_last * dh).sum(), leaves)
+    expect = ref.mamba_scan_bwd_ref(*[t.detach() for t in leaves], dy, dh)
+    for a, e in zip(got, expect):
+        assert a.dtype == e.dtype
+        _assert_close_at(a, e, SCAN_TOL["bfloat16" if a.dtype == torch.bfloat16 else "float32"])
+    assert ops.LAUNCHES["mamba_scan_bwd"] == 1
+    assert ops.ROUTE_LAUNCHES["mamba_scan_bwd"] == {"ckpt": 1}
+
+    B, T, H, hd = 2, 30, 2, 64
+    rw = [g(B, T, H, hd), g(B, T, H, hd, scale=0.3), g(B, T, H, hd, scale=0.3),
+          torch.sigmoid(_randn(cuda, (B, T, H, hd), torch.float32) * 0.5 + 2).to(dt),
+          g(H, hd, scale=0.1)]
+    leaves = [t.requires_grad_(True) for t in rw]
+    o, S_last = ops.rwkv6_scan(*leaves)
+    assert o.grad_fn is not None and S_last.grad_fn is not None
+    do = g(B, T, H, hd)
+    got = torch.autograd.grad(o, leaves, do)       # no cotangent of the last state
+    expect = ref.rwkv6_scan_bwd_ref(*[t.detach() for t in leaves], None, do, None)
+    for a, e in zip(got, expect):
+        assert a.dtype == dt
+        _assert_close_at(a, e, SCAN_TOL[dtype])
+    assert ops.LAUNCHES["rwkv6_scan_bwd"] == 1
+    assert ops.ROUTE_LAUNCHES["rwkv6_scan_bwd"] == {"rows": 1}
+    with torch.no_grad():
+        assert ops.moe_gmm(x, w).grad_fn is None
+        assert ops.rwkv6_scan(*rw)[0].grad_fn is None
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(4, 100, 96, 130), (2, 64, 256, 64), (3, 200, 96, 72),
+                                  (2, 100, 64, 64), (2, 300, 200, 264)], ids=str)
+def test_moe_gmm_bwd_kernel(cuda, case, dtype):
+    """dx and dw against the plain version: dx at the forward's limits, dw
+    (a sum over C) in fp32 at 1e-4 of its largest magnitude."""
+    E, C, D, F = case
+    dt = getattr(torch, dtype)
+    x = _randn(cuda, (E, C, D), dt)
+    w = (_randn(cuda, (E, D, F), torch.float32) * D ** -0.5).to(dt)
+    dy = _randn(cuda, (E, C, F), dt)
+    before = dict(tgmm.BWD_LAUNCHES)
+    dx, dw = tgmm.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    r_dx, r_dw = tgmm.bwd_route(dt, C, D, F)
+    assert tgmm.BWD_LAUNCHES == {k: n + (k in (f"dx_{r_dx}", f"dw_{r_dw}"))
+                                 for k, n in before.items()}
+    ex, ew = ref.moe_gmm_bwd_ref(x, w, dy)
+    assert dx.dtype == dw.dtype == dt
+    _assert_close_at(dx, ex, GMM_TOL[dtype])
+    if dtype == "float32":
+        _assert_sum_close(dw, ew)
+    else:
+        _assert_close(dw, ew, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,di,ds,with_state", [
+    (2, 128, 64, 16, False), (2, 150, 64, 16, True), (3, 77, 333, 16, True),
+    (4, 1, 256, 16, True), (2, 40, 96, 5, True), (1, 256, 128, 8, False),
+])
+def test_mamba_scan_bwd_kernel(cuda, B, S, di, ds, with_state, dtype):
+    dt_ = getattr(torch, dtype)
+    dt = (torch.nn.functional.softplus(_randn(cuda, (B, S, di), torch.float32)) * 0.1).to(dt_)
+    dtx = (_randn(cuda, (B, S, di), torch.float32) * 0.1).to(dt_)
+    Bm, Cm = _randn(cuda, (B, S, ds), dt_), _randn(cuda, (B, S, ds), dt_)
+    A = (-torch.exp(_randn(cuda, (di, ds), torch.float32))).to(dt_)
+    h0 = _randn(cuda, (B, di, ds), torch.float32) if with_state else None
+    dh = _randn(cuda, (B, di, ds), torch.float32) if with_state else None
+    dy = _randn(cuda, (B, S, di), dt_)
+    got = tmamba.mamba_scan_bwd(dt, dtx, Bm, Cm, A, h0, dy, dh)
+    torch.cuda.synchronize()
+    expect = ref.mamba_scan_bwd_ref(dt, dtx, Bm, Cm, A, h0, dy, dh)
+    for name, a, e in zip(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), got, expect):
+        assert a.dtype == e.dtype, name
+        if a.dtype == torch.bfloat16:
+            _assert_close(a, e, "bfloat16")
+        elif name in ("dB", "dC", "dA"):
+            _assert_sum_close(a, e)
+        else:
+            _assert_close_at(a, e, SCAN_TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,H,hd,with_state", [
+    (2, 128, 2, 64, False), (1, 64, 4, 32, False), (2, 96, 1, 16, False),
+    (2, 150, 2, 64, True), (3, 1, 4, 64, True), (1, 70, 3, 32, True),
+])
+def test_rwkv6_scan_bwd_kernel(cuda, B, T, H, hd, with_state, dtype):
+    dt = getattr(torch, dtype)
+    r = _randn(cuda, (B, T, H, hd), dt)
+    k, v = ((_randn(cuda, (B, T, H, hd), torch.float32) * 0.3).to(dt) for _ in range(2))
+    w = torch.sigmoid(_randn(cuda, (B, T, H, hd), torch.float32) * 0.5 + 2).to(dt)
+    u = (_randn(cuda, (H, hd), torch.float32) * 0.1).to(dt)
+    S0 = _randn(cuda, (B, H, hd, hd), torch.float32) * 0.3 if with_state else None
+    dS = _randn(cuda, (B, H, hd, hd), torch.float32) if with_state else None
+    do = _randn(cuda, (B, T, H, hd), dt)
+    got = trwkv.rwkv6_scan_bwd(r, k, v, w, u, S0, do, dS)
+    torch.cuda.synchronize()
+    expect = ref.rwkv6_scan_bwd_ref(r, k, v, w, u, S0, do, dS)
+    for name, a, e in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got, expect):
+        assert a.dtype == e.dtype, name
+        if a.dtype == torch.bfloat16:
+            _assert_close(a, e, "bfloat16")
+        elif name == "du":
+            _assert_sum_close(a, e)
+        else:
+            _assert_close_at(a, e, SCAN_TOL["float32"])
+
+
+@pytest.mark.parametrize("arch,n_layers", [("mixtral-8x7b", 2), ("jamba-v0.1-52b", 8),
+                                           ("rwkv6-1.6b", 2)])
+def test_reduced_family_train_step_card_against_cpu(cuda, arch, n_layers):
+    """Two remat steps of reduced float32 mixtral, 8-layer Jamba and RWKV6
+    from the same weights and batches on the card and on the CPU: losses and
+    grad norms within 1e-4, and every scan and expert matmul, forward and
+    backward, on the kernels."""
+    import dataclasses
+
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
+    from repro_torch.train.optimizer import init_state
+
+    cfg = dataclasses.replace(reduced(get_arch(arch), n_layers=n_layers), dtype="float32")
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0))
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=48, batch_size=2)).batches()
+    batches = [next(it) for _ in range(2)]
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2), remat=True)
+    metrics = {}
+    for where in ("cpu", "cuda"):
+        params = tree_map(lambda p: p.to(where, copy=True).requires_grad_(True), p_cpu)
+        state = init_state(params)
+        ops.reset_launches()
+        metrics[where] = []
+        for b in batches:
+            params, state, m = step(params, state,
+                                    {k: torch.from_numpy(v).to(where) for k, v in b.items()})
+            metrics[where].append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    kinds = [k.value for k in cfg.block_kinds()]
+    n_moe = sum(k.endswith("_moe") for k in kinds)
+    n_scan = sum(k.startswith(("mamba", "rwkv")) for k in kinds)
+    scan = "rwkv6_scan" if arch == "rwkv6-1.6b" else "mamba_scan"
+    assert ops.LAUNCHES["moe_gmm"] == 2 * 2 * 3 * n_moe
+    assert ops.LAUNCHES["moe_gmm_bwd"] == 2 * 3 * n_moe
+    assert ops.LAUNCHES[scan] == 2 * 2 * n_scan
+    assert ops.LAUNCHES[f"{scan}_bwd"] == 2 * n_scan
+    for c, g in zip(metrics["cpu"], metrics["cuda"]):
+        for k in c:
+            assert g[k] == pytest.approx(c[k], rel=1e-4, abs=1e-4), k
 
 
 @pytest.mark.parametrize("remat", [True, False])

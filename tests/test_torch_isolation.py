@@ -40,6 +40,12 @@ def test_the_walk_covers_the_scan_modules():
             "repro_torch.configs.jamba_v01", "repro_torch.configs.rwkv6_1p6b"} <= mods
 
 
+def test_the_walk_covers_the_scan_utils_module():
+    """The port's chunked linear scan, the reference form of the scans'
+    recurrences, is among the modules it imports."""
+    assert "repro_torch.models.scan_utils" in set(_modules())
+
+
 def test_the_walk_covers_the_encdec_modules():
     """The enc-dec and frontend slice's modules are among those it imports."""
     mods = set(_modules())

@@ -192,7 +192,8 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
                                atol=0, rtol=0)
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
                             "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0, "moe_gmm_bwd": 0,
+                            "mamba_scan_bwd": 0, "rwkv6_scan_bwd": 0}
 
 
 def test_other_devices_raise():
@@ -204,7 +205,8 @@ def test_other_devices_raise():
         ops.decode_attention(dq, dk, dv, valid)
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
                             "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
-                            "flash_attention_bwd": 0}
+                            "flash_attention_bwd": 0, "moe_gmm_bwd": 0,
+                            "mamba_scan_bwd": 0, "rwkv6_scan_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -376,7 +378,12 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                                   "rwkv6_scan": {"cols": 0, "simt": 0},
                                   "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0,
                                                           "bwd_dq_wgmma": 0,
-                                                          "bwd_dkv_wgmma": 0}}
+                                                          "bwd_dkv_wgmma": 0},
+                                  "moe_gmm_bwd": {"dx_wgmma_nt": 0, "dx_stream": 0, "dx_wgmma": 0,
+                                                  "dx_mma_sync": 0, "dw_stream": 0,
+                                                  "dw_wgmma": 0, "dw_mma_sync": 0},
+                                  "mamba_scan_bwd": {"ckpt": 0},
+                                  "rwkv6_scan_bwd": {"rows": 0}}
 
 
 def test_every_entry_point_refuses_cpu_tensors():

@@ -272,10 +272,13 @@ def test_train_steps_match_jax(jax_runs, arch, remat):
 
 @pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-1.6b", "seamless-m4t-large-v2"])
 def test_gradients_of_the_other_families_match_jax(arch):
-    """The families whose kernels have no backward on the card yet (the
-    scans; the enc-dec model's masked cross route) train on the CPU: every
-    leaf's gradient of the loss against ``jax.grad``, held at 1e-4 of the
-    leaf's largest.  (Trajectories over several AdamW steps are not held:
+    """Jamba, RWKV6 and the enc-dec model on the CPU: every leaf's gradient
+    of the loss against ``jax.grad``, held at 1e-4 of the leaf's largest.
+    This is the plain path that the card's backward kernels are held
+    against (the scans' in ``tests/test_torch_gpu.py`` and phase 11c of
+    ``chip_smoke.py``); the enc-dec model under an encoder mask trains on
+    the CPU only, its masked cross route having no backward kernel yet
+    (ROADMAP item 14b).  (Trajectories over several AdamW steps are not held:
     the first update is about the sign of each gradient element, so
     elements at rounding level move by the learning rate in either
     direction.)"""
