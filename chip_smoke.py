@@ -66,7 +66,16 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    B8 T512 H32 hd64, timed beside their forward; a gradient that sums over
    channels, batch rows or time (dB, dC, dA, du, the MoE's dw) held in
    fp32 at ``SUM_REL`` of its largest magnitude, the others at the
-   forward's limits, bf16 at the bf16 limit;
+   forward's limits, bf16 at the bf16 limit; and the backward of the flash
+   kernel's key-masked routes (``bwd_route`` under a mask: bf16 -> the
+   ``wgmma_masked`` pair, fp32 -> the simt ``masked`` pair, which also runs
+   bf16 on its own entry point) over ``MASKED_BWD_SWEEP`` (d 32 to 128,
+   causal, not and windowed, G 1, 2 and 4, T 1500, ragged masks with a row
+   that has no valid key, dead tiles, rows whose valid keys lie in their
+   causal future) at the unmasked backward's limits, then timed at 11f's
+   cross shape under row 1m's ragged mask in turns with the simt masked
+   pair, with SDPA's backward under the same boolean mask and with the
+   unmasked wgmma pair, and (all keys valid) masked against unmasked;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -202,10 +211,24 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    step's gradients: every leaf of a 2-layer model within 1e-4 of its
    largest element, and at all 24 layers each layer's scan forward and
    backward on the inputs and cotangent it met, within the same share; then
-   the full-depth grad norm by layer from the weights times 1 and 1 +- 1e-6.
+   the full-depth grad norm by layer from the weights times 1 and 1 +- 1e-6;
+   11e reduced float32 ``seamless-m4t-large-v2`` (4 x 64 decoder tokens over
+   150 stub frames under a ragged ``enc_mask`` with a fully masked row) and
+   ``pixtral-12b`` (4 x 64 stub patch embeddings, G 4), 3 remat steps card
+   against CPU as 11c, free-running, each step's launches exact by route
+   (the encoder's flash once forward and once backward a layer, the
+   decoder's self- and cross-attention twice and once, the cross-attention
+   on the ``masked`` route and pair); 11f full-width, full-depth
+   ``seamless-m4t-large-v2`` (24 encoder and 24 decoder layers, bf16) on 8 x
+   512 decoder tokens over 8 x 1500 stub frames under 5f's ragged
+   ``enc_mask``, then full-width ``pixtral-12b`` cut to
+   ``PIXTRAL_TRAIN_LAYERS`` of its 40 layers on 8 x 512 stub patch
+   embeddings, each 4 steps as 11d (its cross-attention's backward on the
+   ``wgmma_masked`` pair), with MFU by ``flops.model_flops``, which counts
+   an encoder-decoder model's decoder tokens only.
 
 The line before the last is a JSON object with one entry per kernel (the
-flash kernel's masked route and the four backwards with their own); the last is
+flash kernel's masked route and the five backwards with their own); the last is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -348,6 +371,23 @@ FLASH_BWD_CASES = [
     ((2, 8, 4, 512, 512, 120, True, 128), ("bfloat16",)),      # a window that bites, d 120
     ((2, 8, 4, 512, 512, 64, True, 128), ("bfloat16",)),       # and d 64
 ]
+# phase 3: the backward of the key-masked routes, (B, Hq, Hkv, S, T, d, causal,
+# window, mask): G 1, 2 and 4, d 32 to 128, causal, not and windowed, most
+# masks with a row that has no allowed valid key (masked_bwd_valid)
+MASKED_BWD_SWEEP = [
+    (2, 4, 2, 128, 128, 64, True, None, "ragged"),      # G 2, causal
+    (2, 8, 2, 96, 96, 64, True, 32, "ragged"),          # G 4 under a window
+    (2, 2, 2, 64, 192, 32, True, None, "future"),       # G 1, d 32, S < T
+    (2, 4, 4, 128, 128, 128, False, None, "ragged"),    # d 128, not causal
+    (3, 4, 4, 70, 129, 120, False, None, "ragged"),     # d 120, tile edges
+    (2, 8, 2, 96, 200, 128, False, None, "ragged"),     # G 4, d 128
+    (2, 4, 2, 160, 300, 120, True, 96, "future"),       # causal window, d 120, S < T
+    (4, 4, 2, 300, 1000, 32, False, None, "holes"),     # dead tiles mid-row
+    (2, 2, 1, 130, 700, 128, False, 200, "holes"),      # and under a window
+    (2, 4, 2, 90, 60, 32, True, None, "ragged"),        # S > T: rows at negative positions
+    (2, 8, 2, 512, 1500, 64, False, None, "cross"),     # G 4 at T 1500
+    (8, 16, 16, 512, 1500, 64, False, None, "cross"),   # 11f's cross-attention, row 1m's mask
+]
 # phase 11: training; 11a reduced, card against CPU (h2o's window of 128 under
 # a longer sequence), 11b full-width qwen3-1.7b
 TRAIN_REDUCED = {"qwen3-1.7b": 64, "h2o-danube-3-4b": 160}   # seq_len by arch, batch 4
@@ -366,6 +406,9 @@ TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
 # backward sums with atomics) has been carried through more updates
 TRAIN_SDPA_RTOL = (1e-3, 2e-3, 5e-3, 1e-2)
 GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
+# the flash backward's kernels, the pair of each route: none in a serving run
+NO_FLASH_BWD_ROUTES = {f"bwd_{kernel}{design}": 0 for kernel in ("dq", "dkv")
+                       for design in ("", "_wgmma", "_masked", "_wgmma_masked")}
 # the backward kernels of the MoE matmul and the scans, by route: none in a serving run
 NO_BWD_ROUTES = {"moe_gmm_bwd": {"dx_wgmma_nt": 0, **{f"{p}_{r}": 0 for p in ("dx", "dw")
                                                       for r in ("stream", "wgmma", "mma_sync")}},
@@ -397,6 +440,16 @@ TRAIN_FAMILY_FULL = {"mixtral-8x7b": (2, 8), "jamba-v0.1-52b": (2, 8), "rwkv6-1.
 # same losses to 1e-3 (H100, PERF.md), so the rise is the optimizer's on a
 # freshly drawn model
 TRAIN_FAMILY_OPT = dict(lr=3e-5, warmup_steps=1, total_steps=TRAIN_STEPS)
+# 11e: reduced seamless-m4t (4 x 64 decoder tokens over 150 stub frames under a
+# ragged enc_mask with a fully masked row) and pixtral-12b (4 x 64 stub patch
+# embeddings), card against CPU, free-running: on the CPU a 1e-6 nudge of the
+# weights moves their step-3 grad norms by 2.2e-6 and 3.4e-6 of themselves
+# (tests/test_torch_family_bwd.py::test_trajectory_sensitivity_to_a_weight_nudge)
+TRAIN_ENCDEC_FRAMES, TRAIN_ENCDEC_MASK_LENGTHS = 150, (150, 0, 97, 31)
+# 11f: full-width seamless-m4t at full depth over 8 x 1500 stub frames under
+# 5f's ragged enc_mask, and pixtral-12b cut in depth: 10 of its 40 layers
+# (4.09 B parameters, 49 GB at 12 bytes each; all 40 would take 147 GB)
+PIXTRAL_TRAIN_LAYERS = 10
 
 
 def phase(name: str) -> None:
@@ -1253,6 +1306,141 @@ def main() -> int:
     report("flash_attention masked cross prefill", records["flash_attention_masked"])
     del q, k, v, out, plain, key_valid, masks, holes
 
+    # the backward of the key-masked routes (phases 11e and 11f's
+    # cross-attention under an encoder mask): each masked pair (bwd_route
+    # under a mask: bf16 -> wgmma_masked, fp32 -> masked; the simt masked
+    # pair for bf16 too) against the plain version over MASKED_BWD_SWEEP at
+    # the unmasked backward's limits, most masks with a row that has no
+    # allowed valid key; then timed at 11f's cross shape under row 1m's
+    # ragged mask, in turns: the wgmma_masked pair with the simt masked pair,
+    # with SDPA's backward under the same boolean mask, and with the unmasked
+    # wgmma pair on the same inputs (and, all keys valid, masked against
+    # unmasked)
+    if (_flash.bwd_route(torch.bfloat16, True), _flash.bwd_route(torch.float32, True)) != \
+            ("wgmma_masked", "masked"):
+        raise AssertionError("flash_attention_bwd: a key mask must route bf16 to wgmma_masked, "
+                             "fp32 to masked")
+
+    def masked_bwd_valid(B, Tk, kind):
+        """(B, Tk) key masks, a row each: ``cross`` row 1m's ragged lengths
+        (row 1 has no valid key); ``ragged`` all, none, tile edges;
+        ``holes`` dead tiles mid-row, keys only in the last partial tile,
+        none; ``future`` (causal) keys past the early rows, which then see
+        no valid key where S >= T, or only early keys."""
+        t = torch.arange(Tk, device=dev)
+        if kind in ("cross", "ragged"):
+            lengths = ([Tk - 97 * b for b in range(B)] if kind == "cross"
+                       else [(Tk, 0, 64, 65, Tk - 1)[b % 5] for b in range(B)])
+            lengths[1] = 0
+            return t[None] < torch.tensor(lengths, device=dev)[:, None]
+        rows = []
+        for b in range(B):
+            if kind == "holes":
+                row = (((t < 128) | (t >= 320)) & ~((t >= 640) & (t < 832))
+                       & (torch.rand(Tk, generator=gen, device=dev) < 0.7))
+                row = (row if b % 3 == 0 else t >= (Tk - 1) // 64 * 64 + 3 if b % 3 == 1
+                       else torch.zeros_like(row))
+            else:
+                row = t >= 40 + 30 * b if b % 2 == 0 else t < 20 + 30 * b
+            rows.append(row)
+        return torch.stack(rows)
+
+    errs = collections.defaultdict(float)
+    for case in MASKED_BWD_SWEEP:
+        B, Hq, Hkv, S, Tk, d, causal, win, kind = case
+        key_valid = masked_bwd_valid(B, Tk, kind)
+        kw = dict(causal=causal, window=win, key_valid=key_valid)
+        for dname, dt in dtypes.items():
+            (q, k, v), _ = flash_case(case[:8], dt)
+            dout = randn(*q.shape, dtype=dt)
+            o = ref.flash_attention_ref(q, k, v, **kw)
+            plain = ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)
+            designs = {_flash.bwd_route(dt, True): _flash.flash_attention_bwd}
+            if dname == "bfloat16":
+                designs["masked"] = _flash.flash_attention_bwd_masked_simt
+            for design, fn in designs.items():
+                before = dict(_flash.BWD_LAUNCHES)
+                got = fn(q, k, v, o, dout, **kw)
+                torch.cuda.synchronize()
+                if _flash.BWD_LAUNCHES != {r: n + (r in _flash.BWD_PAIRS[design])
+                                           for r, n in before.items()}:
+                    raise AssertionError(f"flash_attention_bwd {design}: launches "
+                                         f"{_flash.BWD_LAUNCHES} after {before}")
+                e3 = [check_close(f"flash_attention_bwd{case} {dname} {design} d{n}", g, e,
+                                  TOL[dname]) for n, g, e in zip("qkv", got, plain)]
+                errs[dname, design] = max(errs[dname, design], *e3)
+                print(f"  flash_attention_bwd {case} {dname}, {design} pair: max |diff| dq "
+                      f"{e3[0]:.3g}, dk {e3[1]:.3g}, dv {e3[2]:.3g} (atol, rtol {TOL[dname]}); "
+                      f"valid {key_valid.sum(1).tolist()}")
+            del q, k, v, dout, o, plain, got
+    B, Hq, Hkv, S, Tk, d, _ = ENCDEC_FLASH["seamless cross prefill"]
+    (q, k, v), _ = flash_case((B, Hq, Hkv, S, Tk, d, False, None), torch.bfloat16)
+    dout = randn(*q.shape, dtype=torch.bfloat16)
+    key_valid = masked_bwd_valid(B, Tk, "cross")
+    lengths = key_valid.sum(1).tolist()
+    kw = dict(causal=False, key_valid=key_valid)
+    o = ops.flash_attention(q, k, v, **kw)
+    got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+    err = max(check_close(f"flash_attention_bwd masked cross d{n}", g, e, TOL["bfloat16"])
+              for n, g, e in zip("qkv", got, ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)))
+
+    def masked_pair():
+        return _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+
+    old, new = in_turns(torch, lambda: _flash.flash_attention_bwd_masked_simt(q, k, v, o, dout,
+                                                                              **kw),
+                        masked_pair, 10, flush, BWD_HOLD_CYCLES)
+    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv,
+                                                          attn_mask=key_valid[:, None, None, :])
+    lib, new_lib = in_turns(
+        torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), dout, retain_graph=True),
+        masked_pair, 10, flush, BWD_HOLD_CYCLES)
+    o_all = ops.flash_attention(q, k, v, causal=False)
+    unmasked, new_unmasked = in_turns(
+        torch, lambda: _flash.flash_attention_bwd(q, k, v, o_all, dout, causal=False),
+        masked_pair, 10, flush, BWD_HOLD_CYCLES)
+    all_valid = torch.ones_like(key_valid)
+    o_valid = ops.flash_attention(q, k, v, causal=False, key_valid=all_valid)
+    unmasked2, all_valid_t = in_turns(
+        torch, lambda: _flash.flash_attention_bwd(q, k, v, o_all, dout, causal=False),
+        lambda: _flash.flash_attention_bwd(q, k, v, o_valid, dout, causal=False,
+                                           key_valid=all_valid), 10, flush, BWD_HOLD_CYCLES)
+    print(f"  flash_attention_bwd masked cross {(B, Hq, Hkv, S, Tk, d)} bfloat16, valid {lengths}"
+          f", in turns, card held {BWD_HOLD_CYCLES} cycles: wgmma_masked pair {spread(new)} "
+          f"beside the simt masked pair, {spread(new_lib)} beside SDPA, {spread(new_unmasked)} "
+          f"beside the unmasked pair, max |diff| {err:.3g}; simt masked pair {spread(old)}; "
+          f"SDPA's backward under the mask {spread(lib)}; unmasked wgmma pair "
+          f"{spread(unmasked)}")
+    print(f"  all 1500 keys valid, in turns: wgmma_masked pair {spread(all_valid_t)}; unmasked "
+          f"wgmma pair {spread(unmasked2)}")
+    # what the data needs: five products over each row's valid keys (a row
+    # with none costs no product: its dO / T is a sum); q, o, dO, dq once, k
+    # and v over the valid keys, dk and dv over all of T, the mask once
+    pairs = S * sum(lengths)
+    tb = q.element_size()
+    needed_bytes = (4 * B * Hq * S * d * tb + 2 * Hkv * d * tb * sum(lengths)
+                    + 2 * B * Hkv * Tk * d * tb + key_valid.numel())
+    records["flash_attention_masked_bwd"] = dict(
+        err=max(err, errs["bfloat16", "wgmma_masked"]), ms=statistics.fmean(new + new_lib),
+        previous_ms=statistics.fmean(old),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw), 3,
+                         flush),
+        library_ms=statistics.fmean(lib), unmasked_ms=statistics.fmean(unmasked),
+        bytes=needed_bytes, ops=f"{10 * d * pairs * Hq} FLOP (five products)",
+        ops_ms=1e3 * 10 * d * pairs * Hq / PEAK_BF16_FLOPS,
+        replaces="src/repro/kernels/flash_attention.py:98",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        note="the backward of the key-masked routes (bwd_dq_wgmma_masked, then "
+             "bwd_dkv_wgmma_masked; previous_ms: the simt masked pair bwd_dq_masked, "
+             "bwd_dkv_masked; unmasked_ms: the unmasked wgmma pair on the same inputs); the JAX "
+             "package differentiates gqa_attend under the mask (src/repro/models/attention.py:51);"
+             " launches: phase 11f's seamless training")
+    report("flash_attention masked backward", records["flash_attention_masked_bwd"])
+    print("    max |diff| over the sweep: "
+          + ", ".join(f"{dn} {de} {x:.3g}" for (dn, de), x in errs.items()))
+    del q, k, v, dout, o, o_all, o_valid, got, lq, lk, lv, lo, key_valid, all_valid
+
     # the decode attention of phases 5f and 5g: against seamless-m4t's 1500
     # encoder frames (G 1, d 64, not a ring; all valid, so every tile is
     # live, then a ragged prefix), and in seamless's 1024-slot and pixtral's
@@ -1940,8 +2128,7 @@ def main() -> int:
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
                   "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
-                                          "bwd_dkv_wgmma": 0}, **NO_BWD_ROUTES}:
+                  "flash_attention_bwd": NO_FLASH_BWD_ROUTES, **NO_BWD_ROUTES}:
         raise AssertionError(f"mixtral's launches by route {routes}")
     launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
 
@@ -1964,8 +2151,7 @@ def main() -> int:
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
                   "mamba_scan": {"lanes": 672, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
-                                          "bwd_dkv_wgmma": 0}, **NO_BWD_ROUTES}:
+                  "flash_attention_bwd": NO_FLASH_BWD_ROUTES, **NO_BWD_ROUTES}:
         raise AssertionError(f"Jamba's launches by route {routes}")
     launches["mamba_scan"] = jamba_launches["mamba_scan"]
     gc.collect()
@@ -1996,8 +2182,7 @@ def main() -> int:
                   "aes_ctr": {"ttable": 0, "simt": 0},
                   "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
                   "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
-                                          "bwd_dkv_wgmma": 0}, **NO_BWD_ROUTES}:
+                  "flash_attention_bwd": NO_FLASH_BWD_ROUTES, **NO_BWD_ROUTES}:
         raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
     h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
                 f"prefill and {h2o_launches['decode_attention']} decode launches")
@@ -2422,23 +2607,34 @@ def main() -> int:
     from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
     from repro_torch.train.optimizer import AdamWState, init_state
 
-    def train_routes(cfg, steps, tokens):
+    def train_routes(cfg, steps, tokens, masked=False):
         """The launches by route of ``steps`` train steps of ``tokens`` tokens
         under remat: each layer's forward kernels twice (the recompute), its
         backward kernels once.  Attention: the flash forward on the route of
         the dtype, its backward on the pair of ``bwd_route`` (fp32:
-        ``bwd_dq``/``bwd_dkv``, bf16: ``bwd_dq_wgmma``/``bwd_dkv_wgmma``); MoE:
-        the three expert matmuls at the capacity of ``moe_capacity`` on
+        ``bwd_dq``/``bwd_dkv``, bf16: ``bwd_dq_wgmma``/``bwd_dkv_wgmma``); an
+        encoder-decoder model's encoder (not recomputed) once forward and once
+        backward a layer, its cross-attention as its self-attention, on the
+        masked route and pair when ``masked`` (an ``enc_mask`` in the batch);
+        MoE: the three expert matmuls at the capacity of ``moe_capacity`` on
         ``route``, their dx and dw on ``bwd_route``; the scans (fp32 in every
         model) on their designs."""
         n = layer_counts(cfg)
         dt = getattr(torch, cfg.dtype)
         expect = {}
         if n["attn"]:
-            pair = ("bwd_dq", "bwd_dkv") if _flash.bwd_route(dt) == "simt" else \
-                ("bwd_dq_wgmma", "bwd_dkv_wgmma")
-            expect["flash_attention"] = {_flash.route(dt): 2 * n["attn"] * steps}
-            expect["flash_attention_bwd"] = {k: n["attn"] * steps for k in pair}
+            fwd, bwd = collections.Counter(), collections.Counter()
+
+            def attend(key_mask, forwards, backwards):
+                fwd[_flash.route(dt, key_mask)] += forwards * steps
+                for kernel in _flash.BWD_PAIRS[_flash.bwd_route(dt, key_mask)]:
+                    bwd[kernel] += backwards * steps
+
+            attend(False, 2 * n["attn"], n["attn"])
+            if cfg.encdec is not None:
+                attend(False, cfg.encdec.encoder_layers, cfg.encdec.encoder_layers)
+                attend(masked, 2 * n["attn"], n["attn"])
+            expect["flash_attention"], expect["flash_attention_bwd"] = dict(fwd), dict(bwd)
         if n["moe"]:
             E, k = cfg.moe.num_experts, cfg.moe.top_k
             C = max(1, int(cfg.moe.capacity_factor * k * tokens / E))
@@ -2459,11 +2655,11 @@ def main() -> int:
             expect["rwkv6_scan_bwd"] = {_rwkv.bwd_route(torch.float32, hd): n["rwkv"] * steps}
         return expect
 
-    def check_train_launches(name, cfg, steps, tokens):
+    def check_train_launches(name, cfg, steps, tokens, masked=False):
         """The launches of the run just made, by route and by op, exactly those
         of :func:`train_routes` (a backward of flash or of the MoE matmul is
         two launches by route, one by op)."""
-        expect = train_routes(cfg, steps, tokens)
+        expect = train_routes(cfg, steps, tokens, masked)
         check_routes(name, expect)
         want = {op: sum(r.values()) // (2 if op in ("flash_attention_bwd", "moe_gmm_bwd") else 1)
                 for op, r in expect.items()}
@@ -2479,11 +2675,13 @@ def main() -> int:
     def refuse_plain(*args, **kwargs):
         raise AssertionError("the card's train step reached a plain kernel")
 
-    def train_card_against_cpu(cfg, seq, steps, resync=False):
+    def train_card_against_cpu(cfg, seq, steps, resync=False, inputs=None):
         """``steps`` remat train steps of ``cfg`` from the same weights and
-        SyntheticLM batches of 4 x ``seq`` tokens on the CPU and on the card,
-        every plain kernel refused on the card: each card step's launches
-        exact, losses and grad norms within atol/rtol 1e-4.  With ``resync``
+        SyntheticLM batches of 4 x ``seq`` tokens on the CPU and on the card
+        (``inputs`` maps each numpy batch to the model's: stub frames and an
+        ``enc_mask``, or patch embeddings), every plain kernel refused on the
+        card: each card step's launches exact, losses and grad norms within
+        atol/rtol 1e-4.  With ``resync``
         each card step starts from the CPU run's weights and moments before
         that step, so that the two are held step by step and not along
         trajectories that part by rounding alone: reduced RWKV6's grad norm
@@ -2495,6 +2693,9 @@ def main() -> int:
         it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, batch_size=4,
                                     seed=SEED)).batches()
         batches = [next(it) for _ in range(steps)]
+        if inputs is not None:
+            batches = [inputs(b) for b in batches]
+        masked = "enc_mask" in batches[0]
         step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps),
                                remat=True)
 
@@ -2525,7 +2726,7 @@ def main() -> int:
                         setattr(ref, n, fn)
                 hist[where].append({k: float(m[k]) for k in ("loss", "grad_norm")})
                 if where == "cuda":
-                    check_train_launches(f"{cfg.name} step {i + 1}", cfg, 1, 4 * seq)
+                    check_train_launches(f"{cfg.name} step {i + 1}", cfg, 1, 4 * seq, masked)
         for i, (c, g) in enumerate(zip(hist["cpu"], hist["cuda"])):
             for key in ("loss", "grad_norm"):
                 if not (math.isfinite(g[key])
@@ -2535,7 +2736,7 @@ def main() -> int:
             print(f"  step {i + 1}: loss card {g['loss']:.6f} CPU {c['loss']:.6f} (|diff| "
                   f"{abs(g['loss'] - c['loss']):.3g}); grad_norm card {g['grad_norm']:.6f} CPU "
                   f"{c['grad_norm']:.6f} (|diff| {abs(g['grad_norm'] - c['grad_norm']):.3g})")
-        print(f"  each card step's launches by route: {train_routes(cfg, 1, 4 * seq)}")
+        print(f"  each card step's launches by route: {train_routes(cfg, 1, 4 * seq, masked)}")
 
     phase("11a reduced qwen3-1.7b and h2o-danube-3-4b (heads 120 wide) trained, card against "
           "CPU, float32")
@@ -2782,6 +2983,7 @@ def main() -> int:
 
     bwd_ops = ("moe_gmm_bwd", "mamba_scan_bwd", "rwkv6_scan_bwd")
     family_launches = collections.Counter()
+    # profiler keys by what they run (re.search, the first that matches)
     kernel_tags = (("mamba_scan_bwd_kernel", "mamba_scan_bwd"),
                    ("mamba_scan_bwd_sum_kernel", "mamba_scan_bwd (sums)"),
                    ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd"),
@@ -2789,18 +2991,26 @@ def main() -> int:
                    ("moe_gmm", "moe_gmm (forward, recompute and backward products)"),
                    ("mamba_scan_lanes_kernel", "mamba_scan forward"),
                    ("rwkv6_scan_cols_kernel", "rwkv6_scan forward"),
-                   ("wgb::", "flash backward"), ("flash_wgmma_kernel", "flash forward"))
-    for arch, (n_layers, batch) in TRAIN_FAMILY_FULL.items():
-        full = get_arch(arch)
-        phase(f"11d full-width {arch}, {n_layers} of {full.n_layers} layers, trained on the "
-              f"card, bf16")
+                   (r"wgb::\w+<\d+, true>", "flash backward, masked"),
+                   ("wgb::", "flash backward"),
+                   (r"flash_wgmma_kernel<\d+, true>", "flash forward, masked"),
+                   ("flash_wgmma_kernel", "flash forward"))
+
+    def train_full_width(cfg, batches, opt, label, masked=False):
+        """4 remat steps of ``cfg`` drawn on the card from ``SEED``, AdamW
+        ``opt``, on ``batches`` (``TRAIN_STEPS`` + 1 of them, on the card),
+        the card freed and checked under 1 GB before the draw: each step's
+        loss, exact launches over the 4 steps (``masked``: the batches carry
+        an ``enc_mask``), step time (mean of steps 2-4), tokens/s (the
+        decoder's tokens), MFU by ``flops.model_flops``, peak memory, then
+        one more step under the profiler.  Returns the 4 losses, the
+        launches by op and the flash backward's by kernel; frees the model."""
         gc.collect()
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()
         print(f"  before the draw: {held} bytes allocated on the card")
         if held > 1e9:
-            raise AssertionError(f"{held} bytes still allocated before phase 11d {arch}")
-        cfg = dataclasses.replace(full, n_layers=n_layers)
+            raise AssertionError(f"{held} bytes still allocated before {label}")
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = tree_map(lambda p: p.requires_grad_(True),
@@ -2810,17 +3020,16 @@ def main() -> int:
         n_params = sum(p.numel() for p in tree_leaves(params))
         largest = max(p.numel() for p in tree_leaves(params))
         print(f"{cfg.name}: kinds {[k.value for k in cfg.block_kinds()]}, d_model {cfg.d_model}, "
-              f"{n_params} parameters ({cfg.dtype} weights {tree_bytes(params)} bytes, fp32 "
+              + (f"{cfg.encdec.encoder_layers} encoder layers, " if cfg.encdec else "")
+              + f"{n_params} parameters ({cfg.dtype} weights {tree_bytes(params)} bytes, fp32 "
               f"moments {tree_bytes(state.mu) + tree_bytes(state.nu)} bytes; reckoned at 12 "
               f"bytes a parameter {12 * n_params} bytes, the largest leaf {largest} values, "
               f"{4 * largest} bytes in fp32), drawn in {time.perf_counter() - t0:.1f} s")
-        it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                                    batch_size=batch, seed=SEED)).batches()
-        batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
-                   for _ in range(TRAIN_STEPS + 1)]
-        step = make_train_step(cfg, AdamWConfig(**TRAIN_FAMILY_OPT), remat=True)
-        print(f"  {TRAIN_STEPS} steps of {batch} x {TRAIN_SEQ} tokens, AdamW "
-              f"{TRAIN_FAMILY_OPT}, remat on")
+        batch, seq = batches[0]["labels"].shape
+        step = make_train_step(cfg, AdamWConfig(**opt), remat=True)
+        print(f"  {TRAIN_STEPS} steps of {batch} x {seq} tokens "
+              + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}" for k, v in batches[0].items())
+              + f", AdamW {opt}, remat on")
         ops.reset_launches()
         times, hist = [], []
         for b in batches[:TRAIN_STEPS]:
@@ -2833,25 +3042,27 @@ def main() -> int:
             print(f"  step {len(hist)}: loss {h['loss']:.4f} nll {h['nll']:.4f} grad_norm "
                   f"{h['grad_norm']:.4f} moe_aux {h['moe_aux']:.4g} step_ms "
                   f"{1e3 * times[-1]:.1f}")
-        check_train_launches(f"{cfg.name} training", cfg, TRAIN_STEPS, batch * TRAIN_SEQ)
-        print(f"  launches by op over the {TRAIN_STEPS} steps: "
-              f"{dict((op, n) for op, n in ops.LAUNCHES.items() if n)}")
-        for op in bwd_ops:
-            family_launches[op] += ops.LAUNCHES[op]
-        losses = [h["loss"] for h in hist]
-        tokens = batch * TRAIN_SEQ
-        mf = flops.model_flops(cfg, InputShape(f"train_{batch}x{TRAIN_SEQ}", TRAIN_SEQ,
-                                               batch, StepKind.TRAIN))["model_flops"]
+        check_train_launches(f"{cfg.name} training", cfg, TRAIN_STEPS, batch * seq, masked)
+        launched = {op: n for op, n in ops.LAUNCHES.items() if n}
+        flash_bwd = {r: n for r, n in ops.ROUTE_LAUNCHES["flash_attention_bwd"].items() if n}
+        print(f"  launches by op over the {TRAIN_STEPS} steps: {launched}; the flash backward's "
+              f"by kernel {flash_bwd}")
+        tokens = batch * seq
+        mf = flops.model_flops(cfg, InputShape(f"train_{batch}x{seq}", seq, batch,
+                                               StepKind.TRAIN))["model_flops"]
         steady = statistics.fmean(times[1:])
         print(f"train {cfg.name} step_ms {1e3 * steady:.1f} (mean of steps 2-{TRAIN_STEPS}; "
               f"step 1 {1e3 * times[0]:.1f})  tokens_per_s {tokens / steady:.1f}  "
               f"model_flops_per_step {mf:.6g}  model_tflops_per_s {mf / steady / 1e12:.2f}  "
               f"mfu {mf / steady / PEAK_BF16_FLOPS:.4f} (of {PEAK_BF16_FLOPS / 1e12:.0f} "
-              f"TFLOP/s bf16)  max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
+              f"TFLOP/s bf16"
+              + ("; flops.model_flops counts the decoder's tokens only, not the encoder's "
+                 "frames, as the reference does" if cfg.encdec else "")
+              + f")  max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(params, state, batches[-1])
+            step(params, state, batches[TRAIN_STEPS])
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         device_us, top = device_top(torch, prof, 1)
@@ -2861,7 +3072,7 @@ def main() -> int:
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 for part, tag in kernel_tags:
-                    if part in e.key:
+                    if re.search(part, e.key):
                         by_kernel[tag] += e.self_device_time_total
                         break
         print(f"profiled step (one more, its wall including the profiler's cost): device_us "
@@ -2873,15 +3084,90 @@ def main() -> int:
         del params, state, prof, step, m
         gc.collect()
         torch.cuda.empty_cache()
-        if arch == "rwkv6-1.6b":
-            rwkv_scan_checks(cfg, batches[0])
+        return [h["loss"] for h in hist], launched, flash_bwd
+
+    def check_falling(cfg, losses):
         if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
             raise AssertionError(f"{cfg.name}: losses {losses} not finite and falling")
+
+    for arch, (n_layers, batch) in TRAIN_FAMILY_FULL.items():
+        full = get_arch(arch)
+        phase(f"11d full-width {arch}, {n_layers} of {full.n_layers} layers, trained on the "
+              f"card, bf16")
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    batch_size=batch, seed=SEED)).batches()
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+                   for _ in range(TRAIN_STEPS + 1)]
+        losses, launched, _ = train_full_width(cfg, batches, TRAIN_FAMILY_OPT,
+                                               f"phase 11d {arch}")
+        for op in bwd_ops:
+            family_launches[op] += launched.get(op, 0)
+        if arch == "rwkv6-1.6b":
+            rwkv_scan_checks(cfg, batches[0])
+        check_falling(cfg, losses)
         del batches
         gc.collect()
         torch.cuda.empty_cache()
     for op in bwd_ops:
         launches[op] = family_launches[op]
+
+    # -- 11e, 11f -------------------------------------------------------------
+    phase("11e reduced seamless-m4t-large-v2 under a ragged enc_mask and pixtral-12b trained, "
+          "card against CPU, float32")
+    frames_rng = np.random.default_rng(SEED + 12)
+    cfg = dataclasses.replace(reduced(get_arch("seamless-m4t-large-v2")), dtype="float32")
+    enc_mask = (np.arange(TRAIN_ENCDEC_FRAMES)[None]
+                < np.array(TRAIN_ENCDEC_MASK_LENGTHS)[:, None])
+    print(f"{cfg.name}: {cfg.encdec.encoder_layers} encoder and {cfg.n_layers} decoder layers, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}; batches of 4 x "
+          f"{TRAIN_FAMILY_SEQ} tokens over {TRAIN_ENCDEC_FRAMES} stub frames, enc_mask valid "
+          f"lengths {TRAIN_ENCDEC_MASK_LENGTHS} (row 1 fully masked)")
+    train_card_against_cpu(cfg, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS, inputs=lambda b: {
+        **b, "enc_mask": enc_mask, "enc_embeds": frames_rng.standard_normal(
+            (4, TRAIN_ENCDEC_FRAMES, cfg.frontend.embed_dim), np.float32)})
+    cfg = dataclasses.replace(reduced(get_arch("pixtral-12b")), dtype="float32", n_kv_heads=1)
+    print(f"{cfg.name}: {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim} "
+          f"(pixtral's G = 4); batches of 4 x {TRAIN_FAMILY_SEQ} stub patch embeddings of width "
+          f"{cfg.frontend.embed_dim}")
+    train_card_against_cpu(cfg, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS, inputs=lambda b: {
+        "labels": b["labels"], "embeds": frames_rng.standard_normal(
+            (4, TRAIN_FAMILY_SEQ, cfg.frontend.embed_dim), np.float32)})
+
+    phase("11f full-width, full-depth seamless-m4t-large-v2 trained under an enc_mask on the "
+          "card, bf16")
+    cfg = get_arch("seamless-m4t-large-v2")
+    gen_frames = torch.Generator(device=dev).manual_seed(SEED + 13)
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                batch_size=TRAIN_BATCH, seed=SEED)).batches()
+    n_frames = cfg.encdec.max_source_positions
+    enc_mask = torch.arange(n_frames, device=dev)[None] < torch.tensor(
+        [n_frames - 97 * b for b in range(TRAIN_BATCH)], device=dev)[:, None]   # 5f's
+    batches = [{**{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()},
+                "enc_embeds": stub_frontend_embeddings(cfg, gen_frames, TRAIN_BATCH),
+                "enc_mask": enc_mask} for _ in range(TRAIN_STEPS + 1)]
+    print(f"  enc_mask valid lengths {enc_mask.sum(1).tolist()} (5f's)")
+    losses, _, flash_bwd = train_full_width(cfg, batches, TRAIN_FAMILY_OPT,
+                                            "phase 11f seamless", masked=True)
+    launches["flash_attention_masked_bwd"] = flash_bwd["bwd_dq_wgmma_masked"]
+    check_falling(cfg, losses)
+    del batches, enc_mask
+
+    full = get_arch("pixtral-12b")
+    phase(f"11f full-width pixtral-12b, {PIXTRAL_TRAIN_LAYERS} of {full.n_layers} layers, "
+          f"trained on the card, bf16")
+    cfg = dataclasses.replace(full, n_layers=PIXTRAL_TRAIN_LAYERS)
+    gen_patches = torch.Generator(device=dev).manual_seed(SEED + 14)
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                batch_size=TRAIN_BATCH, seed=SEED)).batches()
+    batches = [{"labels": torch.from_numpy(next(it)["labels"]).to(dev),
+                "embeds": stub_frontend_embeddings(cfg, gen_patches, TRAIN_BATCH, TRAIN_SEQ)}
+               for _ in range(TRAIN_STEPS + 1)]
+    losses, _, _ = train_full_width(cfg, batches, TRAIN_FAMILY_OPT, "phase 11f pixtral")
+    check_falling(cfg, losses)
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- result -------------------------------------------------------------
     print(smi)
@@ -2890,7 +3176,7 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **({"previous_ms": r["previous_ms"]} if "previous_ms" in r else {}),
+         **({k: r[k] for k in ("previous_ms", "unmasked_ms") if k in r}),
          **({"note": f"{h2o_note}; {encdec_note}"}
             if name in ("flash_attention", "decode_attention") else {}),
          **({"note": r["note"]} if "note" in r else {})}

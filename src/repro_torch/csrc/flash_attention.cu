@@ -109,6 +109,28 @@
 // position) takes P = 1 / T on every key, as the plain version's softmax of
 // equal scores does, and no score gradient: dq is 0 there and its dO is
 // spread over dv.
+//
+// The backward of the key-masked routes (flash_attention_bwd_dq_masked and
+// _dkv_masked, simt; flash_attention_bwd_dq_wgmma_masked and
+// _dkv_wgmma_masked, bf16): the same kernels instantiated with MASKED, a key
+// whose byte is 0 not allowed, like a causal or window miss.  A query row
+// with no allowed valid key outputs the mean of v over all of T, so it has
+// no score gradient and adds dO / T to dv of every key of its batch row,
+// dead tiles and keys past its causal range included.  The dq kernel scores
+// a disallowed pair -inf, so such a row keeps a running sum of 0 and gets
+// lse = -inf; it walks only where a row can have an allowed valid key (simt:
+// from the batch row's first valid key to its last, within the union of its
+// rows' ranges; wgmma: the live tiles of that union, counted by km::scan
+// and found by next_live in every thread alike, so that thread 0's loads
+// and the warps' reads walk the same tiles; each finds the next load's tile
+// while the current one is in flight).  The dkv kernel adds the empty rows'
+// term to dv (bwd::empty_rows_term: dO / T summed over the rows of the
+// group whose lse is -inf, after a coalesced pass over lse that asks whether
+// there is one; the simt kernel before its walk, the wgmma kernel after it,
+// so that none of its registers live across the walk), walks no query tile
+// for a key tile with no valid key (then it writes only that term, or
+// zeros), and otherwise walks the query tiles that can see the tile with the
+// valid bits in its masking.
 #include "attn_common.cuh"
 #include "hopper.cuh"
 
@@ -137,6 +159,33 @@ __device__ __forceinline__ uint64_t range_bits(int t0, int lo, int hi) {
   const uint64_t below_b = b == kTile ? ~0ull : (1ull << b) - 1;
   const uint64_t below_a = a == kTile ? ~0ull : (1ull << a) - 1;
   return below_b & ~below_a;
+}
+
+// The first and last valid key of the row (Tlen and -1 if none), by the
+// ballots of km::scan's first loop.  Every one of the block's NT threads
+// calls it (block barriers).
+template <int NT>
+__device__ __forceinline__ int2 valid_range(const uint8_t* __restrict__ vrow, int Tlen) {
+  __shared__ int s_fv, s_lv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    s_fv = Tlen;
+    s_lv = -1;
+  }
+  __syncthreads();
+  int fv = Tlen, lv = -1;
+  for (int i = warp; i * kTile < Tlen; i += NT / 32) {
+    const uint64_t w = tile_word(vrow, i * kTile, Tlen, lane);
+    if (!w) continue;
+    fv = min(fv, i * kTile + __ffsll((long long)w) - 1);
+    lv = max(lv, i * kTile + 63 - __clzll((long long)w));
+  }
+  if (lane == 0) {
+    atomicMin(&s_fv, fv);
+    atomicMax(&s_lv, lv);
+  }
+  __syncthreads();
+  return make_int2(s_fv, s_lv);
 }
 
 struct Scan {
@@ -928,18 +977,66 @@ constexpr int kTile = 64;       // queries or keys a tile
 constexpr int kThreads = 256;   // 16 x 16 threads, 4 x 4 pairs each
 constexpr int kPS = kTile + 1;
 
-template <int D>
+// MASKED: one more float a key of the tile, its valid byte
+template <int D, bool MASKED>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + kTile * kPS + 4 * kTile);
+  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + kTile * kPS + 4 * kTile +
+                                  (MASKED ? kTile : 0));
 }
 
-template <int D>
+template <int D, bool MASKED>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile);
+  return sizeof(float) * (size_t)(4 * kTile * (D + 1) + 2 * kTile * kPS + 2 * kTile +
+                                  (MASKED ? kTile : 0));
 }
 
 __device__ __forceinline__ bool allowed(int p, int kp, int causal, int has_window, int window) {
   return (!causal || kp <= p) && (!has_window || kp > p - window);
+}
+
+// Under a key mask a row with no allowed valid key leaves the dq kernel
+// with lse = -inf (its running sum stays 0); the dkv kernel reads that.
+__device__ __forceinline__ bool empty_row(float lse) { return lse == -INFINITY; }
+
+// The masked dkv kernels' term for the rows with no allowed valid key:
+// each such row's output is the mean of v over all of T, so it adds dO / T
+// to dv of every key of its batch row.  E (D floats at e_out) = inv_t times
+// the sum of dO over the rows of the G query heads of kv head hk whose lse
+// is -inf.  Every one of the block's NT threads calls it (block barriers);
+// `part` is NT floats of scratch.  A first coalesced pass over lse asks
+// whether there is any such row, so a batch row without one pays only that.
+template <typename T, int D, int NT>
+__device__ __forceinline__ void empty_rows_term(const T* __restrict__ dout,
+                                                const float* __restrict__ lse, int b, int hk,
+                                                int G, int Hq, int S, float inv_t, float* part,
+                                                float* e_out) {
+  const int tid = threadIdx.x;
+  const size_t head0 = ((size_t)b * Hq + (size_t)hk * G) * S;   // the group's G heads, rows
+  int any = 0;
+  for (int r = tid; r < G * S; r += NT) any |= empty_row(lse[head0 + r]);
+  if (!__syncthreads_or(any)) {
+    for (int c = tid; c < D; c += NT) e_out[c] = 0.f;
+    __syncthreads();
+    return;
+  }
+  constexpr int NG = NT / D;   // row groups of D threads, one column each
+  const int col = tid % D, grp = tid / D;
+  float e = 0.f;
+  if (grp < NG) {
+#pragma unroll 4
+    for (int r = grp; r < G * S; r += NG) {
+      const float x = attn::to_float(dout[(head0 + r) * D + col]);
+      e += empty_row(lse[head0 + r]) ? x : 0.f;
+    }
+  }
+  part[tid] = e;
+  __syncthreads();
+  if (tid < D) {
+    float s = 0.f;
+    for (int g = 0; g < NG; ++g) s += part[g * D + tid];
+    e_out[tid] = s * inv_t;
+  }
+  __syncthreads();
 }
 
 // Rows r < n of a (rows, D) tile at src into dst (fp32, stride D + 1) times
@@ -990,13 +1087,16 @@ __device__ __forceinline__ void products(float (&a)[4][4], float (&c)[4][4], con
 }
 
 // One block per (64-query tile, query head, batch row).  Writes dq, and each
-// row's log-sum-exp of its allowed scores and D = rowsum(dO o).
-template <typename T, int D>
+// row's log-sum-exp of its allowed scores and D = rowsum(dO o).  MASKED:
+// kvalid (B, Tlen) bytes, a key with 0 masked; the block walks from its
+// batch row's first valid key to its last (km::valid_range) within its
+// rows' union, and a row with no allowed valid key gets lse = -inf and dq 0.
+template <typename T, int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ o, const T* __restrict__ dout, T* __restrict__ dq,
-          float* __restrict__ lse, float* __restrict__ delta, int Hq, int Hkv, int S, int Tlen,
-          int causal, int has_window, int window, float scale) {
+          const T* __restrict__ o, const T* __restrict__ dout, const uint8_t* __restrict__ kvalid,
+          T* __restrict__ dq, float* __restrict__ lse, float* __restrict__ delta, int Hq, int Hkv,
+          int S, int Tlen, int causal, int has_window, int window, float scale) {
   constexpr int RS = D + 1;
   constexpr int DJ = (D + 15) / 16;
   const int q0 = blockIdx.x * kTile;
@@ -1017,6 +1117,17 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   float* l_s = m_s + kTile;         // running sum
   float* lse_s = l_s + kTile;       // log-sum-exp
   float* dl_s = lse_s + kTile;      // D
+  float* kv_s = dl_s + kTile;       // MASKED: the key tile's valid bytes
+  // MASKED: a disallowed pair scores -inf, so that a row with no allowed
+  // valid key keeps a running sum of 0
+  constexpr float kMiss = MASKED ? -INFINITY : attn::kNegInf;
+  const uint8_t* vrow = MASKED ? kvalid + (size_t)b * Tlen : nullptr;
+  auto stage_valid = [&](int t0, int nt) {   // before the barrier that follows a tile's load
+    if (MASKED && tid < kTile) kv_s[tid] = tid < nt && vrow[t0 + tid] ? 1.f : 0.f;
+  };
+  auto ok = [&](int p, int t0, int c) {
+    return allowed(p, t0 + c, causal, has_window, window) && (!MASKED || kv_s[c] != 0.f);
+  };
 
   const size_t row0 = ((size_t)b * Hq + h) * S + q0;
   const T* kb = k + ((size_t)b * Hkv + hk) * (size_t)Tlen * D;
@@ -1045,12 +1156,18 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   int lo = 0, hi = Tlen - 1;
   if (causal) hi = min(hi, p_last);
   if (has_window) lo = max(0, (causal ? max(p_first, 0) : p_first) - window + 1);
+  if constexpr (MASKED) {   // and within the row's first and last valid key
+    const int2 r = km::valid_range<kThreads>(vrow, Tlen);
+    lo = max(lo, r.x);
+    hi = min(hi, r.y);
+  }
   const int t_begin = (lo / kTile) * kTile;
 
   // pass 1: each row's max and sum over its allowed keys, as in the forward
   for (int t0 = t_begin; t0 <= hi; t0 += kTile) {
     const int nt = min(kTile, Tlen - t0);
     load_tile<T, D>(ks, kb + (size_t)t0 * D, nt, 1.f);
+    stage_valid(t0, nt);
     __syncthreads();
     float sc[4][4], unused[4][4];
     products<D, false>(sc, unused, qs, ks, nullptr, nullptr, ty, tx);
@@ -1061,7 +1178,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float s = -INFINITY;   // past T: out of the max, weight 0
-        if (c < nt) s = allowed(p, t0 + c, causal, has_window, window) ? sc[i][j] : attn::kNegInf;
+        if (c < nt) s = ok(p, t0, c) ? sc[i][j] : kMiss;
         ps[r * kPS + c] = s;
       }
     }
@@ -1092,6 +1209,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int nt = min(kTile, Tlen - t0);
     load_tile<T, D>(ks, kb + (size_t)t0 * D, nt, 1.f);
     load_tile<T, D>(vs, vb + (size_t)t0 * D, nt, 1.f);
+    stage_valid(t0, nt);
     __syncthreads();
     float sc[4][4], dp[4][4];
     products<D, true>(sc, dp, qs, ks, dos, vs, ty, tx);
@@ -1102,8 +1220,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       for (int j = 0; j < 4; ++j) {
         const int c = tx + 16 * j;
         float ds = 0.f;
-        if (c < nt && allowed(p, t0 + c, causal, has_window, window))
-          ds = expf(sc[i][j] - lse_s[r]) * (dp[i][j] - dl_s[r]);
+        if (c < nt && ok(p, t0, c)) ds = expf(sc[i][j] - lse_s[r]) * (dp[i][j] - dl_s[r]);
         ps[r * kPS + c] = ds;
       }
     }
@@ -1138,13 +1255,16 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
 // One block per (64-key tile, kv head, batch row): dk and dv of the tile,
 // summed over the G query heads of the kv head and the query tiles that can
-// see the tile.
-template <typename T, int D>
+// see the tile.  MASKED: kvalid (B, Tlen) bytes; a key with 0 is masked, a
+// tile with no valid key walks no query tile, and the rows with no allowed
+// valid key (lse -inf) add dO / T to every key's dv (empty_rows_term).
+template <typename T, int D, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Hq,
-           int Hkv, int S, int Tlen, int causal, int has_window, int window, float scale) {
+           const T* __restrict__ dout, const uint8_t* __restrict__ kvalid,
+           const float* __restrict__ lse, const float* __restrict__ delta, T* __restrict__ dk,
+           T* __restrict__ dv, int Hq, int Hkv, int S, int Tlen, int causal, int has_window,
+           int window, float scale) {
   constexpr int RS = D + 1;
   constexpr int DJ = (D + 15) / 16;
   const int t0 = blockIdx.x * kTile;
@@ -1164,6 +1284,7 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   float* dst = pt + kTile * kPS;    // kTile x kPS: dS^T
   float* lse_s = dst + kTile * kPS;
   float* dl_s = lse_s + kTile;
+  float* kv_s = dl_s + kTile;       // MASKED: the tile's valid bytes
 
   const size_t kv0 = ((size_t)b * Hkv + hk) * Tlen + t0;
   load_tile<T, D>(ks, k + kv0 * D, nt, 1.f);
@@ -1172,16 +1293,27 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   // The query rows that see a key of the tile: from the first whose causal
   // bound reaches it to the last whose window still does.  A causal row at a
   // negative position sees no key and spreads dO over all of T: with such
-  // rows, every tile starts at row 0.
+  // rows, every tile starts at row 0 (MASKED: empty_rows_term spreads it).
   int i_lo = causal ? max(0, t0 - off) : 0;
-  if (causal && off < 0) i_lo = 0;
-  const int i_hi = has_window ? min(S - 1, t0 + nt - 2 + window - off) : S - 1;
+  if (!MASKED && causal && off < 0) i_lo = 0;
+  int i_hi = has_window ? min(S - 1, t0 + nt - 2 + window - off) : S - 1;
 
   float ak[4][DJ], av[4][DJ];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) ak[a][j] = av[a][j] = 0.f;
+  if constexpr (MASKED) {
+    const int kvv = tid < nt && kvalid[(size_t)b * Tlen + t0 + tid];
+    if (tid < kTile) kv_s[tid] = kvv ? 1.f : 0.f;
+    if (!__syncthreads_or(kvv)) i_hi = -1;   // no valid key: no query tile to walk
+    // dv starts from the empty rows' term (pt and dst are free until the walk)
+    empty_rows_term<T, D, kThreads>(dout, lse, b, hk, G, Hq, S, inv_t, pt, dst);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) av[a][j] = tx + 16 * j < D ? dst[tx + 16 * j] : 0.f;
+  }
 
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
@@ -1206,9 +1338,10 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
           const int r = tx + 16 * j, p = q0 + r + off;
           float pw = 0.f, ds = 0.f;
           if (c < nt && r < nq) {
-            if (causal && p < 0) {
+            if (!MASKED && causal && p < 0) {
               pw = inv_t;
-            } else if (allowed(p, kp, causal, has_window, window)) {
+            } else if (allowed(p, kp, causal, has_window, window) &&
+                       (!MASKED || kv_s[c] != 0.f)) {
               pw = expf(st[a][j] - lse_s[r]);
               ds = pw * (dpt[a][j] - dl_s[r]);
             }
@@ -1253,39 +1386,41 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   }
 }
 
+// kvalid: the (B, Tlen) key mask of the masked kernels; null otherwise.
 struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
   float *lse, *delta;
   int B, Hq, Hkv, S, Tlen, causal, has_window, window;
   float scale;
+  const uint8_t* kvalid = nullptr;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool MASKED>
 cudaError_t launch(const Args& a, bool dkv, cudaStream_t stream) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   if (!dkv) {
-    constexpr size_t smem = dq_smem_bytes<D>();
-    auto kernel = dq_kernel<T, D>;
+    constexpr size_t smem = dq_smem_bytes<D, MASKED>();
+    auto kernel = dq_kernel<T, D, MASKED>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.S + kTile - 1) / kTile, a.Hq, a.B);
     kernel<<<grid, kThreads, smem, stream>>>(q, k, v, static_cast<const T*>(a.o), dout,
-                                             static_cast<T*>(a.dq), a.lse, a.delta, a.Hq, a.Hkv,
-                                             a.S, a.Tlen, a.causal, a.has_window, a.window,
-                                             a.scale);
+                                             a.kvalid, static_cast<T*>(a.dq), a.lse, a.delta,
+                                             a.Hq, a.Hkv, a.S, a.Tlen, a.causal, a.has_window,
+                                             a.window, a.scale);
   } else {
-    constexpr size_t smem = dkv_smem_bytes<D>();
-    auto kernel = dkv_kernel<T, D>;
+    constexpr size_t smem = dkv_smem_bytes<D, MASKED>();
+    auto kernel = dkv_kernel<T, D, MASKED>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.Tlen + kTile - 1) / kTile, a.Hkv, a.B);
-    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, dout, a.lse, a.delta,
+    kernel<<<grid, kThreads, smem, stream>>>(q, k, v, dout, a.kvalid, a.lse, a.delta,
                                              static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.Hq,
                                              a.Hkv, a.S, a.Tlen, a.causal, a.has_window,
                                              a.window, a.scale);
@@ -1293,20 +1428,21 @@ cudaError_t launch(const Args& a, bool dkv, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool MASKED>
 cudaError_t launch_d(int D, const Args& a, bool dkv, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(a, dkv, stream);
-    case 64: return launch<T, 64>(a, dkv, stream);
-    case 120: return launch<T, 120>(a, dkv, stream);
-    case 128: return launch<T, 128>(a, dkv, stream);
+    case 32: return launch<T, 32, MASKED>(a, dkv, stream);
+    case 64: return launch<T, 64, MASKED>(a, dkv, stream);
+    case 120: return launch<T, 120, MASKED>(a, dkv, stream);
+    case 128: return launch<T, 128, MASKED>(a, dkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <bool MASKED>
 cudaError_t launch_dtype(int dtype, int D, const Args& a, bool dkv, cudaStream_t stream) {
-  if (dtype == 0) return launch_d<float>(D, a, dkv, stream);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(D, a, dkv, stream);
+  if (dtype == 0) return launch_d<float, MASKED>(D, a, dkv, stream);
+  if (dtype == 1) return launch_d<__nv_bfloat16, MASKED>(D, a, dkv, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1466,15 +1602,34 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
+// The first live key tile (a valid word that is not 0) at or after tile i
+// and at or before tile hi; hi + 1 if none.  Every lane of the warp calls it
+// and gets the same answer, so every warp of a block that calls it with the
+// same arguments walks the same tiles.
+__device__ __forceinline__ int next_live(const uint8_t* __restrict__ vrow, int Tlen, int i,
+                                         int hi) {
+  for (; i <= hi && !km::tile_word(vrow, i * kT, Tlen, threadIdx.x % 32); ++i) {
+  }
+  return i;
+}
+
 // One block per (64-query tile, query head, batch row), the last tile
 // first.  Writes dq, and each row's lse (log2 units) and D for the dkv kernel.
-template <int D>
-__global__ void __launch_bounds__(kConsumers, 3)
+// MASKED: kvalid (B, Tlen) bytes, a key with 0 masked; the block walks only
+// the live key tiles of its rows' union (km::scan counts them, next_live
+// finds each, in every thread alike, so that thread 0's loads and the
+// warps' reads agree), and a row with no allowed valid key gets lse = -inf
+// and dq = 0.  At D <= 64 it keeps the unmasked kernel's four blocks an SM
+// (128 registers: the tile words are read again where they are used, not
+// carried across the loads).
+template <int D, bool MASKED>
+__global__ void __launch_bounds__(kConsumers, MASKED && D <= 64 ? 4 : 3)
 dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
           const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
-          __nv_bfloat16* __restrict__ dq, float* __restrict__ lse, float* __restrict__ delta,
-          int Hq, int Hkv, int S, int Tlen, int causal, int has_window, int window, float scale) {
+          const uint8_t* __restrict__ kvalid, __nv_bfloat16* __restrict__ dq,
+          float* __restrict__ lse, float* __restrict__ delta, int Hq, int Hkv, int S, int Tlen,
+          int causal, int has_window, int window, float scale) {
   using C = Cfg<D>;
   constexpr int TB = C::KV_BYTES;   // a 64-row bf16 tile
   extern __shared__ uint8_t smem_raw[];
@@ -1497,7 +1652,17 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   if (causal) hi = min(hi, p_last);
   if (has_window) lo = max(0, (causal ? max(p_first, 0) : p_first) - window + 1);
   const int t_begin = (lo / kT) * kT;
-  const int n_tiles = hi < t_begin ? 0 : (hi - t_begin) / kT + 1;
+  int n_tiles = hi < t_begin ? 0 : (hi - t_begin) / kT + 1;
+  // MASKED: the tile of the load read in this iteration and of the next load
+  const uint8_t* vrow = MASKED ? kvalid + (size_t)b * Tlen : nullptr;
+  const int lo_tile = t_begin / kT, hi_tile = lo_tile + n_tiles - 1;
+  int w_tile = lo_tile, n_tile = lo_tile;
+  if constexpr (MASKED) {
+    static_assert(kDqStages == 1, "the walk is one load ahead of the reads");
+    n_tiles = km::scan<kConsumers, kT>(vrow, Tlen, p_first, nq, causal, has_window, window,
+                                       lo_tile, hi_tile).live;
+    w_tile = next_live(vrow, Tlen, lo_tile, hi_tile);
+  }
   const int n_loads = 2 * n_tiles;   // pass 1 streams K tiles, pass 2 K and V tiles
 
   if (threadIdx.x == 0) {
@@ -1506,10 +1671,10 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     hopper::mbar_fence_init();
   }
   __syncthreads();
-  auto issue = [&](int g) {   // thread 0: the tiles of load g into its stage
+  auto issue = [&](int g, int tile) {   // thread 0: the tiles of load g into its stage
     const int st = g % kDqStages;
     const bool pass2 = g >= n_tiles;
-    const int t0 = t_begin + (pass2 ? g - n_tiles : g) * kT;
+    const int t0 = tile * kT;
     hopper::mbar_arrive_expect_tx(&full[st], pass2 ? 2 * TB : TB);
 #pragma unroll
     for (int s = 0; s < C::NSLAB; ++s) {
@@ -1520,11 +1685,24 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
                             b * Hkv + hk);
     }
   };
+  // the key tile of load g: pass 1 walks the tiles, pass 2 walks them again
+  auto tile_of = [&](int g) { return lo_tile + (g >= n_tiles ? g - n_tiles : g); };
+  // MASKED: every thread finds load g + 1's tile (the next live one, or the
+  // first again where pass 2 starts) while load g is in flight, and takes it
+  // up at the end of iteration g
+  auto look_ahead = [&](int g) {
+    if (MASKED && g + 1 < n_loads)
+      n_tile = next_live(vrow, Tlen, g + 1 == n_tiles ? lo_tile : w_tile + 1, hi_tile);
+  };
+  // MASKED: the valid word of the tile at t0
+  auto word_at = [&](int t0) {
+    return MASKED ? km::tile_word(vrow, t0, Tlen, threadIdx.x % 32) : ~0ull;
+  };
   // after load g's tiles are read by every warp, the stage takes load g + kDqStages
   auto release = [&](int g) {
     if (g + kDqStages < n_loads) {
       __syncthreads();
-      if (threadIdx.x == 0) issue(g + kDqStages);
+      if (threadIdx.x == 0) issue(g + kDqStages, MASKED ? n_tile : tile_of(g + kDqStages));
     }
   };
   if (threadIdx.x == 0 && n_tiles > 0) {
@@ -1534,7 +1712,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
       hopper::tma_load_3d(qs + s * kT * C::SW, &tm_q, q_full, s * C::DS, q0, b * Hq + h);
       hopper::tma_load_3d(dos + s * kT * C::SW, &tm_do, q_full, s * C::DS, q0, b * Hq + h);
     }
-    for (int g = 0; g < min(kDqStages, n_loads); ++g) issue(g);
+    for (int g = 0; g < min(kDqStages, n_loads); ++g) issue(g, MASKED ? w_tile : tile_of(g));
   }
 
   // this thread holds rows r0 and r0 + 8 of the tile
@@ -1576,13 +1754,18 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   auto allowed = [&](int p, int kp) {
     return kp < Tlen && (!causal || kp <= p) && (!has_window || kp > p - window);
   };
+  // MASKED: the valid bits of this thread's two keys of column group j
+  auto valid2 = [&](uint64_t word, int j) {
+    return MASKED ? (uint32_t)(word >> (8 * j)) >> col0 : 3u;
+  };
 
   // pass 1: each row's max and sum over its allowed keys (log2 units)
   float m0 = attn::kNegInf, m1 = attn::kNegInf, l0 = 0.f, l1 = 0.f;
   float s[kT / 2];
   if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    const int st = it % kDqStages, t0 = t_begin + it * kT;
+    const int st = it % kDqStages, t0 = (MASKED ? w_tile : tile_of(it)) * kT;
+    look_ahead(it);
     hopper::mbar_wait(&full[st], (it / kDqStages) & 1);
     hopper::wgmma_fence();
     issue_abt<D>(s, q_addr, k_base + st * TB);
@@ -1590,14 +1773,17 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     hopper::wgmma_wait<0>();
     hopper::fence_regs(s);
     release(it);
-    const bool mask = need_mask(t0);
+    const uint64_t word = word_at(t0);
+    const bool mask = need_mask(t0) || (MASKED && word != ~0ull);
     float mx0 = m0, mx1 = m1;
 #pragma unroll
     for (int j = 0; j < kT / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float x = s[4 * j + i] * scale_log2;
-        if (mask && !allowed(i < 2 ? pa : pb, t0 + 8 * j + col0 + (i & 1))) x = -INFINITY;
+        if (mask && (!allowed(i < 2 ? pa : pb, t0 + 8 * j + col0 + (i & 1)) ||
+                     !((valid2(word, j) >> (i & 1)) & 1)))
+          x = -INFINITY;
         s[4 * j + i] = x;
         if (i < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
       }
@@ -1613,6 +1799,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     l1 = l1 * hopper::exp2_approx(m1 - mx1) + sum1;
     m0 = mx0;
     m1 = mx1;
+    if constexpr (MASKED) w_tile = n_tile;
   }
   // a row with no allowed key has l = 0 and lse = -inf; it takes P = 0 below
   const float lse0 = m0 + log2f(quad_sum(l0)), lse1 = m1 + log2f(quad_sum(l1));
@@ -1622,8 +1809,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 #pragma unroll
   for (int i = 0; i < C::DP / 2; ++i) acc[i] = 0.f;
   for (int it = 0; it < n_tiles; ++it) {
-    const int g = n_tiles + it, st = g % kDqStages, t0 = t_begin + it * kT;
+    const int g = n_tiles + it, st = g % kDqStages, t0 = (MASKED ? w_tile : tile_of(g)) * kT;
     float dp[kT / 2];
+    look_ahead(g);
     hopper::mbar_wait(&full[st], (g / kDqStages) & 1);
     hopper::wgmma_fence();
     issue_abt<D>(s, q_addr, k_base + st * TB);
@@ -1632,14 +1820,17 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     hopper::wgmma_wait<0>();
     hopper::fence_regs(s);
     hopper::fence_regs(dp);
-    const bool mask = need_mask(t0);
+    const uint64_t word = word_at(t0);
+    const bool mask = need_mask(t0) || (MASKED && word != ~0ull);
 #pragma unroll
     for (int j = 0; j < kT / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const bool top = i < 2;
         float pw = hopper::exp2_approx(s[4 * j + i] * scale_log2 - (top ? lse0 : lse1));
-        if (mask && !allowed(top ? pa : pb, t0 + 8 * j + col0 + (i & 1))) pw = 0.f;
+        if (mask && (!allowed(top ? pa : pb, t0 + 8 * j + col0 + (i & 1)) ||
+                     !((valid2(word, j) >> (i & 1)) & 1)))
+          pw = 0.f;
         dp[4 * j + i] = pw * (dp[4 * j + i] - (top ? dl0 : dl1));
       }
     uint32_t dhi[4][4], dlo[4][4];
@@ -1651,6 +1842,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
     hopper::fence_regs(acc);
     fence_split(dhi, dlo);
     release(g);
+    if constexpr (MASKED) w_tile = n_tile;
   }
 
   store_rows<D>(dq + row0 * D, acc, r0, nq, col0, scale);
@@ -1668,11 +1860,18 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 
 // One block per (64-key tile, kv head, batch row), the first tile first:
 // dk and dv of the tile, summed over the G query heads of the kv head and
-// the query tiles that can see the tile.
-template <int D>
-__global__ void __launch_bounds__(kConsumers, 2)
+// the query tiles that can see the tile.  MASKED: kvalid (B, Tlen) bytes; a
+// key with 0 is masked, a tile with no valid key loads and walks nothing,
+// and the rows with no allowed valid key (lse -inf) add dO / T to every
+// key's dv (bwd::empty_rows_term, from dout in global memory).
+// MASKED at D <= 64: three blocks an SM, as the unmasked kernel's registers
+// allow (168: masked keys are moved past T rather than kept as bits, and
+// the empty rows' term comes after the walk)
+template <int D, bool MASKED>
+__global__ void __launch_bounds__(kConsumers, MASKED && D <= 64 ? 3 : 2)
 dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+           const __nv_bfloat16* __restrict__ dout, const uint8_t* __restrict__ kvalid,
            const float* __restrict__ lse, const float* __restrict__ delta,
            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Hq, int Hkv,
            int S, int Tlen, int causal, int has_window, int window, float scale) {
@@ -1692,14 +1891,17 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   const int G = Hq / Hkv;
   const int off = Tlen - S;
   const int nt = min(kT, Tlen - t0);
+  const int tid = threadIdx.x;
+  // MASKED: the tile's valid word, the same in every warp
+  const uint64_t word = MASKED ? km::tile_word(kvalid + (size_t)b * Tlen, t0, Tlen, tid % 32)
+                               : ~0ull;
   // the query rows that see a key of the tile, as in bwd::dkv_kernel
   int i_lo = causal ? max(0, t0 - off) : 0;
-  if (causal && off < 0) i_lo = 0;
+  if (!MASKED && causal && off < 0) i_lo = 0;
   const int i_hi = has_window ? min(S - 1, t0 + nt - 2 + window - off) : S - 1;
   const int q_begin = (i_lo / kT) * kT;
-  const int n_qt = i_hi < q_begin ? 0 : (i_hi - q_begin) / kT + 1;
+  const int n_qt = i_hi < q_begin || word == 0 ? 0 : (i_hi - q_begin) / kT + 1;
   const int n_it = G * n_qt;
-  const int tid = threadIdx.x;
 
   if (tid == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -1733,9 +1935,13 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
 
   const int warp = tid / 32, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
-  const int ka = t0 + r0, kb = ka + 8;
+  // this thread's keys; MASKED: a masked key is moved past T, so that the
+  // masking drops it as it drops the keys past T
+  const int ka = t0 + r0 + (MASKED && !((word >> r0) & 1) ? Tlen : 0);
+  const int kb = t0 + r0 + 8 + (MASKED && !((word >> (r0 + 8)) & 1) ? Tlen : 0);
+  const bool partial = MASKED && word != ~0ull;   // the tile has a masked key
   const float scale_log2 = scale * 1.4426950408889634f;
-  const float inv_t = 1.f / (float)Tlen;
+  const float inv_t = 1.f / (float)Tlen;   // unmasked: P of a row with no key
   const uint32_t k_addr = hopper::smem_addr(ks), v_addr = hopper::smem_addr(vs);
   const uint32_t q_base = hopper::smem_addr(qs), do_base = hopper::smem_addr(dos);
 
@@ -1765,7 +1971,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
     // masking only where a pair of the tile is not plainly allowed
     const bool mask = t0 + kT > Tlen || q0 + kT > S || (causal && p0 < 0) ||
                       (causal && t0 + kT - 1 > p0) ||
-                      (has_window && t0 <= p0 + kT - 1 - window);
+                      (has_window && t0 <= p0 + kT - 1 - window) || partial;
     // P^T and dS^T, 8 query columns at a time, straight into the A operands
     const float2* ls = reinterpret_cast<const float2*>(lse_s + st * kT) + lane % 4;
     const float2* dls = reinterpret_cast<const float2*>(dl_s + st * kT) + lane % 4;
@@ -1783,7 +1989,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
           const int p = p0 + c, kp = i < 2 ? ka : kb;
           if (q0 + c >= S || kp >= Tlen) {
             pw[i] = g[i] = 0.f;
-          } else if (causal && p < 0) {
+          } else if (!MASKED && causal && p < 0) {
             pw[i] = inv_t;   // a row with no key: the mean of v
             g[i] = 0.f;
           } else if ((causal && kp > p) || (has_window && kp <= p - window)) {
@@ -1812,12 +2018,30 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
     }
   }
 
+  // MASKED: dv takes the empty rows' term.  lse_s and dl_s are its scratch:
+  // its first block barrier follows every thread's last read of them
+  if constexpr (MASKED) {
+    static_assert(2 * kDkvStages * kT >= kConsumers + D, "scratch for empty_rows_term");
+    bwd::empty_rows_term<__nv_bfloat16, D, kConsumers>(dout, lse, b, hk, G, Hq, S,
+                                                       1.f / (float)Tlen, lse_s,
+                                                       lse_s + kConsumers);
+#pragma unroll
+    for (int j = 0; j < C::DP / 8; ++j) {
+      const int col = 8 * j + col0;
+      const float e0 = col < D ? lse_s[kConsumers + col] : 0.f;
+      const float e1 = col + 1 < D ? lse_s[kConsumers + col + 1] : 0.f;
+      acc_v[4 * j] += e0;
+      acc_v[4 * j + 1] += e1;
+      acc_v[4 * j + 2] += e0;
+      acc_v[4 * j + 3] += e1;
+    }
+  }
   const size_t kv0 = ((size_t)b * Hkv + hk) * Tlen + t0;
   store_rows<D>(dk + kv0 * D, acc_k, r0, nt, col0, scale);
   store_rows<D>(dv + kv0 * D, acc_v, r0, nt, col0, 1.f);
 }
 
-template <int D>
+template <int D, bool MASKED>
 cudaError_t launch(const bwd::Args& a, bool dkv, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv, tdo;
@@ -1831,35 +2055,36 @@ cudaError_t launch(const bwd::Args& a, bool dkv, cudaStream_t stream) {
                               C::SW))
     return cudaErrorInvalidValue;
   if (!dkv) {
-    auto kernel = dq_kernel<D>;
+    auto kernel = dq_kernel<D, MASKED>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());
     if (err != cudaSuccess) return err;
     const dim3 grid(a.Hq, a.B, (a.S + kT - 1) / kT);
     kernel<<<grid, kConsumers, dq_smem<D>(), stream>>>(
         tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(a.o),
-        static_cast<const __nv_bfloat16*>(a.dout), static_cast<__nv_bfloat16*>(a.dq), a.lse,
-        a.delta, a.Hq, a.Hkv, a.S, a.Tlen, a.causal, a.has_window, a.window, a.scale);
+        static_cast<const __nv_bfloat16*>(a.dout), a.kvalid, static_cast<__nv_bfloat16*>(a.dq),
+        a.lse, a.delta, a.Hq, a.Hkv, a.S, a.Tlen, a.causal, a.has_window, a.window, a.scale);
   } else {
-    auto kernel = dkv_kernel<D>;
+    auto kernel = dkv_kernel<D, MASKED>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem<D>());
     if (err != cudaSuccess) return err;
     const dim3 grid(a.Hkv, a.B, (a.Tlen + kT - 1) / kT);
     kernel<<<grid, kConsumers, dkv_smem<D>(), stream>>>(
-        tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
-        static_cast<__nv_bfloat16*>(a.dv), a.Hq, a.Hkv, a.S, a.Tlen, a.causal, a.has_window,
-        a.window, a.scale);
+        tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(a.dout), a.kvalid, a.lse, a.delta,
+        static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), a.Hq, a.Hkv, a.S,
+        a.Tlen, a.causal, a.has_window, a.window, a.scale);
   }
   return cudaGetLastError();
 }
 
+template <bool MASKED>
 cudaError_t launch_d(int D, const bwd::Args& a, bool dkv, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<32>(a, dkv, stream);
-    case 64: return launch<64>(a, dkv, stream);
-    case 120: return launch<120>(a, dkv, stream);
-    case 128: return launch<128>(a, dkv, stream);
+    case 32: return launch<32, MASKED>(a, dkv, stream);
+    case 64: return launch<64, MASKED>(a, dkv, stream);
+    case 120: return launch<120, MASKED>(a, dkv, stream);
+    case 128: return launch<128, MASKED>(a, dkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1924,7 +2149,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       float scale, int dtype, void* stream) {
   const bwd::Args a{q, k, v, o, dout, dq, nullptr, nullptr, lse, delta, B, Hq, Hkv, S, Tlen,
                     causal, has_window, window, scale};
-  return bwd::launch_dtype(dtype, D, a, false, static_cast<cudaStream_t>(stream));
+  return bwd::launch_dtype<false>(dtype, D, a, false, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's second kernel, after the first on the same stream: dk and
@@ -1938,7 +2163,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   const bwd::Args a{q, k, v, nullptr, dout, nullptr, dk, dv, const_cast<float*>(lse),
                     const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window,
                     window, scale};
-  return bwd::launch_dtype(dtype, D, a, true, static_cast<cudaStream_t>(stream));
+  return bwd::launch_dtype<false>(dtype, D, a, true, static_cast<cudaStream_t>(stream));
 }
 
 // The wgmma design of the backward's first kernel (bf16 only): dq, and each
@@ -1954,7 +2179,7 @@ extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const 
                                             float scale, void* stream) {
   const bwd::Args a{q, k, v, o, dout, dq, nullptr, nullptr, lse, delta, B, Hq, Hkv, S, Tlen,
                     causal, has_window, window, scale};
-  return wgb::launch_d(D, a, false, static_cast<cudaStream_t>(stream));
+  return wgb::launch_d<false>(D, a, false, static_cast<cudaStream_t>(stream));
 }
 
 // The wgmma design of the backward's second kernel (bf16 only), after
@@ -1969,5 +2194,60 @@ extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const
   const bwd::Args a{q, k, v, nullptr, dout, nullptr, dk, dv, const_cast<float*>(lse),
                     const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window,
                     window, scale};
-  return wgb::launch_d(D, a, true, static_cast<cudaStream_t>(stream));
+  return wgb::launch_d<false>(D, a, true, static_cast<cudaStream_t>(stream));
+}
+
+// The backward of the key-masked routes: the same two kernels as
+// flash_attention_bwd_dq / _dkv (simt) and flash_attention_bwd_dq_wgmma /
+// _dkv_wgmma (bf16 only), with kvalid (B, Tlen) bytes (0 = masked key).  The
+// dq kernel writes lse = -inf for a row with no allowed valid key; the dkv
+// kernel, after it on the same stream, spreads such a row's dO / T over dv
+// of every key.  dtype: 0 = float32, 1 = bfloat16.  Each returns
+// cudaGetLastError() after the launch (or cudaErrorInvalidValue, as the
+// unmasked entry points); the caller raises on anything but 0.
+extern "C" int flash_attention_bwd_dq_masked(const void* q, const void* k, const void* v,
+                                             const void* o, const void* dout,
+                                             const uint8_t* kvalid, void* dq, float* lse,
+                                             float* delta, int B, int Hq, int Hkv, int S,
+                                             int Tlen, int D, int causal, int has_window,
+                                             int window, float scale, int dtype, void* stream) {
+  const bwd::Args a{q, k, v, o, dout, dq, nullptr, nullptr, lse, delta, B, Hq, Hkv, S, Tlen,
+                    causal, has_window, window, scale, kvalid};
+  return bwd::launch_dtype<true>(dtype, D, a, false, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_dkv_masked(const void* q, const void* k, const void* v,
+                                              const void* dout, const uint8_t* kvalid,
+                                              const float* lse, const float* delta, void* dk,
+                                              void* dv, int B, int Hq, int Hkv, int S, int Tlen,
+                                              int D, int causal, int has_window, int window,
+                                              float scale, int dtype, void* stream) {
+  const bwd::Args a{q, k, v, nullptr, dout, nullptr, dk, dv, const_cast<float*>(lse),
+                    const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window,
+                    window, scale, kvalid};
+  return bwd::launch_dtype<true>(dtype, D, a, true, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_dq_wgmma_masked(const void* q, const void* k, const void* v,
+                                                   const void* o, const void* dout,
+                                                   const uint8_t* kvalid, void* dq, float* lse,
+                                                   float* delta, int B, int Hq, int Hkv, int S,
+                                                   int Tlen, int D, int causal, int has_window,
+                                                   int window, float scale, void* stream) {
+  const bwd::Args a{q, k, v, o, dout, dq, nullptr, nullptr, lse, delta, B, Hq, Hkv, S, Tlen,
+                    causal, has_window, window, scale, kvalid};
+  return wgb::launch_d<true>(D, a, false, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_dkv_wgmma_masked(const void* q, const void* k, const void* v,
+                                                    const void* dout, const uint8_t* kvalid,
+                                                    const float* lse, const float* delta,
+                                                    void* dk, void* dv, int B, int Hq, int Hkv,
+                                                    int S, int Tlen, int D, int causal,
+                                                    int has_window, int window, float scale,
+                                                    void* stream) {
+  const bwd::Args a{q, k, v, nullptr, dout, nullptr, dk, dv, const_cast<float*>(lse),
+                    const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window,
+                    window, scale, kvalid};
+  return wgb::launch_d<true>(D, a, true, static_cast<cudaStream_t>(stream));
 }

@@ -22,13 +22,19 @@ counterpart on the card.  ``LAUNCHES`` counts the launches of each route.
 
 :func:`flash_attention_bwd` launches the backward's two kernels, dq (and
 each row's log-sum-exp and D = rowsum(dO o)) and then dk and dv, in the
-design :func:`bwd_route` gives the dtype: bf16 -> ``"wgmma"`` (the pair
-``bwd_dq_wgmma``, ``bwd_dkv_wgmma`` on the tensor cores), anything else ->
-``"simt"`` (the pair ``bwd_dq``, ``bwd_dkv`` on the CUDA cores).  Each
-kernel is its own C entry point, counted in ``BWD_LAUNCHES``.
-:func:`flash_attention_bwd_simt` reaches the simt pair for bf16 too, to be
-timed beside the wgmma pair.  It takes what the unmasked routes take; the
-key-masked route has no backward.
+design :func:`bwd_route` gives the dtype and the key mask: bf16 ->
+``"wgmma"`` (the pair ``bwd_dq_wgmma``, ``bwd_dkv_wgmma`` on the tensor
+cores), or ``"wgmma_masked"`` under a key mask (``bwd_dq_wgmma_masked``,
+``bwd_dkv_wgmma_masked``: the dq kernel walks only the live key tiles);
+anything else -> ``"simt"`` (the pair ``bwd_dq``, ``bwd_dkv`` on the CUDA
+cores), or ``"masked"`` under a key mask (``bwd_dq_masked``,
+``bwd_dkv_masked``).  Under a mask a query row with no allowed valid key
+(whose output is the mean of v over T) gets dq = 0, gives nothing to dk,
+and adds dO / T to dv of every key of its batch row, as the plain version's
+softmax of equal scores does.  Each kernel is its own C entry point,
+counted in ``BWD_LAUNCHES``.  :func:`flash_attention_bwd_simt` and
+:func:`flash_attention_bwd_masked_simt` reach the simt pairs for bf16 too,
+to be timed beside the wgmma pairs.
 """
 from __future__ import annotations
 
@@ -47,9 +53,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: launches of each route
 LAUNCHES: Dict[str, int] = {"wgmma": 0, "simt": 0, "masked": 0, "wgmma_masked": 0}
-#: launches of each of the backward's kernels: the simt pair and the wgmma pair
-BWD_LAUNCHES: Dict[str, int] = {"bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0,
-                                "bwd_dkv_wgmma": 0}
+#: the backward's pair of kernels on each route
+BWD_PAIRS: Dict[str, Tuple[str, str]] = {
+    "simt": ("bwd_dq", "bwd_dkv"), "wgmma": ("bwd_dq_wgmma", "bwd_dkv_wgmma"),
+    "masked": ("bwd_dq_masked", "bwd_dkv_masked"),
+    "wgmma_masked": ("bwd_dq_wgmma_masked", "bwd_dkv_wgmma_masked")}
+#: launches of each of the backward's kernels, the pairs of every route
+BWD_LAUNCHES: Dict[str, int] = {name: 0 for pair in BWD_PAIRS.values() for name in pair}
 
 
 def route(dtype: torch.dtype, masked: bool = False) -> str:
@@ -61,10 +71,13 @@ def route(dtype: torch.dtype, masked: bool = False) -> str:
     return "masked" if masked else "simt"
 
 
-def bwd_route(dtype: torch.dtype) -> str:
+def bwd_route(dtype: torch.dtype, masked: bool = False) -> str:
     """The backward design a CUDA call in ``dtype`` takes: bf16 ->
-    ``"wgmma"``, anything else -> ``"simt"``."""
-    return "wgmma" if dtype == torch.bfloat16 else "simt"
+    ``"wgmma"``, or ``"wgmma_masked"`` under a key mask; anything else ->
+    ``"simt"``, or ``"masked"`` under a key mask."""
+    if dtype == torch.bfloat16:
+        return "wgmma_masked" if masked else "wgmma"
+    return "masked" if masked else "simt"
 
 
 @functools.cache
@@ -85,6 +98,14 @@ def _entry(which: str):
     elif which in ("bwd_dq_wgmma", "bwd_dkv_wgmma"):
         fn = getattr(lib, f"flash_attention_{which}")
         fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _P]
+    elif which in ("bwd_dq_masked", "bwd_dkv_masked"):   # nine pointers, the mask among them
+        fn = getattr(lib, f"flash_attention_{which}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       ctypes.c_float, _I, _P]
+    elif which in ("bwd_dq_wgmma_masked", "bwd_dkv_wgmma_masked"):
+        fn = getattr(lib, f"flash_attention_{which}")
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        ctypes.c_float, _P]
     elif which == "masked":
         fn = lib.flash_attention_masked_fwd
@@ -177,15 +198,17 @@ def _launch(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True,
-                        window: Optional[int] = None
+                        window: Optional[int] = None,
+                        key_valid: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradients of :func:`flash_attention` without a key mask: q, o and
-    dout (B,Hq,S,d), k/v (B,Hkv,T,d), o the forward's output and dout the
-    gradient of the loss by it -> (dq, dk, dv) in the inputs' dtype.  Two
-    launches on the current stream, the pair of ``bwd_route(q.dtype)``: the
-    dq kernel, then the dkv kernel, which reads the rows' statistics the
-    first wrote."""
-    return _bwd(bwd_route(q.dtype), q, k, v, o, dout, causal, window)
+    """The gradients of :func:`flash_attention`: q, o and dout (B,Hq,S,d),
+    k/v (B,Hkv,T,d), key_valid (B,T) bool or None, o the forward's output
+    and dout the gradient of the loss by it -> (dq, dk, dv) in the inputs'
+    dtype.  Two launches on the current stream, the pair of
+    ``bwd_route(q.dtype, key_valid is not None)``: the dq kernel, then the
+    dkv kernel, which reads the rows' statistics the first wrote."""
+    return _bwd(bwd_route(q.dtype, key_valid is not None), q, k, v, o, dout, causal, window,
+                key_valid)
 
 
 def flash_attention_bwd_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -197,31 +220,48 @@ def flash_attention_bwd_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _bwd("simt", q, k, v, o, dout, causal, window)
 
 
+def flash_attention_bwd_masked_simt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                    o: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
+                                    window: Optional[int] = None, key_valid: torch.Tensor
+                                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The simt pair under a key mask whatever the dtype (for bf16, timed
+    beside the wgmma_masked pair)."""
+    return _bwd("masked", q, k, v, o, dout, causal, window, key_valid)
+
+
 def _bwd(which: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-         dout: torch.Tensor, causal: bool, window: Optional[int]
+         dout: torch.Tensor, causal: bool, window: Optional[int],
+         key_valid: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    check_inputs(q, k, v, window)
+    check_inputs(q, k, v, window, key_valid)
+    masked = which in ("masked", "wgmma_masked")
+    if masked != (key_valid is not None):
+        raise ValueError(f"flash_attention_bwd ({which}): takes a key_valid mask "
+                         f"{'and got none' if masked else 'only on a masked route'}")
     if o.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and dout "
                          f"{tuple(dout.shape)} must be shaped as q {tuple(q.shape)}")
     check_operands("flash_attention_bwd", q, k, v, o, dout)
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
+    if masked:
+        key_valid = key_valid.contiguous()      # bool is one byte: 0 = masked key
+    mask = [key_valid.data_ptr()] if masked else []
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     shape = [B, Hq, Hkv, S, T, d, int(causal), int(window is not None), window or 0,
              d ** -0.5]
-    if which == "simt":
+    if which in ("simt", "masked"):
         shape.append(DTYPE_CODES[q.dtype])
     shape.append(stream_handle(q.device))
-    names = ("bwd_dq", "bwd_dkv") if which == "simt" else ("bwd_dq_wgmma", "bwd_dkv_wgmma")
+    names = BWD_PAIRS[which]
     err = _entry(names[0])(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                           dout.data_ptr(), dq.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                           *shape)
+                           dout.data_ptr(), *mask, dq.data_ptr(), lse.data_ptr(),
+                           delta.data_ptr(), *shape)
     raise_on_error(f"flash_attention_bwd ({names[0]})", err)
     BWD_LAUNCHES[names[0]] += 1
-    err = _entry(names[1])(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+    err = _entry(names[1])(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), *mask,
                            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                            *shape)
     raise_on_error(f"flash_attention_bwd ({names[1]})", err)

@@ -12,18 +12,20 @@ launches of each design (``route`` in their wrappers), so that a run can
 show which one it took.
 
 Gradients on the card: under grad mode, with an input requiring grad,
-``flash_attention``, ``moe_gmm``, ``mamba_scan`` and ``rwkv6_scan`` go
-through autograd functions whose backward launches the kernel's backward
-entry points: flash's two (``LAUNCHES["flash_attention_bwd"]`` one a
-backward, by kernel in ``ROUTE_LAUNCHES["flash_attention_bwd"]``),
-``moe_gmm``'s two products (``moe_gmm_bwd``, by product and route), and the
-scans' one each (``mamba_scan_bwd``, ``rwkv6_scan_bwd``, by design).  Each
-saves its inputs, not its outputs or states, returns each gradient in its
-input's dtype, and takes a missing cotangent of the last state (or of the
-output) as zeros.  ``decode_attention``, ``aes_ctr`` and flash under a key
-mask have no backward kernel (ROADMAP item 14b) and raise on a CUDA input
-that requires grad under grad mode, rather than return an output cut off
-from the graph.  On the CPU the plain versions keep their autograd.
+``flash_attention`` (with or without a key mask), ``moe_gmm``,
+``mamba_scan`` and ``rwkv6_scan`` go through autograd functions whose
+backward launches the kernel's backward entry points: flash's two
+(``LAUNCHES["flash_attention_bwd"]`` one a backward, by kernel in
+``ROUTE_LAUNCHES["flash_attention_bwd"]``: the pair of the forward's
+route), ``moe_gmm``'s two products (``moe_gmm_bwd``, by product and route),
+and the scans' one each (``mamba_scan_bwd``, ``rwkv6_scan_bwd``, by
+design).  Each saves its inputs, not its outputs or states, returns each
+gradient in its input's dtype, and takes a missing cotangent of the last
+state (or of the output) as zeros.  ``decode_attention`` and ``aes_ctr``
+have no backward kernel, since no training path reaches them, and raise
+on a CUDA input that requires grad under grad mode, rather than return an
+output cut off from the graph.  On the CPU the plain versions keep their
+autograd.
 """
 from __future__ import annotations
 
@@ -81,34 +83,36 @@ def _needs_grad(*tensors: Optional[torch.Tensor]) -> bool:
 
 def _refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
     """Raise on a CUDA call that autograd would have to differentiate: the
-    kernel has no backward yet, and its output would be cut off from the
-    graph."""
+    op has no backward kernel, since no training path reaches it, and its
+    output would be cut off from the graph."""
     if _needs_grad(*tensors):
         raise NotImplementedError(
-            f"{name}: no backward kernel on the card yet (ROADMAP item 14b); "
-            "run it under torch.no_grad() or train on the CPU")
+            f"{name}: no backward kernel on the card, since no training path reaches this "
+            "op; run it under torch.no_grad() or differentiate it on the CPU")
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The flash kernel's forward (the route of the dtype) and its backward
-    kernels (the dq kernel, then the dkv kernel, in the design of
-    ``bwd_route``), which recompute the rows' softmax statistics from the
-    saved q, k, v and output."""
+    """The flash kernel's forward (the route of the dtype and the key mask)
+    and its backward kernels (the dq kernel, then the dkv kernel, in the
+    design of ``bwd_route``, masked too under a key mask), which recompute
+    the rows' softmax statistics from the saved q, k, v, output and mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out = _flash.flash_attention(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, window, key_valid):
+        out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                     key_valid=key_valid)
+        ctx.save_for_backward(q, k, v, out, key_valid)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, key_valid = ctx.saved_tensors
         dq, dk, dv = _flash.flash_attention_bwd(q, k, v, out, dout.contiguous(),
-                                                causal=ctx.causal, window=ctx.window)
+                                                causal=ctx.causal, window=ctx.window,
+                                                key_valid=key_valid)
         LAUNCHES["flash_attention_bwd"] += 1
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 class _MoeGmm(torch.autograd.Function):
@@ -180,9 +184,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        key_valid=key_valid)
     if _needs_grad(q, k, v):
-        if key_valid is not None:
-            _refuse_grad("flash_attention under a key mask", q, k, v)
-        out = _FlashAttention.apply(q, k, v, causal, window)
+        out = _FlashAttention.apply(q, k, v, causal, window, key_valid)
     else:
         out = _flash.flash_attention(q, k, v, causal=causal, window=window,
                                      key_valid=key_valid)

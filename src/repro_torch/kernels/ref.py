@@ -59,17 +59,20 @@ def _attn_mask(S: int, T: int, causal: bool, window: Optional[int], device) -> t
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             o: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
-                            window: Optional[int] = None
+                            window: Optional[int] = None,
+                            key_valid: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradients of :func:`flash_attention_ref` (no key mask) by q, k and
-    v, from explicit formulas in fp32: with scale = d**-0.5 (the kernel's),
-    P the softmax of the masked scores, D = rowsum(dout * o) and
-    dS = P (dout v^T - D) on the allowed pairs and 0 elsewhere,
-    dq = scale dS k, dk = scale dS^T q and dv = P^T dout, dk and dv summed
-    over each kv head's G query heads.  A row with no allowed key has
-    P = 1/T (the softmax of equal ``NEG_INF`` scores) and no score gradient.
-    o is the forward's output, dout (B, Hq, S, d) the gradient by it.  Each
-    result is rounded once to its input's dtype."""
+    """The gradients of :func:`flash_attention_ref` by q, k and v, from
+    explicit formulas in fp32: with scale = d**-0.5 (the kernel's), P the
+    softmax of the masked scores (causal, window and ``key_valid``, (B, T)
+    bool or None), D = rowsum(dout * o) and dS = P (dout v^T - D) on the
+    allowed pairs and 0 elsewhere, dq = scale dS k, dk = scale dS^T q and
+    dv = P^T dout, dk and dv summed over each kv head's G query heads.  A
+    row with no allowed key (none at all, or every one masked) has P = 1/T
+    on every key (the softmax of equal ``NEG_INF`` scores: its output is the
+    mean of v) and no score gradient, so it adds dout / T to dv of every key
+    of its batch row.  o is the forward's output, dout (B, Hq, S, d) the
+    gradient by it.  Each result is rounded once to its input's dtype."""
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -78,8 +81,11 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kk = k.repeat_interleave(G, dim=1).float()
     vv = v.repeat_interleave(G, dim=1).float()
     mask = _attn_mask(S, T, causal, window, q.device)
+    if key_valid is not None:
+        mask = mask & key_valid.bool()[:, None, None, :]
     s = torch.where(mask, torch.einsum("bhqd,bhkd->bhqk", qf, kk) * scale, NEG_INF)
     p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, 1.0 / T)   # the empty-row rule
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
     delta = (dof * o.float()).sum(dim=-1, keepdim=True)
     ds = torch.where(mask, p * (dp - delta), 0.0)

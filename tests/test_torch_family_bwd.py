@@ -625,17 +625,19 @@ def test_rwkv6_bwd_shared_memory_fits_two_blocks():
 # ---------------------------------------------------------------------------
 # How far a free-running train step parts from itself: why chip_smoke.py's
 # phase 11c holds reduced RWKV6 step by step and the other two families along
-# their whole 3-step trajectories.
+# their whole 3-step trajectories, and phase 11e seamless (under its ragged
+# enc_mask with a fully masked row) and pixtral (G 4, patch embeddings) too.
 @pytest.mark.parametrize("arch,n_layers,sensitive", [
     ("rwkv6-1.6b", 2, True), ("mixtral-8x7b", 2, False), ("jamba-v0.1-52b", 8, False),
+    ("seamless-m4t-large-v2", 2, False), ("pixtral-12b", 2, False),
 ])
 def test_trajectory_sensitivity_to_a_weight_nudge(arch, n_layers, sensitive):
-    """Three remat AdamW steps of phase 11c's reduced float32 model, from its
-    weights and from the same weights times 1 + 1e-6, on the same 4 x 64-token
-    batches.  Reduced RWKV6's third grad norm moves by more than 11c's 1e-4
-    (by 2.2e-3 of itself here), so the card's and the CPU's last-bit
-    differences alone would part the two runs past it; mixtral's and Jamba's
-    stay within it."""
+    """Three remat AdamW steps of phase 11c's (or 11e's) reduced float32
+    model, from its weights and from the same weights times 1 + 1e-6, on the
+    same 4 x 64-token batches.  Reduced RWKV6's third grad norm moves by more
+    than 11c's 1e-4 (by 2.2e-3 of itself here), so the card's and the CPU's
+    last-bit differences alone would part the two runs past it; mixtral's,
+    Jamba's, seamless's and pixtral's stay within it."""
     import dataclasses
 
     from repro_torch.config import get_arch, reduced
@@ -645,10 +647,25 @@ def test_trajectory_sensitivity_to_a_weight_nudge(arch, n_layers, sensitive):
     from repro_torch.train.optimizer import init_state
 
     cfg = dataclasses.replace(reduced(get_arch(arch), n_layers=n_layers), dtype="float32")
+    if arch == "pixtral-12b":
+        cfg = dataclasses.replace(cfg, n_kv_heads=1)
     p0 = T.init_params(cfg, torch.Generator().manual_seed(0))
     it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=4,
                                 seed=0)).batches()
-    batches = [{k: torch.from_numpy(v) for k, v in next(it).items()} for _ in range(3)]
+    rng = np.random.default_rng(12)
+
+    def model_inputs(b):
+        """11e's: stub frames under a ragged enc_mask, or patch embeddings."""
+        if cfg.encdec is not None:
+            return {**b, "enc_mask": np.arange(150)[None] < np.array([150, 0, 97, 31])[:, None],
+                    "enc_embeds": rng.standard_normal((4, 150, cfg.d_model), np.float32)}
+        if cfg.frontend is not None:
+            return {"labels": b["labels"],
+                    "embeds": rng.standard_normal((4, 64, cfg.d_model), np.float32)}
+        return b
+
+    batches = [{k: torch.from_numpy(v) for k, v in model_inputs(next(it)).items()}
+               for _ in range(3)]
     step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=3),
                            remat=True)
 

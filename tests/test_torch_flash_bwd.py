@@ -426,16 +426,17 @@ def test_on_the_cpu_the_op_keeps_its_autograd_and_counts_nothing():
     out.sum().backward()
     assert all(t.grad is not None for t in (q, k, v))
     assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 0
-    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 0, "bwd_dkv": 0,
-                                                         "bwd_dq_wgmma": 0, "bwd_dkv_wgmma": 0}
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {
+        "bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0, "bwd_dkv_wgmma": 0, "bwd_dq_masked": 0,
+        "bwd_dkv_masked": 0, "bwd_dq_wgmma_masked": 0, "bwd_dkv_wgmma_masked": 0}
 
 
 def test_refuse_grad_names_the_item_and_spares_inference():
-    """What the ops without a backward kernel (decode attention, flash under
-    a key mask) raise on the card under a gradient: the check itself, which
-    needs no card."""
+    """What the ops without a backward kernel (decode attention and AES,
+    which no training path reaches) raise on the card under a gradient: the
+    check itself, which needs no card."""
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(NotImplementedError, match="no training path reaches this op"):
         ops._refuse_grad("decode_attention", x, None)
     with torch.no_grad():
         ops._refuse_grad("decode_attention", x)

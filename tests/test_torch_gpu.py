@@ -1039,7 +1039,7 @@ def test_flash_attention_on_the_card_has_a_grad_fn(cuda, dtype):
     assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 1
     pair = BWD_PAIRS[tflash.bwd_route(dt)]
     assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {
-        r: int(r in pair) for r in ("bwd_dq", "bwd_dkv", "bwd_dq_wgmma", "bwd_dkv_wgmma")}
+        r: int(r in pair) for r in tflash.BWD_LAUNCHES}
     expect = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(),
                                          dout, causal=True, window=32)
     for g, e in zip(grads, expect):
@@ -1050,22 +1050,107 @@ def test_flash_attention_on_the_card_has_a_grad_fn(cuda, dtype):
 
 def test_every_other_op_refuses_a_gradient_on_the_card(cuda):
     """No op returns an output cut off from the graph: without a backward
-    kernel (ROADMAP item 14b: decode attention, flash under a key mask) it
-    raises under grad mode, and runs under no_grad."""
+    kernel (decode attention and AES, which no training path reaches) it
+    raises under grad mode, and runs under no_grad.  Flash under a key mask
+    has its backward kernels
+    (``test_flash_attention_under_a_key_mask_on_the_card_has_a_grad_fn``)."""
     g = lambda *s: _randn(cuda, s, torch.float32).requires_grad_(True)  # noqa: E731
     valid = torch.ones((2, 64), dtype=torch.bool, device="cuda")
     calls = {
         "decode_attention": lambda: ops.decode_attention(g(2, 4, 64), g(2, 64, 2, 64),
                                                          g(2, 64, 2, 64), valid),
-        "flash_attention under a key mask": lambda: ops.flash_attention(
-            g(2, 4, 8, 64), g(2, 2, 64, 64), g(2, 2, 64, 64), causal=False, key_valid=valid),
     }
     for name, call in calls.items():
-        with pytest.raises(NotImplementedError, match="item 14b"):
+        with pytest.raises(NotImplementedError, match="no training path"):
             call()
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The backward of the key-masked routes: the masked pair of each design
+# (bwd_route under a mask: bf16 -> wgmma_masked, fp32 -> masked; the simt
+# masked pair for bf16 too) against the plain version, at the forward's
+# limits; ragged masks with a fully masked row, dead tiles, rows whose valid
+# keys lie in their causal future, G 1, 2 and 4, T 1500
+
+MASKED_BWD_CASES = [   # B, Hq, Hkv, S, T, d, causal, win, mask
+    (8, 16, 16, 512, 1500, 64, False, None, "phase3"),   # seamless's cross (11f's)
+    (3, 4, 4, 70, 129, 120, False, None, "ragged"),      # G 1, d 120, tile edges
+    (2, 8, 2, 96, 200, 128, False, None, "ragged"),      # G 4, d 128
+    (3, 4, 2, 200, 200, 64, True, None, "future"),       # causal: early rows see no valid key
+    (2, 4, 2, 160, 300, 120, True, 96, "future"),        # causal with a window, S < T
+    (4, 4, 2, 300, 1000, 32, False, None, "holes"),      # dead tiles mid-row, G 2, d 32
+    (2, 2, 1, 130, 700, 128, False, 200, "holes"),       # and under a window
+    (2, 4, 2, 90, 60, 32, True, None, "ragged"),         # S > T: rows at negative positions
+]
+
+
+def _masked_bwd_valid(B, T, kind, gen):
+    if kind == "phase3":        # 11f's ragged lengths with row 1 fully masked
+        lengths = [T - 97 * b for b in range(B)]
+        lengths[1] = 0
+        return _key_valid(B, T, lengths)
+    if kind == "ragged":
+        return _key_valid(B, T, [(T, 0, 64, 65)[b % 4] for b in range(B)])
+    return _holed_valid(B, T, kind, gen)
+
+
+@pytest.mark.parametrize("dtype,design", [("float32", "masked"), ("bfloat16", "wgmma_masked"),
+                                          ("bfloat16", "masked")])
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win,kind", MASKED_BWD_CASES)
+def test_flash_attention_masked_bwd_kernels(cuda, B, Hq, Hkv, S, T, d, causal, win, kind,
+                                            dtype, design):
+    dt = getattr(torch, dtype)
+    q, dout = (_randn(cuda, (B, Hq, S, d), dt) for _ in range(2))
+    k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
+    valid = _masked_bwd_valid(B, T, kind, cuda)
+    kw = dict(causal=causal, window=win, key_valid=valid)
+    o = ref.flash_attention_ref(q, k, v, **kw)
+    fn = (tflash.flash_attention_bwd if tflash.bwd_route(dt, True) == design
+          else tflash.flash_attention_bwd_masked_simt)
+    before = dict(tflash.BWD_LAUNCHES)
+    got = fn(q, k, v, o, dout, **kw)
+    torch.cuda.synchronize()
+    assert tflash.BWD_LAUNCHES == {r: n + (r in tflash.BWD_PAIRS[design])
+                                   for r, n in before.items()}
+    expect = ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)
+    for g, e in zip(got, expect):
+        assert g.dtype == dt and g.shape == e.shape
+        _assert_close(g, e, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_under_a_key_mask_on_the_card_has_a_grad_fn(cuda, dtype):
+    """Under grad mode a masked call joins the graph: its forward launches
+    the masked route and its backward the masked pair of ``bwd_route``, and
+    a fully masked row's gradients follow the plain version (dq 0, dO / T
+    on every key's dv)."""
+    dt = getattr(torch, dtype)
+    B, Hq, Hkv, S, T, d = 3, 4, 2, 70, 150, 64
+    q = _randn(cuda, (B, Hq, S, d), dt).requires_grad_(True)
+    k, v = (_randn(cuda, (B, Hkv, T, d), dt).requires_grad_(True) for _ in range(2))
+    dout = _randn(cuda, (B, Hq, S, d), dt)
+    valid = _key_valid(B, T, [T, 0, 77])
+    ops.reset_launches()
+    out = ops.flash_attention(q, k, v, causal=False, key_valid=valid)
+    assert out.grad_fn is not None
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 1
+    assert ops.ROUTE_LAUNCHES["flash_attention"] == {
+        r: int(r == tflash.route(dt, True)) for r in ops.ROUTE_LAUNCHES["flash_attention"]}
+    pair = tflash.BWD_PAIRS[tflash.bwd_route(dt, True)]
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {
+        r: int(r in pair) for r in ops.ROUTE_LAUNCHES["flash_attention_bwd"]}
+    expect = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(), out.detach(),
+                                         dout, causal=False, key_valid=valid)
+    for g, e in zip(grads, expect):
+        _assert_close(g, e, dtype)
+    assert float(grads[0][1].abs().max()) == 0.0
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, v, causal=False, key_valid=valid).grad_fn is None
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1282,8 +1367,57 @@ def test_reduced_train_step_card_against_cpu(cuda, remat):
             metrics[where].append({k: float(m[k]) for k in ("loss", "grad_norm")})
     L = cfg.n_layers
     assert ops.LAUNCHES["flash_attention"] == (2 if remat else 1) * L * 2
-    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {"bwd_dq": 2 * L, "bwd_dkv": 2 * L,
-                                                         "bwd_dq_wgmma": 0, "bwd_dkv_wgmma": 0}
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {
+        r: 2 * L * (r in ("bwd_dq", "bwd_dkv")) for r in tflash.BWD_LAUNCHES}
+    for c, g in zip(metrics["cpu"], metrics["cuda"]):
+        for k in c:
+            assert g[k] == pytest.approx(c[k], rel=1e-4, abs=1e-4), k
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_reduced_seamless_trains_under_an_enc_mask_card_against_cpu(cuda, remat):
+    """Two steps of reduced float32 seamless-m4t under a ragged ``enc_mask``
+    with a fully masked row, from the same weights and batches on the card
+    and on the CPU: losses and grad norms within 1e-4; the encoder's and the
+    decoder's self-attention on the simt pair, the cross-attention on the
+    masked route and the masked pair."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train.optimizer import init_state
+
+    cfg = dataclasses.replace(reduced(get_arch("seamless-m4t-large-v2")), dtype="float32")
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0))
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=40, batch_size=3)).batches()
+    rng = np.random.default_rng(0)
+    batches = [{**next(it),
+                "enc_embeds": rng.standard_normal((3, 150, cfg.d_model)).astype(np.float32),
+                "enc_mask": np.arange(150)[None] < np.array([[150], [0], [71]])}
+               for _ in range(2)]
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=2), remat=remat)
+    metrics = {}
+    for where in ("cpu", "cuda"):
+        params = tree_map(lambda p: p.to(where, copy=True).requires_grad_(True), p_cpu)
+        state = init_state(params)
+        ops.reset_launches()
+        metrics[where] = []
+        for b in batches:
+            params, state, m = step(params, state,
+                                    {k: torch.from_numpy(v).to(where) for k, v in b.items()})
+            metrics[where].append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    L, E, n = cfg.n_layers, cfg.encdec.encoder_layers, len(batches)
+    fwd = 2 if remat else 1
+    assert ops.ROUTE_LAUNCHES["flash_attention"] == {
+        "simt": n * (E + fwd * L), "masked": n * fwd * L, "wgmma": 0, "wgmma_masked": 0}
+    assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {
+        r: n * ((E + L) * (r in ("bwd_dq", "bwd_dkv")) + L * (r in ("bwd_dq_masked",
+                                                                      "bwd_dkv_masked")))
+        for r in tflash.BWD_LAUNCHES}
     for c, g in zip(metrics["cpu"], metrics["cuda"]):
         for k in c:
             assert g[k] == pytest.approx(c[k], rel=1e-4, abs=1e-4), k

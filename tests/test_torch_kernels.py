@@ -378,7 +378,11 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                                   "rwkv6_scan": {"cols": 0, "simt": 0},
                                   "flash_attention_bwd": {"bwd_dq": 0, "bwd_dkv": 0,
                                                           "bwd_dq_wgmma": 0,
-                                                          "bwd_dkv_wgmma": 0},
+                                                          "bwd_dkv_wgmma": 0,
+                                                          "bwd_dq_masked": 0,
+                                                          "bwd_dkv_masked": 0,
+                                                          "bwd_dq_wgmma_masked": 0,
+                                                          "bwd_dkv_wgmma_masked": 0},
                                   "moe_gmm_bwd": {"dx_wgmma_nt": 0, "dx_stream": 0, "dx_wgmma": 0,
                                                   "dx_mma_sync": 0, "dw_stream": 0,
                                                   "dw_wgmma": 0, "dw_mma_sync": 0},

@@ -270,21 +270,26 @@ def test_train_steps_match_jax(jax_runs, arch, remat):
         assert all(e["moe_aux"] > 0 for e in expect)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-1.6b", "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "rwkv6-1.6b", "seamless-m4t-large-v2",
+                                  "pixtral-12b"])
 def test_gradients_of_the_other_families_match_jax(arch):
-    """Jamba, RWKV6 and the enc-dec model on the CPU: every leaf's gradient
+    """Jamba, RWKV6, the enc-dec model under a ragged encoder mask, and the
+    stub-frontend model (four query heads a kv head, as
+    in pixtral-12b) on patch embeddings, on the CPU: every leaf's gradient
     of the loss against ``jax.grad``, held at 1e-4 of the leaf's largest.
     This is the plain path that the card's backward kernels are held
-    against (the scans' in ``tests/test_torch_gpu.py`` and phase 11c of
-    ``chip_smoke.py``); the enc-dec model under an encoder mask trains on
-    the CPU only, its masked cross route having no backward kernel yet
-    (ROADMAP item 14b).  (Trajectories over several AdamW steps are not held:
-    the first update is about the sign of each gradient element, so
-    elements at rounding level move by the learning rate in either
-    direction.)"""
-    jcfg, tcfg = _cfgs(arch)
+    against (the scans' and the masked flash pairs' in
+    ``tests/test_torch_gpu.py``, phases 11c and 11e of ``chip_smoke.py``).
+    (Trajectories over several AdamW steps are not held: the first update
+    is about the sign of each gradient element, so elements at rounding
+    level move by the learning rate in either direction.)"""
+    jcfg, tcfg = _cfgs(arch, **({"n_kv_heads": 1} if arch == "pixtral-12b" else {}))
     jparams = JT.init_params(jcfg, jax.random.PRNGKey(0))
     b = dict(_batches(tcfg, 16, 2, 3, 1)[0])
+    if tcfg.frontend is not None and tcfg.encdec is None:   # patch embeddings for tokens
+        rng = np.random.default_rng(6)
+        b = {"embeds": rng.standard_normal((2, 16, tcfg.frontend.embed_dim)).astype(np.float32),
+             "labels": b["labels"]}
     if tcfg.encdec is not None:
         rng = np.random.default_rng(5)
         b["enc_embeds"] = rng.standard_normal((2, 24, tcfg.frontend.embed_dim)).astype(np.float32)
