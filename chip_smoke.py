@@ -56,11 +56,15 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    events with L2 flushed and the card held for ``BWD_HOLD_CYCLES``, long
    enough for the autograd engine to enqueue SDPA's backward before the
    span starts; and the backward kernels of phase 11d's other families:
-   ``moe_gmm_bwd`` (dx and dw on the forward designs over copies by the
-   transpose kernel; ``bwd_route``) over the MoE sweep in both dtypes and
-   at mixtral's and Jamba's gate/up and down at their training capacity
-   (1280, 640), timed beside ``torch.bmm`` for dx and dw and beside the
-   transpose alone; ``mamba_scan_bwd`` (``ckpt``) and ``rwkv6_scan_bwd``
+   ``moe_gmm_bwd`` (``bwd_route``: dx on ``wgmma_nt``, dw on ``wgmma_tn``,
+   the backward's own clustered design, neither copying its operands;
+   elsewhere the forward designs over copies by the transpose kernel) over
+   the MoE sweep in both dtypes and at mixtral's and Jamba's gate/up and
+   down at their training capacity (1280, 640), the pair timed in turns
+   with the previous pair (the forward's wgmma design: dx reading w
+   transposed, dw over a copy of x) and with ``torch.bmm`` for dx and dw,
+   then dx and dw apart, each in turns with its previous design and with
+   its ``bmm``, and the copy of x alone; ``mamba_scan_bwd`` (``ckpt``) and ``rwkv6_scan_bwd``
    (``rows``) over the scans' sweeps in both dtypes, with and without the
    state and its cotangent, and at Jamba's B8 S512 di8192 ds16 and RWKV6's
    B8 T512 H32 hd64, timed beside their forward; a gradient that sums over
@@ -68,14 +72,18 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    fp32 at ``SUM_REL`` of its largest magnitude, the others at the
    forward's limits, bf16 at the bf16 limit; and the backward of the flash
    kernel's key-masked routes (``bwd_route`` under a mask: bf16 -> the
-   ``wgmma_masked`` pair, fp32 -> the simt ``masked`` pair, which also runs
-   bf16 on its own entry point) over ``MASKED_BWD_SWEEP`` (d 32 to 128,
-   causal, not and windowed, G 1, 2 and 4, T 1500, ragged masks with a row
-   that has no valid key, dead tiles, rows whose valid keys lie in their
-   causal future) at the unmasked backward's limits, then timed at 11f's
-   cross shape under row 1m's ragged mask in turns with the simt masked
-   pair, with SDPA's backward under the same boolean mask and with the
-   unmasked wgmma pair, and (all keys valid) masked against unmasked;
+   ``wgmma_live`` pair, which takes the forward's lse, fp32 -> the simt
+   ``masked`` pair; for bf16 the previous ``wgmma_masked`` pair and the
+   simt pair on their own entry points too) over ``MASKED_BWD_SWEEP`` (d 32
+   to 128, causal, not and windowed, G 1, 2 and 4, T 1500, ragged masks
+   with a row that has no valid key, dead tiles, rows whose valid keys lie
+   in their causal future) at the unmasked backward's limits, the forward's
+   lse against the plain lse (-inf on the same rows), then timed at 11f's
+   cross shape under row 1m's ragged mask in turns with the previous
+   ``wgmma_masked`` pair, the simt masked pair, SDPA's backward under the
+   same boolean mask and the unmasked wgmma pair, each pair's dq and dkv
+   entry points apart, (all keys valid) masked against unmasked, and the
+   masked forward with and without lse;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -223,8 +231,9 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    512 decoder tokens over 8 x 1500 stub frames under 5f's ragged
    ``enc_mask``, then full-width ``pixtral-12b`` cut to
    ``PIXTRAL_TRAIN_LAYERS`` of its 40 layers on 8 x 512 stub patch
-   embeddings, each 4 steps as 11d (its cross-attention's backward on the
-   ``wgmma_masked`` pair), with MFU by ``flops.model_flops``, which counts
+   embeddings, each 4 steps as 11d (its cross-attention's forward on
+   ``wgmma_masked``, writing each row's lse, and its backward on the
+   ``wgmma_live`` pair), with MFU by ``flops.model_flops``, which counts
    an encoder-decoder model's decoder tokens only.
 
 The line before the last is a JSON object with one entry per kernel (the
@@ -408,10 +417,11 @@ TRAIN_SDPA_RTOL = (1e-3, 2e-3, 5e-3, 1e-2)
 GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
 # the flash backward's kernels, the pair of each route: none in a serving run
 NO_FLASH_BWD_ROUTES = {f"bwd_{kernel}{design}": 0 for kernel in ("dq", "dkv")
-                       for design in ("", "_wgmma", "_masked", "_wgmma_masked")}
+                       for design in ("", "_wgmma", "_masked", "_wgmma_masked", "_wgmma_live")}
 # the backward kernels of the MoE matmul and the scans, by route: none in a serving run
-NO_BWD_ROUTES = {"moe_gmm_bwd": {"dx_wgmma_nt": 0, **{f"{p}_{r}": 0 for p in ("dx", "dw")
-                                                      for r in ("stream", "wgmma", "mma_sync")}},
+NO_BWD_ROUTES = {"moe_gmm_bwd": {"dx_wgmma_nt": 0, "dw_wgmma_tn": 0, "dx_wgmma_nt_fwd": 0,
+                                 **{f"{p}_{r}": 0 for p in ("dx", "dw")
+                                    for r in ("stream", "wgmma", "mma_sync")}},
                  "mamba_scan_bwd": {"ckpt": 0}, "rwkv6_scan_bwd": {"rows": 0}}
 # phase 3: the backward kernels at the training shapes of phase 11d (8 x 512
 # tokens: capacity 1280 for mixtral's 8 experts, 640 for Jamba's 16)
@@ -883,6 +893,7 @@ def main() -> int:
     from repro_torch.core import (FaasdRuntime, FunctionSpec, KneeSearch, LoadSpec, Simulator,
                                   drive, run_sequential, sustainable_throughput)
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels._launch import stream_handle
     from repro_torch.kernels import aes_ctr as _aes
     from repro_torch.kernels import decode_attention as _decode
     from repro_torch.kernels import flash_attention as _flash
@@ -1308,17 +1319,20 @@ def main() -> int:
 
     # the backward of the key-masked routes (phases 11e and 11f's
     # cross-attention under an encoder mask): each masked pair (bwd_route
-    # under a mask: bf16 -> wgmma_masked, fp32 -> masked; the simt masked
-    # pair for bf16 too) against the plain version over MASKED_BWD_SWEEP at
-    # the unmasked backward's limits, most masks with a row that has no
-    # allowed valid key; then timed at 11f's cross shape under row 1m's
-    # ragged mask, in turns: the wgmma_masked pair with the simt masked pair,
+    # under a mask: bf16 -> wgmma_live, from the forward's lse, fp32 ->
+    # masked; for bf16 also the previous wgmma_masked pair and the simt
+    # masked pair) against the plain version over MASKED_BWD_SWEEP at the
+    # unmasked backward's limits, most masks with a row that has no allowed
+    # valid key, and the forward's lse against the plain lse; then timed at
+    # 11f's cross shape under row 1m's ragged mask, in turns: the wgmma_live
+    # pair with the previous wgmma_masked pair, with the simt masked pair,
     # with SDPA's backward under the same boolean mask, and with the unmasked
     # wgmma pair on the same inputs (and, all keys valid, masked against
-    # unmasked)
+    # unmasked); each pair's dq and dkv entry points timed apart in turns;
+    # the masked forward with lse and without, in turns
     if (_flash.bwd_route(torch.bfloat16, True), _flash.bwd_route(torch.float32, True)) != \
-            ("wgmma_masked", "masked"):
-        raise AssertionError("flash_attention_bwd: a key mask must route bf16 to wgmma_masked, "
+            ("wgmma_live", "masked"):
+        raise AssertionError("flash_attention_bwd: a key mask must route bf16 to wgmma_live, "
                              "fp32 to masked")
 
     def masked_bwd_valid(B, Tk, kind):
@@ -1345,6 +1359,15 @@ def main() -> int:
             rows.append(row)
         return torch.stack(rows)
 
+    def check_lse(name, lse, q, k, kw):
+        """The forward's lse against the plain lse: -inf on the same rows,
+        the others within 1e-3 (log2 units); returns the largest error."""
+        expect = ref.flash_attention_lse_ref(q, k, **kw)
+        if not torch.equal(torch.isneginf(lse), torch.isneginf(expect)):
+            raise AssertionError(f"{name}: lse is -inf on other rows than the plain lse")
+        fin = torch.isfinite(expect)
+        return check_close(name, lse[fin], expect[fin], (1e-3, 0.0)) if fin.any() else 0.0
+
     errs = collections.defaultdict(float)
     for case in MASKED_BWD_SWEEP:
         B, Hq, Hkv, S, Tk, d, causal, win, kind = case
@@ -1354,13 +1377,20 @@ def main() -> int:
             (q, k, v), _ = flash_case(case[:8], dt)
             dout = randn(*q.shape, dtype=dt)
             o = ref.flash_attention_ref(q, k, v, **kw)
-            plain = ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)
             designs = {_flash.bwd_route(dt, True): _flash.flash_attention_bwd}
             if dname == "bfloat16":
+                designs["wgmma_masked"] = _flash.flash_attention_bwd_wgmma_masked
                 designs["masked"] = _flash.flash_attention_bwd_masked_simt
             for design, fn in designs.items():
+                o_d, extra, lse_note = o, {}, ""
+                if design == "wgmma_live":   # the forward's output and lse
+                    o_d, lse = _flash.flash_attention(q, k, v, return_lse=True, **kw)
+                    lse_err = check_lse(f"flash_attention{case} lse", lse, q, k, kw)
+                    errs["lse"] = max(errs["lse"], lse_err)
+                    extra, lse_note = dict(lse=lse), f", the forward's lse max |diff| {lse_err:.3g}"
+                plain = ref.flash_attention_bwd_ref(q, k, v, o_d, dout, **kw)
                 before = dict(_flash.BWD_LAUNCHES)
-                got = fn(q, k, v, o, dout, **kw)
+                got = fn(q, k, v, o_d, dout, **kw, **extra)
                 torch.cuda.synchronize()
                 if _flash.BWD_LAUNCHES != {r: n + (r in _flash.BWD_PAIRS[design])
                                            for r, n in before.items()}:
@@ -1370,50 +1400,109 @@ def main() -> int:
                                   TOL[dname]) for n, g, e in zip("qkv", got, plain)]
                 errs[dname, design] = max(errs[dname, design], *e3)
                 print(f"  flash_attention_bwd {case} {dname}, {design} pair: max |diff| dq "
-                      f"{e3[0]:.3g}, dk {e3[1]:.3g}, dv {e3[2]:.3g} (atol, rtol {TOL[dname]}); "
-                      f"valid {key_valid.sum(1).tolist()}")
-            del q, k, v, dout, o, plain, got
+                      f"{e3[0]:.3g}, dk {e3[1]:.3g}, dv {e3[2]:.3g} (atol, rtol {TOL[dname]})"
+                      f"{lse_note}; valid {key_valid.sum(1).tolist()}")
+            del q, k, v, dout, o, o_d, plain, got
     B, Hq, Hkv, S, Tk, d, _ = ENCDEC_FLASH["seamless cross prefill"]
     (q, k, v), _ = flash_case((B, Hq, Hkv, S, Tk, d, False, None), torch.bfloat16)
     dout = randn(*q.shape, dtype=torch.bfloat16)
     key_valid = masked_bwd_valid(B, Tk, "cross")
     lengths = key_valid.sum(1).tolist()
     kw = dict(causal=False, key_valid=key_valid)
-    o = ops.flash_attention(q, k, v, **kw)
-    got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+    o, lse = _flash.flash_attention(q, k, v, return_lse=True, **kw)
+    if not torch.equal(o, ops.flash_attention(q, k, v, **kw)):
+        raise AssertionError("flash_attention wgmma_masked: the output with lse differs")
+    plain = ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)
     err = max(check_close(f"flash_attention_bwd masked cross d{n}", g, e, TOL["bfloat16"])
-              for n, g, e in zip("qkv", got, ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)))
+              for n, g, e in zip("qkv", _flash.flash_attention_bwd(q, k, v, o, dout, lse=lse,
+                                                                   **kw), plain))
+    err_prev = max(check_close(f"flash_attention_bwd masked cross wgmma_masked d{n}", g, e,
+                               TOL["bfloat16"])
+                   for n, g, e in zip("qkv", _flash.flash_attention_bwd_wgmma_masked(
+                       q, k, v, o, dout, **kw), plain))
 
-    def masked_pair():
-        return _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+    def live_pair():
+        return _flash.flash_attention_bwd(q, k, v, o, dout, lse=lse, **kw)
 
-    old, new = in_turns(torch, lambda: _flash.flash_attention_bwd_masked_simt(q, k, v, o, dout,
-                                                                              **kw),
-                        masked_pair, 10, flush, BWD_HOLD_CYCLES)
+    old, new = in_turns(torch, lambda: _flash.flash_attention_bwd_wgmma_masked(q, k, v, o, dout,
+                                                                               **kw),
+                        live_pair, 10, flush, BWD_HOLD_CYCLES)
+    simt, new_simt = in_turns(
+        torch, lambda: _flash.flash_attention_bwd_masked_simt(q, k, v, o, dout, **kw),
+        live_pair, 10, flush, BWD_HOLD_CYCLES)
     lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
     lo = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv,
                                                           attn_mask=key_valid[:, None, None, :])
     lib, new_lib = in_turns(
         torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), dout, retain_graph=True),
-        masked_pair, 10, flush, BWD_HOLD_CYCLES)
+        live_pair, 10, flush, BWD_HOLD_CYCLES)
     o_all = ops.flash_attention(q, k, v, causal=False)
     unmasked, new_unmasked = in_turns(
         torch, lambda: _flash.flash_attention_bwd(q, k, v, o_all, dout, causal=False),
-        masked_pair, 10, flush, BWD_HOLD_CYCLES)
+        live_pair, 10, flush, BWD_HOLD_CYCLES)
     all_valid = torch.ones_like(key_valid)
-    o_valid = ops.flash_attention(q, k, v, causal=False, key_valid=all_valid)
+    o_valid, lse_valid = _flash.flash_attention(q, k, v, causal=False, key_valid=all_valid,
+                                                return_lse=True)
     unmasked2, all_valid_t = in_turns(
         torch, lambda: _flash.flash_attention_bwd(q, k, v, o_all, dout, causal=False),
         lambda: _flash.flash_attention_bwd(q, k, v, o_valid, dout, causal=False,
-                                           key_valid=all_valid), 10, flush, BWD_HOLD_CYCLES)
+                                           key_valid=all_valid, lse=lse_valid),
+        10, flush, BWD_HOLD_CYCLES)
+    prev_all_valid, _ = in_turns(
+        torch, lambda: _flash.flash_attention_bwd_wgmma_masked(q, k, v, o_valid, dout,
+                                                               causal=False, key_valid=all_valid),
+        lambda: _flash.flash_attention_bwd(q, k, v, o_valid, dout, causal=False,
+                                           key_valid=all_valid, lse=lse_valid),
+        10, flush, BWD_HOLD_CYCLES)
+
+    # each pair's two entry points apart, on buffers made once: the live
+    # pair's dq entry builds the list of live tiles, then runs the dq kernel
+    nkt = -(-Tk // _flash.LIVE_TILE)
+    bufs = dict(dq=torch.empty_like(q), dk=torch.empty_like(k), dv=torch.empty_like(v),
+                lse=torch.empty_like(lse), delta=torch.empty_like(lse),
+                words=torch.empty((B, nkt), dtype=torch.int64, device=dev),
+                live=torch.empty((B, nkt), dtype=torch.int32, device=dev),
+                prefix=torch.empty((B, nkt + 1), dtype=torch.int32, device=dev))
+    bp = {n: t.data_ptr() for n, t in bufs.items()}
+    shape = [B, Hq, Hkv, S, Tk, d, 0, 0, 0, d ** -0.5, stream_handle(dev)]
+    qkv = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    entries = {
+        "bwd_dq_wgmma_live": lambda: _flash._entry("bwd_dq_wgmma_live")(
+            *qkv, o.data_ptr(), dout.data_ptr(), key_valid.data_ptr(), lse.data_ptr(), bp["dq"],
+            bp["delta"], bp["words"], bp["live"], bp["prefix"], *shape),
+        "bwd_dkv_wgmma_live": lambda: _flash._entry("bwd_dkv_wgmma_live")(
+            *qkv, dout.data_ptr(), lse.data_ptr(), bp["delta"], bp["words"], bp["prefix"],
+            bp["dk"], bp["dv"], *shape),
+        "bwd_dq_wgmma_masked": lambda: _flash._entry("bwd_dq_wgmma_masked")(
+            *qkv, o.data_ptr(), dout.data_ptr(), key_valid.data_ptr(), bp["dq"], bp["lse"],
+            bp["delta"], *shape),
+        "bwd_dkv_wgmma_masked": lambda: _flash._entry("bwd_dkv_wgmma_masked")(
+            *qkv, dout.data_ptr(), key_valid.data_ptr(), bp["lse"], bp["delta"], bp["dk"],
+            bp["dv"], *shape)}
+    for name, fn in entries.items():   # in the order of the pairs: each reads what the last wrote
+        if fn():
+            raise AssertionError(f"flash_attention {name}: launch failed")
+    torch.cuda.synchronize()
+    split = {}
+    for kernel in ("dq", "dkv"):
+        split[f"{kernel} previous"], split[kernel] = in_turns(
+            torch, entries[f"bwd_{kernel}_wgmma_masked"], entries[f"bwd_{kernel}_wgmma_live"],
+            10, flush, BWD_HOLD_CYCLES)
+    fwd_plain, fwd_lse = in_turns(
+        torch, lambda: _flash.flash_attention(q, k, v, **kw),
+        lambda: _flash.flash_attention(q, k, v, return_lse=True, **kw), 10, flush)
     print(f"  flash_attention_bwd masked cross {(B, Hq, Hkv, S, Tk, d)} bfloat16, valid {lengths}"
-          f", in turns, card held {BWD_HOLD_CYCLES} cycles: wgmma_masked pair {spread(new)} "
-          f"beside the simt masked pair, {spread(new_lib)} beside SDPA, {spread(new_unmasked)} "
-          f"beside the unmasked pair, max |diff| {err:.3g}; simt masked pair {spread(old)}; "
-          f"SDPA's backward under the mask {spread(lib)}; unmasked wgmma pair "
-          f"{spread(unmasked)}")
-    print(f"  all 1500 keys valid, in turns: wgmma_masked pair {spread(all_valid_t)}; unmasked "
-          f"wgmma pair {spread(unmasked2)}")
+          f", in turns, card held {BWD_HOLD_CYCLES} cycles: wgmma_live pair {spread(new)} "
+          f"beside the previous wgmma_masked pair, {spread(new_simt)} beside the simt masked "
+          f"pair, {spread(new_lib)} beside SDPA, {spread(new_unmasked)} beside the unmasked "
+          f"pair, max |diff| {err:.3g}; previous wgmma_masked pair {spread(old)}, max |diff| "
+          f"{err_prev:.3g}; simt masked pair {spread(simt)}; SDPA's backward under the mask "
+          f"{spread(lib)}; unmasked wgmma pair {spread(unmasked)}")
+    print("  apart, in turns: " + "; ".join(f"{n} {spread(t)}" for n, t in split.items()))
+    print(f"  all 1500 keys valid, in turns: wgmma_live pair {spread(all_valid_t)}; unmasked "
+          f"wgmma pair {spread(unmasked2)}; previous wgmma_masked pair {spread(prev_all_valid)}")
+    print(f"  the masked forward (row 1m), in turns: without lse {spread(fwd_plain)}; writing lse "
+          f"{spread(fwd_lse)}")
     # what the data needs: five products over each row's valid keys (a row
     # with none costs no product: its dO / T is a sum); q, o, dO, dq once, k
     # and v over the valid keys, dk and dv over all of T, the mask once
@@ -1422,8 +1511,8 @@ def main() -> int:
     needed_bytes = (4 * B * Hq * S * d * tb + 2 * Hkv * d * tb * sum(lengths)
                     + 2 * B * Hkv * Tk * d * tb + key_valid.numel())
     records["flash_attention_masked_bwd"] = dict(
-        err=max(err, errs["bfloat16", "wgmma_masked"]), ms=statistics.fmean(new + new_lib),
-        previous_ms=statistics.fmean(old),
+        err=max(err, errs["bfloat16", "wgmma_live"]), ms=statistics.fmean(new + new_lib),
+        previous_ms=statistics.fmean(old), simt_ms=statistics.fmean(simt),
         plain_ms=time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw), 3,
                          flush),
         library_ms=statistics.fmean(lib), unmasked_ms=statistics.fmean(unmasked),
@@ -1431,15 +1520,16 @@ def main() -> int:
         ops_ms=1e3 * 10 * d * pairs * Hq / PEAK_BF16_FLOPS,
         replaces="src/repro/kernels/flash_attention.py:98",
         source="src/repro_torch/csrc/flash_attention.cu",
-        note="the backward of the key-masked routes (bwd_dq_wgmma_masked, then "
-             "bwd_dkv_wgmma_masked; previous_ms: the simt masked pair bwd_dq_masked, "
-             "bwd_dkv_masked; unmasked_ms: the unmasked wgmma pair on the same inputs); the JAX "
-             "package differentiates gqa_attend under the mask (src/repro/models/attention.py:51);"
-             " launches: phase 11f's seamless training")
+        note="the backward of the key-masked routes (bwd_dq_wgmma_live: the list of live tiles, "
+             "then dq from the forward's lse; then bwd_dkv_wgmma_live; previous_ms: the previous "
+             "pair bwd_dq_wgmma_masked, bwd_dkv_wgmma_masked; simt_ms: the simt masked pair; "
+             "unmasked_ms: the unmasked wgmma pair on the same inputs); the JAX package "
+             "differentiates gqa_attend under the mask (src/repro/models/attention.py:51); "
+             "launches: phase 11f's seamless training")
     report("flash_attention masked backward", records["flash_attention_masked_bwd"])
     print("    max |diff| over the sweep: "
-          + ", ".join(f"{dn} {de} {x:.3g}" for (dn, de), x in errs.items()))
-    del q, k, v, dout, o, o_all, o_valid, got, lq, lk, lv, lo, key_valid, all_valid
+          + ", ".join(f"{key} {x:.3g}" for key, x in errs.items()))
+    del q, k, v, dout, o, o_all, o_valid, lq, lk, lv, lo, key_valid, all_valid, bufs, plain
 
     # the decode attention of phases 5f and 5g: against seamless-m4t's 1500
     # encoder frames (G 1, d 64, not a ring; all valid, so every tile is
@@ -1723,31 +1813,62 @@ def main() -> int:
                                ("dw",))
             print(f"  moe_gmm_bwd {case} {dname}, routes {_gmm.bwd_route(dt_, C, D, F)}: "
                   f"max |diff| {errs}")
+    # phase 11d's shapes: the pair (dx on wgmma_nt, dw on wgmma_tn: the
+    # backward's own clustered design) and the previous pair (dx on the
+    # forward's wgmma design reading w transposed, dw on it over a copy of x)
+    # held to the plain version, then timed in turns with each other and
+    # with torch.bmm for dx and dw; then each product apart, in turns with
+    # its previous design and with its own bmm, and the copy of x alone
     bwd_times = {}
+    print(f"  the backward's design: {_gmm.tn_clusters(True)} two-block clusters fit this card "
+          f"for dw, {_gmm.tn_clusters(False)} for dx ({props.multi_processor_count} SMs)")
     for label, (E, C, D, F) in GMM_BWD_MAIN.items():
         x, w = gmm_case(E, C, D, F, torch.bfloat16, D ** -0.5)
         dy = randn(E, C, F, dtype=torch.bfloat16)
         routes = _gmm.bwd_route(torch.bfloat16, C, D, F)
-        if routes != ("wgmma_nt", "wgmma"):
+        if routes != ("wgmma_nt" if C // _gmm.DX_ROWS % 2 == 0 else "wgmma_nt_fwd", "wgmma_tn"):
             raise AssertionError(f"moe_gmm_bwd {label}: routes {routes}")
         got = _gmm.moe_gmm_bwd(x, w, dy)
         exp = dict(zip(("dx", "dw"), ref.moe_gmm_bwd_ref(x, w, dy)))
         errs = check_grads(f"moe_gmm_bwd {label}", got, exp, "bfloat16", GMM_TOL["bfloat16"],
                            ("dw",))
+        err_prev = max(check_close(f"moe_gmm_bwd {label} previous dx",
+                                   _gmm.moe_gmm_dx_previous(w, dy), exp["dx"], TOL["bfloat16"]),
+                       check_close(f"moe_gmm_bwd {label} previous dw",
+                                   _gmm.moe_gmm_dw_transposed(x, dy), exp["dw"], TOL["bfloat16"]))
         wt = w.transpose(1, 2)
         xt = x.transpose(1, 2)
-        lib, new = in_turns(torch, lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy)),
-                            lambda: _gmm.moe_gmm_bwd(x, w, dy), 5, flush)
+
+        def new_pair():
+            return _gmm.moe_gmm_bwd(x, w, dy)
+
+        old, new = in_turns(torch, lambda: (_gmm.moe_gmm_dx_previous(w, dy),
+                                            _gmm.moe_gmm_dw_transposed(x, dy)), new_pair, 5, flush)
+        lib, new_lib = in_turns(torch, lambda: (torch.bmm(dy, wt), torch.bmm(xt, dy)), new_pair,
+                                5, flush)
+        dw_old, dw_new = in_turns(torch, lambda: _gmm.moe_gmm_dw_transposed(x, dy),
+                                  lambda: _gmm.moe_gmm_dw(x, dy), 5, flush)
+        dw_lib, dw_new2 = in_turns(torch, lambda: torch.bmm(xt, dy),
+                                   lambda: _gmm.moe_gmm_dw(x, dy), 5, flush)
+        dx_lib, dx_new = in_turns(torch, lambda: torch.bmm(dy, wt),
+                                  lambda: _gmm.moe_gmm_dx(w, dy), 5, flush)
+        dx_old, dx_new2 = in_turns(torch, lambda: _gmm.moe_gmm_dx_previous(w, dy),
+                                   lambda: _gmm.moe_gmm_dx(w, dy), 5, flush)
         if not torch.equal(_gmm._transpose(w), wt.contiguous()):
             raise AssertionError(f"moe_gmm_bwd {label}: the transpose kernel's copy of w")
-        copy = launch_times_ms(torch, lambda: _gmm._transpose(w), 5, flush)
         copy_x = launch_times_ms(torch, lambda: _gmm._transpose(x), 5, flush)
-        print(f"  moe_gmm_bwd {label} {(E, C, D, F)} bfloat16, routes {routes}: "
-              f"{spread(new)}, max |diff| {errs}; bmm for dx and dw {spread(lib)}; the "
-              f"transpose kernel's copies alone: w {spread(copy)}, x {spread(copy_x)}")
+        print(f"  moe_gmm_bwd {label} {(E, C, D, F)} bfloat16, routes {routes}: max |diff| "
+              f"{errs}, previous dx, dw {err_prev:.3g}; in turns: pair {spread(new)} beside the "
+              f"previous pair {spread(old)}; pair {spread(new_lib)} beside bmm for dx and dw "
+              f"{spread(lib)}")
+        print(f"    apart, in turns: dw {spread(dw_new)} beside the previous dw "
+              f"{spread(dw_old)}; dw {spread(dw_new2)} beside bmm {spread(dw_lib)}; dx "
+              f"{spread(dx_new2)} beside the previous dx {spread(dx_old)}; dx {spread(dx_new)} "
+              f"beside bmm {spread(dx_lib)}; the transpose kernel's copy of x alone "
+              f"{spread(copy_x)}")
         bwd_times[("moe_gmm_bwd", label)] = dict(
             err=max(float((g.float() - e.float()).abs().max()) for g, e in zip(got, exp.values())),
-            ms=statistics.fmean(new),
+            ms=statistics.fmean(new + new_lib), previous_ms=statistics.fmean(old),
             plain_ms=time_ms(torch, lambda: ref.moe_gmm_bwd_ref(x, w, dy), 3, flush),
             library_ms=statistics.fmean(lib),
             bytes=sum(t.numel() * t.element_size() for t in (x, w, dy, *got)),
@@ -1755,9 +1876,11 @@ def main() -> int:
             ops_ms=1e3 * 4 * E * C * D * F / PEAK_BF16_FLOPS,
             replaces="src/repro/kernels/moe_gmm.py:52",
             source="src/repro_torch/csrc/moe_gmm.cu",
-            note="the backward of moe_gmm: dx on the wgmma design reading w transposed, dw on "
-                 f"the forward's designs over an (E, D, C) copy of x (routes {routes}); "
-                 "the JAX package "
+            note="the backward of moe_gmm on its own design, two-block clusters sharing B by "
+                 "TMA multicast, tiles stored by TMA: dx reading w transposed (wgmma_nt), dw "
+                 "reading x transposed where it lies (wgmma_tn); previous_ms: dx on the "
+                 "forward's wgmma design reading w transposed, dw on it over an (E, D, C) copy "
+                 "of x; the JAX package "
                  "differentiates its einsum experts (src/repro/models/moe.py:60-62); "
                  "launches: phase 11d's training")
         report(f"moe_gmm_bwd {label}", bwd_times[("moe_gmm_bwd", label)])
@@ -2988,10 +3111,14 @@ def main() -> int:
                    ("mamba_scan_bwd_sum_kernel", "mamba_scan_bwd (sums)"),
                    ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd"),
                    ("rwkv6_scan_bwd_sum_kernel", "rwkv6_scan_bwd (sums)"),
-                   ("moe_gmm", "moe_gmm (forward, recompute and backward products)"),
+                   (r"moe_gmm_tn_kernel<true", "moe_gmm dw (backward, wgmma_tn)"),
+                   (r"moe_gmm_tn_kernel<false", "moe_gmm dx (backward, wgmma_nt)"),
+                   (r"moe_gmm_wgmma_kernel<true>", "moe_gmm dx (backward, wgmma_nt_fwd)"),
+                   ("moe_gmm", "moe_gmm (forward and recompute)"),
                    ("mamba_scan_lanes_kernel", "mamba_scan forward"),
                    ("rwkv6_scan_cols_kernel", "rwkv6_scan forward"),
-                   (r"wgb::\w+<\d+, true>", "flash backward, masked"),
+                   (r"wgb::\w+<\d+, true|dq_live_kernel|live_tiles_kernel",
+                    "flash backward, masked"),
                    ("wgb::", "flash backward"),
                    (r"flash_wgmma_kernel<\d+, true>", "flash forward, masked"),
                    ("flash_wgmma_kernel", "flash forward"))
@@ -3149,7 +3276,7 @@ def main() -> int:
     print(f"  enc_mask valid lengths {enc_mask.sum(1).tolist()} (5f's)")
     losses, _, flash_bwd = train_full_width(cfg, batches, TRAIN_FAMILY_OPT,
                                             "phase 11f seamless", masked=True)
-    launches["flash_attention_masked_bwd"] = flash_bwd["bwd_dq_wgmma_masked"]
+    launches["flash_attention_masked_bwd"] = flash_bwd["bwd_dq_wgmma_live"]
     check_falling(cfg, losses)
     del batches, enc_mask
 
@@ -3176,7 +3303,7 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **({k: r[k] for k in ("previous_ms", "unmasked_ms") if k in r}),
+         **({k: r[k] for k in ("previous_ms", "unmasked_ms", "simt_ms") if k in r}),
          **({"note": f"{h2o_note}; {encdec_note}"}
             if name in ("flash_attention", "decode_attention") else {}),
          **({"note": r["note"]} if "note" in r else {})}

@@ -251,20 +251,12 @@ constexpr size_t smem_bytes(int stages, int tiles, int n_tiles) {
 static_assert(smem_bytes<128, 8>(kMaxStages, kMaxTiles, kMaxTiles) <= 227 * 1024,
               "the split design's shared memory exceeds an SM's");
 
-// The cluster's barrier, over every thread of its blocks: writes to shared
-// memory before it are seen by the other blocks' reads after it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
 // A float in the shared memory of block `rank` of the cluster, at the place
 // of `p` in this block's.
 __device__ __forceinline__ float ld_cluster(const float* p, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote) : "r"(hopper::smem_addr(p)), "r"(rank));
   float v;
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(hopper::cluster_addr(p, rank)) : "memory");
   return v;
 }
 
@@ -522,7 +514,7 @@ decode_split_kernel(const __grid_constant__ CUtensorMap tm_k,
   // split holds a scored slot, so M is finite; a split with m = -inf (every
   // tile skipped) has weight 0.  The second barrier keeps every block's
   // shared memory alive until block 0 has read it.
-  cluster_sync();
+  hopper::cluster_sync();
   if (split == 0 && tid < kConsumers) {
     __nv_bfloat16* ob = out + ((size_t)b * Hq + (size_t)h * G) * D;
     for (int idx = tid; idx < G * D; idx += kConsumers) {
@@ -541,7 +533,7 @@ decode_split_kernel(const __grid_constant__ CUtensorMap tm_k,
       ob[idx] = __float2bfloat16_rn(A / L);
     }
   }
-  cluster_sync();
+  hopper::cluster_sync();
 }
 
 template <int D, int G>

@@ -131,6 +131,27 @@
 // for a key tile with no valid key (then it writes only that term, or
 // zeros), and otherwise walks the query tiles that can see the tile with the
 // valid bits in its masking.
+//
+// The live pair (flash_attention_bwd_dq_wgmma_live and _dkv_wgmma_live,
+// bf16; the route of a bf16 backward under a key mask), a redesign of the
+// wgmma masked pair, which stays on its own entry points.  What held that
+// pair back at seamless's cross-attention (d 64, T 1500, a ragged mask):
+// its dq kernel walked every live tile twice (a first pass for each row's
+// max and sum, which the forward had already had), one stage of K and V
+// made every block wait for each load, and each of its blocks read the
+// mask again (km::scan, then a ballot a tile in next_live), as did each
+// dkv block (a ballot, and a pass over lse for the empty rows' term).  So:
+// the masked wgmma forward writes each row's lse when autograd will need
+// it (a null pointer otherwise: serving writes nothing more); a small
+// kernel (km::live_tiles_kernel) builds each batch row's list of live key
+// tiles with their valid words once a call; the dq kernel (dq_live_kernel)
+// walks its segment of that list once, from the forward's lse, with two
+// stages of K and V at d <= 64 (four blocks an SM, as before); the dkv
+// kernel (dkv_kernel<D, true, true>) reads its tile's word from the list,
+// streams Q and dO through three stages at d <= 64 (three blocks an SM, as
+// before), and where neither causal nor a window can empty a row, takes
+// the empty rows' term from the batch row's count of live tiles (none:
+// every row is empty; some: none is) instead of a pass over lse.
 #include "attn_common.cuh"
 #include "hopper.cuh"
 
@@ -264,6 +285,54 @@ __device__ Scan scan(const uint8_t* __restrict__ vrow, int Tlen, int p_first, in
   __syncthreads();
   r.any_empty = s_empty;
   return r;
+}
+
+// Each batch row's live key tiles (a valid word that is not 0), built once a
+// backward call by one block a batch row and read by both kernels of the live
+// pair in place of each block's own pass over the row: words[b][i] is the
+// valid word of tile i, prefix[b][i] the number of live tiles before tile i
+// (prefix[b][n_kt] all of them), live[b][j] the j-th live tile.  The words
+// are built by ballots, a warp a tile; the live tiles are ranked by a ballot
+// a warp and the warps' counts, kListThreads tiles a round.
+constexpr int kListThreads = 256;
+
+__global__ void __launch_bounds__(kListThreads)
+live_tiles_kernel(const uint8_t* __restrict__ kvalid, int Tlen, int n_kt,
+                  uint64_t* __restrict__ words, int* __restrict__ live,
+                  int* __restrict__ prefix) {
+  __shared__ uint64_t s_word[kListThreads];
+  __shared__ int s_count[kListThreads / 32];
+  const int b = blockIdx.x, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint8_t* vrow = kvalid + (size_t)b * Tlen;
+  uint64_t* wrow = words + (size_t)b * n_kt;
+  int* lrow = live + (size_t)b * n_kt;
+  int* prow = prefix + (size_t)b * (n_kt + 1);
+  int base = 0;   // live tiles before this round, the same in every thread
+  for (int c0 = 0; c0 < n_kt; c0 += kListThreads) {
+    for (int j = warp; j < kListThreads && c0 + j < n_kt; j += kListThreads / 32) {
+      const uint64_t w = tile_word(vrow, (c0 + j) * kTile, Tlen, lane);
+      if (lane == 0) s_word[j] = w;
+    }
+    __syncthreads();
+    const int i = c0 + tid;
+    const uint64_t w = i < n_kt ? s_word[tid] : 0ull;
+    const uint32_t bal = __ballot_sync(0xffffffffu, w != 0ull);
+    if (lane == 0) s_count[warp] = __popc(bal);
+    __syncthreads();
+    int before = base + __popc(bal & ((1u << lane) - 1u)), total = 0;
+    for (int k = 0; k < kListThreads / 32; ++k) {
+      before += k < warp ? s_count[k] : 0;
+      total += s_count[k];
+    }
+    if (i < n_kt) {
+      wrow[i] = w;
+      prow[i] = before;
+      if (w) lrow[before] = i;
+    }
+    base += total;
+    __syncthreads();   // s_word and s_count are written again next round
+  }
+  if (tid == 0) prow[n_kt] = base;
 }
 
 }  // namespace km
@@ -736,8 +805,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const uint8_t* __restrict__ kvalid,
-                   __nv_bfloat16* __restrict__ out, int Hq, int Hkv, int S, int Tlen, int causal,
-                   int has_window, int window, float scale_log2) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int Hq, int Hkv,
+                   int S, int Tlen, int causal, int has_window, int window, float scale_log2) {
   using C = Cfg<D>;
   constexpr int SW = C::SW;
   extern __shared__ uint8_t smem_raw[];
@@ -905,6 +974,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
   const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0), inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
   const int ra = bt.q0 + r0, rb = ra + 8;
+  // MASKED, for the backward: each row's log-sum-exp (log2 units) over its
+  // allowed scores, -inf where it has no allowed valid key (its max stayed
+  // kNegInf: every score it met was masked)
+  if (MASKED && lse != nullptr && lane % 4 == 0) {
+    float* lb = lse + ((size_t)bt.b * Hq + bt.h) * S;
+    if (ra < S) lb[ra] = R.m0 == attn::kNegInf ? -INFINITY : R.m0 + log2f(l0);
+    if (rb < S) lb[rb] = R.m1 == attn::kNegInf ? -INFINITY : R.m1 + log2f(l1);
+  }
   __nv_bfloat16* ob = out + ((size_t)bt.b * Hq + bt.h) * (size_t)S * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {   // the columns past D (zero) are not stored
@@ -918,11 +995,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// MASKED: kvalid (B, Tlen) bytes, a key with 0 masked; otherwise unused.
+// MASKED: kvalid (B, Tlen) bytes, a key with 0 masked, and lse (B, Hq, S)
+// fp32 or null; otherwise both unused.
 template <int D, bool MASKED>
 cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* kvalid, void* out,
-                   int B, int Hq, int Hkv, int S, int Tlen, int causal, int has_window,
-                   int window, float scale, cudaStream_t stream) {
+                   float* lse, int B, int Hq, int Hkv, int S, int Tlen, int causal,
+                   int has_window, int window, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv;
   if (!hopper::encode_bf16_3d(&tq, q, D, S, (uint64_t)B * Hq, D, (uint64_t)S * D, C::DS, kBM,
@@ -938,29 +1016,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, const uint8_t* k
   if (err != cudaSuccess) return err;
   const dim3 grid(Hq, B, (S + kBM - 1) / kBM);
   kernel<<<grid, kThreads, C::SMEM, stream>>>(tq, tk, tv, kvalid,
-                                              static_cast<__nv_bfloat16*>(out), Hq, Hkv, S, Tlen,
-                                              causal, has_window, window,
+                                              static_cast<__nv_bfloat16*>(out), lse, Hq, Hkv, S,
+                                              Tlen, causal, has_window, window,
                                               scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <bool MASKED>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const uint8_t* kvalid,
-                     void* out, int B, int Hq, int Hkv, int S, int Tlen, int causal,
+                     void* out, float* lse, int B, int Hq, int Hkv, int S, int Tlen, int causal,
                      int has_window, int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<32, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
-                                window, scale, stream);
+      return launch<32, MASKED>(q, k, v, kvalid, out, lse, B, Hq, Hkv, S, Tlen, causal,
+                                has_window, window, scale, stream);
     case 64:
-      return launch<64, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
-                                window, scale, stream);
+      return launch<64, MASKED>(q, k, v, kvalid, out, lse, B, Hq, Hkv, S, Tlen, causal,
+                                has_window, window, scale, stream);
     case 120:
-      return launch<120, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
-                                 window, scale, stream);
+      return launch<120, MASKED>(q, k, v, kvalid, out, lse, B, Hq, Hkv, S, Tlen, causal,
+                                 has_window, window, scale, stream);
     case 128:
-      return launch<128, MASKED>(q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
-                                 window, scale, stream);
+      return launch<128, MASKED>(q, k, v, kvalid, out, lse, B, Hq, Hkv, S, Tlen, causal,
+                                 has_window, window, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1005,15 +1083,20 @@ __device__ __forceinline__ bool empty_row(float lse) { return lse == -INFINITY; 
 // is -inf.  Every one of the block's NT threads calls it (block barriers);
 // `part` is NT floats of scratch.  A first coalesced pass over lse asks
 // whether there is any such row, so a batch row without one pays only that.
+// `known`: -1 asks lse row by row; 0 says no row is empty and 1 that every
+// row is (the caller knows it from the mask), and then lse is not read.
 template <typename T, int D, int NT>
 __device__ __forceinline__ void empty_rows_term(const T* __restrict__ dout,
                                                 const float* __restrict__ lse, int b, int hk,
                                                 int G, int Hq, int S, float inv_t, float* part,
-                                                float* e_out) {
+                                                float* e_out, int known = -1) {
   const int tid = threadIdx.x;
   const size_t head0 = ((size_t)b * Hq + (size_t)hk * G) * S;   // the group's G heads, rows
-  int any = 0;
-  for (int r = tid; r < G * S; r += NT) any |= empty_row(lse[head0 + r]);
+  int any = known;
+  if (known < 0) {
+    any = 0;
+    for (int r = tid; r < G * S; r += NT) any |= empty_row(lse[head0 + r]);
+  }
   if (!__syncthreads_or(any)) {
     for (int c = tid; c < D; c += NT) e_out[c] = 0.f;
     __syncthreads();
@@ -1026,7 +1109,7 @@ __device__ __forceinline__ void empty_rows_term(const T* __restrict__ dout,
 #pragma unroll 4
     for (int r = grp; r < G * S; r += NG) {
       const float x = attn::to_float(dout[(head0 + r) * D + col]);
-      e += empty_row(lse[head0 + r]) ? x : 0.f;
+      e += known > 0 || empty_row(lse[head0 + r]) ? x : 0.f;
     }
   }
   part[tid] = e;
@@ -1394,6 +1477,9 @@ struct Args {
   int B, Hq, Hkv, S, Tlen, causal, has_window, window;
   float scale;
   const uint8_t* kvalid = nullptr;
+  // the live pair's list of live key tiles (km::live_tiles_kernel)
+  uint64_t* words = nullptr;
+  int *live = nullptr, *prefix = nullptr;
 };
 
 template <typename T, int D, bool MASKED>
@@ -1501,18 +1587,24 @@ constexpr int kT = 64;               // rows of every tile: queries or keys
 constexpr int kConsumers = 128;      // a block is one warpgroup
 constexpr int kDqStages = 1;         // K and V tiles in flight: three dq blocks an SM
 constexpr int kDkvStages = 2;        // Q and dO tiles in flight: two dkv blocks an SM
+// The live pair's stages: at D <= 64 two of K and V (four dq blocks an SM,
+// 49 KB each) and three of Q and dO (three dkv blocks, 67 KB each); wider
+// heads keep the counts above, as their registers allow no more blocks
+template <int D>
+constexpr int kLiveDqStages = D <= 64 ? 2 : kDqStages;
+template <int D>
+constexpr int kLiveDkvStages = D <= 64 ? 3 : kDkvStages;
 
 // Shared memory: the 64-row bf16 tiles (Cfg's KV_BYTES each; dq: Q, dO and
 // a K and a V a stage; dkv: K, V and a Q and a dO a stage), the dkv
 // kernel's lse and D of each stage, the barriers, and room to align.
-template <int D>
+template <int D, int STAGES = kDqStages>
 constexpr int dq_smem() {
-  return (2 + 2 * kDqStages) * Cfg<D>::KV_BYTES + 8 * (1 + kDqStages) + 1024;
+  return (2 + 2 * STAGES) * Cfg<D>::KV_BYTES + 8 * (1 + STAGES) + 1024;
 }
-template <int D>
+template <int D, int STAGES = kDkvStages>
 constexpr int dkv_smem() {
-  return (2 + 2 * kDkvStages) * Cfg<D>::KV_BYTES + 2 * kDkvStages * kT * 4 +
-         8 * (1 + kDkvStages) + 1024;
+  return (2 + 2 * STAGES) * Cfg<D>::KV_BYTES + 2 * STAGES * kT * 4 + 8 * (1 + STAGES) + 1024;
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
@@ -1858,6 +1950,183 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
   }
 }
 
+// The live pair's dq kernel (bf16, under a key mask): one block per
+// (64-query tile, query head, batch row), the last tile first, as dq_kernel
+// but for three things.  lse is the forward's (flash_wgmma_kernel<D, true>
+// writes it for autograd), so there is no first pass: one Q K^T and one load
+// of each K tile.  The walk is the block's segment of its batch row's list
+// of live tiles (km::live_tiles_kernel, built once a call): the live tiles of
+// the union of its rows' ranges, prefix[lo] .. prefix[hi + 1], each with its
+// valid word; no block reads the mask.  And, the walk known up front, K and V
+// stream through kLiveDqStages<D> stages.  A row with no allowed valid key
+// (lse -inf) gets dq = 0: each of its pairs is masked, so P = 0.
+template <int D>
+__global__ void __launch_bounds__(kConsumers, D <= 64 ? 4 : 3)
+dq_live_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+               const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, const uint64_t* __restrict__ words,
+               const int* __restrict__ live, const int* __restrict__ prefix, int n_kt,
+               __nv_bfloat16* __restrict__ dq, float* __restrict__ delta, int Hq, int Hkv, int S,
+               int Tlen, int causal, int has_window, int window, float scale) {
+  using C = Cfg<D>;
+  constexpr int TB = C::KV_BYTES;   // a 64-row bf16 tile
+  constexpr int NS = kLiveDqStages<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = align1024(smem_raw);
+  uint8_t* dos = qs + TB;
+  uint8_t* ks = dos + TB;                  // NS K tiles, then NS V tiles
+  uint8_t* vs = ks + NS * TB;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + NS * TB);
+  uint64_t* full = q_full + 1;
+  // each stage's tile: its valid word and t0, written by thread 0 before the
+  // load's arrival and read after the wait on it, so that no thread holds
+  // the word in registers across the products
+  uint64_t* slot_word = full + NS;
+  int* slot_t0 = reinterpret_cast<int*>(slot_word + NS);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kT;
+  const int hk = h / (Hq / Hkv);
+  const int off = Tlen - S;
+  const int nq = min(kT, S - q0);
+  // the union of the rows' ranges, as in dq_kernel, then its live tiles
+  const int p_first = q0 + off, p_last = q0 + nq - 1 + off;
+  int lo = 0, hi = Tlen - 1;
+  if (causal) hi = min(hi, p_last);
+  if (has_window) lo = max(0, (causal ? max(p_first, 0) : p_first) - window + 1);
+  const int lo_tile = lo / kT, hi_tile = hi / kT;
+  const int* prow = prefix + (size_t)b * (n_kt + 1);
+  const int j0 = hi < lo_tile * kT ? 0 : prow[lo_tile];
+  const int n_tiles = hi < lo_tile * kT ? 0 : prow[hi_tile + 1] - j0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int g) {   // thread 0: the K and V tiles of walk g into its stage
+    // the block's live tiles are live[b][j0 ..], in order
+    const int st = g % NS, tile = live[(size_t)b * n_kt + j0 + g], t0 = tile * kT;
+    slot_word[st] = words[(size_t)b * n_kt + tile];   // released by the arrival below
+    slot_t0[st] = t0;
+    hopper::mbar_arrive_expect_tx(&full[st], 2 * TB);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s) {
+      hopper::tma_load_3d(ks + st * TB + s * kT * C::SW, &tm_k, &full[st], s * C::DS, t0,
+                          b * Hkv + hk);
+      hopper::tma_load_3d(vs + st * TB + s * kT * C::SW, &tm_v, &full[st], s * C::DS, t0,
+                          b * Hkv + hk);
+    }
+  };
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    hopper::mbar_arrive_expect_tx(q_full, 2 * TB);
+#pragma unroll
+    for (int s = 0; s < C::NSLAB; ++s) {
+      hopper::tma_load_3d(qs + s * kT * C::SW, &tm_q, q_full, s * C::DS, q0, b * Hq + h);
+      hopper::tma_load_3d(dos + s * kT * C::SW, &tm_do, q_full, s * C::DS, q0, b * Hq + h);
+    }
+    for (int g = 0; g < min(NS, n_tiles); ++g) issue(g);
+  }
+
+  // this thread holds rows r0 and r0 + 8 of the tile
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
+  const int pa = q0 + r0 + off, pb = pa + 8;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const size_t row0 = ((size_t)b * Hq + h) * S + q0;
+  // the forward's lse of the two rows; +inf past S, so that P is 0 there
+  const float lse0 = r0 < nq ? lse[row0 + r0] : INFINITY;
+  const float lse1 = r0 + 8 < nq ? lse[row0 + r0 + 8] : INFINITY;
+
+  // D of the two rows: each quad sums a row's products
+  float dl0 = 0.f, dl1 = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + col0;
+    if (r0 < nq) {
+      const float2 a = hopper::unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(o + (row0 + r0) * D + col));
+      const float2 g = hopper::unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(dout + (row0 + r0) * D + col));
+      dl0 += a.x * g.x + a.y * g.y;
+    }
+    if (r0 + 8 < nq) {
+      const float2 a = hopper::unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(o + (row0 + r0 + 8) * D + col));
+      const float2 g = hopper::unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(dout + (row0 + r0 + 8) * D + col));
+      dl1 += a.x * g.x + a.y * g.y;
+    }
+  }
+  dl0 = quad_sum(dl0);
+  dl1 = quad_sum(dl1);
+
+  const uint32_t q_addr = hopper::smem_addr(qs), do_addr = hopper::smem_addr(dos);
+  const uint32_t k_base = hopper::smem_addr(ks), v_base = hopper::smem_addr(vs);
+  auto need_mask = [&](int t0) {
+    return t0 + kT > Tlen || (causal && t0 + kT - 1 > p_first) ||
+           (has_window && t0 <= p_first + kT - 1 - window);
+  };
+  auto allowed = [&](int p, int kp) {
+    return kp < Tlen && (!causal || kp <= p) && (!has_window || kp > p - window);
+  };
+
+  // dS on the allowed valid pairs, dq += dS K
+  float acc[C::DP / 2];
+#pragma unroll
+  for (int i = 0; i < C::DP / 2; ++i) acc[i] = 0.f;
+  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it % NS;
+    float s[kT / 2], dp[kT / 2];
+    hopper::mbar_wait(&full[st], (it / NS) & 1);
+    hopper::wgmma_fence();
+    issue_abt<D>(s, q_addr, k_base + st * TB);
+    issue_abt<D>(dp, do_addr, v_base + st * TB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    // byte j of the tile's word holds keys 8j .. 8j + 7
+    const int t0 = slot_t0[st];
+    const uint8_t* kbits = reinterpret_cast<const uint8_t*>(slot_word + st);
+    const bool mask = need_mask(t0) || slot_word[st] != ~0ull;
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {
+      const uint32_t valid = (uint32_t)kbits[j] >> col0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool top = i < 2;
+        float pw = hopper::exp2_approx(s[4 * j + i] * scale_log2 - (top ? lse0 : lse1));
+        if (mask && (!allowed(top ? pa : pb, t0 + 8 * j + col0 + (i & 1)) ||
+                     !((valid >> (i & 1)) & 1)))
+          pw = 0.f;
+        dp[4 * j + i] = pw * (dp[4 * j + i] - (top ? dl0 : dl1));
+      }
+    }
+    uint32_t dhi[4][4], dlo[4][4];
+    pack_split(dp, dhi, dlo);
+    hopper::wgmma_fence();
+    issue_xb<D>(acc, dhi, dlo, k_base + st * TB);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    fence_split(dhi, dlo);
+    if (it + NS < n_tiles) {   // every warp is done with the stage: it takes walk it + NS
+      __syncthreads();
+      if (threadIdx.x == 0) issue(it + NS);
+    }
+  }
+
+  store_rows<D>(dq + row0 * D, acc, r0, nq, col0, scale);
+  if (lane % 4 == 0) {
+    if (r0 < nq) delta[row0 + r0] = dl0;
+    if (r0 + 8 < nq) delta[row0 + r0 + 8] = dl1;
+  }
+}
+
 // One block per (64-key tile, kv head, batch row), the first tile first:
 // dk and dv of the tile, summed over the G query heads of the kv head and
 // the query tiles that can see the tile.  MASKED: kvalid (B, Tlen) bytes; a
@@ -1867,24 +2136,32 @@ dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUte
 // MASKED at D <= 64: three blocks an SM, as the unmasked kernel's registers
 // allow (168: masked keys are moved past T rather than kept as bits, and
 // the empty rows' term comes after the walk)
-template <int D, bool MASKED>
+// LIVE (the live pair, MASKED too): the tile's word from the list of
+// km::live_tiles_kernel (words, prefix: n_kt tiles a batch row), not from
+// the mask; kLiveDkvStages<D> stages; and where neither causal nor a
+// window can empty a row, the empty rows' term from the batch row's count of
+// live tiles (none: every row is empty; some: none is), not a pass over lse.
+template <int D, bool MASKED, bool LIVE = false>
 __global__ void __launch_bounds__(kConsumers, MASKED && D <= 64 ? 3 : 2)
 dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
            const __nv_bfloat16* __restrict__ dout, const uint8_t* __restrict__ kvalid,
            const float* __restrict__ lse, const float* __restrict__ delta,
+           const uint64_t* __restrict__ words, const int* __restrict__ prefix, int n_kt,
            __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Hq, int Hkv,
            int S, int Tlen, int causal, int has_window, int window, float scale) {
+  static_assert(MASKED || !LIVE, "the live pair is masked");
   using C = Cfg<D>;
   constexpr int TB = C::KV_BYTES;   // a 64-row bf16 tile
+  constexpr int NS = LIVE ? kLiveDkvStages<D> : kDkvStages;   // Q and dO stages
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ks = align1024(smem_raw);
   uint8_t* vs = ks + TB;
-  uint8_t* qs = vs + TB;                   // kDkvStages Q tiles, then kDkvStages dO tiles
-  uint8_t* dos = qs + kDkvStages * TB;
-  float* lse_s = reinterpret_cast<float*>(dos + kDkvStages * TB);   // kDkvStages x kT
-  float* dl_s = lse_s + kDkvStages * kT;
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dl_s + kDkvStages * kT);
+  uint8_t* qs = vs + TB;                   // NS Q tiles, then NS dO tiles
+  uint8_t* dos = qs + NS * TB;
+  float* lse_s = reinterpret_cast<float*>(dos + NS * TB);   // NS x kT
+  float* dl_s = lse_s + NS * kT;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(dl_s + NS * kT);
   uint64_t* full = kv_full + 1;
 
   const int hk = blockIdx.x, b = blockIdx.y, t0 = blockIdx.z * kT;
@@ -1893,8 +2170,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   const int nt = min(kT, Tlen - t0);
   const int tid = threadIdx.x;
   // MASKED: the tile's valid word, the same in every warp
-  const uint64_t word = MASKED ? km::tile_word(kvalid + (size_t)b * Tlen, t0, Tlen, tid % 32)
-                               : ~0ull;
+  const uint64_t word = LIVE     ? words[(size_t)b * n_kt + blockIdx.z]
+                        : MASKED ? km::tile_word(kvalid + (size_t)b * Tlen, t0, Tlen, tid % 32)
+                                 : ~0ull;
   // the query rows that see a key of the tile, as in bwd::dkv_kernel
   int i_lo = causal ? max(0, t0 - off) : 0;
   if (!MASKED && causal && off < 0) i_lo = 0;
@@ -1905,12 +2183,12 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
 
   if (tid == 0) {
     hopper::mbar_init(kv_full, 1);
-    for (int s = 0; s < kDkvStages; ++s) hopper::mbar_init(&full[s], 1);
+    for (int s = 0; s < NS; ++s) hopper::mbar_init(&full[s], 1);
     hopper::mbar_fence_init();
   }
   __syncthreads();
   auto issue = [&](int it) {   // thread 0: the Q and dO tiles of iteration it
-    const int st = it % kDkvStages, h = hk * G + it / n_qt, q0 = q_begin + (it % n_qt) * kT;
+    const int st = it % NS, h = hk * G + it / n_qt, q0 = q_begin + (it % n_qt) * kT;
     hopper::mbar_arrive_expect_tx(&full[st], 2 * TB);
 #pragma unroll
     for (int s = 0; s < C::NSLAB; ++s) {
@@ -1927,7 +2205,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
       hopper::tma_load_3d(ks + s * kT * C::SW, &tm_k, kv_full, s * C::DS, t0, b * Hkv + hk);
       hopper::tma_load_3d(vs + s * kT * C::SW, &tm_v, kv_full, s * C::DS, t0, b * Hkv + hk);
     }
-    for (int it = 0; it < min(kDkvStages, n_it); ++it) issue(it);
+    for (int it = 0; it < min(NS, n_it); ++it) issue(it);
   }
   // threads 0..63 copy a query tile's lse, threads 64..127 its D
   float* stat_s = (tid < kT ? lse_s : dl_s) + tid % kT;
@@ -1950,15 +2228,15 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   for (int i = 0; i < C::DP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
   if (n_it > 0) hopper::mbar_wait(kv_full, 0);
   for (int it = 0; it < n_it; ++it) {
-    const int st = it % kDkvStages, q0 = q_begin + (it % n_qt) * kT;
+    const int st = it % NS, q0 = q_begin + (it % n_qt) * kT;
     const int p0 = q0 + off;   // position of the tile's first query
     // this thread's lse or D of the tile, read now and stored while the
-    // products run; a stage's slot is rewritten two iterations later, past
-    // the next iteration's barrier, so no thread still reads it
+    // products run; a stage's slot is rewritten NS iterations later,
+    // past the next iteration's barrier, so no thread still reads it
     const int qr = q0 + tid % kT;
     const float sv = qr < S ? stat_g[((size_t)b * Hq + hk * G + it / n_qt) * S + qr] : 0.f;
     float sc[kT / 2], dp[kT / 2];
-    hopper::mbar_wait(&full[st], (it / kDkvStages) & 1);
+    hopper::mbar_wait(&full[st], (it / NS) & 1);
     hopper::wgmma_fence();
     issue_abt<D>(sc, k_addr, q_base + st * TB);
     issue_abt<D>(dp, v_addr, do_base + st * TB);
@@ -2012,19 +2290,21 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
     hopper::fence_regs(acc_k);
     fence_split(phi, plo);
     fence_split(dhi, dlo);
-    if (it + kDkvStages < n_it) {
+    if (it + NS < n_it) {
       __syncthreads();   // every warp is done with the stage
-      if (tid == 0) issue(it + kDkvStages);
+      if (tid == 0) issue(it + NS);
     }
   }
 
   // MASKED: dv takes the empty rows' term.  lse_s and dl_s are its scratch:
   // its first block barrier follows every thread's last read of them
   if constexpr (MASKED) {
-    static_assert(2 * kDkvStages * kT >= kConsumers + D, "scratch for empty_rows_term");
+    static_assert(2 * NS * kT >= kConsumers + D, "scratch for empty_rows_term");
+    const int known = LIVE && !causal && !has_window ? prefix[(size_t)b * (n_kt + 1) + n_kt] == 0
+                                                     : -1;
     bwd::empty_rows_term<__nv_bfloat16, D, kConsumers>(dout, lse, b, hk, G, Hq, S,
                                                        1.f / (float)Tlen, lse_s,
-                                                       lse_s + kConsumers);
+                                                       lse_s + kConsumers, known);
 #pragma unroll
     for (int j = 0; j < C::DP / 8; ++j) {
       const int col = 8 * j + col0;
@@ -2041,7 +2321,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUt
   store_rows<D>(dv + kv0 * D, acc_v, r0, nt, col0, 1.f);
 }
 
-template <int D, bool MASKED>
+template <int D, bool MASKED, bool LIVE = false>
 cudaError_t launch(const bwd::Args& a, bool dkv, cudaStream_t stream) {
   using C = Cfg<D>;
   CUtensorMap tq, tk, tv, tdo;
@@ -2054,7 +2334,23 @@ cudaError_t launch(const bwd::Args& a, bool dkv, cudaStream_t stream) {
       !hopper::encode_bf16_3d(&tv, a.v, D, a.Tlen, nkv, D, (uint64_t)a.Tlen * D, C::DS, kT, 1,
                               C::SW))
     return cudaErrorInvalidValue;
-  if (!dkv) {
+  const int n_kt = (a.Tlen + kT - 1) / kT;
+  if (!dkv && LIVE) {
+    // the list of live tiles, then the dq kernel that walks it
+    constexpr int smem = dq_smem<D, kLiveDqStages<D>>() + 12 * kLiveDqStages<D>;   // + slots
+    auto kernel = dq_live_kernel<D>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    km::live_tiles_kernel<<<a.B, km::kListThreads, 0, stream>>>(a.kvalid, a.Tlen, n_kt, a.words,
+                                                                  a.live, a.prefix);
+    const dim3 grid(a.Hq, a.B, (a.S + kT - 1) / kT);
+    kernel<<<grid, kConsumers, smem, stream>>>(
+        tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(a.o),
+        static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.words, a.live, a.prefix, n_kt,
+        static_cast<__nv_bfloat16*>(a.dq), a.delta, a.Hq, a.Hkv, a.S, a.Tlen, a.causal,
+        a.has_window, a.window, a.scale);
+  } else if (!dkv) {
     auto kernel = dq_kernel<D, MASKED>;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem<D>());
@@ -2065,26 +2361,28 @@ cudaError_t launch(const bwd::Args& a, bool dkv, cudaStream_t stream) {
         static_cast<const __nv_bfloat16*>(a.dout), a.kvalid, static_cast<__nv_bfloat16*>(a.dq),
         a.lse, a.delta, a.Hq, a.Hkv, a.S, a.Tlen, a.causal, a.has_window, a.window, a.scale);
   } else {
-    auto kernel = dkv_kernel<D, MASKED>;
+    constexpr int smem = dkv_smem<D, LIVE ? kLiveDkvStages<D> : kDkvStages>();
+    auto kernel = dkv_kernel<D, MASKED, LIVE>;
     cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dkv_smem<D>());
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(a.Hkv, a.B, (a.Tlen + kT - 1) / kT);
-    kernel<<<grid, kConsumers, dkv_smem<D>(), stream>>>(
+    const dim3 grid(a.Hkv, a.B, n_kt);
+    kernel<<<grid, kConsumers, smem, stream>>>(
         tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(a.dout), a.kvalid, a.lse, a.delta,
-        static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), a.Hq, a.Hkv, a.S,
-        a.Tlen, a.causal, a.has_window, a.window, a.scale);
+        a.words, a.prefix, n_kt, static_cast<__nv_bfloat16*>(a.dk),
+        static_cast<__nv_bfloat16*>(a.dv), a.Hq, a.Hkv, a.S, a.Tlen, a.causal, a.has_window,
+        a.window, a.scale);
   }
   return cudaGetLastError();
 }
 
-template <bool MASKED>
+template <bool MASKED, bool LIVE = false>
 cudaError_t launch_d(int D, const bwd::Args& a, bool dkv, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<32, MASKED>(a, dkv, stream);
-    case 64: return launch<64, MASKED>(a, dkv, stream);
-    case 120: return launch<120, MASKED>(a, dkv, stream);
-    case 128: return launch<128, MASKED>(a, dkv, stream);
+    case 32: return launch<32, MASKED, LIVE>(a, dkv, stream);
+    case 64: return launch<64, MASKED, LIVE>(a, dkv, stream);
+    case 120: return launch<120, MASKED, LIVE>(a, dkv, stream);
+    case 128: return launch<128, MASKED, LIVE>(a, dkv, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2122,20 +2420,23 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
                                          int B, int Hq, int Hkv, int S, int Tlen, int D,
                                          int causal, int has_window, int window, float scale,
                                          void* stream) {
-  return wg::launch_d<false>(D, q, k, v, nullptr, out, B, Hq, Hkv, S, Tlen, causal, has_window,
-                             window, scale, static_cast<cudaStream_t>(stream));
+  return wg::launch_d<false>(D, q, k, v, nullptr, out, nullptr, B, Hq, Hkv, S, Tlen, causal,
+                             has_window, window, scale, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 only: the wgmma design under kvalid (B, Tlen) bytes (0 = masked key),
-// walking only the key tiles that hold a valid key.  Returns as
+// walking only the key tiles that hold a valid key.  lse: null, or (B, Hq, S)
+// fp32 for each row's log-sum-exp in log2 units (-inf on a row with no
+// allowed valid key), which flash_attention_bwd_dq_wgmma_live reads; a
+// serving call passes null and writes nothing more.  Returns as
 // flash_attention_wgmma_fwd.
 extern "C" int flash_attention_wgmma_masked_fwd(const void* q, const void* k, const void* v,
-                                                const uint8_t* kvalid, void* out, int B, int Hq,
-                                                int Hkv, int S, int Tlen, int D, int causal,
-                                                int has_window, int window, float scale,
-                                                void* stream) {
-  return wg::launch_d<true>(D, q, k, v, kvalid, out, B, Hq, Hkv, S, Tlen, causal, has_window,
-                            window, scale, static_cast<cudaStream_t>(stream));
+                                                const uint8_t* kvalid, void* out, float* lse,
+                                                int B, int Hq, int Hkv, int S, int Tlen, int D,
+                                                int causal, int has_window, int window,
+                                                float scale, void* stream) {
+  return wg::launch_d<true>(D, q, k, v, kvalid, out, lse, B, Hq, Hkv, S, Tlen, causal,
+                            has_window, window, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The backward's first kernel: dq (B, Hq, S, D), and each row's log-sum-exp
@@ -2250,4 +2551,43 @@ extern "C" int flash_attention_bwd_dkv_wgmma_masked(const void* q, const void* k
                     const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window,
                     window, scale, kvalid};
   return wgb::launch_d<true>(D, a, true, static_cast<cudaStream_t>(stream));
+}
+
+// The live pair (bf16 only), the backward of the key-masked route with the
+// forward's lse: the first entry builds each batch row's list of live key
+// tiles into words (B, n_kt) u64, live (B, n_kt) and prefix (B, n_kt + 1)
+// int32 (n_kt = ceil(Tlen / 64)), then launches the dq kernel, which reads
+// lse (B, Hq, S) fp32 as flash_attention_wgmma_masked_fwd wrote it and
+// writes dq and delta; the second, after it on the same stream, writes dk
+// and dv from lse, delta and the list.  Each returns cudaGetLastError()
+// after its launches (or cudaErrorInvalidValue, as the other entry points);
+// the caller raises on anything but 0.
+extern "C" int flash_attention_bwd_dq_wgmma_live(const void* q, const void* k, const void* v,
+                                                 const void* o, const void* dout,
+                                                 const uint8_t* kvalid, const float* lse,
+                                                 void* dq, float* delta, uint64_t* words,
+                                                 int* live, int* prefix, int B, int Hq, int Hkv,
+                                                 int S, int Tlen, int D, int causal,
+                                                 int has_window, int window, float scale,
+                                                 void* stream) {
+  bwd::Args a{q, k, v, o, dout, dq, nullptr, nullptr, const_cast<float*>(lse), delta, B, Hq, Hkv,
+              S, Tlen, causal, has_window, window, scale, kvalid};
+  a.words = words;
+  a.live = live;
+  a.prefix = prefix;
+  return wgb::launch_d<true, true>(D, a, false, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_dkv_wgmma_live(const void* q, const void* k, const void* v,
+                                                  const void* dout, const float* lse,
+                                                  const float* delta, const uint64_t* words,
+                                                  const int* prefix, void* dk, void* dv, int B,
+                                                  int Hq, int Hkv, int S, int Tlen, int D,
+                                                  int causal, int has_window, int window,
+                                                  float scale, void* stream) {
+  bwd::Args a{q, k, v, nullptr, dout, nullptr, dk, dv, const_cast<float*>(lse),
+              const_cast<float*>(delta), B, Hq, Hkv, S, Tlen, causal, has_window, window, scale};
+  a.words = const_cast<uint64_t*>(words);
+  a.prefix = const_cast<int*>(prefix);
+  return wgb::launch_d<true, true>(D, a, true, static_cast<cudaStream_t>(stream));
 }

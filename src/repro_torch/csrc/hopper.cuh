@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: wgmma
 // shared-memory descriptors and the m64nNk16 bf16 -> fp32 instructions,
-// mbarriers, TMA tile loads, warpgroup register reallocation, and on the
-// host the encoding of a CUtensorMap.  Raw PTX, as in moe_gmm.cu's
-// mma.sync; no CUTLASS.
+// mbarriers, TMA tile loads and stores, thread block clusters, warpgroup
+// register reallocation, and on the host the encoding of a CUtensorMap.
+// Raw PTX, as in moe_gmm.cu's mma.sync; no CUTLASS.
 //
 // Shared-memory tiles are written by TMA with a 128-byte (or 64-byte)
 // swizzle and read by wgmma through descriptors of the same swizzle.  A tile
@@ -90,8 +90,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
 }
 
-// m64n256k16, A and B from shared memory.
-template <int TransB>
+// m64n256k16, A and B from shared memory; TransA reads A MN-major (the M
+// dimension contiguous), as TransB does B.
+template <int TransB, int TransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b,
                                                    int scale_d) {
   asm volatile(
@@ -105,7 +106,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -122,7 +123,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t a, uint64_t b
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TransB), "n"(TransA));
 }
 
 // m64n32k16, A from registers, B from shared memory.
@@ -280,6 +281,46 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// TMA: a box of shared memory into a 3-D tensor (the inverse of
+// tma_load_3d; elements outside the tensor are not written).  The writes of
+// the box by the block's threads must be made visible to the async proxy
+// first (fence_proxy_async).  The store is counted in the issuing thread's
+// bulk group: bulk_commit, then bulk_wait_read before the box is written
+// again and bulk_wait before the block exits.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A 32-bit store to shared memory at a shared-window address.
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
@@ -288,6 +329,65 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
 // `id` (1..15; __syncthreads uses 0), for a subset of the block's warps.
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread block clusters
+
+// The cluster's barrier, over every thread of its blocks: writes to shared
+// memory and mbarrier arrivals before it are seen by the other blocks after
+// it.  Not .aligned: a warp's threads may reach it apart.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// This cluster's index in the grid (along x) and the clusters in the grid.
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+// The shared-window address of `p`'s place in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  return remote;
+}
+
+// An arrival on the mbarrier at `bar`'s place in block `rank`.  The default
+// semantics (release at the block's scope) suffice where what it releases is
+// reads by wgmma, already complete; a cluster-scope release is a fence.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(cluster_addr(bar, rank))
+               : "memory");
+}
+
+// A box of a 3-D tensor into the same place of every block of `mask`, each
+// block's mbarrier at `bar`'s place counting the bytes.
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "h"(mask)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -350,11 +450,25 @@ inline EncodeTiledFn encode_tiled_fn() {
 // boxes {b0, b1, b2}, swizzled by `sw` bytes: 128 or 64 (b0 * elem_bytes ==
 // sw), or 0 for none (rows of b0 * elem_bytes bytes, a multiple of 16, one
 // after another).  Returns false if cuTensorMapEncodeTiled refuses it.
+//
+// cuTensorMapEncodeTiled is a driver call and needs the device's context
+// current on the calling thread.  A thread whose first CUDA work is this
+// encode has none (PyTorch's autograd engine runs a backward on a thread of
+// its own, and a Python thread starts bare), so the first encode on each
+// thread binds the runtime's device: cudaSetDevice makes its primary
+// context current, without a synchronisation.
+inline bool bind_device() {
+  thread_local bool bound = false;
+  int dev = 0;
+  if (!bound) bound = cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  return bound;
+}
+
 inline bool encode_3d(CUtensorMap* map, int elem_bytes, const void* base, uint64_t n0,
                       uint64_t n1, uint64_t n2, uint64_t s1, uint64_t s2, uint32_t b0,
                       uint32_t b1, uint32_t b2, int sw) {
   EncodeTiledFn fn = encode_tiled_fn();
-  if (!fn || (elem_bytes != 4 && elem_bytes != 2)) return false;
+  if (!fn || !bind_device() || (elem_bytes != 4 && elem_bytes != 2)) return false;
   const cuuint64_t dims[3] = {n0, n1, n2};
   const cuuint64_t strides[2] = {s1 * elem_bytes, s2 * elem_bytes};
   const cuuint32_t box[3] = {b0, b1, b2};

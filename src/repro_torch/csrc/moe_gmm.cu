@@ -82,19 +82,36 @@
 // read once.
 //
 // The backward (kernels/moe_gmm.py: moe_gmm_bwd): dx[e] = dy[e] w[e]^T and
-// dw[e] = x[e]^T dy[e], summed in fp32 and rounded once, by the three
-// designs above on transposed operands, each product routed at its own
-// shape.  What bounds it at mixtral's training shape (C 1280): two
-// products, 2.43 ms of bf16 operations.  What this simple design does
-// about it: the forward's designs. dx at the training shapes runs the wgmma
-// design with w read transposed (moe_gmm_wgmma_nt_fwd: w's (E, D, F) rows
-// are K-major for the product, loaded as one 256-row TMA box a stage and
-// multiplied without the transpose bit), so w is never copied; every other
-// shape of dx, and dw, take the designs of `route` on operands copied by a
-// tiled transpose kernel (moe_gmm_transpose: 64 x 64 tiles through shared
-// memory, rows read and written whole): x laid out (E, D, C) for dw (0.08
-// GB at mixtral's training shape), w laid out (E, F, D) for a dx off the
-// wgmma route (as large as w).
+// dw[e] = x[e]^T dy[e], summed in fp32 and rounded once, each product
+// routed at its own shape.  What bounds it at mixtral's training shape (C
+// 1280): two products, 2.43 ms of bf16 operations.  Both products have a
+// design of their own (namespace wgtn: moe_gmm_dx_wgmma_nt,
+// moe_gmm_dw_wgmma_tn), a redesign of the forward's wgmma design over
+// transposed operands.  What held the backward back on that design: dw ran
+// over a copy of x; a short contraction (dw's C = 640 or 1280 against the
+// forward's D = 4096: 10 or 20 stages a 128 x 256 tile) sat behind an
+// epilogue that the next tile's products waited for (each thread storing
+// its 128 sums from registers, a quad's 16 bytes a row); and each block
+// moved 48 KB from L2 a 128 x 256 x 64 stage, which at the tensor cores'
+// rate is more than the L2 gives (the forward reaches 0.72 of the peak).
+// The design: every operand is read where it lies, x and dy for dw as
+// MN-major operands through wgmma's transpose bits (64-column TMA boxes, C
+// their outer coordinate, so that TMA zero-fills a ragged C and any C is
+// taken), dy and w for dx K-major; two blocks a cluster take two row tiles
+// that share a B tile (or, at an odd count of row tiles, two column tiles
+// that share an A tile), each loads its half of it and TMA multicasts the
+// half into both, so a block moves 32 KB a stage; each consumer warpgroup
+// writes its sums into shared memory in the TMA store's 128-byte swizzle
+// (conflict-free) and one thread stores them by TMA, so the next tile's
+// products start while the stores drain; four stages of 48 KB.  dx takes it
+// where its row tiles of C pair up; at an odd count (Jamba's C = 640: five)
+// the pairing of column tiles lost to the forward's design on the H100, so
+// dx stays there (moe_gmm_wgmma_nt_fwd: w's (E, D, F) rows K-major for the
+// product, no copy of w).  Every other shape of dx, and a dw with D below 64
+// or off bf16, take the designs of `route` on operands copied by a tiled
+// transpose kernel (moe_gmm_transpose: 64 x 64 tiles through shared memory,
+// rows read and written whole): x laid out (E, D, C) for such a dw, w laid
+// out (E, F, D) for a dx off the wgmma route (as large as w).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -474,6 +491,306 @@ cudaError_t launch(const void* x, const void* w, void* y, int E, int C, int D, i
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
+// The backward's products on a design of their own (bf16): out[e] (M, N) =
+// A[e] B[e] over K, for dw = x^T dy (DW: M = D, N = F, K = C; x and dy read
+// MN-major where they lie, through the transpose bits) and dx = dy w^T (M =
+// C, N = D, K = F; dy and w read K-major).  Two blocks a cluster take two
+// tiles that share an operand tile; each loads its half of that tile, which
+// TMA multicasts into both, so a block moves 32 KB from L2 a stage where the
+// forward's design moves 48 KB.
+
+namespace wgtn {
+
+constexpr int kBM = 128;        // rows of M per tile: two consumer warpgroups of 64
+constexpr int kBN = 256;        // columns of N per tile
+constexpr int kBK = 64;         // depth of a stage: one 128-byte swizzled row
+constexpr int kStages = 4;
+constexpr int kCluster = 2;     // blocks a cluster: two tiles that share an operand tile
+constexpr int kThreads = 384;   // producer warpgroup, then two consumer warpgroups
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kSlab = 64;                    // columns per TMA box (128 bytes)
+constexpr int SLAB_BYTES = kBK * kSlab * 2;  // 64 rows of 128 bytes
+constexpr int A_BYTES = kBM * kBK * 2;       // DW: two MN-major slabs; dx: 128 K-major rows
+constexpr int B_BYTES = kBN * kBK * 2;       // DW: four slabs; dx: 256 K-major rows
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+// the epilogue's buffer: kOutSlabs 64 x 64 slabs a warpgroup, so that its
+// 64 x 256 sums are stored in 4 / kOutSlabs parts (four stages leave room
+// for two slabs a warpgroup)
+constexpr int kOutSlabs = 2;
+constexpr int SMEM = kStages * STAGE_BYTES + 2 * kOutSlabs * SLAB_BYTES + 2 * kStages * 8 + 1024;
+
+// Persistent: cluster i walks tile pairs i, i + clusters, ...  The two
+// blocks of a cluster take row tiles m, m + 1 of one column tile n and share
+// B, or (PAIR_N: the row tiles odd in number and the column tiles not, so
+// that no block idles on a pair's missing tile) column tiles n, n + 1 of one
+// row tile and share A.  The shared operand is cut in halves: each block
+// loads its half and TMA multicasts it into both; the other operand each
+// block loads whole for itself.  Pairs run with the row index fastest when
+// M_FAST (M <= N), else the column index, so that the clusters in flight
+// share the smaller of A[e] and B[e] in L2 and stream the other.  (A version
+// without PAIR_N, the same loads for the row pairs written as one loop, ran
+// dw slower on the H100 in turns with this one: ptxas's schedule, not the
+// loads, which are the same.)
+template <bool DW, bool M_FAST, bool PAIR_N>
+__global__ void __launch_bounds__(kThreads, 1)
+moe_gmm_tn_kernel(const __grid_constant__ CUtensorMap tm_a,
+                  const __grid_constant__ CUtensorMap tm_b,
+                  const __grid_constant__ CUtensorMap tm_out, int E, int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* out = smem + kStages * STAGE_BYTES;   // 1024-aligned, as the TMA store's swizzle needs
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + 2 * kOutSlabs * SLAB_BYTES);
+  uint64_t* empty = full + kStages;
+
+  const uint32_t rank = hopper::cluster_rank(), peer = rank ^ 1u;
+  const int nm = (M + kBM - 1) / kBM, nn = (N + kBN - 1) / kBN, nk = (K + kBK - 1) / kBK;
+  const int pm = PAIR_N ? nm : (nm + 1) / 2, pn = PAIR_N ? (nn + 1) / 2 : nn;
+  const int n_pairs = E * pm * pn;
+  const int first = (int)hopper::cluster_id(), step = (int)hopper::cluster_count();
+  auto coords = [&](int pair, int& m, int& n, int& e) {
+    e = pair / (pm * pn);
+    const int r = pair % (pm * pn), i = M_FAST ? r % pm : r / pn, j = M_FAST ? r / pm : r % pn;
+    m = PAIR_N ? i : 2 * i + (int)rank;
+    n = PAIR_N ? 2 * j + (int)rank : j;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8 * kCluster);   // each consumer warp of both blocks
+    }
+    hopper::mbar_fence_init();
+  }
+  hopper::cluster_sync();   // both blocks' barriers live before either touches the other's
+
+  const int wgi = threadIdx.x / 128;
+  if (wgi == 0) {
+    // ---- producer: one thread issues every load; boxes wholly past M or N
+    // are not loaded (they feed only rows and columns that are not stored).
+    // A stage is loaded again once both blocks' consumers are done with it.
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_map(&tm_a);
+      hopper::tma_prefetch_map(&tm_b);
+      int it = 0;
+      for (int pair = first; pair < n_pairs; pair += step) {
+        int m, n, e;
+        coords(pair, m, n, e);
+        // A in 64-row halves (DW: a 64-column slab of x; dx: 64 rows of dy),
+        // B in 128-column halves (DW: two slabs of dy; dx: 128 rows of w)
+        auto a_half = [&](int h) { return m < nm && m * kBM + h * kSlab < M; };
+        auto b_slabs = [&](int h) {   // DW: slabs of B's half h within N
+          const int lo = n * kBN + h * (kBN / 2);
+          return n >= nn ? 0 : max(0, min(2, (N - lo + kSlab - 1) / kSlab));
+        };
+        auto b_half = [&](int h) { return n < nn && n * kBN + h * (kBN / 2) < N; };
+        const uint32_t a_bytes = (a_half(0) + a_half(1)) * SLAB_BYTES;
+        const uint32_t b_bytes =
+            DW ? (b_slabs(0) + b_slabs(1)) * SLAB_BYTES : (b_half(0) + b_half(1)) * (B_BYTES / 2);
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int st = it % kStages;
+          uint8_t* a_s = smem + st * STAGE_BYTES;
+          uint8_t* b_s = a_s + A_BYTES;
+          hopper::mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[st], a_bytes + b_bytes);
+          // A: its half (PAIR_N, multicast) or both halves (alone)
+          for (int h = PAIR_N ? (int)rank : 0; h < (PAIR_N ? (int)rank + 1 : 2); ++h) {
+            if (!a_half(h)) continue;
+            uint8_t* dst = a_s + h * SLAB_BYTES;
+            const int c0 = DW ? m * kBM + h * kSlab : kb * kBK;
+            const int c1 = DW ? kb * kBK : m * kBM + h * kSlab;
+            if (PAIR_N)
+              hopper::tma_load_3d_multicast(dst, &tm_a, &full[st], c0, c1, e, 0x3);
+            else
+              hopper::tma_load_3d(dst, &tm_a, &full[st], c0, c1, e);
+          }
+          // B: its half (multicast) or both halves (PAIR_N, alone)
+          for (int h = PAIR_N ? 0 : (int)rank; h < (PAIR_N ? 2 : (int)rank + 1); ++h) {
+            uint8_t* dst = b_s + h * (B_BYTES / 2);
+            const int lo = n * kBN + h * (kBN / 2);
+            if constexpr (DW) {
+              for (int s = 0; s < b_slabs(h); ++s) {
+                if (PAIR_N)
+                  hopper::tma_load_3d(dst + s * SLAB_BYTES, &tm_b, &full[st], lo + s * kSlab,
+                                      kb * kBK, e);
+                else
+                  hopper::tma_load_3d_multicast(dst + s * SLAB_BYTES, &tm_b, &full[st],
+                                                lo + s * kSlab, kb * kBK, e, 0x3);
+              }
+            } else if (b_half(h)) {
+              if (PAIR_N)
+                hopper::tma_load_3d(dst, &tm_b, &full[st], kb * kBK, lo, e);
+              else
+                hopper::tma_load_3d_multicast(dst, &tm_b, &full[st], kb * kBK, lo, e, 0x3);
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup c owns rows 64c .. 64c + 63 of each tile,
+    // and stores them through its own 32 KB of `out`
+    hopper::regs_inc<kConsumerRegs>();
+    const int c = wgi - 1;
+    const int lane = threadIdx.x % 32;
+    float acc[kBN / 2];
+    int it = 0;
+    for (int pair = first; pair < n_pairs; pair += step) {
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int st = it % kStages;
+        const uint32_t stage = hopper::smem_addr(smem + st * STAGE_BYTES);
+        hopper::mbar_wait(&full[st], (it / kStages) & 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          if constexpr (DW) {
+            // both MN-major: 16 rows of K of 128 bytes a step; x's 64 columns
+            // of the warpgroup are one slab, dy's slabs are SLAB_BYTES apart
+            const uint64_t da = hopper::make_desc(stage + c * SLAB_BYTES + kk * 16 * 128,
+                                                  SLAB_BYTES, 8 * 128, 128);
+            const uint64_t db = hopper::make_desc(stage + A_BYTES + kk * 16 * 128, SLAB_BYTES,
+                                                  8 * 128, 128);
+            hopper::wgmma_ss<1, 1>(acc, da, db, kb > 0 || kk > 0);
+          } else {
+            // both K-major: 16 elements = 32 bytes along the swizzled rows
+            const uint64_t da =
+                hopper::make_desc(stage + c * 64 * 128 + kk * 32, 16, 8 * 128, 128);
+            const uint64_t db = hopper::make_desc(stage + A_BYTES + kk * 32, 16, 8 * 128, 128);
+            hopper::wgmma_ss<0, 0>(acc, da, db, kb > 0 || kk > 0);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        if (kb > 0) {   // the previous stage is done: released in both blocks
+          __syncwarp();
+          if (lane == 0) {
+            hopper::mbar_arrive(&empty[(it - 1) % kStages]);
+            hopper::mbar_arrive_remote(&empty[(it - 1) % kStages], peer);
+          }
+        }
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) {
+        hopper::mbar_arrive(&empty[(it - 1) % kStages]);
+        hopper::mbar_arrive_remote(&empty[(it - 1) % kStages], peer);
+      }
+
+      // epilogue: the warpgroup's 64 x 256 into `out` in the TMA store's
+      // 128-byte swizzle (16-byte chunk j of a row at j ^ (row % 8): the
+      // eight rows of a store land in eight chunks, no bank conflict),
+      // kOutSlabs slabs a part, then one thread stores the part by TMA;
+      // after the last part the warpgroup goes on to the next tile while the
+      // stores drain.  The tile's coordinates are found only now, out of the
+      // products' way.
+      int m, n, e;
+      coords(pair, m, n, e);
+      const int row0 = m * kBM + c * kSlab;
+      if (m >= nm || n >= nn || row0 >= M) continue;   // a pair's missing tile, rows past M
+      const int tid = threadIdx.x % 128, r = tid / 32 * 16 + lane / 4;   // rows r and r + 8
+      uint8_t* my_out = out + c * kOutSlabs * SLAB_BYTES;
+      // bits 4-6 of the address hold r % 8, so XOR with 16 (j % 8) swizzles
+      const uint32_t base =
+          hopper::smem_addr(my_out) + r * 128 + (r % 8) * 16 + 4 * (lane % 4);
+      const int nb = min(kBN / kSlab, (N - n * kBN + kSlab - 1) / kSlab);
+#pragma unroll
+      for (int part = 0; part < 4 / kOutSlabs; ++part) {
+        if (tid == 0) hopper::bulk_wait_read<0>();   // the last store has read `out`
+        hopper::named_sync(1 + c, 128);
+#pragma unroll
+        for (int j = part * kOutSlabs * 8; j < (part + 1) * kOutSlabs * 8; ++j) {
+          const uint32_t a = (base + (j / 8 - part * kOutSlabs) * SLAB_BYTES) ^ ((j % 8) * 16);
+          hopper::st_shared_u32(a, hopper::pack_bf16(acc[4 * j], acc[4 * j + 1]));
+          hopper::st_shared_u32(a + 8 * 128, hopper::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]));
+        }
+        hopper::fence_proxy_async();
+        hopper::named_sync(1 + c, 128);
+        if (tid == 0) {
+          for (int s = part * kOutSlabs; s < min(nb, (part + 1) * kOutSlabs); ++s)
+            hopper::tma_store_3d(&tm_out, my_out + (s - part * kOutSlabs) * SLAB_BYTES,
+                                 n * kBN + s * kSlab, row0, e);
+          hopper::bulk_commit();
+        }
+      }
+    }
+    if (threadIdx.x % 128 == 0) hopper::bulk_wait<0>();   // every store done
+  }
+  hopper::cluster_sync();   // neither block leaves while the other may still reach its memory
+}
+
+// out (E, M, N) from A and B as laid out for DW (x (E, K, M), dy (E, K, N))
+// or dx (dy (E, M, K), w (E, N, K)); M, N and K multiples of 8 where they are
+// row strides, any elsewhere (TMA zero-fills the ragged tails).
+// The launch configuration of moe_gmm_tn_kernel<DW, M_FAST, PAIR_N>, with `attr`
+// its cluster's shape, and the clusters that fit the card at once (the
+// cluster must sit within a GPC, so on a card whose GPCs hold odd SM counts
+// fewer than half its SMs); 0 if the query fails.
+template <bool DW, bool M_FAST, bool PAIR_N>
+int clusters_that_fit(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1]) {
+  auto kernel = moe_gmm_tn_kernel<DW, M_FAST, PAIR_N>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM) !=
+      cudaSuccess)
+    return 0;
+  cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = SMEM;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cfg.gridDim = dim3(kCluster * 132);
+  int fit = 0;
+  return cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg) == cudaSuccess ? fit : 0;
+}
+
+template <bool DW, bool M_FAST, bool PAIR_N>
+cudaError_t launch_k(const CUtensorMap& ta, const CUtensorMap& tb, const CUtensorMap& to, int E,
+                     int M, int N, int K, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const int fit = clusters_that_fit<DW, M_FAST, PAIR_N>(cfg, attr);
+  if (fit < 1) return cudaErrorInvalidConfiguration;
+  cfg.stream = stream;
+  // persistent: as many clusters as fit the card at once, at most one a pair
+  const int nm = (M + kBM - 1) / kBM, nn = (N + kBN - 1) / kBN;
+  const long long n_pairs =
+      (long long)E * (PAIR_N ? nm : (nm + 1) / 2) * (PAIR_N ? (nn + 1) / 2 : nn);
+  cfg.gridDim = dim3(kCluster * (int)(n_pairs < fit ? n_pairs : fit));
+  cudaError_t err =
+      cudaLaunchKernelEx(&cfg, moe_gmm_tn_kernel<DW, M_FAST, PAIR_N>, ta, tb, to, E, M, N, K);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <bool DW>
+cudaError_t launch(const void* a, const void* b, void* out, int E, int M, int N, int K,
+                   cudaStream_t stream) {
+  if (E < 1 || M < 1 || N < 1 || K < 1 || N % 8 || (DW ? M % 8 : K % 8))
+    return cudaErrorInvalidValue;
+  CUtensorMap ta, tb, to;
+  const bool ok =
+      DW ? hopper::encode_bf16_3d(&ta, a, M, K, E, M, (uint64_t)K * M, kSlab, kBK, 1, 128) &&
+               hopper::encode_bf16_3d(&tb, b, N, K, E, N, (uint64_t)K * N, kSlab, kBK, 1, 128)
+         : hopper::encode_bf16_3d(&ta, a, K, M, E, K, (uint64_t)M * K, kBK, kSlab, 1, 128) &&
+               hopper::encode_bf16_3d(&tb, b, K, N, E, K, (uint64_t)N * K, kBK, kBN / 2, 1, 128);
+  if (!ok || !hopper::encode_bf16_3d(&to, out, N, M, E, N, (uint64_t)M * N, kSlab, kSlab, 1, 128))
+    return cudaErrorInvalidValue;
+  // pair row tiles unless they are odd in number and the column tiles are not
+  const int nm = (M + kBM - 1) / kBM, nn = (N + kBN - 1) / kBN;
+  const bool pair_n = nm % 2 == 1 && nn % 2 == 0;
+  if (M <= N)
+    return pair_n ? launch_k<DW, true, true>(ta, tb, to, E, M, N, K, stream)
+                  : launch_k<DW, true, false>(ta, tb, to, E, M, N, K, stream);
+  return pair_n ? launch_k<DW, false, true>(ta, tb, to, E, M, N, K, stream)
+                : launch_k<DW, false, false>(ta, tb, to, E, M, N, K, stream);
+}
+
+}  // namespace wgtn
+
+// ---------------------------------------------------------------------------
 // The stream design (bf16, C <= 8: the decode shapes)
 
 namespace streamed {
@@ -714,6 +1031,34 @@ extern "C" int moe_gmm_wgmma_nt_fwd(const void* x, const void* w, void* y, int E
 extern "C" int moe_gmm_stream_fwd(const void* x, const void* w, void* y, int E, int C, int D,
                                   int F, void* stream) {
   return (int)streamed::launch_c(x, w, y, E, C, D, F, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 only: the backward's dw product, dw (E, D, F) = x^T dy for x (E, C,
+// D) and dy (E, C, F), read in place (no copy of x), D and F multiples of 8,
+// any C.  Returns cudaGetLastError() after the launch, or an error for a
+// shape it does not take or a refused tensor map.
+extern "C" int moe_gmm_dw_wgmma_tn(const void* x, const void* dy, void* dw, int E, int C, int D,
+                                   int F, void* stream) {
+  return (int)wgtn::launch<true>(x, dy, dw, E, D, F, C, static_cast<cudaStream_t>(stream));
+}
+
+// bf16 only: the backward's dx product on the same design, dx (E, C, D) = dy
+// w^T for dy (E, C, F) and w (E, D, F), both read where they lie (K-major),
+// D and F multiples of 8, any C (the route takes it where C's 128-row tiles
+// pair up).  Returns as moe_gmm_dw_wgmma_tn.
+extern "C" int moe_gmm_dx_wgmma_nt(const void* dy, const void* w, void* dx, int E, int C, int D,
+                                   int F, void* stream) {
+  return (int)wgtn::launch<false>(dy, w, dx, E, C, D, F, static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of the backward's design (dw when `dw`, else dx) that fit
+// the current card at once, each of two blocks on two SMs: the blocks its
+// persistent grid has; 0 if the query fails.
+extern "C" int moe_gmm_tn_clusters(int dw) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  return dw ? wgtn::clusters_that_fit<true, true, false>(cfg, attr)
+            : wgtn::clusters_that_fit<false, true, false>(cfg, attr);
 }
 
 // The backward's transpose: dst (E, C, R) = src (E, R, C), contiguous on the

@@ -95,22 +95,29 @@ class _FlashAttention(torch.autograd.Function):
     """The flash kernel's forward (the route of the dtype and the key mask)
     and its backward kernels (the dq kernel, then the dkv kernel, in the
     design of ``bwd_route``, masked too under a key mask), which recompute
-    the rows' softmax statistics from the saved q, k, v, output and mask."""
+    the rows' softmax statistics from the saved q, k, v, output and mask;
+    the ``wgmma_live`` pair (bf16 under a key mask) takes each row's
+    log-sum-exp from the forward instead, saved beside them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, key_valid):
-        out = _flash.flash_attention(q, k, v, causal=causal, window=window,
-                                     key_valid=key_valid)
-        ctx.save_for_backward(q, k, v, out, key_valid)
+        lse = None
+        if _flash.bwd_route(q.dtype, key_valid is not None) == "wgmma_live":
+            out, lse = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                              key_valid=key_valid, return_lse=True)
+        else:
+            out = _flash.flash_attention(q, k, v, causal=causal, window=window,
+                                         key_valid=key_valid)
+        ctx.save_for_backward(q, k, v, out, key_valid, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, key_valid = ctx.saved_tensors
+        q, k, v, out, key_valid, lse = ctx.saved_tensors
         dq, dk, dv = _flash.flash_attention_bwd(q, k, v, out, dout.contiguous(),
                                                 causal=ctx.causal, window=ctx.window,
-                                                key_valid=key_valid)
+                                                key_valid=key_valid, lse=lse)
         LAUNCHES["flash_attention_bwd"] += 1
         return dq, dk, dv, None, None, None
 

@@ -57,6 +57,26 @@ def _attn_mask(S: int, T: int, causal: bool, window: Optional[int], device) -> t
     return mask
 
 
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, Hq, S) fp32: each query row's log-sum-exp of its allowed scores in
+    log2 units (the scores times d**-0.5 log2(e)), -inf on a row with no
+    allowed key: what the key-masked wgmma forward hands its backward
+    (``flash_attention(..., return_lse=True)``)."""
+    B, Hq, S, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    kk = k.repeat_interleave(Hq // Hkv, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * d ** -0.5
+    mask = _attn_mask(S, T, causal, window, q.device)
+    if key_valid is not None:
+        mask = mask & key_valid.bool()[:, None, None, :]
+    return torch.logsumexp(torch.where(mask, s, -torch.inf), dim=-1) * _LOG2E
+
+
+_LOG2E = 1.4426950408889634
+
+
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             o: torch.Tensor, dout: torch.Tensor, *, causal: bool = True,
                             window: Optional[int] = None,

@@ -591,17 +591,73 @@ def test_the_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("C,D,F,expect", [
-    (1280, 4096, 14336, ("wgmma_nt", "wgmma")),  # mixtral's training gate/up: w read transposed
-    (1280, 14336, 4096, ("wgmma_nt", "wgmma")),  # and down
-    (640, 4096, 14336, ("wgmma_nt", "wgmma")),   # jamba's
-    (100, 4096, 14336, ("wgmma_nt", "mma_sync")),  # C not a multiple of 8: dw contracts over it
-    (2, 4096, 14336, ("stream", "mma_sync")),    # a decode-sized C
-    (32, 4096, 14336, ("mma_sync", "wgmma")),    # C between the thresholds
+    # mixtral's training gate/up: w read transposed for dx, x for dw
+    (1280, 4096, 14336, ("wgmma_nt", "wgmma_tn")),
+    (1280, 14336, 4096, ("wgmma_nt", "wgmma_tn")),  # and down
+    # jamba's gate/up and down: five row tiles of C, which do not pair, so
+    # dx on the forward's design reading w transposed
+    (640, 4096, 14336, ("wgmma_nt_fwd", "wgmma_tn")),
+    (640, 14336, 4096, ("wgmma_nt_fwd", "wgmma_tn")),
+    # C not a multiple of 8: dw contracts over it, and TMA zero-fills its tail
+    (100, 4096, 14336, ("wgmma_nt_fwd", "wgmma_tn")),
+    (200, 4096, 14336, ("wgmma_nt", "wgmma_tn")),
+    (2, 4096, 14336, ("stream", "wgmma_tn")),    # a decode-sized C
+    (32, 4096, 14336, ("mma_sync", "wgmma_tn")),  # C between the thresholds
     (1280, 4096, 100, ("mma_sync", "mma_sync")),  # F not a multiple of 8
+    (1280, 32, 64, ("wgmma_nt", "mma_sync")),    # D below WGMMA_MIN_C: dw over a copy of x
 ])
 def test_moe_gmm_bwd_route(C, D, F, expect):
     assert tgmm.bwd_route(torch.bfloat16, C, D, F) == expect
     assert tgmm.bwd_route(torch.float32, C, D, F) == ("mma_sync", "mma_sync")
+
+
+def test_moe_gmm_bwd_at_the_training_shapes_copies_nothing(monkeypatch):
+    """On the routes of the training shapes (``wgmma_nt``, ``wgmma_tn``) the
+    backward hands the kernels x, w and dy where they lie: the transpose
+    kernel is never launched, dx is dy w^T read with w's (E, D, F) strides
+    and dw is x^T dy read with x's (E, C, D) strides, counted by route.  The
+    entry points are stood in for by the plain products on the pointers they
+    are given (the CPU has no kernel)."""
+    x, w, dy = (t.to(torch.bfloat16) for t in _t(*_gmm_inputs(2, 200, 64, 72, seed=9)))
+    tensors = {t.data_ptr(): t for t in (x, w, dy)}
+    calls = []
+
+    def entry(which):
+        def run(a, b, out, E, C, D, F, stream):
+            calls.append(which)
+            A, B_ = tensors[a], tensors[b]
+            # both entry points take (E, C, D, F), whichever product they make
+            assert A.shape[:2] == (E, C) and B_.shape[0] == E
+            assert tensors[out].shape == ((E, C, D) if which == "dx_wgmma_nt" else (E, D, F))
+            got = (torch.einsum("ecf,edf->ecd", A.float(), B_.float()) if which == "dx_wgmma_nt"
+                   else torch.einsum("ecd,ecf->edf", A.float(), B_.float()))
+            tensors[out].copy_(got.to(torch.bfloat16))
+            return 0
+        return run
+
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):   # the outputs, found again by their pointers
+        t = real_empty(*shape, **{k: v for k, v in kw.items() if k != "device"})
+        tensors[t.data_ptr()] = t
+        return t
+
+    def refuse(t):
+        raise AssertionError("the transpose kernel was launched")
+
+    monkeypatch.setattr(tgmm, "check_operands", lambda *a: None)
+    monkeypatch.setattr(tgmm, "stream_handle", lambda dev: None)
+    monkeypatch.setattr(tgmm, "_entry", entry)
+    monkeypatch.setattr(tgmm, "_transpose", refuse)
+    monkeypatch.setattr(tgmm.torch, "empty", empty)
+    before = dict(tgmm.BWD_LAUNCHES)
+    assert tgmm.bwd_route(torch.bfloat16, 200, 64, 72) == ("wgmma_nt", "wgmma_tn")
+    dx, dw = tgmm.moe_gmm_bwd(x, w, dy)
+    assert calls == ["dx_wgmma_nt", "dw_wgmma_tn"]
+    ex, ew = tref.moe_gmm_bwd_ref(x, w, dy)
+    assert torch.equal(dx, ex) and torch.equal(dw, ew)
+    assert tgmm.BWD_LAUNCHES == {k: n + (k in ("dx_wgmma_nt", "dw_wgmma_tn"))
+                                 for k, n in before.items()}
 
 
 def test_scan_bwd_routes():

@@ -428,7 +428,8 @@ def test_on_the_cpu_the_op_keeps_its_autograd_and_counts_nothing():
     assert ops.LAUNCHES["flash_attention"] == ops.LAUNCHES["flash_attention_bwd"] == 0
     assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] == {
         "bwd_dq": 0, "bwd_dkv": 0, "bwd_dq_wgmma": 0, "bwd_dkv_wgmma": 0, "bwd_dq_masked": 0,
-        "bwd_dkv_masked": 0, "bwd_dq_wgmma_masked": 0, "bwd_dkv_wgmma_masked": 0}
+        "bwd_dkv_masked": 0, "bwd_dq_wgmma_masked": 0, "bwd_dkv_wgmma_masked": 0,
+        "bwd_dq_wgmma_live": 0, "bwd_dkv_wgmma_live": 0}
 
 
 def test_refuse_grad_names_the_item_and_spares_inference():

@@ -10,18 +10,22 @@ and T = 1500.  The empty-row rule: a row with no allowed valid key outputs
 the mean of v, so its dq is 0, it gives nothing to dk, and it adds dO / T to
 dv of every key of its batch row.
 
-Then a model of the two masked designs of ``csrc/flash_attention.cu``: the
+Then a model of the masked designs of ``csrc/flash_attention.cu``: the
 walks in numpy (which key tiles each dq block visits: the simt pair from the
-row's first valid key to its last within its rows' union, the wgmma pair
-only the live tiles of the union; which dkv blocks walk their query tiles,
-which write zeros, and which carry the 1/T term of the empty rows), and the
-arithmetic in torch over those walks (lse = -inf for a row with no allowed
-valid key, handed from the dq kernel to the dkv kernel; the wgmma pair in
-log2 units with P and dS split into a bf16 head and remainder), held
-against the plain gradients: the simt pair in fp32 at 3e-5, the wgmma pair
-on bf16 inputs at one bf16 ulp (atol 1e-3, rtol 1e-2).  Then the dispatch:
-``bwd_route`` under a mask, the wrappers refuse CPU tensors, and on the CPU
-the op keeps the plain autograd and counts no launch.
+row's first valid key to its last within its rows' union, the wgmma live
+pair its segment of the batch row's list of live tiles, built once a call;
+which dkv blocks walk their query tiles, which write zeros, and which carry
+the 1/T term of the empty rows), and the arithmetic in torch over those
+walks (lse = -inf for a row with no allowed valid key: the simt pair's dq
+kernel computes it and hands it to the dkv kernel, the live pair takes it
+from the masked wgmma forward's walk; the live pair in log2 units with P and
+dS split into a bf16 head and remainder, and the empty rows' term taken from
+the list's count where neither causal nor a window can empty a row), held
+against the plain gradients: the simt pair in fp32 at 3e-5, the live pair's
+arithmetic in fp32 at 3e-5 and on bf16 inputs at one bf16 ulp (atol 1e-3,
+rtol 1e-2); the forward's lse against ``flash_attention_lse_ref``.  Then
+the dispatch: ``bwd_route`` under a mask, the wrappers refuse CPU tensors,
+and on the CPU the op keeps the plain autograd and counts no launch.
 """
 import math
 
@@ -218,12 +222,77 @@ def simt_dq_walk(row, q0, nq, off, causal, window):
     return list(range(lo // TILE * TILE, hi + 1, TILE))
 
 
+def live_tiles(row):
+    """km::live_tiles_kernel for one batch row: each tile's valid word, the
+    live tiles before each tile (and all of them last), the live tiles."""
+    n_kt = -(-len(row) // TILE)
+    words = [tile_word(row, i * TILE) for i in range(n_kt)]
+    live = [i for i, w in enumerate(words) if w]
+    prefix = [sum(1 for w in words[:i] if w) for i in range(n_kt + 1)]
+    return words, live, prefix
+
+
 def wgmma_dq_walk(row, q0, nq, off, causal, window):
-    """The (t0, word) tiles a wgmma masked dq block walks, once in each
-    pass: the live tiles of the union (next_live, counted by km::scan)."""
+    """The (t0, word) tiles a live-pair dq block walks: its segment of the
+    batch row's list, prefix[lo] .. prefix[hi + 1] for the union of its
+    rows' ranges (the live tiles of the union, each once)."""
     lo, hi = dq_union(q0, nq, off, len(row), causal, window)
-    return [(t0, w) for t0 in range(lo // TILE * TILE, hi + 1, TILE)
-            if (w := tile_word(row, t0))]
+    if hi < lo // TILE * TILE:
+        return []
+    words, live, prefix = live_tiles(row)
+    return [(t * TILE, words[t]) for t in live[prefix[lo // TILE]:prefix[hi // TILE + 1]]]
+
+
+FWD_TILE = 128   # queries a block of the wgmma forward
+
+
+def fwd_walk(row, q0, nq, off, causal, window):
+    """The key tiles a masked wgmma forward block (FWD_TILE queries) walks:
+    the live tiles of its rows' union, or every tile of [0, T) when one of
+    its rows has no allowed valid key (that row then averages v over T)."""
+    T = len(row)
+    allowed = _full_mask(row[None], T - off, causal, window)[0, q0:q0 + nq]
+    if not allowed.any(-1).all():
+        return list(range(0, T, TILE))
+    lo, hi = 0, T - 1
+    p_first, p_last = q0 + off, q0 + nq - 1 + off
+    if not (causal and p_first < 0):
+        if causal:
+            hi = min(hi, p_last)
+        if window is not None:
+            lo = max(0, p_first - window + 1)
+    return [t0 for t0 in range(lo // TILE * TILE, hi + 1, TILE) if tile_word(row, t0)]
+
+
+def fwd_lse_model(q, k, valid, causal, window):
+    """The lse the masked wgmma forward writes for the backward: over its
+    walk, a masked score is NEG_INF and a key past T -inf, the row's max and
+    sum run online in log2 units, and a row whose max stayed NEG_INF (every
+    score it met was masked) gets -inf."""
+    B, Hq, S, d = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    G, off, unit = Hq // Hkv, T - S, d ** -0.5 * LOG2E
+    q, k = q.float(), k.float()
+    lse = torch.zeros(B, Hq, S)
+    for b in range(B):
+        row = valid[b].numpy()
+        for q0 in range(0, S, FWD_TILE):
+            nq = min(FWD_TILE, S - q0)
+            p = torch.arange(q0, q0 + nq)[:, None] + off
+            walk = fwd_walk(row, q0, nq, off, causal, window)
+            for h in range(Hq):
+                m, l = torch.full((nq,), NEG_INF), torch.zeros(nq)
+                for t0 in walk:
+                    nt = min(TILE, T - t0)
+                    kp = torch.arange(t0, t0 + nt)[None]
+                    ok = _allowed(p, kp, causal, window) & valid[b, t0:t0 + nt][None]
+                    s = torch.where(ok, (q[b, h, q0:q0 + nq] @ k[b, h // G, t0:t0 + nt].T) * unit,
+                                    NEG_INF)
+                    m_new = torch.maximum(m, s.max(-1).values)
+                    l = l * torch.exp2(m - m_new) + torch.exp2(s - m_new[:, None]).sum(-1)
+                    m = m_new
+                lse[b, h, q0:q0 + nq] = torch.where(m == NEG_INF, -torch.inf, m + torch.log2(l))
+    return lse
 
 
 def dkv_walk(row, t0, off, S, causal, window):
@@ -271,17 +340,21 @@ def _bf16_parts(x, split):
     return [head, (x - head).to(torch.bfloat16).float()] if split else [x]
 
 
-def dq_model(q, k, v, o, dout, valid, causal, window, wgmma):
-    """dq, lse and D from each dq block's walk: pass 1 a row's max and sum
-    over its allowed valid keys (a disallowed pair scores -inf, so a row
-    with none keeps a sum of 0 and lse = -inf), pass 2 dS and dq += dS K.
-    ``wgmma``: the live-tile walk, log2 units, dS split into bf16 parts."""
+def dq_model(q, k, v, o, dout, valid, causal, window, wgmma, lse=None, split=None):
+    """dq, lse and D from each dq block's walk.  The simt pair: pass 1 a
+    row's max and sum over its allowed valid keys (a disallowed pair scores
+    -inf, so a row with none keeps a sum of 0 and lse = -inf), pass 2 dS and
+    dq += dS K.  ``wgmma`` (the live pair): ``lse`` is the forward's (in
+    log2 units), so only the second pass, over the live-tile walk; dS split
+    into bf16 parts unless ``split`` is False."""
+    split = wgmma if split is None else split
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G, off, scale = Hq // Hkv, T - S, d ** -0.5
     unit = scale * LOG2E if wgmma else scale
     exp = torch.exp2 if wgmma else torch.exp
     log = torch.log2 if wgmma else torch.log
+    fwd_lse = lse
     q, k, v, o, dout = (t.float() for t in (q, k, v, o, dout))
     dq = torch.zeros_like(q)
     lse = torch.zeros(B, Hq, S)
@@ -303,11 +376,13 @@ def dq_model(q, k, v, o, dout, valid, causal, window, wgmma):
                     kp = torch.arange(t0, t0 + nt)[None]
                     ok = _allowed(p, kp, causal, window) & valid[b, t0:t0 + nt][None]
                     oks.append(ok)
+                    if wgmma:   # no first pass: lse is the forward's
+                        continue
                     s = torch.where(ok, (qs @ kk[t0:t0 + nt].T) * unit, -torch.inf)
                     m_new = torch.maximum(m, s.max(-1).values)
                     l = l * exp(m - m_new) + exp(s - m_new[:, None]).sum(-1)
                     m = m_new
-                row_lse = m + log(l)
+                row_lse = fwd_lse[b, h, q0:q0 + nq] if wgmma else m + log(l)
                 lse[b, h, q0:q0 + nq] = row_lse
                 acc = torch.zeros(nq, d)
                 for t0, ok in zip(walk, oks):
@@ -315,17 +390,21 @@ def dq_model(q, k, v, o, dout, valid, causal, window, wgmma):
                     s = (qs @ kk[t0:t0 + nt].T) * unit
                     dp = dout[b, h, q0:q0 + nq] @ vv[t0:t0 + nt].T
                     ds = torch.where(ok, exp(s - row_lse[:, None]) * (dp - dl), 0.0)
-                    for part in _bf16_parts(ds, wgmma):
+                    for part in _bf16_parts(ds, split):
                         acc += part @ kk[t0:t0 + nt]
                 dq[b, h, q0:q0 + nq] = acc * scale
     return dq, lse, delta
 
 
-def dkv_model(q, k, v, dout, lse, delta, valid, causal, window, wgmma):
+def dkv_model(q, k, v, dout, lse, delta, valid, causal, window, wgmma, split=None):
     """dk and dv from each dkv block: dv takes the empty rows' term (dO / T
-    summed over the group's rows whose lse is -inf), and the block walks
-    ``dkv_walk``'s query tiles, P = exp(s - lse) and dS on the allowed valid
-    pairs only.  ``wgmma``: log2 units, P and dS split."""
+    summed over the group's rows whose lse is -inf; the live pair, where
+    neither causal nor a window can empty a row, over every row when the
+    list has no live tile and none otherwise, lse unread), and the block
+    walks ``dkv_walk``'s query tiles, P = exp(s - lse) and dS on the allowed
+    valid pairs only.  ``wgmma``: log2 units, P and dS split unless
+    ``split`` is False."""
+    split = wgmma if split is None else split
     B, Hq, S, d = q.shape
     Hkv, T = k.shape[1], k.shape[2]
     G, off, scale = Hq // Hkv, T - S, d ** -0.5
@@ -338,6 +417,8 @@ def dkv_model(q, k, v, dout, lse, delta, valid, causal, window, wgmma):
         for hk in range(Hkv):
             heads = slice(hk * G, hk * G + G)
             empty = torch.isneginf(lse[b, heads])
+            if wgmma and not causal and window is None:   # from the list's count
+                empty = torch.full_like(empty, not live_tiles(row)[1])
             term = torch.where(empty[..., None], dout[b, heads], 0.0).sum(dim=(0, 1)) / T
             for t0 in range(0, T, TILE):
                 nt = min(TILE, T - t0)
@@ -354,22 +435,29 @@ def dkv_model(q, k, v, dout, lse, delta, valid, causal, window, wgmma):
                         dp = do @ v[b, hk, t0:t0 + nt].T
                         pw = torch.where(ok, exp(s - lse[b, h, q0:q0 + nq, None]), 0.0)
                         ds = pw * (dp - delta[b, h, q0:q0 + nq, None])
-                        for part in _bf16_parts(pw.T, wgmma):
+                        for part in _bf16_parts(pw.T, split):
                             dv[b, hk, t0:t0 + nt] += part @ do
-                        for part in _bf16_parts(ds.T, wgmma):
+                        for part in _bf16_parts(ds.T, split):
                             dk[b, hk, t0:t0 + nt] += part @ qs
     return dk * scale, dv
 
 
-def _model_pair(name, wgmma, seed):
+def _model_pair(name, wgmma, seed, dt=None):
+    """The modelled pair's gradients (the simt pair, or with ``wgmma`` the
+    live pair from the forward model's lse) on inputs in ``dt`` (fp32 for
+    simt, bf16 for the live pair unless given; in fp32 the live pair's
+    arithmetic runs unsplit), the plain ones, the lse handed to the dkv
+    kernel and the mask."""
     q, k, v, dout, valid, causal, window = _inputs(name, seed)
-    dt = torch.bfloat16 if wgmma else torch.float32
+    dt = dt or (torch.bfloat16 if wgmma else torch.float32)
+    split = wgmma and dt == torch.bfloat16
     tq, tk, tv, tdo = (torch.from_numpy(a).to(dt) for a in (q, k, v, dout))
     tvalid = torch.from_numpy(valid)
     kw = dict(causal=causal, window=window, key_valid=tvalid)
     o = tref.flash_attention_ref(tq, tk, tv, **kw)
-    dq, lse, delta = dq_model(tq, tk, tv, o, tdo, tvalid, causal, window, wgmma)
-    dk, dv = dkv_model(tq, tk, tv, tdo, lse, delta, tvalid, causal, window, wgmma)
+    fwd_lse = fwd_lse_model(tq, tk, tvalid, causal, window) if wgmma else None
+    dq, lse, delta = dq_model(tq, tk, tv, o, tdo, tvalid, causal, window, wgmma, fwd_lse, split)
+    dk, dv = dkv_model(tq, tk, tv, tdo, lse, delta, tvalid, causal, window, wgmma, split)
     got = [g.to(dt) for g in (dq, dk, dv)]
     return got, tref.flash_attention_bwd_ref(tq, tk, tv, o, tdo, **kw), lse, valid
 
@@ -390,9 +478,43 @@ def test_the_wgmma_masked_pairs_walks_match_the_plain_gradients_in_bf16(name):
 
 
 @pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_gradients_from_the_forwards_lse_match_the_plain_ones(name, dtype):
+    """The live pair's arithmetic with lse from the forward (no first pass)
+    over its live-tile walks: fp32 inputs unsplit at 3e-5, bf16 inputs with
+    P and dS split at (1e-3, 1e-2)."""
+    got, expect, _, _ = _model_pair(name, wgmma=True, seed=7, dt=dtype)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for n, g, e in zip("qkv", got, expect):
+        assert g.dtype == e.dtype == dtype
+        torch.testing.assert_close(g, e, **tol, msg=f"d{n}")
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_the_forwards_saved_lse_is_the_plain_lse(name):
+    """The lse the masked wgmma forward saves for the live pair (its walk:
+    live tiles, or every tile when a row is empty; masked scores at NEG_INF)
+    equals the plain log-sum-exp of the allowed scores in log2 units, with
+    -inf exactly on the rows that have no allowed valid key."""
+    q, k, v, dout, valid, causal, window = _inputs(name, seed=8)
+    tq, tk, tvalid = torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(valid)
+    got = fwd_lse_model(tq, tk, tvalid, causal, window)
+    expect = tref.flash_attention_lse_ref(tq, tk, causal=causal, window=window,
+                                          key_valid=tvalid)
+    B, Hq, S = got.shape
+    has_key = _full_mask(valid, S, causal, window).any(-1)
+    np.testing.assert_array_equal(torch.isneginf(got).numpy(),
+                                  np.broadcast_to(~has_key[:, None], (B, Hq, S)))
+    np.testing.assert_array_equal(torch.isneginf(expect).numpy(), torch.isneginf(got).numpy())
+    fin = torch.isfinite(expect)
+    torch.testing.assert_close(got[fin], expect[fin], **F32_TOL)
+
+
+@pytest.mark.parametrize("name", CASES)
 def test_lse_is_minus_inf_exactly_on_the_rows_with_no_allowed_valid_key(name):
-    """What the dq kernel hands the dkv kernel: lse = -inf marks the empty
-    rows, in both designs, and no other row."""
+    """What the dkv kernel reads: lse = -inf marks the empty rows, in both
+    designs (the simt pair's dq kernel, the live pair's forward), and no
+    other row."""
     B, Hq, Hkv, S = CASES[name][:4]
     for wgmma in (False, True):
         _, _, lse, valid = _model_pair(name, wgmma=wgmma, seed=6)
@@ -404,8 +526,9 @@ def test_lse_is_minus_inf_exactly_on_the_rows_with_no_allowed_valid_key(name):
 @pytest.mark.parametrize("name", CASES)
 def test_each_dq_walk_holds_every_allowed_valid_key_of_its_rows(name):
     """Both dq walks cover every allowed valid key of the block's rows; the
-    wgmma walk takes only live tiles, each once, and the simt walk stays
-    within the row's first and last valid key."""
+    live pair's walk (its segment of the list) takes only live tiles, each
+    once, in order, the live tiles of the union and no other; and the simt
+    walk stays within the row's first and last valid key."""
     B, Hq, Hkv, S, T, d, causal, window, kind = CASES[name]
     valid = _mask(kind, B, T, np.random.default_rng(0))
     allowed = _full_mask(valid, S, causal, window)
@@ -416,6 +539,10 @@ def test_each_dq_walk_holds_every_allowed_valid_key_of_its_rows(name):
             wg = wgmma_dq_walk(valid[b], q0, nq, T - S, causal, window)
             assert all(w for _, w in wg) and [t for t, _ in wg] == sorted({t for t, _ in wg})
             assert {k // TILE * TILE for k in keys} <= {t for t, _ in wg}
+            lo, hi = dq_union(q0, nq, T - S, T, causal, window)
+            assert wg == [(t0, tile_word(valid[b], t0))
+                          for t0 in range(lo // TILE * TILE, hi + 1, TILE)
+                          if tile_word(valid[b], t0)]
             simt = simt_dq_walk(valid[b], q0, nq, T - S, causal, window)
             assert {k // TILE * TILE for k in keys} <= set(simt)
             if valid[b].any() and simt:
@@ -434,9 +561,12 @@ def test_the_dkv_blocks_at_the_phase3_mask():
     assert not any("walk+term" in c for c in blocks)
     assert [c.count("zeros") for c in blocks] == [0, 0, 3, 5, 6, 8, 9, 11]
     assert blocks[1] == ["term"] * 24
-    # and each batch row's dq blocks walk the same live tiles: 150 of 192
+    # and each batch row's dq blocks walk the same live tiles: 150 of 192,
+    # the whole of each row's list; the fully masked row's list is empty,
+    # which is how its dkv blocks know to carry the term without reading lse
     walks = [len(wgmma_dq_walk(valid[b], 0, 64, 1500 - 512, False, None)) for b in range(8)]
     assert walks == [24, 0, 21, 19, 18, 16, 15, 13] and math.ceil(1500 / TILE) == 24
+    assert [live_tiles(valid[b])[2][-1] for b in range(8)] == walks
 
 
 def test_causal_rows_at_negative_positions_take_the_term_not_a_walk():
@@ -455,13 +585,14 @@ def test_causal_rows_at_negative_positions_take_the_term_not_a_walk():
 
 
 def test_bwd_route_under_a_key_mask():
-    assert tflash.bwd_route(torch.bfloat16, True) == "wgmma_masked"
+    assert tflash.bwd_route(torch.bfloat16, True) == "wgmma_live"
     assert tflash.bwd_route(torch.bfloat16, False) == "wgmma"
     for dt in (torch.float32, torch.float16, torch.float64):
         assert tflash.bwd_route(dt, True) == "masked"
         assert tflash.bwd_route(dt) == "simt"
     assert tflash.BWD_PAIRS["masked"] == ("bwd_dq_masked", "bwd_dkv_masked")
     assert tflash.BWD_PAIRS["wgmma_masked"] == ("bwd_dq_wgmma_masked", "bwd_dkv_wgmma_masked")
+    assert tflash.BWD_PAIRS["wgmma_live"] == ("bwd_dq_wgmma_live", "bwd_dkv_wgmma_live")
     assert set(tflash.BWD_LAUNCHES) == {n for pair in tflash.BWD_PAIRS.values() for n in pair}
     assert ops.ROUTE_LAUNCHES["flash_attention_bwd"] is tflash.BWD_LAUNCHES
 

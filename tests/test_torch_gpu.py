@@ -1070,9 +1070,10 @@ def test_every_other_op_refuses_a_gradient_on_the_card(cuda):
 
 # ---------------------------------------------------------------------------
 # The backward of the key-masked routes: the masked pair of each design
-# (bwd_route under a mask: bf16 -> wgmma_masked, fp32 -> masked; the simt
-# masked pair for bf16 too) against the plain version, at the forward's
-# limits; ragged masks with a fully masked row, dead tiles, rows whose valid
+# (bwd_route under a mask: bf16 -> wgmma_live, from the forward's lse; fp32
+# -> masked; for bf16 also the simt masked pair and the previous wgmma
+# masked pair, each on its own entry points) against the plain version, at
+# the forward's limits; ragged masks with a fully masked row, dead tiles, rows whose valid
 # keys lie in their causal future, G 1, 2 and 4, T 1500
 
 MASKED_BWD_CASES = [   # B, Hq, Hkv, S, T, d, causal, win, mask
@@ -1097,8 +1098,8 @@ def _masked_bwd_valid(B, T, kind, gen):
     return _holed_valid(B, T, kind, gen)
 
 
-@pytest.mark.parametrize("dtype,design", [("float32", "masked"), ("bfloat16", "wgmma_masked"),
-                                          ("bfloat16", "masked")])
+@pytest.mark.parametrize("dtype,design", [("float32", "masked"), ("bfloat16", "wgmma_live"),
+                                          ("bfloat16", "wgmma_masked"), ("bfloat16", "masked")])
 @pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win,kind", MASKED_BWD_CASES)
 def test_flash_attention_masked_bwd_kernels(cuda, B, Hq, Hkv, S, T, d, causal, win, kind,
                                             dtype, design):
@@ -1107,11 +1108,17 @@ def test_flash_attention_masked_bwd_kernels(cuda, B, Hq, Hkv, S, T, d, causal, w
     k, v = (_randn(cuda, (B, Hkv, T, d), dt) for _ in range(2))
     valid = _masked_bwd_valid(B, T, kind, cuda)
     kw = dict(causal=causal, window=win, key_valid=valid)
-    o = ref.flash_attention_ref(q, k, v, **kw)
-    fn = (tflash.flash_attention_bwd if tflash.bwd_route(dt, True) == design
-          else tflash.flash_attention_bwd_masked_simt)
+    if design == "wgmma_live":   # the live pair takes the forward's lse
+        o, lse = tflash.flash_attention(q, k, v, return_lse=True, **kw)
+        kw_fn = dict(kw, lse=lse)
+    else:
+        o, kw_fn = ref.flash_attention_ref(q, k, v, **kw), kw
+    fn = {"masked": tflash.flash_attention_bwd_masked_simt,
+          "wgmma_masked": tflash.flash_attention_bwd_wgmma_masked}.get(
+              design, tflash.flash_attention_bwd)
+    assert design != "wgmma_live" or tflash.bwd_route(dt, True) == design
     before = dict(tflash.BWD_LAUNCHES)
-    got = fn(q, k, v, o, dout, **kw)
+    got = fn(q, k, v, o, dout, **kw_fn)
     torch.cuda.synchronize()
     assert tflash.BWD_LAUNCHES == {r: n + (r in tflash.BWD_PAIRS[design])
                                    for r, n in before.items()}
@@ -1119,6 +1126,56 @@ def test_flash_attention_masked_bwd_kernels(cuda, B, Hq, Hkv, S, T, d, causal, w
     for g, e in zip(got, expect):
         assert g.dtype == dt and g.shape == e.shape
         _assert_close(g, e, dtype)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win,kind", MASKED_BWD_CASES)
+def test_flash_attention_masked_forward_lse(cuda, B, Hq, Hkv, S, T, d, causal, win, kind):
+    """The lse the masked wgmma forward writes for the live pair: the plain
+    log-sum-exp of the allowed scores in log2 units, -inf exactly on the rows
+    with no allowed valid key; the output is the one without lse."""
+    q = _randn(cuda, (B, Hq, S, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, Hkv, T, d), torch.bfloat16) for _ in range(2))
+    valid = _masked_bwd_valid(B, T, kind, cuda)
+    kw = dict(causal=causal, window=win, key_valid=valid)
+    out, lse = tflash.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    expect = ref.flash_attention_lse_ref(q, k, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, Hq, S)
+    assert torch.equal(torch.isneginf(lse), torch.isneginf(expect))
+    fin = torch.isfinite(expect)
+    _assert_close_at(lse[fin], expect[fin], (1e-3, 1e-5))
+    assert torch.equal(out, tflash.flash_attention(q, k, v, **kw))
+
+
+def test_tma_kernels_launch_from_a_thread_with_no_cuda_work_yet(cuda):
+    """A thread's first CUDA work may be a TMA kernel's tensor-map encode
+    (a Python thread, or autograd's backward thread when the op's backward
+    is the first node it runs): the encode binds the device's context
+    itself, so the masked forward and the live pair launch there."""
+    import threading
+    B, Hq, Hkv, S, T, d = 2, 4, 2, 128, 300, 64
+    q = _randn(cuda, (B, Hq, S, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, Hkv, T, d), torch.bfloat16) for _ in range(2))
+    dout = _randn(cuda, (B, Hq, S, d), torch.bfloat16)
+    kw = dict(causal=False, key_valid=_key_valid(B, T, [T, 0]))
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            o, lse = tflash.flash_attention(q, k, v, return_lse=True, **kw)
+            got["grads"] = tflash.flash_attention_bwd(q, k, v, o, dout, lse=lse, **kw)
+            got["o"] = o
+            torch.cuda.synchronize()
+        except Exception as exc:   # reported on the test's thread
+            got["error"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in got, got.get("error")
+    for g, e in zip(got["grads"], ref.flash_attention_bwd_ref(q, k, v, got["o"], dout, **kw)):
+        _assert_close(g, e, "bfloat16")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1212,6 +1269,37 @@ def test_moe_gmm_and_the_scans_on_the_card_have_a_grad_fn(cuda, dtype):
         assert ops.moe_gmm(x, w).grad_fn is None
         assert ops.rwkv6_scan(*rw)[0].grad_fn is None
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("design", ["dx", "dx_previous", "dw", "dw_transposed"])
+@pytest.mark.parametrize("case", [(4, 100, 96, 136), (2, 64, 256, 64), (3, 200, 96, 72),
+                                  (2, 100, 64, 64), (2, 300, 200, 264), (2, 13, 128, 320),
+                                  (2, 1, 64, 512)], ids=str)
+def test_moe_gmm_bwd_products_alone(cuda, case, design):
+    """Each product of the backward on its own entry point in bf16, at the
+    bf16 limit: dx and dw on their routes (``wgmma_nt`` and ``wgmma_tn``
+    here, ragged C, an odd count of row tiles and a tail of D or F included)
+    and the previous designs, dx on the forward's wgmma design and dw over a
+    copy of x."""
+    E, C, D, F = case
+    x = _randn(cuda, (E, C, D), torch.bfloat16)
+    w = (_randn(cuda, (E, D, F), torch.float32) * D ** -0.5).to(torch.bfloat16)
+    dy = _randn(cuda, (E, C, F), torch.bfloat16)
+    ex, ew = ref.moe_gmm_bwd_ref(x, w, dy)
+    got = {"dx": lambda: tgmm.moe_gmm_dx(w, dy), "dw": lambda: tgmm.moe_gmm_dw(x, dy),
+           "dx_previous": lambda: tgmm.moe_gmm_dx_previous(w, dy),
+           "dw_transposed": lambda: tgmm.moe_gmm_dw_transposed(x, dy)}[design]()
+    torch.cuda.synchronize()
+    assert design != "dw" or tgmm.bwd_route(torch.bfloat16, C, D, F)[1] == "wgmma_tn"
+    _assert_close(got, ex if design.startswith("dx") else ew, "bfloat16")
+
+
+def test_moe_gmm_backward_design_fits_whole_clusters(cuda):
+    """The backward's persistent grid: at least one two-block cluster, and
+    no more than half the card's SMs, for dw and for dx."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dw in (True, False):
+        assert 1 <= tgmm.tn_clusters(dw) <= sms // 2
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -382,8 +382,12 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                                                           "bwd_dq_masked": 0,
                                                           "bwd_dkv_masked": 0,
                                                           "bwd_dq_wgmma_masked": 0,
-                                                          "bwd_dkv_wgmma_masked": 0},
-                                  "moe_gmm_bwd": {"dx_wgmma_nt": 0, "dx_stream": 0, "dx_wgmma": 0,
+                                                          "bwd_dkv_wgmma_masked": 0,
+                                                          "bwd_dq_wgmma_live": 0,
+                                                          "bwd_dkv_wgmma_live": 0},
+                                  "moe_gmm_bwd": {"dx_wgmma_nt": 0, "dw_wgmma_tn": 0,
+                                                  "dx_wgmma_nt_fwd": 0, "dx_stream": 0,
+                                                  "dx_wgmma": 0,
                                                   "dx_mma_sync": 0, "dw_stream": 0,
                                                   "dw_wgmma": 0, "dw_mma_sync": 0},
                                   "mamba_scan_bwd": {"ckpt": 0},
