@@ -64,10 +64,15 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    with the previous pair (the forward's wgmma design: dx reading w
    transposed, dw over a copy of x) and with ``torch.bmm`` for dx and dw,
    then dx and dw apart, each in turns with its previous design and with
-   its ``bmm``, and the copy of x alone; ``mamba_scan_bwd`` (``ckpt``) and ``rwkv6_scan_bwd``
-   (``rows``) over the scans' sweeps in both dtypes, with and without the
-   state and its cotangent, and at Jamba's B8 S512 di8192 ds16 and RWKV6's
-   B8 T512 H32 hd64, timed beside their forward; a gradient that sums over
+   its ``bmm``, and the copy of x alone; ``mamba_scan_bwd`` and ``rwkv6_scan_bwd``
+   on their ``ring`` routes (``bwd_route``; Mamba's ragged shapes on
+   ``ckpt``), the other spacing of each ring and the previous designs
+   (``ckpt``, ``rows``) over the scans' sweeps in both dtypes, with and
+   without the state and its cotangent, and at Jamba's B8 S512 di8192 ds16
+   and RWKV6's B8 T512 H32 hd64 in fp32 (what the models feed them): each
+   step of the ring design timed in turns with the previous design, one
+   ablation line a step, beside their forward, then the route in turns with
+   the previous design in bf16; a gradient that sums over
    channels, batch rows or time (dB, dC, dA, du, the MoE's dw) held in
    fp32 at ``SUM_REL`` of its largest magnitude, the others at the
    forward's limits, bf16 at the bf16 limit; and the backward of the flash
@@ -422,7 +427,7 @@ NO_FLASH_BWD_ROUTES = {f"bwd_{kernel}{design}": 0 for kernel in ("dq", "dkv")
 NO_BWD_ROUTES = {"moe_gmm_bwd": {"dx_wgmma_nt": 0, "dw_wgmma_tn": 0, "dx_wgmma_nt_fwd": 0,
                                  **{f"{p}_{r}": 0 for p in ("dx", "dw")
                                     for r in ("stream", "wgmma", "mma_sync")}},
-                 "mamba_scan_bwd": {"ckpt": 0}, "rwkv6_scan_bwd": {"rows": 0}}
+                 "mamba_scan_bwd": {"ring": 0, "ckpt": 0}, "rwkv6_scan_bwd": {"ring": 0, "rows": 0}}
 # phase 3: the backward kernels at the training shapes of phase 11d (8 x 512
 # tokens: capacity 1280 for mixtral's 8 experts, 640 for Jamba's 16)
 GMM_BWD_MAIN = {   # E, C, D, F
@@ -1886,18 +1891,42 @@ def main() -> int:
         report(f"moe_gmm_bwd {label}", bwd_times[("moe_gmm_bwd", label)])
         del x, w, dy, got, exp, wt, xt
 
+    # The scans' backward: the route's design (ring at every shape of the
+    # models), its other spacing and the previous design over the sweep in
+    # both dtypes; at phase 11d's shapes each step of the new design timed
+    # in turns with the previous design (one ablation line a step), beside
+    # the forward kernel, in fp32 (what the models feed the scans), then the
+    # route against the previous design in bf16.
     scan_bwd = {
-        "mamba_scan_bwd": dict(fn=_mamba.mamba_scan_bwd, plain=ref.mamba_scan_bwd_ref,
-                               make=mamba_case, sweep=MAMBA_BWD_SWEEP, main=MAMBA_MAIN["prefill"],
-                               route=lambda dt_, case: _mamba.bwd_route(dt_, case[3]),
-                               names=("ddt", "ddtx", "dB", "dC", "dA", "dh0"),
-                               summed=("dB", "dC", "dA"),
-                               replaces="src/repro/kernels/mamba_scan.py:64"),
-        "rwkv6_scan_bwd": dict(fn=_rwkv.rwkv6_scan_bwd, plain=ref.rwkv6_scan_bwd_ref,
-                               make=rwkv_case, sweep=RWKV_SWEEP, main=RWKV_MAIN["prefill"],
-                               route=lambda dt_, case: _rwkv.bwd_route(dt_, case[3]),
-                               names=("dr", "dk", "dv", "dw", "du", "dS0"), summed=("du",),
-                               replaces="src/repro/kernels/rwkv6_scan.py:58"),
+        "mamba_scan_bwd": dict(
+            fn=_mamba.mamba_scan_bwd, plain=ref.mamba_scan_bwd_ref,
+            make=mamba_case, sweep=MAMBA_BWD_SWEEP, main=MAMBA_MAIN["prefill"],
+            route=lambda dt_, case: _mamba.bwd_route(dt_, case[3], case[2]),
+            previous=("ckpt", _mamba.mamba_scan_bwd_ckpt),
+            other=("ring, chunks of 16", lambda *a: _mamba.mamba_scan_bwd_ring(*a, chunk=16)),
+            steps=(("ckpt, the previous design", _mamba.mamba_scan_bwd_ckpt),
+                   ("ring alone: TMA ring, chunks of 16, one block an SM, a_t taken again",
+                    lambda *a: _mamba.mamba_scan_bwd_ring(*a, chunk=16, reuse=False)),
+                   ("+ a_t kept from the recompute",
+                    lambda *a: _mamba.mamba_scan_bwd_ring(*a, chunk=16)),
+                   ("+ chunks of 8, two blocks an SM, without a_t kept",
+                    lambda *a: _mamba.mamba_scan_bwd_ring(*a, chunk=8, reuse=False)),
+                   ("+ chunks of 8 with a_t kept: the route", _mamba.mamba_scan_bwd)),
+            names=("ddt", "ddtx", "dB", "dC", "dA", "dh0"), summed=("dB", "dC", "dA"),
+            replaces="src/repro/kernels/mamba_scan.py:64"),
+        "rwkv6_scan_bwd": dict(
+            fn=_rwkv.rwkv6_scan_bwd, plain=ref.rwkv6_scan_bwd_ref,
+            make=rwkv_case, sweep=RWKV_SWEEP, main=RWKV_MAIN["prefill"],
+            route=lambda dt_, case: _rwkv.bwd_route(dt_, case[3]),
+            previous=("rows", _rwkv.rwkv6_scan_bwd_rows),
+            other=("ring, checkpoints every 4", lambda *a: _rwkv.rwkv6_scan_bwd_ring(*a, chunk=4)),
+            steps=(("rows, the previous design", _rwkv.rwkv6_scan_bwd_rows),
+                   ("ring alone (TMA ring, 8 lanes a row, dr in the walk back), checkpoints "
+                    "every 4 steps, one level", lambda *a: _rwkv.rwkv6_scan_bwd_ring(*a, chunk=4)),
+                   ("+ checkpoints every 16 steps, two-level recompute: the route",
+                    _rwkv.rwkv6_scan_bwd)),
+            names=("dr", "dk", "dv", "dw", "du", "dS0"), summed=("du",),
+            replaces="src/repro/kernels/rwkv6_scan.py:58"),
     }
 
     def bwd_args(kd, case, dt_, with_state):
@@ -1907,30 +1936,55 @@ def main() -> int:
         return (*args, randn(*out_shape, dtype=dt_),
                 None if last is None else randn(*last, dtype=torch.float32))
 
+    def time_steps(fns, args, iters):
+        """Launch times of each design of ``fns`` (label -> fn), in turns:
+        in order, then in reverse, ``iters`` launches a turn."""
+        ts = {label: [] for label, _ in fns}
+        for label, fn in list(fns) + list(reversed(fns)):
+            ts[label] += launch_times_ms(torch, lambda: fn(*args), iters, flush)
+        return ts
+
     for name, kd in scan_bwd.items():
+        prev_label, prev_fn = kd["previous"]
+        other_label, other_fn = kd["other"]
         for case in kd["sweep"]:
             for dname, dt_ in dtypes.items():
                 args = bwd_args(kd, case, dt_, case[4])
-                got = kd["fn"](*args)
-                torch.cuda.synchronize()
                 exp = dict(zip(kd["names"], kd["plain"](*args)))
-                errs = check_grads(f"{name}{case} {dname}", got, exp, dname,
-                                   SCAN_TOL["float32"], kd["summed"])
-                print(f"  {name} {case} {dname}, {kd['route'](dt_, case)} design: max |diff| "
-                      f"{errs}")
+                design = kd["route"](dt_, case)
+                runs = [(design, kd["fn"]), (prev_label, prev_fn)]
+                if design == "ring":
+                    runs.append((other_label, other_fn))
+                for label, fn in runs:
+                    got = fn(*args)
+                    torch.cuda.synchronize()
+                    errs = check_grads(f"{name}{case} {dname} {label}", got, exp, dname,
+                                       SCAN_TOL["float32"], kd["summed"])
+                    print(f"  {name} {case} {dname}, {label}{' (the route)' if label == design else ''}: "
+                          f"max |diff| {errs}")
         shape = kd["main"]
+        if kd["route"](torch.float32, shape) != "ring" or kd["route"](torch.bfloat16, shape) != "ring":
+            raise AssertionError(f"{name}: 11d's shape {shape} does not route to ring")
         args = bwd_args(kd, shape, torch.float32, False)
+        plain = kd["plain"](*args)
+        exp = dict(zip(kd["names"], plain))
         got = kd["fn"](*args)
-        exp = dict(zip(kd["names"], kd["plain"](*args)))
         errs = check_grads(f"{name} {shape}", got, exp, "float32", SCAN_TOL["float32"],
                            kd["summed"])
+        for label, fn in kd["steps"]:
+            check_grads(f"{name} {shape} {label}", fn(*args), exp, "float32", SCAN_TOL["float32"],
+                        kd["summed"])
         fwd = kd["make"](*shape, torch.float32, False)
         fwd_ts = launch_times_ms(torch, lambda: (ops.mamba_scan if name == "mamba_scan_bwd"
                                                  else ops.rwkv6_scan)(*fwd), 10, flush)
-        ts = launch_times_ms(torch, lambda: kd["fn"](*args), 10, flush)
-        print(f"  {name} {shape} float32, {kd['route'](torch.float32, shape)} design: "
-              f"{spread(ts)}, max |diff| {errs}; the forward kernel on the same inputs "
+        step_ts = time_steps(kd["steps"], args, 10)
+        route_label = next(label for label, fn in kd["steps"] if fn is kd["fn"])
+        ts, old = step_ts[route_label], step_ts[kd["steps"][0][0]]
+        print(f"  {name} {shape} float32, ring design: {spread(ts)}, max |diff| {errs}; "
+              f"{prev_label} in turns {spread(old)}; the forward kernel on the same inputs "
               f"{spread(fwd_ts)}")
+        for label, _ in kd["steps"]:
+            print(f"  ablation {name} {shape} float32: {label}: {spread(step_ts[label])}")
         B, S = shape[:2]
         if name == "mamba_scan_bwd":
             n_exp = B * S * shape[2] * shape[3]
@@ -1942,18 +1996,28 @@ def main() -> int:
             flop = 10 * B * S * H * hd * hd
             ops_desc, ops_ms = f"{flop} fp32 FLOP", 1e3 * flop / fp32_flops
         bwd_times[(name, "train")] = dict(
-            err=max(float((g.float() - e.float()).abs().max()) for g, e in zip(got, exp.values())),
-            ms=statistics.fmean(ts),
+            err=max(float((g.float() - e.float()).abs().max()) for g, e in zip(got, plain)),
+            ms=statistics.fmean(ts), previous_ms=statistics.fmean(old),
             plain_ms=time_ms(torch, lambda: kd["plain"](*args), 2, flush),
             library_ms=None,        # no PyTorch call computes either backward
             bytes=sum(t.numel() * t.element_size() for t in (*args, *got) if t is not None),
             ops=ops_desc, ops_ms=ops_ms, replaces=kd["replaces"],
             source=f"src/repro_torch/csrc/{name[:-4]}.cu",
-            note=f"the backward of {name[:-4]} ({kd['route'](torch.float32, shape)} design); "
-                 "the JAX package differentiates its chunked linear_scan_emit; launches: phase "
-                 "11d's training")
+            note=f"the backward of {name[:-4]} (ring design; previous_ms: the {prev_label} "
+                 f"design, in turns); the JAX package differentiates its chunked "
+                 f"linear_scan_emit; launches: phase 11d's training")
         report(f"{name} {shape}", bwd_times[(name, "train")])
-        del args, got, exp, fwd
+        del args, got, exp, plain, fwd
+        # bf16 at the same shape: the route against the plain version and
+        # timed in turns with the previous design
+        args = bwd_args(kd, shape, torch.bfloat16, False)
+        exp = dict(zip(kd["names"], kd["plain"](*args)))
+        errs = check_grads(f"{name} {shape} bfloat16", kd["fn"](*args), exp, "bfloat16",
+                           SCAN_TOL["float32"], kd["summed"])
+        old, ts = in_turns(torch, lambda: prev_fn(*args), lambda: kd["fn"](*args), 10, flush)
+        print(f"  {name} {shape} bfloat16, ring design: {spread(ts)}, max |diff| {errs}; "
+              f"{prev_label} in turns {spread(old)}")
+        del args, exp
     records["moe_gmm_bwd"] = bwd_times[("moe_gmm_bwd", "mixtral gate/up")]
     records["mamba_scan_bwd"] = bwd_times[("mamba_scan_bwd", "train")]
     records["rwkv6_scan_bwd"] = bwd_times[("rwkv6_scan_bwd", "train")]
@@ -2771,7 +2835,8 @@ def main() -> int:
         if n["mamba"]:
             ds = cfg.mamba.d_state
             expect["mamba_scan"] = {_mamba.route(torch.float32, ds): 2 * n["mamba"] * steps}
-            expect["mamba_scan_bwd"] = {_mamba.bwd_route(torch.float32, ds): n["mamba"] * steps}
+            di = cfg.mamba.d_inner(cfg.d_model)
+            expect["mamba_scan_bwd"] = {_mamba.bwd_route(torch.float32, ds, di): n["mamba"] * steps}
         if n["rwkv"]:
             hd = cfg.rwkv.head_size
             expect["rwkv6_scan"] = {_rwkv.route(torch.float32, hd): 2 * n["rwkv"] * steps}
@@ -3107,9 +3172,11 @@ def main() -> int:
     bwd_ops = ("moe_gmm_bwd", "mamba_scan_bwd", "rwkv6_scan_bwd")
     family_launches = collections.Counter()
     # profiler keys by what they run (re.search, the first that matches)
-    kernel_tags = (("mamba_scan_bwd_kernel", "mamba_scan_bwd"),
+    kernel_tags = (("mamba_scan_bwd_ring_kernel", "mamba_scan_bwd (ring)"),
+                   ("mamba_scan_bwd_kernel", "mamba_scan_bwd (ckpt)"),
                    ("mamba_scan_bwd_sum_kernel", "mamba_scan_bwd (sums)"),
-                   ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd"),
+                   ("rwkv6_scan_bwd_ring_kernel", "rwkv6_scan_bwd (ring)"),
+                   ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd (rows)"),
                    ("rwkv6_scan_bwd_sum_kernel", "rwkv6_scan_bwd (sums)"),
                    (r"moe_gmm_tn_kernel<true", "moe_gmm dw (backward, wgmma_tn)"),
                    (r"moe_gmm_tn_kernel<false", "moe_gmm dx (backward, wgmma_nt)"),

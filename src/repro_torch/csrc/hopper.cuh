@@ -305,6 +305,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Orders this thread's earlier writes to global memory before later reads
+// of it by the async proxy (a bulk copy issued after a barrier).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -412,6 +418,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xFFFF0000u));
 }
+
+// A compile-time flag for a generic lambda's argument: a chunk of full
+// length, whose unrolled steps then need no bound check, so that no branch
+// stands between them and the compiler may interleave them.
+template <bool B>
+struct Full {
+  static constexpr bool value = B;
+};
 
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;

@@ -3,8 +3,9 @@
 //     h_t[n] = exp(dt_t * A[c, n]) * h_{t-1}[n] + dtx_t * B_t[n],
 //     y_t    = sum_n h_t[n] * C_t[n],
 // from an initial state h0 (zeros when none is given), returning y and the
-// last state; and its backward (entry mamba_scan_bwd, noted where it
-// begins, below the two forward designs).
+// last state; and its backward in two designs (entries mamba_scan_bwd_ring,
+// the route, and mamba_scan_bwd, noted where they begin, below the two
+// forward designs).
 //
 // Replaces the Pallas kernel `mamba_scan` (body `_scan_kernel`) in
 // src/repro/kernels/mamba_scan.py.  Plain version:
@@ -737,6 +738,358 @@ cudaError_t launch(const void* dt, const void* dtx, const void* Bm, const void* 
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// The ring design of the backward (entry mamba_scan_bwd_ring), the route
+// where the rows are 16-byte aligned (di and ds times the element size
+// multiples of 16: every model shape); ckpt takes the others.
+//
+// What held `ckpt` back: expf three times per (channel, state, step) (the
+// forward walk, the recompute, the walk back), most of its issue; each
+// chunk staged through registers between two barriers, with the checkpoint
+// read waiting behind it, in about 4 waves of 2 blocks an SM.
+//
+// What this design does: ckpt's threads (4 lanes a channel, 4 state values
+// each, 64 channels a block of 256 threads) and its sums (ddt and ddtx over
+// a channel's lanes, dC and dB by the halving shuffles over a warp's 8
+// channels, then the warps in order into per-block partials, dA per batch
+// row; the same second kernel).
+// - A ring of 3 stages, each a chunk of K steps: one TMA box each of dt,
+//   dtx and dy (the block's 64 channels for K steps; past di zeros), one
+//   bulk copy per run of B_t and C_t, and one of the chunk's checkpoint (its
+//   64 channels' states, 4 KB), issued by one thread two chunks ahead, in
+//   time order for the forward walk (dt, dtx and B_t only) and in reverse
+//   for the walk back, counted on the stage's mbarrier, whose wait traps
+//   after 2^26 polls.  (A bulk copy per 256-byte row instead, 27 a chunk,
+//   left the copy engine behind: the forward walk alone ran 35 % slower than
+//   ckpt's.)  A landed chunk's B_t and C_t are widened to fp32 once, into
+//   one of two buffers, not at every read by every lane.  One block-wide
+//   barrier a chunk: each chunk's dC and dB partials are double-buffered and
+//   added after the next chunk's barrier; ddt and ddtx are stored from
+//   registers.
+// - The recompute takes a_t = expf(dt_t A) once and keeps it in shared
+//   memory beside h_{t-1}, so the walk back takes none: two exponentials a
+//   (channel, state, step), not three.  h_t for dC is the state the walk
+//   back held a step before.  expf stays: the forward's ex2.approx of a
+//   prescaled A put ddtx 5.5e-4 past the limit (lambda sums over up to S
+//   steps).
+// - K = 8, the route (checkpoints 268 MB each way at Jamba's training shape,
+//   h_{t-1} and a_t 64 KB: two blocks of 8 warps an SM), or K = 16 (134 MB,
+//   128 KB: one block an SM, too few warps to cover the exponentials'
+//   latency); both reachable through the entry, and without the reuse of
+//   a_t, for timing.  A full chunk's steps are unrolled with no bound check
+//   between them, in the three walks.
+
+namespace ring {
+
+constexpr int kStages = 3;  // the chunk walked, two in flight
+
+using bwd::kChannels;
+using bwd::kThreads;
+using bwd::kWarps;
+using bwd::kSlots;
+using bwd::kFull;
+
+template <typename T, int K>
+struct Smem {
+  alignas(128) T dt[kStages][K][kChannels];   // TMA boxes: 64 channels x K steps
+  alignas(128) T dtx[kStages][K][kChannels];
+  alignas(128) T dy[kStages][K][kChannels];
+  alignas(16) T bm[kStages][K * 16];   // a chunk's B_t, ds values a step
+  alignas(16) T cm[kStages][K * 16];   // and C_t
+  alignas(16) float4 ck[kStages][kThreads];  // the chunk's checkpoint: a thread's 4 values
+  alignas(16) float fb[2][K * 16], fc[2][K * 16];  // B_t and C_t in fp32, by chunk
+  alignas(16) float4 hist[K - 1][kThreads];  // h_{t-1} at the chunk's steps 1 .. K - 1
+  alignas(16) float4 av[K][kThreads];        // a_t = exp(dt_t A) at each step
+  alignas(16) float red[2][K][kWarps][kSlots];  // each warp's sums of dC and dB, by chunk
+  uint64_t full[kStages];
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) { return lanes::load4(p); }
+
+// Block (64 channels, batch row); thread tid is lane q = tid % 4 of channel
+// c0 + tid / 4 and holds its states 4q .. 4q + 3 (a lane past ds holds zeros).
+template <typename T, int K, bool REUSE>
+__global__ void __launch_bounds__(kThreads, K >= 16 ? 1 : 2)
+mamba_scan_bwd_ring_kernel(const __grid_constant__ CUtensorMap tm_dt,
+                           const __grid_constant__ CUtensorMap tm_dtx,
+                           const __grid_constant__ CUtensorMap tm_dy,
+                           const T* __restrict__ Bm, const T* __restrict__ Cm,
+                           const T* __restrict__ A, const float* __restrict__ h0,
+                           const float* __restrict__ dh_last, float* __restrict__ ckpt,
+                           float* __restrict__ bc_part, float* __restrict__ dA_part,
+                           T* __restrict__ ddt, T* __restrict__ ddtx, float* __restrict__ dh0,
+                           int S, int di, int ds) {
+  using Sm = Smem<T, K>;
+  // no static shared memory: the dynamic block starts at the window, aligned for TMA
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+  const int tid = threadIdx.x, q = tid & 3, g = tid >> 2, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, c0 = blockIdx.x * kChannels, c = c0 + g;
+  const bool live = c < di, on = live && 4 * q < ds;
+  const long long row0 = (long long)b * S;
+  const int n_ck = (S + K - 1) / K;
+  const uint32_t ck_bytes = min(kChannels, di - c0) * 16 * 4;  // a chunk's checkpoint
+  // chunk j's checkpoint of the block's channels: ck_g + j * ck_stride
+  float* ck_g = ckpt + ((long long)b * n_ck * di + c0) * 16;
+  const long long ck_stride = (long long)di * 16;
+
+  // Chunk j into stage `use` % kStages (one thread): a TMA box of dt, dtx
+  // (and dy) each, the block's 64 channels for K steps (past the tensor's
+  // end zeros, which count too), a bulk copy of the run of B_t (and C_t)
+  // and, walking back, one of the checkpoint, all counted on the stage's
+  // barrier.
+  auto fill = [&](int use, int j, bool back) {
+    const int st = use % kStages, t0 = j * K, steps = min(K, S - t0);
+    const int rw = (int)(row0 + t0);
+    const uint32_t run = steps * ds * sizeof(T), box = K * kChannels * sizeof(T);
+    hopper::mbar_arrive_expect_tx(&sm.full[st], back ? 3 * box + 2 * run + ck_bytes : 2 * box + run);
+    hopper::tma_load_3d(sm.dt[st], &tm_dt, &sm.full[st], c0, rw, 0);
+    hopper::tma_load_3d(sm.dtx[st], &tm_dtx, &sm.full[st], c0, rw, 0);
+    hopper::bulk_load(sm.bm[st], Bm + (row0 + t0) * ds, run, &sm.full[st]);
+    if (back) {
+      hopper::tma_load_3d(sm.dy[st], &tm_dy, &sm.full[st], c0, rw, 0);
+      hopper::bulk_load(sm.cm[st], Cm + (row0 + t0) * ds, run, &sm.full[st]);
+      hopper::bulk_load(sm.ck[st], ck_g + j * ck_stride, ck_bytes, &sm.full[st]);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&sm.full[st], 1);
+    hopper::mbar_fence_init();
+    for (int j = 0; j < kStages - 1 && j < n_ck; ++j) fill(j, j, false);
+  }
+  __syncthreads();  // the barriers are set up before anyone waits on them
+
+  float Av[4] = {0.f, 0.f, 0.f, 0.f}, h[4] = {0.f, 0.f, 0.f, 0.f};
+  const long long state = ((long long)b * di + c) * ds + 4 * q;
+  if (on) {
+    const float4 a4 = ld4(A + (long long)c * ds + 4 * q);
+    Av[0] = a4.x, Av[1] = a4.y, Av[2] = a4.z, Av[3] = a4.w;
+    if (h0 != nullptr) {
+      const float4 v = ld4(h0 + state);
+      h[0] = v.x, h[1] = v.y, h[2] = v.z, h[3] = v.w;
+    }
+  }
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // A landed chunk's B_t (and C_t) once into fp32, into buffer `buf`: the
+  // chunk two back used it, and everyone passed a barrier since.
+  auto widen = [&](int st, int buf, int steps, bool back) {
+    for (int e = tid; e < steps * ds; e += kThreads) {
+      sm.fb[buf][e] = lanes::to_f(sm.bm[st][e]);
+      if (back) sm.fc[buf][e] = lanes::to_f(sm.cm[st][e]);
+    }
+  };
+
+  // the forward walk: the state at the start of every chunk
+  for (int j = 0; j < n_ck; ++j) {
+    const int st = j % kStages, steps = min(K, S - j * K);
+    hopper::mbar_wait(&sm.full[st], (j / kStages) & 1);
+    widen(st, j & 1, steps, false);
+    __syncthreads();  // everyone is done with chunk j - 1, whose stage is refilled
+    if (tid == 0 && j + kStages - 1 < n_ck) fill(j + kStages - 1, j + kStages - 1, false);
+    if (live) reinterpret_cast<float4*>(ck_g + j * ck_stride)[tid] = make_float4(h[0], h[1], h[2], h[3]);
+    auto advance = [&](auto full) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        if constexpr (!decltype(full)::value)
+          if (s >= steps) break;
+        const float d = live ? lanes::to_f(sm.dt[st][s][g]) : 0.f;
+        const float x = live ? lanes::to_f(sm.dtx[st][s][g]) : 0.f;
+        const float4 bq = on ? ld4(&sm.fb[j & 1][s * ds + 4 * q]) : zero;
+        const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) h[n] = fmaf(expf(d * Av[n]), h[n], x * bv[n]);
+      }
+    };
+    if (steps == K) advance(hopper::Full<true>{});
+    else advance(hopper::Full<false>{});
+  }
+  hopper::fence_proxy_async_global();  // the checkpoints, before bulk copies read them
+  __syncthreads();
+  if (tid == 0) {
+    fill(n_ck, n_ck - 1, true);
+    if (n_ck > 1) fill(n_ck + 1, n_ck - 2, true);
+  }
+
+  // the walk back
+  float carry[4] = {0.f, 0.f, 0.f, 0.f}, dA[4] = {0.f, 0.f, 0.f, 0.f};
+  if (on && dh_last != nullptr) {
+    const float4 v = ld4(dh_last + state);
+    carry[0] = v.x, carry[1] = v.y, carry[2] = v.z, carry[3] = v.w;
+  }
+  // the block's partial of dC and dB at each step of a walked chunk: the
+  // warps' sums in order
+  auto sum_bc = [&](int buf, int t0, int steps) {
+    for (int e = tid; e < steps * kSlots; e += kThreads) {
+      const int s = e / kSlots, kk = e - s * kSlots, qq = kk >> 3, gp = kk & 7;
+      float acc = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) acc += sm.red[buf][s][w][kk];
+      bc_part[(((long long)b * gridDim.x + blockIdx.x) * S + t0 + s) * kSlots + (gp >> 2) * 16 +
+              4 * qq + (gp & 3)] = acc;
+    }
+  };
+  for (int qc = 0; qc < n_ck; ++qc) {
+    const int j = n_ck - 1 - qc, use = n_ck + qc, st = use % kStages;
+    const int t0 = j * K, steps = min(K, S - t0), buf = qc & 1;
+    hopper::mbar_wait(&sm.full[st], (use / kStages) & 1);
+    widen(st, use & 1, steps, true);
+    // everyone is done with chunk qc - 1: its stage is refilled and its
+    // partials added
+    __syncthreads();
+    if (tid == 0 && qc + kStages - 1 < n_ck) fill(use + kStages - 1, j - (kStages - 1), true);
+    if (qc > 0) sum_bc(buf ^ 1, t0 + K, min(K, S - t0 - K));
+    // the chunk's states again: h_{t-1} and a_t of each step
+    float4 hp = live ? sm.ck[st][tid] : zero;
+    const float4 first = hp;
+    auto recompute = [&](auto full) {
+#pragma unroll
+      for (int s = 0; s < K; ++s) {
+        if constexpr (!decltype(full)::value)
+          if (s >= steps) break;
+        if (s > 0) sm.hist[s - 1][tid] = hp;
+        const float d = live ? lanes::to_f(sm.dt[st][s][g]) : 0.f;
+        const float x = live ? lanes::to_f(sm.dtx[st][s][g]) : 0.f;
+        const float4 bq = on ? ld4(&sm.fb[use & 1][s * ds + 4 * q]) : zero;
+        const float4 a = make_float4(expf(d * Av[0]), expf(d * Av[1]), expf(d * Av[2]),
+                                     expf(d * Av[3]));
+        if constexpr (REUSE) sm.av[s][tid] = a;
+        hp = make_float4(fmaf(a.x, hp.x, x * bq.x), fmaf(a.y, hp.y, x * bq.y),
+                         fmaf(a.z, hp.z, x * bq.z), fmaf(a.w, hp.w, x * bq.w));
+      }
+    };
+    if (steps == K) recompute(hopper::Full<true>{});
+    else recompute(hopper::Full<false>{});
+    float hn[4] = {hp.x, hp.y, hp.z, hp.w};  // h_t of the step walked
+    // the walk back: unrolled without a bound check on a full chunk (no
+    // branch between the steps, so the compiler may interleave them)
+    auto walk = [&](auto full) {
+#pragma unroll
+    for (int s = K - 1; s >= 0; --s) {
+      if constexpr (!decltype(full)::value)
+        if (s >= steps) continue;
+      const float4 hv = s > 0 ? sm.hist[s > 0 ? s - 1 : 0][tid] : first;
+      const float d = live ? lanes::to_f(sm.dt[st][s][g]) : 0.f;
+      const float x = live ? lanes::to_f(sm.dtx[st][s][g]) : 0.f;
+      const float gy = live ? lanes::to_f(sm.dy[st][s][g]) : 0.f;
+      const float4 bq = on ? ld4(&sm.fb[use & 1][s * ds + 4 * q]) : zero;
+      const float4 cq = on ? ld4(&sm.fc[use & 1][s * ds + 4 * q]) : zero;
+      float4 a4;
+      if constexpr (REUSE) a4 = sm.av[s][tid];
+      else a4 = make_float4(expf(d * Av[0]), expf(d * Av[1]), expf(d * Av[2]), expf(d * Av[3]));
+      const float hpv[4] = {hv.x, hv.y, hv.z, hv.w}, ev[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w}, cv[4] = {cq.x, cq.y, cq.z, cq.w};
+      float p_dtx = 0.f, p_dt = 0.f, v8[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float lam = fmaf(gy, cv[i], carry[i]);
+        const float qq = lam * hpv[i] * ev[i];
+        p_dtx = fmaf(lam, bv[i], p_dtx);
+        p_dt = fmaf(qq, Av[i], p_dt);
+        dA[i] = fmaf(qq, d, dA[i]);
+        carry[i] = ev[i] * lam;
+        v8[i] = gy * hn[i];   // dy_t h_t, towards dC
+        v8[4 + i] = lam * x;  // lambda_t dtx_t, towards dB
+        hn[i] = hpv[i];
+      }
+      {  // ddtx (lanes 0, 1) and ddt (lanes 2, 3) over the channel's 4 lanes
+        const bool hi = q & 2;
+        float t = (hi ? p_dt : p_dtx) + __shfl_xor_sync(kFull, hi ? p_dtx : p_dt, 2);
+        t += __shfl_xor_sync(kFull, t, 1);
+        const long long off = (row0 + t0 + s) * di + c;
+        if (live && q == 0) store(ddtx + off, t);
+        if (live && q == 2) store(ddt + off, t);
+      }
+      // dC and dB over the warp's 8 channels, as ckpt
+#pragma unroll
+      for (int m = 16, n = 8; m >= 4; m /= 2, n /= 2) {
+        const bool hi = lane & m;
+#pragma unroll
+        for (int k = 0; k < n / 2; ++k) {
+          const float send = hi ? v8[k] : v8[k + n / 2];
+          const float keep = hi ? v8[k + n / 2] : v8[k];
+          v8[k] = keep + __shfl_xor_sync(kFull, send, m);
+        }
+      }
+      sm.red[buf][s][warp][q * 8 + (lane >> 2)] = v8[0];
+    }
+    };
+    if (steps == K) walk(hopper::Full<true>{});
+    else walk(hopper::Full<false>{});
+  }
+  __syncthreads();
+  sum_bc((n_ck - 1) & 1, 0, min(K, S));
+  if (on) {
+    *reinterpret_cast<float4*>(dA_part + state) = make_float4(dA[0], dA[1], dA[2], dA[3]);
+    if (dh0 != nullptr)
+      *reinterpret_cast<float4*>(dh0 + state) = make_float4(carry[0], carry[1], carry[2], carry[3]);
+  }
+}
+
+template <typename T, int K>
+constexpr int smem_bytes() { return (int)sizeof(Smem<T, K>); }
+
+template <typename T, int K, bool REUSE>
+cudaError_t launch(const void* dt, const void* dtx, const void* Bm, const void* Cm,
+                   const void* A, const void* h0, const void* dy, const void* dh_last,
+                   void* ckpt, void* bc_part, void* dA_part, void* ddt, void* ddtx, void* dB,
+                   void* dC, void* dA, void* dh0, int B, int S, int di, int ds,
+                   cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<T, K>();
+  static const cudaError_t set = cudaFuncSetAttribute(
+      mamba_scan_bwd_ring_kernel<T, K, REUSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (set != cudaSuccess) return set;
+  const dim3 grid((di + kChannels - 1) / kChannels, B);
+  // each (B * S, di) tensor in boxes of 64 channels for K steps
+  CUtensorMap maps[3];
+  const void* bases[3] = {dt, dtx, dy};
+  for (int n = 0; n < 3; ++n)
+    if (!hopper::encode_3d(&maps[n], sizeof(T), bases[n], di, (uint64_t)B * S, 1, di,
+                           (uint64_t)B * S * di, kChannels, K, 1, 0))
+      return cudaErrorInvalidValue;
+  mamba_scan_bwd_ring_kernel<T, K, REUSE><<<grid, kThreads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<const T*>(Bm), static_cast<const T*>(Cm),
+      static_cast<const T*>(A), static_cast<const float*>(h0),
+      static_cast<const float*>(dh_last), static_cast<float*>(ckpt),
+      static_cast<float*>(bc_part), static_cast<float*>(dA_part), static_cast<T*>(ddt),
+      static_cast<T*>(ddtx), static_cast<float*>(dh0), S, di, ds);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long total = 2LL * B * S * ds + (long long)di * ds;
+  const int blocks = (int)((total + 255) / 256 < 1056 ? (total + 255) / 256 : 1056);
+  bwd::mamba_scan_bwd_sum_kernel<T><<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(bc_part), static_cast<const float*>(dA_part),
+      static_cast<T*>(dB), static_cast<T*>(dC), static_cast<T*>(dA), B, S, di, ds, grid.x);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_design(const void* dt, const void* dtx, const void* Bm, const void* Cm,
+                          const void* A, const void* h0, const void* dy, const void* dh_last,
+                          void* ckpt, void* bc_part, void* dA_part, void* ddt, void* ddtx,
+                          void* dB, void* dC, void* dA, void* dh0, int B, int S, int di, int ds,
+                          int chunk, int reuse, cudaStream_t s) {
+  if (chunk == 16 && reuse)
+    return launch<T, 16, true>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt, bc_part, dA_part, ddt,
+                               ddtx, dB, dC, dA, dh0, B, S, di, ds, s);
+  if (chunk == 16)
+    return launch<T, 16, false>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt, bc_part, dA_part, ddt,
+                                ddtx, dB, dC, dA, dh0, B, S, di, ds, s);
+  if (chunk == 8 && reuse)
+    return launch<T, 8, true>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt, bc_part, dA_part, ddt,
+                              ddtx, dB, dC, dA, dh0, B, S, di, ds, s);
+  if (chunk == 8)
+    return launch<T, 8, false>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt, bc_part, dA_part, ddt,
+                               ddtx, dB, dC, dA, dh0, B, S, di, ds, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace ring
+
 }  // namespace
 
 // dt, dtx, y (B, S, di); Bm, Cm (B, S, ds); A (di, ds), contiguous on the
@@ -777,7 +1130,7 @@ extern "C" int mamba_scan_lanes_smem_bytes(int dtype) {
   return dtype == 0 ? (int)sizeof(lanes::Smem<float>) : (int)sizeof(lanes::Smem<__nv_bfloat16>);
 }
 
-// The backward: dt, dtx, Bm, Cm, A as for the forward, h0 (B, di, ds) fp32 or
+// The backward, the ckpt design: dt, dtx, Bm, Cm, A as for the forward, h0 (B, di, ds) fp32 or
 // null for zeros, dy (B, S, di) in the input type, dh_last (B, di, ds) fp32 or
 // null for zeros; scratch: ckpt (B, ceil(S / 16), di, 16), bc_part (B,
 // ceil(di / 64), S, 32) and dA_part (B, di, ds), fp32; out: ddt, ddtx (B, S,
@@ -798,4 +1151,39 @@ extern "C" int mamba_scan_bwd(const void* dt, const void* dtx, const void* Bm, c
     return (int)bwd::launch<__nv_bfloat16>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt, bc_part,
                                            dA_part, ddt, ddtx, dB, dC, dA, dh0, B, S, di, ds, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward, the ring design: the same arguments, with ckpt (B, ceil(S /
+// chunk), di, 16); chunk 8 or 16 (steps between checkpoints), reuse 1 to keep
+// a_t from the recompute for the walk back (the route: chunk 8, reuse 1), 0
+// to take it again there.  Rows 16-byte aligned: di and ds times the element
+// size multiples of 16.  Returns cudaGetLastError() after the two launches (0
+// on success).
+extern "C" int mamba_scan_bwd_ring(const void* dt, const void* dtx, const void* Bm,
+                                   const void* Cm, const void* A, const void* h0, const void* dy,
+                                   const void* dh_last, void* ckpt, void* bc_part, void* dA_part,
+                                   void* ddt, void* ddtx, void* dB, void* dC, void* dA, void* dh0,
+                                   int B, int S, int di, int ds, int dtype, int chunk, int reuse,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int size = dtype == 0 ? 4 : 2;
+  if (ds < 1 || ds > 16 || (di * size) % 16 || (ds * size) % 16) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)ring::launch_design<float>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt, bc_part,
+                                           dA_part, ddt, ddtx, dB, dC, dA, dh0, B, S, di, ds,
+                                           chunk, reuse, s);
+  if (dtype == 1)
+    return (int)ring::launch_design<__nv_bfloat16>(dt, dtx, Bm, Cm, A, h0, dy, dh_last, ckpt,
+                                                   bc_part, dA_part, ddt, ddtx, dB, dC, dA, dh0,
+                                                   B, S, di, ds, chunk, reuse, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of one block of the ring design (dtype 0 = float32, 1 =
+// bfloat16; chunk 16 or 8; -1 otherwise), for the wrapper's launch geometry
+// to be checked against.
+extern "C" int mamba_scan_bwd_ring_smem_bytes(int dtype, int chunk) {
+  if (chunk == 16) return dtype == 0 ? ring::smem_bytes<float, 16>() : ring::smem_bytes<__nv_bfloat16, 16>();
+  if (chunk == 8) return dtype == 0 ? ring::smem_bytes<float, 8>() : ring::smem_bytes<__nv_bfloat16, 8>();
+  return -1;
 }

@@ -3,8 +3,9 @@
 // is given),
 //     o_t[j]  = sum_i r_t[i] * (S[i, j] + u[i] * k_t[i] * v_t[j]),
 //     S[i, j] = w_t[i] * S[i, j] + k_t[i] * v_t[j],
-// returning o and the last state; and its backward (entry rwkv6_scan_bwd,
-// noted where it begins, below the two forward designs).
+// returning o and the last state; and its backward in two designs (entries
+// rwkv6_scan_bwd_ring, the route, and rwkv6_scan_bwd, the previous one,
+// noted where they begin, below the two forward designs).
 //
 // Replaces the Pallas kernel `rwkv6_scan` (body `_wkv_kernel`) in
 // src/repro/kernels/rwkv6_scan.py.  Plain version:
@@ -733,6 +734,439 @@ cudaError_t launch_hd(const void* r, const void* k, const void* v, const void* w
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// The ring design of the backward (entry rwkv6_scan_bwd_ring), the route at
+// every hd: the same gradients as `rows`, by another walk.
+//
+// What held `rows` back: a chunk's inputs staged through registers between
+// two barriers every 4 steps, the checkpoint read waiting behind them, and
+// only 2 blocks an SM to cover both; 1.07 GB of checkpoints written and read;
+// dr taken in the forward sweep, so the state was walked three times at 4 FMA
+// an (i, j) there; v . g summed again by every thread.
+//
+// What this design does: one block of hd * hd / 8 threads per (batch row,
+// head), 512 at hd 64; thread (i, p) holds 8 values of row i of S and of its
+// cotangent Lambda, columns 4p .. 4p + 3 and hd/2 + 4p .. + 3, so the row's
+// hd / 8 lanes sum dr, dk and dw in log2(hd / 8) rounds of xor-shuffles that
+// halve the values a lane holds ([dk, dw, dr, 0]: 4 shuffles at hd 64).
+// - A ring of 3 stages, each one chunk of K = 16 steps of r, k, v, w and do
+//   brought by TMA (k, v and w only in the forward sweep), filled by one
+//   thread two chunks ahead, in time order for the sweep and in reverse for
+//   the walk back, counted on the stage's mbarrier (whose wait traps after
+//   2^26 polls).  The chunk's checkpoint comes by one bulk copy into one of
+//   two buffers, one chunk ahead.
+// - The forward sweep only advances S (2 operations an (i, j)) and writes it
+//   every K = 16 steps: (B, H, ceil(T / 16), hd, hd) fp32, 134 MB each way
+//   at the shape above, not 1.07 GB.
+// - The walk back takes a chunk's 16 states in two levels: from the
+//   checkpoint it recomputes S at steps 4, 8 and 12 (kept in shared memory,
+//   48 KB at hd 64) and the last piece's states; each earlier piece of 4
+//   steps is recomputed again from its first state.  A piece's three states
+//   stay in registers (24 a thread), its 4 steps unrolled; sixteen states of
+//   a head (256 KB at hd 64) would not fit a block.
+// - dr_t = S_{t-1} g_t + u k_t (v_t . g_t) is taken in the walk back, from
+//   the recomputed S_{t-1}; v_t . g_t and r_t . (u k_t) are summed once a
+//   step by one warp, so that dv's u term is added once, by warp 0.
+// - dv sums over the rows: each step a warp's 4 rows are summed by the
+//   halving xor-shuffles (2 rounds at hd 64), each warp's sums go to shared
+//   memory, double-buffered by piece, and are added in warp order after the
+//   next piece's barrier: one block-wide barrier every 4 steps, which also
+//   frees a chunk's stage and checkpoint buffer for the refill.
+// Per (i, j) and step: 2 operations in the sweep, 3 in the two recomputes,
+// 6 in the walk back (the dr, dk, dw and dv FMAs and Lambda's update), 11
+// against rows' 13 and the bound's 10.  K = 4 (one level, the checkpoint
+// spacing of rows) stays reachable through the same entry, for timing.
+// Each full piece (and each full chunk's first level) runs its unrolled
+// steps with no bound check between them, so that the compiler interleaves
+// one step's shuffle sums with the next step's arithmetic.  What still holds
+// it back: one block of 16 warps an SM, latency-bound, most of it in the
+// lanes' shuffle sums of dk, dw, dr and dv a step.
+
+namespace ring {
+
+constexpr int kPiece = 4;   // steps recomputed at once into the history
+constexpr int kStages = 3;  // the chunk walked, two in flight
+constexpr int kIn = 5;      // r, k, v, w, do: a stage's boxes
+enum { R_ = 0, K_ = 1, V_ = 2, W_ = 3, G_ = 4 };
+
+// kRuns runs of 4 neighbouring columns a thread: 8 values, hd / 8 lanes a
+// row.  (4 values, hd / 4 lanes and 32 warps an SM at hd 64, ran slower on
+// the H100: the lanes' sums then take more shuffles than the warps hide.)
+constexpr int kRuns = 2;
+
+template <int HD>
+struct Cfg {
+  static constexpr int R = kRuns;
+  static constexpr int V = 4 * R;                    // values a thread holds
+  static constexpr int LPR = HD / V;                 // lanes of a row
+  static constexpr int NT = HD * LPR;                // threads
+  static constexpr int NW = NT / 32;                 // warps
+  static constexpr int RPW = 32 / LPR;               // rows a warp
+  static constexpr int RUN = HD / R;                 // from one run of columns to the next
+  static constexpr int NR = LPR >= 4 ? 1 : 4 / LPR;  // row sums a lane holds after the halving
+  static constexpr int DVN = V / RPW > 1 ? V / RPW : 1;  // dv values a lane holds after it
+  static constexpr int UPL = (HD + 31) / 32;         // values of j per lane in v . g
+};
+
+template <int HD, typename T, int K>
+struct Smem {
+  static constexpr int NT = Cfg<HD>::NT;
+  static constexpr int R = kRuns;
+  static constexpr int NSUB = K / kPiece > 1 ? K / kPiece - 1 : 1;
+  alignas(128) T in[kStages][kIn][K][HD];          // a chunk's rows of r, k, v, w, do (TMA)
+  alignas(16) float ck[2][HD * HD];                 // a chunk's checkpoint, row-major (bulk copy)
+  alignas(16) float4 sub[NSUB][R][NT];              // S at chunk steps 4, 8, 12, a thread's values
+  alignas(16) float red[2][kPiece][Cfg<HD>::NW][HD];  // each warp's sums of dv, by piece
+  float vg[kStages][K], rk[kStages][K];             // v . g and r . (u k) of each step
+  uint64_t full[kStages], ckfull[2];
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 a = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = hopper::unpack_bf16(a.x), hi = hopper::unpack_bf16(a.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Halve N values over lane bits M, M / 2, .. STOP (bwd::halve_rows each round).
+template <int N, int M, int STOP>
+__device__ __forceinline__ void halve_bits(float* v, int lane, int& base, int& dup) {
+  if constexpr (M >= STOP) {
+    bwd::halve_rows<N>(v, lane, M, base, dup);
+    halve_bits<(N > 1 ? N / 2 : 1), M / 2, STOP>(v, lane, base, dup);
+  }
+}
+
+// A thread's R runs of 4 values of a row at columns c + RUN r, as floats.
+template <int R, int RUN, typename T>
+__device__ __forceinline__ void load_runs(const T* p, int c, float (&x)[4 * R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float4 a = ld4(p + c + RUN * r);
+    x[4 * r] = a.x, x[4 * r + 1] = a.y, x[4 * r + 2] = a.z, x[4 * r + 3] = a.w;
+  }
+}
+template <int R, int RUN>
+__device__ __forceinline__ void store_runs(float* p, int c, const float (&x)[4 * R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    *reinterpret_cast<float4*>(p + c + RUN * r) =
+        make_float4(x[4 * r], x[4 * r + 1], x[4 * r + 2], x[4 * r + 3]);
+}
+
+// S <- diag(w_t) S + k_t v_t^T on a thread's values of row i.
+template <int R, int RUN, typename T>
+__device__ __forceinline__ void advance(float (&S)[4 * R], const T* kr, const T* wr, const T* vr,
+                                        int i, int c) {
+  const float ki = cols::to_f(kr[i]), wi = cols::to_f(wr[i]);
+  float v[4 * R];
+  load_runs<R, RUN>(vr, c, v);
+#pragma unroll
+  for (int e = 0; e < 4 * R; ++e) S[e] = fmaf(wi, S[e], ki * v[e]);
+}
+
+template <int HD, typename T, int K>
+__global__ void __launch_bounds__(Cfg<HD>::NT, 1)
+rwkv6_scan_bwd_ring_kernel(const __grid_constant__ CUtensorMap tm_r,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_w,
+                           const __grid_constant__ CUtensorMap tm_g, const T* __restrict__ u,
+                           const float* __restrict__ S0, const float* __restrict__ dS_last,
+                           float* __restrict__ ckpt, T* __restrict__ dr, T* __restrict__ dk,
+                           T* __restrict__ dv, T* __restrict__ dw, float* __restrict__ du_part,
+                           float* __restrict__ dS0, int T_len, int H) {
+  using C = Cfg<HD>;
+  using Sm = Smem<HD, T, K>;
+  constexpr int R = C::R, V = C::V, RUN = C::RUN;
+  // no static shared memory: the dynamic block starts at the window, aligned for TMA
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
+  const int tid = threadIdx.x, i = tid / C::LPR, p = tid % C::LPR;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int n_ck = (T_len + K - 1) / K;
+  const int c0 = 4 * p;  // the thread's first column; its runs at c0 + RUN r
+  const long long row = (long long)bh * HD * HD + (long long)i * HD;  // row i of the state
+  const long long bt0 = (long long)b * T_len;  // (b, t = 0) among the B * T steps
+  const float* ck_src = ckpt + (long long)bh * n_ck * HD * HD;
+  float* ck_dst = ckpt + (long long)bh * n_ck * HD * HD + (long long)i * HD;
+  const float ui = cols::to_f(u[h * HD + i]);
+
+  // Chunk c into stage `use` % kStages: one thread asks TMA for the head's
+  // rows of K steps (past the tensor's end zeros, which count too).
+  auto fill = [&](int use, int c, bool back) {
+    const int st = use % kStages, rw = (int)(bt0 + (long long)c * K);
+    hopper::mbar_arrive_expect_tx(&sm.full[st], (back ? 5 : 3) * K * HD * (int)sizeof(T));
+    if (back) {
+      hopper::tma_load_3d(sm.in[st][R_], &tm_r, &sm.full[st], 0, h, rw);
+      hopper::tma_load_3d(sm.in[st][G_], &tm_g, &sm.full[st], 0, h, rw);
+    }
+    hopper::tma_load_3d(sm.in[st][K_], &tm_k, &sm.full[st], 0, h, rw);
+    hopper::tma_load_3d(sm.in[st][V_], &tm_v, &sm.full[st], 0, h, rw);
+    hopper::tma_load_3d(sm.in[st][W_], &tm_w, &sm.full[st], 0, h, rw);
+  };
+  // Checkpoint c into buffer q & 1 (the walk back's q-th chunk).
+  auto fetch_ck = [&](int q, int c) {
+    hopper::mbar_arrive_expect_tx(&sm.ckfull[q & 1], HD * HD * 4);
+    hopper::bulk_load(sm.ck[q & 1], ck_src + (long long)c * HD * HD, HD * HD * 4,
+                      &sm.ckfull[q & 1]);
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) hopper::mbar_init(&sm.full[st], 1);
+    hopper::mbar_init(&sm.ckfull[0], 1);
+    hopper::mbar_init(&sm.ckfull[1], 1);
+    hopper::mbar_fence_init();
+    for (int c = 0; c < kStages - 1 && c < n_ck; ++c) fill(c, c, false);
+  }
+  float S[V] = {};
+  if (S0 != nullptr) load_runs<R, RUN>(S0 + row, c0, S);
+  __syncthreads();  // the barriers are set up before anyone waits on them
+
+  // the forward sweep: S at the start of every chunk into the checkpoints
+  for (int c = 0; c < n_ck; ++c) {
+    const int st = c % kStages, steps = min(K, T_len - c * K);
+    hopper::mbar_wait(&sm.full[st], (c / kStages) & 1);
+    __syncthreads();  // everyone is done with chunk c - 1, whose stage is refilled
+    if (tid == 0 && c + kStages - 1 < n_ck) fill(c + kStages - 1, c + kStages - 1, false);
+    store_runs<R, RUN>(ck_dst + (long long)c * HD * HD, c0, S);
+#pragma unroll 4
+    for (int s = 0; s < steps; ++s)
+      advance<R, RUN, T>(S, sm.in[st][K_][s], sm.in[st][W_][s], sm.in[st][V_][s], i, c0);
+  }
+  hopper::fence_proxy_async_global();  // the checkpoints, before bulk copies read them
+  __syncthreads();
+  if (tid == 0) {
+    fill(n_ck, n_ck - 1, true);
+    if (n_ck > 1) fill(n_ck + 1, n_ck - 2, true);
+    fetch_ck(0, n_ck - 1);
+  }
+
+  // the walk back
+  float L[V] = {};
+  if (dS_last != nullptr) load_runs<R, RUN>(dS_last + row, c0, L);
+  float uu[C::UPL];  // u_j for j = lane + 32 n, for r . (u k)
+#pragma unroll
+  for (int n = 0; n < C::UPL; ++n)
+    uu[n] = lane + 32 * n < HD ? cols::to_f(u[h * HD + lane + 32 * n]) : 0.f;
+  float du_acc = 0.f;
+  int pend_t = 0, pend_n = 0, pend_buf = 0, n_piece = 0;  // the piece whose dv waits to be summed
+  // dv of the pending piece: the warps' sums in warp order
+  auto sum_dv = [&]() {
+    for (int e = tid; e < pend_n * HD; e += C::NT) {
+      const int s = e / HD, col = e - s * HD;
+      float acc = 0.f;
+#pragma unroll
+      for (int wv = 0; wv < C::NW; ++wv) acc += sm.red[pend_buf][s][wv][col];
+      store(dv + ((bt0 + pend_t + s) * H + h) * HD + col, acc);
+    }
+  };
+
+  for (int q = 0; q < n_ck; ++q) {
+    const int c = n_ck - 1 - q, use = n_ck + q, st = use % kStages;
+    const int t0 = c * K, steps = min(K, T_len - t0), last = (steps - 1) / kPiece;
+    T(*in)[K][HD] = sm.in[st];
+    hopper::mbar_wait(&sm.full[st], (use / kStages) & 1);
+    hopper::mbar_wait(&sm.ckfull[q & 1], (q / 2) & 1);
+    // v . g and r . (u k) of each step, one warp a step
+    for (int s = warp; s < steps; s += C::NW) {
+      float a = 0.f, z = 0.f;
+#pragma unroll
+      for (int n = 0; n < C::UPL; ++n) {
+        const int j = lane + 32 * n;
+        if (j < HD) {
+          a = fmaf(cols::to_f(in[V_][s][j]), cols::to_f(in[G_][s][j]), a);
+          z = fmaf(cols::to_f(in[R_][s][j]) * uu[n], cols::to_f(in[K_][s][j]), z);
+        }
+      }
+#pragma unroll
+      for (int m = 16; m >= 1; m /= 2) {
+        a += __shfl_xor_sync(bwd::kFull, a, m);
+        z += __shfl_xor_sync(bwd::kFull, z, m);
+      }
+      if (lane == 0) sm.vg[st][s] = a, sm.rk[st][s] = z;
+    }
+    // the first level: S at steps 4, 8, 12 into shared memory, and the last
+    // piece's states into registers (unrolled, so that every index is a
+    // constant)
+    const float* ckq = sm.ck[q & 1] + i * HD;
+    float hs[kPiece - 1][V];  // S at the walked piece's steps 1 .. 3
+    auto level1 = [&](auto full) {
+      constexpr bool F = decltype(full)::value;
+      float P[V];
+      load_runs<R, RUN>(ckq, c0, P);
+#pragma unroll
+      for (int s = 0; s < K - 1; ++s) {
+        if constexpr (!F)
+          if (s + 1 >= steps) break;
+        advance<R, RUN, T>(P, in[K_][s], in[W_][s], in[V_][s], i, c0);
+        const int n = s + 1;  // P is S at chunk step n
+        if (n % kPiece == 0) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            sm.sub[n / kPiece - 1][r][tid] = make_float4(P[4 * r], P[4 * r + 1], P[4 * r + 2], P[4 * r + 3]);
+        } else if (n / kPiece == (F ? (K - 1) / kPiece : last)) {
+#pragma unroll
+          for (int e = 0; e < V; ++e) hs[n % kPiece - 1][e] = P[e];
+        }
+      }
+    };
+    if (steps == K) level1(hopper::Full<true>{});
+    else level1(hopper::Full<false>{});
+    for (int pc = last; pc >= 0; --pc) {
+      const int pt0 = pc * kPiece, psteps = min(kPiece, steps - pt0), buf = n_piece & 1;
+      // The pending piece's dv sums are in; at the chunk's first piece
+      // everyone is done with chunk q - 1, whose stage and checkpoint
+      // buffer are refilled, and v . g and r . (u k) are in.
+      __syncthreads();
+      if (pc == last && tid == 0) {
+        if (q + kStages - 1 < n_ck) fill(use + kStages - 1, c - (kStages - 1), true);
+        if (q + 1 < n_ck) fetch_ck(q + 1, c - 1);
+      }
+      if (pend_n) sum_dv();
+      float first[V];  // S at the piece's first step
+      if (pc == 0) {
+        load_runs<R, RUN>(ckq, c0, first);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float4 a = sm.sub[pc - 1][r][tid];
+          first[4 * r] = a.x, first[4 * r + 1] = a.y, first[4 * r + 2] = a.z, first[4 * r + 3] = a.w;
+        }
+      }
+      if (pc != last) {  // the second level: the piece's states 1 .. 3
+        float P[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) P[e] = first[e];
+#pragma unroll
+        for (int s = 0; s < kPiece - 1; ++s) {
+          advance<R, RUN, T>(P, in[K_][pt0 + s], in[W_][pt0 + s], in[V_][pt0 + s], i, c0);
+#pragma unroll
+          for (int e = 0; e < V; ++e) hs[s][e] = P[e];
+        }
+      }
+      auto walk = [&](auto full) {
+#pragma unroll
+      for (int s = kPiece - 1; s >= 0; --s) {
+        if constexpr (!decltype(full)::value)
+          if (s >= psteps) continue;
+        const int t = pt0 + s;
+        const float ri = cols::to_f(in[R_][t][i]), ki = cols::to_f(in[K_][t][i]);
+        const float wi = cols::to_f(in[W_][t][i]);
+        float vv[V], gg[V];
+        load_runs<R, RUN>(in[V_][t], c0, vv);
+        load_runs<R, RUN>(in[G_][t], c0, gg);
+        const float vg = sm.vg[st][t];
+        float rs[4] = {0.f, 0.f, 0.f, 0.f}, dvp[V];  // dk, dw, dr parts; dv's
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float Sp = s == 0 ? first[e] : hs[s > 0 ? s - 1 : 0][e];  // S_{t-1}
+          rs[0] = fmaf(L[e], vv[e], rs[0]);
+          rs[1] = fmaf(L[e], Sp, rs[1]);
+          rs[2] = fmaf(Sp, gg[e], rs[2]);
+          dvp[e] = L[e] * ki;
+          L[e] = fmaf(wi, L[e], ri * gg[e]);
+        }
+        du_acc = fmaf(ri * ki, vg, du_acc);
+        {  // dk, dw, dr over the row's lanes
+          int base = 0, dup = 0;
+          halve_bits<4, C::LPR / 2, 1>(rs, lane, base, dup);
+          const long long off = ((bt0 + t0 + t) * H + h) * HD + i;
+#pragma unroll
+          for (int kk = 0; kk < C::NR; ++kk) {
+            const int idx = base + kk;  // 0: dk, 1: dw, 2: dr, 3: none
+            T* dst = idx == 0 ? dk : idx == 1 ? dw : dr;
+            const float uterm = idx == 0 ? ui * ri : idx == 2 ? ui * ki : 0.f;
+            if (!(lane & dup) && idx < 3) store(dst + off, fmaf(uterm, vg, rs[kk]));
+          }
+        }
+        {  // dv over the warp's rows, then into the warp's slot
+          int base = 0, dup = 0;
+          halve_bits<V, 16, C::LPR>(dvp, lane, base, dup);
+          const float rk = warp == 0 ? sm.rk[st][t] : 0.f;  // (r . u k) g, added once
+#pragma unroll
+          for (int kk = 0; kk < C::DVN; ++kk) {
+            const int idx = base + kk, col = (idx >> 2) * RUN + c0 + (idx & 3);
+            const float x = fmaf(rk, cols::to_f(in[G_][t][col]), dvp[kk]);
+            if (!(lane & dup)) sm.red[buf][s][warp][col] = x;
+          }
+        }
+      }
+      };
+      if (psteps == kPiece) walk(hopper::Full<true>{});
+      else walk(hopper::Full<false>{});
+      pend_t = t0 + pt0, pend_n = psteps, pend_buf = buf, ++n_piece;
+    }
+  }
+  __syncthreads();
+  sum_dv();
+  if (dS0 != nullptr) store_runs<R, RUN>(dS0 + row, c0, L);
+  if (p == 0) du_part[(long long)bh * HD + i] = du_acc;
+}
+
+template <int HD, typename T, int K>
+constexpr int smem_bytes() { return (int)sizeof(Smem<HD, T, K>); }
+
+template <int HD, typename T, int K>
+cudaError_t launch(const void* r, const void* k, const void* v, const void* w, const void* u,
+                   const void* S0, const void* dout, const void* dS_last, void* ckpt,
+                   void* du_part, void* dr, void* dk, void* dv, void* dw, void* du, void* dS0,
+                   int B, int T_len, int H, cudaStream_t stream) {
+  constexpr int bytes = smem_bytes<HD, T, K>();
+  static const cudaError_t set = cudaFuncSetAttribute(
+      rwkv6_scan_bwd_ring_kernel<HD, T, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return set;
+  // each (B * T, H, hd) tensor in boxes of one head's rows for K steps
+  CUtensorMap maps[5];
+  const void* bases[5] = {r, k, v, w, dout};
+  for (int n = 0; n < 5; ++n)
+    if (!hopper::encode_3d(&maps[n], sizeof(T), bases[n], HD, H, (uint64_t)B * T_len, HD,
+                           (uint64_t)H * HD, HD, 1, K, 0))
+      return cudaErrorInvalidValue;
+  rwkv6_scan_bwd_ring_kernel<HD, T, K><<<B * H, Cfg<HD>::NT, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], static_cast<const T*>(u),
+      static_cast<const float*>(S0), static_cast<const float*>(dS_last),
+      static_cast<float*>(ckpt), static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<T*>(dw), static_cast<float*>(du_part), static_cast<float*>(dS0), T_len, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd::rwkv6_scan_bwd_sum_kernel<T><<<(H * HD + 255) / 256, 256, 0, stream>>>(
+      static_cast<const float*>(du_part), static_cast<T*>(du), B, H * HD);
+  return cudaGetLastError();
+}
+
+// hd and K (steps between checkpoints: 16 the route, 4 for timing) to their
+// instantiation.
+template <typename T>
+cudaError_t launch_design(const void* r, const void* k, const void* v, const void* w,
+                          const void* u, const void* S0, const void* dout, const void* dS_last,
+                          void* ckpt, void* du_part, void* dr, void* dk, void* dv, void* dw,
+                          void* du, void* dS0, int B, int T_len, int H, int hd, int K,
+                          cudaStream_t s) {
+#define RWKV_RING(HD_, K_)                                                                     \
+  if (hd == HD_ && K == K_)                                                                    \
+    return launch<HD_, T, K_>(r, k, v, w, u, S0, dout, dS_last, ckpt, du_part, dr, dk, dv, dw, \
+                              du, dS0, B, T_len, H, s);
+  RWKV_RING(16, 16) RWKV_RING(32, 16) RWKV_RING(64, 16)
+  RWKV_RING(16, 4) RWKV_RING(32, 4) RWKV_RING(64, 4)
+#undef RWKV_RING
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int smem_bytes_of(int hd, int K) {
+#define RWKV_RING(HD_, K_) \
+  if (hd == HD_ && K == K_) return smem_bytes<HD_, T, K_>();
+  RWKV_RING(16, 16) RWKV_RING(32, 16) RWKV_RING(64, 16)
+  RWKV_RING(16, 4) RWKV_RING(32, 4) RWKV_RING(64, 4)
+#undef RWKV_RING
+  return -1;
+}
+
+}  // namespace ring
+
 }  // namespace
 
 // r, k, v, w, o (B, T, H, hd); u (H, hd), contiguous on the device in one type
@@ -771,13 +1205,13 @@ extern "C" int rwkv6_scan_cols_smem_bytes(int hd, int dtype) {
   return dtype == 0 ? cols::smem_bytes<float>(hd) : cols::smem_bytes<__nv_bfloat16>(hd);
 }
 
-// The backward: r, k, v, w (B, T, H, hd) and u (H, hd) as for the forward, S0
-// (B, H, hd, hd) fp32 or null for zeros, dout (B, T, H, hd) in the input type,
-// dS_last (B, H, hd, hd) fp32 or null for zeros; scratch: ckpt (B, H,
-// ceil(T / 8), hd, hd) and du_part (B, H, hd), fp32; out: dr, dk, dv, dw (B,
-// T, H, hd) and du (H, hd) in the input type, and dS0 (B, H, hd, hd) fp32 or
-// null.  hd in {16, 32, 64}.  Returns cudaGetLastError() after the two
-// launches (0 on success).
+// The backward, the rows design: r, k, v, w (B, T, H, hd) and u (H, hd) as
+// for the forward, S0 (B, H, hd, hd) fp32 or null for zeros, dout (B, T, H,
+// hd) in the input type, dS_last (B, H, hd, hd) fp32 or null for zeros;
+// scratch: ckpt (B, H, ceil(T / 4), hd, hd) and du_part (B, H, hd), fp32;
+// out: dr, dk, dv, dw (B, T, H, hd) and du (H, hd) in the input type, and
+// dS0 (B, H, hd, hd) fp32 or null.  hd in {16, 32, 64}.  Returns
+// cudaGetLastError() after the two launches (0 on success).
 extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v, const void* w,
                               const void* u, const void* S0, const void* dout,
                               const void* dS_last, void* ckpt, void* du_part, void* dr, void* dk,
@@ -791,4 +1225,33 @@ extern "C" int rwkv6_scan_bwd(const void* r, const void* k, const void* v, const
     return (int)bwd::launch_hd<__nv_bfloat16>(r, k, v, w, u, S0, dout, dS_last, ckpt, du_part,
                                               dr, dk, dv, dw, du, dS0, B, T_len, H, hd, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward, the ring design: the same arguments and ck_steps, the
+// checkpoint spacing (16, the route; 4 reachable for timing), with ckpt (B,
+// H, ceil(T / ck_steps), hd, hd) fp32.  Returns cudaGetLastError() after the
+// two launches (0 on success).
+extern "C" int rwkv6_scan_bwd_ring(const void* r, const void* k, const void* v, const void* w,
+                                   const void* u, const void* S0, const void* dout,
+                                   const void* dS_last, void* ckpt, void* du_part, void* dr,
+                                   void* dk, void* dv, void* dw, void* du, void* dS0, int B,
+                                   int T_len, int H, int hd, int dtype, int ck_steps,
+                                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)ring::launch_design<float>(r, k, v, w, u, S0, dout, dS_last, ckpt, du_part, dr,
+                                           dk, dv, dw, du, dS0, B, T_len, H, hd, ck_steps, s);
+  if (dtype == 1)
+    return (int)ring::launch_design<__nv_bfloat16>(r, k, v, w, u, S0, dout, dS_last, ckpt,
+                                                   du_part, dr, dk, dv, dw, du, dS0, B, T_len, H,
+                                                   hd, ck_steps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory of one block of the ring design (dtype 0 = float32, 1 =
+// bfloat16; -1 for an hd or spacing it does not take), for the wrapper's
+// launch geometry to be checked against.
+extern "C" int rwkv6_scan_bwd_ring_smem_bytes(int hd, int dtype, int ck_steps) {
+  return dtype == 0 ? ring::smem_bytes_of<float>(hd, ck_steps)
+                    : ring::smem_bytes_of<__nv_bfloat16>(hd, ck_steps);
 }

@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
@@ -41,3 +42,24 @@ def stream_handle(device: torch.device) -> ctypes.c_void_p:
 def raise_on_error(name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def ring_schedule(n_chunks: int, stages: int) -> List[Tuple[str, int, int]]:
+    """The ring of the scan backwards (``mamba_scan_bwd_ring``,
+    ``rwkv6_scan_bwd_ring``) in program order: ``("fill", use, chunk)`` where
+    one thread issues a stage's copies, ``("walk", use, chunk)`` where the
+    block has waited for them and passed the chunk's first barrier.  The
+    forward pass walks chunks 0 .. n - 1, the walk back n - 1 .. 0; use u of
+    the 2 n takes stage u % stages at mbarrier parity (u // stages) & 1.  A
+    pass's first ``stages - 1`` fills go out before it starts, and each walk
+    issues the fill ``stages - 1`` uses ahead, into the stage of the use
+    before it."""
+    events = []
+    for u0, order in ((0, range(n_chunks)), (n_chunks, range(n_chunks - 1, -1, -1))):
+        order = list(order)
+        events += [("fill", u0 + q, order[q]) for q in range(min(stages - 1, n_chunks))]
+        for q, c in enumerate(order):
+            events.append(("walk", u0 + q, c))
+            if q + stages - 1 < n_chunks:
+                events.append(("fill", u0 + q + stages - 1, order[q + stages - 1]))
+    return events

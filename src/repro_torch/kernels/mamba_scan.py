@@ -18,14 +18,24 @@ failed build or launch raises; no route stands in for another.
 can be timed against each other on the card.  ``LAUNCHES`` counts the launches of each route, and
 :func:`lanes_geometry` is the lanes launch that the source makes.
 
-The backward, :func:`mamba_scan_bwd` (entry ``mamba_scan_bwd``, one design,
-``"ckpt"``, for every ds the forward takes): each channel walks forward
-once writing its state every ``BWD_CHUNK`` steps, then walks the chunks
-back, recomputing each chunk's states from its checkpoint; dB and dC (sums
-over channels) and dA (over batch rows) are written as per-block partials
-and added in a fixed order by a second kernel.  The checkpoints and the
-partials are scratch that the wrapper allocates (:func:`bwd_scratch_shapes`).
-``BWD_LAUNCHES`` counts its launches.
+The backward, :func:`mamba_scan_bwd`, two designs, each its own C entry
+point, chosen by :func:`bwd_route` from the dtype and shape: ``"ring"``
+(entry ``mamba_scan_bwd_ring``) where the rows are 16-byte aligned (di and ds
+times the element size multiples of 16: every model shape): chunks of
+``RING_CHUNK`` steps of dt, dtx, dy (TMA boxes of 64 channels), B_t, C_t and
+the chunk's checkpoint (bulk copies) brought into a ring of ``RING_STAGES``
+stages, in time order for the forward walk that writes the checkpoints and
+in reverse for the walk back, whose recompute keeps a_t = exp(dt_t A) beside
+h_{t-1} so that the walk back takes no exponential; ``"ckpt"`` (entry
+``mamba_scan_bwd``, the previous
+design, every ds the forward takes) for the other shapes, and reachable
+through :func:`mamba_scan_bwd_ckpt`.  In both each channel walks forward once
+writing its state every chunk, then walks the chunks back, recomputing each
+chunk's states from its checkpoint; dB and dC (sums over channels) and dA
+(over batch rows) are written as per-block partials and added in a fixed
+order by a second kernel.  The checkpoints and the partials are scratch that
+the wrapper allocates (:func:`bwd_scratch_shapes`).  ``BWD_LAUNCHES`` counts
+the launches of each design.
 """
 from __future__ import annotations
 
@@ -52,12 +62,15 @@ SMEM_LIMIT = 227 * 1024    # shared memory a block may have on Hopper
 
 #: launches of each route
 LAUNCHES: Dict[str, int] = {"lanes": 0, "simt": 0}
-#: the backward's constants (csrc/mamba_scan.cu, namespace bwd)
-BWD_CHUNK = 16             # steps between checkpoints, recomputed at once
+#: the backward's constants (csrc/mamba_scan.cu, namespaces bwd and ring)
+BWD_CHUNK = 16             # ckpt: steps between checkpoints, recomputed at once
 BWD_CHANNELS = 64          # channels per block, 4 lanes each
 BWD_SLOTS = 32             # a step's partial per block: dC in 0..15, dB in 16..31
+RING_CHUNK = 8             # ring: steps between checkpoints, a stage of the ring
+RING_CHUNKS = (8, 16)      # the chunks the ring entry takes (8, the route's: two blocks an SM)
+RING_STAGES = 3            # the chunk walked, two in flight
 #: launches of the backward, by design
-BWD_LAUNCHES: Dict[str, int] = {"ckpt": 0}
+BWD_LAUNCHES: Dict[str, int] = {"ring": 0, "ckpt": 0}
 
 
 def route(dtype: torch.dtype, ds: int) -> str:
@@ -68,22 +81,45 @@ def route(dtype: torch.dtype, ds: int) -> str:
     return "simt"
 
 
-def bwd_route(dtype: torch.dtype, ds: int) -> str:
-    """The backward's design: ``"ckpt"`` for fp32 or bf16 and 0 < ds <= 16
-    (ds below 16 masked), the shapes the forward takes."""
+def bwd_route(dtype: torch.dtype, ds: int, di: int) -> str:
+    """The backward's design: ``"ring"`` for fp32 or bf16 where di and ds
+    times the element size are multiples of 16 bytes (the row strides of its
+    TMA boxes and the runs of its bulk copies; ds 4, 8, 12, 16 in fp32, 8, 16
+    in bf16), else ``"ckpt"`` for 0 < ds <= 16 (ds below 16 masked), the
+    shapes the forward takes."""
     if dtype in (torch.float32, torch.bfloat16) and 0 < ds <= MAX_STATE:
-        return "ckpt"
+        size = 4 if dtype == torch.float32 else 2
+        return "ring" if (di * size) % 16 == 0 and (ds * size) % 16 == 0 else "ckpt"
     raise ValueError(f"mamba_scan_bwd: no design for {dtype} at ds {ds}")
 
 
-def bwd_scratch_shapes(B: int, S: int, di: int, ds: int) -> Dict[str, Tuple[int, ...]]:
+def bwd_scratch_shapes(B: int, S: int, di: int, ds: int,
+                       chunk: int = BWD_CHUNK) -> Dict[str, Tuple[int, ...]]:
     """The fp32 scratch of the backward: the checkpoints (a state of 16
-    values, ds padded, per channel every ``BWD_CHUNK`` steps), the blocks'
-    partials of dC and dB at every step, and the batch rows' partials of
-    dA."""
-    return {"ckpt": (B, -(-S // BWD_CHUNK), di, MAX_STATE),
+    values, ds padded, per channel every ``chunk`` steps: ``BWD_CHUNK`` for
+    ckpt, one of ``RING_CHUNKS`` for ring), the blocks' partials of dC and dB
+    at every step, and the batch rows' partials of dA."""
+    return {"ckpt": (B, -(-S // chunk), di, MAX_STATE),
             "bc_part": (B, -(-di // BWD_CHANNELS), S, BWD_SLOTS),
             "dA_part": (B, di, ds)}
+
+
+def ring_smem_bytes_model(itemsize: int, chunk: int = RING_CHUNK) -> int:
+    """Shared memory of one block of the ring backward (``ring::Smem``): the
+    ring's stages (a chunk's TMA boxes of dt, dtx and dy, 64 channels by
+    ``chunk`` steps, 128-byte aligned; its runs of B_t and C_t at 16 values a
+    step; its checkpoint of 64 x 16 fp32), B_t and C_t in fp32 for two
+    chunks, h_{t-1} at the chunk's steps after the first and a_t at each (a
+    thread's 4 fp32 values), each warp's dC and dB sums for two chunks, and
+    the stages' mbarriers."""
+    if chunk not in RING_CHUNKS:
+        raise ValueError(f"mamba_scan_bwd: the ring design takes chunk in {RING_CHUNKS}")
+    threads = BWD_CHANNELS * 4
+    boxes = 3 * RING_STAGES * chunk * BWD_CHANNELS * itemsize
+    raw = (boxes + RING_STAGES * (2 * chunk * MAX_STATE * itemsize + 16 * threads)
+           + 4 * 2 * 2 * chunk * MAX_STATE + 16 * threads * (2 * chunk - 1)
+           + 4 * 2 * chunk * (threads // 32) * BWD_SLOTS + 8 * RING_STAGES)
+    return 128 * -(-raw // 128)
 
 
 class LanesGeometry(NamedTuple):
@@ -130,11 +166,23 @@ def _entry(which: str):
 
 
 @functools.cache
-def _bwd_entry():
-    fn = _build.load("mamba_scan").mamba_scan_bwd
-    fn.argtypes = [_P] * 17 + [_I] * 5 + [_P]
+def _bwd_entry(which: str):
+    lib = _build.load("mamba_scan")
+    if which == "ring":
+        fn, ints = lib.mamba_scan_bwd_ring, 7     # ..., ds, dtype, chunk, reuse
+    else:
+        fn, ints = lib.mamba_scan_bwd, 5
+    fn.argtypes = [_P] * 17 + [_I] * ints + [_P]
     fn.restype = _I
     return fn
+
+
+def ring_smem_bytes(dtype: torch.dtype, chunk: int = RING_CHUNK) -> int:
+    """Shared memory of one block of the ring backward as the compiled
+    source has it (builds the library)."""
+    fn = _build.load("mamba_scan").mamba_scan_bwd_ring_smem_bytes
+    fn.argtypes, fn.restype = [_I, _I], _I
+    return fn(DTYPE_CODES[dtype], chunk)
 
 
 def lanes_smem_bytes(dtype: torch.dtype) -> int:
@@ -216,8 +264,27 @@ def mamba_scan_bwd(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: to
                    dh_last: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """The gradients of the scan given dy (B, S, di) in dt.dtype and dh_last
     (B, di, ds) fp32 or None: (ddt, ddtx, dB, dC, dA) in the inputs' dtype
-    and dh0 (B, di, ds) fp32, as ``ref.mamba_scan_bwd_ref``.  An empty input
-    launches nothing."""
+    and dh0 (B, di, ds) fp32, as ``ref.mamba_scan_bwd_ref``, on the design of
+    :func:`bwd_route`.  An empty input launches nothing."""
+    return _launch_bwd(None, RING_CHUNK, True, dt, dtx, Bm, Cm, A, h0, dy, dh_last)
+
+
+def mamba_scan_bwd_ckpt(dt, dtx, Bm, Cm, A, h0, dy, dh_last) -> Tuple[torch.Tensor, ...]:
+    """The ckpt design whatever the shape (the previous design, kept to be
+    timed beside the ring design)."""
+    return _launch_bwd("ckpt", BWD_CHUNK, False, dt, dtx, Bm, Cm, A, h0, dy, dh_last)
+
+
+def mamba_scan_bwd_ring(dt, dtx, Bm, Cm, A, h0, dy, dh_last, chunk: int = RING_CHUNK,
+                        reuse: bool = True) -> Tuple[torch.Tensor, ...]:
+    """The ring design with checkpoints every ``chunk`` steps (8, the
+    route's, or 16), keeping a_t from the recompute for the walk back, or
+    (``reuse`` False, for timing) taking it again there."""
+    return _launch_bwd("ring", chunk, reuse, dt, dtx, Bm, Cm, A, h0, dy, dh_last)
+
+
+def _launch_bwd(which, chunk, reuse, dt, dtx, Bm, Cm, A, h0, dy, dh_last
+                ) -> Tuple[torch.Tensor, ...]:
     check_operands("mamba_scan_bwd", dt, dtx, Bm, Cm, A, dy)
     check_inputs(dt, dtx, Bm, Cm, A, h0)
     B, S, di = dt.shape
@@ -233,13 +300,20 @@ def mamba_scan_bwd(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor, Cm: to
         for g in grads:
             g.zero_()
         return (*grads, dh0.copy_(dh_last) if dh_last is not None else dh0.zero_())
-    which = bwd_route(dt.dtype, ds)
+    which = which or bwd_route(dt.dtype, ds, di)
+    if which == "ring" and (bwd_route(dt.dtype, ds, di) != "ring" or chunk not in RING_CHUNKS):
+        raise ValueError(f"mamba_scan_bwd: the ring design does not take {dt.dtype} at di "
+                         f"{di}, ds {ds}, chunk {chunk}")
+    if which == "ckpt":
+        chunk = BWD_CHUNK
     scratch = {k: torch.empty(shape, dtype=torch.float32, device=dt.device)
-               for k, shape in bwd_scratch_shapes(B, S, di, ds).items()}
+               for k, shape in bwd_scratch_shapes(B, S, di, ds, chunk).items()}
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _bwd_entry()(*map(ptr, (dt, dtx, Bm, Cm, A, h0, dy, dh_last, scratch["ckpt"],
-                                  scratch["bc_part"], scratch["dA_part"], *grads, dh0)),
-                       B, S, di, ds, DTYPE_CODES[dt.dtype], stream_handle(dt.device))
+    args = [*map(ptr, (dt, dtx, Bm, Cm, A, h0, dy, dh_last, scratch["ckpt"], scratch["bc_part"],
+                       scratch["dA_part"], *grads, dh0)), B, S, di, ds, DTYPE_CODES[dt.dtype]]
+    if which == "ring":
+        args += [chunk, int(reuse)]
+    err = _bwd_entry(which)(*args, stream_handle(dt.device))
     raise_on_error(f"mamba_scan_bwd ({which})", err)
     BWD_LAUNCHES[which] += 1
     return (*grads, dh0)

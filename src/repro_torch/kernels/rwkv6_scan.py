@@ -18,15 +18,23 @@ the card.  A failed build or launch raises; no route stands in for another.
 ``LAUNCHES`` counts the launches of each route, and :func:`cols_geometry`
 is the cols launch that the source makes.
 
-The backward, :func:`rwkv6_scan_bwd` (entry ``rwkv6_scan_bwd``, one design,
-``"rows"``, at every hd the forward takes): a block of 4 hd threads per
-(batch row, head), each holding hd / 4 columns of a row of the state and of
-its cotangent; a forward sweep gives dr and writes the state every
-``BWD_CHUNK`` steps, a walk back recomputes each chunk's states from its
-checkpoint and gives dk, dv and dw; du (a sum over batch rows) is written as
-per-block partials and added in order by a second kernel.  The checkpoints
-and the partials are scratch that the wrapper allocates.  ``BWD_LAUNCHES``
-counts its launches.
+The backward, :func:`rwkv6_scan_bwd`, two designs, each its own C entry
+point, chosen by :func:`bwd_route`: ``"ring"`` (entry
+``rwkv6_scan_bwd_ring``) at every hd the forward takes: a block of hd * hd /
+8 threads per (batch row, head), each holding 8 values of a row of the state
+and of its cotangent; chunks of ``RING_CHUNK`` steps of r, k, v, w and do
+brought by TMA into a ring of ``RING_STAGES`` stages, in time order for a
+forward sweep that only writes the state every ``RING_CHUNK`` steps, in
+reverse for the walk back, which takes each chunk's checkpoint by a bulk
+copy, recomputes its states in two levels (every ``RING_PIECE`` steps, then
+each piece) and gives dr, dk, dv and dw.  ``"rows"`` (entry
+``rwkv6_scan_bwd``, the previous design: 4 hd threads, a forward sweep for dr
+checkpointing every ``BWD_CHUNK`` steps, chunks staged through registers)
+stays reachable through :func:`rwkv6_scan_bwd_rows`.  du (a sum over batch
+rows) is written as per-block partials and added in order by a second
+kernel in both.  The checkpoints and the partials are scratch that the
+wrapper allocates (:func:`bwd_scratch_shapes`).  ``BWD_LAUNCHES`` counts the
+launches of each design.
 """
 from __future__ import annotations
 
@@ -51,27 +59,96 @@ SMEM_LIMIT = 227 * 1024    # shared memory a block may have on Hopper
 
 #: launches of each route
 LAUNCHES: Dict[str, int] = {"cols": 0, "simt": 0}
-#: the backward's constants (csrc/rwkv6_scan.cu, namespace bwd)
+#: the rows backward's constants (csrc/rwkv6_scan.cu, namespace bwd)
 BWD_CHUNK = 4              # steps between checkpoints, recomputed at once
+#: the ring backward's constants (csrc/rwkv6_scan.cu, namespace ring)
+RING_CHUNK = 16            # steps between checkpoints: a stage of the ring
+RING_PIECE = 4             # steps recomputed at once into the history
+RING_STAGES = 3            # the chunk walked, two in flight
+RING_CHUNKS = (16, 4)      # the spacings the entry takes: the route's, and rows' for timing
 #: launches of the backward, by design
-BWD_LAUNCHES: Dict[str, int] = {"rows": 0}
+BWD_LAUNCHES: Dict[str, int] = {"ring": 0, "rows": 0}
 
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
-    """The backward's design: ``"rows"`` for fp32 or bf16 with hd in
-    ``HEAD_SIZES``."""
+    """The backward's design: ``"ring"`` for fp32 or bf16 with hd in
+    ``HEAD_SIZES`` (``"rows"``, which takes the same, on its own entry)."""
     if dtype in (torch.float32, torch.bfloat16) and hd in HEAD_SIZES:
-        return "rows"
+        return "ring"
     raise ValueError(f"rwkv6_scan_bwd: no design for {dtype} at hd {hd}")
 
 
 def bwd_smem_bytes(hd: int) -> int:
-    """Shared memory of one block of the backward (``bwd::Smem``): a chunk's
-    k, v, w, do and r, the chunk's recomputed states (hd x hd fp32 a step),
-    each warp's sums of dv at each step, and the chunk's dr, dk and dw."""
+    """Shared memory of one block of the rows backward (``bwd::Smem``): a
+    chunk's k, v, w, do and r, the chunk's recomputed states (hd x hd fp32 a
+    step), each warp's sums of dv at each step, and the chunk's dr, dk and
+    dw."""
     chunk_rows = BWD_CHUNK * hd
     return 4 * (5 * chunk_rows + BWD_CHUNK * hd * hd + BWD_CHUNK * (hd // 8) * hd
                 + 3 * chunk_rows)
+
+
+def bwd_scratch_shapes(B: int, T: int, H: int, hd: int, design: str = "ring",
+                       chunk: int = RING_CHUNK) -> Dict[str, Tuple[int, ...]]:
+    """The fp32 scratch of a backward design: the checkpoints (the state
+    every ``chunk`` steps for ``"ring"``, every ``BWD_CHUNK`` for ``"rows"``)
+    and the (batch row, head) partials of du."""
+    if design == "rows":
+        chunk = BWD_CHUNK
+    elif design != "ring" or chunk not in RING_CHUNKS:
+        raise ValueError(f"rwkv6_scan_bwd: no design {design!r} with chunk {chunk}")
+    return {"ckpt": (B, H, -(-T // chunk), hd, hd), "du_part": (B, H, hd)}
+
+
+class RingGeometry(NamedTuple):
+    lanes: int             # lanes of a row of the state, 8 values each
+    block: int             # threads per block: a (batch row, head)
+    grid: int              # blocks: batch rows x heads
+    chunks: int            # chunks of `chunk` steps that cover T
+    smem: int              # dynamic shared memory per block, in bytes
+
+
+def _layout(fields) -> int:
+    """Bytes of a C struct of (align, size) fields in order, padded to its
+    largest alignment."""
+    off, top = 0, 1
+    for align, size in fields:
+        off = -(-off // align) * align + size
+        top = max(top, align)
+    return -(-off // top) * top
+
+
+def ring_geometry(B: int, T: int, H: int, hd: int, itemsize: int,
+                  chunk: int = RING_CHUNK) -> RingGeometry:
+    """The launch of the ring backward for these shapes and an element of
+    ``itemsize`` bytes: hd / 8 lanes a row, hd * hd / 8 threads, one block
+    per (batch row, head), and the shared memory of ``ring::Smem`` (the
+    ring's stages of r, k, v, w, do; two checkpoint buffers; S at the
+    chunk's pieces' first steps after the first, 8 fp32 values a thread;
+    each warp's dv sums for two pieces; v . g and r . (u k) a step; the
+    mbarriers).  A piece's other states are held in registers."""
+    if hd not in HEAD_SIZES or chunk not in RING_CHUNKS:
+        raise ValueError(f"rwkv6_scan_bwd: the ring design takes hd in {HEAD_SIZES} and "
+                         f"chunk in {RING_CHUNKS}, got {hd}, {chunk}")
+    lanes = hd // 8
+    nt = hd * lanes
+    n_sub = max(1, chunk // RING_PIECE - 1)
+    smem = _layout([(128, RING_STAGES * 5 * chunk * hd * itemsize),
+                    (16, 2 * hd * hd * 4),
+                    (16, n_sub * 2 * nt * 16),
+                    (16, 2 * RING_PIECE * (nt // 32) * hd * 4),
+                    (4, 2 * RING_STAGES * chunk * 4),
+                    (8, 8 * (RING_STAGES + 2))])
+    return RingGeometry(lanes, nt, B * H, -(-T // chunk), smem)
+
+
+def ring_owner(hd: int, tid: int) -> Tuple[int, Tuple[int, ...]]:
+    """(row i, columns) of a head's state that thread ``tid`` of the ring
+    design holds: row tid // (hd / 8), lane p = tid % (hd / 8), columns 4p ..
+    4p + 3 and hd / 2 + 4p .. + 3, in the order of its 8 values."""
+    lanes = hd // 8
+    i, p = divmod(tid, lanes)
+    return i, tuple(4 * p + (e >> 2) * (hd // 2) + (e & 3) for e in range(8))
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
@@ -126,11 +203,23 @@ def _entry(which: str):
 
 
 @functools.cache
-def _bwd_entry():
-    fn = _build.load("rwkv6_scan").rwkv6_scan_bwd
-    fn.argtypes = [_P] * 16 + [_I] * 5 + [_P]
+def _bwd_entry(which: str):
+    lib = _build.load("rwkv6_scan")
+    if which == "ring":
+        fn, ints = lib.rwkv6_scan_bwd_ring, 6     # ..., hd, dtype, chunk
+    else:
+        fn, ints = lib.rwkv6_scan_bwd, 5
+    fn.argtypes = [_P] * 16 + [_I] * ints + [_P]
     fn.restype = _I
     return fn
+
+
+def ring_smem_bytes(hd: int, dtype: torch.dtype, chunk: int = RING_CHUNK) -> int:
+    """Shared memory of one block of the ring backward as the compiled
+    source has it (builds the library)."""
+    fn = _build.load("rwkv6_scan").rwkv6_scan_bwd_ring_smem_bytes
+    fn.argtypes, fn.restype = [_I, _I, _I], _I
+    return fn(hd, DTYPE_CODES[dtype], chunk)
 
 
 def cols_smem_bytes(hd: int, dtype: torch.dtype) -> int:
@@ -206,8 +295,25 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.T
                    dS_last: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
     """The gradients of the recurrence given do (B, T, H, hd) in r.dtype and
     dS_last (B, H, hd, hd) fp32 or None: (dr, dk, dv, dw, du) in the inputs'
-    dtype and dS0 (B, H, hd, hd) fp32, as ``ref.rwkv6_scan_bwd_ref``.  An
-    empty input launches nothing."""
+    dtype and dS0 (B, H, hd, hd) fp32, as ``ref.rwkv6_scan_bwd_ref``, on the
+    design of :func:`bwd_route`.  An empty input launches nothing."""
+    return _launch_bwd(None, RING_CHUNK, r, k, v, w, u, S0, do, dS_last)
+
+
+def rwkv6_scan_bwd_rows(r, k, v, w, u, S0, do, dS_last) -> Tuple[torch.Tensor, ...]:
+    """The rows design (the previous one, kept to be timed beside the ring
+    design)."""
+    return _launch_bwd("rows", BWD_CHUNK, r, k, v, w, u, S0, do, dS_last)
+
+
+def rwkv6_scan_bwd_ring(r, k, v, w, u, S0, do, dS_last,
+                        chunk: int = RING_CHUNK) -> Tuple[torch.Tensor, ...]:
+    """The ring design with checkpoints every ``chunk`` steps (16, the
+    route's; 4, one level, for timing)."""
+    return _launch_bwd("ring", chunk, r, k, v, w, u, S0, do, dS_last)
+
+
+def _launch_bwd(which, chunk, r, k, v, w, u, S0, do, dS_last) -> Tuple[torch.Tensor, ...]:
     check_operands("rwkv6_scan_bwd", r, k, v, w, u, do)
     check_inputs(r, k, v, w, u, S0)
     B, T, H, hd = r.shape
@@ -222,13 +328,15 @@ def rwkv6_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.T
         for g in grads:
             g.zero_()
         return (*grads, dS0.copy_(dS_last) if dS_last is not None else dS0.zero_())
-    which = bwd_route(r.dtype, hd)
-    ckpt = torch.empty((B, H, -(-T // BWD_CHUNK), hd, hd), dtype=torch.float32,
-                       device=r.device)
-    du_part = torch.empty((B, H, hd), dtype=torch.float32, device=r.device)
+    which = which or bwd_route(r.dtype, hd)
+    scratch = {n: torch.empty(shape, dtype=torch.float32, device=r.device)
+               for n, shape in bwd_scratch_shapes(B, T, H, hd, which, chunk).items()}
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _bwd_entry()(*map(ptr, (r, k, v, w, u, S0, do, dS_last, ckpt, du_part, *grads, dS0)),
-                       B, T, H, hd, DTYPE_CODES[r.dtype], stream_handle(r.device))
+    args = [*map(ptr, (r, k, v, w, u, S0, do, dS_last, scratch["ckpt"], scratch["du_part"],
+                       *grads, dS0)), B, T, H, hd, DTYPE_CODES[r.dtype]]
+    if which == "ring":
+        args.append(chunk)
+    err = _bwd_entry(which)(*args, stream_handle(r.device))
     raise_on_error(f"rwkv6_scan_bwd ({which})", err)
     BWD_LAUNCHES[which] += 1
     return (*grads, dS0)

@@ -34,6 +34,7 @@ from repro_torch.kernels import moe_gmm as tgmm  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as trwkv  # noqa: E402
+from repro_torch.kernels._launch import ring_schedule  # noqa: E402
 
 REL = 1e-4   # of each gradient's largest magnitude
 
@@ -234,15 +235,21 @@ def _lane_pair_sum(x):
     return (x[..., 0] + x[..., 2]) + (x[..., 1] + x[..., 3])
 
 
-def mamba_bwd_model(dt, dtx, Bm, Cm, A, h0, dy, dh_last):
+def mamba_bwd_model(dt, dtx, Bm, Cm, A, h0, dy, dh_last, chunk=None, keep_a=False):
     """The ``ckpt`` design in numpy fp32: blocks of ``BWD_CHANNELS`` channels
     of 4 lanes, checkpoints every ``BWD_CHUNK`` steps, each chunk recomputed
     from its checkpoint and walked back, ddt and ddtx summed over a
     channel's lanes, dC and dB over each warp's 8 channels by the halving
     shuffles, then over the block's warps into (B, blocks, S, 32) partials,
-    dA into per-batch-row partials; the second pass adds them in order."""
+    dA into per-batch-row partials; the second pass adds them in order.
+
+    With ``chunk`` and ``keep_a`` it is the ``ring`` design: checkpoints
+    every ``chunk`` steps; the recompute takes a_t once and keeps it beside
+    h_{t-1}, the walk back takes no exponential and its h_t (towards dC) is
+    the h_{t-1} it held a step before (the last step's: the recompute's
+    final state)."""
     f = np.float32
-    K, CH = tmamba.BWD_CHUNK, tmamba.BWD_CHANNELS
+    K, CH = chunk or tmamba.BWD_CHUNK, tmamba.BWD_CHANNELS
     Bsz, S, di = dt.shape
     ds = Bm.shape[2]
     nblk = -(-di // CH)
@@ -281,17 +288,22 @@ def mamba_bwd_model(dt, dtx, Bm, Cm, A, h0, dy, dh_last):
     for j in reversed(range(n_chunks)):  # the walk back
         t0 = j * K
         steps = min(K, S - t0)
-        hist, hp = [], ckpt[:, j]
+        hist, kept, hp = [], [], ckpt[:, j]
         for s in range(steps):
             hist.append(hp)
-            hp = (decay(t0 + s) * hp + dtxp[:, t0 + s, :, None] * B16[:, t0 + s, None, :]).astype(f)
+            kept.append(decay(t0 + s))            # a_t, taken once (ring)
+            hp = (kept[-1] * hp + dtxp[:, t0 + s, :, None] * B16[:, t0 + s, None, :]).astype(f)
+        h_next = hp                               # h_t of the step walked (ring)
         red = np.zeros((Bsz, nblk, steps, warps, 32), f)
         for s in reversed(range(steps)):
             t = t0 + s
-            e, hpv = decay(t), hist[s]
+            e, hpv = (kept[s] if keep_a else decay(t)), hist[s]
             lam = (dyp[:, t, :, None] * C16[:, t, None, :] + carry).astype(f)
             qq = lam * hpv * e
-            ht = e * hpv + dtxp[:, t, :, None] * B16[:, t, None, :]
+            if keep_a:
+                ht, h_next = h_next, hpv
+            else:
+                ht = e * hpv + dtxp[:, t, :, None] * B16[:, t, None, :]
             ddtx[:, t] = _lane_pair_sum((lam * B16[:, t, None, :]).reshape(Bsz, dip, 4, 4).sum(-1))
             ddt[:, t] = _lane_pair_sum((qq * A16).reshape(Bsz, dip, 4, 4).sum(-1))
             dA += qq * dtp[:, t, :, None]
@@ -404,6 +416,113 @@ def rwkv_bwd_model(r, k, v, w, u, S0, do, dS_last):
     return dr, dk, dv, dw, du, L, ckpt
 
 
+def rwkv_ring_model(r, k, v, w, u, S0, do, dS_last, chunk=None):
+    """The ``ring`` design in numpy fp32: thread (i, p) of a head's hd * hd /
+    8 holds 8 values of row i (``ring_owner``); a forward sweep only
+    advances S and checkpoints it every ``chunk`` steps; the walk back takes
+    each chunk's states in two levels (from the checkpoint S at steps 4, 8,
+    12 and the last piece's states; then each earlier piece of 4 again from
+    its first state, which must give the same states), and per step dr from
+    S_{t-1}, dk, dw (the halving shuffles of [dk, dw, dr, 0] over the row's
+    lanes, the u terms from v . g added by the lane that stores) and dv (the
+    halving shuffles over each warp's rows, warp 0 adding (r . u k) g, then
+    the warps in order); du per (batch row, head) partials added in batch
+    order.  Returns the gradients, the checkpoints and the states each piece
+    walked."""
+    f = np.float32
+    K, P = chunk or trwkv.RING_CHUNK, trwkv.RING_PIECE
+    B, T, H, hd = r.shape
+    geo = trwkv.ring_geometry(B, T, H, hd, 4, K)
+    LPR, NT, V = geo.lanes, geo.block, 8
+    NW = NT // 32
+    owner = [trwkv.ring_owner(hd, tid) for tid in range(NT)]
+    rows = np.array([i for i, _ in owner])
+    cols = np.array([c for _, c in owner])                                  # (NT, V)
+    held = np.zeros((hd, hd), np.int64)
+    np.add.at(held, (np.repeat(rows, V), cols.ravel()), 1)
+    assert (held == 1).all()
+
+    def advance(S, t):
+        return (w[:, t][..., None] * S + k[:, t][..., None] * v[:, t][:, :, None, :]).astype(f)
+
+    S = np.zeros((B, H, hd, hd), f) if S0 is None else S0.astype(f).copy()
+    n_ck = -(-T // K)
+    ckpt = np.zeros((B, H, n_ck, hd, hd), f)
+    for c in range(n_ck):                # the forward sweep
+        ckpt[:, :, c] = S
+        for t in range(c * K, min(T, (c + 1) * K)):
+            S = advance(S, t)
+    L = np.zeros((B, H, hd, hd), f) if dS_last is None else dS_last.astype(f).copy()
+    dr, dk, dv, dw = (np.zeros((B, T, H, hd), f) for _ in range(4))
+    du_part = np.zeros((B, H, hd), f)
+    lane = np.arange(32)
+    row_rounds = tuple(1 << b for b in reversed(range(LPR.bit_length() - 1)))   # LPR/2 .. 1
+    dv_rounds = tuple(m for m in (16, 8, 4, 2) if m >= LPR)
+    walked = {}
+    for c in reversed(range(n_ck)):      # the walk back
+        t0 = c * K
+        steps = min(K, T - t0)
+        last = (steps - 1) // P
+        vg = (v[:, t0:t0 + steps] * do[:, t0:t0 + steps]).sum(-1, dtype=f)         # (B, s, H)
+        rk = (r[:, t0:t0 + steps] * u * k[:, t0:t0 + steps]).sum(-1, dtype=f)
+        level1, Pst = {}, ckpt[:, :, c]
+        for s in range(steps - 1):
+            Pst = advance(Pst, t0 + s)
+            if (s + 1) % P == 0 or (s + 1) // P == last:
+                level1[s + 1] = Pst
+        for pc in reversed(range(last + 1)):
+            pt0 = pc * P
+            psteps = min(P, steps - pt0)
+            states = [ckpt[:, :, c] if pc == 0 else level1[pt0]]
+            for s in range(1, psteps):
+                if pc == last:
+                    states.append(level1[pt0 + s])
+                else:                    # the second level
+                    states.append(advance(states[-1], t0 + pt0 + s - 1))
+            walked[t0 + pt0] = states
+            red = np.zeros((B, H, psteps, NW, hd), f)
+            for s in reversed(range(psteps)):
+                t = t0 + pt0 + s
+                Sp, Lt = states[s][:, :, rows[:, None], cols], L[:, :, rows[:, None], cols]
+                vt, gt = v[:, t][:, :, cols], do[:, t][:, :, cols]                # (B,H,NT,8)
+                ri, ki = r[:, t][:, :, rows], k[:, t][:, :, rows]                 # (B,H,NT)
+                rs = np.stack([(Lt * vt).sum(-1), (Lt * Sp).sum(-1), (Sp * gt).sum(-1),
+                               np.zeros_like(ri)], -1).astype(f)
+                out, base, dup = _halve_over_lanes(rs.reshape(B, H, NW, 32, 4), row_rounds)
+                seen = np.zeros((3, hd), np.int64)
+                for ln in lane[(lane & dup) == 0]:
+                    i_w = rows[np.arange(NW) * 32 + ln]                           # row, by warp
+                    for kk in range(out.shape[-1]):
+                        idx = base[ln] + kk
+                        if idx < 3:
+                            [dk, dw, dr][idx][:, t][:, :, i_w] = out[:, :, :, ln, kk]
+                            seen[idx, i_w] += 1
+                assert (seen == 1).all()
+                dk[:, t] += u * r[:, t] * vg[:, s + pt0][..., None]
+                dr[:, t] += u * k[:, t] * vg[:, s + pt0][..., None]
+                du_part += r[:, t] * k[:, t] * vg[:, s + pt0][..., None]
+                out, base, dup = _halve_over_lanes((Lt * ki[..., None]).reshape(B, H, NW, 32, V),
+                                                   dv_rounds)
+                seen = np.zeros(hd, np.int64)
+                for ln in lane[(lane & dup) == 0]:
+                    for kk in range(out.shape[-1]):
+                        col = cols[ln, base[ln] + kk]                             # p = ln % LPR
+                        red[:, :, s, :, col] = out[:, :, :, ln, kk]
+                        red[:, :, s, 0, col] += rk[:, s + pt0] * do[:, t][:, :, col]
+                        seen[col] += 1
+                assert (seen == 1).all()
+                L = (w[:, t][..., None] * L + r[:, t][..., None] * do[:, t][:, :, None, :]).astype(f)
+            for s in range(psteps):
+                acc = np.zeros((B, H, hd), f)
+                for wv in range(NW):
+                    acc += red[:, :, s, wv]
+                dv[:, t0 + pt0 + s] = acc
+    du = np.zeros((H, hd), f)
+    for b in range(B):                   # the second pass, in batch order
+        du += du_part[b]
+    return (dr, dk, dv, dw, du, L), ckpt, walked
+
+
 @pytest.mark.parametrize("case", [
     (2, 37, 100, 16),    # S not a multiple of the chunk; two blocks, the second ragged
     (1, 9, 64, 16),      # S below the chunk
@@ -448,6 +567,100 @@ def test_rwkv6_kernel_model_matches_the_plain_backward(case):
         for name, g, e in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got, expect):
             _close(g, e.numpy(), name)
     assert ckpt.shape[2] == -(-case[1] // trwkv.BWD_CHUNK)
+
+
+RING_STATES = [(True, True), (False, False)]   # (initial state and last cotangent) or none
+
+
+@pytest.mark.parametrize("with_state", [True, False], ids=["state", "no_state"])
+@pytest.mark.parametrize("chunk", tmamba.RING_CHUNKS)
+@pytest.mark.parametrize("case", [
+    (2, 37, 128, 16),    # S not a multiple of the chunk; two blocks
+    (1, 9, 64, 16),      # S below the chunk
+    (2, 1, 96, 8),       # one step; di not a multiple of 64; ds 8
+    (1, 48, 64, 12),     # S a multiple of the chunk; ds 12: the fourth lane off
+], ids=str)
+def test_mamba_ring_model_matches_the_plain_backward(case, chunk, with_state):
+    B, S, di, ds = case
+    assert tmamba.bwd_route(torch.float32, ds, di) == "ring"
+    dt, dtx, Bm, Cm, A, h0, dy, dh = _mamba_inputs(*case, seed=11)
+    h0, dh = (h0, dh) if with_state else (None, None)
+    *got, ckpt = mamba_bwd_model(dt, dtx, Bm, Cm, A, h0, dy, dh, chunk=chunk, keep_a=True)
+    expect = tref.mamba_scan_bwd_ref(*_t(dt, dtx, Bm, Cm, A, h0, dy, dh))
+    for name, g, e in zip(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), got, expect):
+        _close(g, e.numpy(), name)
+    # a_t kept and h_t carried give the arithmetic of taking them again
+    *again, _ = mamba_bwd_model(dt, dtx, Bm, Cm, A, h0, dy, dh, chunk=chunk)
+    for name, g, e in zip(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), got, again):
+        assert np.array_equal(g, e), name
+    assert ckpt.shape[:2] + (di,) == tmamba.bwd_scratch_shapes(B, S, di, ds, chunk)["ckpt"][:3]
+
+
+@pytest.mark.parametrize("chunk", trwkv.RING_CHUNKS)
+@pytest.mark.parametrize("case", [
+    (2, 21, 2, 16),      # T not a multiple of the chunk; one warp
+    (1, 5, 1, 32),       # T below the chunk; 4 lanes a row
+    (1, 1, 2, 64),       # one step
+    (1, 32, 1, 64),      # T a multiple of the chunk; 16 warps
+    (2, 19, 1, 32),      # a last chunk of 3 steps, the piece below 4
+], ids=str)
+def test_rwkv6_ring_model_matches_the_plain_backward(case, chunk):
+    r, k, v, w, u, S0, do, dS = _rwkv_inputs(*case, seed=13)
+    for S0_, dS_ in ((S0, dS), (None, None)):
+        got, ckpt, _ = rwkv_ring_model(r, k, v, w, u, S0_, do, dS_, chunk=chunk)
+        expect = tref.rwkv6_scan_bwd_ref(*_t(r, k, v, w, u, S0_, do, dS_))
+        for name, g, e in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got, expect):
+            _close(g, e.numpy(), name)
+    B, T, H, hd = case
+    assert ckpt.shape == trwkv.bwd_scratch_shapes(B, T, H, hd, "ring", chunk)["ckpt"]
+
+
+@pytest.mark.parametrize("T", [1, 3, 4, 16, 17, 30, 48])
+def test_rwkv6_ring_model_walks_each_step_from_its_own_state(T):
+    """Each piece of the walk back starts at the state the forward had
+    there, and its two-level recompute gives every state S_{t-1} exactly as
+    one sequential pass does: every step once, in both spacings."""
+    r, k, v, w, u, S0, do, dS = _rwkv_inputs(1, T, 1, 16, seed=5)
+    f = np.float32
+    seq = [S0.astype(f)]
+    for t in range(T):
+        seq.append((w[:, t][..., None] * seq[-1] + k[:, t][..., None]
+                    * v[:, t][:, :, None, :]).astype(f))
+    for chunk in trwkv.RING_CHUNKS:
+        _, _, walked = rwkv_ring_model(r, k, v, w, u, S0, do, dS, chunk=chunk)
+        covered = []
+        for t0, states in walked.items():
+            for s, St in enumerate(states):
+                assert np.array_equal(St, seq[t0 + s]), (chunk, t0, s)
+                covered.append(t0 + s)
+        assert sorted(covered) == list(range(T))
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 7, 32])
+def test_ring_schedule_stages_every_chunk_once(n):
+    """The scan backwards' ring: the forward pass walks chunks 0 .. n - 1 and
+    the walk back n - 1 .. 0, each chunk filled once a pass; a stage is
+    refilled only once the chunk it held has been walked, a walk finds its
+    chunk in its stage at the parity it waits for, and at most the stages'
+    count are in flight."""
+    stages = trwkv.RING_STAGES
+    assert stages == tmamba.RING_STAGES
+    held = {}                                    # stage -> (use, chunk, parity)
+    walks, fills, started = [], [], -1
+    for kind, use, chunk in ring_schedule(n, stages):
+        st, parity = use % stages, (use // stages) & 1
+        if kind == "fill":
+            if st in held:                       # its chunk walked, and the walk done
+                assert held[st][0] < started
+            held[st] = (use, chunk, parity)
+            fills.append((use, chunk))
+        else:
+            assert held[st] == (use, chunk, parity)
+            assert sum(u > use for u, _ in fills) <= stages - 1
+            walks.append(chunk)
+            started = use
+    assert walks == list(range(n)) + list(reversed(range(n)))
+    assert sorted(fills) == [(u, c) for u, c in zip(range(2 * n), walks)]
 
 
 def test_moe_gmm_bwd_on_transposed_operands_is_the_plain_backward():
@@ -661,14 +874,32 @@ def test_moe_gmm_bwd_at_the_training_shapes_copies_nothing(monkeypatch):
 
 
 def test_scan_bwd_routes():
+    """The backward routes as pure functions of dtype and shape, at every
+    ds (1 .. 16) and hd the forwards take: Mamba on ``ring`` where di and ds
+    times the element size are multiples of 16 bytes, else ``ckpt``; RWKV6
+    on ``ring`` at every hd.  The previous designs keep their entry points."""
+    for ds in range(1, 17):
+        for di in (8192, 96, 64, 70, 333):
+            for dt, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+                aligned = (di * size) % 16 == 0 and (ds * size) % 16 == 0
+                assert tmamba.bwd_route(dt, ds, di) == ("ring" if aligned else "ckpt")
+    assert tmamba.bwd_route(torch.bfloat16, 16, 8192) == "ring"     # Jamba's shape
+    assert tmamba.bwd_route(torch.bfloat16, 12, 8192) == "ckpt"     # 24-byte rows of B_t
     for dt in (torch.float32, torch.bfloat16):
-        assert [tmamba.bwd_route(dt, ds) for ds in (1, 5, 12, 16)] == ["ckpt"] * 4
-        assert [trwkv.bwd_route(dt, hd) for hd in (16, 32, 64)] == ["rows"] * 3
-    for bad in (lambda: tmamba.bwd_route(torch.float32, 17),
-                lambda: tmamba.bwd_route(torch.float16, 16),
+        assert [trwkv.bwd_route(dt, hd) for hd in (16, 32, 64)] == ["ring"] * 3
+    for bad in (lambda: tmamba.bwd_route(torch.float32, 17, 64),
+                lambda: tmamba.bwd_route(torch.float16, 16, 64),
                 lambda: trwkv.bwd_route(torch.float32, 128)):
         with pytest.raises(ValueError):
             bad()
+    assert set(tmamba.BWD_LAUNCHES) == {"ring", "ckpt"}
+    assert set(trwkv.BWD_LAUNCHES) == {"ring", "rows"}
+    for fn, inputs in ((tmamba.mamba_scan_bwd_ckpt, _mamba_inputs(1, 3, 8, 4)),
+                       (tmamba.mamba_scan_bwd_ring, _mamba_inputs(1, 3, 8, 4)),
+                       (trwkv.rwkv6_scan_bwd_rows, _rwkv_inputs(1, 3, 1, 16)),
+                       (trwkv.rwkv6_scan_bwd_ring, _rwkv_inputs(1, 3, 1, 16))):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*_t(*inputs))
 
 
 def test_rwkv6_bwd_shared_memory_fits_two_blocks():
@@ -676,6 +907,54 @@ def test_rwkv6_bwd_shared_memory_fits_two_blocks():
     blocks share an SM within Hopper's 227 KB."""
     assert trwkv.bwd_smem_bytes(64) == 81920
     assert all(2 * trwkv.bwd_smem_bytes(hd) <= trwkv.SMEM_LIMIT for hd in trwkv.HEAD_SIZES)
+
+
+def test_rwkv6_bwd_ring_shared_memory_and_occupancy():
+    """The ring design at each hd, dtype and spacing fits a block's 227 KB;
+    at hd 64 one block of 512 threads an SM, 16 warps, at most 128 registers
+    a thread; at RWKV6-1.6B's shape 256 blocks, 32 chunks of 16 steps."""
+    for hd in trwkv.HEAD_SIZES:
+        for itemsize in (4, 2):
+            for chunk in trwkv.RING_CHUNKS:
+                g = trwkv.ring_geometry(8, 512, 32, hd, itemsize, chunk)
+                assert g.smem <= trwkv.SMEM_LIMIT and g.block == hd * hd // 8
+    g = trwkv.ring_geometry(8, 512, 32, 64, 4)
+    assert g == (8, 512, 256, 32, 176640)
+    assert 2 * (g.smem + 1024) > 228 * 1024          # one block an SM
+    assert g.block // 32 == 16 and 65536 // g.block == 128
+
+
+def test_mamba_bwd_ring_shared_memory_and_occupancy():
+    """The ring design's shared memory: chunks of 16 one block (8 warps) an
+    SM, chunks of 8 two (16 warps) within the SM's 228 KB, each block
+    reserving 1 KB."""
+    for itemsize in (4, 2):
+        one, two = (tmamba.ring_smem_bytes_model(itemsize, c) for c in (16, 8))
+        assert one <= tmamba.SMEM_LIMIT < 2 * (one + 1024)
+        assert 2 * (two + 1024) <= 228 * 1024
+    assert tmamba.ring_smem_bytes_model(4, 8) == 113792
+
+
+def test_rwkv6_bwd_scratch_agrees_with_the_source():
+    """The checkpoints the wrapper allocates for each design are those the
+    C entry points document and the models write: ceil(T / 4) for rows,
+    ceil(T / chunk) for ring."""
+    import pathlib
+    import re
+    src = (pathlib.Path(trwkv.__file__).parent.parent / "csrc" / "rwkv6_scan.cu").read_text()
+    text = re.sub(r"\s*//\s*", " ", src)
+    assert "ckpt (B, H, ceil(T / 4), hd, hd)" in text
+    assert "ckpt (B, H, ceil(T / ck_steps), hd, hd)" in text
+    assert f"constexpr int kChunk = {trwkv.BWD_CHUNK};" in src
+    assert trwkv.bwd_scratch_shapes(2, 21, 3, 16, "rows")["ckpt"] == (2, 3, 6, 16, 16)
+    for chunk in trwkv.RING_CHUNKS:
+        assert trwkv.bwd_scratch_shapes(2, 21, 3, 16, "ring", chunk) == {
+            "ckpt": (2, 3, -(-21 // chunk), 16, 16), "du_part": (2, 3, 16)}
+    r, k, v, w, u, S0, do, dS = _rwkv_inputs(2, 21, 3, 16)
+    *_, ckpt = rwkv_bwd_model(r, k, v, w, u, S0, do, dS)
+    assert ckpt.shape == trwkv.bwd_scratch_shapes(2, 21, 3, 16, "rows")["ckpt"]
+    with pytest.raises(ValueError):
+        trwkv.bwd_scratch_shapes(1, 1, 1, 16, "ring", 8)
 
 
 # ---------------------------------------------------------------------------

@@ -1248,7 +1248,7 @@ def test_moe_gmm_and_the_scans_on_the_card_have_a_grad_fn(cuda, dtype):
         assert a.dtype == e.dtype
         _assert_close_at(a, e, SCAN_TOL["bfloat16" if a.dtype == torch.bfloat16 else "float32"])
     assert ops.LAUNCHES["mamba_scan_bwd"] == 1
-    assert ops.ROUTE_LAUNCHES["mamba_scan_bwd"] == {"ckpt": 1}
+    assert ops.ROUTE_LAUNCHES["mamba_scan_bwd"] == {"ring": 1, "ckpt": 0}
 
     B, T, H, hd = 2, 30, 2, 64
     rw = [g(B, T, H, hd), g(B, T, H, hd, scale=0.3), g(B, T, H, hd, scale=0.3),
@@ -1264,7 +1264,7 @@ def test_moe_gmm_and_the_scans_on_the_card_have_a_grad_fn(cuda, dtype):
         assert a.dtype == dt
         _assert_close_at(a, e, SCAN_TOL[dtype])
     assert ops.LAUNCHES["rwkv6_scan_bwd"] == 1
-    assert ops.ROUTE_LAUNCHES["rwkv6_scan_bwd"] == {"rows": 1}
+    assert ops.ROUTE_LAUNCHES["rwkv6_scan_bwd"] == {"ring": 1, "rows": 0}
     with torch.no_grad():
         assert ops.moe_gmm(x, w).grad_fn is None
         assert ops.rwkv6_scan(*rw)[0].grad_fn is None
@@ -1380,6 +1380,103 @@ def test_rwkv6_scan_bwd_kernel(cuda, B, T, H, hd, with_state, dtype):
             _assert_sum_close(a, e)
         else:
             _assert_close_at(a, e, SCAN_TOL["float32"])
+
+
+def _check_scan_grads(names, got, expect, summed):
+    for name, a, e in zip(names, got, expect):
+        assert a.dtype == e.dtype, name
+        if a.dtype == torch.bfloat16:
+            _assert_close(a, e, "bfloat16")
+        elif name in summed:
+            _assert_sum_close(a, e)
+        else:
+            _assert_close_at(a, e, SCAN_TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("design", ["ring", "ring_chunk8", "ring_no_reuse", "ckpt"])
+@pytest.mark.parametrize("B,S,di,ds,with_state", [
+    (2, 150, 64, 16, True), (3, 77, 320, 16, True), (4, 1, 256, 16, True),
+    (1, 256, 128, 8, False), (2, 40, 96, 16, False),
+])
+def test_mamba_scan_bwd_designs(cuda, B, S, di, ds, with_state, design, dtype):
+    """Each design of the backward on its own entry point (the ring design
+    with checkpoints every 16 or 8 steps, with a_t kept from the recompute or
+    taken again; the previous ckpt design) against the plain version, S
+    ragged, below a chunk and one step, di not a multiple of the block's 64
+    channels, and the launch counted by design."""
+    dt_ = getattr(torch, dtype)
+    assert tmamba.bwd_route(dt_, ds, di) == "ring"
+    dt = (torch.nn.functional.softplus(_randn(cuda, (B, S, di), torch.float32)) * 0.1).to(dt_)
+    dtx = (_randn(cuda, (B, S, di), torch.float32) * 0.1).to(dt_)
+    Bm, Cm = _randn(cuda, (B, S, ds), dt_), _randn(cuda, (B, S, ds), dt_)
+    A = (-torch.exp(_randn(cuda, (di, ds), torch.float32))).to(dt_)
+    h0 = _randn(cuda, (B, di, ds), torch.float32) if with_state else None
+    dh = _randn(cuda, (B, di, ds), torch.float32) if with_state else None
+    dy = _randn(cuda, (B, S, di), dt_)
+    args = (dt, dtx, Bm, Cm, A, h0, dy, dh)
+    before = dict(tmamba.BWD_LAUNCHES)
+    got = {"ring": lambda: tmamba.mamba_scan_bwd_ring(*args),
+           "ring_chunk8": lambda: tmamba.mamba_scan_bwd_ring(*args, chunk=8),
+           "ring_no_reuse": lambda: tmamba.mamba_scan_bwd_ring(*args, reuse=False),
+           "ckpt": lambda: tmamba.mamba_scan_bwd_ckpt(*args)}[design]()
+    torch.cuda.synchronize()
+    counted = "ckpt" if design == "ckpt" else "ring"
+    assert tmamba.BWD_LAUNCHES == {k: n + (k == counted) for k, n in before.items()}
+    _check_scan_grads(("ddt", "ddtx", "dB", "dC", "dA", "dh0"), got,
+                      ref.mamba_scan_bwd_ref(*args), ("dB", "dC", "dA"))
+
+
+def test_mamba_scan_bwd_ring_shared_memory(cuda):
+    """The ring design's shared memory as compiled equals the wrapper's
+    model of it, and chunks of 8 leave room for two blocks an SM."""
+    for dt in (torch.float32, torch.bfloat16):
+        for chunk in tmamba.RING_CHUNKS:
+            itemsize = torch.finfo(dt).bits // 8
+            assert tmamba.ring_smem_bytes(dt, chunk) == tmamba.ring_smem_bytes_model(itemsize,
+                                                                                    chunk)
+        assert 2 * (tmamba.ring_smem_bytes(dt, 8) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("design", ["ring", "ring_chunk4", "rows"])
+@pytest.mark.parametrize("B,T,H,hd,with_state", [
+    (2, 128, 2, 64, False), (1, 64, 4, 32, False), (2, 96, 1, 16, False),
+    (2, 150, 2, 64, True), (3, 1, 4, 64, True), (1, 70, 3, 32, True), (1, 13, 2, 16, True),
+])
+def test_rwkv6_scan_bwd_designs(cuda, B, T, H, hd, with_state, design, dtype):
+    """Each design of the backward on its own entry point (the ring design
+    with checkpoints every 16 or 4 steps; the previous rows design) against
+    the plain version, T ragged, below a chunk and one step, and the launch
+    counted by design."""
+    dt = getattr(torch, dtype)
+    r = _randn(cuda, (B, T, H, hd), dt)
+    k, v = ((_randn(cuda, (B, T, H, hd), torch.float32) * 0.3).to(dt) for _ in range(2))
+    w = torch.sigmoid(_randn(cuda, (B, T, H, hd), torch.float32) * 0.5 + 2).to(dt)
+    u = (_randn(cuda, (H, hd), torch.float32) * 0.1).to(dt)
+    S0 = _randn(cuda, (B, H, hd, hd), torch.float32) * 0.3 if with_state else None
+    dS = _randn(cuda, (B, H, hd, hd), torch.float32) if with_state else None
+    do = _randn(cuda, (B, T, H, hd), dt)
+    args = (r, k, v, w, u, S0, do, dS)
+    before = dict(trwkv.BWD_LAUNCHES)
+    got = {"ring": lambda: trwkv.rwkv6_scan_bwd_ring(*args),
+           "ring_chunk4": lambda: trwkv.rwkv6_scan_bwd_ring(*args, chunk=4),
+           "rows": lambda: trwkv.rwkv6_scan_bwd_rows(*args)}[design]()
+    torch.cuda.synchronize()
+    counted = "rows" if design == "rows" else "ring"
+    assert trwkv.BWD_LAUNCHES == {k: n + (k == counted) for k, n in before.items()}
+    _check_scan_grads(("dr", "dk", "dv", "dw", "du", "dS0"), got,
+                      ref.rwkv6_scan_bwd_ref(*args), ("du",))
+
+
+def test_rwkv6_scan_bwd_ring_shared_memory(cuda):
+    """The ring design's shared memory as compiled equals the wrapper's
+    model of it, within a block's 227 KB at every hd, dtype and chunk."""
+    for dt in (torch.float32, torch.bfloat16):
+        for hd in trwkv.HEAD_SIZES:
+            for chunk in trwkv.RING_CHUNKS:
+                g = trwkv.ring_geometry(1, 1, 1, hd, torch.finfo(dt).bits // 8, chunk)
+                assert trwkv.ring_smem_bytes(hd, dt, chunk) == g.smem <= trwkv.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("arch,n_layers", [("mixtral-8x7b", 2), ("jamba-v0.1-52b", 8),

@@ -390,8 +390,8 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                                                   "dx_wgmma": 0,
                                                   "dx_mma_sync": 0, "dw_stream": 0,
                                                   "dw_wgmma": 0, "dw_mma_sync": 0},
-                                  "mamba_scan_bwd": {"ckpt": 0},
-                                  "rwkv6_scan_bwd": {"rows": 0}}
+                                  "mamba_scan_bwd": {"ring": 0, "ckpt": 0},
+                                  "rwkv6_scan_bwd": {"ring": 0, "rows": 0}}
 
 
 def test_every_entry_point_refuses_cpu_tensors():
