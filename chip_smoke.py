@@ -239,7 +239,26 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    embeddings, each 4 steps as 11d (its cross-attention's forward on
    ``wgmma_masked``, writing each row's lse, and its backward on the
    ``wgmma_live`` pair), with MFU by ``flops.model_flops``, which counts
-   an encoder-decoder model's decoder tokens only.
+   an encoder-decoder model's decoder tokens only;
+12. the dry run (``repro_torch.launch.dryrun``) and the options only it
+   selects: 12a on the host, no kernel launched, ``run_pair`` on the
+   256-rank production mesh (data 32 x model 8, a fake process group) for
+   qwen3-1.7b x decode_32k with its probes and mixtral-8x7b x train_4k,
+   each device's memory, flops, bytes, collective bytes by kind and axis
+   and the roofline's three terms, bottleneck and useful ratio (the H100
+   SXM's data-sheet figures at 700 W: predictions), all finite; perf's
+   expert-parallel variant of mixtral x train_4k at 2 of 32 layers moves
+   bytes by all-to-all; 12b the dry run on a 1-rank mesh at phase 11b's
+   training step and phase 5's decode step: its parameter, moment and KV
+   cache bytes equal the card's tensors', and its roofline step time is
+   not above the device time those phases measured; 12c full-width
+   qwen3-1.7b on the card: 32 greedy tokens with ``cache_update="select"``
+   equal the in-place path's (both step times printed), and a prefill under
+   ``attn_impl="chunked"`` and decode steps under ``mixed_precision`` launch
+   what the default path launches, by route (flash ``wgmma`` 28 a prefill,
+   decode ``split``), every plain attention refused; then
+   ``examples/quickstart_torch.py`` on the card's measured AES body, whose
+   junctiond median and p99 must be below containerd's (Fig 5).
 
 The line before the last is a JSON object with one entry per kernel (the
 flash kernel's masked route and the five backwards with their own); the last is
@@ -601,13 +620,17 @@ def profile_decode(torch, T, params, cfg, batch, seq_len):
     return device_us, wall_us, top
 
 
-def print_profiles(torch, T, params, cfg, batch, seq_len) -> None:
+def print_profiles(torch, T, params, cfg, batch, seq_len) -> dict:
     """Profile ``PROFILED_STEPS`` decode steps and one prefill of ``batch``
-    and print their device time, wall time, idle share and top kernels."""
-    for what, prof_fn in ((f"decode step over {PROFILED_STEPS} profiled steps",
-                           profile_decode),
-                          ("prefill, profiled once", profile_prefill)):
+    and print their device time, wall time, idle share and top kernels.
+    Returns the device times, {"decode": us a step, "prefill": us}, None
+    where the profiler saw no kernel."""
+    device = {}
+    for key, what, prof_fn in (
+            ("decode", f"decode step over {PROFILED_STEPS} profiled steps", profile_decode),
+            ("prefill", "prefill, profiled once", profile_prefill)):
         device_us, wall_us, top = prof_fn(torch, T, params, cfg, batch, seq_len)
+        device[key] = device_us
         if device_us is None:
             print(f"{what}: device time not measured (the profiler saw no kernel); "
                   f"wall_us {wall_us:.1f}")
@@ -616,6 +639,190 @@ def print_profiles(torch, T, params, cfg, batch, seq_len) -> None:
               f"device idle share {1 - device_us / wall_us:.3f}")
         for name, us in top:
             print(f"  {us:10.1f} us  {name[:100]}")
+    return device
+
+
+def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured) -> None:
+    """Phase 12.  12a (host, no kernel): ``dryrun.run_pair`` on the 256-rank
+    production mesh (data 32 x model 8) for qwen3-1.7b x decode_32k with its
+    probes and mixtral-8x7b x train_4k, and perf's expert-parallel variant of
+    mixtral x train_4k at 2 of its 32 layers (its all-to-all must move
+    bytes).  12b: the dry run on a 1-rank mesh at phase 11b's training step
+    and phase 5's decode step of full-width qwen3-1.7b; its parameter,
+    moment and KV-cache bytes must equal those of the card's tensors, and its
+    roofline step time must not exceed the device time those phases
+    measured.  12c: full-width qwen3-1.7b on the card, 32 greedy tokens with
+    ``cache_update="select"`` equal to the in-place path's; a prefill under
+    ``attn_impl="chunked"`` and decode steps under ``mixed_precision`` with
+    every plain attention refused, their launches by route those of the
+    default path.  Then ``examples/quickstart_torch.py`` on the card's
+    measured AES body: junctiond's median and p99 below containerd's."""
+    import os
+    from repro_torch.config import InputShape, StepKind, get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.launch.mesh import make_mesh, teardown_mesh
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.train.optimizer import init_state
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def roofline_line(r):
+        return (f"compute {1e3 * r['compute_s']:.3f} ms, memory {1e3 * r['memory_s']:.3f} ms, "
+                f"collective {1e3 * r['collective_s']:.3f} ms -> {r['bottleneck']}-bound, "
+                f"step {1e3 * r['step_time_s']:.3f} ms, useful ratio {r['useful_ratio']:.4f}")
+
+    # -- 12a: the production mesh, on the host ------------------------------------------
+    launches_before = dict(ops.LAUNCHES)
+    t_phase = time.perf_counter()
+    print("12a the dry run on the production mesh (predictions: the H100 SXM's data-sheet "
+          "figures at 700 W; per device):")
+    for arch, shape, probes in (("qwen3-1.7b", "decode_32k", True),
+                                ("mixtral-8x7b", "train_4k", False)):
+        t0 = time.perf_counter()
+        rec = dryrun.run_pair(arch, shape, probes=probes, verbose=False)
+        cost, r, mem = rec["cost"], rec["roofline"], rec["memory"]
+        print(f"  {arch} x {shape} x {rec['mesh']} ({rec['chips']} ranks, "
+              f"{'probes ' + str([p['layers'] for p in rec['probes']]) if probes else 'no probes'}"
+              f", {time.perf_counter() - t0:.1f} s of host time): peak {mem['peak_bytes']:.6g} B "
+              f"(parameters {mem['params_bytes']:.6g}), flops {cost['flops']:.6g}, bytes "
+              f"accessed {cost['bytes accessed']:.6g}")
+        print(f"    collective bytes by kind {cost['collective bytes by kind']}, by axis "
+              f"{cost['collective bytes by axis']}; ops run replicated (no DTensor rule) "
+              f"{cost['ops run replicated (no DTensor rule)']}")
+        print(f"    roofline: {roofline_line(r)}")
+        for k in ("compute_s", "memory_s", "collective_s", "step_time_s", "useful_ratio"):
+            if not (math.isfinite(r[k]) and r[k] > 0):
+                raise AssertionError(f"12a {arch} x {shape}: {k} {r[k]}")
+    variants = {n: p for n, p, _ in perf.variants_for("train_4k", "mixtral-8x7b")}
+    cfg = dryrun.with_layers(get_arch("mixtral-8x7b"), 2)
+    rec = dryrun.run_pair("mixtral-8x7b", "train_4k", probes=False, verbose=False,
+                          policy=variants["chunked_attn+ep"], cfg=cfg)
+    a2a = rec["cost"]["collective bytes by kind"].get("all-to-all", 0.0)
+    print(f"  perf's chunked_attn+ep on mixtral-8x7b x train_4k at 2 of 32 layers: collective "
+          f"bytes by kind {rec['cost']['collective bytes by kind']}")
+    if not a2a > 0:
+        raise AssertionError("12a: the expert-parallel variant moved no byte by all-to-all")
+    if dict(ops.LAUNCHES) != launches_before:
+        raise AssertionError(f"12a launched kernels: {dict(ops.LAUNCHES)}")
+    print(f"  12a took {time.perf_counter() - t_phase:.1f} s of host time, no kernel launched")
+
+    # -- 12b: the card against the dry run ------------------------------------------------
+    cfg = get_arch("qwen3-1.7b")
+    one = make_mesh((1, 1), ("data", "model"))
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    caches = T.init_caches(params, cfg, SLOTS, MAX_SEQ)
+    moments = init_state(params)
+    card = {"params": nbytes(params), "cache": nbytes(caches),
+            "opt": nbytes(moments.mu) + nbytes(moments.nu)}
+    del params, caches, moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, shape, measured_us, state, peak in (
+            ("phase 5's decode step", InputShape("decode", MAX_SEQ, SLOTS, StepKind.DECODE),
+             decode_device_us, ("params", "cache"), None),
+            ("phase 11b's training step", InputShape("train", TRAIN_SEQ, TRAIN_BATCH,
+                                                     StepKind.TRAIN),
+             train_measured["device_us"], ("params", "opt"), train_measured["peak"])):
+        rec = dryrun.run_pair(cfg.name, "decode_32k", probes=False, verbose=False, mesh=one,
+                              cfg=cfg, shape=shape)
+        r, mem = rec["roofline"], rec["memory"]
+        print(f"12b {label} ({shape.global_batch} x {shape.seq_len}) on a 1-rank mesh: "
+              f"{roofline_line(r)}; measured device time {measured_us:.1f} us")
+        for k in state:
+            print(f"    {k} bytes: dry run {int(mem[k + '_bytes'])}, the card's tensors {card[k]}")
+            if int(mem[k + "_bytes"]) != card[k]:
+                raise AssertionError(f"12b {label}: {k} bytes {mem[k + '_bytes']} against "
+                                     f"the card's {card[k]}")
+        print(f"    predicted peak {mem['peak_bytes']:.6g} B"
+              + (f", torch.cuda.max_memory_allocated {peak}" if peak else ""))
+        if measured_us is None or not 1e6 * r["step_time_s"] <= measured_us:
+            raise AssertionError(f"12b {label}: roofline step {1e6 * r['step_time_s']:.1f} us "
+                                 f"above the measured device time {measured_us}")
+    teardown_mesh()
+
+    # -- 12c: the options on the card -----------------------------------------------------
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)), device=dev)
+
+    def greedy(n, prefill_opts=None, decode_opts=None):
+        with torch.inference_mode():
+            lg, caches = T.prefill(params, cfg, {"tokens": toks}, seq_len=MAX_SEQ,
+                                   **(prefill_opts or {}))
+            tok, out, times = lg.argmax(-1), [], []
+            out.append(tok[:, 0].tolist())
+            for i in range(n - 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, caches = T.decode_step(params, cfg, tok, PROMPT_LEN + i, caches,
+                                           **(decode_opts or {}))
+                tok = lg.argmax(-1)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                out.append(tok[:, 0].tolist())
+        return out, times
+
+    greedy(2)                                             # warm-up
+    dus, dus_t = greedy(NEW_TOKENS)
+    sel, sel_t = greedy(NEW_TOKENS, decode_opts={"cache_update": "select"})
+    print(f"12c {NEW_TOKENS} greedy tokens of {SLOTS} prompts of {PROMPT_LEN}: in place mean "
+          f"step {1e3 * statistics.fmean(dus_t):.3f} ms, select {1e3 * statistics.fmean(sel_t):.3f}"
+          f" ms; tokens equal: {sel == dus}")
+    if sel != dus:
+        raise AssertionError("12c: cache_update='select' served other tokens than the in-place path")
+
+    def routes_of(prefill_opts, decode_opts, steps=4):
+        ops.reset_launches()
+        greedy(steps + 1, prefill_opts, decode_opts)
+        return {op: dict(ops.ROUTE_LAUNCHES[op]) for op in ("flash_attention",
+                                                            "decode_attention")}
+
+    default = routes_of(None, None)
+    plain = {(ref, "flash_attention_ref"), (ref, "decode_attention_ref"),
+             (attention, "chunked_gqa_attend"), (attention, "gqa_attend")}
+    kept = {(m, n): getattr(m, n) for m, n in plain}
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("12c: an option put a CUDA tensor on a plain path")
+
+    try:
+        for m, n in plain:
+            setattr(m, n, refuse)
+        optioned = routes_of({"attn_impl": "chunked"},
+                             {"mixed_precision": True, "cache_update": "select"})
+    finally:
+        for (m, n), fn in kept.items():
+            setattr(m, n, fn)
+    print(f"  launches by route, default path {default}; chunked prefill, mixed-precision "
+          f"select decode {optioned}")
+    L = cfg.n_layers
+    if default != optioned or default["flash_attention"]["wgmma"] != L or \
+            default["decode_attention"]["split"] != 4 * L:
+        raise AssertionError(f"12c: routes {optioned} against the default path's {default}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the example on the card ---------------------------------------------------------
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    print("examples/quickstart_torch.py on the card:")
+    for line in run.stdout.splitlines():
+        print(f"  {line}")
+    if run.returncode != 0:
+        raise AssertionError(f"quickstart_torch.py failed: {run.stderr[-2000:]}")
+    stats = {}
+    for line in run.stdout.splitlines():
+        m = re.match(r"(\w+)\s*: e2e median=([\d.]+) ms p99=([\d.]+) ms", line)
+        if m:
+            stats[m.group(1)] = (float(m.group(2)), float(m.group(3)))
+    j, c = stats["junctiond"], stats["containerd"]
+    if not (j[0] < c[0] and j[1] < c[1]):
+        raise AssertionError(f"junctiond's median and p99 {j} not below containerd's {c}")
 
 
 def control_plane(aes_us: float, endpoints: dict) -> None:
@@ -2287,11 +2494,12 @@ def main() -> int:
         if not bool(lg.float().isfinite().all()):
             raise AssertionError("full-width logits are not finite")
         step_us = print_run(eng.step_times_s, outs[0])
-        print_profiles(torch, T, eng.params, cfg, {"tokens": torch.tensor(prompts, device=dev)},
-                       MAX_SEQ)
+        profiles[cfg.name] = print_profiles(
+            torch, T, eng.params, cfg, {"tokens": torch.tensor(prompts, device=dev)}, MAX_SEQ)
         return step_us, launches, routes
 
     phase("5 full-width qwen3-1.7b served on the card")
+    profiles = {}                # device times of phase 5's profiled steps, for phase 12b
     cfg = get_arch("qwen3-1.7b")
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     step_us, launches, routes = serve(cfg, prompts)
@@ -3009,6 +3217,7 @@ def main() -> int:
                     by_kernel[tag] += e.self_device_time_total
     print(f"profiled step (one more, its wall including the profiler's cost): device_us "
           f"{device_us:.1f}  wall_us {wall_us:.1f}  idle share {1 - device_us / wall_us:.3f}")
+    train_measured = {"device_us": device_us, "peak": torch.cuda.max_memory_allocated()}
     print("  " + ", ".join(f"{tag} {us:.1f} us ({us / device_us:.3f})"
                            for tag, us in by_kernel.items()))
     for name, us in top:
@@ -3362,6 +3571,12 @@ def main() -> int:
     del batches
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 12 -----------------------------------------------------------------
+    phase("12 the dry run, the roofline and the options on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry_run_and_options(torch, dev, rng, profiles["qwen3-1.7b"]["decode"], train_measured)
 
     # -- result -------------------------------------------------------------
     print(smi)

@@ -25,10 +25,15 @@ state (or of the output) as zeros.  ``decode_attention`` and ``aes_ctr``
 have no backward kernel, since no training path reaches them, and raise
 on a CUDA input that requires grad under grad mode, rather than return an
 output cut off from the graph.  On the CPU the plain versions keep their
-autograd.
+autograd.  Inside ``meta_trace`` (the dry run's trace, whose tensors are on
+the meta device and hold no data) the ops take their plain versions too,
+the scans as single operators (``kernels.trace_ops``); elsewhere the meta
+device, as any other, has no implementation.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -68,8 +73,29 @@ def reset_launches() -> None:
             counts[r] = 0
 
 
+_META_TRACE = contextvars.ContextVar("meta_trace", default=False)
+
+
+@contextlib.contextmanager
+def meta_trace():
+    """Within it a meta tensor takes the plain version, the scans their
+    single trace operators (``kernels.trace_ops``): the dry run's
+    shapes-only trace.  Outside it the meta device has no implementation."""
+    token = _META_TRACE.set(True)
+    try:
+        yield
+    finally:
+        _META_TRACE.reset(token)
+
+
+def _traced(t: torch.Tensor) -> bool:
+    return t.device.type == "meta" and _META_TRACE.get()
+
+
 def _on_cuda(name: str, t: torch.Tensor) -> bool:
-    if t.device.type == "cpu":
+    """True for a CUDA tensor (the kernel); False on the CPU and, inside
+    ``meta_trace``, on the meta device: the plain version."""
+    if t.device.type == "cpu" or _traced(t):
         return False
     if t.device.type == "cuda":
         return True
@@ -231,6 +257,9 @@ def mamba_scan(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
     """Selective scan: dt, dtx (B,S,di), Bm, Cm (B,S,ds), A (di,ds), h0
     (B,di,ds) fp32 or None -> y (B,S,di) in dt.dtype, h_last (B,di,ds) fp32.
     An empty input launches nothing and counts nothing."""
+    if _traced(dt):
+        from repro_torch.kernels import trace_ops
+        return trace_ops.mamba_scan(dt, dtx, Bm, Cm, A, h0)
     if not _on_cuda("mamba_scan", dt):
         return ref.mamba_scan_ref(dt, dtx, Bm, Cm, A, h0)
     if _needs_grad(dt, dtx, Bm, Cm, A, h0):
@@ -248,6 +277,9 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     """wkv recurrence: r, k, v, w (B,T,H,hd), u (H,hd), S0 (B,H,hd,hd) fp32 or
     None -> o (B,T,H,hd) in r.dtype, S_last (B,H,hd,hd) fp32.  An empty input
     launches nothing and counts nothing."""
+    if _traced(r):
+        from repro_torch.kernels import trace_ops
+        return trace_ops.rwkv6_scan(r, k, v, w, u, S0)
     if not _on_cuda("rwkv6_scan", r):
         return ref.rwkv6_scan_ref(r, k, v, w, u, S0)
     if _needs_grad(r, k, v, w, u, S0):

@@ -147,17 +147,20 @@ def mamba_scan_ref(dt: torch.Tensor, dtx: torch.Tensor, Bm: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dt, dtx: (B, S, di); Bm, Cm: (B, S, ds); A: (di, ds); h0: (B, di, ds)
     or None (zeros).  A loop over time in fp32:
-    h_t = exp(dt_t A) h_{t-1} + dtx_t B_t and y_t = h_t . C_t.
-    Returns y (B, S, di) rounded once to dt.dtype, and h_S (B, di, ds) fp32."""
+    h_t = exp(dt_t A) h_{t-1} + dtx_t B_t and y_t = h_t . C_t, the steps'
+    outputs stacked at the end (no write into a slice of y, which a DTensor
+    does not take).  Returns y (B, S, di) rounded once to dt.dtype, and h_S
+    (B, di, ds) fp32."""
     Bsz, S, di = dt.shape
     ds = Bm.shape[-1]
     h = (torch.zeros((Bsz, di, ds), dtype=torch.float32, device=dt.device)
          if h0 is None else h0.float())
     dtf, dtxf, Bf, Cf, Af = (t.float() for t in (dt, dtx, Bm, Cm, A))
-    y = torch.empty((Bsz, S, di), dtype=torch.float32, device=dt.device)
+    ys = []
     for t in range(S):
         h = torch.exp(dtf[:, t, :, None] * Af) * h + dtxf[:, t, :, None] * Bf[:, t, None, :]
-        y[:, t] = torch.einsum("bde,be->bd", h, Cf[:, t])
+        ys.append(torch.einsum("bde,be->bd", h, Cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else dtf.new_zeros((Bsz, 0, di))
     return y.to(dt.dtype), h
 
 
@@ -216,17 +219,18 @@ def rwkv6_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """r, k, v, w: (B, T, H, hd); u: (H, hd); S0: (B, H, hd, hd) or None
     (zeros).  A loop over time in fp32, per head:
     o_t[j] = sum_i r_t[i] (S[i, j] + u[i] k_t[i] v_t[j]) and then
-    S[i, j] = w_t[i] S[i, j] + k_t[i] v_t[j].
-    Returns o (B, T, H, hd) rounded once to r.dtype, and S_T fp32."""
+    S[i, j] = w_t[i] S[i, j] + k_t[i] v_t[j], the steps' outputs stacked at
+    the end.  Returns o (B, T, H, hd) rounded once to r.dtype, and S_T fp32."""
     B, T, H, hd = r.shape
     S = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
          if S0 is None else S0.float())
     rf, kf, vf, wf, uf = (t.float() for t in (r, k, v, w, u))
-    o = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
+    os_ = []
     for t in range(T):
         kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]          # (B,H,hd,hd)
-        o[:, t] = torch.einsum("bhij,bhi->bhj", S + uf[None, :, :, None] * kv, rf[:, t])
+        os_.append(torch.einsum("bhij,bhi->bhj", S + uf[None, :, :, None] * kv, rf[:, t]))
         S = wf[:, t, :, :, None] * S + kv
+    o = torch.stack(os_, dim=1) if os_ else rf.new_zeros((B, 0, H, hd))
     return o.to(r.dtype), S
 
 

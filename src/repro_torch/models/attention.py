@@ -13,6 +13,18 @@ reference, and is what cross-attention takes on the CPU, as in JAX.
 
 The caches are updated in place: the decode step writes one slot instead
 of copying the whole cache, as the JAX version's functional update does.
+
+Three options that only the dry run and ``launch.perf`` select: ``impl``
+(``"dense"`` or ``"chunked"``, query chunks of 512 with an online softmax's
+memory, ``chunked_gqa_attend``) on prefill, ``mixed_precision`` (the
+softmax weights rounded to the inputs' dtype before the product with v,
+products summed in fp32) on decode, and ``cache_update`` (``"dus"``, the
+slot written in place, or ``"select"``, ``where(arange(cap) == slot, new,
+cache)`` written back: elementwise, so a cache sharded over its sequence
+keeps its layout).  The first two choose between plain versions only: on a
+CUDA tensor prefill and decode still run the flash and decode kernels,
+whatever they say.  ``cache_update`` chooses how the cache is written on
+every device.
 """
 from __future__ import annotations
 
@@ -59,9 +71,16 @@ def _project_qkv(params: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               mask: Optional[torch.Tensor]) -> torch.Tensor:
+               mask: Optional[torch.Tensor],
+               mixed_precision: bool = False) -> torch.Tensor:
     """Plain reference.  q: (B,S,Hq,hd); k,v: (B,T,Hkv,hd); mask: (S,T) or
-    (B,S,T) bool."""
+    (B,S,T) bool.
+
+    ``mixed_precision`` rounds the softmax weights to q's dtype before their
+    product with v, as the JAX version's bf16 dot with an fp32 accumulator
+    does.  Its scores need nothing else: a product of two bf16 values is
+    exact in fp32, so upcasting the operands and summing in fp32 is that
+    dot."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -71,8 +90,48 @@ def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = mask if mask.dim() == 3 else mask[None]
         scores = torch.where(m[:, None, None], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1)
+    if mixed_precision:
+        w = w.to(q.dtype).float()
     out = torch.einsum("bkgst,btkd->bskgd", w, v.float())
     return out.reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def chunked_gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: Optional[int] = None,
+                       q_chunk: int = 512) -> torch.Tensor:
+    """Query-chunked attention: the (S, T) scores are built ``q_chunk`` rows
+    at a time, never whole, as the JAX version's scan over query chunks.
+    q: (B,S,Hq,hd); k/v: (B,T,Hkv,hd) -> (B,S,Hq,hd).  Queries sit at the
+    last S of the T key positions; S is padded to a multiple of the chunk
+    and the padding dropped.  Products are summed in fp32 and the softmax
+    weights rounded to q's dtype before their product with v (JAX's bf16
+    dots with an fp32 accumulator); k and v are upcast once for all
+    chunks."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    cq = min(q_chunk, S)
+    pad = (-S) % cq
+    if pad:
+        q = torch.cat([q, q.new_zeros((B, pad, Hq, hd))], dim=1)
+    n = (S + pad) // cq
+    qs = q.reshape(B, n, cq, Hkv, G, hd)
+    kf, vf = k.float(), v.float()
+    scale = hd ** -0.5
+    k_pos = torch.arange(T, device=q.device)
+    outs = []
+    for i in range(n):
+        s = torch.einsum("bskgd,btkd->bkgst", qs[:, i].float(), kf) * scale
+        q_pos = i * cq + torch.arange(cq, device=q.device) + (T - S)
+        m = torch.ones((cq, T), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            m &= k_pos[None, :] > q_pos[:, None] - window
+        p = torch.softmax(torch.where(m, s, NEG_INF), dim=-1)
+        outs.append(torch.einsum("bkgst,btkd->bskgd", p.to(q.dtype).float(), vf))
+    out = torch.cat(outs, dim=1).reshape(B, S + pad, Hq, hd)
+    return out[:, :S].to(q.dtype)
 
 
 def _rope(cfg: ArchConfig, positions: torch.Tensor
@@ -93,13 +152,25 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out.transpose(1, 2)
 
 
+def _causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig,
+            impl: str) -> torch.Tensor:
+    """Causal (windowed) self-attention of a prompt: the flash op, or on a
+    tensor off the card ``chunked_gqa_attend`` where ``impl`` is
+    ``"chunked"``."""
+    if impl not in ("dense", "chunked"):
+        raise ValueError(f"attention impl {impl!r}: choose 'dense' or 'chunked'")
+    if impl == "chunked" and q.device.type != "cuda":
+        return chunked_gqa_attend(q, k, v, causal=True, window=cfg.sliding_window)
+    return _flash(q, k, v, True, cfg.sliding_window)
+
+
 def attention_forward(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                      positions: torch.Tensor) -> torch.Tensor:
+                      positions: torch.Tensor, impl: str = "dense") -> torch.Tensor:
     """Full-sequence causal self-attention (training / prefill without a
-    cache)."""
+    cache); ``impl`` as in :func:`_causal`."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, _rope(cfg, positions))
-    out = _flash(q, k, v, True, cfg.sliding_window)
+    out = _causal(q, k, v, cfg, impl)
     return out.reshape(B, S, -1) @ params["wo"]
 
 
@@ -185,14 +256,18 @@ def init_kv_cache(cfg: ArchConfig, batch: int, seq_len: int, dtype, device,
 
 
 def prefill_into_cache(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                       positions: torch.Tensor, cache: dict
+                       positions: torch.Tensor, cache: dict, impl: str = "dense"
                        ) -> Tuple[torch.Tensor, dict]:
-    """Self-attention over the prompt, and write the (ring) cache in place."""
+    """Self-attention over the prompt (``impl`` as in :func:`_causal`), and
+    write the (ring) cache in place."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, _rope(cfg, positions))
-    out = _flash(q, k, v, True, cfg.sliding_window)
+    out = _causal(q, k, v, cfg, impl)
     cap = cache["k"].shape[1]
-    if cap >= S:
+    if cap == S:
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+    elif cap > S:
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
     else:
@@ -228,14 +303,33 @@ def decode_step_inputs(cfg: ArchConfig, pos: int, batch: int, cap: int,
 
 
 def decode_step_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                          step: DecodeStep, cache: dict) -> Tuple[torch.Tensor, dict]:
+                          step: DecodeStep, cache: dict, cache_update: str = "dus",
+                          mixed_precision: bool = False) -> Tuple[torch.Tensor, dict]:
     """One-token decode: x (B, 1, d) at ``step.pos``, shared by the batch.
     Writes k/v into slot ``pos % cap`` of the cache in place and attends
-    over every valid slot."""
+    over every valid slot.
+
+    ``cache_update``: ``"dus"`` writes the slot alone; ``"select"`` writes
+    back ``where(arange(cap) == slot, new, cache)``, the same values.
+    ``mixed_precision`` takes, off the card, ``gqa_attend`` with that option
+    in place of the decode op's plain version; on the card the decode
+    kernel runs either way."""
     q, k, v = _project_qkv(params, x, cfg, step.rope)
-    slot = step.pos % cache["k"].shape[1]
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], step.valid)
+    cap = cache["k"].shape[1]
+    slot = step.pos % cap
+    if cache_update == "select":
+        sel = (torch.arange(cap, device=x.device) == slot)[None, :, None, None]
+        cache["k"].copy_(torch.where(sel, k.to(cache["k"].dtype), cache["k"]))
+        cache["v"].copy_(torch.where(sel, v.to(cache["v"].dtype), cache["v"]))
+    elif cache_update == "dus":
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+    else:
+        raise ValueError(f"cache_update {cache_update!r}: choose 'dus' or 'select'")
+    if mixed_precision and x.device.type != "cuda":
+        out = gqa_attend(q, cache["k"], cache["v"], step.valid[:, None, :],
+                         mixed_precision=True)[:, 0]
+    else:
+        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], step.valid)
     y = out.reshape(x.shape[0], 1, -1) @ params["wo"]
     return y, cache

@@ -156,3 +156,13 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, tuple):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def constrain(x: torch.Tensor, placements) -> torch.Tensor:
+    """x redistributed to the DTensor ``placements`` when it is a DTensor (the
+    dry run's trace), else x: the counterpart of JAX's
+    ``with_sharding_constraint``."""
+    from torch.distributed.tensor import DTensor
+    if placements is None or not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, placements)

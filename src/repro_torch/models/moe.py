@@ -17,8 +17,14 @@ arguments.  Three paths:
   out as (E, g*C, d) so that the experts see one batch per expert.
 
 ``moe_apply``, the layer the transformer calls, takes the ``moe_capacity``
-path; the JAX version's dense and grouped modes serve its sharded
-training, which the port does not have.
+path, or ``moe_capacity_grouped`` when asked for ``local_groups`` (the dry
+run's per-shard dispatch).  Its ``dispatch_placements`` and
+``group_placements`` redistribute the dispatch buffer, and the grouped
+dispatch's tokens, when they are DTensors (the JAX version's sharding
+constraints); elsewhere they do nothing.  The dispatch buffer is laid out
+(E, g*C, d), so its group axis is the second: where JAX places the buffer
+(g, E, C+1, d) over the data axes on its first dimension, the port places
+(E, g*C, d) over them on its second.
 
 The dispatched expert matmuls are :func:`repro_torch.kernels.ops.moe_gmm`:
 the CUDA kernel for tensors on the card, the plain version on the CPU.
@@ -32,7 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.config import ArchConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import constrain, dense_init
 
 
 def moe_init(generator: torch.Generator, cfg: ArchConfig, dtype,
@@ -97,14 +103,15 @@ def _ranks(idx: torch.Tensor, E: int) -> torch.Tensor:
 
 
 def _dispatch(params: dict, x: torch.Tensor, cfg: ArchConfig, g: int,
-              capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              capacity: int, placements=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch within ``g`` contiguous groups of the tokens of
     x (T, d): rank, drop, scatter, expert FFN, gather and combine.
 
     The buffer's rows are laid out (E, g, C), so every expert's rows of all
     groups are contiguous and the experts' input is an (E, g*C, d) view;
     one scratch row after them takes every dropped pair and is discarded
-    (the JAX version's row C of each expert)."""
+    (the JAX version's row C of each expert).  ``placements`` are those of
+    the (E, g*C, d) buffer, before and after the experts."""
     T, d = x.shape
     E, k = cfg.moe.num_experts, cfg.moe.top_k
     Tl = T // g
@@ -120,14 +127,16 @@ def _dispatch(params: dict, x: torch.Tensor, cfg: ArchConfig, g: int,
 
     buf = x.new_zeros((rows + 1, d))
     buf[row] = x[tok]
-    ye = _expert_ffn(params, buf[:rows].view(E, g * capacity, d))
+    xe = buf[:rows].view(E, g * capacity, d)
+    xe = constrain(xe, placements)
+    ye = constrain(_expert_ffn(params, xe), placements)
     ye = torch.cat([ye.reshape(rows, d), ye.new_zeros((1, d))])
     gathered = ye[row] * (flat_weight * keep).to(ye.dtype)[..., None]  # (g, Tl*k, d)
     return gathered.reshape(T, k, d).sum(dim=1), aux
 
 
 def moe_capacity(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                 capacity: Optional[int] = None
+                 capacity: Optional[int] = None, dispatch_placements=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fixed-capacity scatter/gather dispatch over all tokens.  x: (T, d).
     The default capacity is ``max(1, int(capacity_factor * k * T / E))``."""
@@ -135,29 +144,43 @@ def moe_capacity(params: dict, x: torch.Tensor, cfg: ArchConfig,
     if capacity is None:
         capacity = max(1, int(cfg.moe.capacity_factor * cfg.moe.top_k * T
                               / cfg.moe.num_experts))
-    return _dispatch(params, x, cfg, 1, capacity)
+    return _dispatch(params, x, cfg, 1, capacity, dispatch_placements)
 
 
 def moe_capacity_grouped(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                         n_groups: int, capacity: Optional[int] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         n_groups: int, capacity: Optional[int] = None,
+                         group_placements=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Local dispatch: tokens split into ``n_groups`` contiguous groups, with
     rank, capacity and combine per group.  x: (T, d), T % n_groups == 0.
 
     The default capacity is that of one group, rounded so that C + 1
-    divides by 16, as in the JAX version."""
+    divides by 16, as in the JAX version.  ``group_placements`` holds the
+    placements of the tokens as (g, T/g, d) (``"x"``) and of the (E, g*C, d)
+    buffer (``"dispatch"``)."""
+    T, d = x.shape
     if capacity is None:
-        Tl = x.shape[0] // n_groups
+        Tl = T // n_groups
         capacity = max(1, int(cfg.moe.capacity_factor * cfg.moe.top_k * Tl
                               / cfg.moe.num_experts))
         capacity = -(-(capacity + 1) // 16) * 16 - 1
-    return _dispatch(params, x, cfg, n_groups, capacity)
+    gp = group_placements or {}
+    if gp.get("x") is not None:
+        x = constrain(x.reshape(n_groups, T // n_groups, d), gp["x"]).reshape(T, d)
+    return _dispatch(params, x, cfg, n_groups, capacity, gp.get("dispatch"))
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
+              dispatch_placements=None, local_groups: int = 0,
+              group_placements=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (B, S, d), aux loss, by ``moe_capacity`` over all
-    B * S tokens (the JAX version's default mode)."""
+    B * S tokens (the JAX version's default mode), or by
+    ``moe_capacity_grouped`` in ``local_groups`` groups where there are
+    more than one and they divide the tokens."""
     B, S, d = x.shape
-    y, aux = moe_capacity(params, x.reshape(B * S, d), cfg)
+    flat = x.reshape(B * S, d)
+    if local_groups > 1 and (B * S) % local_groups == 0:
+        y, aux = moe_capacity_grouped(params, flat, cfg, local_groups,
+                                      group_placements=group_placements)
+    else:
+        y, aux = moe_capacity(params, flat, cfg, dispatch_placements=dispatch_placements)
     return y.reshape(B, S, d), aux

@@ -26,6 +26,19 @@ the decode kernel's valid mask over the encoder positions: the batch's
 ``"enc_mask"``, or all True when it has none.  A MoE block runs
 ``models.moe.moe_apply`` in capacity mode on the ``ln2`` output in place
 of the dense SwiGLU, and its router's aux loss is summed over the layers.
+
+The entry points take the options of the JAX ``Ctx`` as keywords, with its
+defaults (``Options``); the dry run (``launch.dryrun``) sets them, and with
+the defaults the path is the one above.  ``act_placements`` redistributes a
+DTensor x to those placements after the embedding and after each block, the
+counterpart of ``with_sharding_constraint`` (which JAX places after each
+non-RWKV block only: XLA propagates shardings over the whole program, where
+DTensor chooses op by op, and left alone places an RWKV stack's activations
+with their sequence and width sharded and the batch whole); ``attn_impl``, ``cache_update`` and
+``mixed_precision`` go to ``models.attention``; ``moe_dispatch_placements``,
+``moe_local_groups`` and ``moe_group_placements`` to ``moe_apply``.  The
+JAX ``unroll`` has no counterpart: the loop over groups here is unrolled
+already.
 """
 from __future__ import annotations
 
@@ -40,9 +53,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rk
-from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
-                                       rms_norm, rms_norm_init, swiglu,
-                                       swiglu_init, tree_to)
+from repro_torch.models.layers import (constrain, dense_init, dtype_of,
+                                       embed_init, rms_norm, rms_norm_init,
+                                       swiglu, swiglu_init, tree_to)
 
 _ATTN_KINDS = (BlockKind.ATTN, BlockKind.ATTN_MOE)
 _MAMBA_KINDS = (BlockKind.MAMBA, BlockKind.MAMBA_MOE)
@@ -129,6 +142,22 @@ def _block_init(generator: torch.Generator, kind: BlockKind, cfg: ArchConfig,
     return p
 
 
+@dataclasses.dataclass(frozen=True)
+class Options:
+    """The options of the JAX ``Ctx`` that the dry run selects; the defaults
+    are the JAX package's and leave the path as it is."""
+    act_placements: Any = None          # DTensor placements of x between blocks
+    attn_impl: str = "dense"            # "dense" | "chunked" (off the card)
+    cache_update: str = "dus"           # "dus" | "select"
+    mixed_precision: bool = False       # decode's plain attention (off the card)
+    moe_dispatch_placements: Any = None # placements of the (E, C, d) dispatch
+    moe_local_groups: int = 0           # per-shard local dispatch groups
+    moe_group_placements: Any = None    # {"x", "dispatch"} of the grouped dispatch
+
+
+DEFAULT_OPTIONS = Options()
+
+
 def _store(cache: dict, new: dict) -> None:
     """Write a block's new recurrent state into its cache views in place."""
     for k, v in new.items():
@@ -137,7 +166,7 @@ def _store(cache: dict, new: dict) -> None:
 
 def _apply_block(kind: BlockKind, p: dict, x: torch.Tensor, cfg: ArchConfig, mode: str,
                  positions: Optional[torch.Tensor], step: Optional[attn.DecodeStep],
-                 cache: Optional[dict], cross=None
+                 cache: Optional[dict], cross=None, opts: Options = DEFAULT_OPTIONS
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (x, moe aux loss); a block without MoE has no aux loss (None).
     In "prefill" and "decode" mode ``cache`` is the block's cache, read and
@@ -152,36 +181,43 @@ def _apply_block(kind: BlockKind, p: dict, x: torch.Tensor, cfg: ArchConfig, mod
         y2, cm = rk.rwkv_channel_mix(p["rwkv"], h2, None if cache is None else cache["shift_cm"])
         if cache is not None:
             _store(cache, {**tm, "shift_cm": cm})
-        return x + y2, None
+        return constrain(x + y2, opts.act_placements), None
 
     if kind in _MAMBA_KINDS:
         y, new = mb.mamba_forward(p["mamba"], h, cfg, cache)    # decode: S = 1 from the state
         if cache is not None:
             _store(cache, new)
     elif mode == "full":
-        y = attn.attention_forward(p["attn"], h, cfg, positions)
+        y = attn.attention_forward(p["attn"], h, cfg, positions, impl=opts.attn_impl)
     elif mode == "encode":
         y = attn.encoder_attention(p["attn"], h, cfg, positions)
     elif mode == "prefill":
-        y, _ = attn.prefill_into_cache(p["attn"], h, cfg, positions, cache)
+        y, _ = attn.prefill_into_cache(p["attn"], h, cfg, positions, cache,
+                                       impl=opts.attn_impl)
     else:
-        y, _ = attn.decode_step_attention(p["attn"], h, cfg, step, cache)
+        y, _ = attn.decode_step_attention(p["attn"], h, cfg, step, cache,
+                                          opts.cache_update, opts.mixed_precision)
     x = x + y
     if cross is not None:
         ck, cv, mask = cross
         hc = rms_norm(x, p["ln_cross"], cfg.norm_eps)
         x = x + attn.cross_attention(p["cross"], hc, cfg, (ck, cv), mask)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    aux = None
     if "moe" in p:
-        y2, aux = moe_mod.moe_apply(p["moe"], h2, cfg)
-        return x + y2, aux
-    return x + swiglu(p["mlp"], h2), None
+        y2, aux = moe_mod.moe_apply(p["moe"], h2, cfg,
+                                    dispatch_placements=opts.moe_dispatch_placements,
+                                    local_groups=opts.moe_local_groups,
+                                    group_placements=opts.moe_group_placements)
+    else:
+        y2 = swiglu(p["mlp"], h2)
+    return constrain(x + y2, opts.act_placements), aux
 
 
 def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
                mode: str, caches=None, positions: Optional[torch.Tensor] = None,
-               step: Optional[attn.DecodeStep] = None, cross=None, remat: bool = False
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               step: Optional[attn.DecodeStep] = None, cross=None, remat: bool = False,
+               opts: Options = DEFAULT_OPTIONS) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run x through every layer: a loop over groups, and over the kinds in
     each group.  ``caches`` mirrors ``params_groups`` (stacked per kind) and
     is written in place.  ``cross`` is ``(cross_kv, mask)``: the encoder's
@@ -198,7 +234,7 @@ def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
         total = None
         for i, kind in enumerate(kinds):
             x, aux = _apply_block(kind, g_params[i], x, cfg, mode, positions, step,
-                                  g_caches[i], g_cross[i])
+                                  g_caches[i], g_cross[i], opts)
             if aux is not None:
                 total = aux if total is None else total + aux
         return x, total
@@ -314,20 +350,22 @@ def _encode_for_cross(params, cfg: ArchConfig, batch: dict):
     return _cross_kv_all_layers(params, cfg, enc_out), None if mask is None else mask.bool()
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict, remat: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: dict, cfg: ArchConfig, batch: dict, remat: bool = False,
+            **options) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full sequence -> (logits (B,S,V), moe_aux): the routers' aux loss
     summed over the layers, zero for a dense model.  ``remat`` recomputes
-    each layer group's activations in the backward (training)."""
+    each layer group's activations in the backward (training); ``options``
+    are ``Options``' fields."""
+    opts = Options(**options)
     kinds, _ = _plan(cfg)
-    x = model_inputs_to_embeds(params, cfg, batch)
+    x = constrain(model_inputs_to_embeds(params, cfg, batch), opts.act_placements)
     B, S, _ = x.shape
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(B, S, x.device)
     cross = None if cfg.encdec is None else _encode_for_cross(params, cfg, batch)
     x, aux = _run_stack(params["blocks"], kinds, x, cfg, "full", positions=positions,
-                        cross=cross, remat=remat)
+                        cross=cross, remat=remat, opts=opts)
     return _unembed(params, cfg, x), aux
 
 
@@ -347,12 +385,18 @@ def init_caches(params, cfg: ArchConfig, batch: int, seq_len: int):
     return tuple(one(kind) for kind in kinds)
 
 
-def prefill(params: dict, cfg: ArchConfig, batch: dict, seq_len: int):
-    """Run the prompt, returning (last-token logits, caches dict)."""
+def prefill(params: dict, cfg: ArchConfig, batch: dict, seq_len: int,
+            caches=None, **options):
+    """Run the prompt, returning (last-token logits, caches dict).  The
+    layers' caches are ``caches`` when given (``init_caches``' tree, written
+    in place: the dry run's sharded ones), else new; ``options`` are
+    ``Options``' fields."""
+    opts = Options(**options)
     kinds, _ = _plan(cfg)
-    x = model_inputs_to_embeds(params, cfg, batch)
+    x = constrain(model_inputs_to_embeds(params, cfg, batch), opts.act_placements)
     B, S, _ = x.shape
-    caches = init_caches(params, cfg, B, seq_len)
+    if caches is None:
+        caches = init_caches(params, cfg, B, seq_len)
     extra, cross = {}, None
     if cfg.encdec is not None:
         cross = ckv, mask = _encode_for_cross(params, cfg, batch)
@@ -360,17 +404,19 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, seq_len: int):
         extra["cross_valid"] = mask if mask is not None else torch.ones(
             batch["enc_embeds"].shape[:2], dtype=torch.bool, device=x.device)
     x, _ = _run_stack(params["blocks"], kinds, x, cfg, "prefill", caches,
-                      positions=_positions(B, S, x.device), cross=cross)
+                      positions=_positions(B, S, x.device), cross=cross, opts=opts)
     logits = _unembed(params, cfg, x[:, -1:])
     return logits, {"layers": caches, **extra}
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-                pos: int, caches: dict):
+                pos: int, caches: dict, **options):
     """ONE-token decode.  tokens: (B,1) int; pos: absolute position of the
-    new token, shared by the batch.  Returns (logits (B,1,V), caches)."""
+    new token, shared by the batch.  Returns (logits (B,1,V), caches);
+    ``options`` are ``Options``' fields."""
+    opts = Options(**options)
     kinds, _ = _plan(cfg)
-    x = _embed(params, cfg, tokens)
+    x = constrain(_embed(params, cfg, tokens), opts.act_placements)
     step = None
     first_attn = next((i for i, k in enumerate(kinds) if k in _ATTN_KINDS), None)
     if first_attn is not None:
@@ -380,5 +426,5 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     if cfg.encdec is not None and "cross_kv" in caches:
         cross = (caches["cross_kv"], caches["cross_valid"])
     x, _ = _run_stack(params["blocks"], kinds, x, cfg, "decode", caches["layers"],
-                      step=step, cross=cross)
+                      step=step, cross=cross, opts=opts)
     return _unembed(params, cfg, x), caches

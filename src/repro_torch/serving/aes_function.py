@@ -7,9 +7,16 @@ round keys on the device.  A call moves the payload to the device, runs
 nothing but the round keys is kept from one call to the next.  It runs on
 the card unless the caller passes ``device="cpu"``, where the op takes its
 plain version.
+
+``measure_body_us`` times the deployed body as the examples and the
+experiments take it, and ``device_label`` names what it ran on.
 """
 from __future__ import annotations
 
+import subprocess
+import time
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
@@ -29,3 +36,39 @@ class AesFunction:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return out
+
+
+AES_PAYLOAD_BLOCKS = 38          # 600 B, the paper's payload, in 16-byte blocks
+
+
+def measure_body_us(device="cuda", calls: int = 200, seed: int = 0) -> float:
+    """The median host time of ``calls`` calls of the deployed body on a
+    600 B payload (to the device, the kernel or its plain version, back,
+    synchronised), in us, after one call that builds and warms it.  Raises
+    on a missing card, as ``AesFunction`` does."""
+    rng = np.random.default_rng(seed)
+    key = torch.tensor(rng.integers(0, 256, 16), dtype=torch.int32)
+    payload = torch.tensor(rng.integers(0, 256, (AES_PAYLOAD_BLOCKS, 16)), dtype=torch.int32)
+    fn = AesFunction(key, device=device)
+    fn(payload)
+    ts = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn(payload)
+        ts.append(1e6 * (time.perf_counter() - t0))
+    return float(np.median(ts))
+
+
+def device_label(device) -> str:
+    """What a body ran on: the card's name and power limit as ``nvidia-smi``
+    gives them (the name alone where it cannot be asked), or the CPU."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return "the CPU (plain version)"
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader", f"--id={dev.index or 0}"],
+                             capture_output=True, text=True, timeout=30, check=True)
+        return out.stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return f"{torch.cuda.get_device_name(dev)} (power limit not read)"

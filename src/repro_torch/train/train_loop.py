@@ -23,15 +23,16 @@ from repro_torch.train.optimizer import AdamWConfig, AdamWState, apply_updates, 
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
-                    remat: bool = True) -> Callable:
+                    remat: bool = True, **forward_options) -> Callable:
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics).  The parameters must require grad; they and the optimizer's
     moments are updated in place.  The metrics are () tensors on the
     parameters' device: the loss's ``loss``, ``nll``, ``ppl_proxy`` and
-    ``tokens``, ``moe_aux``, ``grad_norm`` and ``lr``."""
+    ``tokens``, ``moe_aux``, ``grad_norm`` and ``lr``.  ``forward_options``
+    go to ``transformer.forward`` (the dry run's)."""
 
     def train_step(params, opt_state: AdamWState, batch):
-        logits, aux = T.forward(params, cfg, batch, remat=remat)
+        logits, aux = T.forward(params, cfg, batch, remat=remat, **forward_options)
         m = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
         del logits
         leaves = tree_leaves(params)

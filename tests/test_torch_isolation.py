@@ -14,7 +14,9 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "examples" / "train_small_torch.py"]
+                                      ROOT / "examples" / "train_small_torch.py",
+                                      ROOT / "examples" / "quickstart_torch.py",
+                                      ROOT / "examples" / "faas_comparison_torch.py"]
 
 
 def _modules():
@@ -82,6 +84,16 @@ def test_the_walk_covers_the_training_modules():
             "repro_torch.train.losses", "repro_torch.train.optimizer",
             "repro_torch.train.train_loop", "repro_torch.launch.train",
             "repro_torch.models.flops", "repro_torch.config.shapes"} <= mods
+
+
+def test_the_walk_covers_the_dryrun_modules():
+    """The sharding, mesh, dry-run, hillclimb, roofline and collective
+    modules, and the scans' trace operators, are among those it imports."""
+    mods = set(_modules())
+    assert {"repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.launch.mesh", "repro_torch.launch.dryrun", "repro_torch.launch.perf",
+            "repro_torch.analysis.roofline", "repro_torch.analysis.collectives",
+            "repro_torch.kernels.trace_ops"} <= mods
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
