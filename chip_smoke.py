@@ -88,7 +88,13 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    ``wgmma_masked`` pair, the simt masked pair, SDPA's backward under the
    same boolean mask and the unmasked wgmma pair, each pair's dq and dkv
    entry points apart, (all keys valid) masked against unmasked, and the
-   masked forward with and without lse;
+   masked forward with and without lse.  The shapes of the three assigned
+   architectures of phases 5h-5j and 11g: decode ``split`` at phi4-mini's G
+   = 3 (its prefix, ring, empty-row and few-slot masks) and deepseek-67b's
+   G = 8 at d 128, each step timed in turns with ``simt`` and reported on
+   its own ``kernels decode_attention ...`` line; flash forward and its
+   wgmma backward pair at both groupings; ``moe_gmm`` and its backward at
+   phi3.5-moe's experts (16, D 4096 and F 6400, C 1 and 640);
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -108,6 +114,9 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    under a ragged ``enc_mask``, the cross prefill on the simt masked route;
 4g. the same for a reduced ``pixtral-12b`` (4 query heads a kv head, as
    in the full model) on a prompt of 40 image-patch embeddings;
+4h. the same as 4b for reduced ``phi4-mini-3.8b``, ``phi3.5-moe-42b-a6.6b``
+   and ``deepseek-67b`` that keep their grouping of query heads (G 3, 4
+   and 8; phi3.5's top 2 over 4 experts);
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
    ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each, with the
    kernel launch counts of that run checked against the layers by kind, and
@@ -140,6 +149,12 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 5g. full-width, full-depth ``pixtral-12b`` (24.5 GB of bf16 weights, 5f's
    memory freed first): 8 prompts of 1024 stub image-patch embeddings and
    32 new tokens, the same way;
+5h-5j. phase 5's traffic through full-width ``phi4-mini-3.8b`` (all 32
+   layers, G 3: its decode on ``split``), ``phi3.5-moe-42b-a6.6b`` cut to 26
+   of 32 layers (68.1 GB of weights; experts on ``stream`` and ``wgmma``)
+   and ``deepseek-67b`` cut to 48 of 95 (69.8 GB; G 8 at d 128), each
+   after the card is freed and checked under 1 GB, its launches by route
+   held equal to the expected ones;
 6. the AES-128-CTR kernel: the FIPS-197 C.1 known answer, bit-exact
    agreement with its plain version on the card, through the op and through
    each design's own entry point (``ttable``, the design ``route`` gives
@@ -154,10 +169,11 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    the reply back and synchronises) timed in turns beside the previous
    body, which expands the key and copies the round keys on every call; the
    deployed body's median is AES's ``work_us``, and its 200 counted calls
-   must all launch on the route of 38 blocks.  The AES function and the four
-   model endpoints of phases 5-5d are then deployed on containerd and on
-   junctiond.  Those latencies are simulated on the host from the paper's
-   host costs; only ``work_us`` is measured here;
+   must all launch on the route of 38 blocks.  The AES function, the four
+   model endpoints of phases 5-5d and the decode steps of 5h-5j are then
+   deployed on containerd and on junctiond.  Those latencies are simulated
+   on the host from the paper's host costs; only ``work_us`` is measured
+   here;
 8. the open loop of the paper's Fig 6 on those measured bodies, simulated
    on the host: ``sustainable_throughput`` of AES (phase 7's body) on both
    backends over the default grid of 250 to 24000 rps under a 50 ms p99
@@ -239,7 +255,13 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    embeddings, each 4 steps as 11d (its cross-attention's forward on
    ``wgmma_masked``, writing each row's lse, and its backward on the
    ``wgmma_live`` pair), with MFU by ``flops.model_flops``, which counts
-   an encoder-decoder model's decoder tokens only;
+   an encoder-decoder model's decoder tokens only; 11h reduced float32
+   ``phi4-mini-3.8b``, ``phi3.5-moe-42b-a6.6b`` and ``deepseek-67b`` (4h's),
+   3 remat steps card against CPU held step by step as 11c holds RWKV6;
+   11g full-width bf16 training of the three as 11d: phi4-mini at 16 of 32
+   layers, phi3.5-moe at 2 of 32 and deepseek-67b at 2 of 95, the flash
+   backward on its wgmma pair at G 3 and G 8 and phi3.5's experts' dx on
+   ``wgmma_nt_fwd`` and dw on ``wgmma_tn``;
 12. the dry run (``repro_torch.launch.dryrun``) and the options only it
    selects: 12a on the host, no kernel launched, ``run_pair`` on the
    256-rank production mesh (data 32 x model 8, a fake process group) for
@@ -249,16 +271,19 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    SXM's data-sheet figures at 700 W: predictions), all finite; perf's
    expert-parallel variant of mixtral x train_4k at 2 of 32 layers moves
    bytes by all-to-all; 12b the dry run on a 1-rank mesh at phase 11b's
-   training step and phase 5's decode step: its parameter, moment and KV
-   cache bytes equal the card's tensors', and its roofline step time is
-   not above the device time those phases measured; 12c full-width
+   training step and phase 5's decode step, and at 5h's phi4-mini decode
+   step: its parameter, moment and KV cache bytes equal the card's
+   tensors', and its roofline step time is not above the device time those
+   phases measured; 12c full-width
    qwen3-1.7b on the card: 32 greedy tokens with ``cache_update="select"``
    equal the in-place path's (both step times printed), and a prefill under
    ``attn_impl="chunked"`` and decode steps under ``mixed_precision`` launch
    what the default path launches, by route (flash ``wgmma`` 28 a prefill,
    decode ``split``), every plain attention refused; then
    ``examples/quickstart_torch.py`` on the card's measured AES body, whose
-   junctiond median and p99 must be below containerd's (Fig 5).
+   junctiond median and p99 must be below containerd's (Fig 5), and
+   ``examples/serve_e2e_torch.py`` (reduced qwen3 on the card, its decode
+   step deployed), junctiond's median below containerd's.
 
 The line before the last is a JSON object with one entry per kernel (the
 flash kernel's masked route and the five backwards with their own); the last is
@@ -297,17 +322,26 @@ DECODE_SWEEP = [(2, 8, 2, 300, 64), (1, 4, 4, 512, 128), (3, 16, 8, 257, 64)]
 FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)
 DECODE_MAIN = (8, 16, 8, 1024, 128)
 DECODE_MIXTRAL = (8, 32, 8, 1024, 128)     # G = 4: mixtral-8x7b, jamba, h2o (d 120)
+DECODE_ASSIGNED = {   # the decode steps of phases 5h (G = 3) and 5j (G = 8 at d 128)
+    "phi4-mini decode": (8, 24, 8, 1024, 128), "deepseek-67b decode": (8, 64, 8, 1024, 128)}
 DECODE_STRESS = [   # B, Hq, Hkv, T, d, mask: cases the split design treats apart
     (8, 16, 8, 1024, 128, "wrap"), (8, 16, 8, 1024, 128, "empty_row"),
     (8, 16, 8, 1024, 128, "few"), (3, 16, 8, 257, 128, "prefix"),
     (2, 16, 8, 1500, 128, "wrap"), (8, 32, 8, 1024, 120, "prefix"),
     (2, 32, 8, 300, 120, "empty_row"), (1, 2, 1, 9, 32, "empty_row"),
+    (8, 24, 8, 1024, 128, "wrap"), (8, 24, 8, 1024, 128, "empty_row"),   # G = 3
+    (8, 24, 8, 1024, 128, "few"), (3, 24, 8, 257, 128, "prefix"),
+    (3, 64, 8, 257, 128, "prefix"),                                        # G = 8 at d 128
 ]
 ENCDEC_FLASH = {   # B, Hq, Hkv, S, T, d, causal: the prefill attention of phases 5f and 5g
     "seamless encoder": (8, 16, 16, 1500, 1500, 64, False),
     "seamless cross prefill": (8, 16, 16, 512, 1500, 64, False),
     "seamless self prefill": (8, 16, 16, 512, 512, 64, True),
     "pixtral prefill": (8, 32, 8, 1024, 1024, 128, True),
+}
+ASSIGNED_FLASH = {   # B, Hq, Hkv, S, T, d, causal: the prefill attention of phases 5h and 5j
+    "phi4-mini prefill": (8, 24, 8, 512, 512, 128, True),      # G = 3
+    "deepseek-67b prefill": (8, 64, 8, 512, 512, 128, True),   # G = 8 at d 128
 }
 CROSS_DECODE = (8, 16, 16, 1500, 64)   # B, Hq, Hkv, T, d: seamless's decode against its frames
 ENCDEC_DECODE = {   # (B, Hq, Hkv, T, d), valid mask: the decode attention of phases 5f and 5g
@@ -338,6 +372,10 @@ GMM_MAIN = {   # E, C, D, F of the expert matmuls of mixtral-8x7b and jamba at t
     "jamba decode down": (16, 1, 14336, 4096),
     "jamba prefill gate/up": (16, 640, 4096, 14336),
     "jamba prefill down": (16, 640, 14336, 4096),
+    "phi3.5 decode gate/up": (16, 1, 4096, 6400),        # phi3.5-moe-42b-a6.6b, phase 5i
+    "phi3.5 decode down": (16, 1, 6400, 4096),
+    "phi3.5 prefill gate/up": (16, 640, 4096, 6400),
+    "phi3.5 prefill down": (16, 640, 6400, 4096),
 }
 MAMBA_SWEEP = [  # B, S, di, ds, with a state: tests/test_kernels.py, then tails and decode
     (2, 128, 64, 16, False), (1, 256, 128, 8, False), (2, 64, 32, 4, False),
@@ -352,6 +390,13 @@ RWKV_MAIN = {"prefill": (8, 512, 32, 64), "decode": (8, 1, 32, 64)}       # rwkv
 SCAN_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-3, 1e-2)}
 MOE_LAYERS = 24              # of mixtral-8x7b's 32: 70.2 GB of bf16 weights
 JAMBA_LAYERS = 24            # of jamba-v0.1-52b's 32, 3 groups of 8: 77.6 GB of bf16 weights
+# phases 5h-5j: the three assigned architectures no earlier phase served, and
+# their depth on one card of 85.0e9 bytes: phi4-mini whole (3.84 B parameters,
+# 7.67 GB of bf16 weights); phi3.5-moe at 26 of 32 layers (2.60 GB a layer:
+# 34.07 B parameters, 68.1 GB, under 5b's 70.2 GB, whose peak sat 2.4 GB above
+# its weights); deepseek-67b at 48 of 95 (1.38 GB a layer and 3.36 GB of
+# untied embeddings: 34.90 B, 69.8 GB, and a 1.6 GB KV cache)
+ASSIGNED_LAYERS = {"phi4-mini-3.8b": 32, "phi3.5-moe-42b-a6.6b": 26, "deepseek-67b": 48}
 MOE_PROMPT, MOE_SEQ, MOE_BATCH = 150, 192, 4     # phases 4b-4d
 ENCDEC_PROMPT, ENCDEC_FRAMES = 40, 150           # phases 4f, 4g: S != T, both ragged
 ENCDEC_MASK_LENGTHS = (150, 97, 31, 64)          # phase 4f's ragged enc_mask, a row each
@@ -403,7 +448,11 @@ FLASH_BWD_CASES = [
     ((2, 8, 4, 256, 256, 64, False, None), ("float32", "bfloat16")),   # not causal
     ((2, 8, 4, 512, 512, 120, True, 128), ("bfloat16",)),      # a window that bites, d 120
     ((2, 8, 4, 512, 512, 64, True, 128), ("bfloat16",)),       # and d 64
+    ((8, 24, 8, 512, 512, 128, True, None), ("bfloat16",)),    # phi4-mini's G = 3, 11g
+    ((8, 64, 8, 512, 512, 128, True, None), ("bfloat16",)),    # deepseek-67b's G = 8, 11g
 ]
+FLASH_BWD_ASSIGNED = {"phi4-mini training": FLASH_BWD_CASES[-2][0],
+                      "deepseek-67b training": FLASH_BWD_CASES[-1][0]}
 # phase 3: the backward of the key-masked routes, (B, Hq, Hkv, S, T, d, causal,
 # window, mask): G 1, 2 and 4, d 32 to 128, causal, not and windowed, most
 # masks with a row that has no allowed valid key (masked_bwd_valid)
@@ -452,6 +501,7 @@ NO_BWD_ROUTES = {"moe_gmm_bwd": {"dx_wgmma_nt": 0, "dw_wgmma_tn": 0, "dx_wgmma_n
 GMM_BWD_MAIN = {   # E, C, D, F
     "mixtral gate/up": (8, 1280, 4096, 14336), "mixtral down": (8, 1280, 14336, 4096),
     "jamba gate/up": (16, 640, 4096, 14336), "jamba down": (16, 640, 14336, 4096),
+    "phi3.5 gate/up": (16, 640, 4096, 6400), "phi3.5 down": (16, 640, 6400, 4096),   # 11g's
 }
 GMM_BWD_SWEEP = GMM_SWEEP + [(3, 200, 96, 72), (2, 64, 256, 64), (2, 100, 64, 64),
                              (2, 300, 200, 264)]   # the tails of a 256-row box of w
@@ -467,6 +517,12 @@ TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 64, 3
 #: weights and moments); the others run free for all 3 steps
 TRAIN_FAMILY_RESYNC = ("rwkv6-1.6b",)
 TRAIN_FAMILY_FULL = {"mixtral-8x7b": (2, 8), "jamba-v0.1-52b": (2, 8), "rwkv6-1.6b": (24, 8)}
+# 11g: full-width bf16 training of the three assigned architectures of 5h-5j,
+# (layers, batch) at 512 tokens: phi4-mini at 16 of 32 layers (2.23 B
+# parameters), phi3.5-moe at 2 of 32 (2.86 B) and deepseek-67b at 2 of 95
+# (3.06 B), near 40, 52 and 55 GB at 11d's ~18 bytes a parameter
+TRAIN_ASSIGNED_FULL = {"phi4-mini-3.8b": (16, 8), "phi3.5-moe-42b-a6.6b": (2, 8),
+                       "deepseek-67b": (2, 8)}
 # 11d's AdamW: a tenth of 11b's lr.  Under 11b's schedule full-width 2-layer
 # mixtral's loss rose 10.74 -> 19.42 and ended at 13.84, and warmed up over
 # the 4 steps it still ended above step 1 (12.17); the same steps with the
@@ -521,6 +577,17 @@ def tree_bytes(tree) -> int:
     if isinstance(tree, (dict, tuple)):
         return sum(tree_bytes(v) for v in (tree.values() if isinstance(tree, dict) else tree))
     return tree.numel() * tree.element_size()
+
+
+def free_card(torch, label: str) -> None:
+    """Free what the phases before ``label`` left on the card, and fail
+    unless less than 1 GB stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    print(f"  before the draw: {held} bytes allocated on the card")
+    if held > 1e9:
+        raise AssertionError(f"{held} bytes still allocated before {label}")
 
 
 def launch_times_ms(torch, fn, iters: int, flush, hold: int = HOLD_CYCLES) -> list:
@@ -642,13 +709,15 @@ def print_profiles(torch, T, params, cfg, batch, seq_len) -> dict:
     return device
 
 
-def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured) -> None:
+def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
+                        phi4_decode_us) -> None:
     """Phase 12.  12a (host, no kernel): ``dryrun.run_pair`` on the 256-rank
     production mesh (data 32 x model 8) for qwen3-1.7b x decode_32k with its
     probes and mixtral-8x7b x train_4k, and perf's expert-parallel variant of
     mixtral x train_4k at 2 of its 32 layers (its all-to-all must move
     bytes).  12b: the dry run on a 1-rank mesh at phase 11b's training step
-    and phase 5's decode step of full-width qwen3-1.7b; its parameter,
+    and phase 5's decode step of full-width qwen3-1.7b, and at phase 5h's
+    decode step of phi4-mini-3.8b (``phi4_decode_us``); its parameter,
     moment and KV-cache bytes must equal those of the card's tensors, and its
     roofline step time must not exceed the device time those phases
     measured.  12c: full-width qwen3-1.7b on the card, 32 greedy tokens with
@@ -656,7 +725,8 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured) -> No
     ``attn_impl="chunked"`` and decode steps under ``mixed_precision`` with
     every plain attention refused, their launches by route those of the
     default path.  Then ``examples/quickstart_torch.py`` on the card's
-    measured AES body: junctiond's median and p99 below containerd's."""
+    measured AES body: junctiond's median and p99 below containerd's; and
+    ``examples/serve_e2e_torch.py``: junctiond's median below containerd's."""
     import os
     from repro_torch.config import InputShape, StepKind, get_arch
     from repro_torch.kernels import ops, ref
@@ -711,22 +781,34 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured) -> No
     print(f"  12a took {time.perf_counter() - t_phase:.1f} s of host time, no kernel launched")
 
     # -- 12b: the card against the dry run ------------------------------------------------
-    cfg = get_arch("qwen3-1.7b")
     one = make_mesh((1, 1), ("data", "model"))
-    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
-    caches = T.init_caches(params, cfg, SLOTS, MAX_SEQ)
-    moments = init_state(params)
-    card = {"params": nbytes(params), "cache": nbytes(caches),
-            "opt": nbytes(moments.mu) + nbytes(moments.nu)}
-    del params, caches, moments
-    gc.collect()
-    torch.cuda.empty_cache()
-    for label, shape, measured_us, state, peak in (
-            ("phase 5's decode step", InputShape("decode", MAX_SEQ, SLOTS, StepKind.DECODE),
-             decode_device_us, ("params", "cache"), None),
-            ("phase 11b's training step", InputShape("train", TRAIN_SEQ, TRAIN_BATCH,
-                                                     StepKind.TRAIN),
-             train_measured["device_us"], ("params", "opt"), train_measured["peak"])):
+
+    def card_bytes(cfg, moments=False):
+        """Bytes of the parameters and the serving KV cache of ``cfg`` drawn
+        on the card (and of AdamW's moments), freed again."""
+        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
+        caches = T.init_caches(params, cfg, SLOTS, MAX_SEQ)
+        out = {"params": nbytes(params), "cache": nbytes(caches)}
+        if moments:
+            st = init_state(params)
+            out["opt"] = nbytes(st.mu) + nbytes(st.nu)
+            del st
+        del params, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    qwen3, phi4 = get_arch("qwen3-1.7b"), get_arch("phi4-mini-3.8b")
+    cards = {qwen3.name: card_bytes(qwen3, moments=True), phi4.name: card_bytes(phi4)}
+    decode = InputShape("decode", MAX_SEQ, SLOTS, StepKind.DECODE)
+    for label, cfg, shape, measured_us, state, peak in (
+            ("phase 5's decode step", qwen3, decode, decode_device_us, ("params", "cache"), None),
+            ("phase 11b's training step", qwen3,
+             InputShape("train", TRAIN_SEQ, TRAIN_BATCH, StepKind.TRAIN),
+             train_measured["device_us"], ("params", "opt"), train_measured["peak"]),
+            ("phase 5h's decode step of phi4-mini-3.8b", phi4, decode, phi4_decode_us,
+             ("params", "cache"), None)):
+        card = cards[cfg.name]
         rec = dryrun.run_pair(cfg.name, "decode_32k", probes=False, verbose=False, mesh=one,
                               cfg=cfg, shape=shape)
         r, mem = rec["roofline"], rec["memory"]
@@ -745,6 +827,7 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured) -> No
     teardown_mesh()
 
     # -- 12c: the options on the card -----------------------------------------------------
+    cfg = qwen3
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)), device=dev)
 
@@ -823,6 +906,18 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured) -> No
     j, c = stats["junctiond"], stats["containerd"]
     if not (j[0] < c[0] and j[1] < c[1]):
         raise AssertionError(f"junctiond's median and p99 {j} not below containerd's {c}")
+    run = subprocess.run([sys.executable, str(ROOT / "examples" / "serve_e2e_torch.py")],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    print("examples/serve_e2e_torch.py on the card:")
+    for line in run.stdout.splitlines():
+        print(f"  {line}")
+    if run.returncode != 0:
+        raise AssertionError(f"serve_e2e_torch.py failed: {run.stderr[-2000:]}")
+    medians = {m.group(1): float(m.group(2)) for m in
+               re.finditer(r"(\w+)\s*: e2e median=([\d.]+) ms", run.stdout)}
+    if not medians["junctiond"] < medians["containerd"]:
+        raise AssertionError(f"serve_e2e_torch.py: junctiond's median not below containerd's "
+                             f"{medians}")
 
 
 def control_plane(aes_us: float, endpoints: dict) -> None:
@@ -1092,6 +1187,46 @@ def fleet_and_experiments(aes_us: float, endpoints: dict) -> None:
               f"{full['naive'] / full['tree']:.2f}")
 
 
+def check_assigned_shapes(get_arch) -> None:
+    """Phase 3's shapes for the three architectures of phases 5h-5j and 11g,
+    written out above, must be what their configurations give at phase 5's
+    traffic (8 slots, 512-token prompts, a 1024-slot cache) and at 11g's
+    batches; a configuration that changes fails the run here."""
+    cfgs = {arch: get_arch(arch) for arch in ASSIGNED_LAYERS}
+    phi4, phi35, deepseek = cfgs.values()
+
+    def prefill(c, batch, seq):
+        return (batch, c.n_heads, c.n_kv_heads, seq, seq, c.resolved_head_dim, True)
+
+    def experts(tokens):
+        E, k = phi35.moe.num_experts, phi35.moe.top_k
+        C = max(1, int(phi35.moe.capacity_factor * k * tokens / E))
+        return (E, C, phi35.d_model, phi35.d_ff), (E, C, phi35.d_ff, phi35.d_model)
+
+    train = TRAIN_ASSIGNED_FULL
+    checks = [
+        (DECODE_ASSIGNED, {label: (SLOTS, c.n_heads, c.n_kv_heads, MAX_SEQ, c.resolved_head_dim)
+                           for label, c in (("phi4-mini decode", phi4),
+                                            ("deepseek-67b decode", deepseek))}),
+        (ASSIGNED_FLASH, {"phi4-mini prefill": prefill(phi4, SLOTS, PROMPT_LEN),
+                          "deepseek-67b prefill": prefill(deepseek, SLOTS, PROMPT_LEN)}),
+        (FLASH_BWD_ASSIGNED, {
+            label: prefill(c, train[c.name][1], TRAIN_SEQ) + (None,)
+            for label, c in (("phi4-mini training", phi4), ("deepseek-67b training", deepseek))}),
+        ({k: v for k, v in GMM_MAIN.items() if k.startswith("phi3.5")},
+         dict(zip(("phi3.5 decode gate/up", "phi3.5 decode down"), experts(SLOTS)))
+         | dict(zip(("phi3.5 prefill gate/up", "phi3.5 prefill down"),
+                    experts(SLOTS * PROMPT_LEN)))),
+        ({k: v for k, v in GMM_BWD_MAIN.items() if k.startswith("phi3.5")},
+         dict(zip(("phi3.5 gate/up", "phi3.5 down"),
+                  experts(train[phi35.name][1] * TRAIN_SEQ)))),
+    ]
+    for written, derived in checks:
+        if written != derived:
+            raise AssertionError(f"phase 3's shapes {written} are not the configurations' "
+                                 f"{derived}")
+
+
 def main() -> int:
     import torch
 
@@ -1101,7 +1236,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.config import get_arch, reduced
+    from repro_torch.config import get_arch, reduced, reduced_grouped
     from repro_torch.core import (FaasdRuntime, FunctionSpec, KneeSearch, LoadSpec, Simulator,
                                   drive, run_sequential, sustainable_throughput)
     from repro_torch.kernels import _build, ops, ref
@@ -1159,6 +1294,7 @@ def main() -> int:
 
     # -- 3 ------------------------------------------------------------------
     phase("3 kernels against their plain versions")
+    check_assigned_shapes(get_arch)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, dtype):
@@ -1231,8 +1367,8 @@ def main() -> int:
             return r
         return v[None].expand(B, Tk).contiguous()
 
-    for case in DECODE_SWEEP + [c[:5] for c in DECODE_STRESS]:
-        mask = dict((c[:5], c[5]) for c in DECODE_STRESS).get(case, "empty_row")
+    for case, mask in [(c, "empty_row") for c in DECODE_SWEEP] + [(c[:5], c[5])
+                                                                  for c in DECODE_STRESS]:
         for dname, dt in dtypes.items():
             (q, k, v, valid), _ = decode_case(case, dt, decode_mask(case[0], case[3], mask))
             plain = ref.decode_attention_ref(q, k, v, valid)
@@ -1251,6 +1387,8 @@ def main() -> int:
         flush_buf.zero_()
 
     records = {}
+    # the kernels at the shapes of phases 5h-5j and 11g, reported once timed
+    assigned_kernels = {}
     # flash at the prefill of the main path: both designs, timed in turns
     B, Hq, Hkv, S, Tk, d, causal, win = FLASH_MAIN
     (q, k, v), kw = flash_case(FLASH_MAIN, torch.bfloat16)
@@ -1306,47 +1444,61 @@ def main() -> int:
                 print(f"  flash_attention_bwd {case} {dname}, {design} pair: max |diff| dq "
                       f"{errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g} (atol, rtol "
                       f"{TOL[dname]})")
-    B, Hq, Hkv, S, Tk, d, causal, win = FLASH_BWD_MAIN
-    (q, k, v), kw = flash_case(FLASH_BWD_MAIN, torch.bfloat16)
-    dout = randn(*q.shape, dtype=torch.bfloat16)
-    o = ops.flash_attention(q, k, v, **kw)
-    got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
-    err = max(check_close(f"flash_attention_bwd{FLASH_BWD_MAIN} d{n}", g, e, TOL["bfloat16"])
-              for n, g, e in zip("qkv", got, ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)))
-    G = Hq // Hkv
-    lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
-    lo = torch.nn.functional.scaled_dot_product_attention(
-        lq, lk.repeat_interleave(G, 1), lv.repeat_interleave(G, 1), is_causal=True)
-    old, new = in_turns(
-        torch, lambda: _flash.flash_attention_bwd_simt(q, k, v, o, dout, **kw),
-        lambda: _flash.flash_attention_bwd(q, k, v, o, dout, **kw), 10, flush, BWD_HOLD_CYCLES)
-    lib, new_lib = in_turns(
-        torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), dout, retain_graph=True),
-        lambda: _flash.flash_attention_bwd(q, k, v, o, dout, **kw), 10, flush, BWD_HOLD_CYCLES)
-    pairs = int(torch.tril(torch.ones(S, Tk, dtype=torch.bool), Tk - S).sum())
-    print(f"  flash_attention_bwd {FLASH_BWD_MAIN} bfloat16, in turns, card held "
-          f"{BWD_HOLD_CYCLES} cycles: wgmma pair {spread(new)} beside the simt pair, "
-          f"{spread(new_lib)} beside SDPA, max |diff| {err:.3g}; simt pair (previous) "
-          f"{spread(old)}; SDPA's backward with the sum over G {spread(lib)}")
+
+    def flash_bwd_times(case):
+        """The wgmma pair at ``case`` (bf16) against the plain version, then
+        timed in turns with the simt pair and with SDPA's backward."""
+        B, Hq, Hkv, S, Tk, d, causal, win = case
+        (q, k, v), kw = flash_case(case, torch.bfloat16)
+        dout = randn(*q.shape, dtype=torch.bfloat16)
+        o = ops.flash_attention(q, k, v, **kw)
+        got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+        err = max(check_close(f"flash_attention_bwd{case} d{n}", g, e, TOL["bfloat16"])
+                  for n, g, e in zip("qkv", got,
+                                     ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)))
+        G = Hq // Hkv
+        lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        lo = torch.nn.functional.scaled_dot_product_attention(
+            lq, lk.repeat_interleave(G, 1), lv.repeat_interleave(G, 1), is_causal=True)
+        old, new = in_turns(
+            torch, lambda: _flash.flash_attention_bwd_simt(q, k, v, o, dout, **kw),
+            lambda: _flash.flash_attention_bwd(q, k, v, o, dout, **kw), 10, flush,
+            BWD_HOLD_CYCLES)
+        lib, new_lib = in_turns(
+            torch, lambda: torch.autograd.grad(lo, (lq, lk, lv), dout, retain_graph=True),
+            lambda: _flash.flash_attention_bwd(q, k, v, o, dout, **kw), 10, flush,
+            BWD_HOLD_CYCLES)
+        pairs = int(torch.tril(torch.ones(S, Tk, dtype=torch.bool), Tk - S).sum())
+        print(f"  flash_attention_bwd {case} bfloat16, in turns, card held "
+              f"{BWD_HOLD_CYCLES} cycles: wgmma pair {spread(new)} beside the simt pair, "
+              f"{spread(new_lib)} beside SDPA, max |diff| {err:.3g}; simt pair (previous) "
+              f"{spread(old)}; SDPA's backward with the sum over G {spread(lib)}")
+        return dict(
+            err=err, ms=statistics.fmean(new + new_lib), previous_ms=statistics.fmean(old),
+            plain_ms=time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw),
+                             3, flush),
+            library_ms=statistics.fmean(lib),
+            bytes=sum(t.numel() * t.element_size() for t in (q, k, v, o, dout, *got)),
+            ops=f"{10 * d * pairs * B * Hq} FLOP (five products)",
+            ops_ms=1e3 * 10 * d * pairs * B * Hq / PEAK_BF16_FLOPS,
+            replaces="src/repro/kernels/flash_attention.py:98",
+            source="src/repro_torch/csrc/flash_attention.cu")
+
     records["flash_attention_bwd"] = dict(
-        err=err, ms=statistics.fmean(new + new_lib), previous_ms=statistics.fmean(old),
-        plain_ms=time_ms(torch, lambda: ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw), 3,
-                         flush),
-        library_ms=statistics.fmean(lib),
-        bytes=sum(t.numel() * t.element_size() for t in (q, k, v, o, dout, *got)),
-        ops=f"{10 * d * pairs * B * Hq} FLOP (five products)",
-        ops_ms=1e3 * 10 * d * pairs * B * Hq / PEAK_BF16_FLOPS,
-        replaces="src/repro/kernels/flash_attention.py:98",
-        source="src/repro_torch/csrc/flash_attention.cu",
+        flash_bwd_times(FLASH_BWD_MAIN),
         note="the backward of the flash kernel (bwd_dq_wgmma, then bwd_dkv_wgmma; "
              "previous_ms: the simt pair bwd_dq, bwd_dkv); the JAX package has no Pallas "
              "backward and differentiates gqa_attend (src/repro/models/attention.py:51); "
              "launches: phase 11b's training")
-    del lq, lk, lv, lo, got
+    for label, case in FLASH_BWD_ASSIGNED.items():    # 11g's G = 3 and G = 8
+        assigned_kernels[f"flash_attention_bwd {label}"] = flash_bwd_times(case)
 
     # decode at a step of the main path, a 512-token prompt in a 1024-slot
-    # cache, at qwen3's G = 2 and at G = 4: both designs, timed in turns
-    for shape in (DECODE_MAIN, DECODE_MIXTRAL):
+    # cache, at qwen3's G = 2, at G = 4 and at the steps of phases 5h (G = 3)
+    # and 5j (G = 8 at d 128): both designs, timed in turns
+    decode_labels = {DECODE_MAIN: None, DECODE_MIXTRAL: None,
+                     **{shape: label for label, shape in DECODE_ASSIGNED.items()}}
+    for shape, label in decode_labels.items():
         B, Hq, Hkv, Tk, d = shape
         (q, k, v, valid), _ = decode_case(shape, torch.bfloat16, decode_mask(B, Tk, "prefix"))
         if _decode.route(q.dtype, Hq // Hkv, Tk) != "split":
@@ -1368,9 +1520,9 @@ def main() -> int:
               f"splits {_decode.splits(B, Hkv, Tk, props.multi_processor_count)}: split "
               f"{spread(new)}, max |diff| {err:.3g}; simt (previous) {spread(old)}, max |diff| "
               f"{err_prev:.3g}; SDPA {spread(lib)}")
-        if shape != DECODE_MAIN:
+        if shape != DECODE_MAIN and label is None:
             continue
-        records["decode_attention"] = dict(
+        rec = dict(
             err=err,
             ms=statistics.fmean(new), previous_ms=statistics.fmean(old),
             plain_ms=time_ms(torch, lambda: ref.decode_attention_ref(q, k, v, valid), 10, flush),
@@ -1382,6 +1534,11 @@ def main() -> int:
             ops_ms=1e3 * 4 * d * Hq * int(valid.sum()) / PEAK_BF16_FLOPS,
             replaces="src/repro/kernels/decode_attention.py:77",
             source="src/repro_torch/csrc/decode_attention.cu")
+        if label is None:
+            records["decode_attention"] = rec
+        else:
+            assigned_kernels[f"decode_attention {label}"] = rec
+
     def report(name, r):
         t_bytes = 1e3 * r["bytes"] / PEAK_BYTES_PER_S
         r["bound_ms"], r["bound_by"] = max((t_bytes, "bytes"), (r["ops_ms"], "operations"))
@@ -1392,15 +1549,16 @@ def main() -> int:
               f"{r['bytes']} B in {t_bytes:.6f} ms, {r['ops']} in {r['ops_ms']:.6f} ms)  "
               f"max |diff| {r['err']:.3g}")
 
-    for name, r in records.items():
+    for name, r in {**records, **assigned_kernels}.items():
         report(name, r)
 
     # the enc-dec and frontend models' attention (phases 5f and 5g): flash
     # without the causal bound at seamless-m4t's encoder (a ragged T of 1500,
     # d 64, G 1) and cross prefill (S 512 against T 1500), and causal at
-    # pixtral-12b's prefill; both designs held in bf16 and simt in fp32, then
+    # pixtral-12b's prefill; then the causal prefills of phases 5h (G 3) and
+    # 5j (G 8 at d 128); both designs held in bf16 and simt in fp32, then
     # timed in turns, SDPA beside them
-    for label, case in ENCDEC_FLASH.items():
+    for label, case in {**ENCDEC_FLASH, **ASSIGNED_FLASH}.items():
         B, Hq, Hkv, S, Tk, d, causal = case
         if _flash.route(torch.bfloat16) != "wgmma":
             raise AssertionError(f"flash_attention: bf16 routes to {_flash.route(torch.bfloat16)}")
@@ -2400,6 +2558,23 @@ def main() -> int:
         (MOE_BATCH, ENCDEC_PROMPT, cfg.frontend.embed_dim), np.float32)},
         {"flash_attention": cfg.n_layers, "decode_attention": cfg.n_layers * 8})
 
+    # -- 4h ------------------------------------------------------------------
+    def assigned_reduced(arch):
+        """The reduced float32 variant of ``arch`` that keeps its grouping."""
+        return dataclasses.replace(reduced_grouped(get_arch(arch)), dtype="float32")
+
+    phase("4h reduced phi4-mini-3.8b (G 3), phi3.5-moe-42b-a6.6b (G 4, top 2) and deepseek-67b "
+          "(G 8), card against CPU, float32")
+    for i, arch in enumerate(ASSIGNED_LAYERS):
+        cfg = assigned_reduced(arch)
+        n = layer_counts(cfg)
+        print(f"{cfg.name}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}" + (f"; {decode_capacity(cfg)}" if cfg.moe else ""))
+        expect = {"flash_attention": n["attn"], "decode_attention": n["attn"]}
+        if n["moe"]:
+            expect["moe_gmm"] = 2 * 3 * n["moe"]
+        card_against_cpu(cfg, SEED + 15 + i, expect)
+
     # -- 5 ------------------------------------------------------------------
     def check_routes(name, expect_routes):
         """The launches of the run just made, by op and by route; raises
@@ -2498,15 +2673,25 @@ def main() -> int:
             torch, T, eng.params, cfg, {"tokens": torch.tensor(prompts, device=dev)}, MAX_SEQ)
         return step_us, launches, routes
 
+    def serving_routes(flash, split, stream=0, wgmma=0, lanes=0):
+        """Every op's launches by route in a bf16 serving run: the prefill
+        attention on flash ``wgmma``, the decode on ``split``, the experts
+        on ``stream`` (decode) and ``wgmma`` (prefill), Mamba on ``lanes``,
+        no other route and no backward."""
+        return {"flash_attention": {"wgmma": flash, "simt": 0, "masked": 0, "wgmma_masked": 0},
+                "decode_attention": {"split": split, "simt": 0},
+                "aes_ctr": {"ttable": 0, "simt": 0},
+                "moe_gmm": {"stream": stream, "wgmma": wgmma, "mma_sync": 0},
+                "mamba_scan": {"lanes": lanes, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
+                "flash_attention_bwd": NO_FLASH_BWD_ROUTES, **NO_BWD_ROUTES}
+
     phase("5 full-width qwen3-1.7b served on the card")
     profiles = {}                # device times of phase 5's profiled steps, for phase 12b
     cfg = get_arch("qwen3-1.7b")
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     step_us, launches, routes = serve(cfg, prompts)
-    if (routes["flash_attention"], routes["decode_attention"]) != (
-            {"wgmma": 28, "simt": 0, "masked": 0, "wgmma_masked": 0},
-            {"split": 868, "simt": 0}):
-        raise AssertionError(f"qwen3's attention by route {routes}")
+    if routes != serving_routes(28, 868):
+        raise AssertionError(f"qwen3's launches by route {routes}")
     endpoints = {cfg.name: step_us}
 
     # -- 5b -----------------------------------------------------------------
@@ -2518,35 +2703,20 @@ def main() -> int:
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], moe_launches, routes = serve(cfg, prompts)
     launches["moe_gmm"] = moe_launches["moe_gmm"]
-    if routes != {"flash_attention": {"wgmma": 24, "simt": 0, "masked": 0, "wgmma_masked": 0},
-                  "decode_attention": {"split": 744, "simt": 0},
-                  "aes_ctr": {"ttable": 0, "simt": 0},
-                  "moe_gmm": {"stream": 2232, "wgmma": 72, "mma_sync": 0},
-                  "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": NO_FLASH_BWD_ROUTES, **NO_BWD_ROUTES}:
+    if routes != serving_routes(24, 744, stream=2232, wgmma=72):
         raise AssertionError(f"mixtral's launches by route {routes}")
     launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
 
     # -- 5c -----------------------------------------------------------------
     phase(f"5c full-width jamba-v0.1-52b, {JAMBA_LAYERS} of 32 layers, served on the card")
-    gc.collect()
-    torch.cuda.empty_cache()         # phase 5b's engine is gone: room for 77.6 GB
-    held = torch.cuda.memory_allocated()
-    print(f"  before the draw: {held} bytes allocated on the card")
-    if held > 1e9:
-        raise AssertionError(f"{held} bytes still allocated before phase 5c")
+    free_card(torch, "phase 5c")     # phase 5b's engine is gone: room for 77.6 GB
     free, total = torch.cuda.mem_get_info()
     print(f"  before the draw: {free} of {total} bytes free on the card")
     cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
     prompts = np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     endpoints[cfg.name], jamba_launches, routes = serve(cfg, prompts)
-    if routes != {"flash_attention": {"wgmma": 3, "simt": 0, "masked": 0, "wgmma_masked": 0},
-                  "decode_attention": {"split": 93, "simt": 0},
-                  "aes_ctr": {"ttable": 0, "simt": 0},
-                  "moe_gmm": {"stream": 1116, "wgmma": 36, "mma_sync": 0},
-                  "mamba_scan": {"lanes": 672, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": NO_FLASH_BWD_ROUTES, **NO_BWD_ROUTES}:
+    if routes != serving_routes(3, 93, stream=1116, wgmma=36, lanes=672):
         raise AssertionError(f"Jamba's launches by route {routes}")
     launches["mamba_scan"] = jamba_launches["mamba_scan"]
     gc.collect()
@@ -2572,12 +2742,7 @@ def main() -> int:
     prompts = np.random.default_rng(SEED + 8).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     _, h2o_launches, routes = serve(cfg, prompts)
-    if routes != {"flash_attention": {"wgmma": 24, "simt": 0, "masked": 0, "wgmma_masked": 0},
-                  "decode_attention": {"split": 744, "simt": 0},
-                  "aes_ctr": {"ttable": 0, "simt": 0},
-                  "moe_gmm": {"stream": 0, "wgmma": 0, "mma_sync": 0},
-                  "mamba_scan": {"lanes": 0, "simt": 0}, "rwkv6_scan": {"cols": 0, "simt": 0},
-                  "flash_attention_bwd": NO_FLASH_BWD_ROUTES, **NO_BWD_ROUTES}:
+    if routes != serving_routes(24, 744):
         raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
     h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
                 f"prefill and {h2o_launches['decode_attention']} decode launches")
@@ -2676,10 +2841,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("5g full-width, full-depth pixtral-12b, a prompt of image-patch embeddings, on the card")
-    held = torch.cuda.memory_allocated()
-    print(f"  before the draw: {held} bytes allocated on the card")
-    if held > 1e9:
-        raise AssertionError(f"{held} bytes still allocated before phase 5g")
+    free_card(torch, "phase 5g")
     cfg = get_arch("pixtral-12b")
     patches = stub_frontend_embeddings(cfg, torch.Generator(device=dev).manual_seed(SEED + 11),
                                        SLOTS)
@@ -2694,6 +2856,27 @@ def main() -> int:
                    f"pixtral-12b, phase 5g: {pixtral_launches['flash_attention']} prefill and "
                    f"{pixtral_launches['decode_attention']} decode launches")
     del patches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 5h-5j ---------------------------------------------------------------
+    assigned = {}      # the decode steps of 5h-5j (us), deployed in phase 7
+    for i, (arch, n_layers) in enumerate(ASSIGNED_LAYERS.items()):
+        full = get_arch(arch)
+        phase(f"5{'hij'[i]} full-width {arch}, {n_layers} of {full.n_layers} layers "
+              f"(G {full.n_heads // full.n_kv_heads}), served on the card")
+        free_card(torch, f"phase 5{'hij'[i]}")
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        prompts = np.random.default_rng(SEED + 20 + i).integers(
+            0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
+        assigned[cfg.name], _, routes = serve(cfg, prompts)
+        n_decode = NEW_TOKENS - 1
+        moe = {}
+        if cfg.moe is not None:   # decode: C = 1 on stream; prefill: C = 640 on wgmma
+            moe = dict(stream=3 * n_layers * n_decode, wgmma=3 * n_layers)
+        want = serving_routes(n_layers, n_layers * n_decode, **moe)
+        if routes != want:
+            raise AssertionError(f"{arch}'s launches by route {routes}, expected {want}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2816,8 +2999,8 @@ def main() -> int:
     records["aes_ctr"] = aes_times[AES_FN_BLOCKS]
 
     # -- 7 ------------------------------------------------------------------
-    phase("7 FaaS path: the AES function and the four model endpoints deployed on "
-          "containerd and junctiond (simulated)")
+    phase("7 FaaS path: the AES function, the four model endpoints and 5h-5j's decode steps "
+          "deployed on containerd and junctiond (simulated)")
     payload = torch.tensor(rng.integers(0, 256, (AES_FN_BLOCKS, 16)), dtype=torch.int32)
     fn_key = keys["random"].cpu()
     expect_reply = ref.aes_ctr_ref(payload, fn_key, 0)
@@ -2870,7 +3053,9 @@ def main() -> int:
     if not all(torch.equal(r, expect_reply) for r in replies):
         raise AssertionError("a reply of the deployed AES body differs from the plain version")
     functions = {"aes": (FunctionSpec(name="aes", work_us=aes_us), AES_REQUESTS)}
-    for name, us in endpoints.items():     # the four endpoints of benchmarks/model_endpoints.py
+    # the four endpoints of benchmarks/model_endpoints.py, then 5h-5j's decode
+    # steps, as launch/serve.py --arch deploys any architecture
+    for name, us in {**endpoints, **assigned}.items():
         functions[name] = (FunctionSpec(name=name, work_us=us, payload_bytes=2048,
                                         response_bytes=4096), MODEL_REQUESTS)
     for fname, (spec, n_req) in functions.items():
@@ -3145,12 +3330,7 @@ def main() -> int:
         train_card_against_cpu(cfg, seq, TRAIN_REDUCED_STEPS)
 
     phase("11b full-width, full-depth qwen3-1.7b trained on the card, bf16")
-    gc.collect()
-    torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated()
-    print(f"  before the draw: {held} bytes allocated on the card")
-    if held > 1e9:
-        raise AssertionError(f"{held} bytes still allocated before phase 11b")
+    free_card(torch, "phase 11b")
     cfg = get_arch("qwen3-1.7b")
     L = layer_counts(cfg)["attn"]
     torch.cuda.reset_peak_memory_stats()
@@ -3408,12 +3588,7 @@ def main() -> int:
         decoder's tokens), MFU by ``flops.model_flops``, peak memory, then
         one more step under the profiler.  Returns the 4 losses, the
         launches by op and the flash backward's by kernel; frees the model."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        held = torch.cuda.memory_allocated()
-        print(f"  before the draw: {held} bytes allocated on the card")
-        if held > 1e9:
-            raise AssertionError(f"{held} bytes still allocated before {label}")
+        free_card(torch, label)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = tree_map(lambda p: p.requires_grad_(True),
@@ -3572,11 +3747,47 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 11h, 11g -------------------------------------------------------------
+    phase("11h reduced phi4-mini-3.8b (G 3), phi3.5-moe-42b-a6.6b (G 4, top 2) and deepseek-67b "
+          "(G 8) trained, card against CPU step by step, float32")
+    for arch in ASSIGNED_LAYERS:
+        cfg = assigned_reduced(arch)
+        print(f"{cfg.name}: {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+              f"kinds {[k.value for k in cfg.block_kinds()]}; batches of 4 x {TRAIN_FAMILY_SEQ} "
+              f"tokens")
+        train_card_against_cpu(cfg, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS, resync=True)
+
+    for arch, (n_layers, batch) in TRAIN_ASSIGNED_FULL.items():
+        full = get_arch(arch)
+        phase(f"11g full-width {arch}, {n_layers} of {full.n_layers} layers "
+              f"(G {full.n_heads // full.n_kv_heads}), trained on the card, bf16")
+        cfg = dataclasses.replace(full, n_layers=n_layers)
+        it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                    batch_size=batch, seed=SEED)).batches()
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+                   for _ in range(TRAIN_STEPS + 1)]
+        losses, _, flash_bwd = train_full_width(cfg, batches, TRAIN_FAMILY_OPT,
+                                                f"phase 11g {arch}")
+        # the backward's routes: the flash wgmma pair at G 3, 4 and 8; the
+        # experts' dx on wgmma_nt_fwd (C 640: five 128-row tiles that do not
+        # pair) and dw on wgmma_tn
+        gmm_bwd = {r for r, n in ops.ROUTE_LAUNCHES["moe_gmm_bwd"].items() if n}
+        want_gmm = {"dx_wgmma_nt_fwd", "dw_wgmma_tn"} if cfg.moe else set()
+        if set(flash_bwd) != {"bwd_dq_wgmma", "bwd_dkv_wgmma"} or gmm_bwd != want_gmm:
+            raise AssertionError(f"{arch}: backward routes {flash_bwd}, {gmm_bwd}")
+        print(f"  backward routes: flash {sorted(flash_bwd)}"
+              + (f", moe_gmm {sorted(gmm_bwd)}" if cfg.moe else ""))
+        check_falling(cfg, losses)
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # -- 12 -----------------------------------------------------------------
     phase("12 the dry run, the roofline and the options on the card")
     gc.collect()
     torch.cuda.empty_cache()
-    dry_run_and_options(torch, dev, rng, profiles["qwen3-1.7b"]["decode"], train_measured)
+    dry_run_and_options(torch, dev, rng, profiles["qwen3-1.7b"]["decode"], train_measured,
+                        profiles["phi4-mini-3.8b"]["decode"])
 
     # -- result -------------------------------------------------------------
     print(smi)

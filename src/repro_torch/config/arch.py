@@ -204,3 +204,17 @@ def reduced(cfg: ArchConfig, *, n_layers: int = 2, d_model: int = 256,
         head_dim=0, moe=moe, encdec=encdec, frontend=frontend,
         attn_every=attn_every, sliding_window=sw, max_seq_len=seq_cap,
         mamba=cfg.mamba, rwkv=cfg.rwkv)
+
+
+def reduced_grouped(cfg: ArchConfig, **kw) -> ArchConfig:
+    """``reduced`` that keeps the published grouping of query heads over kv
+    heads, G = n_heads / n_kv_heads, which ``reduced`` alone loses (it caps
+    the heads at d_model // 64 and the kv heads at the heads).  It takes the
+    fewest kv heads k whose G * k heads of 64 span d_model >= 256: G 3 gives
+    6 heads over 2 at d_model 384, G 4 gives 4 over 1 at 256 and G 8 gives 8
+    over 1 at 512.  ``kw`` are ``reduced``'s other widths; for architectures
+    with attention heads."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    kv = -(-4 // g)
+    small = reduced(cfg, d_model=64 * g * kv, **kw)
+    return dataclasses.replace(small, n_heads=g * kv, n_kv_heads=kv)

@@ -17,7 +17,7 @@
 //
 // Two designs, one C entry point each; the wrapper picks the route from the
 // dtype, G and T before the launch (kernels/decode_attention.py: route),
-// never after a failure: bf16 with G in {1, 2, 4, 8} and T up to 2^20 ->
+// never after a failure: bf16 with G in {1, 2, 3, 4, 8} and T up to 2^20 ->
 // "split" (decode_attention_split_fwd), everything else -> "simt"
 // (decode_attention_fwd).  The simt design also takes bf16 through its own
 // entry point, so the two can be timed against each other.
@@ -584,6 +584,7 @@ cudaError_t launch_g(int G, const void* q, const void* k, const void* v, const v
   switch (G) {
     case 1: return launch<D, 1>(q, k, v, valid, out, B, Hkv, Tlen, nsplit, tps, scale, s);
     case 2: return launch<D, 2>(q, k, v, valid, out, B, Hkv, Tlen, nsplit, tps, scale, s);
+    case 3: return launch<D, 3>(q, k, v, valid, out, B, Hkv, Tlen, nsplit, tps, scale, s);
     case 4: return launch<D, 4>(q, k, v, valid, out, B, Hkv, Tlen, nsplit, tps, scale, s);
     case 8: return launch<D, 8>(q, k, v, valid, out, B, Hkv, Tlen, nsplit, tps, scale, s);
     default: return cudaErrorInvalidValue;
@@ -607,7 +608,7 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// bf16 only: the split design, G = Hq / Hkv in {1, 2, 4, 8}, T <= 2^20,
+// bf16 only: the split design, G = Hq / Hkv in {1, 2, 3, 4, 8}, T <= 2^20,
 // nsplit <= 8 splits of tiles_per_split 64-slot tiles covering T.  Returns
 // cudaGetLastError() after the launch, or an error for a shape it does not
 // take or a tensor map that cuTensorMapEncodeTiled refuses; the caller

@@ -29,8 +29,9 @@ from repro_torch.kernels._launch import (DTYPE_CODES, check_head_dim,
                                          stream_handle)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: query heads per kv head that the split design is instantiated for
-SPLIT_GROUPS = (1, 2, 4, 8)
+#: query heads per kv head that the split design is instantiated for: those
+#: of the assigned architectures (3 is phi4-mini-3.8b's 24 over 8)
+SPLIT_GROUPS = (1, 2, 3, 4, 8)
 #: cache slots per tile of the split design
 TILE = 64
 #: splits of one (batch row, kv head) at most: the blocks of one cluster
@@ -52,9 +53,10 @@ LAUNCHES: Dict[str, int] = {"split": 0, "simt": 0}
 
 def route(dtype: torch.dtype, groups: int, T: int) -> str:
     """The design a CUDA call takes: ``"split"`` for bf16 with ``groups``
-    (= Hq / Hkv) in ``SPLIT_GROUPS`` and T <= ``MAX_T``, else ``"simt"``.
-    Every split count :func:`splits` gives for such a T launches, whatever
-    B, Hkv and the card."""
+    (= Hq / Hkv) in ``SPLIT_GROUPS`` (1, 2, 3, 4 or 8: every grouping of the
+    assigned architectures) and T <= ``MAX_T``, else ``"simt"``.  Every
+    split count :func:`splits` gives for such a T launches, whatever B, Hkv
+    and the card."""
     if dtype == torch.bfloat16 and groups in SPLIT_GROUPS and T <= MAX_T:
         return "split"
     return "simt"

@@ -169,7 +169,7 @@ def test_split_design_matches_the_plain_version(B, Hq, Hkv, T, nsplit, mask):
     (torch.bfloat16, 1, 9, "split"),
     (torch.bfloat16, 8, 2 ** 20, "split"),   # the longest T of the split design
     (torch.bfloat16, 8, 2 ** 20 + 1, "simt"),
-    (torch.bfloat16, 3, 1024, "simt"),       # G not instantiated
+    (torch.bfloat16, 3, 1024, "split"),      # phi4-mini-3.8b: 24 query heads over 8
     (torch.bfloat16, 16, 1024, "simt"),
     (torch.float32, 2, 1024, "simt"),        # fp32 keeps the simt design
 ])

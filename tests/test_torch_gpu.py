@@ -108,6 +108,8 @@ FLASH_MAIN = (8, 16, 8, 512, 512, 128, True, None)   # the prefill of the servin
     (1, 4, 2, 512, 512, 128, True, None),   # G = 2 at the serving length
     (1, 4, 2, 200, 700, 128, True, None),   # ragged S in a longer T: a prefix offset
     (1, 4, 2, 70, 40, 32, True, None),      # S > T: rows with no allowed key
+    (2, 24, 8, 512, 512, 128, True, None),  # phi4-mini-3.8b's G = 3
+    (1, 64, 8, 512, 512, 128, True, None),  # deepseek-67b's G = 8 at d 128
 ])
 @pytest.mark.parametrize("which", ["wgmma", "simt"])
 def test_flash_attention_routes_in_bf16(cuda, B, Hq, Hkv, S, T, d, causal, win, which):
@@ -249,6 +251,45 @@ def test_moe_gmm_kernel_refuses_bad_operands(cuda, case):
 ])
 def test_moe_gmm_kernel_at_jambas_serving_shapes(cuda, E, C, D, F):
     _check_moe_gmm(cuda, (E, C, D), (E, D, F), "bfloat16", w_scale=D ** -0.5)
+
+
+PHI35_GMM = [   # E, C, D, F of phi3.5-moe-42b-a6.6b at 8 x 512 tokens
+    (16, 1, 4096, 6400),                    # decode, gate and up
+    (16, 1, 6400, 4096),                    # decode, down: 6400 is the contraction
+    (16, 640, 4096, 6400),                  # prefill and training, gate and up
+    (16, 640, 6400, 4096),                  # prefill and training, down
+]
+
+
+@pytest.mark.parametrize("E,C,D,F", PHI35_GMM)
+def test_moe_gmm_kernel_at_phi35s_shapes(cuda, E, C, D, F):
+    """The forward at phi3.5-moe's expert widths on its route (``stream``
+    at C 1, ``wgmma`` at C 640), bf16, weights at the model's scale."""
+    route = tgmm.route(torch.bfloat16, C, D, F)
+    assert route == ("stream" if C == 1 else "wgmma")
+    before = dict(tgmm.LAUNCHES)
+    _check_moe_gmm(cuda, (E, C, D), (E, D, F), "bfloat16", w_scale=D ** -0.5)
+    assert tgmm.LAUNCHES == {**before, route: before[route] + 1}
+
+
+@pytest.mark.parametrize("E,C,D,F", PHI35_GMM)
+def test_moe_gmm_bwd_at_phi35s_shapes(cuda, E, C, D, F):
+    """The backward at phi3.5-moe's expert widths in bf16, dx and dw on
+    the routes of ``bwd_route`` (at C 640, five 128-row tiles that do not
+    pair: dx on ``wgmma_nt_fwd``; dw on ``wgmma_tn``), at the bf16 limit."""
+    x = _randn(cuda, (E, C, D), torch.bfloat16)
+    w = (_randn(cuda, (E, D, F), torch.float32) * D ** -0.5).to(torch.bfloat16)
+    dy = _randn(cuda, (E, C, F), torch.bfloat16)
+    r_dx, r_dw = tgmm.bwd_route(torch.bfloat16, C, D, F)
+    assert r_dw == "wgmma_tn" and (C == 1 or r_dx == "wgmma_nt_fwd")
+    before = dict(tgmm.BWD_LAUNCHES)
+    dx, dw = tgmm.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert tgmm.BWD_LAUNCHES == {k: n + (k in (f"dx_{r_dx}", f"dw_{r_dw}"))
+                                 for k, n in before.items()}
+    ex, ew = ref.moe_gmm_bwd_ref(x, w, dy)
+    _assert_close(dx, ex, "bfloat16")
+    _assert_close(dw, ew, "bfloat16")
 
 
 # ---------------------------------------------------------------------------
@@ -615,6 +656,11 @@ DECODE_CASES = [   # B, Hq, Hkv, T, d, mask
     (2, 32, 8, 300, 120, "random"),
     (2, 16, 2, 300, 32, "random"),          # G = 8
     (1, 2, 1, 9, 32, "random"),             # T shorter than a tile
+    (8, 24, 8, 1024, 128, "prefix"),        # phi4-mini-3.8b's G = 3 at the serving cache
+    (8, 24, 8, 1024, 128, "wrap"),
+    (8, 24, 8, 1024, 128, "few"),
+    (2, 24, 8, 300, 64, "random"),          # G = 3 at d 64, a row with no valid slot
+    (8, 64, 8, 1024, 128, "prefix"),        # deepseek-67b: G = 8 at d 128
 ]
 
 
@@ -1004,6 +1050,8 @@ BWD_PAIRS = {"simt": ("bwd_dq", "bwd_dkv"), "wgmma": ("bwd_dq_wgmma", "bwd_dkv_w
     (2, 4, 2, 100, 300, 64, True, None),     # S < T: the causal offset
     (1, 8, 2, 300, 300, 120, True, 64),      # d 120 under a window
     (8, 16, 8, 512, 512, 128, True, None),   # qwen3-1.7b's training shape
+    (2, 24, 8, 512, 512, 128, True, None),   # phi4-mini-3.8b's G = 3
+    (1, 64, 8, 512, 512, 128, True, None),   # deepseek-67b's G = 8 at d 128
 ])
 def test_flash_attention_bwd_kernels(cuda, B, Hq, Hkv, S, T, d, causal, win, dtype, design):
     dt = getattr(torch, dtype)

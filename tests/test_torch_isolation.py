@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` loads
 neither JAX nor the JAX package, and no module of it (nor ``chip_smoke.py``
-or the port's training example) imports either."""
+or the port's examples) imports either."""
 import ast
 import os
 import subprocess
@@ -16,7 +16,8 @@ PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "examples" / "train_small_torch.py",
                                       ROOT / "examples" / "quickstart_torch.py",
-                                      ROOT / "examples" / "faas_comparison_torch.py"]
+                                      ROOT / "examples" / "faas_comparison_torch.py",
+                                      ROOT / "examples" / "serve_e2e_torch.py"]
 
 
 def _modules():
