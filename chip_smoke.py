@@ -265,10 +265,14 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 12. the dry run (``repro_torch.launch.dryrun``) and the options only it
    selects: 12a on the host, no kernel launched, ``run_pair`` on the
    256-rank production mesh (data 32 x model 8, a fake process group) for
-   qwen3-1.7b x decode_32k with its probes and mixtral-8x7b x train_4k,
-   each device's memory, flops, bytes, collective bytes by kind and axis
-   and the roofline's three terms, bottleneck and useful ratio (the H100
-   SXM's data-sheet figures at 700 W: predictions), all finite; perf's
+   qwen3-1.7b x decode_32k with its probes, mixtral-8x7b x train_4k (traced
+   twice: every figure equal) and the three prefill_32k pairs whose ops this
+   host's torch 2.11 could not place before the port's rules (mixtral's and
+   h2o-danube's windowed ``roll``, Jamba's partial-plus-shard ``add``), each
+   device's memory, flops, bytes, collective bytes by kind and axis and the
+   roofline's three terms, bottleneck and useful ratio (the H100 SXM's
+   data-sheet figures at 700 W: predictions), all finite, no op run
+   replicated, each peak beside torch 2.13's (``PERF.md``); perf's
    expert-parallel variant of mixtral x train_4k at 2 of 32 layers moves
    bytes by all-to-all; 12b the dry run on a 1-rank mesh at phase 11b's
    training step and phase 5's decode step, and at 5h's phi4-mini decode
@@ -709,13 +713,28 @@ def print_profiles(torch, T, params, cfg, batch, seq_len) -> dict:
     return device
 
 
+# phase 12a: the prefill_32k pairs whose ops torch 2.11 (the card's host)
+# could not place before the port's DTensor rules, and each pair's per-device
+# peak in bytes on torch 2.13 (python -m repro_torch.launch.dryrun --no-probes
+# on a CPU host; PERF.md section 6)
+DRYRUN_PREFILLS = (("mixtral-8x7b", "prefill_32k"), ("h2o-danube-3-4b", "prefill_32k"),
+                   ("jamba-v0.1-52b", "prefill_32k"))
+DRYRUN_PEAKS_213 = {("qwen3-1.7b", "decode_32k"): 2850549796.0,
+                    ("mixtral-8x7b", "train_4k"): 189875150924.0,
+                    ("mixtral-8x7b", "prefill_32k"): 126289788948.0,
+                    ("h2o-danube-3-4b", "prefill_32k"): 37211225604.0,
+                    ("jamba-v0.1-52b", "prefill_32k"): 127372269592.0}
+
+
 def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
                         phi4_decode_us) -> None:
     """Phase 12.  12a (host, no kernel): ``dryrun.run_pair`` on the 256-rank
     production mesh (data 32 x model 8) for qwen3-1.7b x decode_32k with its
-    probes and mixtral-8x7b x train_4k, and perf's expert-parallel variant of
-    mixtral x train_4k at 2 of its 32 layers (its all-to-all must move
-    bytes).  12b: the dry run on a 1-rank mesh at phase 11b's training step
+    probes, mixtral-8x7b x train_4k twice (the two records' figures equal)
+    and ``DRYRUN_PREFILLS``, each with no op run replicated
+    (``dryrun.require_placed``) and its peak printed beside
+    ``DRYRUN_PEAKS_213``; and perf's expert-parallel variant of mixtral x
+    train_4k at 2 of its 32 layers (its all-to-all must move bytes).  12b: the dry run on a 1-rank mesh at phase 11b's training step
     and phase 5's decode step of full-width qwen3-1.7b, and at phase 5h's
     decode step of phi4-mini-3.8b (``phi4_decode_us``); its parameter,
     moment and KV-cache bytes must equal those of the card's tensors, and its
@@ -750,23 +769,36 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
     t_phase = time.perf_counter()
     print("12a the dry run on the production mesh (predictions: the H100 SXM's data-sheet "
           "figures at 700 W; per device):")
-    for arch, shape, probes in (("qwen3-1.7b", "decode_32k", True),
-                                ("mixtral-8x7b", "train_4k", False)):
+    print(f"  torch {torch.__version__}; the 2.13 peaks are a CPU host's sweep "
+          f"(PERF.md section 6)")
+    pairs = [("qwen3-1.7b", "decode_32k", True), ("mixtral-8x7b", "train_4k", False),
+             ("mixtral-8x7b", "train_4k", False)] + [(a, s, False) for a, s in DRYRUN_PREFILLS]
+    figures = {}
+    for arch, shape, probes in pairs:
         t0 = time.perf_counter()
         rec = dryrun.run_pair(arch, shape, probes=probes, verbose=False)
         cost, r, mem = rec["cost"], rec["roofline"], rec["memory"]
+        peak_213 = DRYRUN_PEAKS_213[(arch, shape)]
         print(f"  {arch} x {shape} x {rec['mesh']} ({rec['chips']} ranks, "
               f"{'probes ' + str([p['layers'] for p in rec['probes']]) if probes else 'no probes'}"
               f", {time.perf_counter() - t0:.1f} s of host time): peak {mem['peak_bytes']:.6g} B "
-              f"(parameters {mem['params_bytes']:.6g}), flops {cost['flops']:.6g}, bytes "
+              f"(torch 2.13: {peak_213:.6g} B, {mem['peak_bytes'] / peak_213 - 1:+.2e}; "
+              f"parameters {mem['params_bytes']:.6g}), flops {cost['flops']:.6g}, bytes "
               f"accessed {cost['bytes accessed']:.6g}")
         print(f"    collective bytes by kind {cost['collective bytes by kind']}, by axis "
               f"{cost['collective bytes by axis']}; ops run replicated (no DTensor rule) "
-              f"{cost['ops run replicated (no DTensor rule)']}")
+              f"{cost[dryrun.REPLICATED]}, views placed by the port "
+              f"{cost['views placed']}, view gathers {cost['view gathers']}")
         print(f"    roofline: {roofline_line(r)}")
+        dryrun.require_placed(rec)
         for k in ("compute_s", "memory_s", "collective_s", "step_time_s", "useful_ratio"):
             if not (math.isfinite(r[k]) and r[k] > 0):
                 raise AssertionError(f"12a {arch} x {shape}: {k} {r[k]}")
+        again = figures.setdefault((arch, shape), dryrun.record_figures(rec))
+        if again != dryrun.record_figures(rec):
+            raise AssertionError(f"12a {arch} x {shape}: two traces in one process differ: "
+                                 f"{again} against {dryrun.record_figures(rec)}")
+    print("  mixtral-8x7b x train_4k traced twice in this process: every figure equal")
     variants = {n: p for n, p, _ in perf.variants_for("train_4k", "mixtral-8x7b")}
     cfg = dryrun.with_layers(get_arch("mixtral-8x7b"), 2)
     rec = dryrun.run_pair("mixtral-8x7b", "train_4k", probes=False, verbose=False,

@@ -14,6 +14,11 @@ an autograd rule through a backward op of the same kind, and, registered by
 batch, or the channels (Mamba's d_inner, RWKV6's heads), sharded or not.
 The trace then counts a scan as the kernel's one pass over its operands.
 On a CPU tensor the ops run the plain versions, which the tests use.
+
+Below them, the placements of the model's ATen ops that torch 2.11's DTensor
+places otherwise than 2.13's (or cannot place), written from 2.13's rules and
+registered where torch has no such rules of its own
+(``register_aten_shardings``).
 """
 from __future__ import annotations
 
@@ -192,3 +197,179 @@ def register_shardings() -> None:
                 ([Shard(2)] * 4 + [Shard(0), Shard(1)],
                  [Shard(2)] * 4 + [Shard(0), opt(S0, Shard(1)), Shard(2),
                                    opt(dS_last, Shard(1))])]
+
+
+# -- DTensor: the model's ATen ops that torch 2.11 places otherwise than 2.13.
+# Each rule is the strategy torch 2.13 has for the op on one mesh dimension,
+# written here: a list of ([output placements], [input placements]), None for
+# an argument that is not a tensor; DTensor expands it over the mesh and takes
+# the cheapest redistribution, the first of equals, as 2.13 does.  As in 2.13,
+# a rule that shards is offered only when an input is sharded already.
+
+
+def _spec(a) -> bool:
+    return hasattr(a, "placements")
+
+
+def _sharded(*specs) -> bool:
+    from torch.distributed.tensor import Shard
+    return any(isinstance(p, Shard) for a in specs if _spec(a) for p in a.placements)
+
+
+def _partial(p):
+    from torch.distributed.tensor import Partial, Replicate
+    return Replicate() if p is None else Partial(p)
+
+
+# the partial sums (or means, maxima, minima) a pointwise op passes through:
+# (output, *tensor inputs), None for a replicated input (torch 2.13's rules)
+_LINEAR = (("sum", "sum"), ("avg", "avg"))
+_ADDITIVE = (("sum", "sum", "sum"), ("avg", "avg", "avg"), ("avg", "avg", None),
+             ("max", "max", None), ("min", "min", None), ("avg", None, "avg"))
+_MUL = _LINEAR + (("sum", "sum", None), ("avg", "avg", None), ("sum", None, "sum"),
+                  ("avg", None, "avg"))
+_NON_DECREASING = (("max", "max"), ("min", "min"))
+
+
+def pointwise_shardings(partials=()):
+    """The rule of a pointwise op: replicated; sharded alike on any dimension
+    of the broadcast result, an operand replicated where it broadcasts; or
+    one of ``partials`` that fits the number of tensor operands."""
+    def rule(*args, **_):
+        from torch.distributed.tensor import Replicate, Shard
+        tensors = [a for a in args if _spec(a)]
+        common = torch.broadcast_shapes(*(tuple(a.shape) for a in tensors))
+
+        def inputs(placement_of):
+            return [placement_of(a) if _spec(a) else None for a in args]
+
+        rules = [([Replicate()], inputs(lambda a: Replicate()))]
+        for d in range(len(common) if _sharded(*tensors) else 0):
+            def on_d(a, d=d):
+                k = d - (len(common) - len(a.shape))
+                return Shard(k) if k >= 0 and a.shape[k] == common[d] else Replicate()
+            rules.append(([Shard(d)], inputs(on_d)))
+        for out, *ins in partials:
+            if len(ins) == len(tensors):
+                it = iter(ins)
+                rules.append(([_partial(out)], inputs(lambda a: _partial(next(it)))))
+        return rules
+    return rule
+
+
+def index_shardings(x, indices):
+    """``x[indices]`` (``index.Tensor``): replicated; ``x`` sharded on a
+    dimension it is not indexed on, the indices replicated; the indices
+    sharded on one dimension of their broadcast shape (replicated where they
+    broadcast), ``x`` replicated; or ``x`` a partial sum or mean passed
+    through."""
+    from torch.distributed.tensor import Replicate, Shard
+    R = Replicate()
+    present = [i for i in indices if i is not None]
+    indexed = [d for d, i in enumerate(indices) if i is not None]
+    b_ndim = max(len(i.shape) for i in present)
+    in_run = indexed[-1] - indexed[0] + 1 == len(indexed)
+    insert = indexed[0] if in_run else 0
+    rules = [([R], [R] * (1 + len(present)))]
+    sharded = _sharded(x, *present)
+    for d in range(len(x.shape) if sharded else 0):
+        if d not in indexed:
+            out = d if d < insert else d + b_ndim - sum(1 for i in indexed if d > i)
+            rules.append(([Shard(out)], [Shard(d)] + [R] * len(present)))
+    for bd in range(b_ndim if sharded else 0):
+        dims = [(bd - (b_ndim - len(i.shape)), i.shape) for i in present]
+        idx_pl = [Shard(td) if td >= 0 and shp[td] > 1 else R for td, shp in dims]
+        if any(p != R for p in idx_pl):
+            rules.append(([Shard(bd + insert)], [R] + idx_pl))
+    rules += [([_partial(op)], [_partial(op)] + [R] * len(present)) for op in ("sum", "avg")]
+    return rules
+
+
+def index_put_shardings(x, indices, values, *_):
+    """``x[indices] = values`` (``index_put``, ``index_put_``,
+    ``_index_put_impl_``): every index replicated; ``x`` sharded on a
+    dimension it is not indexed on and ``values`` on the dimension that lands
+    there (replicated where it broadcasts); or all three a partial sum; or
+    all replicated.  Indexed dimensions in one run put the broadcast index's
+    dimensions in their place, else first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    R = Replicate()
+    present = [i for i in indices if i is not None]
+    indexed = [d for d, i in enumerate(indices) if i is not None]
+    free = [d for d in range(len(x.shape)) if d not in indexed]
+    b_ndim = len(torch.broadcast_shapes(*(tuple(i.shape) for i in present)))
+    in_run = indexed[-1] - indexed[0] + 1 == len(indexed)
+    lead = (b_ndim + len(free)) - len(values.shape)      # result dims values lacks
+    rules = [([R], [R] * (len(present) + 2))]
+    for n, d in enumerate(free if _sharded(x, values, *present) else ()):
+        at = (d if d < indexed[0] else d - len(indexed) + b_ndim) if in_run else b_ndim + n
+        vd = at - lead
+        rules.append(([Shard(d)], [Shard(d)] + [R] * len(present)
+                      + [R if vd < 0 or values.shape[vd] == 1 else Shard(vd)]))
+    rules.append(([Partial()], [Partial()] + [R] * len(present) + [Partial()]))
+    return rules
+
+
+def scatter_shardings(x, dim, index, src):
+    """``x.scatter(dim, index, src)``: replicated, or all sharded on a
+    dimension other than ``dim`` where the three agree in size."""
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= len(x.shape)
+    rules = [([Replicate()], [Replicate(), None, Replicate(), Replicate()])]
+    if len(x.shape) == len(index.shape):
+        rules += [([Shard(d)], [Shard(d), None, Shard(d), Shard(d)])
+                  for d in range(len(x.shape))
+                  if d != dim and x.shape[d] == index.shape[d] == src.shape[d]]
+    return rules
+
+
+def roll_shardings(x, shifts, dims=()):
+    """``torch.roll``: sharded on a dimension it does not roll (none when
+    ``dims`` is empty: a flat roll), a partial value of any reduction passed
+    through, or replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    n = len(x.shape)
+    rolled = {d % n for d in dims} if dims else set(range(n))
+    rules = [([Replicate()], [Replicate()])]
+    rules += [([Shard(d)], [Shard(d)]) for d in range(n) if d not in rolled and _sharded(x)]
+    rules += [([_partial(op)], [_partial(op)]) for op in ("sum", "avg", "max", "min")]
+    return rules
+
+
+def aten_shardings():
+    """{ATen op: its rule}: every op whose placement in the port's traces
+    differs between torch 2.11's DTensor and 2.13's."""
+    aten = torch.ops.aten
+    index_put = index_put_shardings
+    rules = {aten.index.Tensor: index_shardings, aten.scatter.src: scatter_shardings,
+             aten.index_put.default: index_put, aten.index_put_.default: index_put,
+             aten._index_put_impl_.default: index_put, aten.roll.default: roll_shardings,
+             aten.add.Tensor: pointwise_shardings(_ADDITIVE),
+             aten.sub.Tensor: pointwise_shardings(_ADDITIVE),
+             aten.mul.Tensor: pointwise_shardings(_MUL)}
+    for op in (aten.exp.default, aten.relu.default, aten.sigmoid.default, aten.tanh.default):
+        rules[op] = pointwise_shardings(_NON_DECREASING)
+    for op in (aten.pow.Tensor_Scalar, aten.silu.default, aten.silu_backward.default,
+               aten.softplus.default, aten.where.self, aten.clone.default):
+        rules[op] = pointwise_shardings()
+    return rules
+
+
+def torch_has_aten_rules() -> bool:
+    """Whether DTensor places ``aten_shardings``' ops by rules of its own
+    (torch 2.13 on).  It takes those before a registered rule, so registering
+    one there would only change the key of its cache: a registered rule is
+    keyed on the tensors alone, ``roll``'s ``dims`` left out."""
+    return tuple(int(v) for v in torch.__version__.split("+")[0].split(".")[:2]) >= (2, 13)
+
+
+@functools.cache
+def register_aten_shardings() -> None:
+    """Register ``aten_shardings`` with DTensor where torch has no rules of
+    its own for them (once a process): the trace then places every op as
+    torch 2.13 does, whichever of the two is installed."""
+    if torch_has_aten_rules():
+        return
+    from torch.distributed.tensor.experimental import register_sharding
+    for op, rule in aten_shardings().items():
+        register_sharding(op)(rule)

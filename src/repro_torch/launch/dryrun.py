@@ -4,6 +4,8 @@ each device's memory, flops, bytes and collectives.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID] [--shape NAME]
         [--multi-pod | --both-meshes] [--no-probes] [--optimized] [--out DIR]
+        [--repeat N]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --compare DIR_A DIR_B
 
 Counterpart of the JAX package's ``launch/dryrun.py``.  Where it lowers and
 compiles a jitted step over 512 fake XLA host devices, this module *traces*
@@ -14,12 +16,16 @@ DTensors on ``launch.mesh``'s fake process group, sharded by
 ``FakeTensorMode``).  The step runs the port's plain path under
 ``ops.meta_trace`` (no kernel; each scan one traced operator,
 ``kernels.trace_ops``), and DTensor inserts the collectives the placements
-need.  ``StepCounter`` reads every ATen op the local shards run (flops by
-``torch.utils.flop_counter``'s formulas, bytes read and written) and every
-collective, and follows the local shards' storages for the per-device
-peak (``MemTracker`` reads 487.6 GB for qwen3-1.7b x decode_32k on this
-mesh, the DTensors at their global sizes, against 2.85 GB of local
-shards).  Plain tensors in the trace (RoPE tables,
+need.  Where the installed torch's DTensor places an op otherwise than torch
+2.13 does, or not at all, ``kernels.trace_ops`` registers 2.13's rule, and
+``StepCounter`` places the views 2.13 makes strided shards of, so that a pair
+gives the same figures on either version; an op that no rule places runs
+replicated and fails the pair.  ``StepCounter`` reads every ATen op the
+local shards run (flops by ``torch.utils.flop_counter``'s formulas, bytes
+read and written) and every collective, and follows the local shards'
+storages for the per-device peak (``MemTracker`` reads 487.6 GB for
+qwen3-1.7b x decode_32k on this mesh, the DTensors at their global sizes,
+against 2.85 GB of local shards).  Plain tensors in the trace (RoPE tables,
 masks, positions) are treated as replicated (``implicit_replication``).
 
 Train and decode update the parameters, moments and caches in place (the
@@ -57,6 +63,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.flops import model_flops
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "build", "dryrun")
+# the record's list of ops DTensor could not place; any entry fails the pair
+REPLICATED = "ops run replicated (no DTensor rule)"
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +198,10 @@ _NO_BYTES = {"aten.empty", "aten.empty_strided", "aten.empty_like", "aten.new_em
              "aten.new_empty_strided", "prim.device", "aten.lift_fresh",
              "aten._unsafe_view"}
 _VIEWS = {torch.ops.aten.view.default, torch.ops.aten._unsafe_view.default}
+# ops that return their input on the device but a new tensor on the meta
+# device (a collective's output, wrapped for autograd): no bytes, and the
+# input's storage, not a new one
+_WRAPS = {"_c10d_functional._wrap_tensor_autograd.default"}
 # ops that read only the rows they pick (or write): output (or values) read
 # and written once, and the indices
 _GATHERS = {"aten.index", "aten.gather", "aten.embedding", "aten.index_select"}
@@ -218,6 +230,8 @@ class StepCounter:
         counter = self
         self.counting = False
         self.replicated: Dict[str, int] = {}
+        self.view_gathers = 0
+        self.views_placed = 0
         self.flops = 0.0
         self.bytes = 0.0
         self.live = 0
@@ -245,18 +259,27 @@ class StepCounter:
                         return counter._view(func, args, kwargs)
                     return counter._dtensor_op(func, args, kwargs)
                 out = func(*args, **kwargs)
-                if any(isinstance(a, FakeTensor) for a in tree_leaves((args, kwargs, out))):
+                leaves = [t for t in tree_leaves((args, kwargs, out))
+                          if isinstance(t, torch.Tensor)]
+                if any(isinstance(t, FakeTensor) for t in leaves):
                     return out            # DTensor deriving an output's global shape
+                if not self.outer and not any(t.device.type == "meta" for t in leaves):
+                    return out            # DTensor's own index arithmetic on the host
+                if str(func) in _WRAPS:       # the input itself on the device: its
+                    weakref.finalize(out.untyped_storage(), _keep,   # storage lives on
+                                     args[0].untyped_storage())      # with the output
+                    return out
                 hit = dispatched_collective(func, args, out, groups)
                 if hit is not None:
                     if counter.counting:
                         counter.log.record(*hit)
-                    return out
-                packet = func.overloadpacket
-                if counter.counting:
-                    if packet in flop_registry:
-                        counter.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+                elif counter.counting:
+                    if func.overloadpacket in flop_registry:
+                        counter.flops += flop_registry[func.overloadpacket](
+                            *args, **kwargs, out_val=out)
                     counter.bytes += _op_bytes(func, args, kwargs, out)
+                if _is_view(func):
+                    return out            # no new storage on the device
                 for t in tree_leaves(out):
                     if isinstance(t, torch.Tensor):
                         counter._hold(t.untyped_storage())
@@ -267,14 +290,15 @@ class StepCounter:
 
     def _dtensor_op(self, func, args, kwargs):
         """A DTensor op, by DTensor, under an inner mode that counts its local
-        ops.  Where DTensor cannot run it (the card's torch has no rule for
-        ``index_put_`` or ``roll``, and cannot redistribute a shard to a
-        partial sum) it runs as one device would: its inputs gathered whole
-        (the gathers recorded as any collective), the op on their local
-        tensors, its outputs replicated; what the failed attempt counted is
-        taken back and the op counted in ``replicated``.  An op in place
-        writes the gathered copy, the input itself where it was replicated
-        already."""
+        ops.  Where DTensor cannot run it (an op no rule places:
+        ``kernels.trace_ops`` registers the port's where torch lacks its own)
+        it runs as one device would: its inputs gathered whole (the gathers
+        recorded as any collective), the op on their local tensors, its
+        outputs replicated; what the failed attempt counted is taken back and
+        the op counted in ``replicated``, which fails the pair
+        (``require_placed``): every op after it on its outputs runs whole on
+        every rank too.  An op in place writes the gathered copy, the input
+        itself where it was replicated already."""
         from torch.distributed.tensor import DTensor, Replicate
         mark = (self.flops, self.bytes, len(self.log.calls))
         try:
@@ -317,28 +341,50 @@ class StepCounter:
         return out
 
     def _view(self, func, args, kwargs):
-        """A view of a DTensor, by DTensor.  Where DTensor cannot view it in
-        its placements (some versions merge dimensions only when the first
-        of them alone is sharded), the mesh dimension that shards its
+        """A view of a DTensor, by DTensor where it keeps to the public
+        placements.  Where DTensor cannot view it in them (torch 2.11 merges
+        dimensions only when the first of them alone is sharded, and splits a
+        dimension sharded twice only when its first part divides over both
+        mesh dimensions; 2.13 makes and undoes a strided shard there), the
+        view is taken on the local shard and placed by ``view_placements``
+        (``views placed``): the local shape of a strided shard, as a plain
+        shard, on either version, so that the ops after it place alike.
+        Where that cannot place it either, the mesh dimension that shards the
         highest tensor dimension is gathered first, and again, until the view
         goes: the all-gathers are recorded here, since the mode is off while
-        it handles a call.  A view moves no bytes and holds no new storage,
-        so nothing else of it is counted."""
-        from torch.distributed.tensor import Replicate, Shard
+        it handles a call (``view gathers``).  A view moves no bytes and
+        holds no new storage, so nothing else of it is counted."""
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
         x = args[0]
         while True:
             try:
-                return func(x, *args[1:], **kwargs)
-            except RuntimeError as e:
-                sharded = [(p.dim, m) for m, p in enumerate(x.placements)
-                           if isinstance(p, Shard)]
-                if "flatten" not in str(e) or not sharded:
-                    raise
+                out = func(x, *args[1:], **kwargs)
+                if all(type(p) in (Shard, Replicate, Partial) for p in out.placements):
+                    return out
+            except (RuntimeError, AssertionError):
+                pass
+            mesh = x.device_mesh
+            size = _view_size(x.shape, args[1])
+            placed = view_placements(x.shape, size, x.placements, mesh.shape)
+            sharded = [(p.dim, m) for m, p in enumerate(x.placements) if isinstance(p, Shard)]
+            if placed is None and not sharded:
+                return func(x, *args[1:], **kwargs)       # raises DTensor's error
+            if placed is not None:
+                if self.counting:
+                    self.views_placed += 1
+                local = list(size)
+                for m, p in enumerate(placed):
+                    if isinstance(p, Shard):
+                        local[p.dim] //= mesh.size(m)
+                return DTensor.from_local(func(x.to_local(), local), mesh, placed,
+                                          run_check=False, shape=torch.Size(size),
+                                          stride=_contiguous_stride(size))
             _, m = max(sharded)
             local = x.to_local()
             if self.counting:
                 n = x.device_mesh.size(m)
                 self.log.record("all-gather", nbytes(local) * n, n, x.device_mesh.mesh_dim_names[m])
+                self.view_gathers += 1
             pl = list(x.placements)
             pl[m] = Replicate()
             x = x.redistribute(x.device_mesh, pl)
@@ -356,6 +402,64 @@ class StepCounter:
         self.live -= n
 
 
+def _keep(*_) -> None:
+    """A finalizer that only holds its arguments until it runs."""
+
+
+def _view_size(shape, size) -> Tuple[int, ...]:
+    """``size`` of a view of ``shape``, its -1 resolved."""
+    size = list(size)
+    if -1 in size:
+        known = 1
+        for n in size:
+            known *= n if n != -1 else 1
+        total = 1
+        for n in shape:
+            total *= n
+        size[size.index(-1)] = total // known
+    return tuple(size)
+
+
+def view_placements(shape, size, placements, mesh_shape):
+    """The placements of ``shape`` viewed as ``size``, each mesh dimension
+    keeping its shard where its share of elements stays whole: the two sides
+    are cut into runs of dimensions of equal product; a run's mesh dimensions
+    (by dimension, then by mesh dimension) shard its first output dimension
+    while it divides over them, then the next.  So dimensions sharded on two
+    mesh dimensions and merged become one dimension sharded twice, and split
+    again go back.  None where a mesh dimension finds no output dimension."""
+    from torch.distributed.tensor import Shard
+    out = list(placements)
+    i = j = 0
+    while i < len(shape) or j < len(size):
+        ins, outs = [], []
+        a = b = 1
+        while i < len(shape) or j < len(size):
+            if (a <= b and i < len(shape)) or j == len(size):
+                a *= shape[i]
+                ins.append(i)
+                i += 1
+            else:
+                b *= size[j]
+                outs.append(j)
+                j += 1
+            if a == b and ins and outs and (i == len(shape) or shape[i] != 1) \
+                    and (j == len(size) or size[j] != 1):
+                break
+        meshes = [m for d in ins for m, p in enumerate(placements)
+                  if isinstance(p, Shard) and p.dim == d]
+        k, left = 0, size[outs[0]] if outs else 1
+        for m in meshes:
+            while outs and k < len(outs) and left % mesh_shape[m]:
+                k += 1
+                left = size[outs[k]] if k < len(outs) else 1
+            if not outs or k == len(outs):
+                return None
+            left //= mesh_shape[m]
+            out[m] = Shard(outs[k])
+    return out
+
+
 def _tensor_bytes(*xs) -> int:
     total = 0
     for a in xs:
@@ -366,6 +470,15 @@ def _tensor_bytes(*xs) -> int:
     return total
 
 
+def _is_view(func) -> bool:
+    """Whether ``func`` returns a view of an input: its storage, not a new one.
+    (On the meta device a view can show a storage not seen yet: a
+    collective's output that DTensor waited on out of the mode's sight comes
+    back as a new tensor there.)"""
+    return any(r.alias_info is not None and not r.alias_info.is_write
+               for r in func._schema.returns)
+
+
 def _op_bytes(func, args, kwargs, out) -> int:
     """Bytes an op reads and writes: every tensor argument and output once;
     a gather its output twice and its indices, a scatter in place its values
@@ -373,8 +486,7 @@ def _op_bytes(func, args, kwargs, out) -> int:
     name = str(func.overloadpacket).replace("torch.ops.", "")
     if name in _NO_BYTES:
         return 0
-    returns = func._schema.returns
-    if any(r.alias_info is not None and not r.alias_info.is_write for r in returns):
+    if _is_view(func):
         return 0                                  # a view: no bytes move
     if name in _GATHERS or name in _SCATTERS:
         indices = [t for a in args[1:] for t in (a if isinstance(a, (tuple, list)) else (a,))
@@ -501,6 +613,7 @@ def trace(cfg: ArchConfig, shape, mesh, policy: sh.Policy) -> Dict:
 
     from repro_torch.kernels import ops, trace_ops
     trace_ops.register_shardings()
+    trace_ops.register_aten_shardings()
     gc.collect()             # the peak counts what refcounts free, from a clean start
     run = build_step(cfg, shape, mesh, policy)
     counter = StepCounter(mesh)
@@ -518,6 +631,7 @@ def trace(cfg: ArchConfig, shape, mesh, policy: sh.Policy) -> Dict:
         del state
     return {"flops": counter.flops, "bytes": counter.bytes,
             "collectives": counter.log.stats(), "replicated_ops": dict(counter.replicated),
+            "view_gathers": counter.view_gathers, "views_placed": counter.views_placed,
             "memory": memory_summary(counter, held)}
 
 
@@ -557,7 +671,10 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     """Dry-run one (architecture x input shape x mesh): trace the full model,
     then (optionally) the two probe depths, and build the roofline.  ``mesh``
     defaults to the production mesh, ``cfg`` to the registered config and
-    ``shape`` to the registered shape of that name."""
+    ``shape`` to the registered shape of that name.  The record's
+    ``REPLICATED``, ``"view gathers"`` and ``"views placed"`` sum over every
+    trace of the pair; a pair with any op in the first fails
+    (``require_placed``)."""
     policy = policy or sh.Policy()
     shape = shape or get_shape(shape_name)
     shape_name = shape.name
@@ -582,7 +699,9 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
                    "collective bytes by kind": coll.by_kind,
                    "collective bytes by axis": coll.by_axis,
                    "collective counts": coll.counts,
-                   "ops run replicated (no DTensor rule)": counts["replicated_ops"]}
+                   REPLICATED: dict(counts["replicated_ops"]),
+                   "view gathers": counts["view_gathers"],
+                   "views placed": counts["views_placed"]}
     if verbose:
         print(f"[{arch} x {shape_name} x {mesh_name}] traced in "
               f"{rec['trace_s']:.1f}s  mem={rec['memory']['total_gb']:.2f}GB/dev "
@@ -591,7 +710,12 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     if probes:
         pts = []
         for n in probe_layer_counts(cfg):
-            pts.append(rl.probe_from_trace(n, trace(with_layers(cfg, n), shape, mesh, policy)))
+            probe = trace(with_layers(cfg, n), shape, mesh, policy)
+            for op, k in probe["replicated_ops"].items():
+                rec["cost"][REPLICATED][op] = rec["cost"][REPLICATED].get(op, 0) + k
+            rec["cost"]["view gathers"] += probe["view_gathers"]
+            rec["cost"]["views placed"] += probe["views_placed"]
+            pts.append(rl.probe_from_trace(n, probe))
             if verbose:
                 print(f"    probe L={n}: flops={pts[-1].flops:.3e} "
                       f"coll={pts[-1].coll_bytes:.3e}B")
@@ -613,12 +737,59 @@ def run_pair(arch: str, shape_name: str, *, multi_pod: bool = False,
     return rec
 
 
+def require_placed(rec: Dict) -> None:
+    """Fail a pair whose trace ran an op replicated: DTensor had no rule to
+    place it, so the op and every op after it on its outputs were counted
+    whole on every rank, and the record's figures are not the step's."""
+    ops = rec["cost"][REPLICATED]
+    if ops:
+        raise AssertionError(f"{rec['arch']} x {rec['shape']} x {rec['mesh']}: ops run "
+                             f"replicated, DTensor has no rule for them: {ops}")
+
+
 def save_record(rec: Dict, out_dir: str = RESULTS_DIR) -> str:
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f"{rec['arch']}__{rec['shape']}__{rec['mesh']}.json")
     with open(path, "w") as f:
         json.dump(rec, f, indent=1, default=str)
     return path
+
+
+def record_figures(rec: Dict) -> Dict[str, float]:
+    """A record's figures by name: the peak, flops, bytes accessed and the
+    collective bytes of each kind and each mesh axis, per device."""
+    cost = rec["cost"]
+    out = {"peak": rec["memory"]["peak_bytes"], "flops": cost["flops"],
+           "bytes accessed": cost["bytes accessed"]}
+    for group in ("collective bytes by kind", "collective bytes by axis"):
+        out.update({f"{group.split()[-1]} {k}": v for k, v in cost[group].items()})
+    return out
+
+
+def compare_records(dir_a: str, dir_b: str, rtol: float = 0.01) -> int:
+    """Print, for every record in both directories, the largest relative
+    difference of ``record_figures`` (a figure one record lacks counts 0)
+    and each record's replicated ops and view gathers; returns the number of
+    pairs apart by more than ``rtol``."""
+    apart = 0
+    names = sorted(set(os.listdir(dir_a)) & set(os.listdir(dir_b)))
+    print(f"pair | peak GB (A, B) | largest relative difference (figure) | "
+          f"ops run replicated (A, B) | view gathers (A, B)")
+    for name in names:
+        with open(os.path.join(dir_a, name)) as f:
+            a = json.load(f)
+        with open(os.path.join(dir_b, name)) as f:
+            b = json.load(f)
+        fa, fb = record_figures(a), record_figures(b)
+        diff, worst = max((abs(fa.get(k, 0.0) - fb.get(k, 0.0))
+                           / max(abs(fa.get(k, 0.0)), abs(fb.get(k, 0.0)), 1e-300), k)
+                          for k in sorted(set(fa) | set(fb)))
+        apart += diff > rtol
+        print(f"{a['arch']} x {a['shape']} | {fa['peak'] / 1e9:.2f}, {fb['peak'] / 1e9:.2f} | "
+              f"{diff:.3g} ({worst}) | {a['cost'][REPLICATED]}, {b['cost'][REPLICATED]} | "
+              f"{a['cost'].get('view gathers')}, {b['cost'].get('view gathers')}")
+    print(f"{len(names)} pairs, {apart} apart by more than {rtol:g}")
+    return apart
 
 
 OPTIMIZED_POLICY = sh.Policy(chunked_attention=True, moe_local_dispatch=True,
@@ -636,7 +807,14 @@ def main(argv=None):
     ap.add_argument("--optimized", action="store_true",
                     help="use the optimized policy instead of the baseline")
     ap.add_argument("--out", default=RESULTS_DIR)
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="trace each pair this many times in one process; a pair "
+                         "whose figures differ between the traces fails")
+    ap.add_argument("--compare", nargs=2, metavar=("DIR_A", "DIR_B"),
+                    help="compare two directories of records (within 1 %%) and exit")
     args = ap.parse_args(argv)
+    if args.compare:
+        raise SystemExit(1 if compare_records(*args.compare) else 0)
 
     archs = [args.arch] if args.arch else ASSIGNED
     shapes = [args.shape] if args.shape else [s.name for s in ALL_SHAPES]
@@ -648,10 +826,15 @@ def main(argv=None):
             for mp in meshes:
                 try:
                     # probes only make sense for the (single-pod) roofline
-                    rec = run_pair(arch, shape, multi_pod=mp,
-                                   probes=not args.no_probes and not mp,
-                                   policy=policy)
-                    save_record(rec, args.out)
+                    recs = [run_pair(arch, shape, multi_pod=mp,
+                                     probes=not args.no_probes and not mp, policy=policy)
+                            for _ in range(args.repeat)]
+                    rec = recs[0]
+                    save_record(rec, args.out)        # kept, so a failure can be read
+                    require_placed(rec)
+                    if any(record_figures(r) != record_figures(rec) for r in recs):
+                        raise AssertionError(f"the {args.repeat} traces differ: "
+                                             f"{[record_figures(r) for r in recs]}")
                 except Exception as e:
                     failures.append((arch, shape, mp, repr(e)))
                     print(f"FAILED [{arch} x {shape} x mp={mp}]: {e}")

@@ -8,6 +8,7 @@ other orders), exact for what the trace counts.  Every test that starts
 the fake process group tears it down (``_no_process_group``), since
 several test files share a worker."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -323,3 +324,286 @@ def test_main_passes_and_fails_by_its_pairs(tmp_path, monkeypatch, capsys):
         dr.main(["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--out", str(tmp_path)])
     assert e.value.code == 1
     assert "1 FAILURES" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the port's DTensor rules (``trace_ops.aten_shardings``), held to torch's own
+
+
+def _twins():
+    """Each ruled ATen op's twin: the same schema in namespace
+    ``test_dryrun_twin`` (and, where ``other`` is a Tensor, an overload
+    ``sc`` taking a Python number), running the ATen op, placed by the port's
+    rule.  DTensor takes torch's own rule for the ATen op, and the port's for
+    its twin."""
+    from torch.distributed.tensor.experimental import register_sharding
+    from repro_torch.kernels import trace_ops
+    if _TWINS:
+        return _TWINS
+    lib = torch.library.Library("test_dryrun_twin", "DEF")
+    _TWINS["lib"] = lib
+    for op, rule in trace_ops.aten_shardings().items():
+        schema = str(op._schema).split("::", 1)[1]
+        name = schema.split("(")[0]
+        base = name.split(".")[0]
+        variants = [(schema, name)]
+        if "Tensor other" in schema:
+            variants.append((schema.replace("Tensor other", "Scalar other").replace(
+                name, base + ".sc", 1), base + ".sc"))
+        for sch, nm in variants:
+            lib.define(sch)
+            lib.impl(nm, (lambda op: lambda *a, **k: op(*a, **k))(op),
+                     "CompositeExplicitAutograd")
+            packet = getattr(torch.ops.test_dryrun_twin, base)
+            twin = getattr(packet, nm.split(".")[1] if "." in nm else "default")
+            register_sharding(twin)(rule)
+            _TWINS[(op, nm.endswith(".sc"))] = twin
+    return _TWINS
+
+
+_TWINS = {}
+RULE_PAIRS = [  # arch, shape, config changes, ops the trace must run
+    ("mixtral-8x7b", "train_4k", {}, {"index_put_", "index_put", "index", "scatter"}),
+    ("jamba-v0.1-52b", "prefill_32k", {}, {"add", "softplus", "silu"}),
+    ("h2o-danube-3-4b", "prefill_32k", {"sliding_window": 16}, {"roll"}),
+    ("qwen3-1.7b", "train_4k", {}, {"pow", "mul", "silu_backward", "where"})]
+
+
+@pytest.mark.parametrize("arch,shape,kw,expect", RULE_PAIRS,
+                         ids=[a + "-" + s for a, s, _, _ in RULE_PAIRS])
+def test_port_rules_place_as_torch_does(arch, shape, kw, expect, monkeypatch):
+    """Every call of a ruled op in a reduced trace on a 2x2 mesh, run again
+    alone under torch's own rule and under the port's (its twin): the same
+    output placements and the same collectives.  (torch 2.13 has rules of its
+    own for these ops; 2.11, on the card's host, has not or places them
+    otherwise, and registers the port's.)"""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.kernels import ops, trace_ops
+    if not trace_ops.torch_has_aten_rules():
+        pytest.skip(f"torch {torch.__version__} has no rules of its own to hold the port's to")
+    ruled = trace_ops.aten_shardings()
+    calls = []
+    real = dr.StepCounter._dtensor_op
+
+    def spy(self, func, args, kwargs):
+        if func in ruled and self.counting:
+            calls.append((func, args, kwargs))
+        return real(self, func, args, kwargs)
+
+    monkeypatch.setattr(dr.StepCounter, "_dtensor_op", spy)
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    cfg = _reduced(arch, **kw)
+    shp = SMALL[{"train_4k": StepKind.TRAIN, "prefill_32k": StepKind.PREFILL}[shape]]
+    dr.trace(cfg, shp, mesh, sh.Policy())
+    monkeypatch.setattr(dr.StepCounter, "_dtensor_op", real)
+    assert calls, "the trace ran no ruled op"
+    twins = _twins()
+
+    def run(func, args, kwargs):
+        counter = dr.StepCounter(mesh)
+        counter.counting = True
+        with ops.meta_trace(), implicit_replication(), dr._alltoall_kept(mesh), counter.mode:
+            out = func(*args, **kwargs)
+        assert not counter.replicated
+        return ([tuple(t.placements) for t in tree_leaves(out) if isinstance(t, DTensor)],
+                sorted(counter.log.calls))
+
+    seen = set()
+    for func, args, kwargs in calls:
+        scalar = len(args) > 1 and isinstance(args[1], (int, float))
+        twin = twins.get((func, scalar)) or twins[(func, False)]
+        assert run(twin, args, kwargs) == run(func, args, kwargs), \
+            (func, [getattr(a, "placements", a) for a in tree_leaves(args)])
+        seen.add(func)
+    assert expect <= {f.overloadpacket.__name__ for f in seen}, seen
+
+
+@torch.library.custom_op("test_dryrun::unplaced", mutates_args=())
+def _unplaced(x: torch.Tensor) -> torch.Tensor:
+    """An op DTensor has no rule for."""
+    return x.clone()
+
+
+@_unplaced.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+_unplaced.register_autograd(lambda ctx, g: g)
+
+
+def _with_unplaced_op(monkeypatch):
+    """Route the experts' input through ``_unplaced``."""
+    ffn = tmoe._expert_ffn
+    monkeypatch.setattr(tmoe, "_expert_ffn", lambda p, xe: ffn(p, _unplaced(xe)))
+
+
+def test_a_replicated_op_fails_the_pair(monkeypatch):
+    """An op with no DTensor rule runs replicated: the record lists it and
+    ``require_placed`` raises; the same pair without it passes."""
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    cfg = _reduced("mixtral-8x7b")
+    rec = dr.run_pair("mixtral-8x7b", "train_4k", probes=False, verbose=False, mesh=mesh,
+                      cfg=cfg, shape=SMALL[StepKind.TRAIN])
+    assert rec["cost"][dr.REPLICATED] == {}
+    dr.require_placed(rec)
+    _with_unplaced_op(monkeypatch)
+    rec = dr.run_pair("mixtral-8x7b", "train_4k", probes=False, verbose=False, mesh=mesh,
+                      cfg=cfg, shape=SMALL[StepKind.TRAIN])
+    assert rec["cost"][dr.REPLICATED] == {"test_dryrun.unplaced.default": 2 * cfg.n_layers}
+    with pytest.raises(AssertionError, match="test_dryrun.unplaced"):
+        dr.require_placed(rec)
+
+
+def test_main_fails_a_pair_with_a_replicated_op_and_keeps_its_record(tmp_path, monkeypatch,
+                                                                     capsys):
+    def small_pair(arch, shape, **kw):
+        mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+        return real(arch, shape, mesh=mesh, cfg=_reduced(arch), shape=SMALL[StepKind.TRAIN],
+                    **kw)
+
+    real = dr.run_pair
+    monkeypatch.setattr(dr, "run_pair", small_pair)
+    _with_unplaced_op(monkeypatch)
+    with pytest.raises(SystemExit) as e:
+        dr.main(["--arch", "mixtral-8x7b", "--shape", "train_4k", "--no-probes",
+                 "--out", str(tmp_path)])
+    assert e.value.code == 1
+    out = capsys.readouterr().out
+    assert "1 FAILURES" in out and "ops run replicated" in out
+    saved = json.loads((tmp_path / "mixtral-8x7b__train_4k__data2xmodel2.json").read_text())
+    assert saved["cost"][dr.REPLICATED] == {"test_dryrun.unplaced.default": 4}
+
+
+def test_two_traces_in_one_process_are_equal(tmp_path):
+    """A reduced MoE training step traced twice in one process (at a shape no
+    other test traces, so that the first trace finds DTensor's caches cold):
+    every figure equal to the byte, and ``compare_records`` finds none apart."""
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    cfg = _reduced("mixtral-8x7b")
+    shape = InputShape("train_4k", 48, 4, StepKind.TRAIN)
+    recs = [dr.run_pair("mixtral-8x7b", "train_4k", probes=False, verbose=False, mesh=mesh,
+                        cfg=cfg, shape=shape) for _ in range(2)]
+    figures = [dr.record_figures(r) for r in recs]
+    assert figures[0] == figures[1]
+    assert set(figures[0]) >= {"peak", "flops", "bytes accessed", "kind all-to-all",
+                               "axis model", "axis data"}
+    for r in recs:
+        assert r["cost"][dr.REPLICATED] == {} and r["cost"]["view gathers"] == 0
+    for i, r in enumerate(recs):
+        dr.save_record(r, str(tmp_path / str(i)))
+    assert dr.compare_records(str(tmp_path / "0"), str(tmp_path / "1")) == 0
+
+
+VIEW_CASES = [  # shape, size, placements (S d / R / P) on a 32 x 8 mesh, expected
+    ((32, 16, 128, 64), (512, 128, 64), ("S0", "S1"), ("S0", "S0")),     # merge, both sharded
+    ((512, 128, 128), (32, 16, 128, 128), ("S0", "S0"), ("S0", "S1")),   # and split back
+    ((256, 8, 64), (256, 512), ("S0", "S1"), ("S0", "S1")),              # merge, second sharded
+    ((4, 64), (256,), ("R", "S1"), ("R", "S0")),
+    ((2048,), (2, 1024), ("S0", "S0"), ("S1", "S1")),                    # first part too small
+    ((32, 1, 64), (32, 64), ("S0", "S2"), ("S0", "S1")),                 # a size-1 dimension
+    ((32, 64), (32, 1, 64), ("S0", "S1"), ("S0", "S2")),
+    ((64, 3), (192,), ("P", "S0"), ("P", "S0")),
+    ((256,), (2, 128), ("S0", "S0"), None),                               # 128 / 32 by 8: no
+]
+
+
+def _pl(code):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return {"R": Replicate(), "P": Partial()}.get(code) or Shard(int(code[1:]))
+
+
+@pytest.mark.parametrize("shape,size,placements,expected", VIEW_CASES)
+def test_view_placements(shape, size, placements, expected):
+    """The port's view rule: merged dimensions sharded on two mesh dimensions
+    become one dimension sharded twice (the local shape of torch 2.13's
+    strided shard) and go back when split."""
+    got = dr.view_placements(shape, size, [_pl(p) for p in placements], (32, 8))
+    assert got == (None if expected is None else [_pl(p) for p in expected])
+
+
+def test_a_view_dtensor_refuses_is_placed_by_the_port(monkeypatch):
+    """A view DTensor refuses (as torch 2.11 refuses to merge a sharded
+    dimension into the one before it) is taken on the local shard and placed
+    by ``view_placements``: no collective, counted in ``views placed``.  One
+    the rule cannot place either is viewed once its sharded mesh dimensions
+    are gathered, each all-gather recorded (``view gathers``)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    counter = dr.StepCounter(mesh)
+    counter.counting = True
+    view = torch.ops.aten.view.default
+
+    def refusing(x, size):
+        if isinstance(x, DTensor) and any(isinstance(p, Shard) for p in x.placements):
+            raise RuntimeError("Attempted to flatten multiple dimensions")
+        return view(x, size)
+
+    def sharded(local, placements, shape):
+        return DTensor.from_local(torch.empty(local, device="meta"), mesh, placements,
+                                  run_check=False, shape=torch.Size(shape),
+                                  stride=dr._contiguous_stride(shape))
+
+    y = counter._view(refusing, (sharded((2, 3, 5), [Shard(0), Shard(1)], (4, 6, 5)),
+                                 [24, 5]), {})
+    assert tuple(y.shape) == (24, 5) and tuple(y.to_local().shape) == (6, 5)
+    assert list(y.placements) == [Shard(0), Shard(0)]
+    assert counter.views_placed == 1 and counter.view_gathers == 0 and not counter.log.calls
+
+    monkeypatch.setattr(dr, "view_placements", lambda *a: None)
+    y = counter._view(refusing, (sharded((2, 3, 5), [Shard(0), Shard(1)], (4, 6, 5)),
+                                 [24, 5]), {})
+    assert tuple(y.shape) == (24, 5) and tuple(y.to_local().shape) == (24, 5)
+    assert counter.views_placed == 1 and counter.view_gathers == 2
+    assert [c[0] for c in counter.log.calls] == ["all-gather", "all-gather"]
+
+
+def test_a_collectives_output_is_its_buffer_once():
+    """A gather's output is one new buffer: held from the collective on,
+    and the wrapper and wait DTensor put around it (a new tensor on the
+    meta device, the same buffer on a card) move no bytes and hold nothing
+    more; a view of it holds nothing either."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.kernels import ops
+
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    counter = dr.StepCounter(mesh)
+    counter.counting = True
+    x = DTensor.from_local(torch.empty((4, 1024), device="meta"), mesh, [Shard(0), Replicate()],
+                           run_check=False, shape=torch.Size((8, 1024)), stride=(1024, 1))
+    with ops.meta_trace(), counter.mode:
+        before = counter.live
+        y = x.redistribute(mesh, [Replicate(), Replicate()]).to_local()
+        rows = y[2:6]
+        assert counter.live - before == 8 * 1024 * 4 and counter.bytes == 0
+        z = rows * 2
+    assert counter.log.calls == [("all-gather", 8 * 1024 * 4, 2, "data")]
+    assert counter.bytes == 2 * 4 * 1024 * 4             # the product alone
+    assert counter.peak - before == 8 * 1024 * 4 + 4 * 1024 * 4
+    del z
+
+
+def test_main_repeat_fails_a_pair_whose_traces_differ(tmp_path, monkeypatch, capsys):
+    """``--repeat 2`` traces each pair twice in the process: equal traces pass;
+    a second trace with other figures fails the pair."""
+    def small_pair(arch, shape, **kw):
+        mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+        rec = real(arch, shape, mesh=mesh, cfg=_reduced(arch), **kw)
+        calls.append(rec)
+        if drift and len(calls) == 2:
+            rec["cost"]["flops"] += 1.0
+        return rec
+
+    real, calls, drift = dr.run_pair, [], False
+    monkeypatch.setattr(dr, "run_pair", small_pair)
+    argv = ["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--no-probes", "--repeat", "2",
+            "--out", str(tmp_path)]
+    dr.main(argv)
+    assert len(calls) == 2 and "ALL DRY-RUNS PASSED" in capsys.readouterr().out
+    calls, drift = [], True
+    with pytest.raises(SystemExit):
+        dr.main(argv)
+    assert "the 2 traces differ" in capsys.readouterr().out
