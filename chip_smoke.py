@@ -272,7 +272,8 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    device's memory, flops, bytes, collective bytes by kind and axis and the
    roofline's three terms, bottleneck and useful ratio (the H100 SXM's
    data-sheet figures at 700 W: predictions), all finite, no op run
-   replicated, each peak beside torch 2.13's (``PERF.md``); perf's
+   replicated, the peak, flops, bytes accessed and collective bytes each
+   within 1 % of torch 2.13's (``PERF.md``); perf's
    expert-parallel variant of mixtral x train_4k at 2 of 32 layers moves
    bytes by all-to-all; 12b the dry run on a 1-rank mesh at phase 11b's
    training step and phase 5's decode step, and at 5h's phi4-mini decode
@@ -715,15 +716,21 @@ def print_profiles(torch, T, params, cfg, batch, seq_len) -> dict:
 
 # phase 12a: the prefill_32k pairs whose ops torch 2.11 (the card's host)
 # could not place before the port's DTensor rules, and each pair's per-device
-# peak in bytes on torch 2.13 (python -m repro_torch.launch.dryrun --no-probes
-# on a CPU host; PERF.md section 6)
+# figures on torch 2.13 (python -m repro_torch.launch.dryrun --no-probes on a
+# CPU host; PERF.md section 6), which the card's host must give within 1 %
 DRYRUN_PREFILLS = (("mixtral-8x7b", "prefill_32k"), ("h2o-danube-3-4b", "prefill_32k"),
                    ("jamba-v0.1-52b", "prefill_32k"))
-DRYRUN_PEAKS_213 = {("qwen3-1.7b", "decode_32k"): 2850549796.0,
-                    ("mixtral-8x7b", "train_4k"): 189875150924.0,
-                    ("mixtral-8x7b", "prefill_32k"): 126289788948.0,
-                    ("h2o-danube-3-4b", "prefill_32k"): 37211225604.0,
-                    ("jamba-v0.1-52b", "prefill_32k"): 127372269592.0}
+DRYRUN_213 = {  # peak B, flops, bytes accessed, collective bytes
+    ("qwen3-1.7b", "decode_32k"): (2850549796.0, 5478547456.0, 48627237860.0, 13363275324.0),
+    ("mixtral-8x7b", "train_4k"): (189875150924.0, 544215306076160.0, 37559645757592.0,
+                                   6043293243180.25),
+    ("mixtral-8x7b", "prefill_32k"): (126289788948.0, 3775731552485376.0, 26701793626972.0,
+                                      575959739271.0),
+    ("h2o-danube-3-4b", "prefill_32k"): (37211225604.0, 79918634680320.0, 3992912573084.0,
+                                         45240810055.0),
+    ("jamba-v0.1-52b", "prefill_32k"): (127372269592.0, 1907957683978240.0, 11870205611452.0,
+                                        368774134151.0)}
+DRYRUN_FIGURES = ("peak", "flops", "bytes accessed", "collective bytes")
 
 
 def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
@@ -732,8 +739,8 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
     production mesh (data 32 x model 8) for qwen3-1.7b x decode_32k with its
     probes, mixtral-8x7b x train_4k twice (the two records' figures equal)
     and ``DRYRUN_PREFILLS``, each with no op run replicated
-    (``dryrun.require_placed``) and its peak printed beside
-    ``DRYRUN_PEAKS_213``; and perf's expert-parallel variant of mixtral x
+    (``dryrun.require_placed``) and its figures within 1 % of
+    ``DRYRUN_213``; and perf's expert-parallel variant of mixtral x
     train_4k at 2 of its 32 layers (its all-to-all must move bytes).  12b: the dry run on a 1-rank mesh at phase 11b's training step
     and phase 5's decode step of full-width qwen3-1.7b, and at phase 5h's
     decode step of phi4-mini-3.8b (``phi4_decode_us``); its parameter,
@@ -769,7 +776,7 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
     t_phase = time.perf_counter()
     print("12a the dry run on the production mesh (predictions: the H100 SXM's data-sheet "
           "figures at 700 W; per device):")
-    print(f"  torch {torch.__version__}; the 2.13 peaks are a CPU host's sweep "
+    print(f"  torch {torch.__version__}; the 2.13 figures are a CPU host's sweep "
           f"(PERF.md section 6)")
     pairs = [("qwen3-1.7b", "decode_32k", True), ("mixtral-8x7b", "train_4k", False),
              ("mixtral-8x7b", "train_4k", False)] + [(a, s, False) for a, s in DRYRUN_PREFILLS]
@@ -778,19 +785,25 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
         t0 = time.perf_counter()
         rec = dryrun.run_pair(arch, shape, probes=probes, verbose=False)
         cost, r, mem = rec["cost"], rec["roofline"], rec["memory"]
-        peak_213 = DRYRUN_PEAKS_213[(arch, shape)]
+        mine = (mem["peak_bytes"], cost["flops"], cost["bytes accessed"],
+                sum(cost["collective bytes by kind"].values()))
+        apart = {k: a / b - 1
+                 for k, a, b in zip(DRYRUN_FIGURES, mine, DRYRUN_213[(arch, shape)])}
         print(f"  {arch} x {shape} x {rec['mesh']} ({rec['chips']} ranks, "
               f"{'probes ' + str([p['layers'] for p in rec['probes']]) if probes else 'no probes'}"
               f", {time.perf_counter() - t0:.1f} s of host time): peak {mem['peak_bytes']:.6g} B "
-              f"(torch 2.13: {peak_213:.6g} B, {mem['peak_bytes'] / peak_213 - 1:+.2e}; "
-              f"parameters {mem['params_bytes']:.6g}), flops {cost['flops']:.6g}, bytes "
-              f"accessed {cost['bytes accessed']:.6g}")
+              f"(parameters {mem['params_bytes']:.6g}), flops {cost['flops']:.6g}, bytes "
+              f"accessed {cost['bytes accessed']:.6g}; against torch 2.13 "
+              f"{ {k: f'{v:+.2e}' for k, v in apart.items()} }")
         print(f"    collective bytes by kind {cost['collective bytes by kind']}, by axis "
               f"{cost['collective bytes by axis']}; ops run replicated (no DTensor rule) "
               f"{cost[dryrun.REPLICATED]}, views placed by the port "
               f"{cost['views placed']}, view gathers {cost['view gathers']}")
         print(f"    roofline: {roofline_line(r)}")
         dryrun.require_placed(rec)
+        if any(abs(v) > 0.01 for v in apart.values()):
+            raise AssertionError(f"12a {arch} x {shape}: more than 1 % from torch 2.13's "
+                                 f"figures: {apart}")
         for k in ("compute_s", "memory_s", "collective_s", "step_time_s", "useful_ratio"):
             if not (math.isfinite(r[k]) and r[k] > 0):
                 raise AssertionError(f"12a {arch} x {shape}: {k} {r[k]}")

@@ -4,7 +4,6 @@ each device's memory, flops, bytes and collectives.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID] [--shape NAME]
         [--multi-pod | --both-meshes] [--no-probes] [--optimized] [--out DIR]
-        [--repeat N]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --compare DIR_A DIR_B
 
 Counterpart of the JAX package's ``launch/dryrun.py``.  Where it lowers and
@@ -423,11 +422,13 @@ def _view_size(shape, size) -> Tuple[int, ...]:
 def view_placements(shape, size, placements, mesh_shape):
     """The placements of ``shape`` viewed as ``size``, each mesh dimension
     keeping its shard where its share of elements stays whole: the two sides
-    are cut into runs of dimensions of equal product; a run's mesh dimensions
-    (by dimension, then by mesh dimension) shard its first output dimension
-    while it divides over them, then the next.  So dimensions sharded on two
-    mesh dimensions and merged become one dimension sharded twice, and split
-    again go back.  None where a mesh dimension finds no output dimension."""
+    are cut into the shortest runs of dimensions of equal product, a run
+    taking the size-1 dimensions that follow it on either side; a run's mesh
+    dimensions (by dimension, then by mesh dimension) shard its first output
+    dimension while it divides over them, then the next.  So dimensions
+    sharded on two mesh dimensions and merged become one dimension sharded
+    twice, and split again go back.  None where a mesh dimension finds no
+    output dimension."""
     from torch.distributed.tensor import Shard
     out = list(placements)
     i = j = 0
@@ -435,7 +436,15 @@ def view_placements(shape, size, placements, mesh_shape):
         ins, outs = [], []
         a = b = 1
         while i < len(shape) or j < len(size):
-            if (a <= b and i < len(shape)) or j == len(size):
+            take_in = (a <= b and i < len(shape)) or j == len(size)
+            if a == b:
+                if i < len(shape) and shape[i] == 1:
+                    take_in = True
+                elif j < len(size) and size[j] == 1:
+                    take_in = False
+                elif ins and outs:
+                    break
+            if take_in:
                 a *= shape[i]
                 ins.append(i)
                 i += 1
@@ -443,9 +452,6 @@ def view_placements(shape, size, placements, mesh_shape):
                 b *= size[j]
                 outs.append(j)
                 j += 1
-            if a == b and ins and outs and (i == len(shape) or shape[i] != 1) \
-                    and (j == len(size) or size[j] != 1):
-                break
         meshes = [m for d in ins for m, p in enumerate(placements)
                   if isinstance(p, Shard) and p.dim == d]
         k, left = 0, size[outs[0]] if outs else 1
@@ -769,10 +775,13 @@ def record_figures(rec: Dict) -> Dict[str, float]:
 def compare_records(dir_a: str, dir_b: str, rtol: float = 0.01) -> int:
     """Print, for every record in both directories, the largest relative
     difference of ``record_figures`` (a figure one record lacks counts 0)
-    and each record's replicated ops and view gathers; returns the number of
-    pairs apart by more than ``rtol``."""
-    apart = 0
-    names = sorted(set(os.listdir(dir_a)) & set(os.listdir(dir_b)))
+    and each record's replicated ops and view gathers, and every record only
+    one directory holds; returns the number of pairs apart by more than
+    ``rtol`` or missing from one side, at least 1 where the directories
+    share no record."""
+    in_a, in_b = set(os.listdir(dir_a)), set(os.listdir(dir_b))
+    names = sorted(in_a & in_b)
+    apart = len(in_a ^ in_b)
     print(f"pair | peak GB (A, B) | largest relative difference (figure) | "
           f"ops run replicated (A, B) | view gathers (A, B)")
     for name in names:
@@ -788,8 +797,11 @@ def compare_records(dir_a: str, dir_b: str, rtol: float = 0.01) -> int:
         print(f"{a['arch']} x {a['shape']} | {fa['peak'] / 1e9:.2f}, {fb['peak'] / 1e9:.2f} | "
               f"{diff:.3g} ({worst}) | {a['cost'][REPLICATED]}, {b['cost'][REPLICATED]} | "
               f"{a['cost'].get('view gathers')}, {b['cost'].get('view gathers')}")
-    print(f"{len(names)} pairs, {apart} apart by more than {rtol:g}")
-    return apart
+    for name in sorted(in_a ^ in_b):
+        print(f"{name}: only in {dir_a if name in in_a else dir_b}")
+    print(f"{len(names)} pairs in both, {len(in_a ^ in_b)} in one only, {apart} apart by "
+          f"more than {rtol:g} or missing")
+    return max(apart, int(not names))
 
 
 OPTIMIZED_POLICY = sh.Policy(chunked_attention=True, moe_local_dispatch=True,
@@ -807,9 +819,6 @@ def main(argv=None):
     ap.add_argument("--optimized", action="store_true",
                     help="use the optimized policy instead of the baseline")
     ap.add_argument("--out", default=RESULTS_DIR)
-    ap.add_argument("--repeat", type=int, default=1,
-                    help="trace each pair this many times in one process; a pair "
-                         "whose figures differ between the traces fails")
     ap.add_argument("--compare", nargs=2, metavar=("DIR_A", "DIR_B"),
                     help="compare two directories of records (within 1 %%) and exit")
     args = ap.parse_args(argv)
@@ -826,15 +835,10 @@ def main(argv=None):
             for mp in meshes:
                 try:
                     # probes only make sense for the (single-pod) roofline
-                    recs = [run_pair(arch, shape, multi_pod=mp,
-                                     probes=not args.no_probes and not mp, policy=policy)
-                            for _ in range(args.repeat)]
-                    rec = recs[0]
+                    rec = run_pair(arch, shape, multi_pod=mp,
+                                   probes=not args.no_probes and not mp, policy=policy)
                     save_record(rec, args.out)        # kept, so a failure can be read
                     require_placed(rec)
-                    if any(record_figures(r) != record_figures(rec) for r in recs):
-                        raise AssertionError(f"the {args.repeat} traces differ: "
-                                             f"{[record_figures(r) for r in recs]}")
                 except Exception as e:
                     failures.append((arch, shape, mp, repr(e)))
                     print(f"FAILED [{arch} x {shape} x mp={mp}]: {e}")

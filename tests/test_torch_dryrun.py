@@ -506,6 +506,9 @@ VIEW_CASES = [  # shape, size, placements (S d / R / P) on a 32 x 8 mesh, expect
     ((32, 1, 64), (32, 64), ("S0", "S2"), ("S0", "S1")),                 # a size-1 dimension
     ((32, 64), (32, 1, 64), ("S0", "S1"), ("S0", "S2")),
     ((64, 3), (192,), ("P", "S0"), ("P", "S0")),
+    ((64, 512), (64, 1, 512), ("S0", "S1"), ("S0", "S2")),               # a 1 after a run
+    ((4, 320, 512), (4, 320, 1, 512), ("P", "S2"), ("P", "S3")),
+    ((256, 1, 64), (64, 4, 1, 1, 64), ("S0", "S2"), ("S0", "S4")),
     ((256,), (2, 128), ("S0", "S0"), None),                               # 128 / 32 by 8: no
 ]
 
@@ -586,24 +589,94 @@ def test_a_collectives_output_is_its_buffer_once():
     del z
 
 
-def test_main_repeat_fails_a_pair_whose_traces_differ(tmp_path, monkeypatch, capsys):
-    """``--repeat 2`` traces each pair twice in the process: equal traces pass;
-    a second trace with other figures fails the pair."""
-    def small_pair(arch, shape, **kw):
-        mesh = tmesh.make_mesh((2, 2), ("data", "model"))
-        rec = real(arch, shape, mesh=mesh, cfg=_reduced(arch), **kw)
-        calls.append(rec)
-        if drift and len(calls) == 2:
-            rec["cost"]["flops"] += 1.0
-        return rec
+VIEW_PAIRS = [  # arch, step, config changes, whether torch makes a strided shard
+    ("mixtral-8x7b", StepKind.TRAIN, {}, False),
+    ("seamless-m4t-large-v2", StepKind.PREFILL, {}, True),
+    ("h2o-danube-3-4b", StepKind.PREFILL, {"sliding_window": 16}, False),
+    ("deepseek-67b", StepKind.DECODE, {}, True),
+    ("jamba-v0.1-52b", StepKind.TRAIN, {}, False),
+    ("rwkv6-1.6b", StepKind.PREFILL, {}, False)]
 
-    real, calls, drift = dr.run_pair, [], False
-    monkeypatch.setattr(dr, "run_pair", small_pair)
-    argv = ["--arch", "qwen3-1.7b", "--shape", "decode_32k", "--no-probes", "--repeat", "2",
-            "--out", str(tmp_path)]
-    dr.main(argv)
-    assert len(calls) == 2 and "ALL DRY-RUNS PASSED" in capsys.readouterr().out
-    calls, drift = [], True
-    with pytest.raises(SystemExit):
-        dr.main(argv)
-    assert "the 2 traces differ" in capsys.readouterr().out
+
+@pytest.mark.parametrize("arch,kind,kw,strided", VIEW_PAIRS,
+                         ids=[a + "-" + k.value for a, k, _, _ in VIEW_PAIRS])
+def test_view_placements_place_as_torchs_own_view(arch, kind, kw, strided, monkeypatch):
+    """Every view of a DTensor in a reduced trace on a 2x2 mesh, viewed again
+    by DTensor alone: where torch places it in plain shards, ``view_placements``
+    gives the same placements; where torch makes a strided shard, the same
+    local shape and the same tensor dimension for each mesh dimension."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.kernels import trace_ops
+    if not trace_ops.torch_has_aten_rules():
+        pytest.skip(f"torch {torch.__version__} lacks 2.13's view rules to hold the port's to")
+    calls = {}
+    real = dr.StepCounter._view
+
+    def spy(self, func, args, kwargs):
+        if self.counting:
+            calls[(func, tuple(args[0].shape), tuple(args[0].placements), tuple(args[1]))] = 1
+        return real(self, func, args, kwargs)
+
+    monkeypatch.setattr(dr.StepCounter, "_view", spy)
+    mesh = tmesh.make_mesh((2, 2), ("data", "model"))
+    dr.trace(_reduced(arch, **kw), SMALL[kind], mesh, sh.Policy())
+    assert calls, "the trace viewed no DTensor"
+    seen_strided = False
+    for func, shape, placements, size in calls:
+        local = list(shape)
+        for m, p in enumerate(placements):
+            if isinstance(p, Shard):
+                local[p.dim] //= mesh.size(m)
+        x = DTensor.from_local(torch.empty(local, device="meta"), mesh, placements,
+                               run_check=False, shape=torch.Size(shape),
+                               stride=dr._contiguous_stride(shape))
+        size = dr._view_size(shape, size)
+        port = dr.view_placements(shape, size, list(placements), mesh.shape)
+        out = func(x, list(size))
+        case = (shape, placements, size, out.placements, port)
+        if all(type(p) in (Shard, Replicate, Partial) for p in out.placements):
+            assert port == list(out.placements), case
+            continue
+        seen_strided = True
+        assert port is not None, case
+        port_local = list(size)
+        for m, p in enumerate(port):
+            if isinstance(p, Shard):
+                port_local[p.dim] //= mesh.size(m)
+        assert tuple(out.to_local().shape) == tuple(port_local), case
+        assert [getattr(p, "dim", p) for p in out.placements] == \
+            [getattr(p, "dim", p) for p in port], case
+    assert seen_strided == strided, seen_strided
+
+
+COMPARE_CASES = [  # records in A, records in B, expected return
+    (("qwen3-1.7b",), ("qwen3-1.7b",), 0),
+    (("qwen3-1.7b", "rwkv6-1.6b"), ("qwen3-1.7b",), 1),      # a pair one sweep lost
+    (("qwen3-1.7b",), ("rwkv6-1.6b",), 2),                    # none shared
+    ((), (), 1)]
+
+
+@pytest.mark.parametrize("in_a,in_b,expected", COMPARE_CASES)
+def test_compare_records_counts_a_missing_pair_as_apart(in_a, in_b, expected, tmp_path, capsys):
+    """A record only one directory holds counts as apart and is printed, and
+    two directories that share no record fail; ``main --compare`` exits 1
+    wherever the count is above 0."""
+    def rec(arch):
+        return {"arch": arch, "shape": "decode_32k", "mesh": "data2xmodel2",
+                "memory": {"peak_bytes": 1e9},
+                "cost": {"flops": 1e12, "bytes accessed": 1e10,
+                         "collective bytes by kind": {"all-gather": 1e8},
+                         "collective bytes by axis": {"model": 1e8},
+                         dr.REPLICATED: {}, "view gathers": 0}}
+
+    for d, archs in (("a", in_a), ("b", in_b)):
+        (tmp_path / d).mkdir()
+        for arch in archs:
+            dr.save_record(rec(arch), str(tmp_path / d))
+    dirs = [str(tmp_path / "a"), str(tmp_path / "b")]
+    assert dr.compare_records(*dirs) == expected
+    out = capsys.readouterr().out
+    assert ("only in" in out) == (set(in_a) != set(in_b))
+    with pytest.raises(SystemExit) as e:
+        dr.main(["--compare", *dirs])
+    assert e.value.code == (1 if expected else 0)
