@@ -118,13 +118,23 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    and ``deepseek-67b`` that keep their grouping of query heads (G 3, 4
    and 8; phi3.5's top 2 over 4 experts);
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
-   ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each, with the
-   kernel launch counts of that run checked against the layers by kind, and
-   the launches by route: every bf16 prefill attention on ``wgmma``, every
-   bf16 decode attention on ``split``, every expert matmul of a prefill on
-   ``wgmma`` and of a decode step on ``stream`` (the routes that ``route``
-   in the wrappers gives their shapes); then 4 decode steps and one prefill
-   under the profiler;
+   ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each.  The
+   engine captures its decode step as one CUDA graph in a warm-up request
+   and replays it for each token; the eager step (the previous design: op
+   by op, a Python ``pos``) serves the same prompts in turns with it
+   (graph, eager, graph), the counters reset before each run.  The
+   first run's kernel launch counts are checked against the layers by
+   kind, and its launches by route: every bf16 prefill attention on
+   ``wgmma``, every bf16 decode attention on ``split``, every expert matmul
+   of a prefill on ``wgmma`` and of a decode step on ``stream`` (the routes
+   that ``route`` in the wrappers gives their shapes); each other run
+   launches the same, and serves the same tokens.  Then the replays
+   against an eager loop step by step: equal greedy tokens, every step's
+   logits at the bf16 limit; then 4 decode steps under the profiler (its
+   CUDA activity) as replays and 4 eager, the replay's device time within 5
+   % of the eager step's, and one prefill: device us, wall us, idle share, the
+   engine's mean decode step (``work_us``) of both designs, the capture's
+   seconds and the peak memory, the graph's pool included;
 5b. the same traffic through full-width ``mixtral-8x7b`` cut from 32 to 24
    layers (bf16, 70.2 GB of weights: all 32 layers do not fit one 80 GB
    card), every expert matmul through the ``moe_gmm`` kernel;
@@ -140,15 +150,15 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    head_dim 120 on the flash ``wgmma`` and decode ``split`` designs;
 5f. full-width, full-depth ``seamless-m4t-large-v2`` (24 encoder and 24
    decoder layers, 4.07 GB of bf16 weights): 8 requests of 1500 stub
-   frames, a 512-token decoder prompt and 32 new tokens, through
-   ``T.prefill`` and a greedy ``T.decode_step`` loop timed as the engine
-   times (the engine takes no encoder inputs); every attention (encoder,
+   frames (the engine's ``inputs``), a 512-token decoder prompt and 32 new
+   tokens, through the engine as in phase 5; every attention (encoder,
    self, cross) on flash ``wgmma`` and decode ``split``, checked by route;
    then one prefill under a ragged ``enc_mask``, timed, its 24 cross
    prefills on ``wgmma_masked``;
 5g. full-width, full-depth ``pixtral-12b`` (24.5 GB of bf16 weights, 5f's
    memory freed first): 8 prompts of 1024 stub image-patch embeddings and
-   32 new tokens, the same way;
+   32 new tokens, the same way; after 5j, the eager and replay figures of
+   phases 5-5j in one table;
 5h-5j. phase 5's traffic through full-width ``phi4-mini-3.8b`` (all 32
    layers, G 3: its decode on ``split``), ``phi3.5-moe-42b-a6.6b`` cut to 26
    of 32 layers (68.1 GB of weights; experts on ``stream`` and ``wgmma``)
@@ -309,6 +319,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+START = time.perf_counter()          # phase headers print the seconds since the start
 SEED = 0
 PEAK_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12           # dense tensor cores; the timed shapes are bf16
@@ -408,6 +419,7 @@ ENCDEC_MASK_LENGTHS = (150, 97, 31, 64)          # phase 4f's ragged enc_mask, a
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PIXTRAL_SEQ = 2048           # phase 5g: 1024 patch embeddings and 32 new tokens
 PROFILED_STEPS = 4
+GRAPH_DEVICE_TOL = 0.05      # a replay's device time against the eager step's, phases 5-5j
 HOLD_CYCLES = 400_000        # ~0.2 ms of the card's clock, held before each timed launch
 BWD_HOLD_CYCLES = 4_000_000  # ~2 ms: SDPA's backward, enqueued through the autograd engine
 AES_SWEEP_N = (1, 38, 40, 4096, 2**20,
@@ -548,7 +560,7 @@ PIXTRAL_TRAIN_LAYERS = 10
 
 
 def phase(name: str) -> None:
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name}  [{time.perf_counter() - START:.1f} s]", flush=True)
 
 
 def sh(*cmd: str) -> str:
@@ -638,13 +650,21 @@ def spread(ts) -> str:
 def device_top(torch, prof, per: int):
     """Device time of the kernels a profile saw, divided by ``per``, and the
     six that take most of it; (None, []) when it saw no kernel."""
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us, top, _ = device_profile(torch, prof, per)
+    return device_us, top
+
+
+def device_profile(torch, prof, per: int):
+    """``device_top``'s pair and the kernels run, each divided by ``per``."""
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [(e.key, e.self_device_time_total) for e in events]
     total = sum(us for _, us in kernels)
+    runs = sum(e.count for e in events) / per
     if not total:
-        return None, []
+        return None, [], runs
     top = sorted(kernels, key=lambda kv: -kv[1])[:6]
-    return total / per, [(k, us / per) for k, us in top]
+    return total / per, [(k, us / per) for k, us in top], runs
 
 
 def prompt_len(batch) -> int:
@@ -652,66 +672,74 @@ def prompt_len(batch) -> int:
     return (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[1]
 
 
-def profile_prefill(torch, T, params, cfg, batch, seq_len):
-    """Device time and host wall time of one profiled prefill of
-    ``batch``, and the kernels that take most of the device time."""
+def profile_prefill(torch, eng, batch):
+    """Device time and host wall time of one profiled prefill of ``batch``
+    through the engine ``eng``, and the kernels that take most of the
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.prefill(batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            T.prefill(params, cfg, batch, seq_len=seq_len)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-    device_us, top = device_top(torch, prof, 1)
-    return device_us, wall_us, top
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    device_us, top, kernels = device_profile(torch, prof, 1)
+    return device_us, wall_us, top, kernels
 
 
-def profile_decode(torch, T, params, cfg, batch, seq_len):
-    """Device time and host wall time of one decode step after a prefill of
-    ``batch``, both over the same ``PROFILED_STEPS`` profiled steps (the
-    wall time includes the profiler's own cost), and the kernels that take
-    most of the device time.  Device time is None when the profiler sees
+def profile_decode(torch, eng, batch):
+    """Device time and host wall time of one decode step of the engine
+    ``eng`` (its graph's replay, or the eager step, as ``eng.decode`` says)
+    after a prefill of ``batch``, both over the same ``PROFILED_STEPS``
+    profiled steps, the kernels that take most of the device time and the
+    kernels a step runs.  The profiler traces the card's activity only: the
+    host's ops of an eager step, traced, would take seconds to read back.
+    Device time is None when the profiler sees no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lg = eng.prefill(batch)
+    pos = prompt_len(batch)
+    tok = lg.argmax(-1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(PROFILED_STEPS):
+            tok = eng.decode_step(tok, pos + i).argmax(-1)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0) / PROFILED_STEPS
+    device_us, top, kernels = device_profile(torch, prof, PROFILED_STEPS)
+    return device_us, wall_us, top, kernels
+
+
+def print_profiles(torch, eng, batch) -> dict:
+    """Profile ``PROFILED_STEPS`` decode steps of ``eng`` on ``batch`` as
+    its graph's replay, then as the eager step, and one prefill; print each
+    one's device time, wall time, idle share, kernels run and top kernels.
+    Returns {"graph", "eager", "prefill": (device us, wall us, kernels)}, a
+    decode step's for the first two; device us None where the profiler saw
     no kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.inference_mode():
-        lg, caches = T.prefill(params, cfg, batch, seq_len=seq_len)
-        pos = prompt_len(batch)
-        tok = lg.argmax(-1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(PROFILED_STEPS):
-                lg, caches = T.decode_step(params, cfg, tok, pos + i, caches)
-                tok = lg.argmax(-1)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0) / PROFILED_STEPS
-    device_us, top = device_top(torch, prof, PROFILED_STEPS)
-    return device_us, wall_us, top
-
-
-def print_profiles(torch, T, params, cfg, batch, seq_len) -> dict:
-    """Profile ``PROFILED_STEPS`` decode steps and one prefill of ``batch``
-    and print their device time, wall time, idle share and top kernels.
-    Returns the device times, {"decode": us a step, "prefill": us}, None
-    where the profiler saw no kernel."""
-    device = {}
-    for key, what, prof_fn in (
-            ("decode", f"decode step over {PROFILED_STEPS} profiled steps", profile_decode),
-            ("prefill", "prefill, profiled once", profile_prefill)):
-        device_us, wall_us, top = prof_fn(torch, T, params, cfg, batch, seq_len)
-        device[key] = device_us
+    out = {}
+    for key, what in (("graph", f"decode step (graph replay) over {PROFILED_STEPS} "
+                                "profiled steps"),
+                      ("eager", f"decode step (eager) over {PROFILED_STEPS} profiled steps"),
+                      ("prefill", "prefill, profiled once")):
+        if key == "prefill":
+            device_us, wall_us, top, kernels = profile_prefill(torch, eng, batch)
+        else:
+            eng.decode = key
+            device_us, wall_us, top, kernels = profile_decode(torch, eng, batch)
+        out[key] = (device_us, wall_us, kernels)
         if device_us is None:
             print(f"{what}: device time not measured (the profiler saw no kernel); "
                   f"wall_us {wall_us:.1f}")
             continue
         print(f"{what}: device_us {device_us:.1f}  wall_us {wall_us:.1f}  "
-              f"device idle share {1 - device_us / wall_us:.3f}")
+              f"device idle share {1 - device_us / wall_us:.3f}  kernels {kernels:.1f}")
         for name, us in top:
             print(f"  {us:10.1f} us  {name[:100]}")
-    return device
+    eng.decode = "graph"
+    return out
 
 
 # phase 12a: the prefill_32k pairs whose ops torch 2.11 (the card's host)
@@ -2636,16 +2664,16 @@ def main() -> int:
             raise AssertionError(f"{name}: launches by route {routes}, expected {want}")
         return launches, routes
 
-    def print_run(times_s, first_tokens):
-        """The measured run's prefill, mean decode step, rate and peak memory."""
+    def print_run(label, times_s, first_tokens):
+        """A measured run's prefill, mean decode step, rate and peak memory."""
         step_us = 1e6 * statistics.fmean(times_s[1:])
-        print(f"serve prefill_ms {1e3 * times_s[0]:.3f}  mean_decode_step_us {step_us:.1f}  "
-              f"generated_tok_per_s {SLOTS * NEW_TOKENS / sum(times_s):.1f}  "
+        print(f"serve ({label}) prefill_ms {1e3 * times_s[0]:.3f}  mean_decode_step_us "
+              f"{step_us:.1f}  generated_tok_per_s {SLOTS * NEW_TOKENS / sum(times_s):.1f}  "
               f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
         print(f"  first request's tokens: {first_tokens[:8]} ...")
         return step_us
 
-    def engine_routes(cfg, n_decode):
+    def engine_routes(cfg, n_decode, seq_len=MAX_SEQ):
         """The launches by route of one prefill and ``n_decode`` decode
         steps of the engine: the prefill's attention takes the route of the
         model's dtype; each expert matmul that of its capacity, the rows per
@@ -2655,7 +2683,7 @@ def main() -> int:
         n, dtype = layer_counts(cfg), getattr(torch, cfg.dtype)
         want = {"flash_attention": {_flash.route(dtype): n["attn"]}}
         if n["attn"]:
-            G, cap = cfg.n_heads // cfg.n_kv_heads, attention.kv_cache_capacity(cfg, MAX_SEQ)
+            G, cap = cfg.n_heads // cfg.n_kv_heads, attention.kv_cache_capacity(cfg, seq_len)
             want["decode_attention"] = {_decode.route(dtype, G, cap): n["attn"] * n_decode}
         if n["moe"]:
             E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
@@ -2673,50 +2701,131 @@ def main() -> int:
                                   n["rwkv"] * (n_decode + 1)}
         return want
 
-    def serve(cfg, prompts):
-        """Serve ``prompts`` through a fresh engine of ``cfg`` on the card:
-        a warm-up, then the measured run with the launch counters reset just
-        before it and checked just after, a finite-logits check and the
-        profiled decode steps.  Returns (mean decode step us, launches)."""
+    def graph_against_eager(eng, batch):
+        """Greedy ``NEW_TOKENS`` tokens of ``batch`` through the engine's
+        graph replays and through an eager loop (the previous design: the
+        step op by op, a Python ``pos``) on the same engine: equal tokens,
+        and every step's logits (the prefill's too) finite and within the
+        bf16 limit.  Returns the largest |diff|."""
+        runs = {}
+        for mode in ("graph", "eager"):
+            eng.decode = mode
+            lg = eng.prefill(batch)
+            steps, toks = [lg.clone()], [lg.argmax(-1)]
+            for i in range(NEW_TOKENS - 1):
+                lg = eng.decode_step(toks[-1], prompt_len(batch) + i)
+                steps.append(lg.clone())
+                toks.append(lg.argmax(-1))
+            runs[mode] = steps, torch.cat(toks, 1)
+        eng.decode = "graph"
+        if not torch.equal(runs["graph"][1], runs["eager"][1]):
+            raise AssertionError(f"{eng.cfg.name}: the replays' greedy tokens differ from the "
+                                 "eager loop's")
+        return max(check_close(f"{eng.cfg.name} step {i} logits, replay against eager", g, e,
+                               TOL["bfloat16"])
+                   for i, (g, e) in enumerate(zip(runs["graph"][0], runs["eager"][0])))
+
+    graph_rows = []              # phases 5-5j, eager against replay: the table after 5j
+
+    def serve(cfg, prompts, inputs=None, seq_len=MAX_SEQ, expect_routes=None, enc_mask=None):
+        """Serve ``prompts`` (and ``inputs``, the batch's other entries)
+        through a fresh engine of ``cfg`` on the card: a warm-up, which
+        captures the decode step; then ``NEW_TOKENS`` tokens three times in
+        turns, replaying the graph and with the eager step (graph, eager,
+        graph), the launch counters reset before each run: the first
+        run's launches held by route to ``expect_routes`` (by default
+        ``engine_routes``'), each other run's equal to the first's, every
+        run's tokens equal; ``graph_against_eager``; the profiled steps of
+        both and a prefill; the replay's device time within
+        ``GRAPH_DEVICE_TOL`` of the eager step's.  Given ``enc_mask``, then
+        one more prefill under it, timed, its flash launches by route kept.
+        Returns {"step_us": the replays' mean decode step (the endpoint's
+        ``work_us``), "launches", "routes", "masked_routes"}."""
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        eng = ServingEngine(cfg, batch_slots=SLOTS, max_seq_len=MAX_SEQ, seed=SEED,
+        eng = ServingEngine(cfg, batch_slots=SLOTS, max_seq_len=seq_len, seed=SEED,
                             device="cuda")
         torch.cuda.synchronize()
         groups = eng.params["blocks"]
-        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}; "
+        print(f"{cfg.name}: {cfg.n_layers} layers"
+              + (f", {cfg.encdec.encoder_layers} encoder layers" if cfg.encdec else "")
+              + f", d_model {cfg.d_model}, {cfg.dtype}; "
               f"weights drawn in {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated()} bytes on the card; weights {tree_bytes(eng.params)} "
               f"bytes, {tree_bytes(groups) // groups[0]['ln1'].shape[0]} per "
               f"{len(groups)}-layer group")
-        eng.generate(prompts, max_new_tokens=2)          # warm-up: cuBLAS, libraries
-        eng.step_times_s.clear()
-        ops.reset_launches()
-        outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS)
-        n_decode = len(eng.step_times_s) - 1
-        n = layer_counts(cfg)
-        expect = {"flash_attention": n["attn"], "decode_attention": n["attn"] * n_decode,
-                  "aes_ctr": 0, "moe_gmm": 3 * n["moe"] * (n_decode + 1),
-                  "mamba_scan": n["mamba"] * (n_decode + 1),
-                  "rwkv6_scan": n["rwkv"] * (n_decode + 1), "flash_attention_bwd": 0,
-                  **{op: 0 for op in NO_BWD_ROUTES}}
-        launches, routes = check_routes(cfg.name, engine_routes(cfg, n_decode))
-        print(f"launches {launches} over 1 prefill and {n_decode} decode steps")
-        if launches != expect:
-            raise AssertionError(f"launch counts {launches}, expected {expect}")
-        if [len(o) for o in outs] != [NEW_TOKENS] * SLOTS or \
-                not all(0 <= t < cfg.vocab_size for o in outs for t in o):
+        eng.generate(prompts, max_new_tokens=2, inputs=inputs)   # warm-up, and the capture
+        n_decode = NEW_TOKENS - 1
+        if expect_routes is None:
+            expect_routes = engine_routes(cfg, n_decode, seq_len)
+        expect = {op: sum(expect_routes.get(op, {}).values()) for op in ops.LAUNCHES}
+        runs = {"graph": [], "eager": []}
+        for turn, mode in enumerate(("graph", "eager", "graph")):
+            eng.decode = mode
+            eng.step_times_s.clear()
+            ops.reset_launches()
+            outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS, inputs=inputs)
+            if turn == 0:
+                launches, routes = check_routes(cfg.name, expect_routes)
+                print(f"launches {launches} over 1 prefill and {n_decode} decode steps "
+                      f"(graph replays)")
+                if launches != expect:
+                    raise AssertionError(f"launch counts {launches}, expected {expect}")
+                counts = ops.launch_counts()
+            elif ops.launch_counts() != counts:
+                raise AssertionError(f"{cfg.name}: the {mode} run's launches "
+                                     f"{ops.launch_counts()} differ from the first replay run's")
+            if len(eng.step_times_s) != NEW_TOKENS:
+                raise AssertionError(f"{cfg.name}: {len(eng.step_times_s)} steps timed")
+            runs[mode].append((list(eng.step_times_s), outs))
+        eng.decode = "graph"
+        if len(eng.capture_s) != 1:
+            raise AssertionError(f"{cfg.name}: {len(eng.capture_s)} captures, expected 1")
+        first = runs["graph"][0][1]
+        if any(outs != first for by_mode in runs.values() for _, outs in by_mode):
+            raise AssertionError(f"{cfg.name}: the runs served different tokens")
+        if [len(o) for o in first] != [NEW_TOKENS] * SLOTS or \
+                not all(0 <= t < cfg.vocab_size for o in first for t in o):
             raise AssertionError("generated tokens out of shape or range")
-        with torch.inference_mode():
-            lg, _ = T.prefill(eng.params, cfg,
-                              {"tokens": torch.tensor(prompts, device=dev)[:1]},
-                              seq_len=MAX_SEQ)
-        if not bool(lg.float().isfinite().all()):
-            raise AssertionError("full-width logits are not finite")
-        step_us = print_run(eng.step_times_s, outs[0])
-        profiles[cfg.name] = print_profiles(
-            torch, T, eng.params, cfg, {"tokens": torch.tensor(prompts, device=dev)}, MAX_SEQ)
-        return step_us, launches, routes
+        work = {mode: statistics.fmean(print_run(mode, times, outs[0]) for times, outs in by_mode)
+                for mode, by_mode in runs.items()}
+        batch = dict(inputs or {})
+        if "embeds" not in batch:
+            batch["tokens"] = torch.tensor(prompts, device=dev)
+        err = graph_against_eager(eng, batch)
+        print(f"  {NEW_TOKENS} greedy tokens of the replays equal an eager loop's; every step's "
+              f"logits within atol/rtol {TOL['bfloat16']}: max |diff| {err:.3g}")
+        prof = print_profiles(torch, eng, batch)
+        profiles[cfg.name] = {"decode": prof["graph"][0], "prefill": prof["prefill"][0]}
+        (d_graph, w_graph, k_graph), (d_eager, w_eager, _) = prof["graph"], prof["eager"]
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{cfg.name}: decode step eager / replay: device_us {d_eager} / {d_graph}, wall_us "
+              f"{w_eager:.1f} / {w_graph:.1f}, work_us {work['eager']:.1f} / "
+              f"{work['graph']:.1f}; capture_s {eng.capture_s[0]:.3f}; peak "
+              f"{peak} bytes, the graph's pool included")
+        if d_graph is None or d_eager is None or abs(d_graph / d_eager - 1) > GRAPH_DEVICE_TOL:
+            raise AssertionError(f"{cfg.name}: the replay's device time {d_graph} us is not "
+                                 f"within {GRAPH_DEVICE_TOL} of the eager step's {d_eager} us")
+        graph_rows.append((cfg.name, d_eager, d_graph, w_eager, w_graph, work["eager"],
+                           work["graph"], eng.capture_s[0], peak, k_graph))
+        masked_routes = None
+        if enc_mask is not None:
+            masked_batch = {**batch, "enc_mask": enc_mask}
+            with torch.inference_mode():
+                T.prefill(eng.params, cfg, masked_batch, seq_len=seq_len)      # warm-up
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                lg, _ = T.prefill(eng.params, cfg, masked_batch, seq_len=seq_len)
+                torch.cuda.synchronize()
+                masked_ms = 1e3 * (time.perf_counter() - t0)
+                masked_routes = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+                if not bool(lg.float().isfinite().all()):
+                    raise AssertionError(f"{cfg.name}: masked prefill logits are not finite")
+            print(f"masked prefill (enc_mask valid lengths {enc_mask.sum(1).tolist()}): "
+                  f"prefill_ms {masked_ms:.3f}; flash launches by route {masked_routes}")
+        return {"step_us": work["graph"], "launches": launches, "routes": routes,
+                "masked_routes": masked_routes}
 
     def serving_routes(flash, split, stream=0, wgmma=0, lanes=0):
         """Every op's launches by route in a bf16 serving run: the prefill
@@ -2734,10 +2843,11 @@ def main() -> int:
     profiles = {}                # device times of phase 5's profiled steps, for phase 12b
     cfg = get_arch("qwen3-1.7b")
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    step_us, launches, routes = serve(cfg, prompts)
-    if routes != serving_routes(28, 868):
-        raise AssertionError(f"qwen3's launches by route {routes}")
-    endpoints = {cfg.name: step_us}
+    served = serve(cfg, prompts)
+    launches = served["launches"]
+    if served["routes"] != serving_routes(28, 868):
+        raise AssertionError(f"qwen3's launches by route {served['routes']}")
+    endpoints = {cfg.name: served["step_us"]}
 
     # -- 5b -----------------------------------------------------------------
     phase(f"5b full-width mixtral-8x7b, {MOE_LAYERS} of 32 layers, served on the card")
@@ -2746,8 +2856,9 @@ def main() -> int:
     cfg = dataclasses.replace(get_arch("mixtral-8x7b"), n_layers=MOE_LAYERS)
     prompts = np.random.default_rng(SEED + 2).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    endpoints[cfg.name], moe_launches, routes = serve(cfg, prompts)
-    launches["moe_gmm"] = moe_launches["moe_gmm"]
+    served = serve(cfg, prompts)
+    endpoints[cfg.name], routes = served["step_us"], served["routes"]
+    launches["moe_gmm"] = served["launches"]["moe_gmm"]
     if routes != serving_routes(24, 744, stream=2232, wgmma=72):
         raise AssertionError(f"mixtral's launches by route {routes}")
     launches["moe_gmm_prefill"] = routes["moe_gmm"]["wgmma"]
@@ -2760,10 +2871,11 @@ def main() -> int:
     cfg = dataclasses.replace(get_arch("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
     prompts = np.random.default_rng(SEED + 5).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    endpoints[cfg.name], jamba_launches, routes = serve(cfg, prompts)
+    served = serve(cfg, prompts)
+    endpoints[cfg.name], routes = served["step_us"], served["routes"]
     if routes != serving_routes(3, 93, stream=1116, wgmma=36, lanes=672):
         raise AssertionError(f"Jamba's launches by route {routes}")
-    launches["mamba_scan"] = jamba_launches["mamba_scan"]
+    launches["mamba_scan"] = served["launches"]["mamba_scan"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2772,10 +2884,11 @@ def main() -> int:
     cfg = get_arch("rwkv6-1.6b")
     prompts = np.random.default_rng(SEED + 6).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    endpoints[cfg.name], rwkv_launches, routes = serve(cfg, prompts)
+    served = serve(cfg, prompts)
+    endpoints[cfg.name], routes = served["step_us"], served["routes"]
     if routes["rwkv6_scan"] != {"cols": 768, "simt": 0}:
         raise AssertionError(f"RWKV6's wkv launches by route {routes['rwkv6_scan']}")
-    launches["rwkv6_scan"] = rwkv_launches["rwkv6_scan"]
+    launches["rwkv6_scan"] = served["launches"]["rwkv6_scan"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2786,102 +2899,40 @@ def main() -> int:
           f"{cfg.sliding_window}")
     prompts = np.random.default_rng(SEED + 8).integers(
         0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    _, h2o_launches, routes = serve(cfg, prompts)
-    if routes != serving_routes(24, 744):
-        raise AssertionError(f"h2o-danube-3-4b's launches by route {routes}")
+    served = serve(cfg, prompts)
+    h2o_launches = served["launches"]
+    if served["routes"] != serving_routes(24, 744):
+        raise AssertionError(f"h2o-danube-3-4b's launches by route {served['routes']}")
     h2o_note = (f"h2o-danube-3-4b (head_dim 120), phase 5e: {h2o_launches['flash_attention']} "
                 f"prefill and {h2o_launches['decode_attention']} decode launches")
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- 5f, 5g --------------------------------------------------------------
-    def serve_direct(cfg, batch, seq_len, expect_routes, enc_mask=None):
-        """Prefill ``batch`` and decode greedily to ``NEW_TOKENS`` tokens
-        through ``T.prefill`` and ``T.decode_step`` on the card, timed as
-        the engine times (host clock up to ``torch.cuda.synchronize()``): a
-        warm-up, then the measured run with the launch counters reset just
-        before it and checked by route just after; then the profiled decode
-        steps and prefill.  Given ``enc_mask``, then one more prefill of
-        ``batch`` under it, timed the same way and its counters read alone.
-        Returns the launches by name, and the masked prefill's flash
-        launches by route (or None)."""
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED))
-        torch.cuda.synchronize()
-        print(f"{cfg.name}: {cfg.n_layers} decoder layers"
-              + (f", {cfg.encdec.encoder_layers} encoder layers" if cfg.encdec else "")
-              + f", d_model {cfg.d_model}, {cfg.dtype}; weights drawn in "
-              f"{time.perf_counter() - t0:.1f} s, weights {tree_bytes(params)} bytes")
-
-        def run(new_tokens):
-            times, toks = [], []
-            with torch.inference_mode():
-                t0 = time.perf_counter()
-                lg, caches = T.prefill(params, cfg, batch, seq_len=seq_len)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-                pos = prompt_len(batch)
-                toks.append(lg.argmax(-1))
-                for i in range(new_tokens - 1):
-                    t0 = time.perf_counter()
-                    lg, caches = T.decode_step(params, cfg, toks[-1], pos + i, caches)
-                    torch.cuda.synchronize()
-                    times.append(time.perf_counter() - t0)
-                    toks.append(lg.argmax(-1))
-                if not bool(lg.float().isfinite().all()):
-                    raise AssertionError(f"{cfg.name}: full-width logits are not finite")
-            return times, torch.cat(toks, 1).cpu()
-
-        run(2)                                   # warm-up: cuBLAS, libraries
-        ops.reset_launches()
-        times, toks = run(NEW_TOKENS)
-        launches, _ = check_routes(cfg.name, expect_routes)
-        print(f"launches {launches} over 1 prefill and {NEW_TOKENS - 1} decode steps")
-        if toks.shape != (SLOTS, NEW_TOKENS) or not bool(((0 <= toks) & (toks < cfg.vocab_size)).all()):
-            raise AssertionError(f"{cfg.name}: generated tokens out of shape or range")
-        print_run(times, toks[0].tolist())
-        print_profiles(torch, T, params, cfg, batch, seq_len)
-        if enc_mask is None:
-            return launches, None
-        masked_batch = {**batch, "enc_mask": enc_mask}
-        with torch.inference_mode():
-            T.prefill(params, cfg, masked_batch, seq_len=seq_len)      # warm-up
-            torch.cuda.synchronize()
-            ops.reset_launches()
-            t0 = time.perf_counter()
-            lg, _ = T.prefill(params, cfg, masked_batch, seq_len=seq_len)
-            torch.cuda.synchronize()
-            masked_ms = 1e3 * (time.perf_counter() - t0)
-            routes = dict(ops.ROUTE_LAUNCHES["flash_attention"])
-            if not bool(lg.float().isfinite().all()):
-                raise AssertionError(f"{cfg.name}: masked prefill logits are not finite")
-        print(f"masked prefill (enc_mask valid lengths {enc_mask.sum(1).tolist()}): "
-              f"prefill_ms {masked_ms:.3f}; flash launches by route {routes}")
-        return launches, routes
-
     phase("5f full-width, full-depth seamless-m4t-large-v2 (encoder-decoder) on the card")
     cfg = get_arch("seamless-m4t-large-v2")
     L, E = cfg.n_layers, cfg.encdec.encoder_layers
     n_decode = NEW_TOKENS - 1
     frames = stub_frontend_embeddings(cfg, torch.Generator(device=dev).manual_seed(SEED + 10),
                                       SLOTS)
-    batch = {"tokens": torch.tensor(np.random.default_rng(SEED + 10).integers(
-        0, cfg.vocab_size, (SLOTS, PROMPT_LEN)), device=dev), "enc_embeds": frames}
+    prompts = np.random.default_rng(SEED + 10).integers(
+        0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
     print(f"  {SLOTS} requests: {frames.shape[1]} stub frames of width {frames.shape[2]} "
           f"({frames.dtype}), a {PROMPT_LEN}-token decoder prompt, {NEW_TOKENS} new tokens, "
-          f"a {MAX_SEQ}-slot cache; then one prefill under a ragged enc_mask")
+          f"a {MAX_SEQ}-slot cache, through the engine; then one prefill under a ragged "
+          f"enc_mask")
     n_frames = frames.shape[1]
     enc_mask = torch.arange(n_frames, device=dev)[None] < torch.tensor(
         [n_frames - 97 * b for b in range(SLOTS)], device=dev)[:, None]
-    seamless_launches, masked_routes = serve_direct(cfg, batch, MAX_SEQ, {   # 72 and 1488
+    served = serve(cfg, prompts, inputs={"enc_embeds": frames}, expect_routes={   # 72, 1488
         "flash_attention": {"wgmma": E + 2 * L}, "decode_attention": {"split": 2 * L * n_decode}},
         enc_mask=enc_mask)
+    seamless_launches, masked_routes = served["launches"], served["masked_routes"]
     if masked_routes != {"wgmma": E + L, "simt": 0, "masked": 0, "wgmma_masked": L}:
         raise AssertionError(f"seamless's masked prefill: flash launches by route "
                              f"{masked_routes}, expected wgmma {E + L} and wgmma_masked {L}")
     launches["flash_attention_masked"] = masked_routes["wgmma_masked"]
-    del frames, batch, enc_mask
+    del frames, enc_mask
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2892,10 +2943,12 @@ def main() -> int:
                                        SLOTS)
     print(f"  {SLOTS} prompts of {patches.shape[1]} stub patch embeddings of width "
           f"{patches.shape[2]} ({patches.dtype}), {NEW_TOKENS} new tokens, a {PIXTRAL_SEQ}-slot "
-          f"cache")
-    pixtral_launches, _ = serve_direct(cfg, {"embeds": patches}, PIXTRAL_SEQ, {
-        "flash_attention": {"wgmma": cfg.n_layers},
-        "decode_attention": {"split": cfg.n_layers * n_decode}})   # 40 and 1240
+          f"cache, through the engine")
+    served = serve(cfg, [[0] * patches.shape[1]] * SLOTS, inputs={"embeds": patches},
+                   seq_len=PIXTRAL_SEQ, expect_routes={
+                       "flash_attention": {"wgmma": cfg.n_layers},
+                       "decode_attention": {"split": cfg.n_layers * n_decode}})   # 40 and 1240
+    pixtral_launches = served["launches"]
     encdec_note = (f"seamless-m4t-large-v2, phase 5f: {seamless_launches['flash_attention']} "
                    f"prefill and {seamless_launches['decode_attention']} decode launches; "
                    f"pixtral-12b, phase 5g: {pixtral_launches['flash_attention']} prefill and "
@@ -2914,8 +2967,8 @@ def main() -> int:
         cfg = dataclasses.replace(full, n_layers=n_layers)
         prompts = np.random.default_rng(SEED + 20 + i).integers(
             0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-        assigned[cfg.name], _, routes = serve(cfg, prompts)
-        n_decode = NEW_TOKENS - 1
+        served = serve(cfg, prompts)
+        assigned[cfg.name], routes = served["step_us"], served["routes"]
         moe = {}
         if cfg.moe is not None:   # decode: C = 1 on stream; prefill: C = 640 on wgmma
             moe = dict(stream=3 * n_layers * n_decode, wgmma=3 * n_layers)
@@ -2924,6 +2977,17 @@ def main() -> int:
             raise AssertionError(f"{arch}'s launches by route {routes}, expected {want}")
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"\ndecode step, eager / graph replay (phases 5-5j; device and wall us a step over "
+          f"{PROFILED_STEPS} profiled steps each; work_us the engine's mean decode "
+          f"step over {NEW_TOKENS} tokens, two runs of the replay, one eager; capture_s the "
+          f"warm-up step and the "
+          f"capture):")
+    for name, de, dg, we, wg, ke, kg, cap_s, peak, kernels in graph_rows:
+        print(f"  {name}: device_us {de:.1f} / {dg:.1f} ({dg / de:.4f}); wall_us {we:.1f} / "
+              f"{wg:.1f}; idle {1 - de / we:.3f} / {1 - dg / wg:.3f}; work_us {ke:.1f} / "
+              f"{kg:.1f} ({ke / kg:.2f} x); capture_s {cap_s:.3f}; peak {peak} bytes; "
+              f"{kernels:.1f} kernels a replay, work_us over device_us "
+              f"{(kg - dg) / kernels:.3f} us a kernel")
 
     # -- 6 ------------------------------------------------------------------
     phase("6 AES-128-CTR kernel against its plain version, bit-exact")

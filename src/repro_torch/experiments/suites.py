@@ -39,9 +39,10 @@ _COARSE_SEARCH = SearchSpec(rate0_frac=0.15, rel_tol=0.20, max_probes=6,
 
 # Decode-step bodies (µs) of the two model endpoints, measured on the card:
 # the port's ``ServingEngine.mean_decode_step_us()`` at full width, batch 8,
-# 512-token prompts (``chip_smoke.py`` phases 5 and 5b; mixtral-8x7b at 24
-# of its 32 layers), on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit.
-_ENDPOINT_WORK_US = {"qwen3-1.7b": 34930.5, "mixtral-8x7b": 51498.9}
+# 512-token prompts, each step a replay of the engine's captured CUDA graph
+# (``chip_smoke.py`` phases 5 and 5b; mixtral-8x7b at 24 of its 32 layers),
+# on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit.
+_ENDPOINT_WORK_US = {"qwen3-1.7b": 5914.7, "mixtral-8x7b": 29577.0}
 
 
 def _trace_burst_train(n_bursts: int = 6, burst_n: int = 120,

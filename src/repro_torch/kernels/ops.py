@@ -73,6 +73,26 @@ def reset_launches() -> None:
             counts[r] = 0
 
 
+def launch_counts() -> Dict[Tuple[str, Optional[str]], int]:
+    """Every counter as it stands: ``(op, None)`` for ``LAUNCHES[op]``,
+    ``(op, route)`` for ``ROUTE_LAUNCHES[op][route]``."""
+    counts = {(op, None): n for op, n in LAUNCHES.items()}
+    counts.update({(op, r): n for op, by_route in ROUTE_LAUNCHES.items()
+                   for r, n in by_route.items()})
+    return counts
+
+
+def add_launches(counts: Dict[Tuple[str, Optional[str]], int], times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (keyed as :func:`launch_counts`) to the
+    counters: a replayed CUDA graph launches again what its capture
+    counted once (``serving.step_graph``)."""
+    for (op, r), n in counts.items():
+        if r is None:
+            LAUNCHES[op] += times * n
+        else:
+            ROUTE_LAUNCHES[op][r] += times * n
+
+
 _META_TRACE = contextvars.ContextVar("meta_trace", default=False)
 
 

@@ -28,7 +28,7 @@ every device.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -282,16 +282,22 @@ def prefill_into_cache(params: dict, x: torch.Tensor, cfg: ArchConfig,
 class DecodeStep(NamedTuple):
     """What the layers of one decode step share, built once per step by
     :func:`decode_step_inputs`."""
-    pos: int                                   # absolute position of the new token
+    pos: Union[int, torch.Tensor]              # absolute position of the new token
     rope: Tuple[torch.Tensor, torch.Tensor]    # its rope_tables
     valid: torch.Tensor                        # (B, cap) bool: slots valid after the write
 
 
-def decode_step_inputs(cfg: ArchConfig, pos: int, batch: int, cap: int,
+def decode_step_inputs(cfg: ArchConfig, pos: Union[int, torch.Tensor], batch: int, cap: int,
                        device) -> DecodeStep:
     """The RoPE rotation at ``pos`` and the valid mask over ``cap`` cache
-    slots after slot ``pos % cap`` is written, for a batch sharing ``pos``."""
-    positions = torch.full((batch, 1), pos, dtype=torch.long, device=device)
+    slots after slot ``pos % cap`` is written, for a batch sharing ``pos``:
+    a Python int, or a 0-d int64 tensor on ``device`` (the JAX
+    ``jnp.int32(pos)``), from which both are built on the device, so that a
+    captured step reads a new position from the same buffer."""
+    if isinstance(pos, torch.Tensor):
+        positions = pos.reshape(1, 1).expand(batch, 1)
+    else:
+        positions = torch.full((batch, 1), pos, dtype=torch.long, device=device)
     # Absolute position held by slot j after the write.
     j = torch.arange(cap, device=device)
     abs_pos = pos - ((pos - j) % cap)
@@ -309,8 +315,9 @@ def decode_step_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
     Writes k/v into slot ``pos % cap`` of the cache in place and attends
     over every valid slot.
 
-    ``cache_update``: ``"dus"`` writes the slot alone; ``"select"`` writes
-    back ``where(arange(cap) == slot, new, cache)``, the same values.
+    ``cache_update``: ``"dus"`` writes the slot alone (at a tensor ``pos``
+    by ``index_copy_``, a device index); ``"select"`` writes back
+    ``where(arange(cap) == slot, new, cache)``, the same values.
     ``mixed_precision`` takes, off the card, ``gqa_attend`` with that option
     in place of the decode op's plain version; on the card the decode
     kernel runs either way."""
@@ -321,6 +328,9 @@ def decode_step_attention(params: dict, x: torch.Tensor, cfg: ArchConfig,
         sel = (torch.arange(cap, device=x.device) == slot)[None, :, None, None]
         cache["k"].copy_(torch.where(sel, k.to(cache["k"].dtype), cache["k"]))
         cache["v"].copy_(torch.where(sel, v.to(cache["v"].dtype), cache["v"]))
+    elif cache_update == "dus" and isinstance(slot, torch.Tensor):
+        cache["k"].index_copy_(1, slot.reshape(1), k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot.reshape(1), v.to(cache["v"].dtype))
     elif cache_update == "dus":
         cache["k"][:, slot] = k[:, 0]
         cache["v"][:, slot] = v[:, 0]

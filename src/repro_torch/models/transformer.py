@@ -385,6 +385,16 @@ def init_caches(params, cfg: ArchConfig, batch: int, seq_len: int):
     return tuple(one(kind) for kind in kinds)
 
 
+def recurrent_states(cfg: ArchConfig, caches) -> list:
+    """The Mamba and RWKV6 states of ``init_caches``' tree: what a prefill
+    reads as its initial state and a decode step advances.  (A KV cache is
+    written slot by slot and read under the valid mask, so what an earlier
+    request left in it is never read.)"""
+    kinds, _ = _plan(cfg)
+    return [t for kind, c in zip(kinds, caches) if kind not in _ATTN_KINDS
+            for t in c.values()]
+
+
 def prefill(params: dict, cfg: ArchConfig, batch: dict, seq_len: int,
             caches=None, **options):
     """Run the prompt, returning (last-token logits, caches dict).  The
@@ -410,10 +420,12 @@ def prefill(params: dict, cfg: ArchConfig, batch: dict, seq_len: int,
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-                pos: int, caches: dict, **options):
+                pos, caches: dict, **options):
     """ONE-token decode.  tokens: (B,1) int; pos: absolute position of the
-    new token, shared by the batch.  Returns (logits (B,1,V), caches);
-    ``options`` are ``Options``' fields."""
+    new token, shared by the batch: a Python int, or a 0-d int64 tensor on
+    the step's device, as the JAX step takes ``jnp.int32(pos)`` (what a
+    captured step needs: ``serving.step_graph``).  Returns (logits
+    (B,1,V), caches); ``options`` are ``Options``' fields."""
     opts = Options(**options)
     kinds, _ = _plan(cfg)
     x = constrain(_embed(params, cfg, tokens), opts.act_placements)
@@ -421,7 +433,9 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     first_attn = next((i for i, k in enumerate(kinds) if k in _ATTN_KINDS), None)
     if first_attn is not None:
         cap = caches["layers"][first_attn]["k"].shape[2]   # (groups, B, cap, Hkv, hd)
-        step = attn.decode_step_inputs(cfg, int(pos), x.shape[0], cap, x.device)
+        if not isinstance(pos, torch.Tensor):
+            pos = int(pos)
+        step = attn.decode_step_inputs(cfg, pos, x.shape[0], cap, x.device)
     cross = None
     if cfg.encdec is not None and "cross_kv" in caches:
         cross = (caches["cross_kv"], caches["cross_valid"])

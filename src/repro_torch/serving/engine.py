@@ -6,14 +6,30 @@ decode steps, and ``mean_decode_step_us`` averages the decode steps only.
 Each step is timed on the host clock up to ``torch.cuda.synchronize()``,
 where the JAX engine waits with ``block_until_ready``.
 
+Where the JAX engine jits its decode step, this one captures it on the
+card as one CUDA graph (``serving.step_graph.DecodeGraph``) at its first
+decode for a batch shape, and replays the graph for each new token, with
+``pos`` a device scalar as the JAX step's ``jnp.int32(pos)``.  So that the
+graph reads the same addresses on every call, the engine allocates the
+caches once per batch shape (``T.init_caches``), prefills into them, zeroes
+the recurrent states before each prefill and copies an enc-dec prefill's
+cross K/V into buffers it keeps.  The JAX engine's first decode step
+includes its compile; here the capture (an eager warm-up step and the
+capture itself) is timed apart, in ``capture_s``, and ``step_times_s``
+holds replays only.  A failed capture raises.  ``decode="eager"`` keeps
+the previous design, the step dispatched op by op with a Python ``pos``
+(what ``chip_smoke.py`` times beside the replay).
+
 It runs on the card unless the caller passes ``device="cpu"``; there the
-attention ops take their plain versions.  ``params=`` takes a ready tree,
-for example JAX weights from ``models.convert.params_from_jax``.
+attention ops take their plain versions, and the decode step, the same
+function the card captures, runs eagerly, since the CPU has no graph.
+``params=`` takes a ready tree, for example JAX weights from
+``models.convert.params_from_jax``.
 """
 from __future__ import annotations
 
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -22,6 +38,9 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kvcache import PagedKVManager
 from repro_torch.serving.sampling import sample
+from repro_torch.serving.step_graph import DecodeGraph
+
+DECODE_MODES = ("graph", "eager")
 
 
 def resolve_device(device) -> torch.device:
@@ -35,10 +54,13 @@ def resolve_device(device) -> torch.device:
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, *, batch_slots: int = 4,
                  max_seq_len: int = 256, seed: int = 0, device="cuda",
-                 params: Optional[dict] = None):
+                 params: Optional[dict] = None, decode: str = "graph"):
+        if decode not in DECODE_MODES:
+            raise ValueError(f"decode {decode!r}: choose one of {DECODE_MODES}")
         self.cfg = cfg
         self.max_seq_len = max_seq_len
         self.device = resolve_device(device)
+        self.decode = decode
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = T.init_params(cfg, gen, self.device)
@@ -47,26 +69,93 @@ class ServingEngine:
         self.batcher = ContinuousBatcher(self.kv, batch_slots)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.step_times_s: List[float] = []
+        self.capture_s: List[float] = []             # one entry a capture
+        # by batch shape (rows, encoder frames): the static caches, the graph
+        self._states: Dict[Tuple[int, int], dict] = {}
+        self._graphs: Dict[Tuple[int, int], DecodeGraph] = {}
+        self._key: Optional[Tuple[int, int]] = None  # the last prefill's shape
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @torch.inference_mode()
+    def prefill(self, batch: dict) -> torch.Tensor:
+        """The prefill step on ``batch`` (``T.prefill``'s) into the static
+        caches of its shape, allocated at their first use; returns the last
+        token's logits.  The decode steps after it read these caches."""
+        x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+        key = (x.shape[0], batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0)
+        state = self._states.get(key)
+        if state is None:
+            state = self._states[key] = {
+                "layers": T.init_caches(self.params, self.cfg, key[0], self.max_seq_len)}
+        for t in T.recurrent_states(self.cfg, state["layers"]):
+            t.zero_()                                # the prefill's initial state
+        logits, out = T.prefill(self.params, self.cfg, batch, seq_len=self.max_seq_len,
+                                caches=state["layers"])
+        if "cross_kv" in state:
+            for (k, v), (nk, nv) in zip(state["cross_kv"], out["cross_kv"]):
+                k.copy_(nk)
+                v.copy_(nv)
+            state["cross_valid"].copy_(out["cross_valid"])
+        elif "cross_kv" in out:
+            state.update(cross_kv=out["cross_kv"], cross_valid=out["cross_valid"])
+        self._key = key
+        return logits
+
+    @torch.inference_mode()
+    def decode_step(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """The decode step of the last prefill's batch: ``tokens`` (B, 1)
+        at ``pos`` -> logits (B, 1, V).  On the card a replay of the graph
+        captured at this batch shape's first decode (the logits are then the
+        graph's buffer, valid until the next step)."""
+        return self._decoder(tokens, pos)(tokens, pos)
+
+    def _decoder(self, tokens: torch.Tensor, pos: int):
+        """The decode step of the last prefill's batch as a function of
+        (tokens, pos): the graph's replay on the card (captured here at its
+        first use), else the step called eagerly, with ``pos`` a device
+        scalar on the CPU and a Python int in the ``"eager"`` design."""
+        state = self._states[self._key]
+
+        def step(tok, p):
+            return T.decode_step(self.params, self.cfg, tok, p, state)[0]
+
+        if self.device.type == "cpu":
+            return lambda tok, p: step(tok, torch.tensor(p, device=self.device))
+        if self.decode == "eager":
+            return step
+        graph = self._graphs.get(self._key)
+        if graph is None:
+            graph = self._graphs[self._key] = DecodeGraph(
+                step, tokens, pos, T.recurrent_states(self.cfg, state["layers"]))
+            self.capture_s.append(graph.capture_s)
+        return graph.replay
+
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 8,
-                 temperature: float = 0.0) -> List[List[int]]:
+                 temperature: float = 0.0, inputs: Optional[dict] = None
+                 ) -> List[List[int]]:
         """Batched greedy/temperature generation (all prompts same length;
-        the batcher handles slot lifecycle)."""
-        reqs = [self.batcher.submit(p, max_new_tokens) for p in prompts]
-        self.batcher.admit_ready()
+        the batcher handles slot lifecycle).  ``inputs`` adds the batch's
+        other entries to the prefill: an enc-dec model's ``"enc_embeds"``
+        (B, frames, width) and ``"enc_mask"``, or a frontend's ``"embeds"``
+        (B, S, width), which take the place of the prompts' tokens (the
+        prompts then give only their lengths)."""
+        batch = dict(inputs or {})
         plen = len(prompts[0])
         if any(len(p) != plen for p in prompts):
             raise ValueError("batch requires equal prompt lengths")
-        tokens = torch.tensor(prompts, dtype=torch.long, device=self.device)
+        if "embeds" in batch and tuple(batch["embeds"].shape[:2]) != (len(prompts), plen):
+            raise ValueError("embeds must be (len(prompts), prompt length, width)")
+        reqs = [self.batcher.submit(p, max_new_tokens) for p in prompts]
+        self.batcher.admit_ready()
+        if "embeds" not in batch:
+            batch["tokens"] = torch.tensor(prompts, dtype=torch.long, device=self.device)
         t0 = time.perf_counter()
-        logits, caches = T.prefill(self.params, self.cfg, {"tokens": tokens},
-                                   seq_len=self.max_seq_len)
+        logits = self.prefill(batch)
         self._sync()
         self.step_times_s.append(time.perf_counter() - t0)
         pos = plen
@@ -75,9 +164,9 @@ class ServingEngine:
         for slot, r in list(self.batcher.running.items()):
             self.batcher.record_token(slot, toks[slot])
         while any(not r.done for r in reqs) and pos < self.max_seq_len - 1:
+            decode = self._decoder(next_tok[:, None], pos)   # a capture stays untimed
             t0 = time.perf_counter()
-            logits, caches = T.decode_step(self.params, self.cfg,
-                                           next_tok[:, None], pos, caches)
+            logits = decode(next_tok[:, None], pos)
             self._sync()
             self.step_times_s.append(time.perf_counter() - t0)
             next_tok = sample(logits, self._gen, temperature)

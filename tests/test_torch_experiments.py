@@ -27,8 +27,9 @@ import repro_torch.experiments.suites as tsuites  # noqa: E402
 SUITES_PY = Path(tsuites.__file__)
 # the decode steps of qwen3-1.7b and mixtral-8x7b (24 of 32 layers) that the
 # port's ServingEngine measured at full width on an NVIDIA H100 80GB HBM3 at
-# 700.00 W (chip_smoke.py phases 5 and 5b)
-CARD_ENDPOINT_US = {"qwen3-1.7b": 34930.5, "mixtral-8x7b": 51498.9}
+# 700.00 W, each a replay of its captured CUDA graph (chip_smoke.py phases 5
+# and 5b)
+CARD_ENDPOINT_US = {"qwen3-1.7b": 5914.7, "mixtral-8x7b": 29577.0}
 
 
 def _artifact(run):

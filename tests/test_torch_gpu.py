@@ -1654,3 +1654,153 @@ def test_reduced_seamless_trains_under_an_enc_mask_card_against_cpu(cuda, remat)
     for c, g in zip(metrics["cpu"], metrics["cuda"]):
         for k in c:
             assert g[k] == pytest.approx(c[k], rel=1e-4, abs=1e-4), k
+
+
+# ---------------------------------------------------------------------------
+# The decode step captured as one CUDA graph (``serving.step_graph``): each
+# replay against the eager step on a second copy of the same caches, the
+# engine's graph against its eager design, and a step that waits for the
+# host, which cannot be captured.  The same kernels run on the same inputs
+# both ways, so the logits are held at the kernels' limits.
+
+GRAPH_FAMILIES = {   # family -> (architecture, overrides): reduced, at G 1 unless given
+    "dense": ("qwen3-1.7b", {}),
+    "windowed": ("h2o-danube-3-4b", {"sliding_window": 32}),   # a 32-slot ring from pos 40
+    "moe": ("mixtral-8x7b", {}),
+    "jamba": ("jamba-v0.1-52b", {}),
+    "rwkv6": ("rwkv6-1.6b", {}),
+    "seamless": ("seamless-m4t-large-v2", {}),
+    "pixtral": ("pixtral-12b", {"n_kv_heads": 1}),
+}
+
+
+def _graph_model(family, dtype, B=4, S=40):
+    """A reduced model of ``family`` on the card, its weights and a prompt
+    batch (an enc-dec model's 150 encoder frames too)."""
+    import dataclasses
+
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer as T
+
+    arch, kw = GRAPH_FAMILIES[family]
+    cfg = dataclasses.replace(reduced(get_arch(arch)), dtype=dtype, **kw)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")}
+    if cfg.encdec is not None:
+        batch["enc_embeds"] = torch.randn((B, 150, cfg.d_model), generator=g,
+                                          device="cuda").to(getattr(torch, dtype))
+    return cfg, params, batch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", list(GRAPH_FAMILIES))
+def test_decode_graph_replays_the_eager_step(cuda, family, dtype):
+    """Two prefills of one batch into two cache trees; the step captured
+    over the first and replayed 8 times, the eager step (a Python ``pos``)
+    run on the second: every replay's logits within the dtype's limit of
+    the eager step's, equal greedy tokens, and each replay's launches by op
+    and route equal to the eager step's."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.step_graph import DecodeGraph
+
+    cfg, params, batch = _graph_model(family, dtype)
+    S = batch["tokens"].shape[1]
+    with torch.inference_mode():
+        lg, graph_caches = T.prefill(params, cfg, batch, seq_len=64)
+        _, eager_caches = T.prefill(params, cfg, batch, seq_len=64)
+        tok_g = tok_e = lg.argmax(-1)
+        graph = DecodeGraph(lambda t, p: T.decode_step(params, cfg, t, p, graph_caches)[0],
+                            tok_g, S, T.recurrent_states(cfg, graph_caches["layers"]))
+        assert graph.capture_s > 0 and graph.launches
+        for i in range(8):
+            ops.reset_launches()
+            lg_g = graph.replay(tok_g, S + i).clone()
+            replayed = ops.launch_counts()
+            ops.reset_launches()
+            lg_e, eager_caches = T.decode_step(params, cfg, tok_e, S + i, eager_caches)
+            assert replayed == ops.launch_counts()
+            assert sum(n for (_, r), n in replayed.items() if r is None) > 0
+            _assert_close(lg_g, lg_e, dtype)
+            tok_g, tok_e = lg_g.argmax(-1), lg_e.argmax(-1)
+            assert torch.equal(tok_g, tok_e)
+
+
+@pytest.mark.parametrize("family", ["dense", "jamba", "rwkv6", "seamless"])
+def test_engine_graph_serves_the_eager_tokens(cuda, family):
+    """Two requests through an engine that replays its captured step and
+    through one on the eager design, same weights: equal greedy tokens each
+    time, one capture for both requests, replays only in ``step_times_s``,
+    and the same launches by op and route over a request."""
+    from repro_torch.serving import ServingEngine
+
+    cfg, params, batch = _graph_model(family, "bfloat16")
+    engines = {mode: ServingEngine(cfg, batch_slots=4, max_seq_len=64, device="cuda",
+                                   params=params, decode=mode) for mode in ("graph", "eager")}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for request in range(2):
+        prompts = torch.randint(0, cfg.vocab_size, batch["tokens"].shape, generator=g,
+                                device="cuda").tolist()
+        inputs = {k: v for k, v in batch.items() if k != "tokens"}
+        out, counts = {}, {}
+        for mode, eng in engines.items():
+            ops.reset_launches()
+            out[mode] = eng.generate(prompts, max_new_tokens=8, inputs=inputs)
+            counts[mode] = ops.launch_counts()
+        assert out["graph"] == out["eager"]
+        if request:                  # the first request's counts hold the warm-up step too
+            assert counts["graph"] == counts["eager"]
+    assert len(engines["graph"].capture_s) == 1 and engines["eager"].capture_s == []
+    assert len(engines["graph"].step_times_s) == 2 * 8
+
+
+def test_decode_graphs_leave_no_memory_behind(cuda):
+    """Engines that captured their step and are gone leave the card as the
+    first one found it: the graphs' pools are freed, and the warm-up runs on
+    torch's one capture stream, so no capture leaves a cuBLAS workspace
+    behind on a stream of its own."""
+    import gc
+
+    from repro_torch.serving import ServingEngine
+
+    cfg, params, batch = _graph_model("dense", "bfloat16")
+    prompts = batch["tokens"].tolist()
+
+    def serve_once():
+        eng = ServingEngine(cfg, batch_slots=4, max_seq_len=64, device="cuda", params=params)
+        eng.generate(prompts, max_new_tokens=4)
+        assert len(eng.capture_s) == 1
+
+    serve_once()                    # the capture stream's own workspace, once a process
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    for _ in range(3):
+        serve_once()
+        gc.collect()
+    assert torch.cuda.memory_allocated() == held
+
+
+def test_capture_of_a_step_that_syncs_the_host_raises(cuda, monkeypatch):
+    """A step that reads ``pos`` on the host runs eagerly (the warm-up) but
+    cannot be captured: ``DecodeGraph`` raises, and so does the engine, with
+    no decode step run in its place."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.step_graph import DecodeGraph
+
+    tokens = torch.zeros((2, 1), dtype=torch.long, device="cuda")
+    with pytest.raises(RuntimeError):
+        DecodeGraph(lambda t, p: t.float() * p.item(), tokens, 3)
+    torch.cuda.synchronize()
+    cfg, params, batch = _graph_model("dense", "bfloat16", B=2, S=8)
+    eager_step = T.decode_step
+
+    def syncing(params, cfg, tokens, pos, caches, **options):
+        return eager_step(params, cfg, tokens, int(pos), caches, **options)
+
+    monkeypatch.setattr(T, "decode_step", syncing)
+    eng = ServingEngine(cfg, batch_slots=2, max_seq_len=32, device="cuda", params=params)
+    with pytest.raises(RuntimeError):
+        eng.generate(batch["tokens"].tolist(), max_new_tokens=4)
+    torch.cuda.synchronize()
+    assert len(eng.step_times_s) == 1 and eng.capture_s == []
