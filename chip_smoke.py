@@ -6,10 +6,10 @@
 Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
 
 1. device and toolchain: versions, the card's name and power limit, SMs;
-2. build: the attention, MoE, scan and AES kernels (six sources) from
-   ``src/repro_torch/csrc`` into ``build/kernels`` (one ``nvcc`` per source,
-   in parallel), with nvcc's ``-Xptxas -v`` report; a kernel that spills
-   registers fails the run;
+2. build: the attention, MoE, scan, AES and AdamW kernels (seven sources)
+   from ``src/repro_torch/csrc`` into ``build/kernels`` (one ``nvcc`` per
+   source, in parallel), with nvcc's ``-Xptxas -v`` report; a kernel that
+   spills registers fails the run;
 3. each kernel against its plain PyTorch version on the card, over the
    sweep of ``tests/test_kernels.py`` and at the main path's shapes, then
    timed there with CUDA events, L2 flushed before every launch and the card
@@ -94,7 +94,16 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    G = 8 at d 128, each step timed in turns with ``simt`` and reported on
    its own ``kernels decode_attention ...`` line; flash forward and its
    wgmma backward pair at both groupings; ``moe_gmm`` and its backward at
-   phi3.5-moe's experts (16, D 4096 and F 6400, C 1 and 640);
+   phi3.5-moe's experts (16, D 4096 and F 6400, C 1 and 640); the AdamW
+   kernel (``csrc/adamw.cu``, which replaces no TPU kernel: XLA fuses the
+   JAX package's update in its jitted step) at the leaves of full-width
+   ``qwen3-1.7b`` against its plain version at a rate of 1e-2 (bf16 p
+   within one bf16 ulp plus 3e-7, m and v at fp32's limit on their own scale, the
+   norm at rtol 1e-5 and equal bit for bit from a second call; then the
+   same leaves in fp32, each element's change at fp32's limit against the
+   plain version's, where the decay, the rate and the bias corrections
+   show), then there and at ``mixtral-8x7b``'s at 2 layers timed in turns
+   with the plain version, beside a copy of the update's bytes;
 4. a reduced ``qwen3-1.7b`` at float32 on the CPU (plain versions) and on
    the card (kernels) with the same weights: equal greedy tokens, and
    logits within atol/rtol 1e-4;
@@ -226,11 +235,18 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    the plain attention refused; 11b full-width, full-depth ``qwen3-1.7b`` in
    bf16, its backward on the wgmma pair (the simt pair launched 0 times)
    (fp32 moments, AdamW at 3e-4) on 8 x 512-token batches over its whole
-   vocabulary, 4 steps: finite, falling loss and the same launch counts, with
-   the step time, tokens/s, model FLOPs per second and their share of 989
-   TFLOP/s, peak memory, and one more step under the profiler (device time,
-   idle share, the backward kernels' share); then the same 4 steps from the
-   same weights and batches with SDPA's attention and its own backward in
+   vocabulary, 4 steps on the step captured as one CUDA graph
+   (``TrainGraph``: step 1 runs eagerly as the warm-up, then the capture;
+   steps 2-4 are replays), each step's AdamW on the AdamW kernel (3
+   launches a step): finite, falling loss and the same launch counts, with
+   ``capture_s``, the step time, tokens/s, model FLOPs per second and their
+   share of 989 TFLOP/s, peak memory (the graph's pool included), and one
+   more replay under the profiler (device time, idle share, the kernels'
+   shares); then the same 4 steps from the same weights and batches on the
+   eager step (op by op, the previous design) and one more profiled: each
+   step's loss and grad norm within rtol 1e-5 of the replay's (printed
+   whether exactly equal), every figure printed for both; then the same 4
+   steps from the same weights and batches with SDPA's attention and its own backward in
    place of the kernels: each step's loss and grad norm within
    ``TRAIN_SDPA_RTOL`` of the kernels'; 11c reduced float32
    ``mixtral-8x7b``, ``jamba-v0.1-52b`` at 8 layers (attention at layer 4,
@@ -271,7 +287,12 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    11g full-width bf16 training of the three as 11d: phi4-mini at 16 of 32
    layers, phi3.5-moe at 2 of 32 and deepseek-67b at 2 of 95, the flash
    backward on its wgmma pair at G 3 and G 8 and phi3.5's experts' dx on
-   ``wgmma_nt_fwd`` and dw on ``wgmma_tn``;
+   ``wgmma_nt_fwd`` and dw on ``wgmma_tn``.  Every full-width training
+   phase (11b, 11d, 11f, 11g) trains on the replayed graph and then on the
+   eager step from the same weights and batches, as 11b, the card freed
+   and checked under 1 GB before each; 11d's mixtral holds the replay to
+   the eager step as 11b does; after 11g a table of both designs' step
+   time, device time, idle share, peak and ``capture_s``;
 12. the dry run (``repro_torch.launch.dryrun``) and the options only it
    selects: 12a on the host, no kernel launched, ``run_pair`` on the
    256-rank production mesh (data 32 x model 8, a fake process group) for
@@ -455,6 +476,12 @@ PHASE10_METRICS = (
     "autoscale_junctiond_reaction", "autoscale_reaction_ratio", "chain_containerd_hop_tax",
     "chain_junctiond_hop_tax", "chain_hop_tax_ratio")
 TOL = {"float32": (3e-5, 3e-5), "bfloat16": (1e-3, 1e-2)}   # (atol, rtol)
+#: phase 3's AdamW checks: the rate of the checked calls, large enough that
+#: a step moves a weight by ~1e-2 and its decay by ~1e-3 of that on a 0.02
+#: weight (a tenth on a 1-D leaf of ones), far above the limit; the limit,
+#: fp32's, on each element relative to |expect| + the rms of the tensor (a
+#: bf16 weight: one bf16 ulp plus the limit times the rate)
+ADAMW_CHECK_LR, ADAMW_RTOL = 1e-2, 3e-5
 # phase 3: the flash backward beyond the sweep, (case, dtypes)
 FLASH_BWD_MAIN = (8, 16, 8, 512, 512, 128, True, None)   # qwen3-1.7b's training shape, 11b
 FLASH_BWD_CASES = [
@@ -508,11 +535,13 @@ GMM_TOL = {"float32": (2e-3, 2e-4), "bfloat16": TOL["bfloat16"]}
 # the flash backward's kernels, the pair of each route: none in a serving run
 NO_FLASH_BWD_ROUTES = {f"bwd_{kernel}{design}": 0 for kernel in ("dq", "dkv")
                        for design in ("", "_wgmma", "_masked", "_wgmma_masked", "_wgmma_live")}
-# the backward kernels of the MoE matmul and the scans, by route: none in a serving run
+# the backward kernels of the MoE matmul and the scans, and AdamW's kernels, by
+# route: none in a serving run
 NO_BWD_ROUTES = {"moe_gmm_bwd": {"dx_wgmma_nt": 0, "dw_wgmma_tn": 0, "dx_wgmma_nt_fwd": 0,
                                  **{f"{p}_{r}": 0 for p in ("dx", "dw")
                                     for r in ("stream", "wgmma", "mma_sync")}},
-                 "mamba_scan_bwd": {"ring": 0, "ckpt": 0}, "rwkv6_scan_bwd": {"ring": 0, "rows": 0}}
+                 "mamba_scan_bwd": {"ring": 0, "ckpt": 0}, "rwkv6_scan_bwd": {"ring": 0, "rows": 0},
+                 "adamw": {"sumsq": 0, "norm": 0, "update": 0}}
 # phase 3: the backward kernels at the training shapes of phase 11d (8 x 512
 # tokens: capacity 1280 for mixtral's 8 experts, 640 for Jamba's 16)
 GMM_BWD_MAIN = {   # E, C, D, F
@@ -578,6 +607,36 @@ def check_close(name: str, out, expect, tol) -> float:
         raise AssertionError(f"{name}: max |diff| {float(err.max()):.3g} over "
                              f"atol {atol}, rtol {rtol}")
     return float(err.max())
+
+
+def check_scaled(name: str, out, expect, rtol: float) -> float:
+    """Max |out - expect| / (|expect| + rms(expect)); raises unless every
+    element is finite and that is within ``rtol``: fp32's limit held on the
+    tensor's own scale, where a fixed atol could be larger than the values."""
+    out, expect = out.float(), expect.float()
+    rel = (out - expect).abs() / (expect.abs() + expect.square().mean().sqrt())
+    worst = float(rel.max())
+    if not bool(out.isfinite().all()) or not worst <= rtol:
+        raise AssertionError(f"{name}: max |diff| / (|expect| + rms) {worst:.3g} over {rtol}")
+    return worst
+
+
+def check_bf16_ulp(name: str, out, expect, atol: float) -> tuple:
+    """Raises unless the bf16 tensors are within one bf16 ulp plus ``atol``
+    of each other everywhere: each side rounds its fp32 value once, and the
+    fp32 values differ by fp32's error on the operands, which is more than
+    an ulp only where a result near zero came of cancellation.  Returns the
+    counts of elements one ulp apart and of those past one ulp (within
+    ``atol``)."""
+    a, b = out.float(), expect.float()
+    _, e = a.abs().maximum(b.abs()).frexp()
+    ulp = (e - 8).float().exp2()          # |x| in [2^(e-1), 2^e): 8 bits of mantissa
+    diff = (a - b).abs()
+    if not bool(a.isfinite().all()) or bool((diff > ulp + atol).any()):
+        raise AssertionError(f"{name}: {int((diff > ulp + atol).sum())} elements more than "
+                             f"one bf16 ulp + {atol:.3g} apart, max |diff| "
+                             f"{float(diff.max()):.3g}")
+    return int(((diff != 0) & (diff <= ulp)).sum()), int((diff > ulp).sum())
 
 
 def layer_counts(cfg) -> dict:
@@ -750,8 +809,9 @@ DRYRUN_PREFILLS = (("mixtral-8x7b", "prefill_32k"), ("h2o-danube-3-4b", "prefill
                    ("jamba-v0.1-52b", "prefill_32k"))
 DRYRUN_213 = {  # peak B, flops, bytes accessed, collective bytes
     ("qwen3-1.7b", "decode_32k"): (2850549796.0, 5478547456.0, 48627237860.0, 13363275324.0),
-    ("mixtral-8x7b", "train_4k"): (189875150924.0, 544215306076160.0, 37559645757592.0,
-                                   6043293243180.25),
+    # its update traced as the AdamW kernel moves it (trace_ops.adamw_leaf)
+    ("mixtral-8x7b", "train_4k"): (189875150924.0, 544215306076160.0, 37263807872312.0,
+                                   5949099432699.0),
     ("mixtral-8x7b", "prefill_32k"): (126289788948.0, 3775731552485376.0, 26701793626972.0,
                                       575959739271.0),
     ("h2o-danube-3-4b", "prefill_32k"): (37211225604.0, 79918634680320.0, 3992912573084.0,
@@ -1314,6 +1374,7 @@ def main() -> int:
                                   drive, run_sequential, sustainable_throughput)
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels._launch import stream_handle
+    from repro_torch.kernels import adamw as _adamw
     from repro_torch.kernels import aes_ctr as _aes
     from repro_torch.kernels import decode_attention as _decode
     from repro_torch.kernels import flash_attention as _flash
@@ -2460,6 +2521,135 @@ def main() -> int:
     records["mamba_scan_bwd"] = bwd_times[("mamba_scan_bwd", "train")]
     records["rwkv6_scan_bwd"] = bwd_times[("rwkv6_scan_bwd", "train")]
 
+    # the AdamW kernel (no TPU kernel: XLA fuses the JAX package's
+    # apply_updates in its jitted step) at the leaves of full-width qwen3-1.7b
+    # (11b's) and of mixtral-8x7b at 2 layers (11d's), bf16 with fp32
+    # moments.  On qwen3's leaves, against its plain version at the rate
+    # ADAMW_CHECK_LR: p within one bf16 ulp, m and v at fp32's limit on their
+    # own scale, the norm at rtol 1e-5, the norm of a second call equal bit
+    # for bit; then the same leaves in fp32, where each element's change is
+    # held at fp32's limit against the plain version's change, so that the
+    # decay (of the matrices only), the rate and the bias corrections, all
+    # under one bf16 ulp of a weight, are seen.  Then timed in turns with the
+    # plain version, and a copy of the same 22 bytes a parameter beside it.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  before the AdamW rows: {torch.cuda.memory_allocated()} bytes allocated")
+    step_t = torch.tensor(2, dtype=torch.int32, device=dev)
+    check_lr = torch.tensor(ADAMW_CHECK_LR, device=dev)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1, grad_clip=1.0)
+
+    def adamw_operands(cfg, seed, dtype=None):
+        """Leaves of ``cfg`` (in ``dtype`` if given), gradients of their
+        dtype, fp32 moments: the magnitudes of a step early in training."""
+        gen_a = torch.Generator(device=dev).manual_seed(seed)
+        leaves = [p if dtype is None else p.to(dtype)
+                  for p in tree_leaves(T.init_params(cfg, gen_a))]
+        grads = [torch.randn(p.shape, generator=gen_a, device=dev).mul_(1e-2).to(p.dtype)
+                 for p in leaves]
+        mu = [torch.randn(p.shape, generator=gen_a, device=dev).mul_(1e-3) for p in leaves]
+        nu = [torch.rand(p.shape, generator=gen_a, device=dev).mul_(1e-5) for p in leaves]
+        return leaves, grads, mu, nu
+
+    def adamw_check(label, leaves, grads, mu, nu):
+        """The kernel's call and the plain version's on copies, at the rate
+        ADAMW_CHECK_LR.  Returns (kernel's norm, plain norm, the plain
+        version's (p, m, v))."""
+        expect = [[t.clone() for t in xs] for xs in (leaves, mu, nu)]
+        want = ref.adamw_update_ref(expect[0], grads, expect[1], expect[2], step_t, check_lr,
+                                    **hyper)
+        before = ops.LAUNCHES["adamw"]
+        got = ops.adamw_update(leaves, grads, mu, nu, step_t, check_lr, **hyper)
+        if ops.LAUNCHES["adamw"] - before != 3:
+            raise AssertionError(f"{label}: {ops.LAUNCHES['adamw'] - before} launches")
+        if not math.isclose(float(got), float(want), rel_tol=1e-5):
+            raise AssertionError(f"{label}: grad norm {float(got)!r}, plain {float(want)!r}")
+        for what, xs, ys in (("m", mu, expect[1]), ("v", nu, expect[2])):
+            worst = max(check_scaled(f"{label} {what}", a, b, ADAMW_RTOL)
+                        for a, b in zip(xs, ys))
+            print(f"  {label}: {what} within {worst:.3g} of |plain| + rms (limit {ADAMW_RTOL})")
+        return got, want, expect
+
+    for arch, n_layers in (("qwen3-1.7b", None), ("mixtral-8x7b", 2)):
+        cfg = get_arch(arch)
+        cfg = dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+        leaves, grads, mu, nu = adamw_operands(cfg, SEED + 20)
+        lr_t = torch.tensor(3e-4, device=dev)
+        n = sum(p.numel() for p in leaves)
+        label = f"adamw {arch} ({len(leaves)} leaves, {n} parameters)"
+        err = None
+        if n_layers is None:
+            got, want, expect = adamw_check(label, leaves, grads, mu, nu)
+            counts = [check_bf16_ulp(f"{label} p", a, b, ADAMW_RTOL * ADAMW_CHECK_LR)
+                      for a, b in zip(leaves, expect[0])]
+            one, past = (sum(c[k] for c in counts) for k in (0, 1))
+            err = max(float((a.float() - b.float()).abs().max())
+                      for xs, ys in zip((leaves, mu, nu), expect) for a, b in zip(xs, ys))
+            again = ops.adamw_update(leaves, grads, mu, nu, step_t, check_lr, **hyper)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: two calls' norms {float(got)!r}, "
+                                     f"{float(again)!r}")
+            print(f"  {label}: p within one bf16 ulp + {ADAMW_RTOL * ADAMW_CHECK_LR:.3g} of the "
+                  f"plain version ({one} of {n} elements one ulp apart, {past} past one ulp "
+                  f"near zero, the rest equal); grad norm {float(got)!r}, plain "
+                  f"{float(want)!r}; a second call gives {float(again)!r}, bit for bit the "
+                  f"same")
+            del expect, want, got, again
+            torch.cuda.empty_cache()
+        old, ts = in_turns(torch, lambda: ref.adamw_update_ref(leaves, grads, mu, nu, step_t,
+                                                               lr_t, **hyper),
+                           lambda: ops.adamw_update(leaves, grads, mu, nu, step_t, lr_t,
+                                                    **hyper), 3, flush)
+        print(f"  {label}: kernel {spread(ts)}; plain version in turns {spread(old)}")
+        moved = sum(2 * p.numel() * p.element_size() + g.numel() * g.element_size()
+                    + 4 * m.numel() * m.element_size() for p, g, m in zip(leaves, grads, mu))
+        normed = sum(g.numel() * g.element_size() for g in grads)
+        flop = 20 * n          # an element's update and square, in fp32
+        rec = dict(err=err if err is not None else float("nan"), ms=statistics.fmean(ts),
+                   plain_ms=statistics.fmean(old), library_ms=None,
+                   bytes=moved + normed, ops=f"{flop} fp32 FLOP", ops_ms=1e3 * flop / fp32_flops,
+                   replaces="none: XLA's fusion of src/repro/train/optimizer.py:52-74 in "
+                            "src/repro/train/train_loop.py:42's jax.jit",
+                   source="src/repro_torch/csrc/adamw.cu")
+        del leaves, grads, mu, nu
+        gc.collect()
+        torch.cuda.empty_cache()
+        src = torch.empty(moved // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy = launch_times_ms(torch, lambda: dst.copy_(src), 5, flush)
+        rec["copy_ms"] = statistics.fmean(copy)
+        print(f"  {label}: a PyTorch copy of the update's {moved} bytes (read and written once, "
+              f"no kernel of the port): {spread(copy)}")
+        del src, dst
+        torch.cuda.empty_cache()
+        rec["note"] = (f"{label}; no PyTorch call computes this update (torch's fused AdamW "
+                       f"decays otherwise, keeps bf16 moments and does not clip): copy_ms is a "
+                       f"copy of the update's bytes; launches: phase 11b's 4 steps")
+        report(label, rec)
+        if n_layers is None:
+            records["adamw"] = rec
+            label32 = f"adamw {arch} in fp32 ({n} parameters)"
+            leaves, grads, mu, nu = adamw_operands(cfg, SEED + 21, torch.float32)
+            start = [p.clone() for p in leaves]
+            _, _, expect = adamw_check(label32, leaves, grads, mu, nu)
+            worst = max(check_scaled(f"{label32} change of p", a - o, b - o, ADAMW_RTOL)
+                        for a, b, o in zip(leaves, expect[0], start))
+            # the check's reach: the decay's share of the change on the
+            # largest matrix, in the same measure
+            big = max(range(len(start)), key=lambda i: start[i].numel())
+            change = expect[0][big] - start[big]
+            share = float((ADAMW_CHECK_LR * hyper["weight_decay"] * start[big].abs()).mean()
+                          / (change.abs() + change.square().mean().sqrt()).mean())
+            if not share > 10 * ADAMW_RTOL:
+                raise AssertionError(f"{label32}: the decay's share {share:.3g} of a change is "
+                                     f"not above 10 x the limit {ADAMW_RTOL}")
+            print(f"  {label32}: each element's change within {worst:.3g} of |plain change| "
+                  f"+ rms (limit {ADAMW_RTOL}); the decay is {share:.3g} of a change on "
+                  f"the largest matrix {tuple(start[big].shape)}")
+            del leaves, grads, mu, nu, start, expect, change
+            gc.collect()
+            torch.cuda.empty_cache()
+
     # -- 4 ------------------------------------------------------------------
     phase("4 reduced qwen3-1.7b, card against CPU, float32")
     rng = np.random.default_rng(SEED)
@@ -3295,11 +3485,13 @@ def main() -> int:
     from repro_torch.models import flops
     from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
     from repro_torch.train.optimizer import AdamWState, init_state
+    from repro_torch.train.step_graph import TrainGraph
 
     def train_routes(cfg, steps, tokens, masked=False):
         """The launches by route of ``steps`` train steps of ``tokens`` tokens
         under remat: each layer's forward kernels twice (the recompute), its
-        backward kernels once.  Attention: the flash forward on the route of
+        backward kernels once; AdamW's kernels a sum of squares and an update
+        a table of leaves and one norm, a step.  Attention: the flash forward on the route of
         the dtype, its backward on the pair of ``bwd_route`` (fp32:
         ``bwd_dq``/``bwd_dkv``, bf16: ``bwd_dq_wgmma``/``bwd_dkv_wgmma``); an
         encoder-decoder model's encoder (not recomputed) once forward and once
@@ -3343,6 +3535,8 @@ def main() -> int:
             hd = cfg.rwkv.head_size
             expect["rwkv6_scan"] = {_rwkv.route(torch.float32, hd): 2 * n["rwkv"] * steps}
             expect["rwkv6_scan_bwd"] = {_rwkv.bwd_route(torch.float32, hd): n["rwkv"] * steps}
+        tables = len(_adamw.split_tables([math.prod(s) for s in flops._param_shapes(cfg)]))
+        expect["adamw"] = {"sumsq": tables * steps, "norm": steps, "update": tables * steps}
         return expect
 
     def check_train_launches(name, cfg, steps, tokens, masked=False):
@@ -3438,19 +3632,168 @@ def main() -> int:
               f"heads, window {cfg.sliding_window}; batches of 4 x {seq} tokens")
         train_card_against_cpu(cfg, seq, TRAIN_REDUCED_STEPS)
 
+    # profiler keys by what they run (re.search, the first that matches)
+    kernel_tags = (("mamba_scan_bwd_ring_kernel", "mamba_scan_bwd (ring)"),
+                   ("mamba_scan_bwd_kernel", "mamba_scan_bwd (ckpt)"),
+                   ("mamba_scan_bwd_sum_kernel", "mamba_scan_bwd (sums)"),
+                   ("rwkv6_scan_bwd_ring_kernel", "rwkv6_scan_bwd (ring)"),
+                   ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd (rows)"),
+                   ("rwkv6_scan_bwd_sum_kernel", "rwkv6_scan_bwd (sums)"),
+                   (r"moe_gmm_tn_kernel<true", "moe_gmm dw (backward, wgmma_tn)"),
+                   (r"moe_gmm_tn_kernel<false", "moe_gmm dx (backward, wgmma_nt)"),
+                   (r"moe_gmm_wgmma_kernel<true>", "moe_gmm dx (backward, wgmma_nt_fwd)"),
+                   ("moe_gmm", "moe_gmm (forward and recompute)"),
+                   ("mamba_scan_lanes_kernel", "mamba_scan forward"),
+                   ("rwkv6_scan_cols_kernel", "rwkv6_scan forward"),
+                   (r"wgb::\w+<\d+, true|dq_live_kernel|live_tiles_kernel",
+                    "flash backward, masked"),
+                   ("wgb::", "flash backward"),
+                   (r"flash_wgmma_kernel<\d+, true>", "flash forward, masked"),
+                   ("flash_wgmma_kernel", "flash forward"),
+                   (r"\bupdate_kernel", "adamw update"),
+                   (r"\bsumsq_kernel|\bnorm_kernel", "adamw norm"))
+    #: the full-width training phases' figures, replay and eager, printed after 11g
+    train_table = []
+
+    def train_run(cfg, batches, opt, mode, masked=False):
+        """``TRAIN_STEPS`` remat steps of ``cfg`` drawn on the card from
+        ``SEED``, AdamW ``opt``, on ``batches`` (``TRAIN_STEPS`` + 1 of them,
+        on the card), then one more under the profiler.  ``mode`` "graph":
+        step 1 builds a ``TrainGraph`` (the step run eagerly as its warm-up,
+        then captured), every later step is a replay; "eager": every step op
+        by op.  Each step's loss, exact launches over the 4 steps
+        (``masked``: the batches carry an ``enc_mask``), step time (mean of
+        steps 2-4), tokens/s (the decoder's tokens), MFU by
+        ``flops.model_flops``, peak memory (the graph's pool included), the
+        profiled step's device time, idle share and kernels.  Frees the
+        model; returns the figures."""
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tree_map(lambda p: p.requires_grad_(True),
+                          T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+        state = init_state(params)
+        torch.cuda.synchronize()
+        if mode == "graph":
+            n_params = sum(p.numel() for p in tree_leaves(params))
+            largest = max(p.numel() for p in tree_leaves(params))
+            print(f"{cfg.name}: kinds {[k.value for k in cfg.block_kinds()]}, d_model "
+                  f"{cfg.d_model}, "
+                  + (f"{cfg.encdec.encoder_layers} encoder layers, " if cfg.encdec else "")
+                  + f"{n_params} parameters ({cfg.dtype} weights {tree_bytes(params)} bytes, "
+                  f"fp32 moments {tree_bytes(state.mu) + tree_bytes(state.nu)} bytes; reckoned "
+                  f"at 12 bytes a parameter {12 * n_params} bytes, the largest leaf {largest} "
+                  f"values, {4 * largest} bytes in fp32), drawn in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        batch, seq = batches[0]["labels"].shape
+        step = make_train_step(cfg, AdamWConfig(**opt), remat=True)
+        print(f"  [{mode}] {TRAIN_STEPS} steps of {batch} x {seq} tokens "
+              + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}" for k, v in batches[0].items())
+              + f", AdamW {opt}, remat on")
+        ops.reset_launches()
+        times, hist, graph = [], [], None
+        for b in batches[:TRAIN_STEPS]:
+            t0 = time.perf_counter()
+            if mode == "eager":
+                _, _, m = step(params, state, b)
+            elif graph is None:
+                graph = TrainGraph(step, params, state, b)
+                m = graph.first_metrics
+            else:
+                m = graph.replay(b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            hist.append({k: float(v) for k, v in m.items()})
+            h = hist[-1]
+            print(f"  [{mode}] step {len(hist)}: loss {h['loss']:.6f} nll {h['nll']:.4f} "
+                  f"grad_norm {h['grad_norm']:.6f} moe_aux {h['moe_aux']:.4g} lr {h['lr']:.3g} "
+                  f"step_ms {1e3 * times[-1]:.1f}"
+                  + (" (the eager warm-up and the capture)" if graph is not None
+                     and len(hist) == 1 else ""))
+        check_train_launches(f"{cfg.name} training ({mode})", cfg, TRAIN_STEPS, batch * seq,
+                             masked)
+        launched = {op: n for op, n in ops.LAUNCHES.items() if n}
+        flash_bwd = {r: n for r, n in ops.ROUTE_LAUNCHES["flash_attention_bwd"].items() if n}
+        print(f"  [{mode}] launches by op over the {TRAIN_STEPS} steps: {launched}; the flash "
+              f"backward's by kernel {flash_bwd}")
+        tokens = batch * seq
+        mf = flops.model_flops(cfg, InputShape(f"train_{batch}x{seq}", seq, batch,
+                                               StepKind.TRAIN))["model_flops"]
+        steady = statistics.fmean(times[1:])
+        peak = torch.cuda.max_memory_allocated()
+        capture_s = graph.capture_s if graph is not None else None
+        print(f"train {cfg.name} [{mode}] step_ms {1e3 * steady:.1f} (mean of steps "
+              f"2-{TRAIN_STEPS}; step 1 {1e3 * times[0]:.1f}"
+              + (f", capture_s {capture_s:.3f}" if graph is not None else "")
+              + f")  tokens_per_s {tokens / steady:.1f}  model_flops_per_step {mf:.6g}  "
+              f"model_tflops_per_s {mf / steady / 1e12:.2f}  mfu "
+              f"{mf / steady / PEAK_BF16_FLOPS:.4f} (of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+              f"bf16"
+              + ("; flops.model_flops counts the decoder's tokens only, not the encoder's "
+                 "frames, as the reference does" if cfg.encdec else "")
+              + f")  max_memory_allocated_bytes {peak}  adamw launches {launched['adamw']}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if graph is None:
+                step(params, state, batches[TRAIN_STEPS])
+            else:
+                graph.replay(batches[TRAIN_STEPS])
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        device_us, top = device_top(torch, prof, 1)
+        if device_us is None:
+            raise AssertionError(f"the profiler saw no kernel of {cfg.name}'s train step "
+                                 f"({mode})")
+        by_kernel = collections.Counter()
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                for part, tag in kernel_tags:
+                    if re.search(part, e.key):
+                        by_kernel[tag] += e.self_device_time_total
+                        break
+        idle = 1 - device_us / wall_us
+        print(f"  [{mode}] profiled step (one more, its wall including the profiler's cost): "
+              f"device_us {device_us:.1f}  wall_us {wall_us:.1f}  idle share {idle:.3f}")
+        print("  " + ", ".join(f"{tag} {us:.1f} us ({us / device_us:.3f})"
+                               for tag, us in by_kernel.items()))
+        for name, us in top:
+            print(f"    {us:10.1f} us  {name[:100]}")
+        del params, state, prof, step, m, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+        return dict(hist=hist, launched=launched, flash_bwd=flash_bwd, step_ms=1e3 * steady,
+                    device_us=device_us, idle=idle, peak=peak, capture_s=capture_s)
+
+    def train_full_width(cfg, batches, opt, label, masked=False, hold=False):
+        """``train_run`` of ``cfg`` on the replayed graph, the main path, then
+        on the eager step from the same weights and batches, the card freed
+        and checked under 1 GB before each: each step's loss and grad norm of
+        the two printed side by side (exactly equal or not), and with
+        ``hold`` held within rtol 1e-5.  Returns the graph run's figures."""
+        runs = {}
+        for mode in ("graph", "eager"):
+            free_card(torch, f"{label} ({mode})")
+            runs[mode] = train_run(cfg, batches, opt, mode, masked)
+        off = []
+        for i, (g, e) in enumerate(zip(runs["graph"]["hist"], runs["eager"]["hist"])):
+            rel = {k: abs(g[k] - e[k]) / abs(e[k]) for k in ("loss", "grad_norm")}
+            print(f"  step {i + 1}: loss replay {g['loss']!r} eager {e['loss']!r}, grad_norm "
+                  f"replay {g['grad_norm']!r} eager {e['grad_norm']!r}: "
+                  + ("exactly equal" if all(g[k] == e[k] for k in rel) else
+                     "rel " + ", ".join(f"{k} {x:.3g}" for k, x in rel.items())))
+            off += [f"step {i + 1} {k} rel {x:.3g}" for k, x in rel.items() if not x <= 1e-5]
+        if hold and off:
+            raise AssertionError(f"{cfg.name}: the replay against the eager step: "
+                                 f"{', '.join(off)}")
+        train_table.append((label, cfg.name, runs))
+        return runs["graph"]
+
+    def check_falling(cfg, losses):
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{cfg.name}: losses {losses} not finite and falling")
+
     phase("11b full-width, full-depth qwen3-1.7b trained on the card, bf16")
-    free_card(torch, "phase 11b")
     cfg = get_arch("qwen3-1.7b")
-    L = layer_counts(cfg)["attn"]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = tree_map(lambda p: p.requires_grad_(True),
-                      T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
-    state = init_state(params)
-    torch.cuda.synchronize()
-    print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype} weights "
-          f"{tree_bytes(params)} bytes, fp32 moments {tree_bytes(state.mu) + tree_bytes(state.nu)}"
-          f" bytes, drawn in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                                 batch_size=TRAIN_BATCH, seed=SEED)).batches()
@@ -3458,62 +3801,13 @@ def main() -> int:
                for _ in range(TRAIN_STEPS + 1)]
     print(f"  {TRAIN_STEPS + 1} SyntheticLM batches of {TRAIN_BATCH} x {TRAIN_SEQ} tokens over "
           f"the {cfg.vocab_size}-token vocabulary, made in {time.perf_counter() - t0:.1f} s")
+    run = train_full_width(cfg, batches, TRAIN_OPT, "phase 11b", hold=True)
+    hist = run["hist"]
+    launches["flash_attention_bwd"] = run["launched"]["flash_attention_bwd"]
+    launches["adamw"] = run["launched"]["adamw"]
+    check_falling(cfg, [h["loss"] for h in hist])
+    train_measured = {"device_us": run["device_us"], "peak": run["peak"]}
     step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), remat=True)
-    print(f"  AdamW {TRAIN_OPT}, remat on")
-    ops.reset_launches()
-    times, hist = [], []
-    for b in batches[:TRAIN_STEPS]:
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, b)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        hist.append({k: float(v) for k, v in m.items()})
-        h = hist[-1]
-        print(f"  step {len(hist)}: loss {h['loss']:.4f} nll {h['nll']:.4f} grad_norm "
-              f"{h['grad_norm']:.4f} lr {h['lr']:.3g} step_ms {1e3 * times[-1]:.1f}")
-    check_train_launches(f"{cfg.name} training", cfg, TRAIN_STEPS, TRAIN_BATCH * TRAIN_SEQ)
-    launches["flash_attention_bwd"] = ops.LAUNCHES["flash_attention_bwd"]
-    losses = [h["loss"] for h in hist]
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"{cfg.name}: losses {losses} not finite and falling")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    mf = flops.model_flops(cfg, InputShape(f"train_{TRAIN_BATCH}x{TRAIN_SEQ}", TRAIN_SEQ,
-                                           TRAIN_BATCH, StepKind.TRAIN))["model_flops"]
-    steady = statistics.fmean(times[1:])
-    print(f"train step_ms {1e3 * steady:.1f} (mean of steps 2-{TRAIN_STEPS}; step 1 "
-          f"{1e3 * times[0]:.1f})  tokens_per_s {tokens / steady:.1f}  model_flops_per_step "
-          f"{mf:.6g}  model_tflops_per_s {mf / steady / 1e12:.2f}  mfu "
-          f"{mf / steady / PEAK_BF16_FLOPS:.4f} (of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16)  "
-          f"max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(params, state, batches[-1])
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    device_us, top = device_top(torch, prof, 1)
-    if device_us is None:
-        raise AssertionError("the profiler saw no kernel of the train step")
-    by_kernel = collections.Counter()
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            for part, tag in (("bwd::dq_kernel", "bwd_dq"), ("bwd::dkv_kernel", "bwd_dkv"),
-                              ("wgb::dq_kernel", "bwd_dq_wgmma"),
-                              ("wgb::dkv_kernel", "bwd_dkv_wgmma"),
-                              ("flash_wgmma_kernel", "flash forward")):
-                if part in e.key:
-                    by_kernel[tag] += e.self_device_time_total
-    print(f"profiled step (one more, its wall including the profiler's cost): device_us "
-          f"{device_us:.1f}  wall_us {wall_us:.1f}  idle share {1 - device_us / wall_us:.3f}")
-    train_measured = {"device_us": device_us, "peak": torch.cuda.max_memory_allocated()}
-    print("  " + ", ".join(f"{tag} {us:.1f} us ({us / device_us:.3f})"
-                           for tag, us in by_kernel.items()))
-    for name, us in top:
-        print(f"    {us:10.1f} us  {name[:100]}")
-    del params, state, prof
-    gc.collect()
-    torch.cuda.empty_cache()
 
     # the same 4 steps from the same weights and batches with the library's
     # attention (SDPA, K and V repeated to Hq, its own backward) in place of
@@ -3669,114 +3963,6 @@ def main() -> int:
 
     bwd_ops = ("moe_gmm_bwd", "mamba_scan_bwd", "rwkv6_scan_bwd")
     family_launches = collections.Counter()
-    # profiler keys by what they run (re.search, the first that matches)
-    kernel_tags = (("mamba_scan_bwd_ring_kernel", "mamba_scan_bwd (ring)"),
-                   ("mamba_scan_bwd_kernel", "mamba_scan_bwd (ckpt)"),
-                   ("mamba_scan_bwd_sum_kernel", "mamba_scan_bwd (sums)"),
-                   ("rwkv6_scan_bwd_ring_kernel", "rwkv6_scan_bwd (ring)"),
-                   ("rwkv6_scan_bwd_kernel", "rwkv6_scan_bwd (rows)"),
-                   ("rwkv6_scan_bwd_sum_kernel", "rwkv6_scan_bwd (sums)"),
-                   (r"moe_gmm_tn_kernel<true", "moe_gmm dw (backward, wgmma_tn)"),
-                   (r"moe_gmm_tn_kernel<false", "moe_gmm dx (backward, wgmma_nt)"),
-                   (r"moe_gmm_wgmma_kernel<true>", "moe_gmm dx (backward, wgmma_nt_fwd)"),
-                   ("moe_gmm", "moe_gmm (forward and recompute)"),
-                   ("mamba_scan_lanes_kernel", "mamba_scan forward"),
-                   ("rwkv6_scan_cols_kernel", "rwkv6_scan forward"),
-                   (r"wgb::\w+<\d+, true|dq_live_kernel|live_tiles_kernel",
-                    "flash backward, masked"),
-                   ("wgb::", "flash backward"),
-                   (r"flash_wgmma_kernel<\d+, true>", "flash forward, masked"),
-                   ("flash_wgmma_kernel", "flash forward"))
-
-    def train_full_width(cfg, batches, opt, label, masked=False):
-        """4 remat steps of ``cfg`` drawn on the card from ``SEED``, AdamW
-        ``opt``, on ``batches`` (``TRAIN_STEPS`` + 1 of them, on the card),
-        the card freed and checked under 1 GB before the draw: each step's
-        loss, exact launches over the 4 steps (``masked``: the batches carry
-        an ``enc_mask``), step time (mean of steps 2-4), tokens/s (the
-        decoder's tokens), MFU by ``flops.model_flops``, peak memory, then
-        one more step under the profiler.  Returns the 4 losses, the
-        launches by op and the flash backward's by kernel; frees the model."""
-        free_card(torch, label)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        params = tree_map(lambda p: p.requires_grad_(True),
-                          T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
-        state = init_state(params)
-        torch.cuda.synchronize()
-        n_params = sum(p.numel() for p in tree_leaves(params))
-        largest = max(p.numel() for p in tree_leaves(params))
-        print(f"{cfg.name}: kinds {[k.value for k in cfg.block_kinds()]}, d_model {cfg.d_model}, "
-              + (f"{cfg.encdec.encoder_layers} encoder layers, " if cfg.encdec else "")
-              + f"{n_params} parameters ({cfg.dtype} weights {tree_bytes(params)} bytes, fp32 "
-              f"moments {tree_bytes(state.mu) + tree_bytes(state.nu)} bytes; reckoned at 12 "
-              f"bytes a parameter {12 * n_params} bytes, the largest leaf {largest} values, "
-              f"{4 * largest} bytes in fp32), drawn in {time.perf_counter() - t0:.1f} s")
-        batch, seq = batches[0]["labels"].shape
-        step = make_train_step(cfg, AdamWConfig(**opt), remat=True)
-        print(f"  {TRAIN_STEPS} steps of {batch} x {seq} tokens "
-              + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}" for k, v in batches[0].items())
-              + f", AdamW {opt}, remat on")
-        ops.reset_launches()
-        times, hist = [], []
-        for b in batches[:TRAIN_STEPS]:
-            t0 = time.perf_counter()
-            params, state, m = step(params, state, b)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            hist.append({k: float(v) for k, v in m.items()})
-            h = hist[-1]
-            print(f"  step {len(hist)}: loss {h['loss']:.4f} nll {h['nll']:.4f} grad_norm "
-                  f"{h['grad_norm']:.4f} moe_aux {h['moe_aux']:.4g} step_ms "
-                  f"{1e3 * times[-1]:.1f}")
-        check_train_launches(f"{cfg.name} training", cfg, TRAIN_STEPS, batch * seq, masked)
-        launched = {op: n for op, n in ops.LAUNCHES.items() if n}
-        flash_bwd = {r: n for r, n in ops.ROUTE_LAUNCHES["flash_attention_bwd"].items() if n}
-        print(f"  launches by op over the {TRAIN_STEPS} steps: {launched}; the flash backward's "
-              f"by kernel {flash_bwd}")
-        tokens = batch * seq
-        mf = flops.model_flops(cfg, InputShape(f"train_{batch}x{seq}", seq, batch,
-                                               StepKind.TRAIN))["model_flops"]
-        steady = statistics.fmean(times[1:])
-        print(f"train {cfg.name} step_ms {1e3 * steady:.1f} (mean of steps 2-{TRAIN_STEPS}; "
-              f"step 1 {1e3 * times[0]:.1f})  tokens_per_s {tokens / steady:.1f}  "
-              f"model_flops_per_step {mf:.6g}  model_tflops_per_s {mf / steady / 1e12:.2f}  "
-              f"mfu {mf / steady / PEAK_BF16_FLOPS:.4f} (of {PEAK_BF16_FLOPS / 1e12:.0f} "
-              f"TFLOP/s bf16"
-              + ("; flops.model_flops counts the decoder's tokens only, not the encoder's "
-                 "frames, as the reference does" if cfg.encdec else "")
-              + f")  max_memory_allocated_bytes {torch.cuda.max_memory_allocated()}")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step(params, state, batches[TRAIN_STEPS])
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        device_us, top = device_top(torch, prof, 1)
-        if device_us is None:
-            raise AssertionError(f"the profiler saw no kernel of {cfg.name}'s train step")
-        by_kernel = collections.Counter()
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                for part, tag in kernel_tags:
-                    if re.search(part, e.key):
-                        by_kernel[tag] += e.self_device_time_total
-                        break
-        print(f"profiled step (one more, its wall including the profiler's cost): device_us "
-              f"{device_us:.1f}  wall_us {wall_us:.1f}  idle share {1 - device_us / wall_us:.3f}")
-        print("  " + ", ".join(f"{tag} {us:.1f} us ({us / device_us:.3f})"
-                               for tag, us in by_kernel.items()))
-        for name, us in top:
-            print(f"    {us:10.1f} us  {name[:100]}")
-        del params, state, prof, step, m
-        gc.collect()
-        torch.cuda.empty_cache()
-        return [h["loss"] for h in hist], launched, flash_bwd
-
-    def check_falling(cfg, losses):
-        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-            raise AssertionError(f"{cfg.name}: losses {losses} not finite and falling")
-
     for arch, (n_layers, batch) in TRAIN_FAMILY_FULL.items():
         full = get_arch(arch)
         phase(f"11d full-width {arch}, {n_layers} of {full.n_layers} layers, trained on the "
@@ -3786,13 +3972,13 @@ def main() -> int:
                                     batch_size=batch, seed=SEED)).batches()
         batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
                    for _ in range(TRAIN_STEPS + 1)]
-        losses, launched, _ = train_full_width(cfg, batches, TRAIN_FAMILY_OPT,
-                                               f"phase 11d {arch}")
+        run = train_full_width(cfg, batches, TRAIN_FAMILY_OPT, f"phase 11d {arch}",
+                               hold=arch == "mixtral-8x7b")
         for op in bwd_ops:
-            family_launches[op] += launched.get(op, 0)
+            family_launches[op] += run["launched"].get(op, 0)
         if arch == "rwkv6-1.6b":
             rwkv_scan_checks(cfg, batches[0])
-        check_falling(cfg, losses)
+        check_falling(cfg, [h["loss"] for h in run["hist"]])
         del batches
         gc.collect()
         torch.cuda.empty_cache()
@@ -3834,10 +4020,9 @@ def main() -> int:
                 "enc_embeds": stub_frontend_embeddings(cfg, gen_frames, TRAIN_BATCH),
                 "enc_mask": enc_mask} for _ in range(TRAIN_STEPS + 1)]
     print(f"  enc_mask valid lengths {enc_mask.sum(1).tolist()} (5f's)")
-    losses, _, flash_bwd = train_full_width(cfg, batches, TRAIN_FAMILY_OPT,
-                                            "phase 11f seamless", masked=True)
-    launches["flash_attention_masked_bwd"] = flash_bwd["bwd_dq_wgmma_live"]
-    check_falling(cfg, losses)
+    run = train_full_width(cfg, batches, TRAIN_FAMILY_OPT, "phase 11f seamless", masked=True)
+    launches["flash_attention_masked_bwd"] = run["flash_bwd"]["bwd_dq_wgmma_live"]
+    check_falling(cfg, [h["loss"] for h in run["hist"]])
     del batches, enc_mask
 
     full = get_arch("pixtral-12b")
@@ -3850,8 +4035,8 @@ def main() -> int:
     batches = [{"labels": torch.from_numpy(next(it)["labels"]).to(dev),
                 "embeds": stub_frontend_embeddings(cfg, gen_patches, TRAIN_BATCH, TRAIN_SEQ)}
                for _ in range(TRAIN_STEPS + 1)]
-    losses, _, _ = train_full_width(cfg, batches, TRAIN_FAMILY_OPT, "phase 11f pixtral")
-    check_falling(cfg, losses)
+    run = train_full_width(cfg, batches, TRAIN_FAMILY_OPT, "phase 11f pixtral")
+    check_falling(cfg, [h["loss"] for h in run["hist"]])
     del batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -3875,8 +4060,8 @@ def main() -> int:
                                     batch_size=batch, seed=SEED)).batches()
         batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
                    for _ in range(TRAIN_STEPS + 1)]
-        losses, _, flash_bwd = train_full_width(cfg, batches, TRAIN_FAMILY_OPT,
-                                                f"phase 11g {arch}")
+        run = train_full_width(cfg, batches, TRAIN_FAMILY_OPT, f"phase 11g {arch}")
+        flash_bwd = run["flash_bwd"]
         # the backward's routes: the flash wgmma pair at G 3, 4 and 8; the
         # experts' dx on wgmma_nt_fwd (C 640: five 128-row tiles that do not
         # pair) and dw on wgmma_tn
@@ -3886,10 +4071,19 @@ def main() -> int:
             raise AssertionError(f"{arch}: backward routes {flash_bwd}, {gmm_bwd}")
         print(f"  backward routes: flash {sorted(flash_bwd)}"
               + (f", moe_gmm {sorted(gmm_bwd)}" if cfg.moe else ""))
-        check_falling(cfg, losses)
+        check_falling(cfg, [h["loss"] for h in run["hist"]])
         del batches
         gc.collect()
         torch.cuda.empty_cache()
+    print("the full-width training phases, replay / eager (step ms: mean of steps 2-4; device "
+          "ms, idle: the profiled step; peak GB: max_memory_allocated, the graph's pool "
+          "included):")
+    for label, name, runs in train_table:
+        g, e = runs["graph"], runs["eager"]
+        print(f"  {label} {name}: step_ms {g['step_ms']:.1f} / {e['step_ms']:.1f}  device_ms "
+              f"{g['device_us'] / 1e3:.1f} / {e['device_us'] / 1e3:.1f}  idle {g['idle']:.3f} / "
+              f"{e['idle']:.3f}  peak_GB {g['peak'] / 1e9:.2f} / {e['peak'] / 1e9:.2f}  "
+              f"capture_s {g['capture_s']:.3f}  adamw launches {g['launched']['adamw']}")
 
     # -- 12 -----------------------------------------------------------------
     phase("12 the dry run, the roofline and the options on the card")
@@ -3905,7 +4099,8 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": r["err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"],
-         **({k: r[k] for k in ("previous_ms", "unmasked_ms", "simt_ms") if k in r}),
+         **({k: r[k] for k in ("previous_ms", "unmasked_ms", "simt_ms", "copy_ms")
+             if k in r}),
          **({"note": f"{h2o_note}; {encdec_note}"}
             if name in ("flash_attention", "decode_attention") else {}),
          **({"note": r["note"]} if "note" in r else {})}

@@ -21,7 +21,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = ("flash_attention", "decode_attention", "aes_ctr", "moe_gmm", "mamba_scan",
-           "rwkv6_scan")
+           "rwkv6_scan", "adamw")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -9,7 +9,8 @@ There is no override and no fallback.
 that it went through the kernels; the plain versions do not count.
 ``ROUTE_LAUNCHES`` counts, for the ops with more than one design, the
 launches of each design (``route`` in their wrappers), so that a run can
-show which one it took.
+show which one it took; for ``adamw_update``, whose one call is several
+launches (``LAUNCHES["adamw"]`` counts each), those of each of its kernels.
 
 Gradients on the card: under grad mode, with an input requiring grad,
 ``flash_attention`` (with or without a key mask), ``moe_gmm``,
@@ -38,6 +39,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import adamw as _adamw
 from repro_torch.kernels import aes_ctr as _aes
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
@@ -49,7 +51,7 @@ from repro_torch.kernels import rwkv6_scan as _rwkv
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
                             "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
                             "flash_attention_bwd": 0, "moe_gmm_bwd": 0, "mamba_scan_bwd": 0,
-                            "rwkv6_scan_bwd": 0}
+                            "rwkv6_scan_bwd": 0, "adamw": 0}
 
 
 #: launches by route of the ops with more than one design (the wrappers' counts)
@@ -62,7 +64,8 @@ ROUTE_LAUNCHES: Dict[str, Dict[str, int]] = {"flash_attention": _flash.LAUNCHES,
                                              "flash_attention_bwd": _flash.BWD_LAUNCHES,
                                              "moe_gmm_bwd": _gmm.BWD_LAUNCHES,
                                              "mamba_scan_bwd": _mamba.BWD_LAUNCHES,
-                                             "rwkv6_scan_bwd": _rwkv.BWD_LAUNCHES}
+                                             "rwkv6_scan_bwd": _rwkv.BWD_LAUNCHES,
+                                             "adamw": _adamw.LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -85,7 +88,7 @@ def launch_counts() -> Dict[Tuple[str, Optional[str]], int]:
 def add_launches(counts: Dict[Tuple[str, Optional[str]], int], times: int = 1) -> None:
     """Add ``times`` x ``counts`` (keyed as :func:`launch_counts`) to the
     counters: a replayed CUDA graph launches again what its capture
-    counted once (``serving.step_graph``)."""
+    counted once (``graphs.CapturedStep``)."""
     for (op, r), n in counts.items():
         if r is None:
             LAUNCHES[op] += times * n
@@ -309,6 +312,26 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tenso
     if r.numel():
         LAUNCHES["rwkv6_scan"] += 1
     return out
+
+
+def adamw_update(params, grads, mu, nu, step: torch.Tensor, lr: torch.Tensor, *,
+                 b1: float, b2: float, eps: float, weight_decay: float,
+                 grad_clip: float) -> torch.Tensor:
+    """One AdamW step on the lists of leaves ``params`` (in place, each in its
+    dtype), ``grads`` and the fp32 moments ``mu``, ``nu`` (in place), at the
+    step counter ``step`` (() int32, already advanced to the step taken) and
+    the learning rate ``lr`` (() fp32) -> the gradients' global norm before
+    clipping (() fp32).  On the card: the AdamW kernel's launches, each
+    counted."""
+    hyper = dict(b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, grad_clip=grad_clip)
+    if _traced(params[0]):
+        from repro_torch.kernels import trace_ops
+        return trace_ops.adamw_update(params, grads, mu, nu, step, lr, **hyper)
+    if not _on_cuda("adamw_update", params[0]):
+        return ref.adamw_update_ref(params, grads, mu, nu, step, lr, **hyper)
+    gnorm, launched = _adamw.adamw_update(params, grads, mu, nu, step, lr, **hyper)
+    LAUNCHES["adamw"] += launched
+    return gnorm
 
 
 def aes_ctr_expanded(plaintext: torch.Tensor, round_keys: torch.Tensor, *,

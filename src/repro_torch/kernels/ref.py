@@ -12,6 +12,9 @@ the card.  They run on any device.  ``flash_attention_bwd_ref``,
 the plain versions of the backward kernels, which the JAX package does not
 have (it differentiates the plain code around its kernels): explicit
 formulas, and reverse-time loops for the scans, in fp32.
+``adamw_update_ref`` is the plain version of the AdamW kernel, which has no
+TPU counterpart (XLA fuses the JAX package's ``apply_updates``): its global
+norm and its loop over the leaves, an fp32 pass for each operation.
 """
 from __future__ import annotations
 
@@ -296,6 +299,56 @@ def moe_gmm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
     dyf = dy.float()
     return (torch.einsum("ecf,edf->ecd", dyf, w.float()).to(x.dtype),
             torch.einsum("ecd,ecf->edf", x.float(), dyf).to(w.dtype))
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+
+
+def global_norm(leaves) -> torch.Tensor:
+    """The fp32 norm of every tensor of ``leaves`` taken together."""
+    return torch.sqrt(sum(x.float().square().sum() for x in leaves))
+
+
+def adamw_scalars(gnorm: torch.Tensor, step: torch.Tensor, *, b1: float, b2: float,
+                  grad_clip: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The clip scale of the norm ``gnorm`` and the bias corrections
+    ``1 - b1^step``, ``1 - b2^step``, () fp32 tensors."""
+    scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
+    return scale, 1 - b1 ** step.float(), 1 - b2 ** step.float()
+
+
+def adamw_leaf_ref(p, g, m, v, scale, lr, b1c, b2c, *, b1: float, b2: float, eps: float,
+                   weight_decay: float) -> torch.Tensor:
+    """One leaf of the AdamW step: the fp32 moments ``m`` and ``v`` updated
+    in place, the new parameter returned in fp32 (``weight_decay`` 0 for a
+    leaf that does not decay)."""
+    g = g.float() * scale
+    m.mul_(b1).add_((1 - b1) * g)
+    v.mul_(b2).add_((1 - b2) * g.square())
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + eps)
+    if weight_decay:
+        delta = delta + weight_decay * p.float()
+    return p.float() - lr * delta
+
+
+@torch.no_grad()
+def adamw_update_ref(params, grads, mu, nu, step: torch.Tensor, lr: torch.Tensor, *,
+                     b1: float, b2: float, eps: float, weight_decay: float,
+                     grad_clip: float) -> torch.Tensor:
+    """One AdamW step on the leaves ``params`` (each updated in place, in its
+    own dtype) from ``grads`` (each in its parameter's dtype), with the fp32
+    moments ``mu`` and ``nu`` (in place): the gradients clipped by their
+    global norm, the bias corrections of ``step`` (the step being taken,
+    counted from 1), weight decay on the leaves with ``ndim >= 2`` (norms and
+    embedding scales exempt), the learning rate ``lr`` (a () fp32 tensor).
+    Returns the norm before clipping, a () fp32 tensor."""
+    gnorm = global_norm(grads)
+    scale, b1c, b2c = adamw_scalars(gnorm, step, b1=b1, b2=b2, grad_clip=grad_clip)
+    for p, g, m, v in zip(params, grads, mu, nu):
+        p.copy_(adamw_leaf_ref(p, g, m, v, scale, lr, b1c, b2c, b1=b1, b2=b2, eps=eps,
+                               weight_decay=weight_decay if p.dim() >= 2 else 0.0))
+    return gnorm
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The two scans as single operators, for the dry run's trace on the meta
-device.
+"""The two scans and the AdamW update as single operators, for the dry
+run's trace on the meta device.
 
 The plain scans (``ref.mamba_scan_ref``, ``ref.rwkv6_scan_ref``) loop over
 time, a few ops a step: at the dry run's lengths (4096 to 32768 steps, two
@@ -14,6 +14,12 @@ an autograd rule through a backward op of the same kind, and, registered by
 batch, or the channels (Mamba's d_inner, RWKV6's heads), sharded or not.
 The trace then counts a scan as the kernel's one pass over its operands.
 On a CPU tensor the ops run the plain versions, which the tests use.
+
+The AdamW kernel is one pass as well: ``adamw_update`` here traces the
+gradients' norm as one ``adamw_sumsq`` a leaf (a read of the gradient) and
+each leaf's update as one ``adamw_leaf`` (p, g, m and v read, p, m and v
+written), placed as their operands are.  The trace's tensors hold no data,
+so the new values are not written back.
 
 Below them, the placements of the model's ATen ops that torch 2.11's DTensor
 places otherwise than 2.13's (or cannot place), written from 2.13's rules and
@@ -151,6 +157,48 @@ def _register_flops() -> None:
 _register_flops()
 
 
+# -- AdamW: the norm's sum of squares and each leaf's update, one op each
+
+
+@torch.library.custom_op("repro_torch::adamw_sumsq", mutates_args=())
+def adamw_sumsq(g: Tensor) -> Tensor:
+    return g.float().square().sum()
+
+
+@adamw_sumsq.register_fake
+def _(g):
+    return g.new_empty((), dtype=torch.float32)
+
+
+@torch.library.custom_op("repro_torch::adamw_leaf", mutates_args=())
+def adamw_leaf(p: Tensor, g: Tensor, m: Tensor, v: Tensor, scale: Tensor, lr: Tensor,
+               b1c: Tensor, b2c: Tensor, b1: float, b2: float, eps: float,
+               weight_decay: float) -> Tuple[Tensor, Tensor, Tensor]:
+    """``ref.adamw_leaf_ref`` on copies: (p, m, v) after the step.
+    ``weight_decay`` 0 for a leaf that does not decay."""
+    m, v = m.clone(), v.clone()
+    p = ref.adamw_leaf_ref(p, g, m, v, scale, lr, b1c, b2c, b1=b1, b2=b2, eps=eps,
+                           weight_decay=weight_decay).to(p.dtype)
+    return p, m, v
+
+
+@adamw_leaf.register_fake
+def _(p, g, m, v, *args):
+    return torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
+
+
+def adamw_update(params, grads, mu, nu, step: Tensor, lr: Tensor, *, b1: float, b2: float,
+                 eps: float, weight_decay: float, grad_clip: float) -> Tensor:
+    """``ops.adamw_update`` as the trace counts it: the kernel's sums of
+    squares and its one pass a leaf.  Returns the norm."""
+    gnorm = torch.sqrt(sum(adamw_sumsq(g) for g in grads))
+    scale, b1c, b2c = ref.adamw_scalars(gnorm, step, b1=b1, b2=b2, grad_clip=grad_clip)
+    for p, g, m, v in zip(params, grads, mu, nu):
+        adamw_leaf(p, g, m, v, scale, lr, b1c, b2c, b1, b2, eps,
+                   weight_decay if p.dim() >= 2 else 0.0)
+    return gnorm
+
+
 # -- DTensor: each scan runs on local shards of the batch or of its channels
 
 
@@ -159,7 +207,9 @@ def register_shardings() -> None:
     """Register the scans' placements with DTensor (once a process).  On one
     mesh dimension the operands are all replicated, all sharded on the
     batch, or sharded on the channels, where the reductions of a backward
-    over the other axis come out ``Partial``."""
+    over the other axis come out ``Partial``.  AdamW's ops: a leaf's four
+    tensors replicated or sharded alike (the scalars replicated), its
+    sum of squares over a shard ``Partial``."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
     R, P = Replicate(), Partial()
@@ -188,6 +238,16 @@ def register_shardings() -> None:
         return [([R, R], [R] * 5 + [opt(S0, R)]),
                 ([Shard(0), Shard(0)], [Shard(0)] * 4 + [R, opt(S0, Shard(0))]),
                 ([Shard(2), Shard(1)], [Shard(2)] * 4 + [Shard(0), opt(S0, Shard(1))])]
+
+    @register_sharding(torch.ops.repro_torch.adamw_sumsq.default)
+    def _(g):
+        return [([R], [R])] + [([P], [Shard(d)]) for d in range(len(g.shape))]
+
+    @register_sharding(torch.ops.repro_torch.adamw_leaf.default)
+    def _(p, g, m, v, *scalars):
+        rest = [R] * 4 + [None] * (len(scalars) - 4)
+        return [([R] * 3, [R] * 4 + rest)] + [([Shard(d)] * 3, [Shard(d)] * 4 + rest)
+                                               for d in range(len(p.shape))]
 
     @register_sharding(torch.ops.repro_torch.rwkv6_scan_bwd.default)
     def _(r, k, v, w, u, S0, do, dS_last):

@@ -7,7 +7,8 @@ Counterpart of the JAX package's ``launch/train.py``, with its defaults:
 over ``--steps``.  ``--smoke`` trains the reduced float32 variant of the
 architecture; without it, the full config at its own dtype, which must fit
 one card.  It trains on the card unless ``--device cpu`` is given, and
-raises without a card rather than train on the CPU.
+raises without a card rather than train on the CPU.  On the card the step
+is captured as one CUDA graph and replayed.
 """
 from __future__ import annotations
 

@@ -247,7 +247,10 @@ def _run_stack(params_groups, kinds, x: torch.Tensor, cfg: ArchConfig,
         g_cross = ((None,) * len(kinds) if cross is None
                    else tuple((ck[g], cv[g], cross[1]) for ck, cv in cross[0]))
         if remat and caches is None and torch.is_grad_enabled():
-            x, aux = checkpoint(group, x, g_params, g_caches, g_cross, use_reentrant=False)
+            # the forward draws no random numbers, so the recompute needs no saved
+            # RNG state (whose read a CUDA graph's capture may refuse)
+            x, aux = checkpoint(group, x, g_params, g_caches, g_cross, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             x, aux = group(x, g_params, g_caches, g_cross)
         if aux is not None:

@@ -5,9 +5,12 @@ Counterpart of the JAX package's ``train/optimizer.py``, not
 dtype, the update runs in fp32 and is cast back to each parameter's dtype
 once, and only tensors with ``ndim >= 2`` decay.  The trees are the
 model's nested dicts and tuples (``models.layers.tree_leaves`` order).  Unlike the JAX version, which returns
-new trees, ``apply_updates`` updates the parameters and the moments in
-place (under ``torch.no_grad``), so that a step holds no second copy of
-them; it returns the same objects.
+new trees, ``apply_updates`` updates the parameters, the moments and the
+step counter in place, so that a step holds no second copy of them and a
+CUDA graph that captures it reads the advanced counter at each replay; it
+returns the same objects.  The update itself is ``kernels.ops.adamw_update``:
+on the card the AdamW kernel (one pass over every leaf, as XLA fuses the
+JAX version), on the CPU its plain version.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import tree_leaves, tree_map
 
 
@@ -61,7 +65,7 @@ def init_state(params) -> AdamWState:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))
+    return ref.global_norm(tree_leaves(tree))
 
 
 @torch.no_grad()
@@ -69,21 +73,14 @@ def apply_updates(cfg: AdamWConfig, params, grads, state: AdamWState
                   ) -> Tuple[Any, AdamWState, dict]:
     """One AdamW step on every leaf, in place: clip the gradients by their
     global norm, update the fp32 moments, decay the matrices, and write the
-    new parameters in their own dtype.  Returns (params, state, {"grad_norm",
-    "lr"}); the grad norm is the one before clipping."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    step = state.step + 1
+    new parameters in their own dtype; the learning rate is the schedule's
+    at ``state.step``, which then advances by one (in place) and gives the
+    bias corrections.  Returns (params, state, {"grad_norm", "lr"}); the
+    grad norm is the one before clipping."""
     lr = lr_schedule(cfg, state.step)
-    b1c = 1 - cfg.b1 ** step.float()
-    b2c = 1 - cfg.b2 ** step.float()
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
-                          tree_leaves(state.nu)):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.dim() >= 2:  # decay matrices only (norms/embedding-scales exempt)
-            delta = delta + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-    return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
+    state.step.add_(1)
+    gnorm = ops.adamw_update(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
+                             tree_leaves(state.nu), state.step, lr, b1=cfg.b1, b2=cfg.b2,
+                             eps=cfg.eps, weight_decay=cfg.weight_decay,
+                             grad_clip=cfg.grad_clip)
+    return params, state, {"grad_norm": gnorm, "lr": lr}

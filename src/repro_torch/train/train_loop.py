@@ -3,10 +3,13 @@
 Counterpart of the JAX package's ``train/train_loop.py``.  The step is the
 same function: the model's forward (``remat`` recomputes each layer group's
 activations in the backward), cross-entropy with z-loss plus the MoE aux
-loss, the gradients by autograd, and the reference's AdamW.  There is no
-``jit``: the step runs eagerly, its attention on the flash kernel and its
-backward kernels on the card.  ``train`` runs on the card unless asked for
-the CPU, and raises when it finds no card; it never carries on on the CPU.
+loss, the gradients by autograd, and the reference's AdamW (on the card
+the AdamW kernel).  As the JAX trainer jits the step, ``train`` captures it
+on the card as one CUDA graph at the first step and replays it for every
+later one (``train.step_graph.TrainGraph``); a failed capture raises.  On
+the CPU the same step runs eagerly.  ``train`` runs on the card unless
+asked for the CPU, and raises when it finds no card; it never carries on on
+the CPU.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.train.losses import cross_entropy
 from repro_torch.train.optimizer import AdamWConfig, AdamWState, apply_updates, init_state
+from repro_torch.train.step_graph import TrainGraph
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
@@ -64,9 +68,10 @@ def train(cfg: ArchConfig, batches: Iterator[Dict], steps: int,
           checkpoint_every: int = 0, device="cuda") -> Dict:
     """Train ``cfg`` from random weights drawn by ``torch.Generator`` seeded
     with ``seed`` on ``device`` for ``steps`` steps of ``batches`` (numpy
-    dicts of ``tokens`` and ``labels``).  Returns {"params", "opt_state",
-    "history"}, the history's entries holding the step's metrics as floats
-    with ``step`` and ``elapsed_s``."""
+    dicts of ``tokens`` and ``labels``).  On the card the first step is
+    captured and every later one replays it.  Returns {"params",
+    "opt_state", "history"}, the history's entries holding the step's
+    metrics as floats with ``step`` and ``elapsed_s``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train: no CUDA device; pass device='cpu' to train on the CPU")
@@ -75,11 +80,18 @@ def train(cfg: ArchConfig, batches: Iterator[Dict], steps: int,
     params = tree_map(lambda p: p.requires_grad_(True), params)
     opt_state = init_state(params)
     step_fn = make_train_step(cfg, opt_cfg)
+    graph = None
     history = []
     t0 = time.perf_counter()
     for step in range(steps):
         batch = {k: torch.as_tensor(v).to(device) for k, v in next(batches).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if device.type != "cuda":
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        elif graph is None:
+            graph = TrainGraph(step_fn, params, opt_state, batch)
+            metrics = graph.first_metrics
+        else:
+            metrics = graph.replay(batch)
         if step % log_every == 0 or step == steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = step

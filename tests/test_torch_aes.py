@@ -115,7 +115,7 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
                             "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
                             "flash_attention_bwd": 0, "moe_gmm_bwd": 0, "mamba_scan_bwd": 0,
-                            "rwkv6_scan_bwd": 0}
+                            "rwkv6_scan_bwd": 0, "adamw": 0}
 
 
 def test_other_devices_raise():

@@ -1804,3 +1804,241 @@ def test_capture_of_a_step_that_syncs_the_host_raises(cuda, monkeypatch):
         eng.generate(batch["tokens"].tolist(), max_new_tokens=4)
     torch.cuda.synchronize()
     assert len(eng.step_times_s) == 1 and eng.capture_s == []
+
+
+# ---------------------------------------------------------------------------
+# The AdamW kernel (``csrc/adamw.cu``) against its plain version, and the
+# training step captured as one CUDA graph (``train.step_graph``).  Kernel and
+# plain version compute each element's update in fp32 in the same order and
+# round once to the parameter's dtype, so p, m and v are held at the one-ulp
+# limits; the norm sums in another order (fp64 partials), rtol 1e-5.
+
+ADAMW_HYPER = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+#: odd sizes: a leaf under one 8-element vector, tails, matrices that decay,
+#: one just past a 2048-element tile, and one unaligned (a view from 1)
+ADAMW_SHAPES = [(7,), (1,), (3, 5), (33, 65), (4, 8, 129), (2049,), (1000, 513), "unaligned"]
+
+
+def _adamw_leaves(gen, dtype, shapes=ADAMW_SHAPES):
+    leaves = []
+    for shape in shapes:
+        if shape == "unaligned":      # contiguous, but 4 (or 2) bytes past an aligned address
+            p, g, m, v = (_randn(gen, (1 + 1537,), dt)[1:] for dt in (dtype, dtype,
+                                                                   torch.float32, torch.float32))
+        else:
+            p, g, m, v = (_randn(gen, shape, dt) for dt in (dtype, dtype, torch.float32,
+                                                           torch.float32))
+        leaves.append((p, 3 * g, 0.1 * m, v.abs() * 0.01))
+    return [list(x) for x in zip(*leaves)]
+
+
+@pytest.mark.parametrize("clip", [1.0, 1e6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_kernel_against_plain(cuda, dtype, clip):
+    from repro_torch.kernels import adamw as tadamw
+
+    params, grads, mu, nu = _adamw_leaves(cuda, getattr(torch, dtype))
+    step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    lr = torch.tensor(2e-3, device="cuda")
+    expect = [[t.clone() for t in xs] for xs in (params, mu, nu)]
+    before = dict(tadamw.LAUNCHES)
+    launches = ops.LAUNCHES["adamw"]
+    gnorm = ops.adamw_update(params, grads, mu, nu, step, lr, grad_clip=clip, **ADAMW_HYPER)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["adamw"] - launches == 3
+    assert {k: n - before[k] for k, n in tadamw.LAUNCHES.items()} == {
+        "sumsq": 1, "norm": 1, "update": 1}
+    want = ref.adamw_update_ref(expect[0], grads, expect[1], expect[2], step, lr,
+                                grad_clip=clip, **ADAMW_HYPER)
+    assert gnorm.dtype == torch.float32 and gnorm.shape == ()
+    torch.testing.assert_close(gnorm, want, rtol=1e-5, atol=0)
+    assert (float(gnorm) > clip) == (clip == 1.0)
+    for got, exp, dt in ((params, expect[0], dtype), (mu, expect[1], "float32"),
+                         (nu, expect[2], "float32")):
+        for a, b in zip(got, exp):
+            _assert_close(a, b, dt)
+
+
+def test_adamw_kernel_over_several_tables_is_deterministic(cuda):
+    """150 leaves, three launches' tables: the plain version's update, and
+    the same norm bit for bit from two calls on the same gradients."""
+    from repro_torch.kernels import adamw as tadamw
+
+    shapes = [((37 * i) % 3001 + 1,) if i % 3 else (i % 7 + 1, 129) for i in range(150)]
+    params, grads, mu, nu = _adamw_leaves(cuda, torch.bfloat16, shapes)
+    step = torch.tensor(1, dtype=torch.int32, device="cuda")
+    lr = torch.tensor(1e-3, device="cuda")
+    expect = [[t.clone() for t in xs] for xs in (params, mu, nu)]
+    saved = [[t.clone() for t in xs] for xs in (params, mu, nu)]
+    before = ops.LAUNCHES["adamw"]
+    g1 = ops.adamw_update(params, grads, mu, nu, step, lr, grad_clip=1.0, **ADAMW_HYPER)
+    assert ops.LAUNCHES["adamw"] - before == 2 * len(tadamw.split_tables(
+        [p.numel() for p in params])) + 1 == 7
+    want = ref.adamw_update_ref(expect[0], grads, expect[1], expect[2], step, lr,
+                                grad_clip=1.0, **ADAMW_HYPER)
+    torch.testing.assert_close(g1, want, rtol=1e-5, atol=0)
+    for got, exp, dt in zip((params, mu, nu), expect, ("bfloat16", "float32", "float32")):
+        for a, b in zip(got, exp):
+            _assert_close(a, b, dt)
+    g2 = ops.adamw_update(*saved[:1], grads, *saved[1:], step, lr, grad_clip=1.0,
+                          **ADAMW_HYPER)
+    assert torch.equal(g1, g2)
+
+
+def test_adamw_kernel_refuses_bad_operands(cuda):
+    from repro_torch.kernels import adamw as tadamw
+
+    params, grads, mu, nu = _adamw_leaves(cuda, torch.float32, [(4, 4)])
+    step = torch.tensor(1, dtype=torch.int32, device="cuda")
+    lr = torch.tensor(1e-3, device="cuda")
+    kw = dict(grad_clip=1.0, **ADAMW_HYPER)
+    for case in (dict(grads=[grads[0].bfloat16()]), dict(mu=[mu[0].bfloat16()]),
+                 dict(nu=[nu[0].t()]), dict(grads=[grads[0][:2]]),
+                 dict(step=step.long()), dict(lr=lr.double()),
+                 dict(params=[params[0].half()], grads=[grads[0].half()])):
+        args = {**dict(params=params, grads=grads, mu=mu, nu=nu, step=step, lr=lr), **case}
+        with pytest.raises(ValueError):
+            tadamw.adamw_update(**args, **kw)
+
+
+TRAIN_GRAPH_FAMILIES = {   # family -> (architecture, overrides, layers)
+    "dense": ("qwen3-1.7b", {}, None),
+    "moe": ("mixtral-8x7b", {}, 2),
+    "jamba": ("jamba-v0.1-52b", {}, 8),
+    "rwkv6": ("rwkv6-1.6b", {}, 2),
+    "seamless": ("seamless-m4t-large-v2", {}, None),
+    "pixtral": ("pixtral-12b", {"n_kv_heads": 1}, None),
+}
+
+
+def _train_graph_case(family, dtype, steps=4, B=2, S=48):
+    """A reduced model of ``family`` (weights on the CPU), its step, and
+    ``steps`` batches on the card: an enc-dec model's 150 frames under a
+    ragged ``enc_mask``, a frontend model's patch embeddings."""
+    import dataclasses
+
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
+
+    arch, kw, n_layers = TRAIN_GRAPH_FAMILIES[family]
+    base = reduced(get_arch(arch), n_layers=n_layers) if n_layers else reduced(get_arch(arch))
+    cfg = dataclasses.replace(base, dtype=dtype, **kw)
+    p_cpu = T.init_params(cfg, torch.Generator().manual_seed(0))
+    it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B)).batches()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = getattr(torch, dtype)
+    batches = []
+    for _ in range(steps):
+        b = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+        if cfg.encdec is not None:
+            b["enc_embeds"] = _randn(gen, (B, 150, cfg.frontend.embed_dim), dt)
+            b["enc_mask"] = torch.arange(150, device="cuda")[None] < torch.tensor(
+                [[150], [71]], device="cuda")
+        elif cfg.frontend is not None:
+            b = {"labels": b["labels"], "embeds": _randn(gen, (B, S, cfg.frontend.embed_dim),
+                                                         dt)}
+        batches.append(b)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps))
+    return cfg, p_cpu, step, batches
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", list(TRAIN_GRAPH_FAMILIES))
+def test_train_graph_replays_the_eager_step(cuda, family, dtype):
+    """The same weights and batches trained by a ``TrainGraph`` (its eager
+    warm-up step, then 3 replays) and by the eager step: each step's loss
+    and grad norm within rtol 1e-5, the parameters after the last step at
+    the dtype's limit, and each replay's launches by op and route equal to
+    an eager step's."""
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.step_graph import TrainGraph
+
+    cfg, p_cpu, step, batches = _train_graph_case(family, dtype)
+    runs, counts, final = {}, {}, {}
+    for mode in ("graph", "eager"):
+        params = tree_map(lambda p: p.to("cuda", copy=True).requires_grad_(True), p_cpu)
+        state = init_state(params)
+        runs[mode] = []
+        for i, b in enumerate(batches):
+            ops.reset_launches()
+            if mode == "eager":
+                params, state, m = step(params, state, b)
+            elif i == 0:
+                graph = TrainGraph(step, params, state, b)
+                m = graph.first_metrics
+            else:
+                m = graph.replay(b)
+            runs[mode].append({k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+            counts[mode] = ops.launch_counts()
+        final[mode] = [p.detach().clone() for p in tree_leaves(params)]
+        assert int(state.step) == len(batches)
+    from repro_torch.kernels import adamw as tadamw
+    tables = tadamw.split_tables([p.numel() for p in tree_leaves(p_cpu)])
+    assert graph.capture_s > 0 and graph.launches[("adamw", None)] == 2 * len(tables) + 1
+    assert counts["graph"] == counts["eager"]
+    for g, e in zip(runs["graph"], runs["eager"]):
+        for k in g:
+            assert g[k] == pytest.approx(e[k], rel=1e-5, abs=0), k
+    for a, b in zip(final["graph"], final["eager"]):
+        _assert_close(a, b, dtype)
+
+
+def test_capture_of_a_train_step_that_syncs_the_host_raises(cuda, monkeypatch):
+    """A step whose schedule reads the counter on the host (and copies the
+    rate it computed there to the card) runs eagerly (the warm-up) but
+    cannot be captured: ``TrainGraph`` raises."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.step_graph import TrainGraph
+
+    cfg, p_cpu, step, batches = _train_graph_case("dense", "float32", steps=1)
+    schedule = topt.lr_schedule
+    monkeypatch.setattr(topt, "lr_schedule", lambda c, s: schedule(c, int(s)).to(s.device))
+    params = tree_map(lambda p: p.to("cuda", copy=True).requires_grad_(True), p_cpu)
+    with pytest.raises(RuntimeError):
+        TrainGraph(step, params, topt.init_state(params), batches[0])
+    torch.cuda.synchronize()
+
+
+def test_train_and_the_launcher_replay_the_captured_step(cuda):
+    """``train`` on the card captures its first step and replays it for the
+    later ones: its history equals the eager step's from the same seed
+    (rtol 1e-5) and the AdamW kernel launches every step.  The launcher
+    trains the same way."""
+    import dataclasses
+    import math
+
+    from repro_torch.config import get_arch, reduced
+    from repro_torch.kernels import adamw as tadamw
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step, train
+    from repro_torch.train.optimizer import init_state
+
+    cfg = dataclasses.replace(reduced(get_arch("qwen3-1.7b")), dtype="float32")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=48, batch_size=2)
+    steps = 4
+    ops.reset_launches()
+    res = train(cfg, SyntheticLM(dc).batches(), steps, seed=0, log_every=1, device="cuda")
+    tables = len(tadamw.split_tables([p.numel() for p in tree_leaves(res["params"])]))
+    assert ops.LAUNCHES["adamw"] == steps * (2 * tables + 1)
+    assert int(res["opt_state"].step) == steps
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    params = tree_map(lambda p: p.requires_grad_(True), params)
+    state = init_state(params)
+    step = make_train_step(cfg, AdamWConfig(total_steps=steps))
+    for h, b in zip(res["history"], SyntheticLM(dc).batches()):
+        b = {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+        params, state, m = step(params, state, b)
+        for k in ("loss", "grad_norm", "lr"):
+            assert h[k] == pytest.approx(float(m[k]), rel=1e-5, abs=0), (h["step"], k)
+    for a, b in zip(tree_leaves(res["params"]), tree_leaves(params)):
+        _assert_close(a, b, "float32")
+    ops.reset_launches()
+    out = ltrain.main(["--arch", "qwen3-1.7b", "--smoke", "--steps", "3", "--seq-len", "32",
+                       "--batch", "2"])
+    assert ops.LAUNCHES["adamw"] == 3 * (2 * tables + 1)
+    assert all(math.isfinite(h["loss"]) for h in out["history"])

@@ -193,7 +193,7 @@ def test_cpu_tensors_take_the_plain_version_and_do_not_count():
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
                             "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
                             "flash_attention_bwd": 0, "moe_gmm_bwd": 0,
-                            "mamba_scan_bwd": 0, "rwkv6_scan_bwd": 0}
+                            "mamba_scan_bwd": 0, "rwkv6_scan_bwd": 0, "adamw": 0}
 
 
 def test_other_devices_raise():
@@ -206,7 +206,7 @@ def test_other_devices_raise():
     assert ops.LAUNCHES == {"flash_attention": 0, "decode_attention": 0, "aes_ctr": 0,
                             "moe_gmm": 0, "mamba_scan": 0, "rwkv6_scan": 0,
                             "flash_attention_bwd": 0, "moe_gmm_bwd": 0,
-                            "mamba_scan_bwd": 0, "rwkv6_scan_bwd": 0}
+                            "mamba_scan_bwd": 0, "rwkv6_scan_bwd": 0, "adamw": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -391,7 +391,8 @@ def test_route_counts_reset_and_ignore_cpu_tensors():
                                                   "dx_mma_sync": 0, "dw_stream": 0,
                                                   "dw_wgmma": 0, "dw_mma_sync": 0},
                                   "mamba_scan_bwd": {"ring": 0, "ckpt": 0},
-                                  "rwkv6_scan_bwd": {"ring": 0, "rows": 0}}
+                                  "rwkv6_scan_bwd": {"ring": 0, "rows": 0},
+                                  "adamw": {"sumsq": 0, "norm": 0, "update": 0}}
 
 
 def test_every_entry_point_refuses_cpu_tensors():
