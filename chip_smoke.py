@@ -128,22 +128,28 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    and 8; phi3.5's top 2 over 4 experts);
 5. full-width ``qwen3-1.7b`` (bf16, random weights from a seed) served by
    ``ServingEngine``: 8 prompts of 512 tokens, 32 new tokens each.  The
-   engine captures its decode step as one CUDA graph in a warm-up request
-   and replays it for each token; the eager step (the previous design: op
-   by op, a Python ``pos``) serves the same prompts in turns with it
-   (graph, eager, graph), the counters reset before each run.  The
-   first run's kernel launch counts are checked against the layers by
+   engine captures its prefill (one CUDA graph per prompt shape) and its
+   decode step (one per batch shape) in a warm-up request, in one memory
+   pool, and replays them; the eager steps (the previous design: op by op,
+   the decode step with a Python ``pos``) serve the same prompts in turns
+   with them (graph, eager, graph), the counters reset before each run.
+   The first run's kernel launch counts are checked against the layers by
    kind, and its launches by route: every bf16 prefill attention on
    ``wgmma``, every bf16 decode attention on ``split``, every expert matmul
    of a prefill on ``wgmma`` and of a decode step on ``stream`` (the routes
    that ``route`` in the wrappers gives their shapes); each other run
-   launches the same, and serves the same tokens.  Then the replays
+   launches the same, and serves the same tokens.  Phase 5 then serves a
+   256-token batch between two 512-token batches through the same engine,
+   replayed and eager (a second prefill graph in the pool; every run's
+   tokens equal the eager run's).  Then the replays
    against an eager loop step by step: equal greedy tokens, every step's
-   logits at the bf16 limit; then 4 decode steps under the profiler (its
-   CUDA activity) as replays and 4 eager, the replay's device time within 5
-   % of the eager step's, and one prefill: device us, wall us, idle share, the
-   engine's mean decode step (``work_us``) of both designs, the capture's
-   seconds and the peak memory, the graph's pool included;
+   logits (the prefill's too) at the bf16 limit; then 4 decode steps under
+   the profiler (its CUDA activity) as replays and 4 eager, the replay's
+   device time within 5 % of the eager step's, and 2 prefills replayed and
+   2 eager, the same way: device us, wall us, idle share, the engine's mean
+   decode step (``work_us``) of both designs and their prefill ms (host
+   clock, 3 prefills a turn in turns: graph, eager, eager, graph), each
+   capture's seconds and the peak memory, the graphs' pool included;
 5b. the same traffic through full-width ``mixtral-8x7b`` cut from 32 to 24
    layers (bf16, 70.2 GB of weights: all 32 layers do not fit one 80 GB
    card), every expert matmul through the ``moe_gmm`` kernel;
@@ -162,8 +168,10 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    frames (the engine's ``inputs``), a 512-token decoder prompt and 32 new
    tokens, through the engine as in phase 5; every attention (encoder,
    self, cross) on flash ``wgmma`` and decode ``split``, checked by route;
-   then one prefill under a ragged ``enc_mask``, timed, its 24 cross
-   prefills on ``wgmma_masked``;
+   then the prefill under a ragged ``enc_mask`` through the engine (its own
+   prompt shape, so a third graph), replayed and eager, timed, its logits
+   at the bf16 limit of each other, its 24 cross prefills on
+   ``wgmma_masked``;
 5g. full-width, full-depth ``pixtral-12b`` (24.5 GB of bf16 weights, 5f's
    memory freed first): 8 prompts of 1024 stub image-patch embeddings and
    32 new tokens, the same way; after 5j, the eager and replay figures of
@@ -440,6 +448,8 @@ ENCDEC_MASK_LENGTHS = (150, 97, 31, 64)          # phase 4f's ragged enc_mask, a
 PROMPT_LEN, NEW_TOKENS, SLOTS, MAX_SEQ = 512, 32, 8, 1024
 PIXTRAL_SEQ = 2048           # phase 5g: 1024 patch embeddings and 32 new tokens
 PROFILED_STEPS = 4
+PROFILED_PREFILLS = 2
+TIMED_PREFILLS = 3           # a turn of prefill_in_turns, phases 5-5j
 GRAPH_DEVICE_TOL = 0.05      # a replay's device time against the eager step's, phases 5-5j
 HOLD_CYCLES = 400_000        # ~0.2 ms of the card's clock, held before each timed launch
 BWD_HOLD_CYCLES = 4_000_000  # ~2 ms: SDPA's backward, enqueued through the autograd engine
@@ -732,29 +742,35 @@ def prompt_len(batch) -> int:
 
 
 def profile_prefill(torch, eng, batch):
-    """Device time and host wall time of one profiled prefill of ``batch``
-    through the engine ``eng``, and the kernels that take most of the
-    device time."""
+    """Device time and host wall time of a prefill of ``batch`` through the
+    engine ``eng`` (its graph's replay, or the eager prefill, as
+    ``eng.prefill_mode`` says), both over the same ``PROFILED_PREFILLS``
+    profiled prefills, the kernels that take most of the device time and
+    the kernels a prefill runs.  The profiler traces the card's activity
+    only, as ``profile_decode``'s."""
     from torch.profiler import ProfilerActivity, profile
 
+    eng.prefill(batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.prefill(batch)
+        for _ in range(PROFILED_PREFILLS):
+            eng.prefill(batch)
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    device_us, top, kernels = device_profile(torch, prof, 1)
+        wall_us = 1e6 * (time.perf_counter() - t0) / PROFILED_PREFILLS
+    device_us, top, kernels = device_profile(torch, prof, PROFILED_PREFILLS)
     return device_us, wall_us, top, kernels
 
 
 def profile_decode(torch, eng, batch):
     """Device time and host wall time of one decode step of the engine
-    ``eng`` (its graph's replay, or the eager step, as ``eng.decode`` says)
-    after a prefill of ``batch``, both over the same ``PROFILED_STEPS``
-    profiled steps, the kernels that take most of the device time and the
-    kernels a step runs.  The profiler traces the card's activity only: the
-    host's ops of an eager step, traced, would take seconds to read back.
-    Device time is None when the profiler sees no kernel."""
+    ``eng`` (its graph's replay, or the eager step, as ``eng.decode_mode``
+    says) after a prefill of ``batch``, both over the same
+    ``PROFILED_STEPS`` profiled steps, the kernels that take most of the
+    device time and the kernels a step runs.  The profiler traces the
+    card's activity only: the host's ops of an eager step, traced, would
+    take seconds to read back.  Device time is None when the profiler sees
+    no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     lg = eng.prefill(batch)
@@ -771,22 +787,53 @@ def profile_decode(torch, eng, batch):
     return device_us, wall_us, top, kernels
 
 
+def prefill_in_turns(torch, eng, batch) -> dict:
+    """Host-clock ms of ``TIMED_PREFILLS`` prefills of ``batch`` through the
+    engine ``eng`` a turn, each up to a synchronize, replayed and eager in
+    turns (graph, eager, eager, graph), each turn after one untimed prefill
+    of its design (so that the eager prefill finds the allocator's cache
+    grown again after a capture emptied it): {"graph": [...], "eager": [...]}."""
+    times = {"graph": [], "eager": []}
+    for mode in ("graph", "eager", "eager", "graph"):
+        eng.prefill_mode = mode
+        eng.prefill(batch)
+        torch.cuda.synchronize()
+        for _ in range(TIMED_PREFILLS):
+            t0 = time.perf_counter()
+            eng.prefill(batch)
+            torch.cuda.synchronize()
+            times[mode].append(1e3 * (time.perf_counter() - t0))
+    eng.prefill_mode = "graph"
+    return times
+
+
+def set_modes(eng, mode: str) -> None:
+    """Both steps of the engine ``eng`` replayed (``"graph"``) or eager."""
+    eng.prefill_mode = eng.decode_mode = mode
+
+
 def print_profiles(torch, eng, batch) -> dict:
     """Profile ``PROFILED_STEPS`` decode steps of ``eng`` on ``batch`` as
-    its graph's replay, then as the eager step, and one prefill; print each
-    one's device time, wall time, idle share, kernels run and top kernels.
-    Returns {"graph", "eager", "prefill": (device us, wall us, kernels)}, a
-    decode step's for the first two; device us None where the profiler saw
-    no kernel."""
+    its graph's replay, then as the eager step, and ``PROFILED_PREFILLS``
+    prefills the same two ways; print each one's device time, wall time,
+    idle share, kernels run and top kernels.  Returns {"graph", "eager",
+    "prefill graph", "prefill eager": (device us, wall us, kernels)}, a
+    decode step's for the first two and a prefill's for the others; device
+    us None where the profiler saw no kernel."""
     out = {}
     for key, what in (("graph", f"decode step (graph replay) over {PROFILED_STEPS} "
                                 "profiled steps"),
                       ("eager", f"decode step (eager) over {PROFILED_STEPS} profiled steps"),
-                      ("prefill", "prefill, profiled once")):
-        if key == "prefill":
+                      ("prefill graph", f"prefill (graph) over {PROFILED_PREFILLS} profiled "
+                                        "prefills"),
+                      ("prefill eager", f"prefill (eager) over {PROFILED_PREFILLS} profiled "
+                                        "prefills")):
+        mode = key.split()[-1]
+        if key.startswith("prefill"):
+            eng.prefill_mode = mode
             device_us, wall_us, top, kernels = profile_prefill(torch, eng, batch)
         else:
-            eng.decode = key
+            eng.decode_mode = mode
             device_us, wall_us, top, kernels = profile_decode(torch, eng, batch)
         out[key] = (device_us, wall_us, kernels)
         if device_us is None:
@@ -797,7 +844,7 @@ def print_profiles(torch, eng, batch) -> dict:
               f"device idle share {1 - device_us / wall_us:.3f}  kernels {kernels:.1f}")
         for name, us in top:
             print(f"  {us:10.1f} us  {name[:100]}")
-    eng.decode = "graph"
+    set_modes(eng, "graph")
     return out
 
 
@@ -2893,13 +2940,13 @@ def main() -> int:
 
     def graph_against_eager(eng, batch):
         """Greedy ``NEW_TOKENS`` tokens of ``batch`` through the engine's
-        graph replays and through an eager loop (the previous design: the
-        step op by op, a Python ``pos``) on the same engine: equal tokens,
-        and every step's logits (the prefill's too) finite and within the
-        bf16 limit.  Returns the largest |diff|."""
+        graph replays and through an eager loop (the previous designs: the
+        prefill and the step op by op, a Python ``pos``) on the same engine:
+        equal tokens, and every step's logits (the prefill's too) finite and
+        within the bf16 limit.  Returns the largest |diff|."""
         runs = {}
         for mode in ("graph", "eager"):
-            eng.decode = mode
+            set_modes(eng, mode)
             lg = eng.prefill(batch)
             steps, toks = [lg.clone()], [lg.argmax(-1)]
             for i in range(NEW_TOKENS - 1):
@@ -2907,7 +2954,7 @@ def main() -> int:
                 steps.append(lg.clone())
                 toks.append(lg.argmax(-1))
             runs[mode] = steps, torch.cat(toks, 1)
-        eng.decode = "graph"
+        set_modes(eng, "graph")
         if not torch.equal(runs["graph"][1], runs["eager"][1]):
             raise AssertionError(f"{eng.cfg.name}: the replays' greedy tokens differ from the "
                                  "eager loop's")
@@ -2915,22 +2962,36 @@ def main() -> int:
                                TOL["bfloat16"])
                    for i, (g, e) in enumerate(zip(runs["graph"][0], runs["eager"][0])))
 
+    def within_tol(name, what, graph_us, eager_us):
+        """Raise unless the replay's device time is within
+        ``GRAPH_DEVICE_TOL`` of the eager design's."""
+        if graph_us is None or eager_us is None or \
+                abs(graph_us / eager_us - 1) > GRAPH_DEVICE_TOL:
+            raise AssertionError(f"{name}: the {what} replay's device time {graph_us} us is "
+                                 f"not within {GRAPH_DEVICE_TOL} of the eager one's "
+                                 f"{eager_us} us")
+
     graph_rows = []              # phases 5-5j, eager against replay: the table after 5j
 
-    def serve(cfg, prompts, inputs=None, seq_len=MAX_SEQ, expect_routes=None, enc_mask=None):
+    def serve(cfg, prompts, inputs=None, seq_len=MAX_SEQ, expect_routes=None, enc_mask=None,
+              between=None):
         """Serve ``prompts`` (and ``inputs``, the batch's other entries)
         through a fresh engine of ``cfg`` on the card: a warm-up, which
-        captures the decode step; then ``NEW_TOKENS`` tokens three times in
-        turns, replaying the graph and with the eager step (graph, eager,
-        graph), the launch counters reset before each run: the first
-        run's launches held by route to ``expect_routes`` (by default
-        ``engine_routes``'), each other run's equal to the first's, every
-        run's tokens equal; ``graph_against_eager``; the profiled steps of
-        both and a prefill; the replay's device time within
-        ``GRAPH_DEVICE_TOL`` of the eager step's.  Given ``enc_mask``, then
-        one more prefill under it, timed, its flash launches by route kept.
-        Returns {"step_us": the replays' mean decode step (the endpoint's
-        ``work_us``), "launches", "routes", "masked_routes"}."""
+        captures the prefill and the decode step; then ``NEW_TOKENS``
+        tokens three times in turns, replaying the graphs and with the eager
+        steps (graph, eager, graph), the launch counters reset before each
+        run: the first run's launches held by route to ``expect_routes`` (by
+        default ``engine_routes``'), each other run's equal to the first's,
+        every run's tokens equal; given ``between`` (prompts of another
+        length), the prompts, ``between`` and the prompts again through the
+        engine, replayed and eager, every run's tokens equal the eager
+        run's; ``graph_against_eager``; the profiled steps and prefills of
+        both designs; each replay's device time within ``GRAPH_DEVICE_TOL``
+        of the eager design's.  Given ``enc_mask``, then the prefill under it
+        through the engine, captured, then replayed and eager in turns,
+        timed, its flash launches by route kept.  Returns {"step_us": the
+        replays' mean decode step (the endpoint's ``work_us``), "launches",
+        "routes", "masked_routes"}."""
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         eng = ServingEngine(cfg, batch_slots=SLOTS, max_seq_len=seq_len, seed=SEED,
@@ -2944,14 +3005,14 @@ def main() -> int:
               f"{torch.cuda.memory_allocated()} bytes on the card; weights {tree_bytes(eng.params)} "
               f"bytes, {tree_bytes(groups) // groups[0]['ln1'].shape[0]} per "
               f"{len(groups)}-layer group")
-        eng.generate(prompts, max_new_tokens=2, inputs=inputs)   # warm-up, and the capture
+        eng.generate(prompts, max_new_tokens=2, inputs=inputs)   # warm-up, and the captures
         n_decode = NEW_TOKENS - 1
         if expect_routes is None:
             expect_routes = engine_routes(cfg, n_decode, seq_len)
         expect = {op: sum(expect_routes.get(op, {}).values()) for op in ops.LAUNCHES}
         runs = {"graph": [], "eager": []}
         for turn, mode in enumerate(("graph", "eager", "graph")):
-            eng.decode = mode
+            set_modes(eng, mode)
             eng.step_times_s.clear()
             ops.reset_launches()
             outs = eng.generate(prompts, max_new_tokens=NEW_TOKENS, inputs=inputs)
@@ -2968,9 +3029,10 @@ def main() -> int:
             if len(eng.step_times_s) != NEW_TOKENS:
                 raise AssertionError(f"{cfg.name}: {len(eng.step_times_s)} steps timed")
             runs[mode].append((list(eng.step_times_s), outs))
-        eng.decode = "graph"
-        if len(eng.capture_s) != 1:
-            raise AssertionError(f"{cfg.name}: {len(eng.capture_s)} captures, expected 1")
+        set_modes(eng, "graph")
+        if (len(eng.prefill_graphs), len(eng.decode_graphs), len(eng.capture_s)) != (1, 1, 2):
+            raise AssertionError(f"{cfg.name}: {len(eng.prefill_graphs)} prefill and "
+                                 f"{len(eng.decode_graphs)} decode graphs, expected one each")
         first = runs["graph"][0][1]
         if any(outs != first for by_mode in runs.values() for _, outs in by_mode):
             raise AssertionError(f"{cfg.name}: the runs served different tokens")
@@ -2979,41 +3041,92 @@ def main() -> int:
             raise AssertionError("generated tokens out of shape or range")
         work = {mode: statistics.fmean(print_run(mode, times, outs[0]) for times, outs in by_mode)
                 for mode, by_mode in runs.items()}
+        served_ms = {mode: statistics.fmean(1e3 * times[0] for times, _ in by_mode)
+                     for mode, by_mode in runs.items()}
         batch = dict(inputs or {})
         if "embeds" not in batch:
             batch["tokens"] = torch.tensor(prompts, device=dev)
+        (prefill_graph,), (decode_graph,) = eng.prefill_graphs.values(), eng.decode_graphs.values()
+        if between is not None:
+            served = {}
+            for mode in ("graph", "eager"):
+                set_modes(eng, mode)
+                served[mode] = [eng.generate(p, max_new_tokens=NEW_TOKENS, inputs=inputs)
+                                for p in (prompts, between, prompts)]
+            set_modes(eng, "graph")
+            if served["graph"] != served["eager"] or served["graph"][0] != first or \
+                    served["graph"][2] != first:
+                raise AssertionError(f"{cfg.name}: prompts of {len(prompts[0])}, "
+                                     f"{len(between[0])} and {len(prompts[0])} tokens in turn "
+                                     "served other tokens replayed than eager")
+            if (len(eng.prefill_graphs), len(eng.decode_graphs)) != (2, 1):
+                raise AssertionError(f"{cfg.name}: {len(eng.prefill_graphs)} prefill and "
+                                     f"{len(eng.decode_graphs)} decode graphs, expected 2 and 1")
+            print(f"  prompts of {len(prompts[0])}, {len(between[0])} and {len(prompts[0])} "
+                  f"tokens in turn through one engine: the replays' tokens equal the eager "
+                  f"runs' ({len(between[0])}-token prompts' first tokens "
+                  f"{served['graph'][1][0][:8]} ...); prefill graphs "
+                  f"{sorted(k[:3] for k in eng.prefill_graphs)}, capture_s of the second "
+                  f"{eng.capture_s[-1]:.3f}")
         err = graph_against_eager(eng, batch)
         print(f"  {NEW_TOKENS} greedy tokens of the replays equal an eager loop's; every step's "
-              f"logits within atol/rtol {TOL['bfloat16']}: max |diff| {err:.3g}")
+              f"logits, the prefill's too, within atol/rtol {TOL['bfloat16']}: max |diff| "
+              f"{err:.3g}")
+        prefill_times = prefill_in_turns(torch, eng, batch)
+        prefill_ms = {mode: statistics.fmean(ts) for mode, ts in prefill_times.items()}
+        print(f"  prefill_ms in turns (graph, eager, eager, graph; {TIMED_PREFILLS} a turn): "
+              + "; ".join(f"{mode} {spread(ts)}" for mode, ts in prefill_times.items()))
         prof = print_profiles(torch, eng, batch)
-        profiles[cfg.name] = {"decode": prof["graph"][0], "prefill": prof["prefill"][0]}
+        profiles[cfg.name] = {"decode": prof["graph"][0], "prefill": prof["prefill graph"][0]}
         (d_graph, w_graph, k_graph), (d_eager, w_eager, _) = prof["graph"], prof["eager"]
+        (pd_graph, pw_graph, pk_graph), (pd_eager, pw_eager, _) = (prof["prefill graph"],
+                                                                   prof["prefill eager"])
         peak = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
         print(f"{cfg.name}: decode step eager / replay: device_us {d_eager} / {d_graph}, wall_us "
               f"{w_eager:.1f} / {w_graph:.1f}, work_us {work['eager']:.1f} / "
-              f"{work['graph']:.1f}; capture_s {eng.capture_s[0]:.3f}; peak "
-              f"{peak} bytes, the graph's pool included")
-        if d_graph is None or d_eager is None or abs(d_graph / d_eager - 1) > GRAPH_DEVICE_TOL:
-            raise AssertionError(f"{cfg.name}: the replay's device time {d_graph} us is not "
-                                 f"within {GRAPH_DEVICE_TOL} of the eager step's {d_eager} us")
+              f"{work['graph']:.1f}; capture_s {decode_graph.capture_s:.3f}")
+        print(f"{cfg.name}: prefill eager / replay: prefill_ms {prefill_ms['eager']:.3f} / "
+              f"{prefill_ms['graph']:.3f} in turns ({served_ms['eager']:.3f} / "
+              f"{served_ms['graph']:.3f} in the served runs), device_us {pd_eager} / {pd_graph}, wall_us "
+              f"{pw_eager:.1f} / {pw_graph:.1f}; capture_s {prefill_graph.capture_s:.3f}; "
+              f"peak {peak} bytes allocated, the graphs' pool included ({reserved} reserved)")
+        within_tol(cfg.name, "decode step", d_graph, d_eager)
+        within_tol(cfg.name, "prefill", pd_graph, pd_eager)
         graph_rows.append((cfg.name, d_eager, d_graph, w_eager, w_graph, work["eager"],
-                           work["graph"], eng.capture_s[0], peak, k_graph))
+                           work["graph"], decode_graph.capture_s, peak, k_graph,
+                           prefill_ms["eager"], prefill_ms["graph"], pd_eager, pd_graph,
+                           pw_eager, pw_graph, prefill_graph.capture_s, pk_graph))
         masked_routes = None
         if enc_mask is not None:
             masked_batch = {**batch, "enc_mask": enc_mask}
-            with torch.inference_mode():
-                T.prefill(eng.params, cfg, masked_batch, seq_len=seq_len)      # warm-up
+            eng.prefill(masked_batch)                                # the capture
+            masked_ms, logits = {}, {}
+            for mode in ("graph", "eager", "eager", "graph"):
+                eng.prefill_mode = mode
                 torch.cuda.synchronize()
                 ops.reset_launches()
                 t0 = time.perf_counter()
-                lg, _ = T.prefill(eng.params, cfg, masked_batch, seq_len=seq_len)
+                lg = eng.prefill(masked_batch)
                 torch.cuda.synchronize()
-                masked_ms = 1e3 * (time.perf_counter() - t0)
-                masked_routes = dict(ops.ROUTE_LAUNCHES["flash_attention"])
-                if not bool(lg.float().isfinite().all()):
-                    raise AssertionError(f"{cfg.name}: masked prefill logits are not finite")
-            print(f"masked prefill (enc_mask valid lengths {enc_mask.sum(1).tolist()}): "
-                  f"prefill_ms {masked_ms:.3f}; flash launches by route {masked_routes}")
+                masked_ms.setdefault(mode, []).append(1e3 * (time.perf_counter() - t0))
+                logits[mode] = lg.clone()
+                routes_now = dict(ops.ROUTE_LAUNCHES["flash_attention"])
+                if masked_routes not in (None, routes_now):
+                    raise AssertionError(f"{cfg.name}: the masked prefill's flash launches "
+                                         f"{routes_now} differ between designs")
+                masked_routes = routes_now
+            eng.prefill_mode = "graph"
+            if not bool(logits["graph"].float().isfinite().all()):
+                raise AssertionError(f"{cfg.name}: masked prefill logits are not finite")
+            err = check_close(f"{cfg.name} masked prefill logits, replay against eager",
+                              logits["graph"], logits["eager"], TOL["bfloat16"])
+            print(f"masked prefill (enc_mask valid lengths {enc_mask.sum(1).tolist()}), a "
+                  f"third graph: prefill_ms eager / replay "
+                  f"{statistics.fmean(masked_ms['eager']):.3f} / "
+                  f"{statistics.fmean(masked_ms['graph']):.3f} (two each, in turns); logits "
+                  f"max |diff| {err:.3g}; capture_s {eng.capture_s[-1]:.3f}; flash launches "
+                  f"by route {masked_routes}")
         return {"step_us": work["graph"], "launches": launches, "routes": routes,
                 "masked_routes": masked_routes}
 
@@ -3033,7 +3146,8 @@ def main() -> int:
     profiles = {}                # device times of phase 5's profiled steps, for phase 12b
     cfg = get_arch("qwen3-1.7b")
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT_LEN)).tolist()
-    served = serve(cfg, prompts)
+    served = serve(cfg, prompts, between=np.random.default_rng(SEED + 30).integers(
+        0, cfg.vocab_size, (SLOTS, PROMPT_LEN // 2)).tolist())
     launches = served["launches"]
     if served["routes"] != serving_routes(28, 868):
         raise AssertionError(f"qwen3's launches by route {served['routes']}")
@@ -3170,14 +3284,23 @@ def main() -> int:
     print(f"\ndecode step, eager / graph replay (phases 5-5j; device and wall us a step over "
           f"{PROFILED_STEPS} profiled steps each; work_us the engine's mean decode "
           f"step over {NEW_TOKENS} tokens, two runs of the replay, one eager; capture_s the "
-          f"warm-up step and the "
-          f"capture):")
-    for name, de, dg, we, wg, ke, kg, cap_s, peak, kernels in graph_rows:
+          f"warm-up step and the capture):")
+    for name, de, dg, we, wg, ke, kg, cap_s, peak, kernels, *_ in graph_rows:
         print(f"  {name}: device_us {de:.1f} / {dg:.1f} ({dg / de:.4f}); wall_us {we:.1f} / "
               f"{wg:.1f}; idle {1 - de / we:.3f} / {1 - dg / wg:.3f}; work_us {ke:.1f} / "
               f"{kg:.1f} ({ke / kg:.2f} x); capture_s {cap_s:.3f}; peak {peak} bytes; "
               f"{kernels:.1f} kernels a replay, work_us over device_us "
               f"{(kg - dg) / kernels:.3f} us a kernel")
+    print(f"\nprefill, eager / graph replay (phases 5-5j; prefill_ms on the host clock, "
+          f"{2 * TIMED_PREFILLS} prefills of each design in turns; device and wall us a "
+          f"prefill over "
+          f"{PROFILED_PREFILLS} profiled prefills each; capture_s the warm-up prefill and the "
+          f"capture):")
+    for name, *_, pe, pg, de, dg, we, wg, cap_s, kernels in graph_rows:
+        print(f"  {name}: prefill_ms {pe:.3f} / {pg:.3f} ({pe / pg:.2f} x); device_us "
+              f"{de:.1f} / {dg:.1f} ({dg / de:.4f}); wall_us {we:.1f} / {wg:.1f}; idle "
+              f"{1 - de / we:.3f} / {1 - dg / wg:.3f}; capture_s {cap_s:.3f}; {kernels:.1f} "
+              f"kernels a replay")
 
     # -- 6 ------------------------------------------------------------------
     phase("6 AES-128-CTR kernel against its plain version, bit-exact")

@@ -388,6 +388,19 @@ def init_caches(params, cfg: ArchConfig, batch: int, seq_len: int):
     return tuple(one(kind) for kind in kinds)
 
 
+def init_cross_caches(params, cfg: ArchConfig, batch: int, frames: int) -> dict:
+    """Zeroed buffers of an enc-dec prefill's ``"cross_kv"`` and
+    ``"cross_valid"`` for ``batch`` rows of ``frames`` encoder frames, the
+    shapes and dtypes ``prefill`` returns, on the parameters' device."""
+    kinds, n_groups = _plan(cfg)
+    device, dtype = params["embed"].device, dtype_of(cfg)
+    shape = (n_groups, batch, frames, cfg.n_kv_heads, cfg.resolved_head_dim)
+    kv = tuple((torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device)) for _ in kinds)
+    return {"cross_kv": kv,
+            "cross_valid": torch.zeros((batch, frames), dtype=torch.bool, device=device)}
+
+
 def recurrent_states(cfg: ArchConfig, caches) -> list:
     """The Mamba and RWKV6 states of ``init_caches``' tree: what a prefill
     reads as its initial state and a decode step advances.  (A KV cache is

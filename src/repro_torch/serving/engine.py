@@ -6,23 +6,29 @@ decode steps, and ``mean_decode_step_us`` averages the decode steps only.
 Each step is timed on the host clock up to ``torch.cuda.synchronize()``,
 where the JAX engine waits with ``block_until_ready``.
 
-Where the JAX engine jits its decode step, this one captures it on the
-card as one CUDA graph (``serving.step_graph.DecodeGraph``) at its first
-decode for a batch shape, and replays the graph for each new token, with
-``pos`` a device scalar as the JAX step's ``jnp.int32(pos)``.  So that the
-graph reads the same addresses on every call, the engine allocates the
-caches once per batch shape (``T.init_caches``), prefills into them, zeroes
-the recurrent states before each prefill and copies an enc-dec prefill's
-cross K/V into buffers it keeps.  The JAX engine's first decode step
-includes its compile; here the capture (an eager warm-up step and the
-capture itself) is timed apart, in ``capture_s``, and ``step_times_s``
-holds replays only.  A failed capture raises.  ``decode="eager"`` keeps
-the previous design, the step dispatched op by op with a Python ``pos``
-(what ``chip_smoke.py`` times beside the replay).
+Where the JAX engine jits its two steps, this one captures each on the card
+as a CUDA graph (``serving.step_graph``) and replays it.  The prefill is
+captured at the first prefill of each prompt shape (``prefill_key``: rows,
+prompt length, encoder frames and the batch's inputs), as ``jax.jit``
+retraces ``_prefill`` for each new shape, and every graph is kept; the
+decode step at its first decode of each batch shape, replayed for each new
+token with ``pos`` a device scalar as the JAX step's ``jnp.int32(pos)``.
+So that the graphs read the same addresses on every call, the engine
+allocates the caches once per batch shape (rows, encoder frames:
+``T.init_caches``, and an enc-dec model's cross K/V buffers), shared by
+every prompt length; the prefill zeroes the recurrent states, prefills the
+caches in place and copies its cross K/V into those buffers.  Every graph of
+an engine comes from one memory pool, safe under the invariant stated in
+``graphs.py``.  The JAX engine's first call of a shape includes its
+compile; here each capture (an eager warm-up and the capture itself) is
+timed apart, in ``capture_s``, and ``step_times_s`` holds replays only.  A
+failed capture raises.  ``prefill="eager"`` and ``decode="eager"`` keep
+the previous designs, the steps dispatched op by op (the decode step with a
+Python ``pos``), which ``chip_smoke.py`` times beside the replays.
 
 It runs on the card unless the caller passes ``device="cpu"``; there the
-attention ops take their plain versions, and the decode step, the same
-function the card captures, runs eagerly, since the CPU has no graph.
+attention ops take their plain versions, and the two step functions, the
+same that the card captures, run eagerly, since the CPU has no graph.
 ``params=`` takes a ready tree, for example JAX weights from
 ``models.convert.params_from_jax``.
 """
@@ -38,9 +44,9 @@ from repro_torch.models import transformer as T
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.kvcache import PagedKVManager
 from repro_torch.serving.sampling import sample
-from repro_torch.serving.step_graph import DecodeGraph
+from repro_torch.serving.step_graph import DecodeGraph, PrefillGraph
 
-DECODE_MODES = ("graph", "eager")
+STEP_MODES = ("graph", "eager")
 
 
 def resolve_device(device) -> torch.device:
@@ -51,16 +57,26 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def prefill_key(batch: dict) -> tuple:
+    """The prompt shape a prefill of ``batch`` is captured for: (rows,
+    prompt length, encoder frames (0 without), the names of its inputs)."""
+    x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    frames = batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0
+    return (x.shape[0], x.shape[1], frames, tuple(sorted(batch)))
+
+
 class ServingEngine:
     def __init__(self, cfg: ArchConfig, *, batch_slots: int = 4,
                  max_seq_len: int = 256, seed: int = 0, device="cuda",
-                 params: Optional[dict] = None, decode: str = "graph"):
-        if decode not in DECODE_MODES:
-            raise ValueError(f"decode {decode!r}: choose one of {DECODE_MODES}")
+                 params: Optional[dict] = None, prefill: str = "graph",
+                 decode: str = "graph"):
+        for step, mode in (("prefill", prefill), ("decode", decode)):
+            if mode not in STEP_MODES:
+                raise ValueError(f"{step} {mode!r}: choose one of {STEP_MODES}")
         self.cfg = cfg
         self.max_seq_len = max_seq_len
         self.device = resolve_device(device)
-        self.decode = decode
+        self.prefill_mode, self.decode_mode = prefill, decode
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = T.init_params(cfg, gen, self.device)
@@ -69,40 +85,82 @@ class ServingEngine:
         self.batcher = ContinuousBatcher(self.kv, batch_slots)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.step_times_s: List[float] = []
-        self.capture_s: List[float] = []             # one entry a capture
-        # by batch shape (rows, encoder frames): the static caches, the graph
+        self.capture_s: List[float] = []             # one entry a capture, prefill or decode
+        # by batch shape (rows, encoder frames): the static caches, the decode graph
         self._states: Dict[Tuple[int, int], dict] = {}
-        self._graphs: Dict[Tuple[int, int], DecodeGraph] = {}
-        self._key: Optional[Tuple[int, int]] = None  # the last prefill's shape
+        self.decode_graphs: Dict[Tuple[int, int], DecodeGraph] = {}
+        self.prefill_graphs: Dict[tuple, PrefillGraph] = {}   # by ``prefill_key``
+        self._pool: Optional[tuple] = None           # the memory pool of every graph
+        self._key: Optional[Tuple[int, int]] = None  # the last prefill's batch shape
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _graph_pool(self) -> tuple:
+        """The one memory pool of this engine's graphs (``graphs.py``)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
     @torch.inference_mode()
     def prefill(self, batch: dict) -> torch.Tensor:
         """The prefill step on ``batch`` (``T.prefill``'s) into the static
-        caches of its shape, allocated at their first use; returns the last
-        token's logits.  The decode steps after it read these caches."""
+        caches of its batch shape, allocated at their first use; returns the
+        last token's logits.  The decode steps after it read these caches.
+        On the card a replay of the graph captured at this prompt shape's
+        first prefill (the logits are then the graph's buffer, valid until
+        the next step)."""
+        return self._prefiller(batch)(batch)
+
+    def _prefiller(self, batch: dict):
+        """The prefill of ``batch``'s prompt shape as a function of the
+        batch: the graph's replay on the card (captured here at its first
+        use), else ``prefill_step`` called eagerly (on the CPU, and in the
+        ``"eager"`` design)."""
+        step = self.prefill_step(batch)
+        if self.device.type == "cpu" or self.prefill_mode == "eager":
+            return step
+        key = prefill_key(batch)
+        graph = self.prefill_graphs.get(key)
+        if graph is None:
+            graph = self.prefill_graphs[key] = PrefillGraph(step, batch, self.device,
+                                                            self._graph_pool())
+            self.capture_s.append(graph.capture_s)
+        return graph.replay
+
+    def prefill_step(self, batch: dict):
+        """The prefill the card captures for ``batch``'s prompt shape, as a
+        function of a batch of that shape: it zeroes the recurrent states
+        (the prefill's initial state), prefills the static caches of the
+        batch shape (rows, encoder frames; allocated here at their first
+        use) in place, copies an enc-dec prefill's cross K/V and valid mask
+        into the buffers the engine keeps, and returns the last token's
+        logits.  The decode steps read that batch shape's caches from here
+        on."""
         x = batch["embeds"] if "embeds" in batch else batch["tokens"]
         key = (x.shape[0], batch["enc_embeds"].shape[1] if "enc_embeds" in batch else 0)
         state = self._states.get(key)
         if state is None:
             state = self._states[key] = {
                 "layers": T.init_caches(self.params, self.cfg, key[0], self.max_seq_len)}
-        for t in T.recurrent_states(self.cfg, state["layers"]):
-            t.zero_()                                # the prefill's initial state
-        logits, out = T.prefill(self.params, self.cfg, batch, seq_len=self.max_seq_len,
-                                caches=state["layers"])
-        if "cross_kv" in state:
-            for (k, v), (nk, nv) in zip(state["cross_kv"], out["cross_kv"]):
-                k.copy_(nk)
-                v.copy_(nv)
-            state["cross_valid"].copy_(out["cross_valid"])
-        elif "cross_kv" in out:
-            state.update(cross_kv=out["cross_kv"], cross_valid=out["cross_valid"])
+            if key[1]:
+                state.update(T.init_cross_caches(self.params, self.cfg, *key))
         self._key = key
-        return logits
+
+        def step(b):
+            for t in T.recurrent_states(self.cfg, state["layers"]):
+                t.zero_()
+            logits, out = T.prefill(self.params, self.cfg, b, seq_len=self.max_seq_len,
+                                    caches=state["layers"])
+            if "cross_kv" in out:
+                for (k, v), (nk, nv) in zip(state["cross_kv"], out["cross_kv"]):
+                    k.copy_(nk)
+                    v.copy_(nv)
+                state["cross_valid"].copy_(out["cross_valid"])
+            return logits
+
+        return step
 
     @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
@@ -124,12 +182,13 @@ class ServingEngine:
 
         if self.device.type == "cpu":
             return lambda tok, p: step(tok, torch.tensor(p, device=self.device))
-        if self.decode == "eager":
+        if self.decode_mode == "eager":
             return step
-        graph = self._graphs.get(self._key)
+        graph = self.decode_graphs.get(self._key)
         if graph is None:
-            graph = self._graphs[self._key] = DecodeGraph(
-                step, tokens, pos, T.recurrent_states(self.cfg, state["layers"]))
+            graph = self.decode_graphs[self._key] = DecodeGraph(
+                step, tokens, pos, T.recurrent_states(self.cfg, state["layers"]),
+                self._graph_pool())
             self.capture_s.append(graph.capture_s)
         return graph.replay
 
@@ -154,8 +213,9 @@ class ServingEngine:
         self.batcher.admit_ready()
         if "embeds" not in batch:
             batch["tokens"] = torch.tensor(prompts, dtype=torch.long, device=self.device)
+        prefill = self._prefiller(batch)                # a capture stays untimed
         t0 = time.perf_counter()
-        logits = self.prefill(batch)
+        logits = prefill(batch)
         self._sync()
         self.step_times_s.append(time.perf_counter() - t0)
         pos = plen

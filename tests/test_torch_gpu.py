@@ -1728,15 +1728,16 @@ def test_decode_graph_replays_the_eager_step(cuda, family, dtype):
 
 @pytest.mark.parametrize("family", ["dense", "jamba", "rwkv6", "seamless"])
 def test_engine_graph_serves_the_eager_tokens(cuda, family):
-    """Two requests through an engine that replays its captured step and
-    through one on the eager design, same weights: equal greedy tokens each
-    time, one capture for both requests, replays only in ``step_times_s``,
-    and the same launches by op and route over a request."""
+    """Two requests through an engine that replays its captured steps and
+    through one on the eager designs, same weights: equal greedy tokens each
+    time, one capture of each step for both requests, replays only in
+    ``step_times_s``, and the same launches by op and route over a request."""
     from repro_torch.serving import ServingEngine
 
     cfg, params, batch = _graph_model(family, "bfloat16")
     engines = {mode: ServingEngine(cfg, batch_slots=4, max_seq_len=64, device="cuda",
-                                   params=params, decode=mode) for mode in ("graph", "eager")}
+                                   params=params, prefill=mode, decode=mode)
+               for mode in ("graph", "eager")}
     g = torch.Generator(device="cuda").manual_seed(2)
     for request in range(2):
         prompts = torch.randint(0, cfg.vocab_size, batch["tokens"].shape, generator=g,
@@ -1750,13 +1751,13 @@ def test_engine_graph_serves_the_eager_tokens(cuda, family):
         assert out["graph"] == out["eager"]
         if request:                  # the first request's counts hold the warm-up step too
             assert counts["graph"] == counts["eager"]
-    assert len(engines["graph"].capture_s) == 1 and engines["eager"].capture_s == []
-    assert len(engines["graph"].step_times_s) == 2 * 8
+    assert len(engines["graph"].capture_s) == 2 and engines["eager"].capture_s == []
+    assert len(engines["graph"].step_times_s) == 2 * 8      # a prefill and a decode capture
 
 
 def test_decode_graphs_leave_no_memory_behind(cuda):
-    """Engines that captured their step and are gone leave the card as the
-    first one found it: the graphs' pools are freed, and the warm-up runs on
+    """Engines that captured their steps and are gone leave the card as the
+    first one found it: the graphs' pool is freed, and the warm-ups run on
     torch's one capture stream, so no capture leaves a cuBLAS workspace
     behind on a stream of its own."""
     import gc
@@ -1769,7 +1770,7 @@ def test_decode_graphs_leave_no_memory_behind(cuda):
     def serve_once():
         eng = ServingEngine(cfg, batch_slots=4, max_seq_len=64, device="cuda", params=params)
         eng.generate(prompts, max_new_tokens=4)
-        assert len(eng.capture_s) == 1
+        assert len(eng.capture_s) == 2             # the prefill's and the decode step's
 
     serve_once()                    # the capture stream's own workspace, once a process
     gc.collect()
@@ -1783,7 +1784,7 @@ def test_decode_graphs_leave_no_memory_behind(cuda):
 def test_capture_of_a_step_that_syncs_the_host_raises(cuda, monkeypatch):
     """A step that reads ``pos`` on the host runs eagerly (the warm-up) but
     cannot be captured: ``DecodeGraph`` raises, and so does the engine, with
-    no decode step run in its place."""
+    no decode step run in its place (the prefill, captured, ran)."""
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.step_graph import DecodeGraph
@@ -1803,7 +1804,155 @@ def test_capture_of_a_step_that_syncs_the_host_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         eng.generate(batch["tokens"].tolist(), max_new_tokens=4)
     torch.cuda.synchronize()
-    assert len(eng.step_times_s) == 1 and eng.capture_s == []
+    assert len(eng.step_times_s) == 1 and not eng.decode_graphs
+    assert len(eng.capture_s) == len(eng.prefill_graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# The prefill captured as one CUDA graph per prompt shape
+# (``serving.step_graph.PrefillGraph``), in the engine's one memory pool with
+# its decode graphs: each replay against the eager prefill of a second
+# engine on the same weights, prompt lengths in turn through one engine,
+# and a prefill that waits for the host, which cannot be captured.
+
+
+def _engine_pair(cfg, params, seq_len=64):
+    """Two engines on the same weights: graph replays, and the eager
+    designs of both steps (the previous design)."""
+    from repro_torch.serving import ServingEngine
+
+    return {mode: ServingEngine(cfg, batch_slots=4, max_seq_len=seq_len, device="cuda",
+                                params=params, prefill=mode, decode=mode)
+            for mode in ("graph", "eager")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family", list(GRAPH_FAMILIES))
+def test_prefill_graph_replays_the_eager_prefill(cuda, family, dtype):
+    """Two batches of one prompt shape (the first captures, the second is a
+    replay on new inputs), each prefilled by the graph engine and the eager
+    one: logits within the dtype's limit, equal greedy tokens over 4 eager
+    decode steps from each engine's caches, every cache then within the
+    limit, and the replay's launches by op and route equal to the eager
+    prefill's."""
+    cfg, params, batch = _graph_model(family, dtype)
+    engines = _engine_pair(cfg, params)
+    for eng in engines.values():
+        eng.decode_mode = "eager"     # the prefill alone differs between the engines
+    g = torch.Generator(device="cuda").manual_seed(3)
+    S = batch["tokens"].shape[1]
+    with torch.inference_mode():
+        for turn in range(2):
+            if turn:
+                batch = {**batch, "tokens": torch.randint(0, cfg.vocab_size, (4, S),
+                                                          generator=g, device="cuda")}
+            out, counts, toks = {}, {}, {}
+            for mode, eng in engines.items():
+                ops.reset_launches()
+                out[mode] = eng.prefill(batch).clone()
+                counts[mode] = ops.launch_counts()
+                tok, toks[mode] = out[mode].argmax(-1), []
+                for i in range(4):
+                    tok = eng.decode_step(tok, S + i).argmax(-1)
+                    toks[mode].append(tok)
+            _assert_close(out["graph"], out["eager"], dtype)
+            assert torch.equal(torch.cat(toks["graph"], 1), torch.cat(toks["eager"], 1))
+            if turn:                  # the first prefill's counts hold the warm-up too
+                assert counts["graph"] == counts["eager"]
+                assert sum(n for (_, r), n in counts["graph"].items() if r is None) > 0
+    graph, = engines["graph"].prefill_graphs.values()
+    assert graph.capture_s > 0 and graph.launches == {
+        k: n for k, n in counts["eager"].items() if n}
+    from repro_torch.models.layers import tree_leaves
+
+    for a, b in zip(*(tree_leaves(eng._states[eng._key]) for eng in engines.values())):
+        _assert_close(a, b, dtype)
+
+
+@pytest.mark.parametrize("family", ["dense", "jamba", "rwkv6", "seamless"])
+def test_engine_serves_prompt_lengths_in_turn(cuda, family):
+    """One engine serves prompts of 32, 16 and 32 tokens in turn, 6 new
+    tokens each, on the caches of its one batch shape: the eager engine's
+    tokens each time.  Two prefill graphs and one decode graph share the
+    engine's pool, and each replays after the others, so the pool is safe in
+    that order too; the third request captures nothing."""
+    cfg, params, batch = _graph_model(family, "bfloat16")
+    engines = _engine_pair(cfg, params)
+    inputs = {k: v for k, v in batch.items() if k != "tokens"}
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for S in (32, 16, 32):
+        prompts = torch.randint(0, cfg.vocab_size, (4, S), generator=g, device="cuda").tolist()
+        out = {mode: eng.generate(prompts, max_new_tokens=6, inputs=inputs)
+               for mode, eng in engines.items()}
+        assert out["graph"] == out["eager"]
+    eng = engines["graph"]
+    assert len(eng.prefill_graphs) == 2 and len(eng.decode_graphs) == 1
+    assert len(eng.capture_s) == 3 and len(eng.step_times_s) == 3 * 6
+
+
+def test_prefill_and_decode_graphs_share_the_engine_pool(cuda):
+    """Every graph of an engine is captured in its one pool, a
+    ``torch.cuda.graph_pool_handle``; another engine has a pool of its own."""
+    from repro_torch.serving import ServingEngine
+
+    cfg, params, batch = _graph_model("dense", "bfloat16", B=2, S=8)
+    pools = []
+    for _ in range(2):
+        eng = ServingEngine(cfg, batch_slots=2, max_seq_len=64, device="cuda", params=params)
+        for S in (8, 5):
+            eng.generate(batch["tokens"][:, :S].tolist(), max_new_tokens=2)
+        graphs = [*eng.prefill_graphs.values(), *eng.decode_graphs.values()]
+        assert len(graphs) == 3 and {gr.pool for gr in graphs} == {eng._pool}
+        pools.append(eng._pool)
+    assert pools[0] != pools[1]
+
+
+def test_prefill_replay_adds_the_launches_its_capture_counted(cuda):
+    """The counters tick once for the warm-up prefill and not for the
+    capture; each replay adds the capture's count again."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.step_graph import PrefillGraph
+
+    cfg, params, batch = _graph_model("jamba", "bfloat16")
+    with torch.inference_mode():
+        caches = T.init_caches(params, cfg, 4, 64)
+        ops.reset_launches()
+        graph = PrefillGraph(lambda b: T.prefill(params, cfg, b, seq_len=64, caches=caches)[0],
+                             batch, torch.device("cuda"))
+        assert {k: n for k, n in ops.launch_counts().items() if n} == graph.launches
+        assert graph.launches.get(("mamba_scan", None), 0) > 0
+        for n in (1, 2):
+            graph.replay(batch)
+            assert {k: v for k, v in ops.launch_counts().items() if v} == {
+                k: (n + 1) * v for k, v in graph.launches.items()}
+
+
+def test_capture_of_a_prefill_that_syncs_the_host_raises(cuda, monkeypatch):
+    """A prefill that reads a logit on the host runs eagerly (the warm-up)
+    but cannot be captured: ``PrefillGraph`` raises, and so does the engine,
+    with no prefill run eagerly in its place and nothing timed."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.step_graph import PrefillGraph
+
+    tokens = torch.zeros((2, 5), dtype=torch.long, device="cuda")
+    with pytest.raises(RuntimeError):
+        PrefillGraph(lambda b: b["tokens"].float() * b["tokens"].sum().item(),
+                     {"tokens": tokens}, torch.device("cuda"))
+    torch.cuda.synchronize()
+    cfg, params, batch = _graph_model("dense", "bfloat16", B=2, S=8)
+    eager_prefill = T.prefill
+
+    def syncing(*args, **kwargs):
+        logits, out = eager_prefill(*args, **kwargs)
+        return logits * float(logits[0, 0, 0].item()), out
+
+    monkeypatch.setattr(T, "prefill", syncing)
+    eng = ServingEngine(cfg, batch_slots=2, max_seq_len=32, device="cuda", params=params)
+    with pytest.raises(RuntimeError):
+        eng.generate(batch["tokens"].tolist(), max_new_tokens=4)
+    torch.cuda.synchronize()
+    assert eng.step_times_s == [] and eng.capture_s == [] and not eng.prefill_graphs
 
 
 # ---------------------------------------------------------------------------
