@@ -327,7 +327,18 @@ Needs one CUDA card and ``nvcc``.  Phases, each of which fails the run:
    ``examples/quickstart_torch.py`` on the card's measured AES body, whose
    junctiond median and p99 must be below containerd's (Fig 5), and
    ``examples/serve_e2e_torch.py`` (reduced qwen3 on the card, its decode
-   step deployed), junctiond's median below containerd's.
+   step deployed), junctiond's median below containerd's;
+13. the JAX package's assigned input shapes on one card
+   (``assigned_shapes``): prefill_32k then decode_32k steps through one
+   ``ServingEngine`` a model, long_500k at batch 1 and train_4k through
+   ``TrainGraph``, each at the batch and depth ``repro_torch.launch.fit``
+   reckons, replayed and eager in turns with tokens and logits exactly
+   equal, each kernel then held against its plain version on the inputs
+   the model gave it, and the dry run on one rank beside every pair.
+
+    python3 chip_smoke.py --only-assigned-shapes
+
+runs phases 1, 2 and 13 alone, printing a pair that fails and going on.
 
 The line before the last is a JSON object with one entry per kernel (the
 flash kernel's masked route and the five backwards with their own); the last is
@@ -336,6 +347,7 @@ flash kernel's masked route and the five backwards with their own); the last is
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -868,8 +880,77 @@ DRYRUN_213 = {  # peak B, flops, bytes accessed, collective bytes
 DRYRUN_FIGURES = ("peak", "flops", "bytes accessed", "collective bytes")
 
 
+DRYRUN_12A_PAIRS = ([("qwen3-1.7b", "decode_32k", True), ("mixtral-8x7b", "train_4k", False),
+                      ("mixtral-8x7b", "train_4k", False)]
+                     + [(a, s, False) for a, s in DRYRUN_PREFILLS])
+
+
+def assigned_dry_pairs(shape, cfg, run):
+    """The dry-run pairs of phase 13d beside a run of ``shape``: (the
+    reference's shape name, the InputShape at the run's batch and length,
+    the measured figure it is read against)."""
+    from repro_torch.config import InputShape, StepKind
+    B, S = run.batch, run.seq_len
+    if shape == "train_4k":
+        return [("train_4k", InputShape("train_4k", S, B, StepKind.TRAIN), "step")]
+    if shape == "serve_32k":
+        return [("prefill_32k", InputShape("prefill_32k", S, B, StepKind.PREFILL), "prefill"),
+                ("decode_32k", InputShape("decode_32k", S + NEW_TOKENS, B, StepKind.DECODE),
+                 "decode step")]
+    return [("long_500k", InputShape("long_500k", S + NEW_TOKENS, B, StepKind.DECODE),
+             "decode step")]
+
+
+def host_side(with_12a: bool) -> dict:
+    """The smoke's host-only work, run in a worker process while the card
+    runs the phases before it: phase 12a's traces on the production mesh
+    (``with_12a``; its two traces of mixtral x train_4k in this one process),
+    phase 13's plan (``launch.fit.plans``) and phase 13d's dry run on a
+    1-rank mesh at every pair that plan runs.  Meta tensors and a fake
+    process group only: nothing touches the card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.config import get_arch
+    from repro_torch.launch import dryrun, fit, perf
+    from repro_torch.launch.mesh import make_mesh, teardown_mesh
+
+    out = {"torch": torch.__version__}
+    t_all = time.perf_counter()
+    if with_12a:
+        out["12a"] = []
+        for arch, shape, probes in DRYRUN_12A_PAIRS:
+            t0 = time.perf_counter()
+            rec = dryrun.run_pair(arch, shape, probes=probes, verbose=False)
+            out["12a"].append((arch, shape, probes, rec, time.perf_counter() - t0))
+        variants = {n: p for n, p, _ in perf.variants_for("train_4k", "mixtral-8x7b")}
+        two = dryrun.with_layers(get_arch("mixtral-8x7b"), 2)
+        out["12a variant"] = dryrun.run_pair("mixtral-8x7b", "train_4k", probes=False,
+                                             verbose=False, policy=variants["chunked_attn+ep"],
+                                             cfg=two)
+    t0 = time.perf_counter()
+    out["plan"] = list(fit.plans())
+    out["plan seconds"] = time.perf_counter() - t0
+    out["13d"] = {}
+    one = make_mesh((1, 1), ("data", "model"))
+    for shape, cfg, run, _ in out["plan"]:
+        if run is None:
+            continue
+        for name, shp, _ in assigned_dry_pairs(shape, cfg, run):
+            t0 = time.perf_counter()
+            rec = dryrun.run_pair(cfg.name, name, probes=False, verbose=False, mesh=one,
+                                  cfg=cfg, shape=shp)
+            dryrun.require_placed(rec)
+            out["13d"][(cfg.name, name)] = dict(
+                peak=rec["memory"]["peak_bytes"], step_ms=1e3 * rec["roofline"]["step_time_s"],
+                bottleneck=rec["roofline"]["bottleneck"], note=rec["note"],
+                seconds=time.perf_counter() - t0)
+    teardown_mesh()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
-                        phi4_decode_us) -> None:
+                        phi4_decode_us, host: dict) -> None:
     """Phase 12.  12a (host, no kernel): ``dryrun.run_pair`` on the 256-rank
     production mesh (data 32 x model 8) for qwen3-1.7b x decode_32k with its
     probes, mixtral-8x7b x train_4k twice (the two records' figures equal)
@@ -891,7 +972,7 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
     import os
     from repro_torch.config import InputShape, StepKind, get_arch
     from repro_torch.kernels import ops, ref
-    from repro_torch.launch import dryrun, perf
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh, teardown_mesh
     from repro_torch.models import attention
     from repro_torch.models import transformer as T
@@ -911,14 +992,10 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
     t_phase = time.perf_counter()
     print("12a the dry run on the production mesh (predictions: the H100 SXM's data-sheet "
           "figures at 700 W; per device):")
-    print(f"  torch {torch.__version__}; the 2.13 figures are a CPU host's sweep "
+    print(f"  torch {host['torch']}; the 2.13 figures are a CPU host's sweep "
           f"(PERF.md section 6)")
-    pairs = [("qwen3-1.7b", "decode_32k", True), ("mixtral-8x7b", "train_4k", False),
-             ("mixtral-8x7b", "train_4k", False)] + [(a, s, False) for a, s in DRYRUN_PREFILLS]
     figures = {}
-    for arch, shape, probes in pairs:
-        t0 = time.perf_counter()
-        rec = dryrun.run_pair(arch, shape, probes=probes, verbose=False)
+    for arch, shape, probes, rec, seconds in host["12a"]:
         cost, r, mem = rec["cost"], rec["roofline"], rec["memory"]
         mine = (mem["peak_bytes"], cost["flops"], cost["bytes accessed"],
                 sum(cost["collective bytes by kind"].values()))
@@ -926,7 +1003,7 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
                  for k, a, b in zip(DRYRUN_FIGURES, mine, DRYRUN_213[(arch, shape)])}
         print(f"  {arch} x {shape} x {rec['mesh']} ({rec['chips']} ranks, "
               f"{'probes ' + str([p['layers'] for p in rec['probes']]) if probes else 'no probes'}"
-              f", {time.perf_counter() - t0:.1f} s of host time): peak {mem['peak_bytes']:.6g} B "
+              f", {seconds:.1f} s of host time): peak {mem['peak_bytes']:.6g} B "
               f"(parameters {mem['params_bytes']:.6g}), flops {cost['flops']:.6g}, bytes "
               f"accessed {cost['bytes accessed']:.6g}; against torch 2.13 "
               f"{ {k: f'{v:+.2e}' for k, v in apart.items()} }")
@@ -946,11 +1023,9 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
         if again != dryrun.record_figures(rec):
             raise AssertionError(f"12a {arch} x {shape}: two traces in one process differ: "
                                  f"{again} against {dryrun.record_figures(rec)}")
-    print("  mixtral-8x7b x train_4k traced twice in this process: every figure equal")
-    variants = {n: p for n, p, _ in perf.variants_for("train_4k", "mixtral-8x7b")}
-    cfg = dryrun.with_layers(get_arch("mixtral-8x7b"), 2)
-    rec = dryrun.run_pair("mixtral-8x7b", "train_4k", probes=False, verbose=False,
-                          policy=variants["chunked_attn+ep"], cfg=cfg)
+    print("  mixtral-8x7b x train_4k traced twice in one process (the host-side worker, "
+          "``host_side``): every figure equal")
+    rec = host["12a variant"]
     a2a = rec["cost"]["collective bytes by kind"].get("all-to-all", 0.0)
     print(f"  perf's chunked_attn+ep on mixtral-8x7b x train_4k at 2 of 32 layers: collective "
           f"bytes by kind {rec['cost']['collective bytes by kind']}")
@@ -958,7 +1033,8 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
         raise AssertionError("12a: the expert-parallel variant moved no byte by all-to-all")
     if dict(ops.LAUNCHES) != launches_before:
         raise AssertionError(f"12a launched kernels: {dict(ops.LAUNCHES)}")
-    print(f"  12a took {time.perf_counter() - t_phase:.1f} s of host time, no kernel launched")
+    print(f"  12a took {sum(x[-1] for x in host['12a']):.1f} s of the worker's host time, "
+          f"{time.perf_counter() - t_phase:.1f} s here; no kernel launched")
 
     # -- 12b: the card against the dry run ------------------------------------------------
     one = make_mesh((1, 1), ("data", "model"))
@@ -1407,9 +1483,683 @@ def check_assigned_shapes(get_arch) -> None:
                                  f"{derived}")
 
 
+# phase 13: the JAX package's assigned input shapes (src/repro/config/shapes.py:25-28)
+# on one card, each pair planned by repro_torch.launch.fit: its batch, its
+# depth and the order of its serving runs
+LONG_TILE = 128              # query rows of each slice that a flash check takes
+LONG_CHUNK = 4096            # steps of a scan's first and last chunk held to the plain loop
+LONG_TIMED_STEPS = 27        # decode steps timed on the host clock; the other 4 profiled
+LONG_SEED = 40               # prompts and batches: seed 40 + the pair's index
+
+
+def rwkv6_scan_bwd_f64(r, k, v, w, u, S0, do, dS_last):
+    """``ref.rwkv6_scan_bwd_ref``'s arithmetic in float64 (phase 13's yardstick
+    for the kernel and the plain fp32 version alike): (dr, dk, dv, dw, du,
+    dS0), S0 and dS_last zeros where None."""
+    import torch
+    f64 = torch.float64
+    rf, kf, vf, wf, uf, gf = (t.to(f64) for t in (r, k, v, w, u, do))
+    B, T, H, hd = r.shape
+    S = torch.zeros((B, H, hd, hd), dtype=f64, device=r.device) if S0 is None else S0.to(f64)
+    Ss = []
+    for t in range(T):
+        Ss.append(S)
+        S = wf[:, t, :, :, None] * S + kf[:, t, :, :, None] * vf[:, t, :, None, :]
+    lam = torch.zeros_like(S) if dS_last is None else dS_last.to(f64)
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in reversed(range(T)):
+        rt, kt, vt, wt, gt = rf[:, t], kf[:, t], vf[:, t], wf[:, t], gf[:, t]
+        vg = (vt * gt).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", Ss[t], gt) + uf * kt * vg
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", lam, vt) + uf * rt * vg
+        dv[:, t] = (torch.einsum("bhij,bhi->bhj", lam, kt)
+                    + (rt * uf * kt).sum(-1, keepdim=True) * gt)
+        dw[:, t] = (lam * Ss[t]).sum(-1)
+        du += (rt * kt * vg).sum(0)
+        lam = wt[..., None] * lam + rt[..., None] * gt[..., None, :]
+    return dr, dk, dv, dw, du, lam
+
+
+class Recorder:
+    """While on, the first call of each kernel wrapper ``names`` names
+    (``"flash.flash_attention"``: a key of ``modules``, a function of that
+    module) keeps its arguments, copied to the host so that they take no
+    room on the card while the run goes on; ``inputs(name, dev)`` hands them
+    back on the card.  The wrapper is the one ``kernels.ops`` calls, so the
+    recorded call is the model's own."""
+
+    def __init__(self, modules: dict, names):
+        self.targets = {n: (modules[n.split(".")[0]], n.split(".")[1]) for n in names}
+        self.kept = {}
+        self.saved = {}
+
+    def __enter__(self):
+        for key, (mod, name) in self.targets.items():
+            fn = getattr(mod, name)
+            self.kept[(mod, name)] = fn
+            setattr(mod, name, self._wrap(key, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.kept.items():
+            setattr(mod, name, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args, **kwargs):
+            if name not in self.saved:
+                self.saved[name] = (
+                    [a.detach().to("cpu") if hasattr(a, "detach") else a for a in args],
+                    {k: a.detach().to("cpu") if hasattr(a, "detach") else a
+                     for k, a in kwargs.items()})
+            return fn(*args, **kwargs)
+        return call
+
+    def inputs(self, name, dev):
+        args, kwargs = self.saved[name]
+        return ([a.to(dev) if hasattr(a, "to") else a for a in args],
+                {k: a.to(dev) if hasattr(a, "to") else a for k, a in kwargs.items()})
+
+
+def _ms(x, spec: str = ".1f") -> str:
+    """A device figure, or "not measured" where the profiler saw no kernel."""
+    return "not measured" if x is None else format(x, spec)
+
+
+def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> None:
+    """Phase 13: the assigned input shapes on one card, through the port's
+    entry points at full width (bf16, random weights drawn from ``SEED``):
+
+    - the plan (``launch.fit.plans``): for each pair of ``fit.PLAN`` its
+      batch (the largest of 8, 4, 2, 1 that the byte reckoning fits in 80
+      GB), its depth (cut only where the weights alone exceed the card), the
+      order of its serving runs (in turns where two copies of a step fit,
+      else once), or, for a pair that does not fit at batch 1, its reckoned
+      bytes, printed as not run;
+    - 13a prefill_32k and decode_32k: one ``ServingEngine`` a model with a
+      32800-slot cache (a windowed model's ring holds 4096), 32768-token
+      prompts, then 31 decode steps: a warm-up through ``generate`` that
+      captures both graphs, then runs replayed and eager in turns (graph,
+      eager, graph), each a prefill and 31 steps through ``prefill`` and
+      ``decode_step``, the prefill profiled, the first ``LONG_TIMED_STEPS``
+      steps timed on the host clock (``work_us``) and the rest profiled
+      (device time and idle share); every run's tokens equal and its logits
+      exactly equal, its launches by route those of the path;
+    - 13b long_500k at batch 1: a 524288-token prompt and 31 steps past it,
+      rwkv6 natively, qwen3 under the reference's serving variant (window
+      4096, ``launch.dryrun.serving_variant``), h2o natively where it fits;
+      run once (the eager design, the allocator's cache emptied, then the
+      graphs) where two copies of a prefill do not fit;
+    - 13c train_4k: ``TrainGraph`` replays and the eager step from the same
+      weights and batches, 4 steps each, then a profiled step: losses and
+      grad norms of the replay within rtol 1e-5 of the eager step's, a
+      falling loss;
+    - each pair's kernels against their plain versions on the inputs they
+      met in the eager run, layer 0's (``Recorder``), at phase 3's limits:
+      flash on slices of ``LONG_TILE`` query rows (the first, the last and
+      one across the window's edge, or the middle one under full causal
+      attention) against ``ref.flash_attention_ref`` over their keys, decode
+      ``split`` over the whole cache row, ``moe_gmm`` whole, the scans over
+      the first ``LONG_CHUNK`` steps and the last (from the kernel's own
+      state before them) with the final state; the scans' linear input
+      (dtx, v) and the backwards' cotangents scaled to unit rms by a power
+      of two, exactly; the backward pair of 13c whole, the RWKV6 backward
+      whole within ``SUM_REL`` of each gradient's largest magnitude, as
+      phase 11d holds it on a model's inputs;
+    - 13d the dry run on a 1-rank mesh at every pair run (the cut config and
+      the run's batch), its predicted peak and step beside the measured
+      ones, with their ratio, no bound set.
+
+    The plan and 13d's traces come from ``host`` (``host_side``'s, run in
+    a worker process while the card works).
+
+    With ``keep_going`` a pair that fails is printed and the phase goes on,
+    raising at its end."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.config import InputShape, StepKind
+    from repro_torch.kernels import decode_attention as _decode
+    from repro_torch.kernels import flash_attention as _flash
+    from repro_torch.kernels import mamba_scan as _mamba
+    from repro_torch.kernels import moe_gmm as _gmm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rwkv6_scan as _rwkv
+    from repro_torch.launch import fit
+    from repro_torch.models import attention, flops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serving import ServingEngine
+    from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
+    from repro_torch.train.optimizer import init_state
+    from repro_torch.train.step_graph import TrainGraph
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    modules = {"flash": _flash, "decode": _decode, "gmm": _gmm, "mamba": _mamba,
+               "rwkv": _rwkv}
+    n_decode = NEW_TOKENS - 1
+    rows = []           # the summary: one dict a pair run
+    failed = []
+    t_phase = time.perf_counter()
+
+    # -- the plan ------------------------------------------------------------------
+    plan = host["plan"]
+    print(f"the plan (launch.fit, {host['plan seconds']:.1f} s in the host-side worker: a "
+          f"step's peak traced on the meta device, x "
+          f"{fit.ALLOCATOR_SLACK} for the allocator, x 2 in turns; reserve "
+          f"{fit.RESERVE / 1e9:.1f} GB; card {fit.CARD_BYTES / 1e9:.1f} GB; this card's "
+          f"total_memory {torch.cuda.get_device_properties(0).total_memory} bytes):")
+    for shape, cfg, run, decided in plan:
+        print(f"  {shape}: " + (run.line() + (", in turns" if run.pools == 2 else ", once")
+                                if run else "NOT RUN: " + decided.line()))
+
+    def expected_routes(cfg, B, S, cap):
+        """Launches by route of a prefill of B x S tokens and ``n_decode``
+        steps, bf16 attention and experts, fp32 scans."""
+        n = layer_counts(cfg)
+        want = {}
+        if n["attn"]:
+            G = cfg.n_heads // cfg.n_kv_heads
+            want["flash_attention"] = {_flash.route(bf16): n["attn"]}
+            want["decode_attention"] = {_decode.route(bf16, G, cap): n["attn"] * n_decode}
+        if n["moe"]:
+            E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+            c = collections.Counter()
+            for tokens, steps in ((B * S, 1), (B, n_decode)):
+                C = max(1, int(cf * k * tokens / E))
+                for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
+                             (cfg.d_ff, cfg.d_model)):
+                    c[_gmm.route(bf16, C, D, F)] += n["moe"] * steps
+            want["moe_gmm"] = dict(c)
+        if n["mamba"]:
+            want["mamba_scan"] = {_mamba.route(f32, cfg.mamba.d_state):
+                                  n["mamba"] * (n_decode + 1)}
+        if n["rwkv"]:
+            want["rwkv6_scan"] = {_rwkv.route(f32, cfg.rwkv.head_size):
+                                  n["rwkv"] * (n_decode + 1)}
+        return want
+
+    def routes_now():
+        return {op: {r: n for r, n in c.items() if n} for op, c in ops.ROUTE_LAUNCHES.items()
+                if any(c.values())}
+
+    def serve_run(eng, batch, S, mode):
+        """A prefill of ``batch`` and ``n_decode`` greedy steps through the
+        engine in ``mode``, the launch counters reset first; each step's
+        logits copied on the card (a replay's are the graph's buffer)."""
+        set_modes(eng, mode)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            lg = eng.prefill(batch)
+            torch.cuda.synchronize()
+            prefill_ms = 1e3 * (time.perf_counter() - t0)
+        p_dev, _, p_kernels = device_profile(torch, prof, 1)
+        logits, toks, step_s = [lg.clone()], [lg.argmax(-1)], []
+        for i in range(LONG_TIMED_STEPS):
+            t0 = time.perf_counter()
+            lg = eng.decode_step(toks[-1], S + i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            logits.append(lg.clone())
+            toks.append(lg.argmax(-1))
+        rest = n_decode - LONG_TIMED_STEPS
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(LONG_TIMED_STEPS, n_decode):
+                lg = eng.decode_step(toks[-1], S + i)
+                logits.append(lg.clone())
+                toks.append(lg.argmax(-1))
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0) / rest
+        d_dev, _, d_kernels = device_profile(torch, prof, rest)
+        logits = [lg.cpu() for lg in logits]
+        set_modes(eng, "graph")
+        return dict(mode=mode, prefill_ms=prefill_ms, prefill_dev_ms=p_dev and p_dev / 1e3,
+                    prefill_idle=p_dev and 1 - p_dev / (1e3 * prefill_ms),
+                    prefill_kernels=p_kernels, work_us=1e6 * statistics.fmean(step_s),
+                    decode_dev_us=d_dev, decode_wall_us=wall_us,
+                    decode_idle=d_dev and 1 - d_dev / wall_us, decode_kernels=d_kernels,
+                    logits=logits, tokens=torch.cat(toks, 1).cpu(), routes=routes_now())
+
+    def flash_check(label, rec, window):
+        (q, k, v), kw = rec.inputs("flash.flash_attention", dev)
+        B, Hq, S, d = q.shape
+        if kw.get("window") != window or not kw.get("causal", True):
+            raise AssertionError(f"{label}: the model's flash call {kw}, window {window}")
+        out = _flash.flash_attention(q, k, v, causal=True, window=window)
+        starts = [0, S - LONG_TILE]
+        starts.append(window - LONG_TILE // 2 if window and window < S else S // 2)
+        errs = []
+        for r0 in sorted(set(starts)):
+            r1 = r0 + LONG_TILE
+            lo = max(0, r0 - window + 1) if window else 0
+            expect = ref.flash_attention_ref(q[:, :, r0:r1], k[:, :, lo:r1], v[:, :, lo:r1],
+                                             causal=True, window=window)
+            errs.append((r0, check_close(f"{label} flash rows {r0}..{r1}", out[:, :, r0:r1],
+                                         expect, TOL["bfloat16"])))
+            del expect
+        ms = time_ms(torch, lambda: _flash.flash_attention(q, k, v, causal=True,
+                                                          window=window), 1, lambda: None)
+        pairs = sum(min(t + 1, window or t + 1) for t in range(S))
+        tflops = 4 * d * pairs * B * Hq / (ms * 1e-3) / 1e12
+        print(f"  {label} flash ({_flash.route(bf16)}) q {tuple(q.shape)} k {tuple(k.shape)} "
+              f"window {window}: rows " + ", ".join(f"{r0}..{r0 + LONG_TILE} max |diff| "
+                                                    f"{e:.3g}" for r0, e in errs)
+              + f" (atol, rtol {TOL['bfloat16']}); one launch {ms:.3f} ms, "
+              f"{tflops:.1f} TFLOP/s of the {pairs * B * Hq} allowed pairs")
+        return max(e for _, e in errs)
+
+    def decode_check(label, rec):
+        (q, k, v, valid), _ = rec.inputs("decode.decode_attention", dev)
+        B, Hq, d = q.shape
+        T_, Hkv = k.shape[1], k.shape[2]
+        route = _decode.route(bf16, Hq // Hkv, T_)
+        got = _decode.decode_attention(q, k, v, valid)
+        err = check_close(f"{label} decode", got, ref.decode_attention_ref(q, k, v, valid),
+                          TOL["bfloat16"])
+        ms = time_ms(torch, lambda: _decode.decode_attention(q, k, v, valid), 3, lambda: None)
+        nbytes_ = sum(t.numel() * t.element_size() for t in (q, k, v, valid, got))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"  {label} decode ({route}, splits {_decode.splits(B, Hkv, T_, sms)}) "
+              f"q {tuple(q.shape)} cache {tuple(k.shape)}, {int(valid[0].sum())} of {T_} slots "
+              f"valid: max |diff| {err:.3g}; {ms:.4f} ms a launch (warm L2), "
+              f"{nbytes_ / (ms * 1e-3) / 1e9:.0f} GB/s of its {nbytes_} bytes")
+        return err
+
+    def gmm_check(label, rec):
+        (x, w), _ = rec.inputs("gmm.moe_gmm", dev)
+        E, C, D = x.shape
+        got = _gmm.moe_gmm(x, w)
+        err = check_close(f"{label} moe_gmm", got, ref.moe_gmm_ref(x, w), GMM_TOL["bfloat16"])
+        ms = time_ms(torch, lambda: _gmm.moe_gmm(x, w), 3, lambda: None)
+        print(f"  {label} moe_gmm ({_gmm.route(bf16, C, D, w.shape[2])}) x {tuple(x.shape)} w "
+              f"{tuple(w.shape)}: max |diff| {err:.3g}; {ms:.3f} ms a launch, "
+              f"{2 * E * C * D * w.shape[2] / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        return err
+
+    def scan_check(label, rec, which):
+        """The scan of layer 0's prefill against the plain loop, over the
+        first ``LONG_CHUNK`` steps and the last (from the kernel's own state
+        after the others) with the final state: the plain loop over all of
+        32768 steps of RWKV6's batch of 8 took 25 s."""
+        name, fn, plain = (("mamba.mamba_scan", _mamba.mamba_scan, ref.mamba_scan_ref)
+                           if which == "mamba" else
+                           ("rwkv.rwkv6_scan", _rwkv.rwkv6_scan, ref.rwkv6_scan_ref))
+        args, _ = rec.inputs(name, dev)
+        *xs, par, s0 = args
+        S = xs[0].shape[1]
+        # the output and the state are linear in dtx (Mamba) or v (RWKV6) from a
+        # zero state: scaled to unit rms by a power of two, exactly, so that the
+        # limits act as on phase 3's inputs
+        lin = 1 if which == "mamba" else 2
+        scale = unit_scale(xs[lin]) if s0 is None or not bool(s0.any()) else 1.0
+        xs[lin] = xs[lin] * scale
+        y, s_last = fn(*xs, par, s0)
+        tol = SCAN_TOL["float32"]
+        if S <= 2 * LONG_CHUNK:
+            ey, es = plain(*xs, par, s0)
+            err = max(check_close(f"{label} {which} out", y, ey, tol),
+                      check_close(f"{label} {which} state", s_last, es, tol))
+            how = f"all {S} steps"
+        else:
+            c = LONG_CHUNK
+            ey, _ = plain(*(t[:, :c] for t in xs), par, s0)
+            e1 = check_close(f"{label} {which} first {c} steps", y[:, :c], ey, tol)
+            _, s_mid = fn(*(t[:, :S - c].contiguous() for t in xs), par, s0)
+            ey, es = plain(*(t[:, S - c:] for t in xs), par, s_mid)
+            e2 = max(check_close(f"{label} {which} last {c} steps", y[:, S - c:], ey, tol),
+                     check_close(f"{label} {which} final state", s_last, es, tol))
+            err = max(e1, e2)
+            how = f"the first and last {c} of {S} steps and the final state"
+        route = (_mamba.route(xs[0].dtype, xs[2].shape[-1]) if which == "mamba"
+                 else _rwkv.route(xs[0].dtype, xs[0].shape[-1]))
+        print(f"  {label} {which} scan ({route}) {tuple(xs[0].shape)} {xs[0].dtype}, {how}, "
+              f"{'dtx' if lin == 1 else 'v'} times {scale:g}: max |diff| {err:.3g} (atol, rtol "
+              f"{tol})")
+        return err
+
+    def card_peak():
+        return torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+
+    def unit_scale(t):
+        """The power of two that brings ``t``'s rms nearest 1: a product by
+        it rounds nothing."""
+        rms = float(t.float().square().mean().sqrt())
+        return 2.0 ** round(-math.log2(rms)) if rms > 0 else 1.0
+
+    def serve_pair(shape, cfg, rec, seed):
+        B, S, turns = rec.batch, rec.seq_len, rec.pools == 2
+        label = f"13{'a' if shape == 'serve_32k' else 'b'} {cfg.name} {shape}"
+        free_card(torch, label)
+        torch.cuda.reset_peak_memory_stats()
+        t_pair = time.perf_counter()
+        eng = ServingEngine(cfg, batch_slots=B, max_seq_len=S + NEW_TOKENS, seed=SEED,
+                            device=dev)
+        torch.cuda.synchronize()
+        n = layer_counts(cfg)
+        cap = attention.kv_cache_capacity(cfg, S + NEW_TOKENS) if n["attn"] else None
+        print(f"{label}: {cfg.n_layers} layers {dict(n)}, window {cfg.sliding_window}, batch "
+              f"{B} x {S} tokens + {NEW_TOKENS}; "
+              + (f"KV cache {cap} slots a layer" + (f", a ring that wraps {S // cap} times in "
+                                                    f"the prefill" if cap < S else "")
+                 if cap else "no KV cache")
+              + f"; weights drawn in {time.perf_counter() - t_pair:.1f} s, "
+              f"{torch.cuda.memory_allocated()} bytes on the card; runs "
+              + ("in turns (graph, eager, graph)" if turns else
+                 "once (eager, the allocator's cache emptied, then graph)"))
+        prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+        batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+        recorder = Recorder(modules, ("flash.flash_attention", "decode.decode_attention",
+                                      "gmm.moe_gmm", "mamba.mamba_scan", "rwkv.rwkv6_scan"))
+        runs = []
+        for mode in (("graph", "eager", "graph") if turns else ("eager", "graph")):
+            if mode == "graph" and not eng.prefill_graphs:
+                if not turns:
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                set_modes(eng, "graph")
+                t0 = time.perf_counter()
+                eng.generate(prompts.tolist(), max_new_tokens=2)   # the captures
+                print(f"  warm-up through generate, both graphs captured in "
+                      f"{time.perf_counter() - t0:.1f} s: capture_s "
+                      + ", ".join(f"{s:.3f}" for s in eng.capture_s))
+            runs.append(serve_run(eng, batch, S, mode))
+            r = runs[-1]
+            print(f"  [{mode}] prefill_ms {r['prefill_ms']:.1f} (device "
+                  f"{_ms(r['prefill_dev_ms'])} ms, idle {_ms(r['prefill_idle'], '.3f')}, "
+                  f"{r['prefill_kernels']:.0f} kernels); decode work_us {r['work_us']:.1f} (mean "
+                  f"of {LONG_TIMED_STEPS}), device_us {_ms(r['decode_dev_us'])} wall_us "
+                  f"{r['decode_wall_us']:.1f} idle {_ms(r['decode_idle'], '.3f')} "
+                  f"({r['decode_kernels']:.0f} kernels a step); first tokens "
+                  f"{r['tokens'][0, :6].tolist()}; so far peak {torch.cuda.max_memory_allocated()}"
+                  f" allocated, {torch.cuda.max_memory_reserved()} reserved")
+        want = expected_routes(cfg, B, S, cap)
+        for r in runs:
+            if r["routes"] != want:
+                raise AssertionError(f"{label} [{r['mode']}]: launches by route {r['routes']}, "
+                                     f"expected {want}")
+        first = runs[0]
+        for r in runs[1:]:
+            if not torch.equal(r["tokens"], first["tokens"]):
+                raise AssertionError(f"{label}: the {r['mode']} run's tokens differ")
+            for i, (a, b) in enumerate(zip(r["logits"], first["logits"])):
+                if not bool(a.float().isfinite().all()) or not torch.equal(a, b):
+                    raise AssertionError(f"{label}: step {i}'s logits of the {r['mode']} run "
+                                         f"differ from the {first['mode']} run's: max |diff| "
+                                         f"{float((a.float() - b.float()).abs().max()):.3g}")
+        peak, reserved = card_peak()
+        g = [r for r in runs if r["mode"] == "graph"][-1]
+        e = [r for r in runs if r["mode"] == "eager"][-1]
+        capture = list(eng.capture_s)
+        print(f"  {len(runs)} runs: tokens equal, logits exactly equal at every step; launches "
+              f"by route {want}; peak {peak} bytes allocated, {reserved} reserved (reckoned "
+              f"{rec.total:.6g}: step {rec.step} x {rec.pools} x {rec.slack}); "
+              f"capture_s {capture}")
+        # the kernels' inputs: one more eager prefill and decode step, the graphs
+        # dropped first, the first call of each kernel copied to the host
+        t_runs = time.perf_counter()
+        eng.prefill_graphs.clear()
+        eng.decode_graphs.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        set_modes(eng, "eager")
+        with recorder, torch.inference_mode():
+            lg = eng.prefill(batch)
+            eng.decode_step(lg.argmax(-1), S)
+        torch.cuda.synchronize()
+        del eng, batch, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_record = time.perf_counter()
+        window = cfg.sliding_window
+        errs = {}
+        if n["attn"]:
+            errs["flash"] = flash_check(label, recorder, window)
+            errs["decode"] = decode_check(label, recorder)
+        if n["moe"]:
+            errs["moe_gmm"] = gmm_check(label, recorder)
+        if n["mamba"]:
+            errs["mamba"] = scan_check(label, recorder, "mamba")
+        if n["rwkv"]:
+            errs["rwkv"] = scan_check(label, recorder, "rwkv")
+        del recorder
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds = time.perf_counter() - t_pair
+        print(f"  {label}: {seconds:.1f} s (weights, warm-up and runs {t_runs - t_pair:.1f}, "
+              f"the recorded prefill {t_record - t_runs:.1f}, the kernels' checks "
+              f"{time.perf_counter() - t_record:.1f})")
+        rows.append(dict(shape=shape, cfg=cfg, B=B, S=S, cap=cap, peak=peak, reserved=reserved,
+                         rec=rec, graph=g, eager=e, capture=capture, seconds=seconds,
+                         errs=errs, routes=want))
+
+    def train_pair(cfg, rec, seed):
+        B, S = rec.batch, rec.seq_len
+        label = f"13c {cfg.name} train_4k"
+        t_pair = time.perf_counter()
+        # 11b's AdamW for a dense model, 11d's for the other families
+        opt = TRAIN_OPT if layer_counts(cfg)["attn"] == cfg.n_layers else TRAIN_FAMILY_OPT
+        it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
+                                    seed=seed)).batches()
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+                   for _ in range(TRAIN_STEPS + 1)]
+        recorder = Recorder(modules, ("flash.flash_attention_bwd", "rwkv.rwkv6_scan_bwd"))
+        runs = {}
+        for mode in ("graph", "eager"):
+            free_card(torch, f"{label} ({mode})")
+            torch.cuda.reset_peak_memory_stats()
+            params = tree_map(lambda p: p.requires_grad_(True),
+                              T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+            state = init_state(params)
+            step = make_train_step(cfg, AdamWConfig(**opt), remat=True)
+            ops.reset_launches()
+            times, hist, graph = [], [], None
+            with recorder if mode == "eager" else contextlib.nullcontext():
+                for b in batches[:TRAIN_STEPS]:
+                    t0 = time.perf_counter()
+                    if mode == "eager" or dev.type != "cuda":   # no graph off the card
+                        _, _, m = step(params, state, b)
+                    elif graph is None:
+                        graph = TrainGraph(step, params, state, b)
+                        m = graph.first_metrics
+                    else:
+                        m = graph.replay(b)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    hist.append({k: float(v) for k, v in m.items()})
+            routes = routes_now()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                if graph is None:
+                    step(params, state, batches[TRAIN_STEPS])
+                else:
+                    graph.replay(batches[TRAIN_STEPS])
+                torch.cuda.synchronize()
+                wall_us = 1e6 * (time.perf_counter() - t0)
+            device_us, _ = device_top(torch, prof, 1)
+            steady = statistics.fmean(times[1:])
+            mf = flops.model_flops(cfg, InputShape("train_4k", S, B, StepKind.TRAIN))
+            peak, reserved = card_peak()
+            runs[mode] = dict(hist=hist, step_ms=1e3 * steady, device_us=device_us,
+                              idle=device_us and 1 - device_us / wall_us, peak=peak,
+                              reserved=reserved, routes=routes,
+                              capture_s=graph.capture_s if graph else None,
+                              tokens_s=B * S / steady,
+                              mfu=mf["model_flops"] / steady / PEAK_BF16_FLOPS)
+            r = runs[mode]
+            print(f"{label} [{mode}] B {B} x {S}: losses "
+                  f"{[round(h['loss'], 6) for h in hist]}, step_ms {r['step_ms']:.1f} (steps "
+                  f"2-{TRAIN_STEPS}; step 1 {1e3 * times[0]:.1f}"
+                  + (f", capture_s {r['capture_s']:.3f}" if graph else "")
+                  + f"), tokens/s {r['tokens_s']:.1f}, MFU {r['mfu']:.4f}; profiled step device "
+                  f"{_ms(device_us and device_us / 1e3)} ms, idle {_ms(r['idle'], '.3f')}; peak "
+                  f"{peak} allocated, "
+                  f"{reserved} reserved; launches by route {routes}")
+            del params, state, step, graph, prof
+            gc.collect()
+            torch.cuda.empty_cache()
+        g, e = runs["graph"], runs["eager"]
+        if g["routes"] != e["routes"]:
+            raise AssertionError(f"{label}: launches by route {g['routes']} replayed against "
+                                 f"{e['routes']} eager")
+        n = layer_counts(cfg)
+        pair = {f"bwd_{k}_{_flash.bwd_route(bf16)}": n["attn"] * TRAIN_STEPS
+                for k in ("dq", "dkv")}
+        if n["attn"] and g["routes"].get("flash_attention_bwd") != pair:
+            raise AssertionError(f"{label}: the flash backward's routes "
+                                 f"{g['routes'].get('flash_attention_bwd')}")
+        off = []
+        for i, (a, b) in enumerate(zip(g["hist"], e["hist"])):
+            for k in ("loss", "grad_norm"):
+                if not abs(a[k] - b[k]) <= 1e-5 * abs(b[k]):
+                    off.append(f"step {i + 1} {k} {a[k]!r} against {b[k]!r}")
+        exact = all(a[k] == b[k] for a, b in zip(g["hist"], e["hist"]) for k in ("loss",
+                                                                              "grad_norm"))
+        losses = [h["loss"] for h in g["hist"]]
+        if off or not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: {off or losses}")
+        print(f"  the replay's losses and grad norms "
+              + ("exactly equal" if exact else "within rtol 1e-5 of") + " the eager step's; "
+              f"the loss falls {losses[0]:.4f} -> {losses[-1]:.4f}")
+        errs = {}
+        if "flash.flash_attention_bwd" in recorder.saved:
+            (q, k, v, o, dout), kw = recorder.inputs("flash.flash_attention_bwd", dev)
+            kw = {x: a for x, a in kw.items() if x != "lse"}     # none: an unmasked call
+            # the gradients are linear in the loss's cotangent, of the order of
+            # 1 / tokens: scaled to unit rms by a power of two, exactly
+            scale = unit_scale(dout)
+            dout = dout * scale
+            got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+            expect = ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)
+            errs["flash_bwd"] = max(check_close(f"{label} flash backward d{x}", a, b,
+                                                TOL["bfloat16"])
+                                    for x, a, b in zip("qkv", got, expect))
+            print(f"  {label} flash backward ({_flash.bwd_route(bf16)} pair) q "
+                  f"{tuple(q.shape)} {kw}, dout times {scale:g}: max |diff| "
+                  f"{errs['flash_bwd']:.3g} (atol, rtol {TOL['bfloat16']})")
+            del q, k, v, o, dout, got, expect
+        if "rwkv.rwkv6_scan_bwd" in recorder.saved:
+            args, _ = recorder.inputs("rwkv.rwkv6_scan_bwd", dev)
+            if args[7] is not None:
+                raise AssertionError(f"{label}: a cotangent of the last state")
+            scale = unit_scale(args[6])                 # do, as dout above
+            args[6] = args[6] * scale
+            got = _rwkv.rwkv6_scan_bwd(*args)
+            expect = ref.rwkv6_scan_bwd_ref(*args)
+            names = ("dr", "dk", "dv", "dw", "du", "dS0")
+            # phase 11d's limit for these kernels on a model's inputs: each
+            # gradient within SUM_REL of its largest magnitude.  Over 4096 steps
+            # of decays near 1 the sums cancel, and the plain fp32 version lies
+            # past phase 3's elementwise limit from a float64 one; the kernel
+            # must lie no further from it than twice the plain version
+            errs["rwkv_bwd"] = max(
+                check_close(f"{label} rwkv6 backward {x}", a, b, (SUM_REL * big, 0.0)) / big
+                for x, a, b in zip(names, got, expect)
+                for big in [max(float(b.abs().max()), 1e-30)])
+            two = slice(0, 2)
+            exact = rwkv6_scan_bwd_f64(*(a[two] if a is not None and a.dim() == 4 else a
+                                         for a in args))
+            off = []
+            for x, a, b, ex in zip(names, got, expect, exact):
+                if x == "du":                   # a sum over every row of the batch
+                    continue
+                kd, pd = (float((t[two].double() - ex).abs().max()) for t in (a, b))
+                off.append(f"{x} {kd:.3g} / {pd:.3g}")
+                if not kd <= 2 * pd + 1e-12 * float(ex.abs().max()):
+                    raise AssertionError(f"{label} rwkv6 backward {x}: the kernel {kd:.3g} from "
+                                         f"float64, the plain version {pd:.3g}")
+            print(f"  {label} rwkv6 backward ({_rwkv.bwd_route(args[0].dtype, args[0].shape[-1])}) "
+                  f"{tuple(args[0].shape)} {args[0].dtype}, do times {scale:g}: max |diff| over "
+                  f"the gradient's largest magnitude {errs['rwkv_bwd']:.3g} (within {SUM_REL}); "
+                  f"max |diff| from float64 on rows 0-1, kernel / plain: {', '.join(off)}")
+            del args, got, expect
+        del recorder, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds = time.perf_counter() - t_pair
+        print(f"  {label}: {seconds:.1f} s")
+        rows.append(dict(shape="train_4k", cfg=cfg, B=B, S=S, rec=rec, graph=g, eager=e,
+                         peak=max(g["peak"], e["peak"]), reserved=max(g["reserved"],
+                                                                    e["reserved"]),
+                         seconds=seconds, errs=errs))
+
+    for i, (shape, cfg, run, decided) in enumerate(plan):
+        if run is None:
+            continue
+        if shape != plan[i - 1][0] or i == 0:
+            phase({"serve_32k": "13a prefill_32k and decode_32k, one engine a model",
+                   "long_500k": "13b long_500k at batch 1",
+                   "train_4k": "13c train_4k"}[shape])
+        try:
+            if shape == "train_4k":
+                train_pair(cfg, run, LONG_SEED + i)
+            else:
+                serve_pair(shape, cfg, run, LONG_SEED + i)
+        except Exception as err:                       # noqa: BLE001
+            if not keep_going:
+                raise
+            failed.append(f"{cfg.name} {shape}: {type(err).__name__}: {err}")
+            print(f"  FAILED {failed[-1]}")
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    # -- 13d: the dry run beside each measured pair -----------------------------
+    phase("13d the dry run on a 1-rank mesh beside each pair run (phase 12b at these lengths)")
+    for row in rows:
+        cfg, B, S, g = row["cfg"], row["B"], row["S"], row["graph"]
+        measured = {"step": g.get("device_us") and g["device_us"] / 1e3,
+                    "prefill": g.get("prefill_dev_ms"),
+                    "decode step": g.get("decode_dev_us") and g["decode_dev_us"] / 1e3}
+        for name, shp, what in assigned_dry_pairs(row["shape"], cfg, row["rec"]):
+            d = host["13d"][(cfg.name, name)]
+            measured_ms = measured[what]
+            print(f"  {cfg.name} {name} B {B} x {shp.seq_len} ({cfg.n_layers} layers"
+                  + (f", {d['note']}" if d["note"] else "") + f"): predicted peak "
+                  f"{d['peak']:.6g} B against {row['peak']} allocated "
+                  f"({d['peak'] / max(row['peak'], 1):.3f} x); predicted {what} "
+                  f"{d['step_ms']:.3f} ms ({d['bottleneck']}-bound) against the replay's device "
+                  f"{_ms(measured_ms, '.3f')} ms"
+                  + (f" ({d['step_ms'] / measured_ms:.3f} x)" if measured_ms else "")
+                  + f"; {d['seconds']:.1f} s of the worker's host time")
+
+    # -- the summary ----------------------------------------------------------------
+    print(f"\nthe assigned shapes on one card ({smi}; replay / eager; prefill and train "
+          f"step device ms from the profile, decode work_us on the host clock):")
+    for row in rows:
+        cfg, g, e = row["cfg"], row["graph"], row["eager"]
+        head = (f"  {row['shape']} {cfg.name} B {row['B']} x {row['S']}, {cfg.n_layers} layers"
+                + (f", cache {row['cap']} slots" if row.get("cap") else ""))
+        if row["shape"] == "train_4k":
+            print(f"{head}: step_ms {g['step_ms']:.1f} / {e['step_ms']:.1f}, device_ms "
+                  f"{_ms(g['device_us'] and g['device_us'] / 1e3)} / "
+                  f"{_ms(e['device_us'] and e['device_us'] / 1e3)}, tokens/s "
+                  f"{g['tokens_s']:.1f}, MFU {g['mfu']:.4f}, peak {row['peak'] / 1e9:.2f} GB "
+                  f"({row['reserved'] / 1e9:.2f} reserved, reckoned {row['rec'].total / 1e9:.2f}"
+                  f"), {row['seconds']:.1f} s")
+        else:
+            print(f"{head}: prefill_ms {g['prefill_ms']:.1f} / {e['prefill_ms']:.1f} (device "
+                  f"{_ms(g['prefill_dev_ms'])} / {_ms(e['prefill_dev_ms'])}), decode work_us "
+                  f"{g['work_us']:.1f} / {e['work_us']:.1f} (device {_ms(g['decode_dev_us'])} / "
+                  f"{_ms(e['decode_dev_us'])}, idle {_ms(g['decode_idle'], '.3f')} / "
+                  f"{_ms(e['decode_idle'], '.3f')}), capture_s "
+                  f"{_ms(max(row['capture'], default=None), '.3f')}, peak "
+                  f"{row['peak'] / 1e9:.2f} GB ({row['reserved'] / 1e9:.2f} reserved, reckoned "
+                  f"{row['rec'].total / 1e9:.2f}), {row['seconds']:.1f} s")
+    for shape, cfg, run, decided in plan:
+        if run is None:
+            print(f"  {shape} {cfg.name}: not run, reckoned {decided.total / 1e9:.2f} GB at "
+                  f"batch 1, {decided.layers} layers ({decided.line()})")
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("phase 13: " + "; ".join(failed))
+
+
 def main() -> int:
     import torch
 
+    only_13 = "--only-assigned-shapes" in sys.argv[1:]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1472,6 +2222,17 @@ def main() -> int:
                 spills.append(f"{name}: {line.strip()}")
     if spills:
         raise AssertionError("kernels spill registers: " + "; ".join(spills))
+    # the dry-run traces of phases 12a and 13d and phase 13's plan: host work, in
+    # a worker process while the card runs the phases before them
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    worker = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    host = worker.submit(host_side, not only_13)
+    if only_13:
+        phase("13 the assigned input shapes on one card")
+        assigned_shapes(torch, dev, smi, host.result(), keep_going=True)
+        worker.shutdown()
+        return 0
 
     # -- 3 ------------------------------------------------------------------
     phase("3 kernels against their plain versions")
@@ -4213,7 +4974,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dry_run_and_options(torch, dev, rng, profiles["qwen3-1.7b"]["decode"], train_measured,
-                        profiles["phi4-mini-3.8b"]["decode"])
+                        profiles["phi4-mini-3.8b"]["decode"], host.result())
+
+    # -- 13 -----------------------------------------------------------------
+    phase("13 the assigned input shapes on one card")
+    free_card(torch, "phase 13")
+    assigned_shapes(torch, dev, smi, host.result())
+    worker.shutdown()
 
     # -- result -------------------------------------------------------------
     print(smi)

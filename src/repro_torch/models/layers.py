@@ -9,6 +9,7 @@ dimension (the layer axis of a homogeneous stack).
 """
 from __future__ import annotations
 
+import struct
 from typing import Optional, Tuple
 
 import torch
@@ -65,9 +66,22 @@ def rms_norm_init(d: int, dtype, device, lead: Tuple[int, ...] = ()) -> torch.Te
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies, shape (head_dim//2,)."""
+    """Inverse frequencies, shape (head_dim//2,) fp32: 1 / theta ** (i /
+    head_dim), the exponents in fp32, then the power and the inverse in
+    float64, rounded once.
+
+    That is what the JAX package's models compute: under ``jit`` and
+    ``lax.scan`` XLA folds the frequencies, which depend on no input, into
+    a constant, and folds in float64.  Taken in fp32, as torch's and JAX's
+    eager ops take them, 10 to 25 of a head's 32 to 64 frequencies lie an
+    ulp or two away, and the position multiplies that: at position 524287
+    an ulp of a frequency near 1 turns its pair by up to 0.03 rad.  theta
+    is rounded to fp32 on the host, as JAX takes a Python float: a tensor
+    made from host data would be a copy to the card that no CUDA graph
+    capture takes."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    base = struct.unpack("f", struct.pack("f", theta))[0]
+    return (1.0 / base ** exps.double()).float()
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float

@@ -2191,3 +2191,78 @@ def test_train_and_the_launcher_replay_the_captured_step(cuda):
                        "--batch", "2"])
     assert ops.LAUNCHES["adamw"] == 3 * (2 * tables + 1)
     assert all(math.isfinite(h["loss"]) for h in out["history"])
+
+
+# ---------------------------------------------------------------------------
+# the assigned input shapes' lengths (chip_smoke.py phase 13): the decode
+# kernel over 32768- and 524288-slot rows, flash under a 4096-key window at
+# 32768 queries, the scans over 32768 steps
+
+
+def _long_decode_mask(B, T, kind):
+    """(B, T) bool: ``"prefix"`` a ragged valid prefix a row (a prompt and
+    its new tokens, shorter by 1000 slots a row); ``"ring"`` a ring that has
+    wrapped, its valid slots from T - 3000 to T and from 0 to 1089, as a
+    window's valid slots lie after the write pointer passed the row's end."""
+    j = torch.arange(T, device="cuda")
+    if kind == "prefix":
+        n = torch.tensor([T - 7 - 1000 * b for b in range(B)], device="cuda")
+        return j[None] < n[:, None]
+    return ((j >= T - 3000) | (j < 1089))[None].expand(B, T).contiguous()
+
+
+@pytest.mark.parametrize("mask", ["prefix", "ring"])
+@pytest.mark.parametrize("G", [2, 3])
+@pytest.mark.parametrize("B,T,Hkv", [
+    (1, 32768, 8), (8, 32768, 8),           # decode_32k's rows
+    (1, 524288, 8),                         # long_500k's row
+    (8, 524288, 2),                         # eight of them, two kv heads to fit the plain version
+])
+def test_decode_split_at_the_assigned_lengths(cuda, B, T, Hkv, G, mask):
+    """The split design over a whole long row: every split count and live
+    tile list of these lengths, against the plain version."""
+    d = 128
+    assert tdecode.route(torch.bfloat16, G, T) == "split"
+    q = _randn(cuda, (B, Hkv * G, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, T, Hkv, d), torch.bfloat16) for _ in range(2))
+    valid = _long_decode_mask(B, T, mask)
+    before = ops.ROUTE_LAUNCHES["decode_attention"]["split"]
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert ops.ROUTE_LAUNCHES["decode_attention"]["split"] == before + 1
+    _assert_close(out, ref.decode_attention_ref(q, k, v, valid), "bfloat16")
+
+
+@pytest.mark.parametrize("d", [120, 128])
+def test_flash_wgmma_under_a_4096_window_at_32768_queries(cuda, d):
+    """h2o-danube-3-4b's and mixtral's prefill attention (G 4, window 4096)
+    over a 32768-token prompt on the wgmma route, held on slices of 128 query
+    rows (the first, one across the window's edge, one deep in the prompt,
+    the last) against the plain version over the keys each slice sees."""
+    B, Hq, Hkv, S, W = 1, 32, 8, 32768, 4096
+    assert tflash.route(torch.bfloat16) == "wgmma"
+    q = _randn(cuda, (B, Hq, S, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, Hkv, S, d), torch.bfloat16) for _ in range(2))
+    out = ops.flash_attention(q, k, v, causal=True, window=W)
+    torch.cuda.synchronize()
+    for r0 in (0, W - 64, 20000, S - 128):
+        r1, lo = r0 + 128, max(0, r0 - W + 1)
+        expect = ref.flash_attention_ref(q[:, :, r0:r1], k[:, :, lo:r1], v[:, :, lo:r1],
+                                         causal=True, window=W)
+        _assert_close(out[:, :, r0:r1], expect, "bfloat16")
+
+
+def test_mamba_lanes_over_32768_steps(cuda):
+    """Jamba's layer at prefill_32k (batch 1, d_inner 8192, d_state 16, fp32,
+    from a state) on the lanes route, against the plain loop."""
+    args = _mamba_inputs(cuda, 1, 32768, 8192, 16, torch.float32)
+    assert tmamba.route(torch.float32, 16) == "lanes"
+    _check_scan("mamba_scan", ops.mamba_scan, ref.mamba_scan_ref, args, "float32", "lanes")
+
+
+def test_rwkv6_cols_over_32768_steps(cuda):
+    """RWKV6-1.6b's layer at prefill_32k (32 heads of 64, fp32, from a state)
+    on the cols route, against the plain loop."""
+    args = _rwkv_inputs(cuda, 2, 32768, 32, 64, torch.float32)
+    assert trwkv.route(torch.float32, 64) == "cols"
+    _check_scan("rwkv6_scan", ops.rwkv6_scan, ref.rwkv6_scan_ref, args, "float32", "cols")
