@@ -901,38 +901,52 @@ def assigned_dry_pairs(shape, cfg, run):
              "decode step")]
 
 
-def host_side(with_12a: bool) -> dict:
-    """The smoke's host-only work, run in a worker process while the card
-    runs the phases before it: phase 12a's traces on the production mesh
-    (``with_12a``; its two traces of mixtral x train_4k in this one process),
-    phase 13's plan (``launch.fit.plans``) and phase 13d's dry run on a
-    1-rank mesh at every pair that plan runs.  Meta tensors and a fake
-    process group only: nothing touches the card."""
+def host_12a() -> dict:
+    """Phase 12a's host-only work, run in a worker process while the card
+    runs the phases before it: the traces on the production mesh (its two
+    traces of mixtral x train_4k in this one process) and perf's variant.
+    Meta tensors and a fake process group only: nothing touches the card."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     from repro_torch.config import get_arch
-    from repro_torch.launch import dryrun, fit, perf
+    from repro_torch.launch import dryrun, perf
+
+    out = {"torch": torch.__version__, "12a": []}
+    for arch, shape, probes in DRYRUN_12A_PAIRS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_pair(arch, shape, probes=probes, verbose=False)
+        out["12a"].append((arch, shape, probes, rec, time.perf_counter() - t0))
+    variants = {n: p for n, p, _ in perf.variants_for("train_4k", "mixtral-8x7b")}
+    two = dryrun.with_layers(get_arch("mixtral-8x7b"), 2)
+    out["12a variant"] = dryrun.run_pair("mixtral-8x7b", "train_4k", probes=False,
+                                         verbose=False, policy=variants["chunked_attn+ep"],
+                                         cfg=two)
+    return out
+
+
+def host_plan() -> dict:
+    """Phase 13's plan (``launch.fit.plans``), reckoned in a worker
+    process."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import fit
+
+    t0 = time.perf_counter()
+    plan = list(fit.plans())
+    return {"plan": plan, "plan seconds": time.perf_counter() - t0}
+
+
+def host_13d() -> dict:
+    """Phase 13d's dry run on a 1-rank mesh at every pair the plan runs,
+    the plan reckoned again in this worker process, beside the one that
+    hands it to phase 13 at once."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh, teardown_mesh
 
-    out = {"torch": torch.__version__}
     t_all = time.perf_counter()
-    if with_12a:
-        out["12a"] = []
-        for arch, shape, probes in DRYRUN_12A_PAIRS:
-            t0 = time.perf_counter()
-            rec = dryrun.run_pair(arch, shape, probes=probes, verbose=False)
-            out["12a"].append((arch, shape, probes, rec, time.perf_counter() - t0))
-        variants = {n: p for n, p, _ in perf.variants_for("train_4k", "mixtral-8x7b")}
-        two = dryrun.with_layers(get_arch("mixtral-8x7b"), 2)
-        out["12a variant"] = dryrun.run_pair("mixtral-8x7b", "train_4k", probes=False,
-                                             verbose=False, policy=variants["chunked_attn+ep"],
-                                             cfg=two)
-    t0 = time.perf_counter()
-    out["plan"] = list(fit.plans())
-    out["plan seconds"] = time.perf_counter() - t0
-    out["13d"] = {}
+    out = {}
     one = make_mesh((1, 1), ("data", "model"))
-    for shape, cfg, run, _ in out["plan"]:
+    for shape, cfg, run, _ in host_plan()["plan"]:
         if run is None:
             continue
         for name, shp, _ in assigned_dry_pairs(shape, cfg, run):
@@ -940,13 +954,12 @@ def host_side(with_12a: bool) -> dict:
             rec = dryrun.run_pair(cfg.name, name, probes=False, verbose=False, mesh=one,
                                   cfg=cfg, shape=shp)
             dryrun.require_placed(rec)
-            out["13d"][(cfg.name, name)] = dict(
+            out[(cfg.name, name)] = dict(
                 peak=rec["memory"]["peak_bytes"], step_ms=1e3 * rec["roofline"]["step_time_s"],
                 bottleneck=rec["roofline"]["bottleneck"], note=rec["note"],
                 seconds=time.perf_counter() - t0)
     teardown_mesh()
-    out["seconds"] = time.perf_counter() - t_all
-    return out
+    return {"13d": out, "seconds": time.perf_counter() - t_all}
 
 
 def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
@@ -1024,7 +1037,7 @@ def dry_run_and_options(torch, dev, rng, decode_device_us, train_measured,
             raise AssertionError(f"12a {arch} x {shape}: two traces in one process differ: "
                                  f"{again} against {dryrun.record_figures(rec)}")
     print("  mixtral-8x7b x train_4k traced twice in one process (the host-side worker, "
-          "``host_side``): every figure equal")
+          "``host_12a``): every figure equal")
     rec = host["12a variant"]
     a2a = rec["cost"]["collective bytes by kind"].get("all-to-all", 0.0)
     print(f"  perf's chunked_attn+ep on mixtral-8x7b x train_4k at 2 of 32 layers: collective "
@@ -1490,6 +1503,8 @@ LONG_TILE = 128              # query rows of each slice that a flash check takes
 LONG_CHUNK = 4096            # steps of a scan's first and last chunk held to the plain loop
 LONG_TIMED_STEPS = 27        # decode steps timed on the host clock; the other 4 profiled
 LONG_SEED = 40               # prompts and batches: seed 40 + the pair's index
+SERVE_TURNS = ("graph", "eager")   # the runs of a serving pair in turns
+REF_SCORES_BYTES = 4.3e9     # fp32 scores of the batch rows a plain flash backward takes
 
 
 def rwkv6_scan_bwd_f64(r, k, v, w, u, S0, do, dS_last):
@@ -1524,15 +1539,19 @@ def rwkv6_scan_bwd_f64(r, k, v, w, u, S0, do, dS_last):
 class Recorder:
     """While on, the first call of each kernel wrapper ``names`` names
     (``"flash.flash_attention"``: a key of ``modules``, a function of that
-    module) keeps its arguments, copied to the host so that they take no
-    room on the card while the run goes on; ``inputs(name, dev)`` hands them
-    back on the card.  The wrapper is the one ``kernels.ops`` calls, so the
-    recorded call is the model's own."""
+    module) for each distinct signature (``signature(name, args, kwargs)``:
+    the shapes and options the kernel specialises on) keeps its arguments,
+    copied to ``keep``: the host, so that they take no room on the card
+    while the run goes on, or the card where the run leaves room;
+    ``calls(name, dev)`` hands them back on the card, by signature.  The
+    wrapper is the one ``kernels.ops`` calls, so the recorded calls are the
+    model's own."""
 
-    def __init__(self, modules: dict, names):
+    def __init__(self, modules: dict, names, keep="cpu"):
         self.targets = {n: (modules[n.split(".")[0]], n.split(".")[1]) for n in names}
+        self.keep = keep
         self.kept = {}
-        self.saved = {}
+        self.saved = collections.defaultdict(dict)
 
     def __enter__(self):
         for key, (mod, name) in self.targets.items():
@@ -1545,20 +1564,37 @@ class Recorder:
         for (mod, name), fn in self.kept.items():
             setattr(mod, name, fn)
 
+    @staticmethod
+    def signature(name, args, kwargs) -> tuple:
+        """Attention: (causal, window, S, T, d, G) of q (B, Hq, S, d) and k
+        (B, Hkv, T, d), or (T, d, G) of a decode call's q (B, Hq, d) and
+        cache (B, T, Hkv, d); any other kernel: its operands' shapes."""
+        if name.startswith("flash."):
+            q, k = args[0], args[1]
+            return (kwargs.get("causal", True), kwargs.get("window"), q.shape[2], k.shape[2],
+                    q.shape[3], q.shape[1] // k.shape[1])
+        if name.startswith("decode."):
+            q, k = args[0], args[1]
+            return (k.shape[1], q.shape[2], q.shape[1] // k.shape[2])
+        return tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+
     def _wrap(self, name, fn):
         def call(*args, **kwargs):
-            if name not in self.saved:
-                self.saved[name] = (
-                    [a.detach().to("cpu") if hasattr(a, "detach") else a for a in args],
-                    {k: a.detach().to("cpu") if hasattr(a, "detach") else a
-                     for k, a in kwargs.items()})
+            sig = self.signature(name, args, kwargs)
+            if sig not in self.saved[name]:
+                def copy(a):
+                    return a.detach().to(self.keep, copy=True) if hasattr(a, "detach") else a
+                self.saved[name][sig] = ([copy(a) for a in args],
+                                         {k: copy(a) for k, a in kwargs.items()})
             return fn(*args, **kwargs)
         return call
 
-    def inputs(self, name, dev):
-        args, kwargs = self.saved[name]
-        return ([a.to(dev) if hasattr(a, "to") else a for a in args],
-                {k: a.to(dev) if hasattr(a, "to") else a for k, a in kwargs.items()})
+    def calls(self, name, dev):
+        """(signature, args, kwargs) of each recorded call of ``name``, on
+        ``dev``, in the order of their first calls."""
+        for sig, (args, kwargs) in self.saved.get(name, {}).items():
+            yield (sig, [a.to(dev) if hasattr(a, "to") else a for a in args],
+                   {k: a.to(dev) if hasattr(a, "to") else a for k, a in kwargs.items()})
 
 
 def _ms(x, spec: str = ".1f") -> str:
@@ -1570,48 +1606,64 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
     """Phase 13: the assigned input shapes on one card, through the port's
     entry points at full width (bf16, random weights drawn from ``SEED``):
 
-    - the plan (``launch.fit.plans``): for each pair of ``fit.PLAN`` its
-      batch (the largest of 8, 4, 2, 1 that the byte reckoning fits in 80
-      GB), its depth (cut only where the weights alone exceed the card), the
-      order of its serving runs (in turns where two copies of a step fit,
-      else once), or, for a pair that does not fit at batch 1, its reckoned
+    - the plan (``launch.fit.plans``): for each of the ten architectures
+      under each shape of ``fit.PLAN``, its depth (cut where the whole model
+      does not fit 80 GB at batch 1: to the most whole periods of layers
+      that fit, else to the longest prefix of one period), its batch (the
+      largest of 8, 4, 2, 1 that fits at that depth), the order of its
+      serving runs (in turns where two copies of a step fit, else once),
+      or, for a pair of which not one layer fits at batch 1, its reckoned
       bytes, printed as not run;
+    - each pair on the inputs of the JAX package's spec
+      (``launch.dryrun.input_specs``): tokens; a VLM's stub ``embeds`` in
+      their place; an enc-dec model's stub ``enc_embeds`` beside them,
+      every frame valid (no ``enc_mask``); drawn from the pair's seed;
     - 13a prefill_32k and decode_32k: one ``ServingEngine`` a model with a
       32800-slot cache (a windowed model's ring holds 4096), 32768-token
-      prompts, then 31 decode steps: a warm-up through ``generate`` that
-      captures both graphs, then runs replayed and eager in turns (graph,
-      eager, graph), each a prefill and 31 steps through ``prefill`` and
-      ``decode_step``, the prefill profiled, the first ``LONG_TIMED_STEPS``
-      steps timed on the host clock (``work_us``) and the rest profiled
-      (device time and idle share); every run's tokens equal and its logits
-      exactly equal, its launches by route those of the path;
+      prompts, then 31 decode steps: both graphs captured
+      (``ServingEngine.capture``), then runs replayed and eager in turns
+      (``SERVE_TURNS``), each a prefill and 31 steps through ``prefill``
+      and ``decode_step``, the prefill profiled, the first
+      ``LONG_TIMED_STEPS`` steps timed on the host clock (``work_us``) and
+      the rest profiled (device time and idle share); every run's tokens
+      equal and its logits exactly equal, its launches by route those of the
+      path, the card's reserved peak below the reckoning;
     - 13b long_500k at batch 1: a 524288-token prompt and 31 steps past it,
-      rwkv6 natively, qwen3 under the reference's serving variant (window
-      4096, ``launch.dryrun.serving_variant``), h2o natively where it fits;
-      run once (the eager design, the allocator's cache emptied, then the
+      natively or under the reference's serving variant (window 4096,
+      ``launch.dryrun.serving_variant``; an encoder stays unwindowed); run
+      once (the eager design, the allocator's cache emptied, then the
       graphs) where two copies of a prefill do not fit;
     - 13c train_4k: ``TrainGraph`` replays and the eager step from the same
       weights and batches, 4 steps each, then a profiled step: losses and
       grad norms of the replay within rtol 1e-5 of the eager step's, a
-      falling loss;
+      falling loss, the backward kernels' and AdamW's launches by route
+      those of the path (AdamW a launch a table of at most 64 leaves);
     - each pair's kernels against their plain versions on the inputs they
-      met in the eager run, layer 0's (``Recorder``), at phase 3's limits:
-      flash on slices of ``LONG_TILE`` query rows (the first, the last and
-      one across the window's edge, or the middle one under full causal
-      attention) against ``ref.flash_attention_ref`` over their keys, decode
-      ``split`` over the whole cache row, ``moe_gmm`` whole, the scans over
-      the first ``LONG_CHUNK`` steps and the last (from the kernel's own
-      state before them) with the final state; the scans' linear input
-      (dtx, v) and the backwards' cotangents scaled to unit rms by a power
-      of two, exactly; the backward pair of 13c whole, the RWKV6 backward
-      whole within ``SUM_REL`` of each gradient's largest magnitude, as
-      phase 11d holds it on a model's inputs;
+      met, layer 0's (``Recorder``: the first call of each distinct
+      signature, from an eager prefill and decode step after the runs
+      through the first period of layers, whose inputs do not depend on the
+      layers after it, or from the eager training steps), at phase 3's
+      limits: flash on slices of
+      ``LONG_TILE`` query rows (the first, the last and one across the
+      window's edge, or the middle one) against ``ref.flash_attention_ref``
+      over their keys, each of the decoder's self-attention, an encoder's
+      and a cross-attention's; decode ``split`` over the whole cache row and
+      over the encoder's frames; ``moe_gmm`` whole; the scans over the first
+      ``LONG_CHUNK`` steps and the last (from the kernel's own state before
+      them) with the final state; the scans' linear input (dtx, v) and the
+      backwards' cotangents scaled to unit rms by a power of two, exactly;
+      13c's flash backward pairs (each signature, on the batch rows whose
+      scores fit ``REF_SCORES_BYTES``) and the experts' dx at the bf16
+      limit, their dw no further from float64 than twice the plain
+      version, the scans' backwards whole within ``SUM_REL`` of each
+      gradient's largest magnitude, as phase 11d holds them on a model's
+      inputs;
     - 13d the dry run on a 1-rank mesh at every pair run (the cut config and
       the run's batch), its predicted peak and step beside the measured
       ones, with their ratio, no bound set.
 
-    The plan and 13d's traces come from ``host`` (``host_side``'s, run in
-    a worker process while the card works).
+    The plan and 13d's traces come from ``host``'s futures (``host_plan``
+    and ``host_13d``, run in worker processes while the card works).
 
     With ``keep_going`` a pair that fails is printed and the phase goes on,
     raising at its end."""
@@ -1619,6 +1671,7 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.config import InputShape, StepKind
+    from repro_torch.kernels import adamw as _adamw
     from repro_torch.kernels import decode_attention as _decode
     from repro_torch.kernels import flash_attention as _flash
     from repro_torch.kernels import mamba_scan as _mamba
@@ -1628,7 +1681,8 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
     from repro_torch.launch import fit
     from repro_torch.models import attention, flops
     from repro_torch.models import transformer as T
-    from repro_torch.models.layers import tree_map
+    from repro_torch.models.frontends import stub_frontend_embeddings
+    from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.serving import ServingEngine
     from repro_torch.train import AdamWConfig, DataConfig, SyntheticLM, make_train_step
     from repro_torch.train.optimizer import init_state
@@ -1643,15 +1697,39 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
     t_phase = time.perf_counter()
 
     # -- the plan ------------------------------------------------------------------
-    plan = host["plan"]
-    print(f"the plan (launch.fit, {host['plan seconds']:.1f} s in the host-side worker: a "
+    planned = host["plan"].result()
+    plan = planned["plan"]
+    print(f"the plan (launch.fit, {planned['plan seconds']:.1f} s in a host-side worker: a "
           f"step's peak traced on the meta device, x "
-          f"{fit.ALLOCATOR_SLACK} for the allocator, x 2 in turns; reserve "
+          f"{fit.ALLOCATOR_SLACK} for the allocator (in training at least the step plus "
+          f"{fit.ALLOCATOR_FLOOR['train'] / 1e9:.1f} GB), x 2 in turns; reserve "
           f"{fit.RESERVE / 1e9:.1f} GB; card {fit.CARD_BYTES / 1e9:.1f} GB; this card's "
           f"total_memory {torch.cuda.get_device_properties(0).total_memory} bytes):")
     for shape, cfg, run, decided in plan:
         print(f"  {shape}: " + (run.line() + (", in turns" if run.pools == 2 else ", once")
                                 if run else "NOT RUN: " + decided.line()))
+
+    def attn_layers(cfg):
+        """(flash calls of a prefill or a training forward, decode calls of
+        a decode step): the decoder's attention layers, and for an enc-dec
+        model its encoder's layers and a cross-attention beside each decoder
+        attention layer."""
+        n = layer_counts(cfg)["attn"]
+        if cfg.encdec is None:
+            return n, n
+        return 2 * n + cfg.encdec.encoder_layers, 2 * n
+
+    def flash_signatures(cfg, S):
+        """``Recorder.signature``s of the flash calls of a prefill (or a
+        training forward) of S tokens: the decoder's causal self-attention
+        under its window, and for an enc-dec model the encoder's
+        bidirectional attention and the cross-attention over its frames."""
+        d, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+        sigs = {(True, cfg.sliding_window, S, S, d, G)}
+        if cfg.encdec is not None:
+            F = cfg.encdec.max_source_positions
+            sigs |= {(False, None, F, F, d, G), (False, None, S, F, d, G)}
+        return sigs
 
     def expected_routes(cfg, B, S, cap):
         """Launches by route of a prefill of B x S tokens and ``n_decode``
@@ -1660,15 +1738,17 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
         want = {}
         if n["attn"]:
             G = cfg.n_heads // cfg.n_kv_heads
-            want["flash_attention"] = {_flash.route(bf16): n["attn"]}
-            want["decode_attention"] = {_decode.route(bf16, G, cap): n["attn"] * n_decode}
+            prefills, decodes = attn_layers(cfg)
+            want["flash_attention"] = {_flash.route(bf16): prefills}
+            c = collections.Counter({_decode.route(bf16, G, cap): n["attn"] * n_decode})
+            if cfg.encdec is not None:
+                c[_decode.route(bf16, G, cfg.encdec.max_source_positions)] += (
+                    (decodes - n["attn"]) * n_decode)
+            want["decode_attention"] = dict(c)
         if n["moe"]:
-            E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
             c = collections.Counter()
             for tokens, steps in ((B * S, 1), (B, n_decode)):
-                C = max(1, int(cf * k * tokens / E))
-                for D, F in ((cfg.d_model, cfg.d_ff), (cfg.d_model, cfg.d_ff),
-                             (cfg.d_ff, cfg.d_model)):
+                for C, D, F in expert_products(cfg, tokens):
                     c[_gmm.route(bf16, C, D, F)] += n["moe"] * steps
             want["moe_gmm"] = dict(c)
         if n["mamba"]:
@@ -1679,9 +1759,55 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
                                   n["rwkv"] * (n_decode + 1)}
         return want
 
+    def expert_products(cfg, tokens):
+        """(C, D, F) of an MoE layer's three expert products (gate, up,
+        down) over ``tokens`` tokens."""
+        E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+        C = max(1, int(cf * k * tokens / E))
+        return [(C, cfg.d_model, cfg.d_ff)] * 2 + [(C, cfg.d_ff, cfg.d_model)]
+
+    def train_routes(cfg, B, S, tables):
+        """Launches by route of ``TRAIN_STEPS`` training steps' backward
+        kernels and AdamW (``tables`` tables of at most 64 leaves)."""
+        n = layer_counts(cfg)
+        steps, want = TRAIN_STEPS, {}
+        if n["attn"]:
+            calls = attn_layers(cfg)[0] * steps
+            want["flash_attention_bwd"] = {f"bwd_{k}_{_flash.bwd_route(bf16)}": calls
+                                           for k in ("dq", "dkv")}
+        if n["moe"]:
+            c = collections.Counter()
+            for C, D, F in expert_products(cfg, B * S):
+                r_dx, r_dw = _gmm.bwd_route(bf16, C, D, F)
+                c[f"dx_{r_dx}"] += n["moe"] * steps
+                c[f"dw_{r_dw}"] += n["moe"] * steps
+            want["moe_gmm_bwd"] = dict(c)
+        if n["mamba"]:
+            di = cfg.mamba.d_inner(cfg.d_model)
+            want["mamba_scan_bwd"] = {_mamba.bwd_route(f32, cfg.mamba.d_state, di):
+                                      n["mamba"] * steps}
+        if n["rwkv"]:
+            want["rwkv6_scan_bwd"] = {_rwkv.bwd_route(f32, cfg.rwkv.head_size):
+                                      n["rwkv"] * steps}
+        want["adamw"] = {"sumsq": tables * steps, "norm": steps, "update": tables * steps}
+        return want
+
     def routes_now():
         return {op: {r: n for r, n in c.items() if n} for op, c in ops.ROUTE_LAUNCHES.items()
                 if any(c.values())}
+
+    def pair_inputs(cfg, B, S, seed):
+        """The inputs of the JAX package's spec beside the tokens
+        (``launch.dryrun.input_specs``), drawn from ``seed``: a VLM's
+        ``embeds`` (B, S, width) in their place, an enc-dec model's
+        ``enc_embeds`` (B, frames, width), every frame valid."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        if cfg.encdec is not None:
+            return {"enc_embeds": stub_frontend_embeddings(cfg, gen, B,
+                                                           cfg.encdec.max_source_positions)}
+        if cfg.frontend is not None:
+            return {"embeds": stub_frontend_embeddings(cfg, gen, B, S)}
+        return {}
 
     def serve_run(eng, batch, S, mode):
         """A prefill of ``batch`` and ``n_decode`` greedy steps through the
@@ -1723,102 +1849,134 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
                     decode_idle=d_dev and 1 - d_dev / wall_us, decode_kernels=d_kernels,
                     logits=logits, tokens=torch.cat(toks, 1).cpu(), routes=routes_now())
 
-    def flash_check(label, rec, window):
-        (q, k, v), kw = rec.inputs("flash.flash_attention", dev)
-        B, Hq, S, d = q.shape
-        if kw.get("window") != window or not kw.get("causal", True):
-            raise AssertionError(f"{label}: the model's flash call {kw}, window {window}")
-        out = _flash.flash_attention(q, k, v, causal=True, window=window)
-        starts = [0, S - LONG_TILE]
-        starts.append(window - LONG_TILE // 2 if window and window < S else S // 2)
-        errs = []
-        for r0 in sorted(set(starts)):
-            r1 = r0 + LONG_TILE
-            lo = max(0, r0 - window + 1) if window else 0
-            expect = ref.flash_attention_ref(q[:, :, r0:r1], k[:, :, lo:r1], v[:, :, lo:r1],
-                                             causal=True, window=window)
-            errs.append((r0, check_close(f"{label} flash rows {r0}..{r1}", out[:, :, r0:r1],
-                                         expect, TOL["bfloat16"])))
-            del expect
-        ms = time_ms(torch, lambda: _flash.flash_attention(q, k, v, causal=True,
-                                                          window=window), 1, lambda: None)
-        pairs = sum(min(t + 1, window or t + 1) for t in range(S))
-        tflops = 4 * d * pairs * B * Hq / (ms * 1e-3) / 1e12
-        print(f"  {label} flash ({_flash.route(bf16)}) q {tuple(q.shape)} k {tuple(k.shape)} "
-              f"window {window}: rows " + ", ".join(f"{r0}..{r0 + LONG_TILE} max |diff| "
-                                                    f"{e:.3g}" for r0, e in errs)
-              + f" (atol, rtol {TOL['bfloat16']}); one launch {ms:.3f} ms, "
-              f"{tflops:.1f} TFLOP/s of the {pairs * B * Hq} allowed pairs")
-        return max(e for _, e in errs)
+    def recorded(label, rec, name, want):
+        """The recorded calls of ``name``, whose signatures must be ``want``."""
+        got = set(rec.saved.get(name, {}))
+        if got != want:
+            raise AssertionError(f"{label}: the model's {name} calls {sorted(got, key=str)}, "
+                                 f"expected {sorted(want, key=str)}")
+        return rec.calls(name, dev)
 
-    def decode_check(label, rec):
-        (q, k, v, valid), _ = rec.inputs("decode.decode_attention", dev)
-        B, Hq, d = q.shape
-        T_, Hkv = k.shape[1], k.shape[2]
-        route = _decode.route(bf16, Hq // Hkv, T_)
-        got = _decode.decode_attention(q, k, v, valid)
-        err = check_close(f"{label} decode", got, ref.decode_attention_ref(q, k, v, valid),
-                          TOL["bfloat16"])
-        ms = time_ms(torch, lambda: _decode.decode_attention(q, k, v, valid), 3, lambda: None)
-        nbytes_ = sum(t.numel() * t.element_size() for t in (q, k, v, valid, got))
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        print(f"  {label} decode ({route}, splits {_decode.splits(B, Hkv, T_, sms)}) "
-              f"q {tuple(q.shape)} cache {tuple(k.shape)}, {int(valid[0].sum())} of {T_} slots "
-              f"valid: max |diff| {err:.3g}; {ms:.4f} ms a launch (warm L2), "
-              f"{nbytes_ / (ms * 1e-3) / 1e9:.0f} GB/s of its {nbytes_} bytes")
-        return err
+    def flash_check(label, rec, want):
+        """Each distinct flash call of the prefill against the plain version
+        on slices of ``LONG_TILE`` query rows (the first, the last, and one
+        across the window's edge or the middle one) over their keys."""
+        worst = 0.0
+        for (causal, window, S, T, d, G), (q, k, v), kw in recorded(
+                label, rec, "flash.flash_attention", want):
+            if kw.get("key_valid") is not None:
+                raise AssertionError(f"{label}: a key mask on a flash call {kw}")
+            B, Hq = q.shape[:2]
+            out = _flash.flash_attention(q, k, v, causal=causal, window=window)
+            starts = [0, S - LONG_TILE]
+            starts.append(window - LONG_TILE // 2 if causal and window and window < S
+                          else S // 2)
+            errs = []
+            for r0 in sorted(set(starts)):
+                r1 = r0 + LONG_TILE
+                lo, hi = ((max(0, r0 - window + 1) if window else 0), r1) if causal else (0, T)
+                expect = ref.flash_attention_ref(q[:, :, r0:r1], k[:, :, lo:hi], v[:, :, lo:hi],
+                                                 causal=causal, window=window)
+                errs.append((r0, check_close(f"{label} flash {S} x {T} rows {r0}..{r1}",
+                                             out[:, :, r0:r1], expect, TOL["bfloat16"])))
+                del expect
+            ms = time_ms(torch, lambda: _flash.flash_attention(q, k, v, causal=causal,
+                                                              window=window), 1, lambda: None)
+            pairs = (sum(min(t + 1, window or t + 1) for t in range(S)) if causal else S * T)
+            tflops = 4 * d * pairs * B * Hq / (ms * 1e-3) / 1e12
+            print(f"  {label} flash ({_flash.route(bf16)}) q {tuple(q.shape)} k {tuple(k.shape)} "
+                  f"{'causal' if causal else 'bidirectional'}, window {window}: rows "
+                  + ", ".join(f"{r0}..{r0 + LONG_TILE} max |diff| {e:.3g}" for r0, e in errs)
+                  + f" (atol, rtol {TOL['bfloat16']}); one launch {ms:.3f} ms, "
+                  f"{tflops:.1f} TFLOP/s of the {pairs * B * Hq} allowed pairs")
+            worst = max([worst] + [e for _, e in errs])
+            del q, k, v, out
+        return worst
+
+    def decode_check(label, rec, want):
+        """Each distinct decode call (the self-attention over the KV cache,
+        an enc-dec model's cross-attention over its frames) against the
+        plain version over the whole row."""
+        worst = 0.0
+        for (T_, d, G), (q, k, v, valid), _ in recorded(label, rec, "decode.decode_attention",
+                                                        want):
+            B, Hq, _ = q.shape
+            Hkv = k.shape[2]
+            route = _decode.route(bf16, G, T_)
+            got = _decode.decode_attention(q, k, v, valid)
+            err = check_close(f"{label} decode over {T_}", got,
+                              ref.decode_attention_ref(q, k, v, valid), TOL["bfloat16"])
+            ms = time_ms(torch, lambda: _decode.decode_attention(q, k, v, valid), 3,
+                         lambda: None)
+            nbytes_ = sum(t.numel() * t.element_size() for t in (q, k, v, valid, got))
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            print(f"  {label} decode ({route}, splits {_decode.splits(B, Hkv, T_, sms)}) "
+                  f"q {tuple(q.shape)} cache {tuple(k.shape)}, {int(valid[0].sum())} of {T_} "
+                  f"slots valid: max |diff| {err:.3g}; {ms:.4f} ms a launch (warm L2), "
+                  f"{nbytes_ / (ms * 1e-3) / 1e9:.0f} GB/s of its {nbytes_} bytes")
+            worst = max(worst, err)
+        return worst
 
     def gmm_check(label, rec):
-        (x, w), _ = rec.inputs("gmm.moe_gmm", dev)
-        E, C, D = x.shape
-        got = _gmm.moe_gmm(x, w)
-        err = check_close(f"{label} moe_gmm", got, ref.moe_gmm_ref(x, w), GMM_TOL["bfloat16"])
-        ms = time_ms(torch, lambda: _gmm.moe_gmm(x, w), 3, lambda: None)
-        print(f"  {label} moe_gmm ({_gmm.route(bf16, C, D, w.shape[2])}) x {tuple(x.shape)} w "
-              f"{tuple(w.shape)}: max |diff| {err:.3g}; {ms:.3f} ms a launch, "
-              f"{2 * E * C * D * w.shape[2] / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
-        return err
+        """Each distinct expert product of the prefill and the decode step,
+        whole."""
+        worst = 0.0
+        for _, (x, w), _ in rec.calls("gmm.moe_gmm", dev):
+            E, C, D = x.shape
+            got = _gmm.moe_gmm(x, w)
+            err = check_close(f"{label} moe_gmm", got, ref.moe_gmm_ref(x, w),
+                              GMM_TOL["bfloat16"])
+            ms = time_ms(torch, lambda: _gmm.moe_gmm(x, w), 3, lambda: None)
+            print(f"  {label} moe_gmm ({_gmm.route(bf16, C, D, w.shape[2])}) x {tuple(x.shape)} "
+                  f"w {tuple(w.shape)}: max |diff| {err:.3g}; {ms:.3f} ms a launch, "
+                  f"{2 * E * C * D * w.shape[2] / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            worst = max(worst, err)
+            del x, w, got
+        return worst
 
     def scan_check(label, rec, which):
-        """The scan of layer 0's prefill against the plain loop, over the
-        first ``LONG_CHUNK`` steps and the last (from the kernel's own state
-        after the others) with the final state: the plain loop over all of
-        32768 steps of RWKV6's batch of 8 took 25 s."""
+        """Each distinct scan of layer 0 (the prefill's, the decode step's)
+        against the plain loop, over the first ``LONG_CHUNK`` steps and the
+        last (from the kernel's own state after the others) with the final
+        state: the plain loop over all of 32768 steps of RWKV6's batch of 8
+        took 25 s."""
         name, fn, plain = (("mamba.mamba_scan", _mamba.mamba_scan, ref.mamba_scan_ref)
                            if which == "mamba" else
                            ("rwkv.rwkv6_scan", _rwkv.rwkv6_scan, ref.rwkv6_scan_ref))
-        args, _ = rec.inputs(name, dev)
-        *xs, par, s0 = args
-        S = xs[0].shape[1]
-        # the output and the state are linear in dtx (Mamba) or v (RWKV6) from a
-        # zero state: scaled to unit rms by a power of two, exactly, so that the
-        # limits act as on phase 3's inputs
-        lin = 1 if which == "mamba" else 2
-        scale = unit_scale(xs[lin]) if s0 is None or not bool(s0.any()) else 1.0
-        xs[lin] = xs[lin] * scale
-        y, s_last = fn(*xs, par, s0)
-        tol = SCAN_TOL["float32"]
-        if S <= 2 * LONG_CHUNK:
-            ey, es = plain(*xs, par, s0)
-            err = max(check_close(f"{label} {which} out", y, ey, tol),
-                      check_close(f"{label} {which} state", s_last, es, tol))
-            how = f"all {S} steps"
-        else:
-            c = LONG_CHUNK
-            ey, _ = plain(*(t[:, :c] for t in xs), par, s0)
-            e1 = check_close(f"{label} {which} first {c} steps", y[:, :c], ey, tol)
-            _, s_mid = fn(*(t[:, :S - c].contiguous() for t in xs), par, s0)
-            ey, es = plain(*(t[:, S - c:] for t in xs), par, s_mid)
-            e2 = max(check_close(f"{label} {which} last {c} steps", y[:, S - c:], ey, tol),
-                     check_close(f"{label} {which} final state", s_last, es, tol))
-            err = max(e1, e2)
-            how = f"the first and last {c} of {S} steps and the final state"
-        route = (_mamba.route(xs[0].dtype, xs[2].shape[-1]) if which == "mamba"
-                 else _rwkv.route(xs[0].dtype, xs[0].shape[-1]))
-        print(f"  {label} {which} scan ({route}) {tuple(xs[0].shape)} {xs[0].dtype}, {how}, "
-              f"{'dtx' if lin == 1 else 'v'} times {scale:g}: max |diff| {err:.3g} (atol, rtol "
-              f"{tol})")
-        return err
+        worst = 0.0
+        for _, args, _ in rec.calls(name, dev):
+            *xs, par, s0 = args
+            S = xs[0].shape[1]
+            # the output and the state are linear in dtx (Mamba) or v (RWKV6) from a
+            # zero state: scaled to unit rms by a power of two, exactly, so that the
+            # limits act as on phase 3's inputs
+            lin = 1 if which == "mamba" else 2
+            scale = unit_scale(xs[lin]) if s0 is None or not bool(s0.any()) else 1.0
+            xs[lin] = xs[lin] * scale
+            y, s_last = fn(*xs, par, s0)
+            tol = SCAN_TOL["float32"]
+            if S <= 2 * LONG_CHUNK:
+                ey, es = plain(*xs, par, s0)
+                err = max(check_close(f"{label} {which} out", y, ey, tol),
+                          check_close(f"{label} {which} state", s_last, es, tol))
+                how = f"all {S} steps"
+            else:
+                c = LONG_CHUNK
+                ey, _ = plain(*(t[:, :c] for t in xs), par, s0)
+                e1 = check_close(f"{label} {which} first {c} steps", y[:, :c], ey, tol)
+                _, s_mid = fn(*(t[:, :S - c].contiguous() for t in xs), par, s0)
+                ey, es = plain(*(t[:, S - c:] for t in xs), par, s_mid)
+                e2 = max(check_close(f"{label} {which} last {c} steps", y[:, S - c:], ey, tol),
+                         check_close(f"{label} {which} final state", s_last, es, tol))
+                err = max(e1, e2)
+                how = f"the first and last {c} of {S} steps and the final state"
+            route = (_mamba.route(xs[0].dtype, xs[2].shape[-1]) if which == "mamba"
+                     else _rwkv.route(xs[0].dtype, xs[0].shape[-1]))
+            print(f"  {label} {which} scan ({route}) {tuple(xs[0].shape)} {xs[0].dtype}, {how}, "
+                  f"{'dtx' if lin == 1 else 'v'} times {scale:g}: max |diff| {err:.3g} (atol, "
+                  f"rtol {tol})")
+            worst = max(worst, err)
+        return worst
 
     def card_peak():
         return torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
@@ -1828,6 +1986,11 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
         it rounds nothing."""
         rms = float(t.float().square().mean().sqrt())
         return 2.0 ** round(-math.log2(rms)) if rms > 0 else 1.0
+
+    def below_reckoning(label, reserved, rec):
+        if not reserved < rec.total:
+            raise AssertionError(f"{label}: {reserved} bytes reserved, above the reckoned "
+                                 f"{rec.total:.6g}")
 
     def serve_pair(shape, cfg, rec, seed):
         B, S, turns = rec.batch, rec.seq_len, rec.pools == 2
@@ -1840,29 +2003,37 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
         torch.cuda.synchronize()
         n = layer_counts(cfg)
         cap = attention.kv_cache_capacity(cfg, S + NEW_TOKENS) if n["attn"] else None
-        print(f"{label}: {cfg.n_layers} layers {dict(n)}, window {cfg.sliding_window}, batch "
-              f"{B} x {S} tokens + {NEW_TOKENS}; "
+        inputs = pair_inputs(cfg, B, S, seed)
+        batch = dict(inputs)
+        if "embeds" not in batch:
+            batch["tokens"] = torch.from_numpy(
+                np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))).to(dev)
+        print(f"{label}: {rec.depth()} {dict(n)}, window {cfg.sliding_window}, batch "
+              f"{B} x {S} {'embeddings' if 'embeds' in batch else 'tokens'} + {NEW_TOKENS}"
+              + (f", {inputs['enc_embeds'].shape[1]} encoder frames, all valid"
+                 if "enc_embeds" in inputs else "") + "; "
               + (f"KV cache {cap} slots a layer" + (f", a ring that wraps {S // cap} times in "
                                                     f"the prefill" if cap < S else "")
                  if cap else "no KV cache")
-              + f"; weights drawn in {time.perf_counter() - t_pair:.1f} s, "
+              + f"; weights and inputs drawn in {time.perf_counter() - t_pair:.1f} s, "
               f"{torch.cuda.memory_allocated()} bytes on the card; runs "
-              + ("in turns (graph, eager, graph)" if turns else
+              + (f"in turns ({', '.join(SERVE_TURNS)})" if turns else
                  "once (eager, the allocator's cache emptied, then graph)"))
-        prompts = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
-        batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+        # kept on the card: the recorded steps run once the graphs are dropped,
+        # where the engine's weights and caches leave room
         recorder = Recorder(modules, ("flash.flash_attention", "decode.decode_attention",
-                                      "gmm.moe_gmm", "mamba.mamba_scan", "rwkv.rwkv6_scan"))
+                                      "gmm.moe_gmm", "mamba.mamba_scan", "rwkv.rwkv6_scan"),
+                            keep=dev)
         runs = []
-        for mode in (("graph", "eager", "graph") if turns else ("eager", "graph")):
+        for mode in (SERVE_TURNS if turns else ("eager", "graph")):
             if mode == "graph" and not eng.prefill_graphs:
                 if not turns:
                     gc.collect()
                     torch.cuda.empty_cache()
                 set_modes(eng, "graph")
                 t0 = time.perf_counter()
-                eng.generate(prompts.tolist(), max_new_tokens=2)   # the captures
-                print(f"  warm-up through generate, both graphs captured in "
+                eng.capture(batch, torch.zeros((B, 1), dtype=torch.long, device=dev), S)
+                print(f"  both graphs captured (ServingEngine.capture) in "
                       f"{time.perf_counter() - t0:.1f} s: capture_s "
                       + ", ".join(f"{s:.3f}" for s in eng.capture_s))
             runs.append(serve_run(eng, batch, S, mode))
@@ -1890,34 +2061,43 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
                                          f"differ from the {first['mode']} run's: max |diff| "
                                          f"{float((a.float() - b.float()).abs().max()):.3g}")
         peak, reserved = card_peak()
+        below_reckoning(label, reserved, rec)
         g = [r for r in runs if r["mode"] == "graph"][-1]
         e = [r for r in runs if r["mode"] == "eager"][-1]
         capture = list(eng.capture_s)
         print(f"  {len(runs)} runs: tokens equal, logits exactly equal at every step; launches "
-              f"by route {want}; peak {peak} bytes allocated, {reserved} reserved (reckoned "
-              f"{rec.total:.6g}: step {rec.step} x {rec.pools} x {rec.slack}); "
+              f"by route {want}; peak {peak} bytes allocated, {reserved} reserved, below the "
+              f"reckoned {rec.total:.6g} (step {rec.step} x {rec.pools} x {rec.slack}); "
               f"capture_s {capture}")
-        # the kernels' inputs: one more eager prefill and decode step, the graphs
-        # dropped first, the first call of each kernel copied to the host
+        # the kernels' inputs: layer 0's calls in one more eager prefill and decode
+        # step, the graphs dropped first, the first call of each kernel's every
+        # signature copied on the card.  Layer 0's inputs do not depend on the
+        # layers after it, so the step runs through the first period of layers
+        # alone (views of the engine's weights; an encoder whole)
         t_runs = time.perf_counter()
         eng.prefill_graphs.clear()
         eng.decode_graphs.clear()
         gc.collect()
         torch.cuda.empty_cache()
-        set_modes(eng, "eager")
+        first = dataclasses.replace(cfg, n_layers=fit.period(cfg))
+        params = {k: tree_map(lambda t: t[:1], v) if k == "blocks" else v
+                  for k, v in eng.params.items()}
         with recorder, torch.inference_mode():
-            lg = eng.prefill(batch)
-            eng.decode_step(lg.argmax(-1), S)
+            lg, state = T.prefill(params, first, batch, seq_len=S + NEW_TOKENS)
+            T.decode_step(params, first, lg.argmax(-1), S, state)
         torch.cuda.synchronize()
-        del eng, batch, lg
+        del eng, batch, inputs, lg, state, params
         gc.collect()
         torch.cuda.empty_cache()
         t_record = time.perf_counter()
-        window = cfg.sliding_window
         errs = {}
         if n["attn"]:
-            errs["flash"] = flash_check(label, recorder, window)
-            errs["decode"] = decode_check(label, recorder)
+            d, G = cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads
+            errs["flash"] = flash_check(label, recorder, flash_signatures(cfg, S))
+            want_dec = {(cap, d, G)}
+            if cfg.encdec is not None:
+                want_dec.add((cfg.encdec.max_source_positions, d, G))
+            errs["decode"] = decode_check(label, recorder, want_dec)
         if n["moe"]:
             errs["moe_gmm"] = gmm_check(label, recorder)
         if n["mamba"]:
@@ -1928,30 +2108,171 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
         gc.collect()
         torch.cuda.empty_cache()
         seconds = time.perf_counter() - t_pair
-        print(f"  {label}: {seconds:.1f} s (weights, warm-up and runs {t_runs - t_pair:.1f}, "
-              f"the recorded prefill {t_record - t_runs:.1f}, the kernels' checks "
+        print(f"  {label}: {seconds:.1f} s (weights, captures and runs {t_runs - t_pair:.1f}, "
+              f"layer 0's recorded steps {t_record - t_runs:.1f}, the kernels' checks "
               f"{time.perf_counter() - t_record:.1f})")
         rows.append(dict(shape=shape, cfg=cfg, B=B, S=S, cap=cap, peak=peak, reserved=reserved,
                          rec=rec, graph=g, eager=e, capture=capture, seconds=seconds,
                          errs=errs, routes=want))
 
+    def ref_rows(B, Hq, S, T):
+        """Batch rows of a flash backward whose (Hq, S, T) fp32 scores fit
+        ``REF_SCORES_BYTES``, at least one: the plain backward holds a few
+        such tensors, and each row's gradients are its own."""
+        return max(1, min(B, int(REF_SCORES_BYTES // (4 * Hq * S * T))))
+
+    def train_checks(label, recorder, cfg, S):
+        """The backward kernels the training step launched, on the inputs
+        and cotangents of the first call of each signature (the last layer
+        in the backward's order), the cotangents scaled to unit rms by a
+        power of two: the flash pair against ``ref.flash_attention_bwd_ref``
+        on the first ``ref_rows`` batch rows, the expert products' dx against
+        ``ref.moe_gmm_bwd_ref`` at the bf16 limit and their dw (a sum over the
+        batch's tokens) no further from float64 than twice the plain
+        version, the scans' backwards whole within ``SUM_REL`` of each
+        gradient's largest magnitude, as phase 11d holds them on a model's
+        inputs, RWKV6's also no further from float64 than twice the plain
+        version."""
+        errs = {}
+        n = layer_counts(cfg)
+        if n["attn"]:
+            worst = 0.0
+            for (causal, window, S_, T_, d, G), (q, k, v, o, dout), kw in recorded(
+                    label, recorder, "flash.flash_attention_bwd", flash_signatures(cfg, S)):
+                if kw.get("key_valid") is not None or kw.get("lse") is not None:
+                    raise AssertionError(f"{label}: a masked flash backward {kw}")
+                kw = dict(causal=causal, window=window)
+                # the gradients are linear in the loss's cotangent, of the order of
+                # 1 / tokens: scaled to unit rms by a power of two, exactly
+                scale = unit_scale(dout)
+                dout = dout * scale
+                got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
+                B, Hq = q.shape[:2]
+                rows_ = slice(0, ref_rows(B, Hq, S_, T_))
+                expect = ref.flash_attention_bwd_ref(q[rows_], k[rows_], v[rows_], o[rows_],
+                                                     dout[rows_], **kw)
+                err = max(check_close(f"{label} flash backward {S_} x {T_} d{x}", a[rows_], b,
+                                      TOL["bfloat16"]) for x, a, b in zip("qkv", got, expect))
+                print(f"  {label} flash backward ({_flash.bwd_route(bf16)} pair) q "
+                      f"{tuple(q.shape)} k {tuple(k.shape)} {kw}, dout times {scale:g}: max "
+                      f"|diff| {err:.3g} on batch rows {rows_.start}..{rows_.stop} (atol, rtol "
+                      f"{TOL['bfloat16']})")
+                worst = max(worst, err)
+                del q, k, v, o, dout, got, expect
+            errs["flash_bwd"] = worst
+        if n["moe"]:
+            worst = 0.0
+            for _, (x, w, dy), _ in recorder.calls("gmm.moe_gmm_bwd", dev):
+                E, C, D = x.shape
+                F = w.shape[2]
+                scale = unit_scale(dy)
+                dy = dy * scale
+                (dx, dw), (ex, ew) = _gmm.moe_gmm_bwd(x, w, dy), ref.moe_gmm_bwd_ref(x, w, dy)
+                err = check_close(f"{label} moe_gmm backward dx", dx, ex, TOL["bfloat16"])
+                # dw sums over the C rows of every token an expert took: on a model's
+                # inputs the sums cancel, and the plain version's fp32 sum, rounded to
+                # bf16, lies an ulp or two from the rounded float64 one where a rounding
+                # boundary falls between them.  The kernel must lie no further from
+                # float64 than twice the plain version
+                exact = torch.einsum("ecd,ecf->edf", x.double(), dy.double())
+                kd, pd = (float((t.double() - exact).abs().max()) for t in (dw, ew))
+                if not (bool(dw.isfinite().all()) and kd <= 2 * pd):
+                    raise AssertionError(f"{label} moe_gmm backward dw: the kernel {kd:.4g} from "
+                                         f"float64, the plain version {pd:.4g}")
+                print(f"  {label} moe_gmm backward {_gmm.bwd_route(bf16, C, D, F)} x "
+                      f"{tuple(x.shape)} w {tuple(w.shape)}, dy times {scale:g}: dx max |diff| "
+                      f"{err:.3g} (atol, rtol {TOL['bfloat16']}); dw max |diff| from float64, "
+                      f"kernel / plain {kd:.4g} / {pd:.4g} (largest |dw| "
+                      f"{float(exact.abs().max()):.4g}), kernel against plain "
+                      f"{float((dw.float() - ew.float()).abs().max()):.4g}")
+                worst = max(worst, err)
+                del x, w, dy, dx, dw, ex, ew, exact
+            errs["moe_gmm_bwd"] = worst
+        for which in ("mamba", "rwkv"):
+            if not n[which]:
+                continue
+            name, fn, plain, names, do = (
+                ("mamba.mamba_scan_bwd", _mamba.mamba_scan_bwd, ref.mamba_scan_bwd_ref,
+                 ("ddt", "ddtx", "dB", "dC", "dA", "dh0"), 6) if which == "mamba" else
+                ("rwkv.rwkv6_scan_bwd", _rwkv.rwkv6_scan_bwd, ref.rwkv6_scan_bwd_ref,
+                 ("dr", "dk", "dv", "dw", "du", "dS0"), 6))
+            worst = 0.0
+            for _, args, _ in recorder.calls(name, dev):
+                if args[7] is not None:
+                    raise AssertionError(f"{label}: a cotangent of the last state")
+                scale = unit_scale(args[do])
+                args[do] = args[do] * scale
+                got = fn(*args)
+                expect = plain(*args)
+                # phase 11d's limit for these kernels on a model's inputs: each
+                # gradient within SUM_REL of its largest magnitude.  Over 4096 steps
+                # the sums cancel, and the plain fp32 version lies past phase 3's
+                # elementwise limit from a float64 one
+                err = max(
+                    check_close(f"{label} {which} backward {x}", a, b, (SUM_REL * big, 0.0)) / big
+                    for x, a, b in zip(names, got, expect) if a is not None and b is not None
+                    for big in [max(float(b.abs().max()), 1e-30)])
+                note = ""
+                if which == "rwkv":
+                    # the kernel must lie no further from float64 than twice the
+                    # plain version
+                    two = slice(0, 2)
+                    exact = rwkv6_scan_bwd_f64(*(a[two] if a is not None and a.dim() == 4
+                                                 else a for a in args))
+                    off = []
+                    for x, a, b, ex in zip(names, got, expect, exact):
+                        if x == "du":                   # a sum over every row of the batch
+                            continue
+                        kd, pd = (float((t[two].double() - ex).abs().max()) for t in (a, b))
+                        off.append(f"{x} {kd:.3g} / {pd:.3g}")
+                        if not kd <= 2 * pd + 1e-12 * float(ex.abs().max()):
+                            raise AssertionError(f"{label} rwkv6 backward {x}: the kernel "
+                                                 f"{kd:.3g} from float64, the plain version "
+                                                 f"{pd:.3g}")
+                    note = f"; max |diff| from float64 on rows 0-1, kernel / plain: {', '.join(off)}"
+                route = (_mamba.bwd_route(args[0].dtype, args[2].shape[-1], args[0].shape[-1])
+                         if which == "mamba" else _rwkv.bwd_route(args[0].dtype,
+                                                                  args[0].shape[-1]))
+                print(f"  {label} {which} backward ({route}) {tuple(args[0].shape)} "
+                      f"{args[0].dtype}, {'dy' if which == 'mamba' else 'do'} times {scale:g}: "
+                      f"max |diff| over the gradient's largest magnitude {err:.3g} (within "
+                      f"{SUM_REL}){note}")
+                worst = max(worst, err)
+                del args, got, expect
+            errs[f"{which}_bwd"] = worst
+        return errs
+
     def train_pair(cfg, rec, seed):
         B, S = rec.batch, rec.seq_len
         label = f"13c {cfg.name} train_4k"
         t_pair = time.perf_counter()
-        # 11b's AdamW for a dense model, 11d's for the other families
-        opt = TRAIN_OPT if layer_counts(cfg)["attn"] == cfg.n_layers else TRAIN_FAMILY_OPT
+        # 11d's AdamW at qwen3-1.7b's width, the rate scaled by 2048 / d_model: an
+        # AdamW step moves each weight by about the rate, and a layer's output
+        # by about the rate times its width (3e-4 sent most losses up at 4096
+        # tokens, and 3e-5 deepseek-67b's, of width 8192)
+        opt = dict(TRAIN_FAMILY_OPT, lr=TRAIN_FAMILY_OPT["lr"] * 2048 / cfg.d_model)
         it = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B,
                                     seed=seed)).batches()
-        batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
-                   for _ in range(TRAIN_STEPS + 1)]
-        recorder = Recorder(modules, ("flash.flash_attention_bwd", "rwkv.rwkv6_scan_bwd"))
+        batches = []
+        for i in range(TRAIN_STEPS + 1):
+            b = {k: torch.from_numpy(v).to(dev) for k, v in next(it).items()}
+            extra = pair_inputs(cfg, B, S, seed + 1000 * (i + 1))
+            if "embeds" in extra:
+                del b["tokens"]
+            batches.append({**b, **extra})
+        print(f"{label}: {rec.depth()}, batch {B} x {S} "
+              + ("embeddings" if "embeds" in batches[0] else "tokens")
+              + (f", {batches[0]['enc_embeds'].shape[1]} encoder frames, all valid"
+                 if "enc_embeds" in batches[0] else "") + f"; AdamW {opt}")
+        recorder = Recorder(modules, ("flash.flash_attention_bwd", "gmm.moe_gmm_bwd",
+                                      "mamba.mamba_scan_bwd", "rwkv.rwkv6_scan_bwd"))
         runs = {}
         for mode in ("graph", "eager"):
             free_card(torch, f"{label} ({mode})")
             torch.cuda.reset_peak_memory_stats()
             params = tree_map(lambda p: p.requires_grad_(True),
                               T.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED)))
+            tables = len(_adamw.split_tables([p.numel() for p in tree_leaves(params)]))
             state = init_state(params)
             step = make_train_step(cfg, AdamWConfig(**opt), remat=True)
             ops.reset_launches()
@@ -1959,7 +2280,7 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
             with recorder if mode == "eager" else contextlib.nullcontext():
                 for b in batches[:TRAIN_STEPS]:
                     t0 = time.perf_counter()
-                    if mode == "eager" or dev.type != "cuda":   # no graph off the card
+                    if mode == "eager":
                         _, _, m = step(params, state, b)
                     elif graph is None:
                         graph = TrainGraph(step, params, state, b)
@@ -1997,6 +2318,7 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
                   f"{_ms(device_us and device_us / 1e3)} ms, idle {_ms(r['idle'], '.3f')}; peak "
                   f"{peak} allocated, "
                   f"{reserved} reserved; launches by route {routes}")
+            below_reckoning(f"{label} [{mode}]", reserved, rec)
             del params, state, step, graph, prof
             gc.collect()
             torch.cuda.empty_cache()
@@ -2004,12 +2326,11 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
         if g["routes"] != e["routes"]:
             raise AssertionError(f"{label}: launches by route {g['routes']} replayed against "
                                  f"{e['routes']} eager")
-        n = layer_counts(cfg)
-        pair = {f"bwd_{k}_{_flash.bwd_route(bf16)}": n["attn"] * TRAIN_STEPS
-                for k in ("dq", "dkv")}
-        if n["attn"] and g["routes"].get("flash_attention_bwd") != pair:
-            raise AssertionError(f"{label}: the flash backward's routes "
-                                 f"{g['routes'].get('flash_attention_bwd')}")
+        want = train_routes(cfg, B, S, tables)
+        got = {op: g["routes"].get(op) for op in want}
+        if got != want:
+            raise AssertionError(f"{label}: the backward's and AdamW's launches by route {got}, "
+                                 f"expected {want}")
         off = []
         for i, (a, b) in enumerate(zip(g["hist"], e["hist"])):
             for k in ("loss", "grad_norm"):
@@ -2022,64 +2343,19 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
             raise AssertionError(f"{label}: {off or losses}")
         print(f"  the replay's losses and grad norms "
               + ("exactly equal" if exact else "within rtol 1e-5 of") + " the eager step's; "
-              f"the loss falls {losses[0]:.4f} -> {losses[-1]:.4f}")
-        errs = {}
-        if "flash.flash_attention_bwd" in recorder.saved:
-            (q, k, v, o, dout), kw = recorder.inputs("flash.flash_attention_bwd", dev)
-            kw = {x: a for x, a in kw.items() if x != "lse"}     # none: an unmasked call
-            # the gradients are linear in the loss's cotangent, of the order of
-            # 1 / tokens: scaled to unit rms by a power of two, exactly
-            scale = unit_scale(dout)
-            dout = dout * scale
-            got = _flash.flash_attention_bwd(q, k, v, o, dout, **kw)
-            expect = ref.flash_attention_bwd_ref(q, k, v, o, dout, **kw)
-            errs["flash_bwd"] = max(check_close(f"{label} flash backward d{x}", a, b,
-                                                TOL["bfloat16"])
-                                    for x, a, b in zip("qkv", got, expect))
-            print(f"  {label} flash backward ({_flash.bwd_route(bf16)} pair) q "
-                  f"{tuple(q.shape)} {kw}, dout times {scale:g}: max |diff| "
-                  f"{errs['flash_bwd']:.3g} (atol, rtol {TOL['bfloat16']})")
-            del q, k, v, o, dout, got, expect
-        if "rwkv.rwkv6_scan_bwd" in recorder.saved:
-            args, _ = recorder.inputs("rwkv.rwkv6_scan_bwd", dev)
-            if args[7] is not None:
-                raise AssertionError(f"{label}: a cotangent of the last state")
-            scale = unit_scale(args[6])                 # do, as dout above
-            args[6] = args[6] * scale
-            got = _rwkv.rwkv6_scan_bwd(*args)
-            expect = ref.rwkv6_scan_bwd_ref(*args)
-            names = ("dr", "dk", "dv", "dw", "du", "dS0")
-            # phase 11d's limit for these kernels on a model's inputs: each
-            # gradient within SUM_REL of its largest magnitude.  Over 4096 steps
-            # of decays near 1 the sums cancel, and the plain fp32 version lies
-            # past phase 3's elementwise limit from a float64 one; the kernel
-            # must lie no further from it than twice the plain version
-            errs["rwkv_bwd"] = max(
-                check_close(f"{label} rwkv6 backward {x}", a, b, (SUM_REL * big, 0.0)) / big
-                for x, a, b in zip(names, got, expect)
-                for big in [max(float(b.abs().max()), 1e-30)])
-            two = slice(0, 2)
-            exact = rwkv6_scan_bwd_f64(*(a[two] if a is not None and a.dim() == 4 else a
-                                         for a in args))
-            off = []
-            for x, a, b, ex in zip(names, got, expect, exact):
-                if x == "du":                   # a sum over every row of the batch
-                    continue
-                kd, pd = (float((t[two].double() - ex).abs().max()) for t in (a, b))
-                off.append(f"{x} {kd:.3g} / {pd:.3g}")
-                if not kd <= 2 * pd + 1e-12 * float(ex.abs().max()):
-                    raise AssertionError(f"{label} rwkv6 backward {x}: the kernel {kd:.3g} from "
-                                         f"float64, the plain version {pd:.3g}")
-            print(f"  {label} rwkv6 backward ({_rwkv.bwd_route(args[0].dtype, args[0].shape[-1])}) "
-                  f"{tuple(args[0].shape)} {args[0].dtype}, do times {scale:g}: max |diff| over "
-                  f"the gradient's largest magnitude {errs['rwkv_bwd']:.3g} (within {SUM_REL}); "
-                  f"max |diff| from float64 on rows 0-1, kernel / plain: {', '.join(off)}")
-            del args, got, expect
-        del recorder, batches
+              f"the loss falls {losses[0]:.4f} -> {losses[-1]:.4f}; the backward's and AdamW's "
+              f"launches by route {want}")
+        del batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_checks = time.perf_counter()
+        errs = train_checks(label, recorder, cfg, S)
+        del recorder
         gc.collect()
         torch.cuda.empty_cache()
         seconds = time.perf_counter() - t_pair
-        print(f"  {label}: {seconds:.1f} s")
+        print(f"  {label}: {seconds:.1f} s (the kernels' checks "
+              f"{time.perf_counter() - t_checks:.1f})")
         rows.append(dict(shape="train_4k", cfg=cfg, B=B, S=S, rec=rec, graph=g, eager=e,
                          peak=max(g["peak"], e["peak"]), reserved=max(g["reserved"],
                                                                     e["reserved"]),
@@ -2107,15 +2383,17 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
 
     # -- 13d: the dry run beside each measured pair -----------------------------
     phase("13d the dry run on a 1-rank mesh beside each pair run (phase 12b at these lengths)")
+    dry = host["13d"].result()
+    print(f"  {dry['seconds']:.1f} s of a host-side worker")
     for row in rows:
         cfg, B, S, g = row["cfg"], row["B"], row["S"], row["graph"]
         measured = {"step": g.get("device_us") and g["device_us"] / 1e3,
                     "prefill": g.get("prefill_dev_ms"),
                     "decode step": g.get("decode_dev_us") and g["decode_dev_us"] / 1e3}
         for name, shp, what in assigned_dry_pairs(row["shape"], cfg, row["rec"]):
-            d = host["13d"][(cfg.name, name)]
+            d = dry["13d"][(cfg.name, name)]
             measured_ms = measured[what]
-            print(f"  {cfg.name} {name} B {B} x {shp.seq_len} ({cfg.n_layers} layers"
+            print(f"  {cfg.name} {name} B {B} x {shp.seq_len} ({row['rec'].depth()}"
                   + (f", {d['note']}" if d["note"] else "") + f"): predicted peak "
                   f"{d['peak']:.6g} B against {row['peak']} allocated "
                   f"({d['peak'] / max(row['peak'], 1):.3f} x); predicted {what} "
@@ -2129,7 +2407,7 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
           f"step device ms from the profile, decode work_us on the host clock):")
     for row in rows:
         cfg, g, e = row["cfg"], row["graph"], row["eager"]
-        head = (f"  {row['shape']} {cfg.name} B {row['B']} x {row['S']}, {cfg.n_layers} layers"
+        head = (f"  {row['shape']} {cfg.name} B {row['B']} x {row['S']}, {row['rec'].depth()}"
                 + (f", cache {row['cap']} slots" if row.get("cap") else ""))
         if row["shape"] == "train_4k":
             print(f"{head}: step_ms {g['step_ms']:.1f} / {e['step_ms']:.1f}, device_ms "
@@ -2150,7 +2428,7 @@ def assigned_shapes(torch, dev, smi, host: dict, keep_going: bool = False) -> No
     for shape, cfg, run, decided in plan:
         if run is None:
             print(f"  {shape} {cfg.name}: not run, reckoned {decided.total / 1e9:.2f} GB at "
-                  f"batch 1, {decided.layers} layers ({decided.line()})")
+                  f"batch 1, {decided.depth()} ({decided.line()})")
     print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
     if failed:
         raise AssertionError("phase 13: " + "; ".join(failed))
@@ -2223,16 +2501,17 @@ def main() -> int:
     if spills:
         raise AssertionError("kernels spill registers: " + "; ".join(spills))
     # the dry-run traces of phases 12a and 13d and phase 13's plan: host work, in
-    # a worker process while the card runs the phases before them
+    # worker processes while the card runs the phases before them
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
-    worker = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
-    host = worker.submit(host_side, not only_13)
+    worker = ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    host13 = {"plan": worker.submit(host_plan), "13d": worker.submit(host_13d)}
     if only_13:
         phase("13 the assigned input shapes on one card")
-        assigned_shapes(torch, dev, smi, host.result(), keep_going=True)
+        assigned_shapes(torch, dev, smi, host13, keep_going=True)
         worker.shutdown()
         return 0
+    host12 = worker.submit(host_12a)
 
     # -- 3 ------------------------------------------------------------------
     phase("3 kernels against their plain versions")
@@ -4974,12 +5253,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     dry_run_and_options(torch, dev, rng, profiles["qwen3-1.7b"]["decode"], train_measured,
-                        profiles["phi4-mini-3.8b"]["decode"], host.result())
+                        profiles["phi4-mini-3.8b"]["decode"], host12.result())
 
     # -- 13 -----------------------------------------------------------------
     phase("13 the assigned input shapes on one card")
     free_card(torch, "phase 13")
-    assigned_shapes(torch, dev, smi, host.result())
+    assigned_shapes(torch, dev, smi, host13)
     worker.shutdown()
 
     # -- result -------------------------------------------------------------

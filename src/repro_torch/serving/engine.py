@@ -192,6 +192,24 @@ class ServingEngine:
             self.capture_s.append(graph.capture_s)
         return graph.replay
 
+    @torch.inference_mode()
+    def capture(self, batch: dict, tokens: torch.Tensor, pos: int) -> None:
+        """Capture, without replaying them, the prefill graph of ``batch``'s
+        prompt shape and the decode graph of its batch shape (a step of
+        ``tokens`` (B, 1) at ``pos``, on the caches the prefill's warm-up
+        filled), as the first prefill and decode step of that shape would:
+        the ahead-of-time counterpart of compiling a jitted step before its
+        first call.  A step in the ``"eager"`` design, and any step on the
+        CPU, has nothing to capture."""
+        if self.device.type == "cpu":
+            return
+        if self.prefill_mode == "graph":
+            self._prefiller(batch)
+        else:
+            self.prefill_step(batch)(batch)
+        if self.decode_mode == "graph":
+            self._decoder(tokens, pos)
+
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 8,

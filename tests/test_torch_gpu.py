@@ -2266,3 +2266,148 @@ def test_rwkv6_cols_over_32768_steps(cuda):
     args = _rwkv_inputs(cuda, 2, 32768, 32, 64, torch.float32)
     assert trwkv.route(torch.float32, 64) == "cols"
     _check_scan("rwkv6_scan", ops.rwkv6_scan, ref.rwkv6_scan_ref, args, "float32", "cols")
+
+
+# ---------------------------------------------------------------------------
+# The rest of the assigned pairs (chip_smoke.py phase 13): the kernels at the
+# shapes that seamless, pixtral, phi3.5-moe and deepseek serve at 32768
+# tokens, and that the train_4k pairs differentiate at 4096
+
+
+def test_flash_wgmma_cross_attention_at_32768_queries(cuda):
+    """seamless-m4t-large-v2's cross prefill at prefill_32k: 32768 decoder
+    queries over its 1500 encoder frames, 16 heads of 64, non-causal and
+    unmasked (every frame valid), on the wgmma route, held on slices of 128
+    query rows against the plain version over every frame."""
+    B, H, S, T, d = 2, 16, 32768, 1500, 64
+    q = _randn(cuda, (B, H, S, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, H, T, d), torch.bfloat16) for _ in range(2))
+    before = dict(tflash.LAUNCHES)
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES == {r: n + (r == "wgmma") for r, n in before.items()}
+    for r0 in (0, S // 2, S - 128):
+        expect = ref.flash_attention_ref(q[:, :, r0:r0 + 128], k, v, causal=False)
+        _assert_close(out[:, :, r0:r0 + 128], expect, "bfloat16")
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,T,d,causal,win", [
+    (1, 32, 8, 4096, 4096, 120, True, 4096),    # h2o-danube-3-4b: d 120 under its window
+    (1, 24, 8, 4096, 4096, 128, True, None),    # phi4-mini-3.8b: G 3
+    (1, 64, 8, 4096, 4096, 128, True, None),    # deepseek-67b: G 8
+    (1, 16, 16, 4096, 1500, 64, False, None),   # seamless: the cross-attention's
+])
+def test_flash_wgmma_bwd_at_train_4k(cuda, B, Hq, Hkv, S, T, d, causal, win):
+    """The backward's wgmma pair at the train_4k pairs' attention, against
+    the plain backward, the cotangent at unit scale."""
+    q, dout = (_randn(cuda, (B, Hq, S, d), torch.bfloat16) for _ in range(2))
+    k, v = (_randn(cuda, (B, Hkv, T, d), torch.bfloat16) for _ in range(2))
+    o = tflash.flash_attention(q, k, v, causal=causal, window=win)
+    assert tflash.bwd_route(torch.bfloat16) == "wgmma"
+    before = dict(tflash.BWD_LAUNCHES)
+    got = tflash.flash_attention_bwd(q, k, v, o, dout, causal=causal, window=win)
+    torch.cuda.synchronize()
+    assert tflash.BWD_LAUNCHES == {r: n + (r in BWD_PAIRS["wgmma"]) for r, n in before.items()}
+    expect = ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal, window=win)
+    for g, e in zip(got, expect):
+        assert g.dtype == torch.bfloat16 and g.shape == e.shape
+        _assert_close(g, e, "bfloat16")
+
+
+def _train_experts(arch, batch):
+    """(E, C, D, F) of the gate/up and down products of ``arch``'s MoE layer
+    over a train_4k batch of ``batch`` x 4096 tokens."""
+    from repro_torch.config import get_arch
+    cfg = get_arch(arch)
+    E, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    C = max(1, int(cf * k * batch * 4096 / E))
+    return [(E, C, cfg.d_model, cfg.d_ff), (E, C, cfg.d_ff, cfg.d_model)]
+
+
+@pytest.mark.parametrize("E,C,D,F", [case for arch, batch in (
+    ("mixtral-8x7b", 2), ("phi3.5-moe-42b-a6.6b", 4), ("jamba-v0.1-52b", 4))
+    for case in _train_experts(arch, batch)])
+def test_moe_gmm_bwd_at_train_4k(cuda, E, C, D, F):
+    """dx and dw at the C of the train_4k pairs' batches (2560 rows an
+    expert: twenty 128-row tiles, which pair, so dx on ``wgmma_nt``), on the
+    routes of ``bwd_route``, against the plain backward at the bf16 limit."""
+    x = _randn(cuda, (E, C, D), torch.bfloat16)
+    w = (_randn(cuda, (E, D, F), torch.float32) * D ** -0.5).to(torch.bfloat16)
+    dy = _randn(cuda, (E, C, F), torch.bfloat16)
+    r_dx, r_dw = tgmm.bwd_route(torch.bfloat16, C, D, F)
+    assert (r_dx, r_dw) == ("wgmma_nt", "wgmma_tn")
+    before = dict(tgmm.BWD_LAUNCHES)
+    dx, dw = tgmm.moe_gmm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert tgmm.BWD_LAUNCHES == {k: n + (k in (f"dx_{r_dx}", f"dw_{r_dw}"))
+                                 for k, n in before.items()}
+    ex, ew = ref.moe_gmm_bwd_ref(x, w, dy)
+    _assert_close(dx, ex, "bfloat16")
+    _assert_close(dw, ew, "bfloat16")
+
+
+def test_mamba_ring_bwd_at_train_4k(cuda):
+    """Jamba's Mamba layer differentiated at train_4k (batch 4 x 4096 steps,
+    d_inner 8192, d_state 16, fp32, from a zero state) on the ring route,
+    every gradient within 1e-4 of its largest magnitude of the plain
+    backward's, as phase 11d holds it on a model's inputs."""
+    B, S, di, ds = 4, 4096, 8192, 16
+    dt, dtx, Bm, Cm, A, _ = _mamba_inputs(cuda, B, S, di, ds, torch.float32, False)
+    dy = _randn(cuda, (B, S, di), torch.float32)
+    assert tmamba.bwd_route(torch.float32, ds, di) == "ring"
+    before = dict(tmamba.BWD_LAUNCHES)
+    got = tmamba.mamba_scan_bwd(dt, dtx, Bm, Cm, A, None, dy, None)
+    torch.cuda.synchronize()
+    assert tmamba.BWD_LAUNCHES == {**before, "ring": before["ring"] + 1}
+    for g, e in zip(got, ref.mamba_scan_bwd_ref(dt, dtx, Bm, Cm, A, None, dy, None)):
+        if e is not None:
+            _assert_sum_close(g, e)
+
+
+@pytest.mark.parametrize("mask", ["prefix", "ring"])
+@pytest.mark.parametrize("B,Hkv,G", [
+    (1, 8, 4),      # pixtral-12b and phi3.5-moe: G 4, batch 1 to 2
+    (2, 8, 4),
+    (1, 8, 8),      # deepseek-67b: G 8
+])
+def test_decode_split_over_32800_slots(cuda, B, Hkv, G, mask):
+    """decode_32k's cache of 32768 + 32 slots (a ragged last tile) at the
+    groupings of the new serving pairs, on the split route, against the
+    plain version."""
+    T, d = 32800, 128
+    assert tdecode.route(torch.bfloat16, G, T) == "split"
+    q = _randn(cuda, (B, Hkv * G, d), torch.bfloat16)
+    k, v = (_randn(cuda, (B, T, Hkv, d), torch.bfloat16) for _ in range(2))
+    valid = _long_decode_mask(B, T, mask)
+    before = ops.ROUTE_LAUNCHES["decode_attention"]["split"]
+    out = ops.decode_attention(q, k, v, valid)
+    torch.cuda.synchronize()
+    assert ops.ROUTE_LAUNCHES["decode_attention"]["split"] == before + 1
+    _assert_close(out, ref.decode_attention_ref(q, k, v, valid), "bfloat16")
+
+
+@pytest.mark.parametrize("family", ["dense", "windowed", "jamba", "seamless", "pixtral"])
+def test_engine_capture_takes_both_graphs_before_the_first_step(cuda, family):
+    """``ServingEngine.capture`` (phase 13's warm-up) captures the prefill
+    and decode graphs without replaying them; the prefill and decode steps
+    after it replay those graphs, capture nothing more, and give the eager
+    engine's logits exactly."""
+    cfg, params, batch = _graph_model(family, "bfloat16")
+    engines = _engine_pair(cfg, params)
+    S = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[1]
+    engines["graph"].capture(batch, torch.zeros((4, 1), dtype=torch.long, device="cuda"), S)
+    assert len(engines["graph"].capture_s) == 2 and engines["graph"].step_times_s == []
+    assert len(engines["graph"].prefill_graphs) == len(engines["graph"].decode_graphs) == 1
+    logits = {}
+    with torch.inference_mode():
+        for mode, eng in engines.items():
+            lg = eng.prefill(batch)
+            out, tok = [lg.clone()], lg.argmax(-1)
+            for i in range(4):
+                lg = eng.decode_step(tok, S + i)
+                out.append(lg.clone())
+                tok = lg.argmax(-1)
+            logits[mode] = out
+    assert len(engines["graph"].capture_s) == 2
+    for a, b in zip(logits["graph"], logits["eager"]):
+        assert torch.equal(a, b)

@@ -26,6 +26,7 @@ Tolerances: ``tests/test_kernels.py``'s fp32 limit (3e-5) for RoPE, and
 different orders.
 """
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -43,9 +44,9 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.train.checkpoint import _flatten  # noqa: E402
-from repro_torch.config import get_arch, get_shape, reduced  # noqa: E402
+from repro_torch.config import get_arch, get_shape, reduced, reduced_grouped  # noqa: E402
 from repro_torch.launch import fit  # noqa: E402
-from repro_torch.launch.dryrun import serving_variant  # noqa: E402
+from repro_torch.launch.dryrun import serving_variant, with_layers  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models import layers as tlayers  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
@@ -63,8 +64,19 @@ def _close(t, j, **tol):
                                **(tol or MODEL_TOL))
 
 
+#: reduced with their published grouping of query heads (``config.reduced_grouped``)
+GROUPED = ("deepseek-67b", "pixtral-12b")
+
+
 def _pair(arch, **kw):
-    """The same reduced config at float32 in both packages."""
+    """The same reduced config at float32 in both packages (``GROUPED``'s
+    with their G)."""
+    if arch in GROUPED:
+        t = dataclasses.replace(reduced_grouped(get_arch(arch)), dtype="float32", **kw)
+        j = dataclasses.replace(jax_reduced(jax_get_arch(arch), d_model=t.d_model),
+                                n_heads=t.n_heads, n_kv_heads=t.n_kv_heads, dtype="float32",
+                                **kw)
+        return j, t
     j = dataclasses.replace(jax_reduced(jax_get_arch(arch)), dtype="float32", **kw)
     t = dataclasses.replace(reduced(get_arch(arch)), dtype="float32", **kw)
     return j, t
@@ -110,6 +122,11 @@ def test_apply_rope_at_the_assigned_lengths_matches_jax(theta, head_dim):
     ("qwen3-1.7b", 4096, 4096),            # long_500k's serving variant: a 4096-slot ring
     ("h2o-danube-3-4b", 4096, 4096),       # h2o's own window, theta 1e4
     ("h2o-danube-3-4b", 4096, 5000),       # a ring longer than the window: masked slots
+    # long_500k's serving variant of the rest: G 8 at theta 1e4, G 4 at theta 1e6,
+    # and seamless's decoder self-attention (heads of 64, theta 1e4)
+    ("deepseek-67b", 4096, 4096),
+    ("pixtral-12b", 4096, 4096),
+    ("seamless-m4t-large-v2", 4096, 4096),
 ])
 def test_decode_step_at_the_assigned_lengths_matches_jax(arch, window, cap, pos):
     """One decode step's attention at ``pos`` against a cache of ``cap``
@@ -118,6 +135,9 @@ def test_decode_step_at_the_assigned_lengths_matches_jax(arch, window, cap, pos)
     or those past ``pos - window``), against JAX's step, with ``pos`` as the
     eager step's int and as the captured step's device scalar."""
     jcfg, tcfg = _pair(arch, sliding_window=window)
+    if arch in GROUPED:
+        full = get_arch(arch)
+        assert tcfg.n_heads // tcfg.n_kv_heads == full.n_heads // full.n_kv_heads
     jp = jattn.attn_init(jax.random.PRNGKey(81), jcfg, jnp.float32)
     tp = params_from_jax(_flatten(jp), device="cpu")
     rng = np.random.default_rng(82)
@@ -153,19 +173,27 @@ class _HostData(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "h2o-danube-3-4b", "rwkv6-1.6b",
-                                  "mixtral-8x7b", "jamba-v0.1-52b"])
+                                  "mixtral-8x7b", "jamba-v0.1-52b", "seamless-m4t-large-v2",
+                                  "pixtral-12b", "phi3.5-moe-42b-a6.6b", "deepseek-67b"])
 def test_the_captured_steps_make_no_tensor_from_host_data(arch):
     """The prefill and the decode step that the engine captures make every
     tensor on the device: the frequencies' theta was first made a tensor on
-    the card, and every capture on the H100 refused the copy."""
+    the card, and every capture on the H100 refused the copy.  Each model on
+    the inputs of the JAX package's spec: seamless's ``enc_embeds`` beside
+    its tokens, pixtral's ``embeds`` in their place."""
     cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="float32")
     params = TT.init_params(cfg, torch.Generator().manual_seed(0))
     caches = TT.init_caches(params, cfg, 2, 16)
     toks = torch.zeros((2, 5), dtype=torch.long)
+    batch = {"tokens": toks}
+    if cfg.encdec is not None:
+        batch["enc_embeds"] = torch.zeros((2, cfg.encdec.max_source_positions,
+                                           cfg.frontend.embed_dim))
+    elif cfg.frontend is not None:
+        batch = {"embeds": torch.zeros((2, 5, cfg.frontend.embed_dim))}
     with torch.inference_mode(), _HostData():
-        TT.prefill(params, cfg, {"tokens": toks}, seq_len=16, caches=caches)
-        TT.decode_step(params, cfg, toks[:, :1], torch.zeros((), dtype=torch.long),
-                       {"layers": caches})
+        _, out = TT.prefill(params, cfg, batch, seq_len=16, caches=caches)
+        TT.decode_step(params, cfg, toks[:, :1], torch.zeros((), dtype=torch.long), out)
     with pytest.raises(AssertionError, match="host data"), _HostData():
         torch.tensor(1e4)
 
@@ -310,19 +338,27 @@ def test_live_bytes_holds_a_storage_until_its_last_tensor_dies():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "h2o-danube-3-4b", "jamba-v0.1-52b",
-                                  "rwkv6-1.6b", "mixtral-8x7b"])
+                                  "rwkv6-1.6b", "mixtral-8x7b", "seamless-m4t-large-v2",
+                                  "pixtral-12b"])
 def test_reckoned_weights_and_caches_are_the_models(arch):
     """A reckoning's weights and caches are the bytes of the tensors the
-    engine draws and allocates (a windowed model's ring at its window), its
-    step's peak positive; ``meta_params`` at two periods of layers, built from
-    one period's tree, is the drawn tree's shapes."""
+    engine draws and allocates (a windowed model's ring at its window; an
+    enc-dec model's cross K/V buffers over its frames), its step's peak
+    positive; ``meta_params`` at two periods of layers, built from one
+    period's tree, is the drawn tree's shapes, an encoder's three layers
+    too (the tree once kept one encoder layer: seamless-m4t-large-v2's
+    weights were reckoned at 2.72 GB, against 4.07 drawn on the card)."""
     cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="bfloat16",
                               sliding_window=8 if arch == "h2o-danube-3-4b" else None)
-    cfg = dataclasses.replace(cfg, n_layers=2 * fit.period(cfg))
+    cfg = dataclasses.replace(with_layers(cfg, 2 * fit.period(cfg)),
+                              encdec=cfg.encdec and dataclasses.replace(cfg.encdec,
+                                                                        encoder_layers=3))
     params = TT.init_params(cfg, torch.Generator().manual_seed(0))
     rec = fit.serve_reckoning(cfg, 2, 24, new_tokens=8)
     assert rec.weights == fit.nbytes(params)
-    assert rec.state == fit.nbytes(TT.init_caches(params, cfg, 2, 32))
+    cross = (fit.nbytes(TT.init_cross_caches(params, cfg, 2, cfg.encdec.max_source_positions))
+             if cfg.encdec else 0)
+    assert rec.state == fit.nbytes(TT.init_caches(params, cfg, 2, 32)) + cross
     assert rec.step > 0 and (rec.batch, rec.seq_len, rec.pools) == (2, 24, 2)
     meta = fit.meta_params(cfg)
     assert [(tuple(m.shape), m.dtype) for m in tlayers.tree_leaves(meta)] == \
@@ -339,54 +375,94 @@ def test_a_training_reckoning_counts_weights_moments_and_the_step():
     assert rec.pools == 1
 
 
+@functools.lru_cache(maxsize=1)
+def _plans():
+    """``fit.plans()`` by (shape, arch), reckoned once for this module."""
+    return {(shape, cfg.name): (cfg, run, decided) for shape, cfg, run, decided in fit.plans()}
+
+
+def _reckon(shape):
+    if shape == "train_4k":
+        return lambda c, b: fit.train_reckoning(c, b, fit.SEQ_LEN[shape])
+    return lambda c, b: fit.serve_reckoning(c, b, fit.SEQ_LEN[shape])
+
+
 def test_the_plan_fits_the_card_and_refuses_what_does_not():
     """Phase 13's plan: every pair run fits 80 GB at the largest batch that
-    fits; qwen3, phi4-mini, h2o and rwkv6 run whole; mixtral and Jamba, whose
-    weights alone exceed the card, run cut to whole periods of layers;
-    long_500k runs at batch 1 (qwen3 under the serving variant), and refuses
-    mixtral and Jamba, whose prefill does not fit at batch 1 at any depth."""
-    pairs = {(shape, cfg.name): (cfg, run, decided)
-             for shape, cfg, run, decided in fit.plans()}
+    fits at its depth; the depth is the whole model's where that fits at
+    batch 1, else the most whole periods of layers that fit there, else the
+    longest prefix of one period that fits; long_500k runs at batch 1 (qwen3
+    under the serving variant); a pair of which not one layer fits at batch
+    1 is refused, its reckoning at one layer.  The first pairs the card ran
+    keep their batch and depth: qwen3, phi4-mini, h2o and rwkv6 whole,
+    mixtral at 16 and Jamba at 8 of 32 layers; mixtral's and Jamba's
+    long_500k refused; rwkv6 trains at batch 4, not 8, under the training
+    slack measured since (1.44 x a step's peak, mixtral-8x7b at batch 8)."""
+    pairs = _plans()
     assert set(pairs) == {(s, a) for s, archs in fit.PLAN.items() for a in archs}
+    for shape, archs in fit.PLAN.items():
+        assert sorted(archs) == sorted(fit.PLAN["serve_32k"]) and len(archs) == 10
     for (shape, arch), (cfg, run, decided) in pairs.items():
         full = get_arch(arch)
         if run is None:
             assert not decided.fits() and decided.total > fit.CARD_BYTES
+            assert decided.layers == 1
             continue
         assert run.fits() and run.total <= fit.CARD_BYTES
         assert run.seq_len == fit.SEQ_LEN[shape] and cfg.n_layers == run.layers
         assert run.batch in fit.BATCHES
+        reckon = _reckon(shape)
         if shape == "long_500k":
             assert run.batch == 1
-        elif run.batch < fit.BATCHES[0]:                  # the largest batch that fits
+            continue
+        if run.batch < fit.BATCHES[0]:                  # the largest batch that fits
             bigger = fit.BATCHES[fit.BATCHES.index(run.batch) - 1]
-            again = (fit.train_reckoning(cfg, bigger, run.seq_len) if shape == "train_4k"
-                     else fit.serve_reckoning(cfg, bigger, run.seq_len))
-            assert not again.fits()
-        if fit.weights_force_a_cut(full):
-            assert run.layers < full.n_layers and run.layers % fit.period(full) == 0
-        else:
-            assert run.layers == full.n_layers
-    for arch in ("qwen3-1.7b", "phi4-mini-3.8b", "h2o-danube-3-4b", "rwkv6-1.6b",
-                 "mixtral-8x7b", "jamba-v0.1-52b"):
-        assert pairs[("serve_32k", arch)][1] is not None
-    for arch in ("qwen3-1.7b", "rwkv6-1.6b"):
-        assert pairs[("long_500k", arch)][1] is not None
-        assert pairs[("train_4k", arch)][1] is not None
+            assert not reckon(cfg, bigger).fits()
+        if run.layers == full.n_layers:
+            continue
+        p = fit.period(full)                            # cut: one more does not fit at B 1
+        assert not reckon(full, fit.BATCHES[-1]).fits()
+        step = p if run.layers >= p else 1
+        assert run.layers % step == 0
+        assert not reckon(with_layers(full, run.layers + step), fit.BATCHES[-1]).fits()
+    ran = {(s, a): (run.batch, run.layers) for (s, a), (_, run, _) in pairs.items() if run}
+    assert {k: ran[k] for k in [
+        ("serve_32k", "qwen3-1.7b"), ("serve_32k", "phi4-mini-3.8b"),
+        ("serve_32k", "h2o-danube-3-4b"), ("serve_32k", "rwkv6-1.6b"),
+        ("serve_32k", "mixtral-8x7b"), ("serve_32k", "jamba-v0.1-52b"),
+        ("long_500k", "rwkv6-1.6b"), ("long_500k", "qwen3-1.7b"),
+        ("train_4k", "qwen3-1.7b"), ("train_4k", "rwkv6-1.6b")]} == {
+        ("serve_32k", "qwen3-1.7b"): (4, 28), ("serve_32k", "phi4-mini-3.8b"): (4, 32),
+        ("serve_32k", "h2o-danube-3-4b"): (4, 24), ("serve_32k", "rwkv6-1.6b"): (8, 24),
+        ("serve_32k", "mixtral-8x7b"): (1, 16), ("serve_32k", "jamba-v0.1-52b"): (1, 8),
+        ("long_500k", "rwkv6-1.6b"): (1, 24), ("long_500k", "qwen3-1.7b"): (1, 28),
+        ("train_4k", "qwen3-1.7b"): (2, 28), ("train_4k", "rwkv6-1.6b"): (4, 24)}
+    assert pairs[("long_500k", "rwkv6-1.6b")][1].pools == 1
     for arch in ("mixtral-8x7b", "jamba-v0.1-52b"):
-        assert fit.weights_force_a_cut(get_arch(arch))
+        assert nbytes_of(arch) > fit.CARD_BYTES          # the weights alone
         assert pairs[("long_500k", arch)][1] is None
     assert pairs[("long_500k", "qwen3-1.7b")][0].sliding_window == 4096
-    assert not fit.weights_force_a_cut(get_arch("qwen3-1.7b"))
+
+
+def nbytes_of(arch):
+    return fit.nbytes(fit.meta_params(get_arch(arch)))
 
 
 @pytest.mark.parametrize("arch,layers", [("qwen3-1.7b", 6), ("jamba-v0.1-52b", 24),
-                                         ("mixtral-8x7b", 5), ("rwkv6-1.6b", 7)])
+                                         ("mixtral-8x7b", 5), ("rwkv6-1.6b", 7),
+                                         ("pixtral-12b", 5), ("seamless-m4t-large-v2", 6)])
 def test_a_prefills_peak_at_two_periods_is_the_whole_stacks(arch, layers):
-    """``serve_reckoning`` traces the prefill at two periods of layers: a
-    prefill holds one layer's temporaries at a time, so its peak above
-    weights and caches is the whole stack's."""
-    cfg = dataclasses.replace(reduced(get_arch(arch)), dtype="bfloat16", n_layers=layers)
+    """``serve_reckoning`` traces a decoder's prefill at two periods of
+    layers: it holds one layer's temporaries at a time, so its peak above
+    weights and caches is the whole stack's (pixtral's from its ``embeds``).
+    An enc-dec prefill (seamless, the encoder cut with the decoder) holds
+    the cross K/V of every decoder layer through the decoder: two periods
+    undercount it, and the reckoning traces it whole."""
+    cfg = with_layers(dataclasses.replace(reduced(get_arch(arch)), dtype="bfloat16"), layers)
     whole = fit.serve_step_peak(cfg, 2, 40, 8, layers)
-    assert fit.serve_step_peak(cfg, 2, 40, 8, 2 * fit.period(cfg)) == whole
     assert fit.serve_reckoning(cfg, 2, 40, new_tokens=8).step == whole
+    two = fit.serve_step_peak(cfg, 2, 40, 8, 2 * fit.period(cfg))
+    if cfg.encdec is None:
+        assert two == whole
+    else:
+        assert two < whole
